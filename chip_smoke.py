@@ -1,0 +1,575 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/H100 port (``production_stack_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (the engine phase two: its numbers
+and its kernel launch counts); any failure raises and the script exits
+non-zero (no phase is caught and passed over):
+
+1. Device and build: the card's name and power limit (nvidia-smi), then
+   the hand-written CUDA kernels built from ``csrc/`` with their build
+   seconds and ptxas register/shared-memory reports.
+2. Each kernel against its plain PyTorch version at the main path's shapes
+   (llama-3.1-8b attention: bf16, H=32, K=8, D=128, block size 16), plus
+   edge cases (ctx 0/1/16/17, sliding window, D=64 and D=256, a prefix
+   with cached_len < C, valid_len < T, fp32).  Each case reports its max
+   abs error against the stated tolerance and the kernel's, the plain
+   version's and F.scaled_dot_product_attention's times (the last one a
+   yardstick only; the port never calls it) beside the card's bound.
+3. The model path on the card against the CPU (plain attention) on a
+   small input: 2 layers at llama-3.1-8b width, fp32, chunked prefill and
+   decode, logits within 2e-3.
+4. The engine at full width: llama-3.1-8b (32 layers, bf16, seeded random
+   init on the card), KV pool sized from free memory, 8 greedy requests
+   through ``AsyncEngine.generate`` (one of them a prefix-cache hit, one
+   chunked), then /health and one /v1/completions over localhost HTTP.
+   Both kernels' launch counters are set to 0 just before and read just
+   after; each must be > 0.
+5. Where a decode step's time goes: 16 steps of the same engine under
+   torch.profiler (device time by kernel, idle share).
+
+The line before the last holds every kernel's numbers; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Without a CUDA device, or without the package beside it, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# bf16 tensor-core FLOP/s; fp32 CUDA-core FLOP/s for fp32 inputs.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# Max abs error allowed between a kernel and its plain version.  bf16: the
+# plain version rounds the probabilities to bf16 before the value product
+# (as the JAX path does) and both round the output to bf16: with N(0, 1)
+# inputs that is at most ~2 bf16 ulps at |out| < 2.  fp32: the same math
+# with sums taken in another order.
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+MODEL = "llama-3.1-8b"
+NUM_REQUESTS = 8
+NEW_TOKENS = 64
+# Prompt lengths in tokens: 3000 is chunked past the largest prefill
+# bucket (2048); requests 0 and 7 share their first SHARED_PREFIX tokens.
+PROMPT_LENS = (700, 128, 400, 1100, 1500, 2000, 3000, 900)
+SHARED_PREFIX = 512
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -- phase 1 ---------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    from production_stack_tpu_torch.engine.ops import _build
+
+    info = _build.build_all(verbose=True)
+    ptxas = {
+        name: [ln.strip() for ln in out.splitlines()
+               if "registers" in ln or "spill" in ln]
+        for name, out in info["ptxas"].items()
+    }
+    dev = {
+        "phase": "device",
+        "nvidia_smi": smi,
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "build_seconds": info["seconds"],
+        "ptxas": ptxas,
+    }
+    emit(dev)
+    return dev
+
+
+# -- phase 2 ---------------------------------------------------------------
+
+
+def _paged_case(gen, S, H, K, D, bs, ctx_lens, dtype):
+    dev = "cuda"
+    nbs = [-(-c // bs) for c in ctx_lens]
+    N = sum(nbs) + 1 + 64
+    perm = torch.randperm(N - 1, generator=gen, device=dev).to(torch.int32) + 1
+    tables = torch.zeros((S, max(max(nbs), 1)), dtype=torch.int32, device=dev)
+    used = 0
+    for s, nb in enumerate(nbs):
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+    q = torch.randn((S, H, D), generator=gen, device=dev).to(dtype)
+    kc = torch.randn((N, bs, K, D), generator=gen, device=dev).to(dtype)
+    vc = torch.randn((N, bs, K, D), generator=gen, device=dev).to(dtype)
+    ctx = torch.tensor(ctx_lens, dtype=torch.int32, device=dev)
+    return q, kc, vc, tables, ctx
+
+
+def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
+                       window=None, bs=16) -> dict:
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+
+    q, kc, vc, tables, ctx = _paged_case(gen, S, H, K, D, bs, ctx_lens, dtype)
+    scale = D**-0.5
+    got = pa.paged_decode_attention(q, kc, vc, tables, ctx, scale=scale,
+                                    sliding_window=window)
+    want = pa.paged_decode_attention_plain(q, kc, vc, tables, ctx, scale=scale,
+                                           sliding_window=window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    row = {"case": name, "S": S, "H": H, "K": K, "D": D, "ctx": list(ctx_lens),
+           "window": window, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": TOL[dtype]}
+    if not torch.isfinite(got).all() or err > TOL[dtype]:
+        raise AssertionError(f"paged decode {name}: max abs err {err} > {TOL[dtype]}")
+    zero_rows = [i for i, c in enumerate(ctx_lens) if c == 0]
+    if zero_rows and got[zero_rows].abs().max().item() != 0.0:
+        raise AssertionError(f"paged decode {name}: ctx 0 rows are not zero")
+    live = [min(c, window) if window else c for c in ctx_lens]
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (2 * S * H * D * esz + 2 * sum(live) * K * D * esz
+              + 4 * sum(-(-c // bs) for c in ctx_lens) + 4 * S)
+    flops = 4.0 * sum(live) * H * D
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    row["kernel_ms"] = cuda_time_ms(lambda: pa.paged_decode_attention(
+        q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=50)
+    row["plain_ms"] = cuda_time_ms(lambda: pa.paged_decode_attention_plain(
+        q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=5)
+    # Yardstick: SDPA over the same K/V gathered dense (gather untimed).
+    L = max(ctx_lens)
+    nb = -(-L // bs)
+    G = H // K
+    kd = kc[tables[:, :nb].long()].reshape(S, nb * bs, K, D)[:, :L]
+    vd = vc[tables[:, :nb].long()].reshape(S, nb * bs, K, D)[:, :L]
+    kd = kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    vd = vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    pos = torch.arange(L, device="cuda")
+    mask = pos[None, :] < ctx[:, None].long()
+    if window:
+        mask &= pos[None, :] > ctx[:, None].long() - 1 - window
+    mask = mask[:, None, None, :]
+    qd = q[:, :, None, :]
+    row["library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, scale=scale), iters=20)
+    return row
+
+
+def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
+                        dtype=torch.bfloat16, window=None) -> dict:
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+
+    dev = "cuda"
+    q = torch.randn((T, H, D), generator=gen, device=dev).to(dtype)
+    kn = torch.randn((T, K, D), generator=gen, device=dev).to(dtype)
+    vn = torch.randn((T, K, D), generator=gen, device=dev).to(dtype)
+    kp = torch.randn((C, K, D), generator=gen, device=dev).to(dtype)
+    vp = torch.randn((C, K, D), generator=gen, device=dev).to(dtype)
+    scale = D**-0.5
+    args = (q, kn, vn, kp, vp, cached, valid)
+    got = fp.flash_prefill_attention(*args, scale=scale, sliding_window=window)
+    want = fp.flash_prefill_attention_plain(*args, scale=scale, sliding_window=window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    row = {"case": name, "T": T, "H": H, "K": K, "D": D, "C": C,
+           "cached_len": cached, "valid_len": valid, "window": window,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "tol": TOL[dtype]}
+    if not torch.isfinite(got).all() or err > TOL[dtype]:
+        raise AssertionError(f"flash prefill {name}: max abs err {err} > {TOL[dtype]}")
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = esz * (2 * T * H * D + 2 * T * K * D + 2 * cached * K * D)
+    # Keys each valid query row needs: the prefix plus the new keys up
+    # to itself, within the window.
+    vis = 0
+    for t in range(valid):
+        n = cached + t + 1
+        vis += min(n, window) if window else n
+    flops = 4.0 * vis * H * D
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    row["kernel_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention(
+        *args, scale=scale, sliding_window=window), iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention_plain(
+        *args, scale=scale, sliding_window=window), iters=3)
+    G = H // K
+    keys = torch.cat([kp[:cached], kn[:valid]]).permute(1, 0, 2)
+    vals = torch.cat([vp[:cached], vn[:valid]]).permute(1, 0, 2)
+    keys = keys.repeat_interleave(G, dim=0)[None].contiguous()
+    vals = vals.repeat_interleave(G, dim=0)[None].contiguous()
+    qd = q[:valid].permute(1, 0, 2)[None].contiguous()
+    if cached == 0 and window is None:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd, keys, vals, is_causal=True, scale=scale)
+    else:
+        qpos = cached + torch.arange(valid, device=dev)
+        kpos = torch.arange(cached + valid, device=dev)
+        mask = kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qd, keys, vals, attn_mask=mask, scale=scale)
+    row["library_ms"] = cuda_time_ms(lib, iters=10)
+    return row
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version, all cases on one JSON line;
+    returns the main-path row of each kernel, keyed by kernel name."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    H, K, D = 32, 8, 128
+    edge = [0, 1, 16, 17, 1000, 2048, 3000, 4000]
+    cases = {
+        "paged_decode": [
+            check_paged_decode(gen, "S1", 1, H, K, D, [3001]),
+            check_paged_decode(gen, "S8_main", 8, H, K, D, edge),
+            check_paged_decode(gen, "S8_window", 8, H, K, D, edge, window=256),
+            check_paged_decode(gen, "S8_D64", 8, H, K, 64, edge),
+            check_paged_decode(gen, "S8_D256", 8, 16, 4, 256, edge),
+            check_paged_decode(gen, "S8_fp32", 8, H, K, D, edge, dtype=torch.float32),
+        ],
+        "flash_prefill": [
+            check_flash_prefill(gen, "T128", 128, H, K, D, 0, 0, 128),
+            check_flash_prefill(gen, "T2048_main", 2048, H, K, D, 0, 0, 2048),
+            check_flash_prefill(gen, "T2048_prefix", 2048, H, K, D, 512, 512, 2000),
+            check_flash_prefill(gen, "T128_cached_lt_C", 128, H, K, D, 1024, 1000, 100),
+            check_flash_prefill(gen, "T512_window", 512, H, K, D, 256, 256, 512, window=128),
+            check_flash_prefill(gen, "T200_D64", 200, H, K, 64, 64, 48, 190),
+            check_flash_prefill(gen, "T200_D256", 200, 16, 4, 256, 64, 48, 190),
+            check_flash_prefill(gen, "T256_fp32", 256, H, K, D, 128, 100, 200,
+                                dtype=torch.float32),
+        ],
+    }
+    emit({"phase": "kernels", **cases})
+    # The main path's shapes: 8 decode rows; a 2048-token prompt chunk.
+    return {"paged_decode": cases["paged_decode"][1],
+            "flash_prefill": cases["flash_prefill"][1]}
+
+
+# -- phase 3 ---------------------------------------------------------------
+
+
+def phase_reference() -> dict:
+    """The model path on the card against the same path on the CPU (plain
+    attention) on a small input: a 2-layer model at llama-3.1-8b width in
+    fp32 (TF32 off), one prompt prefilled in two chunks, then 3 decode
+    steps; every step's logits must agree within 2e-3."""
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(PRESETS[MODEL], num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    cpu_params = llama.init_params(cfg, gen, torch.device("cpu"))
+    bs, nblocks = 16, 16
+
+    def tree_to(t, dev):
+        if isinstance(t, dict):
+            return {k: tree_to(v, dev) for k, v in t.items()}
+        if isinstance(t, list):
+            return [tree_to(v, dev) for v in t]
+        return t.to(dev)
+
+    def caches(dev):
+        shape = (nblocks, bs, cfg.num_kv_heads, cfg.head_dim)
+        return [(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+                for _ in range(cfg.num_layers)]
+
+    prompt = torch.randint(4, cfg.vocab_size, (100,), generator=gen, dtype=torch.int32)
+    worst = 0.0
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = cpu_params if dev == "cpu" else tree_to(cpu_params, dev)
+        kv = caches(dev)
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        outs = [
+            llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
+                          t([1, 2, 3, 4]), 64, kv),
+            llama.prefill(params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev),
+                          64, t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv),
+        ]
+        tokens = [int(outs[-1].argmax())] if dev == "cpu" else runs["cpu_tokens"]
+        for i, pos in enumerate(range(100, 103)):
+            outs.append(llama.decode(
+                params, cfg, t([tokens[i]]), t([pos]), t([[1, 2, 3, 4, 5, 6, 7, 0]]),
+                t([pos + 1]), t([7]), t([pos % bs]), kv)[0])
+            if dev == "cpu":
+                tokens.append(int(outs[-1].argmax()))
+        runs[dev] = [o.float().cpu() for o in outs]
+        if dev == "cpu":
+            runs["cpu_tokens"] = tokens
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        if not torch.isfinite(b).all():
+            raise AssertionError("non-finite logits on the card")
+        worst = max(worst, (a - b).abs().max().item())
+    row = {"phase": "reference", "layers": cfg.num_layers, "width": cfg.hidden_size,
+           "steps": len(runs["cpu"]), "max_abs_logit_err": worst, "tol": 2e-3,
+           "logit_absmax": max(x.abs().max().item() for x in runs["cpu"])}
+    emit(row)
+    if worst > 2e-3:
+        raise AssertionError(f"card vs CPU logits differ by {worst}")
+    return row
+
+
+async def _serve(aeng, app, vocab: int) -> dict:
+    """Drive 8 requests through AsyncEngine.generate (request 7 shares a
+    512-token prefix with request 0 and is submitted when request 0 has
+    finished, so it hits the prefix cache), then one HTTP completion."""
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    runner = web.AppRunner(app)
+    await runner.setup()  # starts the engine's step thread
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    port = runner.addresses[0][1]
+    try:
+        rng = np.random.default_rng(0)
+        shared = rng.integers(4, vocab, SHARED_PREFIX).tolist()
+        prompts = []
+        for i, n in enumerate(PROMPT_LENS):
+            ids = rng.integers(4, vocab, n).tolist()
+            if i in (0, NUM_REQUESTS - 1):
+                ids[:SHARED_PREFIX] = shared
+            prompts.append(ids)
+        results = [None] * NUM_REQUESTS
+        first_done = asyncio.Event()
+
+        async def one(i):
+            if i == NUM_REQUESTS - 1:
+                await first_done.wait()
+            sp = SamplingParams(max_tokens=NEW_TOKENS, temperature=0.0,
+                                ignore_eos=True)
+            t_sub = time.time()
+            times, ids, last = [], [], None
+            async for ev in aeng.generate(prompt_token_ids=prompts[i],
+                                          sampling_params=sp, request_id=f"r{i}"):
+                times.append(time.time())
+                ids.append(ev.token_id)
+                last = ev
+            if i == 0:
+                first_done.set()
+            results[i] = {
+                "prompt_len": len(prompts[i]),
+                "ttft_s": times[0] - t_sub,
+                "decode_tok_s": (len(times) - 1) / (times[-1] - times[0]),
+                "tokens": len(ids),
+                "finish": last.finish_reason.value,
+                "ids": ids,
+            }
+
+        t0 = time.time()
+        await asyncio.wait_for(
+            asyncio.gather(*(one(i) for i in range(NUM_REQUESTS))), timeout=600)
+        wall = time.time() - t0
+        async with aiohttp.ClientSession() as http:
+            async with http.get(f"http://127.0.0.1:{port}/health") as r:
+                health = r.status
+            async with http.post(
+                f"http://127.0.0.1:{port}/v1/completions",
+                json={"model": MODEL, "prompt": "The H100 port says", "max_tokens": 8,
+                      "ignore_eos": True},
+            ) as r:
+                http_status = r.status
+                http_body = await r.json()
+    finally:
+        await runner.cleanup()  # stops the step thread
+    return {"results": results, "wall_s": wall, "health": health,
+            "http_status": http_status, "http_body": http_body}
+
+
+def phase_engine() -> dict:
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+    from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+
+    torch.cuda.empty_cache()
+    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+        "scheduler.max_model_len": 32768,
+        "scheduler.max_num_seqs": NUM_REQUESTS,
+    })
+    t0 = time.time()
+    aeng = AsyncEngine(cfg)  # default device: the card
+    boot_s = time.time() - t0
+    eng = aeng.engine
+    app = build_engine_app(aeng, MODEL)
+    pa.launches = 0
+    fp.launches = 0
+    out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size))
+    launches = {"paged_decode": pa.launches, "flash_prefill": fp.launches}
+    stats = eng.stats()
+    results = out["results"]
+    for i, r in enumerate(results):
+        if r["tokens"] != NEW_TOKENS or r["finish"] != "length":
+            raise AssertionError(f"request {i}: {r['tokens']} tokens, {r['finish']}")
+        if not all(0 <= t < cfg.model.vocab_size for t in r["ids"]):
+            raise AssertionError(f"request {i}: token id outside the vocab")
+    if stats["prefix_cache_hit_tokens"] < SHARED_PREFIX:
+        raise AssertionError(f"no prefix-cache hit: {stats['prefix_cache_hit_tokens']}")
+    if out["health"] != 200 or out["http_status"] != 200 or (
+        out["http_body"]["usage"]["completion_tokens"] != 8
+    ):
+        raise AssertionError(f"HTTP path failed: {out['health']} {out['http_body']}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    total_out = sum(r["tokens"] for r in results)
+    row = {
+        "phase": "engine",
+        "model": MODEL,
+        "layers": cfg.model.num_layers,
+        "dtype": cfg.model.dtype,
+        "boot_s": boot_s,
+        "kv_blocks": stats["num_kv_blocks"],
+        "kv_tokens": stats["num_kv_blocks"] * cfg.cache.block_size,
+        "requests": [{k: v for k, v in r.items() if k != "ids"} for r in results],
+        "wall_s": out["wall_s"],
+        "output_tok_s": total_out / out["wall_s"],
+        "steps": stats["num_steps"],
+        "mean_step_ms": 1e3 * stats["step_seconds_total"] / max(1, stats["num_steps"]),
+        "prefix_cache_hit_tokens": stats["prefix_cache_hit_tokens"],
+        "http_completion_tokens": out["http_body"]["usage"]["completion_tokens"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    emit(row)
+    emit({"phase": "engine", "kernels": launches})
+    return {"launches": launches, "engine": eng}
+
+
+def phase_profile(eng, steps: int = 16) -> dict:
+    """Where a decode step's time goes: the served engine, stepped
+    synchronously at 8 rows (the same prompt lengths), timed over ``steps``
+    decode steps, then the same number of steps under torch.profiler for
+    device time by kernel.  idle share = 1 - device busy / unprofiled wall."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    rng = np.random.default_rng(1)
+    vocab = eng.config.model.vocab_size
+    for i, n in enumerate(PROMPT_LENS):
+        eng.add_request(
+            f"prof{i}", prompt_token_ids=rng.integers(4, vocab, n).tolist(),
+            sampling_params=SamplingParams(max_tokens=2 * steps + 4, ignore_eos=True),
+        )
+    while eng.scheduler.waiting:
+        eng.step()  # prefills, the long prompt in two chunks
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    while eng.has_unfinished():
+        eng.step()
+    # Device-side events only (kernels, copies): a CPU op's entry repeats
+    # the device time of the kernels it launched.
+    events = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    row = {
+        "phase": "profile",
+        "decode_rows": len(PROMPT_LENS),
+        "steps": steps,
+        "wall_ms_per_step": wall_ms,
+        "device_busy_ms_per_step": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
+        "top_kernels_ms_per_step": [
+            [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
+            for e in top
+        ],
+    }
+    emit(row)
+    return row
+
+
+KERNEL_META = {
+    "paged_decode": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/paged_decode.cu",
+        "replaces": "production_stack_tpu/engine/ops/pallas/paged_attention.py:167",
+    },
+    "flash_prefill": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
+        "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
+    },
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    dev = phase_device()
+    main_rows = phase_kernels()
+    phase_reference()
+    engine = phase_engine()
+    phase_profile(engine["engine"])
+    kernels = []
+    for name, row in main_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", **KERNEL_META[name],
+            "launches": engine["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                 "count": dev["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

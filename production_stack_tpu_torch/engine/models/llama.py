@@ -1,0 +1,238 @@
+"""Llama-family model (PyTorch, paged-KV attention).
+
+Counterpart of ``production_stack_tpu/engine/models/llama.py`` for the
+dense decoder (RMSNorm + rotate-half RoPE with optional llama3 scaling +
+GQA + gated MLP, optional QKV biases, tied or untied lm_head, optional
+sliding window).  The parameter tree is the JAX package's: a dict with
+``[in, out]`` weights, so the forward is ``x @ W`` and a tree moves between
+the packages without transposes (``weights.params_from_numpy``).
+
+Unlike the JAX package, ``prefill`` and ``decode`` update the KV caches
+**in place** and return only the logits; ``cached_len`` and ``valid_len``
+are host ints.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.ops import attention as attn_ops
+from production_stack_tpu_torch.engine.ops.layers import (
+    apply_rope,
+    rms_norm,
+    rope_cos_sin,
+    swiglu,
+)
+
+Params = Dict
+KVCaches = List[Tuple[torch.Tensor, torch.Tensor]]
+
+# Optional fp32 copy of the lm_head weight ([h, V]); see _lm_head.
+LM_HEAD_FP32 = "lm_head_fp32"
+
+
+def param_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_params(
+    cfg: ModelConfig, generator: torch.Generator, device: torch.device
+) -> Params:
+    """Random init (normal, std 0.02; norms at one; biases at zero) with the
+    JAX package's tree structure.  Draws come from ``generator``, which must
+    live on ``device``; the same seed gives the same weights, though not
+    the JAX package's (``weights.params_from_numpy`` carries those over)."""
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+    dtype = param_dtype(cfg)
+    h, hd = cfg.hidden_size, cfg.head_dim
+    H, K, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+        return (w * 0.02).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    params: Params = {
+        "embed_tokens": dense(cfg.vocab_size, h),
+        "norm": ones(h),
+        "layers": [],
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense(h, cfg.vocab_size)
+    for _ in range(cfg.num_layers):
+        layer = {
+            "input_layernorm": ones(h),
+            "post_attention_layernorm": ones(h),
+            "q_proj": dense(h, H * hd),
+            "k_proj": dense(h, K * hd),
+            "v_proj": dense(h, K * hd),
+            "o_proj": dense(H * hd, h),
+            "gate_proj": dense(h, I),
+            "up_proj": dense(h, I),
+            "down_proj": dense(I, h),
+        }
+        if cfg.attention_bias:
+            layer["q_bias"] = zeros(H * hd)
+            layer["k_bias"] = zeros(K * hd)
+            layer["v_bias"] = zeros(K * hd)
+        params["layers"].append(layer)
+    return params
+
+
+def add_fp32_lm_head(params: Params, cfg: ModelConfig) -> None:
+    """Store an fp32 copy of the lm_head weight in ``params`` (in place),
+    so every step's logits come from one fp32 product without casting the
+    [h, V] weight again.  A no-op for fp32 models."""
+    w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
+    if w.dtype != torch.float32:
+        params[LM_HEAD_FP32] = w.float().contiguous()
+
+
+def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(x, weight, cfg.rms_norm_eps, cfg.rms_norm_offset)
+
+
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed_tokens"][tokens.long()]
+    if cfg.scale_embeddings:  # gemma: sqrt(h) in the input dtype
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
+    """x: [T, h] -> q [T, H, D], k/v [T, K, D] in x's dtype; biases (Qwen2
+    style) are added in fp32."""
+    T = x.shape[0]
+    q = torch.matmul(x, layer["q_proj"])
+    k = torch.matmul(x, layer["k_proj"])
+    v = torch.matmul(x, layer["v_proj"])
+    if cfg.attention_bias:
+        q = q.float() + layer["q_bias"].float()
+        k = k.float() + layer["k_bias"].float()
+        v = v.float() + layer["v_bias"].float()
+    q = q.to(x.dtype).reshape(T, cfg.num_heads, cfg.head_dim)
+    k = k.to(x.dtype).reshape(T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.to(x.dtype).reshape(T, cfg.num_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Dense gated MLP (ops/layers.py swiglu)."""
+    return swiglu(
+        x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],
+        act=cfg.hidden_act,
+    )
+
+
+def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden [..., h] -> logits [..., V] in fp32.
+
+    Both operands are fp32 (hidden is cast; the weight is the fp32 copy
+    from :func:`add_fp32_lm_head` when present, else cast here), so the
+    products and sums are fp32 as in the JAX package (which asks its bf16
+    product for an fp32 result).  Logits feed sampling and logprobs."""
+    w = params.get(LM_HEAD_FP32)
+    if w is None:
+        w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
+        w = w.float()
+    return torch.matmul(hidden.float(), w)
+
+
+def _layer(
+    layer: Params, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend
+) -> torch.Tensor:
+    """One decoder layer; ``attend(q, k, v)`` writes the KV cache and
+    returns attention outputs [T, H, D]."""
+    T = x.shape[0]
+    residual = x
+    x_n = _norm(x, layer["input_layernorm"], cfg)
+    q, k, v = _project_qkv(layer, x_n, cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = attend(q, k, v).reshape(T, cfg.num_heads * cfg.head_dim)
+    x = residual + torch.matmul(out, layer["o_proj"]).to(x.dtype)
+    residual = x
+    x_n = _norm(x, layer["post_attention_layernorm"], cfg)
+    return residual + _mlp(layer, x_n, cfg)
+
+
+def prefill(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [T] int (padded to a bucket)
+    cached_len: int,  # prefix tokens already in cache
+    prefix_block_ids: torch.Tensor,  # [P] int: the cached prefix's blocks
+    new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
+    valid_len: int,  # true number of new tokens
+    kv_caches: KVCaches,  # updated in place
+) -> torch.Tensor:
+    """One sequence's prefill chunk.  Writes the chunk's KV into its new
+    blocks and returns the last valid token's logits [V] (fp32).
+
+    ``prefix_block_ids`` may be 0-padded like the JAX package's; the
+    gathered slots past ``cached_len`` are masked.  The engine passes only
+    the prefix's own blocks, so the kernel never walks padding."""
+    T = tokens.shape[0]
+    scale = cfg.head_dim**-0.5
+    positions = cached_len + torch.arange(T, device=tokens.device)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    x = _embed(params, cfg, tokens)  # [T, h]
+    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+            k_prefix, v_prefix = attn_ops.gather_prefix_kv(
+                k_cache, v_cache, prefix_block_ids
+            )
+            out = attn_ops.prefill_attention(
+                q, k, v, k_prefix, v_prefix, cached_len, valid_len,
+                scale=scale, sliding_window=cfg.sliding_window,
+            )
+            attn_ops.write_prefill_kv(k_cache, v_cache, k, v, new_block_ids)
+            return out
+
+        x = _layer(layer, x, cfg, cos, sin, attend)
+    x = _norm(x, params["norm"], cfg)
+    return _lm_head(params, cfg, x[max(valid_len - 1, 0)])
+
+
+def decode(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [S] int, one token per sequence (padded batch)
+    positions: torch.Tensor,  # [S] int position of each token (= ctx_len-1)
+    block_tables: torch.Tensor,  # [S, Bmax] int32
+    ctx_lens: torch.Tensor,  # [S] int32 context length incl. the new token
+    slot_block_ids: torch.Tensor,  # [S] int block receiving the new token
+    slot_offsets: torch.Tensor,  # [S] int offset within that block
+    kv_caches: KVCaches,  # updated in place
+) -> torch.Tensor:
+    """Batched single-token decode.  Returns logits [S, V] (fp32).  Each
+    layer writes the new token's KV first, then attends (``ctx_lens``
+    already counts the new token)."""
+    scale = cfg.head_dim**-0.5
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    x = _embed(params, cfg, tokens)  # [S, h]
+    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+            attn_ops.append_decode_kv(
+                k_cache, v_cache, k, v, slot_block_ids, slot_offsets
+            )
+            return attn_ops.decode_attention(
+                q, k_cache, v_cache, block_tables, ctx_lens,
+                scale=scale, sliding_window=cfg.sliding_window,
+            )
+
+        x = _layer(layer, x, cfg, cos, sin, attend)
+    x = _norm(x, params["norm"], cfg)
+    return _lm_head(params, cfg, x)

@@ -1,0 +1,238 @@
+"""Async bridge between the aiohttp server and the LLMEngine (PyTorch).
+
+Counterpart of ``production_stack_tpu/engine/server/async_engine.py``: the
+engine step loop runs in one dedicated thread (CUDA launches and the
+per-step device read release the GIL, so the event loop keeps serving HTTP
+while the card computes).  Requests and per-token outputs cross the thread
+boundary through a lock-guarded submission list and
+``loop.call_soon_threadsafe`` hand-offs into per-request asyncio queues.
+Multi-host lockstep and the batched encode lane are not ported.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import threading
+import time
+import uuid
+from typing import AsyncIterator, Dict, List, Optional
+
+from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.core.engine import LLMEngine
+from production_stack_tpu_torch.engine.core.sequence import (
+    FinishReason,
+    SamplingParams,
+)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class AdmissionRejection:
+    """Why bounded admission refused a request (serialized into the 429
+    body)."""
+
+    queued_requests: int
+    queued_tokens: int
+    max_queued_requests: int
+    max_queued_tokens: int
+    kv_usage_perc: float
+    retry_after_s: int
+
+
+@dataclasses.dataclass
+class TokenEvent:
+    token_id: int
+    finished: bool
+    finish_reason: Optional[FinishReason]
+    num_prompt_tokens: int
+    num_output_tokens: int
+    logprob: Optional[float] = None
+    top_logprobs: Optional[list] = None  # [(token_id, logprob), ...]
+
+
+class AsyncEngine:
+    def __init__(self, config: EngineConfig, device=None, params=None):
+        """``device`` and ``params`` are passed to :class:`LLMEngine`
+        (default: the CUDA device and the seeded random init)."""
+        self.engine = LLMEngine(config, device=device, params=params)
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._queues: Dict[str, asyncio.Queue] = {}
+        self._pending: List = []  # (request_id, prompt_ids, sampling_params)
+        self._aborts: List[str] = []
+        self._lock = threading.Lock()
+        self._shutdown = threading.Event()
+        self._wakeup = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # Prompt tokens submitted but not yet drained into the engine by
+        # the step thread (guarded by _lock); bounded admission counts
+        # these beside the scheduler's waiting queue.
+        self._pending_tokens = 0
+        # Wall clock of the step loop's most recent iteration start
+        # (the /health watchdog reads it).
+        self._last_step_ts: Optional[float] = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def start(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._thread = threading.Thread(
+            target=self._run_loop, name="engine-step-loop", daemon=True
+        )
+        self._thread.start()
+
+    async def close(self) -> None:
+        self._shutdown.set()
+        self._wakeup.set()
+        if self._thread is not None:
+            await asyncio.to_thread(self._thread.join, 30)
+
+    # -- request API (event-loop side) ------------------------------------
+
+    async def generate(
+        self,
+        prompt: Optional[str] = None,
+        prompt_token_ids: Optional[List[int]] = None,
+        sampling_params: Optional[SamplingParams] = None,
+        request_id: Optional[str] = None,
+    ) -> AsyncIterator[TokenEvent]:
+        """Submit one request and yield its token events until the one
+        marked ``finished``.  Closing the iterator early aborts the request
+        in the engine."""
+        request_id = request_id or f"req-{uuid.uuid4().hex[:12]}"
+        queue: asyncio.Queue = asyncio.Queue()
+        self._queues[request_id] = queue
+        if prompt_token_ids is None:
+            prompt_token_ids = self.engine.tokenizer.encode(prompt or "")
+        params = sampling_params or SamplingParams()
+        with self._lock:
+            self._pending.append((request_id, prompt_token_ids, params))
+            self._pending_tokens += len(prompt_token_ids)
+        self._wakeup.set()
+        finished = False
+        try:
+            while True:
+                event = await queue.get()
+                if isinstance(event, Exception):
+                    raise event
+                yield event
+                if event.finished:
+                    finished = True
+                    return
+        finally:
+            self._queues.pop(request_id, None)
+            if not finished:
+                # Consumer stopped early: abort in-engine so the scheduler
+                # does not keep decoding for nobody.
+                with self._lock:
+                    self._aborts.append(request_id)
+                self._wakeup.set()
+
+    async def abort(self, request_id: str) -> None:
+        with self._lock:
+            self._aborts.append(request_id)
+        self._wakeup.set()
+
+    def stats(self) -> Dict[str, float]:
+        return self.engine.stats()
+
+    # -- overload protection / lifecycle reads -----------------------------
+
+    def check_admission(
+        self, n_requests: int, n_tokens: int
+    ) -> Optional[AdmissionRejection]:
+        """Bounded admission: None = admit; otherwise the structured
+        rejection the server turns into a 429."""
+        cfg = self.engine.config.scheduler
+        if not cfg.admission_enabled:
+            return None
+        with self._lock:
+            pending_n = len(self._pending)
+            pending_tok = self._pending_tokens
+        queued_requests = self.engine.scheduler.num_waiting + pending_n
+        queued_tokens = self.engine.scheduler.queued_prompt_tokens + pending_tok
+        if (
+            queued_requests + n_requests <= cfg.queued_requests_cap
+            and queued_tokens + n_tokens <= cfg.queued_tokens_cap
+        ):
+            return None
+        retry_after = max(1, -(-queued_requests // max(1, cfg.max_num_seqs)))
+        return AdmissionRejection(
+            queued_requests=queued_requests,
+            queued_tokens=queued_tokens,
+            max_queued_requests=cfg.queued_requests_cap,
+            max_queued_tokens=cfg.queued_tokens_cap,
+            kv_usage_perc=float(self.engine.block_pool.usage),
+            retry_after_s=min(retry_after, 60),
+        )
+
+    @property
+    def last_step_age_s(self) -> float:
+        """Seconds since the step loop last started an iteration (0.0
+        before the loop boots)."""
+        ts = self._last_step_ts
+        if ts is None:
+            return 0.0
+        return max(0.0, time.time() - ts)
+
+    @property
+    def step_thread_healthy(self) -> bool:
+        """False only when the step thread died without a shutdown
+        request."""
+        if self._thread is None or self._shutdown.is_set():
+            return True
+        return self._thread.is_alive()
+
+    # -- engine thread -----------------------------------------------------
+
+    def _run_loop(self) -> None:
+        logger.info("engine step loop started")
+        while not self._shutdown.is_set():
+            self._last_step_ts = time.time()
+            with self._lock:
+                pending, self._pending = self._pending, []
+                aborts, self._aborts = self._aborts, []
+                self._pending_tokens -= sum(len(p[1]) for p in pending)
+            for request_id in aborts:
+                self.engine.abort_request(request_id)
+            for request_id, token_ids, params in pending:
+                try:
+                    self.engine.add_request(
+                        request_id, prompt_token_ids=token_ids,
+                        sampling_params=params,
+                    )
+                except ValueError as e:
+                    self._emit(request_id, e)
+            if not self.engine.has_unfinished():
+                self._wakeup.wait(timeout=0.01)
+                self._wakeup.clear()
+                continue
+            try:
+                outputs = self.engine.step()
+            except Exception:
+                logger.exception("engine step failed")
+                time.sleep(0.1)  # back off instead of spinning the log
+                continue
+            for out in outputs:
+                if out.seq_id in self._queues:
+                    self._emit(
+                        out.seq_id,
+                        TokenEvent(
+                            token_id=out.new_token_id,
+                            finished=out.finished,
+                            finish_reason=out.finish_reason,
+                            num_prompt_tokens=out.num_prompt_tokens,
+                            num_output_tokens=out.num_output_tokens,
+                            logprob=out.logprob,
+                            top_logprobs=out.top_logprobs,
+                        ),
+                    )
+        logger.info("engine step loop exited")
+
+    def _emit(self, request_id: str, event) -> None:
+        queue = self._queues.get(request_id)
+        if queue is None or self._loop is None:
+            return
+        self._loop.call_soon_threadsafe(queue.put_nowait, event)

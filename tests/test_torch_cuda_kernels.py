@@ -1,0 +1,84 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  Marked ``cuda``: they skip without a CUDA device (a CUDA kernel
+has no CPU or interpret mode).  The file imports no jax, so it runs on the
+card machine as it is:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
+"""
+
+import pytest
+import torch
+
+from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
+from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
+
+# Max abs error against the plain version: fp32 is the same math with sums
+# in another order; bf16 adds the plain version's bf16 rounding of the
+# probabilities and both outputs' bf16 rounding.
+TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("window", [None, 24])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, tol, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    S, H, K, D, bs, N = 4, 32, 8, 128, 16, 64
+    ctx = torch.tensor([0, 1, 17, 100], dtype=torch.int32, device=cuda_device)
+    tables = torch.zeros((S, 8), dtype=torch.int32, device=cuda_device)
+    tables[1, :1] = torch.tensor([5])
+    tables[2, :2] = torch.tensor([9, 2])
+    tables[3, :7] = torch.tensor([30, 31, 3, 4, 40, 41, 7])
+    q, kc, vc = (
+        torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+        for shape in ((S, H, D), (N, bs, K, D), (N, bs, K, D))
+    )
+    before = tpa.launches
+    got = tpa.paged_decode_attention(q, kc, vc, tables, ctx, scale=D**-0.5,
+                                     sliding_window=window)
+    assert tpa.launches == before + 1
+    want = tpa.paged_decode_attention_plain(q, kc, vc, tables, ctx, scale=D**-0.5,
+                                            sliding_window=window)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("C,cached,valid,window", [(0, 0, 190, None), (64, 48, 190, 64)])
+def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, tol, C, cached, valid, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    T, H, K, D = 200, 32, 8, 128
+    args = [
+        torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+        for shape in ((T, H, D), (T, K, D), (T, K, D), (C, K, D), (C, K, D))
+    ]
+    before = tfp.launches
+    got = tfp.flash_prefill_attention(*args, cached, valid, scale=D**-0.5,
+                                      sliding_window=window)
+    assert tfp.launches == before + 1
+    want = tfp.flash_prefill_attention_plain(*args, cached, valid, scale=D**-0.5,
+                                             sliding_window=window)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros((2, 8, 96), device=cuda_device)  # head_dim 96: no kernel
+    kc = torch.zeros((4, 16, 2, 96), device=cuda_device)
+    t = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        tpa.paged_decode_attention(q, kc, kc, t, t[:, 0].contiguous(), scale=1.0)
+    k = torch.zeros((8, 2, 128), device=cuda_device)
+    with pytest.raises(TypeError, match="host int"):
+        tfp.flash_prefill_attention(
+            torch.zeros((8, 8, 128), device=cuda_device), k, k, k[:0], k[:0],
+            torch.tensor(0, device=cuda_device), 8, scale=1.0,
+        )
