@@ -13,21 +13,31 @@ non-zero (no phase is caught and passed over):
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (llama-3.1-8b attention: bf16, H=32, K=8, D=128, block size 16), plus
    edge cases (ctx 0/1/16/17, sliding window, D=64 and D=256, a prefix
-   with cached_len < C, valid_len < T, fp32).  Each case reports its max
-   abs error against the stated tolerance and the kernel's, the plain
-   version's and F.scaled_dot_product_attention's times (the last one a
-   yardstick only; the port never calls it) beside the card's bound.
+   with cached_len < C, valid_len < T, fp32); the int8 paged-decode kernel
+   on caches quantized by the port's ``quantize_vectors``.  Each case
+   reports its max abs error against the stated tolerance and the
+   kernel's, the plain version's and F.scaled_dot_product_attention's
+   times (the last one a yardstick only; the port never calls it) beside
+   the card's bound.
 3. The model path on the card against the CPU (plain attention) on a
-   small input: 2 layers at llama-3.1-8b width, fp32, chunked prefill and
-   decode, logits within 2e-3.
+   small input, once on dense and once on int8 KV caches: 2 layers at
+   llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
+   (a decode row beside a prefill chunk over its cached prefix), logits
+   within 2e-3.
 4. The engine at full width: llama-3.1-8b (32 layers, bf16, seeded random
-   init on the card), KV pool sized from free memory, 8 greedy requests
-   through ``AsyncEngine.generate`` (one of them a prefix-cache hit, one
-   chunked), then /health and one /v1/completions over localhost HTTP.
-   Both kernels' launch counters are set to 0 just before and read just
-   after; each must be > 0.
+   init on the card), KV pool sized from free memory, mixed steps on, 8
+   greedy requests through ``AsyncEngine.generate`` (one of them a
+   prefix-cache hit, one chunked, most of them chunked beside running
+   decodes), then /health and one /v1/completions over localhost HTTP.
+   The kernels' launch counters are set to 0 just before and read just
+   after: the dense paged-decode and flash-prefill kernels must be > 0,
+   the int8 one 0; some prompt tokens must have ridden mixed steps.
 5. Where a decode step's time goes: 16 steps of the same engine under
    torch.profiler (device time by kernel, idle share).
+6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
+   engine (the dense one freed first): the int8 paged-decode and the
+   flash-prefill kernels must launch and the dense decode kernel never;
+   the pool must hold at least 1.8x the dense phase's tokens.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -39,9 +49,11 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -85,6 +97,19 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us_per_op(n: int = 2000) -> float:
+    """Host time of one small eager op on the card (its launch), to tell
+    a slower host from more host work per step."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -102,7 +127,7 @@ def phase_device() -> dict:
     print(smi.splitlines()[0], flush=True)
     from production_stack_tpu_torch.engine.ops import _build
 
-    info = _build.build_all(verbose=True)
+    info = _build.build_all(verbose=True)  # one nvcc per source, in parallel
     ptxas = {
         name: [ln.strip() for ln in out.splitlines()
                if "registers" in ln or "spill" in ln]
@@ -143,20 +168,28 @@ def _paged_case(gen, S, H, K, D, bs, ctx_lens, dtype):
 
 
 def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
-                       window=None, bs=16) -> dict:
+                       window=None, bs=16, int8=False) -> dict:
+    """One paged-decode case: the dense kernel, or with ``int8`` the int8
+    kernel on caches quantized by the port's ``quantize_vectors``."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
     from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
 
     q, kc, vc, tables, ctx = _paged_case(gen, S, H, K, D, bs, ctx_lens, dtype)
+    if int8:
+        kc, vc = kv_quant.quantize_vectors(kc), kv_quant.quantize_vectors(vc)
+        plain = pa.paged_decode_attention_int8_plain
+    else:
+        plain = pa.paged_decode_attention_plain
     scale = D**-0.5
     got = pa.paged_decode_attention(q, kc, vc, tables, ctx, scale=scale,
                                     sliding_window=window)
-    want = pa.paged_decode_attention_plain(q, kc, vc, tables, ctx, scale=scale,
-                                           sliding_window=window)
+    want = plain(q, kc, vc, tables, ctx, scale=scale, sliding_window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     row = {"case": name, "S": S, "H": H, "K": K, "D": D, "ctx": list(ctx_lens),
            "window": window, "dtype": str(dtype).replace("torch.", ""),
-           "max_abs_err": err, "tol": TOL[dtype]}
+           "kv": "int8" if int8 else "dense", "max_abs_err": err,
+           "tol": TOL[dtype]}
     if not torch.isfinite(got).all() or err > TOL[dtype]:
         raise AssertionError(f"paged decode {name}: max abs err {err} > {TOL[dtype]}")
     zero_rows = [i for i, c in enumerate(ctx_lens) if c == 0]
@@ -164,22 +197,30 @@ def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
         raise AssertionError(f"paged decode {name}: ctx 0 rows are not zero")
     live = [min(c, window) if window else c for c in ctx_lens]
     esz = torch.finfo(dtype).bits // 8
-    nbytes = (2 * S * H * D * esz + 2 * sum(live) * K * D * esz
+    # Bytes of one live KV vector per side: D elements, or D int8 values
+    # and a 4-byte scale.
+    kv_bytes = D + 4 if int8 else D * esz
+    nbytes = (2 * S * H * D * esz + 2 * sum(live) * K * kv_bytes
               + 4 * sum(-(-c // bs) for c in ctx_lens) + 4 * S)
     flops = 4.0 * sum(live) * H * D
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
     row["kernel_ms"] = cuda_time_ms(lambda: pa.paged_decode_attention(
         q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=50)
-    row["plain_ms"] = cuda_time_ms(lambda: pa.paged_decode_attention_plain(
+    row["plain_ms"] = cuda_time_ms(lambda: plain(
         q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=5)
-    # Yardstick: SDPA over the same K/V gathered dense (gather untimed).
+    # Yardstick: SDPA over the same K/V gathered dense (gather untimed; an
+    # int8 cache is dequantized to q's dtype as it is gathered).
     L = max(ctx_lens)
     nb = -(-L // bs)
     G = H // K
-    kd = kc[tables[:, :nb].long()].reshape(S, nb * bs, K, D)[:, :L]
-    vd = vc[tables[:, :nb].long()].reshape(S, nb * bs, K, D)[:, :L]
-    kd = kd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
-    vd = vd.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+    idx = tables[:, :nb].long()
+
+    def gathered(side):
+        x = kv_quant.dequantize(side[0][idx], side[1][idx], dtype) if int8 else side[idx]
+        x = x.reshape(S, nb * bs, K, D)[:, :L]
+        return x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+
+    kd, vd = gathered(kc), gathered(vc)
     pos = torch.arange(L, device="cuda")
     mask = pos[None, :] < ctx[:, None].long()
     if window:
@@ -264,6 +305,16 @@ def phase_kernels() -> dict:
             check_paged_decode(gen, "S8_D256", 8, 16, 4, 256, edge),
             check_paged_decode(gen, "S8_fp32", 8, H, K, D, edge, dtype=torch.float32),
         ],
+        "paged_decode_int8": [
+            check_paged_decode(gen, "S1", 1, H, K, D, [3001], int8=True),
+            check_paged_decode(gen, "S8_main", 8, H, K, D, edge, int8=True),
+            check_paged_decode(gen, "S8_window", 8, H, K, D, edge, window=256,
+                               int8=True),
+            check_paged_decode(gen, "S8_D64", 8, H, K, 64, edge, int8=True),
+            check_paged_decode(gen, "S8_D256", 8, 16, 4, 256, edge, int8=True),
+            check_paged_decode(gen, "S8_fp32", 8, H, K, D, edge, dtype=torch.float32,
+                               int8=True),
+        ],
         "flash_prefill": [
             check_flash_prefill(gen, "T128", 128, H, K, D, 0, 0, 128),
             check_flash_prefill(gen, "T2048_main", 2048, H, K, D, 0, 0, 2048),
@@ -279,17 +330,21 @@ def phase_kernels() -> dict:
     emit({"phase": "kernels", **cases})
     # The main path's shapes: 8 decode rows; a 2048-token prompt chunk.
     return {"paged_decode": cases["paged_decode"][1],
+            "paged_decode_int8": cases["paged_decode_int8"][1],
             "flash_prefill": cases["flash_prefill"][1]}
 
 
 # -- phase 3 ---------------------------------------------------------------
 
 
-def phase_reference() -> dict:
+def phase_reference(int8: bool) -> dict:
     """The model path on the card against the same path on the CPU (plain
     attention) on a small input: a 2-layer model at llama-3.1-8b width in
-    fp32 (TF32 off), one prompt prefilled in two chunks, then 3 decode
-    steps; every step's logits must agree within 2e-3."""
+    fp32 (TF32 off) over dense or int8 KV caches.  One prompt is prefilled
+    in two chunks, then 3 decode steps; a second prompt's first chunk is
+    prefilled, then one mixed step runs the first prompt's next decode
+    row beside the second prompt's last chunk over its cached prefix.
+    Every step's logits must agree within 2e-3."""
     from production_stack_tpu_torch.engine.config import PRESETS
     from production_stack_tpu_torch.engine.models import llama
 
@@ -309,10 +364,17 @@ def phase_reference() -> dict:
 
     def caches(dev):
         shape = (nblocks, bs, cfg.num_kv_heads, cfg.head_dim)
-        return [(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
-                for _ in range(cfg.num_layers)]
+
+        def side():
+            if int8:
+                return (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros(shape[:3], device=dev))
+            return torch.zeros(shape, device=dev)
+
+        return [(side(), side()) for _ in range(cfg.num_layers)]
 
     prompt = torch.randint(4, cfg.vocab_size, (100,), generator=gen, dtype=torch.int32)
+    prompt2 = torch.randint(4, cfg.vocab_size, (48,), generator=gen, dtype=torch.int32)
     worst = 0.0
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -326,12 +388,24 @@ def phase_reference() -> dict:
                           64, t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv),
         ]
         tokens = [int(outs[-1].argmax())] if dev == "cpu" else runs["cpu_tokens"]
+        table = [[1, 2, 3, 4, 5, 6, 7, 0]]
         for i, pos in enumerate(range(100, 103)):
             outs.append(llama.decode(
-                params, cfg, t([tokens[i]]), t([pos]), t([[1, 2, 3, 4, 5, 6, 7, 0]]),
+                params, cfg, t([tokens[i]]), t([pos]), t(table),
                 t([pos + 1]), t([7]), t([pos % bs]), kv)[0])
             if dev == "cpu":
                 tokens.append(int(outs[-1].argmax()))
+        outs.append(llama.prefill(params, cfg, prompt2[:32].to(dev), 0, t([]),
+                                  t([8, 9]), 32, kv))
+        mixed = llama.mixed_step(
+            params, cfg, dec_tokens=t([tokens[3]]), dec_positions=t([103]),
+            dec_block_tables=t(table), dec_ctx_lens=t([104]),
+            dec_slot_block_ids=t([7]), dec_slot_offsets=t([103 % bs]),
+            pf_tokens=prompt2[32:].to(dev), pf_cached_len=32,
+            pf_prefix_block_ids=t([8, 9]), pf_new_block_ids=t([10]),
+            pf_valid_len=16, kv_caches=kv,
+        )
+        outs.extend(mixed)  # the decode row, then the chunk's last row
         runs[dev] = [o.float().cpu() for o in outs]
         if dev == "cpu":
             runs["cpu_tokens"] = tokens
@@ -339,12 +413,14 @@ def phase_reference() -> dict:
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite logits on the card")
         worst = max(worst, (a - b).abs().max().item())
-    row = {"phase": "reference", "layers": cfg.num_layers, "width": cfg.hidden_size,
-           "steps": len(runs["cpu"]), "max_abs_logit_err": worst, "tol": 2e-3,
+    row = {"phase": "reference", "kv": "int8" if int8 else "dense",
+           "layers": cfg.num_layers, "width": cfg.hidden_size,
+           "steps": len(runs["cpu"]), "mixed_rows": 2,
+           "max_abs_logit_err": worst, "tol": 2e-3,
            "logit_absmax": max(x.abs().max().item() for x in runs["cpu"])}
     emit(row)
     if worst > 2e-3:
-        raise AssertionError(f"card vs CPU logits differ by {worst}")
+        raise AssertionError(f"card vs CPU logits differ by {worst} ({row['kv']} KV)")
     return row
 
 
@@ -418,7 +494,12 @@ async def _serve(aeng, app, vocab: int) -> dict:
             "http_status": http_status, "http_body": http_body}
 
 
-def phase_engine() -> dict:
+def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
+    """Serve the 8 requests and one HTTP completion on a fresh engine at
+    full width, KV cache dense (``auto``) or ``int8``; mixed steps at their
+    default (on).  ``dense`` is the dense phase's result, which the int8
+    phase is compared with: its pool must hold >= 1.8x the tokens, and the
+    share of requests whose first token agrees is reported."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
@@ -426,20 +507,28 @@ def phase_engine() -> dict:
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
     from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 
+    int8 = kv_cache_dtype == "int8"
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
         "scheduler.max_model_len": 32768,
         "scheduler.max_num_seqs": NUM_REQUESTS,
+        "cache.kv_cache_dtype": kv_cache_dtype,
     })
+    if not cfg.scheduler.mixed_enabled:
+        raise AssertionError("mixed steps are off by default")
+    host_us = host_us_per_op()
     t0 = time.time()
     aeng = AsyncEngine(cfg)  # default device: the card
     boot_s = time.time() - t0
     eng = aeng.engine
     app = build_engine_app(aeng, MODEL)
     pa.launches = 0
+    pa.launches_int8 = 0
     fp.launches = 0
     out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size))
-    launches = {"paged_decode": pa.launches, "flash_prefill": fp.launches}
+    launches = {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
+                "flash_prefill": fp.launches}
     stats = eng.stats()
     results = out["results"]
     for i, r in enumerate(results):
@@ -453,29 +542,48 @@ def phase_engine() -> dict:
         out["http_body"]["usage"]["completion_tokens"] != 8
     ):
         raise AssertionError(f"HTTP path failed: {out['health']} {out['http_body']}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if stats["prefill_chunk_tokens"] <= 0:
+        raise AssertionError("no prompt token rode a mixed step")
+    decode_on, decode_off = (("paged_decode_int8", "paged_decode") if int8
+                             else ("paged_decode", "paged_decode_int8"))
+    if launches[decode_on] <= 0 or launches["flash_prefill"] <= 0 or launches[decode_off]:
+        raise AssertionError(f"{kv_cache_dtype} KV: wrong kernels launched: {launches}")
     total_out = sum(r["tokens"] for r in results)
     row = {
-        "phase": "engine",
+        "phase": "engine_int8" if int8 else "engine",
         "model": MODEL,
         "layers": cfg.model.num_layers,
         "dtype": cfg.model.dtype,
+        "kv_cache_dtype": kv_cache_dtype,
         "boot_s": boot_s,
+        "host_us_per_small_op": host_us,
         "kv_blocks": stats["num_kv_blocks"],
         "kv_tokens": stats["num_kv_blocks"] * cfg.cache.block_size,
+        "kv_bytes_per_token": eng._kv_bytes(1) // cfg.cache.block_size,
         "requests": [{k: v for k, v in r.items() if k != "ids"} for r in results],
         "wall_s": out["wall_s"],
         "output_tok_s": total_out / out["wall_s"],
         "steps": stats["num_steps"],
         "mean_step_ms": 1e3 * stats["step_seconds_total"] / max(1, stats["num_steps"]),
+        "prefill_chunk_tokens": stats["prefill_chunk_tokens"],
         "prefix_cache_hit_tokens": stats["prefix_cache_hit_tokens"],
         "http_completion_tokens": out["http_body"]["usage"]["completion_tokens"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    if dense is not None:
+        row["kv_tokens_vs_dense"] = row["kv_tokens"] / dense["kv_tokens"]
+        # Reported, not asserted: random weights give near-flat logits,
+        # and int8 rounding may change which token wins.
+        row["first_token_match_share"] = sum(
+            a["ids"][0] == b["ids"][0] for a, b in zip(results, dense["results"])
+        ) / NUM_REQUESTS
     emit(row)
-    emit({"phase": "engine", "kernels": launches})
-    return {"launches": launches, "engine": eng}
+    emit({"phase": row["phase"], "kernels": launches})
+    if dense is not None and row["kv_tokens_vs_dense"] < 1.8:
+        raise AssertionError(f"int8 pool holds {row['kv_tokens_vs_dense']:.3f}x "
+                             "the dense pool's tokens, under 1.8x")
+    return {"launches": launches, "engine": eng, "kv_tokens": row["kv_tokens"],
+            "results": results}
 
 
 def phase_profile(eng, steps: int = 16) -> dict:
@@ -491,14 +599,19 @@ def phase_profile(eng, steps: int = 16) -> dict:
     rng = np.random.default_rng(1)
     vocab = eng.config.model.vocab_size
     for i, n in enumerate(PROMPT_LENS):
+        # Enough tokens that no row finishes before the profiled steps:
+        # the first rows decode in every mixed step of the later prefills.
         eng.add_request(
             f"prof{i}", prompt_token_ids=rng.integers(4, vocab, n).tolist(),
-            sampling_params=SamplingParams(max_tokens=2 * steps + 4, ignore_eos=True),
+            sampling_params=SamplingParams(max_tokens=2 * steps + 64, ignore_eos=True),
         )
     while eng.scheduler.waiting:
-        eng.step()  # prefills, the long prompt in two chunks
+        eng.step()  # prefills, most in chunks beside running decodes
     eng.step()
-    torch.cuda.synchronize()
+    if eng.scheduler.num_running != len(PROMPT_LENS):
+        raise AssertionError(f"{eng.scheduler.num_running} rows decoding, "
+                             f"want {len(PROMPT_LENS)}")
+    host_us_before = host_us_per_op()
     t0 = time.time()
     for _ in range(steps):
         eng.step()
@@ -508,6 +621,7 @@ def phase_profile(eng, steps: int = 16) -> dict:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
+    host_us_after = host_us_per_op()
     while eng.has_unfinished():
         eng.step()
     # Device-side events only (kernels, copies): a CPU op's entry repeats
@@ -519,8 +633,16 @@ def phase_profile(eng, steps: int = 16) -> dict:
     ]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    # Host side: PyTorch ops by self CPU time (inflated by the profiler
+    # alike for every op), and the kernel launches the step makes.
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_cpu_time_total > 0]
+    host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    launch_calls = sum(e.count for e in host if e.key == "cudaLaunchKernel")
     row = {
         "phase": "profile",
+        "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
         "decode_rows": len(PROMPT_LENS),
         "steps": steps,
         "wall_ms_per_step": wall_ms,
@@ -530,6 +652,14 @@ def phase_profile(eng, steps: int = 16) -> dict:
             [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
             for e in top
         ],
+        "kernel_launches_per_step": launch_calls / steps,
+        "host_us_per_small_op": host_us_before,
+        "host_us_per_small_op_after_profiler": host_us_after,
+        "python_threads": threading.active_count(),
+        "top_host_ops_ms_per_step": [
+            [e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count / steps]
+            for e in host_top
+        ],
     }
     emit(row)
     return row
@@ -538,6 +668,11 @@ def phase_profile(eng, steps: int = 16) -> dict:
 KERNEL_META = {
     "paged_decode": {
         "source": "production_stack_tpu_torch/engine/ops/csrc/paged_decode.cu",
+        "replaces": "production_stack_tpu/engine/ops/pallas/paged_attention.py:167",
+    },
+    "paged_decode_int8": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/paged_decode_int8.cu",
+        # The quantized=True branch of the same function (:58-63, :121-128).
         "replaces": "production_stack_tpu/engine/ops/pallas/paged_attention.py:167",
     },
     "flash_prefill": {
@@ -553,14 +688,27 @@ def main() -> int:
         return 2
     dev = phase_device()
     main_rows = phase_kernels()
-    phase_reference()
-    engine = phase_engine()
-    phase_profile(engine["engine"])
+    phase_reference(int8=False)
+    phase_reference(int8=True)
+    dense = phase_engine("auto")
+    phase_profile(dense["engine"])
+    dense_launches = dense["launches"]
+    dense.pop("engine")  # free the dense engine before the int8 one boots
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8 = phase_engine("int8", dense=dense)
+    phase_profile(int8["engine"])
+    # Each kernel's launches come from the engine phase whose path runs
+    # it: the dense decode kernel's and flash prefill's from the dense
+    # phase, the int8 decode kernel's from the int8 phase.
+    launches = {"paged_decode": dense_launches["paged_decode"],
+                "paged_decode_int8": int8["launches"]["paged_decode_int8"],
+                "flash_prefill": dense_launches["flash_prefill"]}
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
             "name": name, "route": "cuda", **KERNEL_META[name],
-            "launches": engine["launches"][name],
+            "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -2,20 +2,24 @@
 
 Counterpart of ``production_stack_tpu/engine/core/engine.py``, slimmed to
 the main serving path: each ``step()`` runs one scheduler plan — a
-(possibly chunked) prefill of one sequence, or one single-token decode of
-every running sequence — synchronously, then samples on the host side of
-the one device read per step (the sampled ids).
+(possibly chunked) prefill of one sequence, one single-token decode of
+every running sequence, or a mixed step that does both in one forward —
+synchronously, then samples on the host side of the one device read per
+step (the sampled ids).
 
 Owns the params and the paged KV caches on one device, the block pool
-(hash-chained prefix cache, null block 0) and the scheduler.  Prefill runs
-the flash-prefill kernel and decode the paged-decode kernel whenever the
-tensors live on a CUDA device (``ops/attention.py``).
+(hash-chained prefix cache, null block 0) and the scheduler.  The caches
+are dense in the model dtype or, with ``cache.kv_cache_dtype="int8"``,
+int8 ``(data, scale)`` tuples (``kv/quant.py``).  Prefill runs the
+flash-prefill kernel and decode the paged-decode kernel for the cache
+type whenever the tensors live on a CUDA device (``ops/attention.py``).
 
-The engine serves exactly one configuration of the JAX package's engine
-(``SLICE_OVERRIDES``: no K-step windows, no mixed batches, no lookahead
-pipeline, recompute preemption, dense KV cache, no LoRA / speculation /
-guided decoding / offload / remote KV / parallelism / tracing) and raises
-``NotImplementedError`` at construction for any setting outside it.
+The engine serves the JAX package's engine at its K=1 path
+(``SLICE_OVERRIDES``: no K-step windows, no lookahead pipeline, recompute
+preemption, no LoRA / speculation / guided decoding / offload / remote
+KV / parallelism / tracing; mixed steps on by default, dense or int8 KV)
+and raises ``NotImplementedError`` at construction for any setting
+outside it.
 """
 
 from __future__ import annotations
@@ -49,10 +53,9 @@ from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 logger = logging.getLogger(__name__)
 
 # The configuration this engine serves, as ``config_from_preset``
-# overrides: the JAX engine's single-step reference path.
+# overrides: the JAX engine's K=1 path (mixed steps stay at their default).
 SLICE_OVERRIDES = {
     "scheduler.multi_step_window": False,
-    "scheduler.mixed_batch": False,
     "scheduler.pipeline_decode": False,
     "scheduler.encode_lane": False,
     "scheduler.preemption_mode": "recompute",
@@ -78,12 +81,11 @@ def _unsupported(config: EngineConfig) -> List[str]:
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
         (s.window_steps != 1, "scheduler.multi_step_window (K-step windows)"),
-        (s.mixed_enabled, "scheduler.mixed_batch (mixed prefill+decode steps)"),
+        (s.mixed_window_enabled, "scheduler.mixed_window (mixed K-step windows)"),
         (s.pipeline_enabled, "scheduler.pipeline_decode (lookahead pipeline)"),
         (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
         (s.preemption_mode != "recompute", "scheduler.preemption_mode != recompute"),
         (s.spec_drafter is not None, "speculative decoding"),
-        (c.kv_cache_dtype != "auto", "cache.kv_cache_dtype (int8 KV cache)"),
         (c.host_offload_gb > 0, "cache.host_offload_gb (KV offload)"),
         (c.remote_kv_url is not None or c.disagg_role is not None,
          "cache.remote_kv_url / disagg_role (remote KV)"),
@@ -97,6 +99,21 @@ def _unsupported(config: EngineConfig) -> List[str]:
     return [name for bad, name in checks if bad]
 
 
+def _check_chunk_buckets(config: EngineConfig) -> None:
+    """Mixed steps: every chunk bucket divides into whole blocks, so a
+    non-final chunk leaves the cached prefix block-aligned."""
+    if not config.scheduler.mixed_enabled:
+        return
+    bs = config.cache.block_size
+    for bucket in config.scheduler.prefill_chunk_buckets:
+        if bucket % bs:
+            raise ValueError(
+                f"prefill chunk bucket {bucket} not divisible by "
+                f"block_size={bs} (non-final chunks must leave the cached "
+                "prefix block-aligned)"
+            )
+
+
 class LLMEngine:
     def __init__(self, config: EngineConfig, device=None, params=None):
         """``device``: where the model runs (default CUDA; raises without
@@ -105,9 +122,10 @@ class LLMEngine:
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError(
-                "the PyTorch engine serves only the single-step path; "
+                "the PyTorch engine serves only the K=1 path; "
                 "unsupported settings: " + ", ".join(bad)
             )
+        _check_chunk_buckets(config)
         self.config = config
         self.device = resolve_device(device)
         cfg = config.model
@@ -148,6 +166,9 @@ class LLMEngine:
         self.total_prompt_tokens = 0
         self.total_generated_tokens = 0
         self.total_finished = 0
+        # Prompt tokens prefilled inside mixed steps (nonzero: prompts
+        # chunk alongside live decodes instead of stalling them).
+        self.prefill_chunk_tokens = 0
         self.admission_rejected = 0
         self.num_steps = 0
         self._step_time_accum = 0.0
@@ -156,9 +177,15 @@ class LLMEngine:
 
     def _kv_bytes(self, num_blocks: int) -> int:
         cfg = self.config.model
-        per_token = (
-            2 * cfg.num_kv_heads * cfg.head_dim * llama.param_dtype(cfg).itemsize
-        )
+        if self.config.cache.kv_cache_dtype == "int8":
+            # int8 data + one fp32 scale per (token, KV head): about half
+            # the bytes of bf16, so the pool holds about twice the tokens.
+            per_token = 2 * cfg.num_kv_heads * (cfg.head_dim + 4)
+        else:
+            per_token = (
+                2 * cfg.num_kv_heads * cfg.head_dim
+                * llama.param_dtype(cfg).itemsize
+            )
         return num_blocks * self.config.cache.block_size * per_token * cfg.num_layers
 
     def _decide_num_blocks(self) -> int:
@@ -177,12 +204,17 @@ class LLMEngine:
         cfg = self.config.model
         shape = (num_blocks, self.config.cache.block_size, cfg.num_kv_heads,
                  cfg.head_dim)
-        dtype = llama.param_dtype(cfg)
-        return [
-            (torch.zeros(shape, dtype=dtype, device=self.device),
-             torch.zeros(shape, dtype=dtype, device=self.device))
-            for _ in range(cfg.num_layers)
-        ]
+        if self.config.cache.kv_cache_dtype == "int8":
+            # (data int8, scale fp32 [N, bs, K]) per side — kv/quant.py.
+            def side():
+                return (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                        torch.zeros(shape[:3], dtype=torch.float32,
+                                    device=self.device))
+        else:
+            def side():
+                return torch.zeros(shape, dtype=llama.param_dtype(cfg),
+                                   device=self.device)
+        return [(side(), side()) for _ in range(cfg.num_layers)]
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the engine's device."""
@@ -247,6 +279,8 @@ class LLMEngine:
             return []
         if plan.decode is None:
             outputs = self._run_prefill(plan.prefill_chunk)
+        elif plan.prefill_chunk is not None:
+            outputs = self._run_mixed(plan)
         else:
             outputs = self._run_decode(plan.decode)
         self._step_counter += 1
@@ -362,6 +396,44 @@ class LLMEngine:
         return self._append_and_check(
             seqs, token_ids, first_token=False, logprob_info=logprob_info
         )
+
+    def _run_mixed(self, step_plan) -> List[StepOutput]:
+        """One fused step over the packed [decode bucket + chunk bucket]
+        token batch: every running sequence decodes as in _run_decode, and
+        the head waiting sequence's prefill chunk rides along.  Decode rows
+        are sampled first; only a final chunk samples its last valid row,
+        through _finalize_final_prefill, as _run_prefill does."""
+        plan = step_plan.prefill_chunk
+        seqs = step_plan.decode.seqs
+        S = self._decode_bucket(len(seqs))
+        (tokens, positions, block_tables, ctx_lens, slot_blocks,
+         slot_offsets) = self._decode_batch_arrays(seqs, S)
+        pf_tokens, pf_new_blocks, pf_prefix = self._prefill_plan_arrays(plan)
+        logits = llama.mixed_step(
+            self.params, self.config.model,
+            dec_tokens=self._put(tokens),
+            dec_positions=self._put(positions),
+            dec_block_tables=self._put(block_tables),
+            dec_ctx_lens=self._put(ctx_lens),
+            dec_slot_block_ids=self._put(slot_blocks),
+            dec_slot_offsets=self._put(slot_offsets),
+            pf_tokens=self._put(pf_tokens),
+            pf_cached_len=plan.cached_len,
+            pf_prefix_block_ids=self._put(pf_prefix),
+            pf_new_block_ids=self._put(pf_new_blocks),
+            pf_valid_len=plan.num_new_tokens,
+            kv_caches=self.kv_caches,
+        )
+        self.prefill_chunk_tokens += plan.num_new_tokens
+        token_ids, logprob_info = self._sample_batch(logits[: len(seqs)], seqs)
+        outputs = self._append_and_check(
+            seqs, token_ids, first_token=False, logprob_info=logprob_info
+        )
+        if plan.is_final:
+            # The last row is the chunk's last valid token: the request's
+            # first sampled token.
+            outputs.extend(self._finalize_final_prefill(plan.seq, logits[-1]))
+        return outputs
 
     # -- sampling ----------------------------------------------------------
 
@@ -593,6 +665,7 @@ class LLMEngine:
             "total_generated_tokens": self.total_generated_tokens,
             "total_finished": self.total_finished,
             "num_preemptions": self.scheduler.num_preemptions,
+            "prefill_chunk_tokens": self.prefill_chunk_tokens,
             "num_steps": self.num_steps,
             "step_seconds_total": self._step_time_accum,
             "admission_rejected_total": self.admission_rejected,

@@ -7,9 +7,10 @@ sliding window).  The parameter tree is the JAX package's: a dict with
 ``[in, out]`` weights, so the forward is ``x @ W`` and a tree moves between
 the packages without transposes (``weights.params_from_numpy``).
 
-Unlike the JAX package, ``prefill`` and ``decode`` update the KV caches
-**in place** and return only the logits; ``cached_len`` and ``valid_len``
-are host ints.
+Unlike the JAX package, ``prefill``, ``decode`` and ``mixed_step`` update
+the KV caches **in place** and return only the logits; ``cached_len`` and
+``valid_len`` are host ints.  A cache side is a dense tensor or an int8
+``(data, scale)`` tuple (``kv/quant.py``); the attention ops take both.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from production_stack_tpu_torch.engine.ops.layers import (
 )
 
 Params = Dict
-KVCaches = List[Tuple[torch.Tensor, torch.Tensor]]
+# Per layer (k side, v side); a side is a tensor or an int8 (data, scale).
+KVCaches = List[Tuple]
 
 # Optional fp32 copy of the lm_head weight ([h, V]); see _lm_head.
 LM_HEAD_FP32 = "lm_head_fp32"
@@ -191,7 +193,7 @@ def prefill(
     for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
         def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
             k_prefix, v_prefix = attn_ops.gather_prefix_kv(
-                k_cache, v_cache, prefix_block_ids
+                k_cache, v_cache, prefix_block_ids, dtype=k.dtype
             )
             out = attn_ops.prefill_attention(
                 q, k, v, k_prefix, v_prefix, cached_len, valid_len,
@@ -236,3 +238,71 @@ def decode(
         x = _layer(layer, x, cfg, cos, sin, attend)
     x = _norm(x, params["norm"], cfg)
     return _lm_head(params, cfg, x)
+
+
+def mixed_step(
+    params: Params,
+    cfg: ModelConfig,
+    dec_tokens: torch.Tensor,  # [S] int, one token per decoding sequence
+    dec_positions: torch.Tensor,  # [S] int (= ctx_len - 1)
+    dec_block_tables: torch.Tensor,  # [S, Bmax] int32
+    dec_ctx_lens: torch.Tensor,  # [S] int32 incl. the new token
+    dec_slot_block_ids: torch.Tensor,  # [S] int block receiving the token
+    dec_slot_offsets: torch.Tensor,  # [S] int offset within that block
+    pf_tokens: torch.Tensor,  # [T] int prefill chunk (padded to a bucket)
+    pf_cached_len: int,  # prefix tokens already cached
+    pf_prefix_block_ids: torch.Tensor,  # [P] int: the chunk's cached prefix
+    pf_new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
+    pf_valid_len: int,  # true number of chunk tokens
+    kv_caches: KVCaches,  # updated in place
+) -> torch.Tensor:
+    """Fused mixed step: S decoding sequences' next tokens and one
+    sequence's prefill chunk in one forward over the packed ``[S + T]``
+    token batch, so every projection and MLP product streams its weights
+    once for both.  Returns logits [S + 1, V] (fp32): rows 0..S-1 are the
+    decode batch, row S the chunk's last valid token (meaningful only on a
+    final chunk).
+
+    Within each layer, in the JAX package's order: the decode rows append
+    their KV and attend over their block tables (as :func:`decode`); the
+    chunk gathers its prefix and attends over prefix + chunk (as
+    :func:`prefill`); then the chunk's KV is written.  The two segments
+    touch disjoint KV slots.  The lm_head runs on S + 1 rows only."""
+    S = dec_tokens.shape[0]
+    T = pf_tokens.shape[0]
+    scale = cfg.head_dim**-0.5
+    positions = torch.cat([
+        dec_positions.long(),
+        pf_cached_len + torch.arange(T, device=pf_tokens.device),
+    ])
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+    x = _embed(params, cfg, torch.cat([dec_tokens.long(), pf_tokens.long()]))
+    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+            # Slices along dim 0 stay contiguous, as the kernels require.
+            attn_ops.append_decode_kv(
+                k_cache, v_cache, k[:S], v[:S],
+                dec_slot_block_ids, dec_slot_offsets,
+            )
+            out_dec = attn_ops.decode_attention(
+                q[:S], k_cache, v_cache, dec_block_tables, dec_ctx_lens,
+                scale=scale, sliding_window=cfg.sliding_window,
+            )
+            k_prefix, v_prefix = attn_ops.gather_prefix_kv(
+                k_cache, v_cache, pf_prefix_block_ids, dtype=k.dtype
+            )
+            out_pf = attn_ops.prefill_attention(
+                q[S:], k[S:], v[S:], k_prefix, v_prefix,
+                pf_cached_len, pf_valid_len,
+                scale=scale, sliding_window=cfg.sliding_window,
+            )
+            attn_ops.write_prefill_kv(
+                k_cache, v_cache, k[S:], v[S:], pf_new_block_ids
+            )
+            return torch.cat([out_dec, out_pf])
+
+        x = _layer(layer, x, cfg, cos, sin, attend)
+    x = _norm(x, params["norm"], cfg)
+    tail = x[S + max(pf_valid_len - 1, 0)]  # the chunk's last valid row
+    return _lm_head(params, cfg, torch.cat([x[:S], tail[None, :]]))

@@ -4,9 +4,11 @@ Counterpart of ``production_stack_tpu/engine/ops/attention.py``.
 
 KV cache layout per layer: ``[num_blocks, block_size, num_kv_heads,
 head_dim]``, block 0 the null block: padding writes land there and it is
-never read.  Unlike the JAX package, whose arrays are immutable and whose
-functions return new caches, the cache writers here update the cache
-tensors **in place** and return nothing.
+never read.  An int8 cache side is the tuple ``(int8 data [N, bs, K, D],
+fp32 scale [N, bs, K])`` (``kv/quant.py``): the writers quantize on write
+and ``gather_prefix_kv`` dequantizes.  Unlike the JAX package, whose
+arrays are immutable and whose functions return new caches, the cache
+writers here update the cache tensors **in place** and return nothing.
 
 ``decode_attention`` and ``prefill_attention`` dispatch on the device of
 their inputs, inside the kernel wrappers: a CUDA tensor runs the
@@ -21,13 +23,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.ops.kernels.flash_prefill import (
     flash_prefill_attention,
     flash_prefill_attention_plain as dense_prefill_attention,
 )
 from production_stack_tpu_torch.engine.ops.kernels.paged_attention import (
     paged_decode_attention as _paged_decode_kernel,
-    paged_decode_attention_plain as paged_decode_attention,
+    paged_decode_attention_int8_plain,
+    paged_decode_attention_plain,
 )
 
 __all__ = [
@@ -41,18 +45,28 @@ __all__ = [
 ]
 
 
+def paged_decode_attention(q, k_cache, v_cache, block_tables, ctx_lens, *,
+                           scale: float, sliding_window: Optional[int] = None):
+    """The gather decode path (the JAX package's name): the plain version
+    for the cache type, on any device."""
+    plain = (paged_decode_attention_int8_plain if kv_quant.is_quantized(k_cache)
+             else paged_decode_attention_plain)
+    return plain(q, k_cache, v_cache, block_tables, ctx_lens,
+                 scale=scale, sliding_window=sliding_window)
+
+
 def decode_attention(
     q: torch.Tensor,  # [S, H, D]
-    k_cache: torch.Tensor,  # [N, bs, K, D]
-    v_cache: torch.Tensor,
+    k_cache,  # [N, bs, K, D], or (int8 data, fp32 scale [N, bs, K])
+    v_cache,
     block_tables: torch.Tensor,  # [S, Bmax] int32
     ctx_lens: torch.Tensor,  # [S] int32
     *,
     scale: float,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Decode attention: paged-decode kernel for CUDA tensors, the gather
-    path for CPU tensors."""
+    """Decode attention: the paged-decode kernel for the cache type (dense
+    or int8) for CUDA tensors, the gather path for CPU tensors."""
     return _paged_decode_kernel(
         q, k_cache, v_cache, block_tables, ctx_lens,
         scale=scale, sliding_window=sliding_window,
@@ -81,49 +95,69 @@ def prefill_attention(
 
 
 def write_prefill_kv(
-    k_cache: torch.Tensor,  # [N, bs, K, D], updated in place
-    v_cache: torch.Tensor,
+    k_cache,  # [N, bs, K, D] or (data, scale), updated in place
+    v_cache,
     k_new: torch.Tensor,  # [T, K, D], T = num_new_blocks * bs
     v_new: torch.Tensor,
     new_block_ids: torch.Tensor,  # [T // bs] int; padding slots -> 0 (null)
 ) -> None:
-    """Scatter freshly computed prefill KV into the paged cache, in place.
+    """Scatter freshly computed prefill KV into the paged cache, in place
+    (int8 sides quantize per written vector).
 
     Padding slots all name block 0; which of those duplicate writes lands
     is unspecified and harmless, since block 0 is never read."""
-    _, bs, K, D = k_cache.shape
+    _, bs, K, D = kv_quant.cache_shape(k_cache)
     nb = new_block_ids.shape[0]
     idx = new_block_ids.long()
-    k_cache[idx] = k_new.reshape(nb, bs, K, D).to(k_cache.dtype)
-    v_cache[idx] = v_new.reshape(nb, bs, K, D).to(v_cache.dtype)
+    for side, new in ((k_cache, k_new), (v_cache, v_new)):
+        blocks = new.reshape(nb, bs, K, D)
+        if kv_quant.is_quantized(side):
+            data, scale = kv_quant.quantize_vectors(blocks)
+            side[0][idx] = data
+            side[1][idx] = scale
+        else:
+            side[idx] = blocks.to(side.dtype)
 
 
 def append_decode_kv(
-    k_cache: torch.Tensor,  # [N, bs, K, D], updated in place
-    v_cache: torch.Tensor,
+    k_cache,  # [N, bs, K, D] or (data, scale), updated in place
+    v_cache,
     k: torch.Tensor,  # [S, K, D] one token per sequence
     v: torch.Tensor,
     slot_block_ids: torch.Tensor,  # [S] int block holding this token (0 = null)
     slot_offsets: torch.Tensor,  # [S] int offset within the block
 ) -> None:
     """Scatter one new token's KV per sequence into the paged cache, in
-    place (padding rows write the null block)."""
+    place (padding rows write the null block; int8 sides quantize)."""
     blocks = slot_block_ids.long()
     offsets = slot_offsets.long()
-    k_cache[blocks, offsets] = k.to(k_cache.dtype)
-    v_cache[blocks, offsets] = v.to(v_cache.dtype)
+    for side, new in ((k_cache, k), (v_cache, v)):
+        if kv_quant.is_quantized(side):
+            data, scale = kv_quant.quantize_vectors(new)
+            side[0][blocks, offsets] = data
+            side[1][blocks, offsets] = scale
+        else:
+            side[blocks, offsets] = new.to(side.dtype)
 
 
 def gather_prefix_kv(
-    k_cache: torch.Tensor,  # [N, bs, K, D]
-    v_cache: torch.Tensor,
+    k_cache,  # [N, bs, K, D] or (data, scale)
+    v_cache,
     prefix_block_ids: torch.Tensor,  # [P] int
+    dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather a cached prefix as contiguous ``[P*bs, K, D]`` tensors."""
-    _, bs, K, D = k_cache.shape
+    """Gather a cached prefix as contiguous ``[P*bs, K, D]`` tensors.  Int8
+    sides dequantize here, to ``dtype`` (fp32 when None); dense sides come
+    back in the cache dtype and ignore ``dtype``, as in the JAX package."""
+    _, bs, K, D = kv_quant.cache_shape(k_cache)
     P = prefix_block_ids.shape[0]
     idx = prefix_block_ids.long()
-    return (
-        k_cache[idx].reshape(P * bs, K, D),
-        v_cache[idx].reshape(P * bs, K, D),
-    )
+
+    def gather(side):
+        if kv_quant.is_quantized(side):
+            out = kv_quant.dequantize(side[0][idx], side[1][idx], dtype=dtype)
+        else:
+            out = side[idx]
+        return out.reshape(P * bs, K, D)
+
+    return gather(k_cache), gather(v_cache)

@@ -2,10 +2,10 @@
 // 16-byte vector loads.
 //
 // Tensors arrive as raw pointers from the ctypes wrappers.  An element is
-// stored either as fp32 (`float`) or as bf16 (`unsigned short`, the raw
-// bits); every product and sum is taken in fp32.  Loads move 16 bytes per
-// thread (8 bf16 or 4 fp32 values), neighbouring threads on neighbouring
-// addresses.
+// stored as fp32 (`float`), as bf16 (`unsigned short`, the raw bits) or,
+// in an int8 KV cache, as `int8_t`; every product and sum is taken in
+// fp32.  Loads move 16 bytes per thread (4 fp32, 8 bf16 or 16 int8
+// values), neighbouring threads on neighbouring addresses.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,6 +52,24 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, bf16_raw) {
   f[5] = __uint_as_float(u.z & 0xffff0000u);
   f[6] = __uint_as_float(u.w << 16);
   f[7] = __uint_as_float(u.w & 0xffff0000u);
+}
+
+// Signed bytes to fp32, exactly, without the slow integer-to-float
+// conversion instruction: flipping the sign bit of each byte gives
+// u = b + 128 in [0, 255]; 0x4B000000 | u is the float 2^23 + u; less
+// 2^23 + 128 that is b.
+__device__ __forceinline__ void unpack_word_s8(unsigned w, float* f) {
+  w ^= 0x80808080u;
+  f[0] = __uint_as_float(0x4B000000u | (w & 0xffu)) - 8388736.f;
+  f[1] = __uint_as_float(0x4B000000u | ((w >> 8) & 0xffu)) - 8388736.f;
+  f[2] = __uint_as_float(0x4B000000u | ((w >> 16) & 0xffu)) - 8388736.f;
+  f[3] = __uint_as_float(0x4B000000u | (w >> 24)) - 8388736.f;
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
+  unpack_word_s8(u.x, f);
+  unpack_word_s8(u.y, f + 4);
+  unpack_word_s8(u.z, f + 8);
+  unpack_word_s8(u.w, f + 12);
 }
 
 template <typename T>

@@ -430,7 +430,7 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
     return app
 
 
-def main(argv=None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="PyTorch/CUDA serving engine (OpenAI API)"
     )
@@ -440,12 +440,42 @@ def main(argv=None) -> None:
         "--device", default="cuda",
         help="torch device the engine runs on (default cuda; cpu on purpose only)",
     )
-    args = parser.parse_args(argv)
+    parser.add_argument(
+        "--kv-cache-dtype",
+        default=None,
+        choices=["auto", "int8"],
+        help="KV cache precision (vLLM --kv-cache-dtype analogue): int8 "
+        "stores cached K/V as int8 with per-(token, head) scales — KV "
+        "bytes roughly halve, so the pool holds ~2x the tokens",
+    )
+    parser.add_argument(
+        "--no-mixed-batch",
+        action="store_true",
+        help="disable fused mixed prefill+decode steps (arriving prompts "
+        "then stall all decoders for a full prefill bucket per step — "
+        "the pre-mixed alternating scheduler)",
+    )
+    return parser
+
+
+def config_from_args(args):
+    """The engine config for parsed flags: the preset, the served slice
+    (``SLICE_OVERRIDES``), then the KV dtype and mixed-step flags."""
+    return config_from_preset(args.model, **{
+        **SLICE_OVERRIDES,
+        **({"scheduler.mixed_batch": False} if args.no_mixed_batch else {}),
+        **({"cache.kv_cache_dtype": args.kv_cache_dtype}
+           if args.kv_cache_dtype else {}),
+    })
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.INFO,
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s",
     )
-    config = config_from_preset(args.model, **SLICE_OVERRIDES)
+    config = config_from_args(args)
     engine = AsyncEngine(config, device=args.device)
     app = build_engine_app(engine, args.model)
     logger.info("Starting engine (%s) on port %d", args.model, args.port)

@@ -9,6 +9,7 @@ card machine as it is:
 import pytest
 import torch
 
+from production_stack_tpu_torch.engine.kv import quant as tquant
 from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 
@@ -52,6 +53,48 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, tol, window):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 8])
+def test_paged_decode_int8_kernel_matches_plain(cuda_device, dtype, tol, window, D, S):
+    """The int8 kernel against the int8 plain version on caches quantized
+    by the port's quantize_vectors; S = 8 includes ctx 0 (zeros) and
+    partial blocks, and the null block's scales are 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    H, K = (16, 4) if D == 256 else (32, 8)
+    bs, N = 16, 160
+    ctx_list = [300] if S == 1 else [0, 1, 16, 17, 100, 255, 256, 1000]
+    tables = torch.zeros((S, 64), dtype=torch.int32, device=cuda_device)
+    perm = torch.randperm(N - 1, generator=gen, device=cuda_device).to(torch.int32) + 1
+    used = 0
+    for s, c in enumerate(ctx_list):
+        nb = -(-c // bs)
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=cuda_device)
+    q = torch.randn((S, H, D), generator=gen, device=cuda_device).to(dtype)
+    k_side, v_side = (
+        tquant.quantize_vectors(torch.randn((N, bs, K, D), generator=gen,
+                                            device=cuda_device).to(dtype))
+        for _ in range(2)
+    )
+    for side in (k_side, v_side):  # the null block holds zero vectors
+        side[0][0] = 0
+        side[1][0] = 0
+    before = tpa.launches_int8, tpa.launches
+    got = tpa.paged_decode_attention(q, k_side, v_side, tables, ctx, scale=D**-0.5,
+                                     sliding_window=window)
+    assert (tpa.launches_int8, tpa.launches) == (before[0] + 1, before[1])
+    want = tpa.paged_decode_attention_int8_plain(q, k_side, v_side, tables, ctx,
+                                                 scale=D**-0.5, sliding_window=window)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if S == 8:
+        assert torch.all(got[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("C,cached,valid,window", [(0, 0, 190, None), (64, 48, 190, 64)])
 def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, tol, C, cached, valid, window):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
@@ -76,6 +119,22 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     t = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         tpa.paged_decode_attention(q, kc, kc, t, t[:, 0].contiguous(), scale=1.0)
+    q = torch.zeros((2, 8, 128), device=cuda_device)
+    t = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    data = torch.zeros((4, 16, 2, 128), dtype=torch.int8, device=cuda_device)
+    scale = torch.zeros((4, 16, 2), device=cuda_device)
+    with pytest.raises(TypeError, match="scale dtypes"):
+        tpa.paged_decode_attention(q, (data, scale.half()), (data, scale.half()),
+                                   t, t[:, 0].contiguous(), scale=1.0)
+    with pytest.raises(ValueError, match="scales"):
+        tpa.paged_decode_attention(q, (data, scale[:, :, :1]), (data, scale),
+                                   t, t[:, 0].contiguous(), scale=1.0)
+    with pytest.raises(TypeError, match="int8 cache data"):
+        tpa.paged_decode_attention(q, (data.float(), scale), (data.float(), scale),
+                                   t, t[:, 0].contiguous(), scale=1.0)
+    with pytest.raises(TypeError, match="both"):
+        tpa.paged_decode_attention(q, (data, scale), data.float(),
+                                   t, t[:, 0].contiguous(), scale=1.0)
     k = torch.zeros((8, 2, 128), device=cuda_device)
     with pytest.raises(TypeError, match="host int"):
         tfp.flash_prefill_attention(

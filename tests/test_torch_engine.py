@@ -2,14 +2,16 @@
 
 Both engines serve float32 tiny-llama with the same weights (the JAX
 engine's seeded init, carried over by ``weights.params_from_numpy``) at
-the JAX engine's single-step reference flags.  The workload has staggered
-arrivals, a prefix-cache hit, a prompt longer than the largest prefill
-bucket (chunked prefill) and both ``max_tokens`` and stop-token finishes;
-token streams and finish reasons must be identical.
+the JAX engine's K=1 flags: alternating prefill/decode steps, and mixed
+prefill+decode steps on a dense and on an int8 KV cache.  The workload
+has staggered arrivals, a prefix-cache hit, a prompt longer than the
+largest prefill bucket (chunked prefill) and both ``max_tokens`` and
+stop-token finishes; token streams and finish reasons must be identical.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from production_stack_tpu.engine import config as jcfg
 from production_stack_tpu.engine.core.engine import LLMEngine as JaxEngine
@@ -28,39 +30,50 @@ SCHED = dict(
     max_model_len=160,
 )
 JAX_FLAGS = dict(
-    multi_step_window=False, mixed_batch=False, pipeline_decode=False,
-    preemption_mode="recompute",
+    multi_step_window=False, pipeline_decode=False, preemption_mode="recompute",
 )
 
 
-def jax_engine():
+def jax_engine(mixed_batch=False, kv_cache_dtype="auto"):
     return JaxEngine(jcfg.EngineConfig(
         model=jcfg.ModelConfig(dtype="float32"),
-        cache=jcfg.CacheConfig(block_size=4, num_blocks=128),
-        scheduler=jcfg.SchedulerConfig(**SCHED, **JAX_FLAGS),
+        cache=jcfg.CacheConfig(block_size=4, num_blocks=128,
+                               kv_cache_dtype=kv_cache_dtype),
+        scheduler=jcfg.SchedulerConfig(**SCHED, **JAX_FLAGS,
+                                       mixed_batch=mixed_batch),
     ))
 
 
-def torch_config():
+def torch_config(mixed_batch=None, kv_cache_dtype="auto"):
+    """The port's config: ``SLICE_OVERRIDES``, with mixed steps at their
+    default (on) unless ``mixed_batch`` is given."""
     cfg = tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32"),
-        cache=tcfg.CacheConfig(block_size=4, num_blocks=128),
+        cache=tcfg.CacheConfig(block_size=4, num_blocks=128,
+                               kv_cache_dtype=kv_cache_dtype),
         scheduler=tcfg.SchedulerConfig(**SCHED),
     )
     for key, value in SLICE_OVERRIDES.items():
         part, name = key.split(".")
         setattr(getattr(cfg, part), name, value)
+    if mixed_batch is not None:
+        cfg.scheduler.mixed_batch = mixed_batch
     return cfg
+
+
+def engine_pair(mixed_batch, kv_cache_dtype="auto"):
+    ref = jax_engine(mixed_batch, kv_cache_dtype)
+    tree = jax_tree_to_numpy(ref.params)
+    cfg = torch_config(mixed_batch, kv_cache_dtype)
+    port = LLMEngine(cfg, device="cpu",
+                     params=params_from_numpy(cfg.model, tree, "cpu"))
+    return ref, port
 
 
 @pytest.fixture(scope="module")
 def engines():
-    ref = jax_engine()
-    tree = jax_tree_to_numpy(ref.params)
-    cfg = torch_config()
-    port = LLMEngine(cfg, device="cpu",
-                     params=params_from_numpy(cfg.model, tree, "cpu"))
-    return ref, port
+    """Alternating prefill/decode steps (``--no-mixed-batch``) on both."""
+    return engine_pair(mixed_batch=False)
 
 
 def jax_tree_to_numpy(tree):
@@ -108,9 +121,11 @@ def drive(engine, reqs):
     return outs, finish
 
 
-def test_torch_engine_greedy_streams_match_jax(engines):
-    ref, port = engines
-    first, _ = drive(ref, workload(JaxSP))
+def check_streams_match(ref, port):
+    """Two rounds of the workload on each engine (the second adds a stop
+    token; its prompts hit what the first cached): equal streams."""
+    first, first_fin = drive(ref, workload(JaxSP))
+    assert drive(port, workload(SamplingParams)) == (first, first_fin)
     stop_id = first["b"][3]  # a token "b" is known to emit
     want, want_fin = drive(ref, workload(JaxSP, stop_id))
     hits_before = port.block_pool.hit_tokens
@@ -123,12 +138,42 @@ def test_torch_engine_greedy_streams_match_jax(engines):
     assert port.scheduler.num_running == 0 and not port.has_unfinished()
 
 
+def test_torch_engine_greedy_streams_match_jax(engines):
+    ref, port = engines
+    check_streams_match(ref, port)
+    assert port.stats()["prefill_chunk_tokens"] == 0
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_torch_engine_mixed_streams_match_jax(kv_cache_dtype):
+    """Mixed steps (the port's default) on a dense and an int8 cache."""
+    ref, port = engine_pair(mixed_batch=True, kv_cache_dtype=kv_cache_dtype)
+    assert port.config.scheduler.mixed_enabled
+    assert isinstance(port.kv_caches[0][0], tuple) == (kv_cache_dtype == "int8")
+    check_streams_match(ref, port)
+    # Chunks really rode mixed steps, as many tokens as in the JAX engine.
+    assert port.stats()["prefill_chunk_tokens"] > 0
+    assert port.stats()["prefill_chunk_tokens"] == ref.stats()["prefill_chunk_tokens"]
+
+
+def test_torch_engine_int8_pool_holds_about_twice_the_tokens():
+    """``_kv_bytes`` per token: 2*K*(D+4) for int8, 2*K*D*itemsize dense."""
+    dense = LLMEngine(torch_config(), device="cpu")
+    int8 = LLMEngine(torch_config(kv_cache_dtype="int8"), device="cpu")
+    K, D, L = 2, 16, 2  # tiny-llama: kv heads, head_dim, layers
+    assert int8._kv_bytes(1) == 4 * 2 * K * (D + 4) * L
+    assert dense._kv_bytes(1) == 4 * 2 * K * D * 4 * L
+    k_data, k_scale = int8.kv_caches[0][0]
+    assert k_data.dtype == torch.int8 and tuple(k_data.shape) == (128, 4, K, D)
+    assert k_scale.dtype == torch.float32 and tuple(k_scale.shape) == (128, 4, K)
+
+
 def test_torch_engine_raises_outside_the_slice():
     cfg = torch_config()
-    cfg.scheduler.multi_step_window = None  # auto: K-step windows on
-    with pytest.raises(NotImplementedError, match="multi_step_window"):
+    cfg.scheduler.multi_step_window = None  # auto: K-step windows, mixed ones too
+    with pytest.raises(NotImplementedError, match="mixed_window"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
-    cfg.cache.kv_cache_dtype = "int8"
-    with pytest.raises(NotImplementedError, match="kv_cache_dtype"):
+    cfg.cache.host_offload_gb = 1.0
+    with pytest.raises(NotImplementedError, match="host_offload_gb"):
         LLMEngine(cfg, device="cpu")

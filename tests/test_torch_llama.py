@@ -131,3 +131,100 @@ def test_init_params_seeded_tree():
     assert set(a["layers"][0]) == set(jtree["layers"][0])
     for name, w in a["layers"][0].items():
         assert tuple(w.shape) == tuple(jtree["layers"][0][name].shape), name
+
+
+def _caches(jc, N, bs, int8):
+    """Zeroed per-layer caches for both packages: dense fp32, or int8
+    (data, scale) sides."""
+    shape = (N, bs, jc.num_kv_heads, jc.head_dim)
+    if int8:
+        def jside():
+            return (jnp.zeros(shape, jnp.int8), jnp.zeros(shape[:3], jnp.float32))
+
+        def tside():
+            return (torch.zeros(shape, dtype=torch.int8), torch.zeros(shape[:3]))
+    else:
+        def jside():
+            return jnp.zeros(shape)
+
+        def tside():
+            return torch.zeros(shape)
+    return ([(jside(), jside()) for _ in range(jc.num_layers)],
+            [(tside(), tside()) for _ in range(jc.num_layers)])
+
+
+def _sides(cache_side):
+    return cache_side if isinstance(cache_side, tuple) else (cache_side,)
+
+
+@pytest.mark.parametrize("kv", ["dense", "int8"])
+def test_mixed_step_matches_jax(kv):
+    """Two decode rows (plus a padding row) and a prefill chunk over a
+    cached prefix in one fused step: the live logits rows within 1e-4 and
+    the caches equal afterwards, on dense and int8 caches."""
+    jc = dataclasses.replace(jcfg.PRESETS["tiny-llama"], dtype="float32")
+    tc = dataclasses.replace(tcfg.PRESETS["tiny-llama"], dtype="float32")
+    tree = to_numpy(jllama.init_params(jc, jax.random.PRNGKey(0)))
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tparams = params_from_numpy(tc, tree, "cpu")
+    N, bs = 32, 4
+    jcaches, tcaches = _caches(jc, N, bs, kv == "int8")
+    rng = np.random.default_rng(2)
+
+    def i32(x):
+        return np.asarray(x, np.int32)
+
+    # Set-up prefills: row A (10 tokens, blocks 1-3), row B (7 tokens,
+    # blocks 4-5) and the first 8-token chunk of prompt C (blocks 6-7).
+    jprefill = jax.jit(functools.partial(jllama.prefill, cfg=jc))
+    prompts = {n: rng.integers(4, jc.vocab_size, L).astype(np.int32)
+               for n, L in (("a", 10), ("b", 7), ("c", 20))}
+    setups = [
+        (np.concatenate([prompts["a"], i32([0, 0])]), i32([1, 2, 3]), 10),
+        (np.concatenate([prompts["b"], i32([0])]), i32([4, 5]), 7),
+        (prompts["c"][:8], i32([6, 7]), 8),
+    ]
+    for tokens, new, valid in setups:
+        _, jcaches = jprefill(
+            jparams, tokens=jnp.asarray(tokens), cached_len=jnp.int32(0),
+            prefix_block_ids=jnp.asarray(i32([])), new_block_ids=jnp.asarray(new),
+            valid_len=jnp.int32(valid), kv_caches=jcaches,
+        )
+        tllama.prefill(tparams, tc, torch.tensor(tokens), 0, torch.tensor(i32([])),
+                       torch.tensor(new), valid, tcaches)
+
+    # The mixed step: rows A (pos 10) and B (pos 7), a padding row, and
+    # prompt C's final chunk (12 valid of a 16-token bucket) over its
+    # 8 cached tokens.
+    tables = np.zeros((3, 8), np.int32)
+    tables[0, :3] = [1, 2, 3]
+    tables[1, :2] = [4, 5]
+    args = dict(
+        dec_tokens=i32([5, 9, 0]), dec_positions=i32([10, 7, 0]),
+        dec_block_tables=tables, dec_ctx_lens=i32([11, 8, 0]),
+        dec_slot_block_ids=i32([3, 5, 0]), dec_slot_offsets=i32([2, 3, 0]),
+        pf_tokens=np.concatenate([prompts["c"][8:], i32([0] * 4)]),
+        pf_prefix_block_ids=i32([6, 7]), pf_new_block_ids=i32([8, 9, 10, 0]),
+    )
+    jmixed = jax.jit(functools.partial(jllama.mixed_step, cfg=jc))
+    jl, jcaches = jmixed(
+        jparams, **{k: jnp.asarray(a) for k, a in args.items()},
+        pf_cached_len=jnp.int32(8), pf_valid_len=jnp.int32(12), kv_caches=jcaches,
+    )
+    tl = tllama.mixed_step(
+        tparams, tc, **{k: torch.tensor(a) for k, a in args.items()},
+        pf_cached_len=8, pf_valid_len=12, kv_caches=tcaches,
+    )
+    assert tuple(tl.shape) == (4, jc.vocab_size)
+    live = [0, 1, 3]  # row 2 pads (ctx 0): the JAX gather path leaves garbage
+    np.testing.assert_allclose(tl.numpy()[live], np.asarray(jl)[live], rtol=0, atol=1e-4)
+
+    for jlayer, tlayer in zip(jcaches, tcaches):
+        for jside, tside in zip(jlayer, tlayer):
+            for j, t in zip(_sides(jside), _sides(tside)):
+                # Block 0 is the null block (padding writes); compare the rest.
+                if t.dtype == torch.int8:
+                    np.testing.assert_array_equal(t.numpy()[1:], np.asarray(j)[1:])
+                else:
+                    np.testing.assert_allclose(t.numpy()[1:], np.asarray(j)[1:],
+                                               rtol=0, atol=1e-4)

@@ -13,7 +13,11 @@ from production_stack_tpu.engine.server.async_engine import AsyncEngine as JaxAs
 from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
-from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+from production_stack_tpu_torch.engine.server.api_server import (
+    build_engine_app,
+    build_parser,
+    config_from_args,
+)
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64), max_model_len=128)
@@ -32,7 +36,7 @@ def configs():
         model=jcfg.ModelConfig(dtype="float32"),
         cache=jcfg.CacheConfig(block_size=4, num_blocks=128),
         scheduler=jcfg.SchedulerConfig(
-            **SCHED, multi_step_window=False, mixed_batch=False,
+            **SCHED, multi_step_window=False, mixed_batch=True,
             pipeline_decode=False, preemption_mode="recompute",
         ),
     )
@@ -126,3 +130,17 @@ async def test_port_app_matches_jax_app():
     finally:
         await jclient.close()
         await tclient.close()
+
+
+def test_port_server_flags_match_jax_server():
+    """--kv-cache-dtype and --no-mixed-batch: the JAX server's names,
+    choices and meanings, on top of the served slice."""
+    cfg = config_from_args(build_parser().parse_args(["--model", "tiny-llama"]))
+    assert cfg.cache.kv_cache_dtype == "auto" and cfg.scheduler.mixed_enabled
+    assert cfg.scheduler.window_steps == 1 and not cfg.scheduler.pipeline_enabled
+    cfg = config_from_args(build_parser().parse_args(
+        ["--kv-cache-dtype", "int8", "--no-mixed-batch"]))
+    assert cfg.cache.kv_cache_dtype == "int8" and not cfg.scheduler.mixed_enabled
+    parser = build_parser()
+    action = {a.dest: a for a in parser._actions}["kv_cache_dtype"]
+    assert list(action.choices) == ["auto", "int8"]
