@@ -9,16 +9,24 @@ non-zero (no phase is caught and passed over):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the hand-written CUDA kernels built from ``csrc/`` with their build
-   seconds and ptxas register/shared-memory reports.
+   seconds, ptxas register/shared-memory reports and, per kernel
+   function, the count of tensor-core (HMMA) instructions in its SASS.
 2. Each kernel against its plain PyTorch version at the main path's shapes
-   (llama-3.1-8b attention: bf16, H=32, K=8, D=128, block size 16), plus
-   edge cases (ctx 0/1/16/17, sliding window, D=64 and D=256, a prefix
-   with cached_len < C, valid_len < T, fp32); the int8 paged-decode kernel
-   on caches quantized by the port's ``quantize_vectors``.  Each case
-   reports its max abs error against the stated tolerance and the
-   kernel's, the plain version's and F.scaled_dot_product_attention's
-   times (the last one a yardstick only; the port never calls it) beside
-   the card's bound.
+   (llama-3.1-8b attention: bf16, H=32, K=8, D=128, block size 16; flash
+   prefill both as a 2048-token prompt and as a mixed step's 512-token
+   chunk over a 2560-token prefix), plus edge cases (ctx 0/1/16/17, short
+   rows that take one context split each, one 32000-token row,
+   sliding windows across split boundaries, D=64 and D=256, G=1, ragged
+   T, a prefix with cached_len < C, valid_len < T, fp32); the int8
+   paged-decode kernel on caches quantized by the port's
+   ``quantize_vectors``.  Each case reports its max abs error against the
+   stated tolerance and the kernel's, the plain version's and
+   F.scaled_dot_product_attention's times (the last one a yardstick only;
+   the port never calls it) beside the card's bound.  The kernel and the
+   library call are timed as CUDA-graph replays of back-to-back calls
+   (device time, not the host's launch time); the plain version, which
+   reads a device value on the host, with CUDA events around eager
+   calls.
 3. The model path on the card against the CPU (plain attention) on a
    small input, once on dense and once on int8 KV caches: 2 layers at
    llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
@@ -87,6 +95,7 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``iters`` launches (CUDA events)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -95,6 +104,32 @@ def cuda_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters: int = 20, reps: int = 3) -> float:
+    """Mean device time of one ``fn()``: ``iters`` calls captured in one
+    CUDA graph (after two eager warm-up calls, which also make any buffer
+    a wrapper keeps), replayed ``reps`` times between CUDA events.  The
+    host's launch time, which exceeds a short kernel's, drops out."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
 
 
 def host_us_per_op(n: int = 2000) -> float:
@@ -119,6 +154,32 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # -- phase 1 ---------------------------------------------------------------
 
 
+def sass_hmma_counts(build_dir: str) -> dict:
+    """Tensor-core (HMMA) instructions in each kernel function's SASS, by
+    ``cuobjdump -sass`` on the built libraries."""
+    import os
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib in sorted(os.listdir(build_dir)):
+        if not (lib.startswith("lib") and lib.endswith(".so")):
+            continue
+        sass = subprocess.run([tool, "-sass", os.path.join(build_dir, lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        func = None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                func = m.group(1)
+                counts[func] = 0
+            elif func and "HMMA" in ln:
+                counts[func] += 1
+    return counts
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -135,6 +196,7 @@ def phase_device() -> dict:
     }
     dev = {
         "phase": "device",
+        "tensor_core_instructions": sass_hmma_counts(info["dir"]),
         "nvidia_smi": smi,
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -204,7 +266,7 @@ def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
               + 4 * sum(-(-c // bs) for c in ctx_lens) + 4 * S)
     flops = 4.0 * sum(live) * H * D
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
-    row["kernel_ms"] = cuda_time_ms(lambda: pa.paged_decode_attention(
+    row["kernel_ms"] = graph_time_ms(lambda: pa.paged_decode_attention(
         q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=50)
     row["plain_ms"] = cuda_time_ms(lambda: plain(
         q, kc, vc, tables, ctx, scale=scale, sliding_window=window), iters=5)
@@ -227,7 +289,7 @@ def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
         mask &= pos[None, :] > ctx[:, None].long() - 1 - window
     mask = mask[:, None, None, :]
     qd = q[:, :, None, :]
-    row["library_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+    row["library_ms"] = graph_time_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, scale=scale), iters=20)
     return row
 
@@ -264,7 +326,7 @@ def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
         vis += min(n, window) if window else n
     flops = 4.0 * vis * H * D
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
-    row["kernel_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention(
+    row["kernel_ms"] = graph_time_ms(lambda: fp.flash_prefill_attention(
         *args, scale=scale, sliding_window=window), iters=10)
     row["plain_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention_plain(
         *args, scale=scale, sliding_window=window), iters=3)
@@ -285,7 +347,7 @@ def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
             mask &= kpos[None, :] > qpos[:, None] - window
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qd, keys, vals, attn_mask=mask, scale=scale)
-    row["library_ms"] = cuda_time_ms(lib, iters=10)
+    row["library_ms"] = graph_time_ms(lib, iters=10)
     return row
 
 
@@ -304,6 +366,13 @@ def phase_kernels() -> dict:
             check_paged_decode(gen, "S8_D64", 8, H, K, 64, edge),
             check_paged_decode(gen, "S8_D256", 8, 16, 4, 256, edge),
             check_paged_decode(gen, "S8_fp32", 8, H, K, D, edge, dtype=torch.float32),
+            # The split-KV edges: one long row takes the most splits; rows
+            # of <= 40 tokens leave most splits empty; a window of 700
+            # crosses the 48-token split boundaries of two long rows.
+            check_paged_decode(gen, "S1_long", 1, H, K, D, [32000]),
+            check_paged_decode(gen, "S8_short", 8, H, K, D, [40, 17, 33, 1, 16, 39, 25, 8]),
+            check_paged_decode(gen, "S2_window_split", 2, H, K, D, [5000, 3000],
+                               window=700),
         ],
         "paged_decode_int8": [
             check_paged_decode(gen, "S1", 1, H, K, D, [3001], int8=True),
@@ -325,13 +394,19 @@ def phase_kernels() -> dict:
             check_flash_prefill(gen, "T200_D256", 200, 16, 4, 256, 64, 48, 190),
             check_flash_prefill(gen, "T256_fp32", 256, H, K, D, 128, 100, 200,
                                 dtype=torch.float32),
+            # A mixed step's chunk: 512 new tokens over a 2560-token prefix.
+            check_flash_prefill(gen, "T512_chunk", 512, H, K, D, 2560, 2560, 512),
+            check_flash_prefill(gen, "T1000_ragged", 1000, H, K, D, 0, 0, 1000),
+            check_flash_prefill(gen, "T512_G1", 512, K, K, D, 256, 256, 512),
         ],
     }
     emit({"phase": "kernels", **cases})
-    # The main path's shapes: 8 decode rows; a 2048-token prompt chunk.
+    # The main path's shapes: 8 decode rows; a 2048-token prompt, and a
+    # 512-token chunk over its prefix (most prefill launches of a run).
+    chunk = next(r for r in cases["flash_prefill"] if r["case"] == "T512_chunk")
     return {"paged_decode": cases["paged_decode"][1],
             "paged_decode_int8": cases["paged_decode_int8"][1],
-            "flash_prefill": cases["flash_prefill"][1]}
+            "flash_prefill": dict(cases["flash_prefill"][1], also=[chunk])}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -713,6 +788,12 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+        if "also" in row:  # the same kernel at the main path's other shapes
+            kernels[-1]["also"] = [
+                {k: r[k] for k in ("case", "max_abs_err", "kernel_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}
+                for r in row["also"]
+            ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

@@ -92,3 +92,30 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 // Element type codes shared with the Python wrappers.
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+// log2(e): scores are kept in the log2 domain so the softmax uses exp2f.
+constexpr float kLog2e = 1.4426950408889634f;
+
+// -- Asynchronous copies (cp.async, sm_80+) ---------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 bytes from global to shared memory without passing through
+// registers; with !valid nothing is read and the 16 bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}

@@ -6,45 +6,115 @@
 // tokens of the paged cache [N, bs, K, D], blocks taken from
 // block_tables[s], query head h reading KV head h / G, with an optional
 // sliding window (keep pos > ctx - 1 - window).  Rows with ctx == 0 give
-// zeros.  Scores, the running max and sum and the accumulator are fp32;
-// the output is written in q's type.
+// exact zeros.  Scores, the running max and sum and the accumulator are
+// fp32; the output is written in q's type.
 //
 // What bounds it on an H100: bytes.  Each row must read every live KV
 // block once (2 * ctx * K * D elements); the arithmetic is ~2 * G
 // operations per byte, far under the ~295 the card needs to be bound by
-// its tensor cores.
+// its tensor cores, so the products stay on the CUDA cores.
 //
-// What the design does about it:
-//  * One thread block per (row, KV head) serves all G query heads of that
-//    KV head, so each KV block is read from device memory once per KV
-//    head, not once per query head.
-//  * The loop runs over the row's live tokens only, ceil(ctx / tile)
-//    tiles, looking blocks up in block_tables as it goes; the table's
-//    padded width (Bmax, 2048 at max_model_len 32768) is never walked.
-//  * K and V move as 16-byte vectors, neighbouring threads on neighbouring
-//    addresses, into shared memory tiles of ~16 KB each.  Rows are padded
-//    by 16 bytes so that the per-token dot products (one thread per
-//    token) read shared memory without bank conflicts.
-//  * Simple first: one tile in flight at a time and no split over the
-//    context.  At S = 8 rows and K = 8 KV heads the grid is 64 blocks,
-//    under half of the card's 132 SMs; split-KV with a second reduction
-//    pass is later work.
+// What the design does about it (split-KV):
+//  * Grid (row, KV head, split).  Each block serves all G query heads of
+//    its KV head, so each KV block is read once per KV head.  The grid's
+//    n_split comes from the host (`split_count` in
+//    kernels/paged_attention.py: enough blocks for ~8 per SM, at most 64)
+//    and the launch never waits on a device value.  Each row then sizes
+//    its own splits on the device from ctx: n_row = ceil((ctx - lo) /
+//    split_tokens) splits, at most n_split, so a short row takes one
+//    block and a 32000-token row all of them; its live range [lo, ctx) is
+//    cut into n_row chunks of ceil((ctx - lo) / n_row) tokens, rounded up
+//    to whole warp tiles.  Blocks past n_row leave at once.  On one H100
+//    (700 W) split_tokens = 128 was as fast as or faster than 64, 256 and
+//    512 at 8 rows of up to 4000 tokens, one of 3001 and one of 32000.
+//  * Inside a block each of the 4 warps owns its own tiles of TT tokens
+//    (~2 KB of K and 2 KB of V; TT = 8 at D = 128 bf16) and its own
+//    online-softmax state: tiles w, w + 4, ... of the split.  A warp
+//    loads its tiles by cp.async into its own 2-stage ring, the next tile
+//    in flight while the current one is scored, and synchronises only
+//    itself (__syncwarp); the block's barriers come once, at the end,
+//    where the 4 warps' (max, sum, accumulator) merge in shared memory.
+//  * Reduce: the last split of a (row, KV head) to finish merges the
+//    splits.  Each split writes its fp32 partial (m, l, acc[G * D]) to
+//    scratch from the wrapper, then bumps a per-(row, KV head) counter;
+//    the block that takes the counter to n_row merges all partials by
+//    log-sum-exp and sets the counter back to 0 for the next call (the
+//    wrapper keeps the zeroed counters across calls).  This rather than a
+//    second kernel: a decode step launches this kernel once per layer, and
+//    a reduce kernel would add as many launches again, each costing host
+//    time on a step that is partly host-bound.  A row with n_row == 1
+//    writes its output directly.
+//  * Scores are kept in log2 units (q is pre-scaled by scale * log2(e)),
+//    so the softmax uses exp2f.  A split or warp that saw no token carries
+//    m = -inf and l = 0 and weighs 0 in the merge.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxG = 8;  // query heads per KV head
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxG = 8;    // query heads per KV head
+constexpr int kStages = 2;  // tiles in each warp's ring
+constexpr int kMaxSplit = 64;  // splits per (row, KV head); MAX_SPLIT in the wrapper
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T, int D>
 struct DecodeShape {
-  static constexpr int V = Vec<T>::N;
-  // Tokens per tile: ~16 KB of K (and of V) per tile, at most 128 tokens.
-  static constexpr int TT_RAW = 16384 / (D * static_cast<int>(sizeof(T)));
-  static constexpr int TT = TT_RAW < 128 ? TT_RAW : 128;
-  static constexpr int ROW = D + V;  // padded row, in elements
-  static constexpr int ACC = (kMaxG * D + kThreads - 1) / kThreads;
+  static constexpr int ESZ = sizeof(T);
+  // Tokens per warp tile: ~2 KB of K (and of V) per tile.
+  static constexpr int TT = 2048 / (D * ESZ) < 16 ? 2048 / (D * ESZ) : 16;
+  static constexpr int PARTS = 32 / TT;        // lanes per token in the score pass
+  static constexpr int PER_PART = D / PARTS;   // elements of a row per lane
+  // q is stored [G][PARTS][QP]: padding each part by 16 bytes puts the
+  // parts' reads of one instruction in different bank groups.
+  static constexpr int QP = PER_PART + 4;
+  static constexpr int V = Vec<T>::N;          // elements per 16-byte chunk
+  static constexpr int CH = D / V;             // 16-byte chunks per row
+  static constexpr int ROW = D + V;            // row padded by 16 bytes
+  static constexpr int VC = D / 32;            // output columns per lane
+  static constexpr int TILE = TT * ROW;        // elements of one K (or V) tile
+  static constexpr int LOADS = TT * CH / 32;   // 16-byte copies per lane per side
+  static constexpr size_t STAGING = sizeof(T) * kWarps * kStages * 2 * TILE;
+  // The warps' merge, then the last split's ([MAX_SPLIT][kMaxG] weights
+  // and sums, kMaxG inverses), reuse the tiles' shared memory.
+  static constexpr size_t MERGE_WARPS = sizeof(float) * kWarps * kMaxG * (D + 2);
+  static constexpr size_t MERGE_SPLITS = sizeof(float) * (2 * kMaxSplit + 1) * kMaxG;
+  static constexpr size_t MERGE = MERGE_WARPS > MERGE_SPLITS ? MERGE_WARPS : MERGE_SPLITS;
+  static constexpr size_t SMEM_TILES = STAGING > MERGE ? STAGING : MERGE;
 };
+
+// N consecutive elements (N * sizeof(T) in {4, 8, 16, 32} bytes, aligned
+// to that size) as floats.
+template <typename T, int N>
+__device__ __forceinline__ void load_cols(const T* p, float* f) {
+  constexpr int W = N * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
+  unsigned w[W];
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -54,140 +124,266 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D]
                     const int* __restrict__ block_tables,  // [S, bmax]
                     const int* __restrict__ ctx_lens,      // [S]
                     T* __restrict__ out,                   // [S, H, D]
-                    int H, int K, int G, int bs, int bmax, float scale,
-                    int window) {
+                    float* __restrict__ part_ml,   // [S, K, n_split, G, 2]
+                    float* __restrict__ part_acc,  // [S, K, n_split, G, D]
+                    int* __restrict__ counters,    // [S * K], 0 between calls
+                    int H, int K, int G, int bs, int bmax, int n_split,
+                    int split_tokens, float scale_log2, int window) {
   using Sh = DecodeShape<T, D>;
-  constexpr int V = Sh::V;
   constexpr int TT = Sh::TT;
   constexpr int ROW = Sh::ROW;
-  constexpr int NV = D / V;  // vectors per row
+  constexpr int VC = Sh::VC;
 
-  __shared__ __align__(16) T sK[TT * ROW];
-  __shared__ __align__(16) T sV[TT * ROW];
-  __shared__ __align__(16) float sQ[kMaxG * D];
-  __shared__ float sS[kMaxG * TT];
-  __shared__ float sM[kMaxG], sL[kMaxG], sAlpha[kMaxG];
+  __shared__ __align__(16) float sQ[kMaxG * Sh::PARTS * Sh::QP];  // q * scale * log2(e)
+  __shared__ __align__(16) unsigned char sTiles[Sh::SMEM_TILES];
+  __shared__ int sLast;
 
-  const int s = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int s = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ctx = ctx_lens[s];
   const int* table = block_tables + static_cast<size_t>(s) * bmax;
 
+  // This row's splits, and this split's tokens [beg, end) of the live
+  // range [lo, ctx).
+  const int lo = window >= 0 ? max(0, ctx - window) : 0;
+  const int n_row = min(n_split, max(1, (ctx - lo + split_tokens - 1) / split_tokens));
+  if (split >= n_row) return;
+  int chunk = (ctx - lo + n_row - 1) / n_row;
+  chunk = (chunk + TT - 1) / TT * TT;
+  const int beg = min(ctx, lo + split * chunk);
+  const int end = min(ctx, beg + chunk);
+  const int ntile = (end - beg + TT - 1) / TT;
+  const int nmine = ntile > warp ? (ntile - warp - 1) / kWarps + 1 : 0;
+
+  T* ring = reinterpret_cast<T*>(sTiles) + warp * kStages * 2 * Sh::TILE;
+  auto load = [&](int i, int stage) {  // this warp's i-th tile
+    const int p0 = beg + (warp + i * kWarps) * TT;
+    long long base = 0;  // element offset of token p0 + lane's K/V row
+    int ok = 0;
+    if (lane < TT && p0 + lane < end) {
+      const int p = p0 + lane;
+      ok = 1;
+      base = ((static_cast<long long>(table[p / bs]) * bs + p % bs) * K + kh) * D;
+    }
+    T* dk = ring + stage * 2 * Sh::TILE;
+    T* dv = dk + Sh::TILE;
+#pragma unroll
+    for (int c = 0; c < Sh::LOADS; ++c) {
+      const int chunk_id = lane + 32 * c;
+      const int t = chunk_id / Sh::CH, ch = chunk_id % Sh::CH;
+      const long long b = __shfl_sync(kFull, base, t);
+      const bool v = __shfl_sync(kFull, ok, t);
+      const long long off = v ? b + ch * Sh::V : 0;
+      cp_async16(dk + t * ROW + ch * Sh::V, k_cache + off, v);
+      cp_async16(dv + t * ROW + ch * Sh::V, v_cache + off, v);
+    }
+  };
+  if (nmine > 0) load(0, 0);
+  cp_async_commit();
+
   for (int i = tid; i < G * D; i += kThreads) {
     const int g = i / D, d = i % D;
-    sQ[i] = to_float(q[(static_cast<size_t>(s) * H + kh * G + g) * D + d]) * scale;
-  }
-  if (tid < kMaxG) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
-  }
-  float acc[Sh::ACC];
-#pragma unroll
-  for (int a = 0; a < Sh::ACC; ++a) acc[a] = 0.f;
-
-  // Sliding window: keys with pos >= ctx - window are kept.
-  const int lo = window >= 0 ? max(0, ctx - window) : 0;
-  for (int p0 = (lo / TT) * TT; p0 < ctx; p0 += TT) {
-    __syncthreads();  // previous tile fully consumed
-    for (int i = tid; i < TT * NV; i += kThreads) {
-      const int t = i / NV, dv = i % NV;
-      const int p = p0 + t;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (p < ctx) {
-        const int blk = table[p / bs];
-        const size_t off =
-            ((static_cast<size_t>(blk) * bs + p % bs) * K + kh) * D + dv * V;
-        kx = *reinterpret_cast<const uint4*>(k_cache + off);
-        vx = *reinterpret_cast<const uint4*>(v_cache + off);
-      }
-      *reinterpret_cast<uint4*>(sK + t * ROW + dv * V) = kx;
-      *reinterpret_cast<uint4*>(sV + t * ROW + dv * V) = vx;
-    }
-    __syncthreads();
-
-    // Scores: one (head, token) dot product per thread and pass.
-    for (int i = tid; i < G * TT; i += kThreads) {
-      const int g = i / TT, t = i % TT;
-      const int p = p0 + t;
-      float dot = 0.f;
-#pragma unroll 4
-      for (int dv = 0; dv < NV; ++dv) {
-        float kf[V];
-        load_vec(sK + t * ROW + dv * V, kf);
-        const float* qg = sQ + g * D + dv * V;
-#pragma unroll
-        for (int e = 0; e < V; ++e) dot = fmaf(qg[e], kf[e], dot);
-      }
-      sS[i] = (p < ctx && p >= lo) ? dot : -INFINITY;
-    }
-    __syncthreads();
-
-    // Online softmax: one warp per query head.
-    for (int g = warp; g < G; g += kThreads / 32) {
-      float mt = -INFINITY;
-      for (int t = lane; t < TT; t += 32) mt = fmaxf(mt, sS[g * TT + t]);
-      mt = warp_max(mt);
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, mt);
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
-      float sum = 0.f;
-      for (int t = lane; t < TT; t += 32) {
-        const float sv = sS[g * TT + t];
-        const float pv = sv == -INFINITY ? 0.f : expf(sv - m_new);
-        sS[g * TT + t] = pv;
-        sum += pv;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        sM[g] = m_new;
-        sL[g] = sL[g] * alpha + sum;
-        sAlpha[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc[g, d] = acc * alpha[g] + sum_t p[g, t] * V[t, d].
-#pragma unroll
-    for (int a = 0; a < Sh::ACC; ++a) {
-      const int o = tid + a * kThreads;
-      if (o < G * D) {
-        const int g = o / D, d = o % D;
-        float sum = acc[a] * sAlpha[g];
-        const float* pg = sS + g * TT;
-        for (int t = 0; t < TT; ++t) sum = fmaf(pg[t], to_float(sV[t * ROW + d]), sum);
-        acc[a] = sum;
-      }
-    }
+    sQ[(g * Sh::PARTS + d / Sh::PER_PART) * Sh::QP + d % Sh::PER_PART] =
+        to_float(q[(static_cast<size_t>(s) * H + kh * G + g) * D + d]) * scale_log2;
   }
   __syncthreads();
 
+  // Per-warp online softmax; every lane holds the same m and l, and
+  // output columns lane * VC .. lane * VC + VC - 1 of each head.
+  float m[kMaxG], l[kMaxG], acc[kMaxG][VC];
 #pragma unroll
-  for (int a = 0; a < Sh::ACC; ++a) {
-    const int o = tid + a * kThreads;
-    if (o < G * D) {
-      const int g = o / D, d = o % D;
-      const float l = sL[g];
-      out[(static_cast<size_t>(s) * H + kh * G + g) * D + d] =
-          from_float<T>(l > 0.f ? acc[a] / l : 0.f);
+  for (int g = 0; g < kMaxG; ++g) {
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < VC; ++e) acc[g][e] = 0.f;
+  }
+
+  const int tok = lane % TT, part = lane / TT;
+  for (int i = 0; i < nmine; ++i) {
+    const int stage = i % kStages;
+    if (i + 1 < nmine) load(i + 1, (i + 1) % kStages);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();
+    const T* tk = ring + stage * 2 * Sh::TILE;
+    const T* tv = tk + Sh::TILE;
+    const int p0 = beg + (warp + i * kWarps) * TT;
+
+    // Scores: lane (tok, part) dots its part of token tok's row with every
+    // head; the parts are summed across lanes.
+    float sc[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) sc[g] = 0.f;
+    const T* krow = tk + tok * ROW + part * Sh::PER_PART;
+#pragma unroll
+    for (int c = 0; c < Sh::PER_PART / Sh::V; ++c) {
+      float kf[Sh::V];
+      load_vec(krow + c * Sh::V, kf);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float4* qg = reinterpret_cast<const float4*>(
+              sQ + (g * Sh::PARTS + part) * Sh::QP + c * Sh::V);
+#pragma unroll
+          for (int e4 = 0; e4 < Sh::V / 4; ++e4) {
+            const float4 qv = qg[e4];
+            sc[g] = fmaf(qv.x, kf[4 * e4], sc[g]);
+            sc[g] = fmaf(qv.y, kf[4 * e4 + 1], sc[g]);
+            sc[g] = fmaf(qv.z, kf[4 * e4 + 2], sc[g]);
+            sc[g] = fmaf(qv.w, kf[4 * e4 + 3], sc[g]);
+          }
+        }
+      }
     }
+    const bool live = p0 + tok < end;
+    float p[kMaxG];
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) {
+      if (g >= G) continue;
+#pragma unroll
+      for (int o = TT; o < 32; o <<= 1) sc[g] += __shfl_xor_sync(kFull, sc[g], o);
+      const float x = live ? sc[g] : -INFINITY;
+      float mt = x;
+#pragma unroll
+      for (int o = 1; o < TT; o <<= 1) mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, o));
+      const float m_new = fmaxf(m[g], mt);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[g] - m_use);
+      p[g] = exp2f(x - m_use);
+      float sum = p[g];
+#pragma unroll
+      for (int o = 1; o < TT; o <<= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      l[g] = l[g] * alpha + sum;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < VC; ++e) acc[g][e] *= alpha;
+    }
+
+    // acc[g, :] += sum_t p[g, t] * V[t, :]; p[g, t] comes from lane t.
+#pragma unroll
+    for (int t = 0; t < TT; ++t) {
+      float vf[VC];
+      load_cols<T, VC>(tv + t * ROW + lane * VC, vf);
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) {
+        if (g < G) {
+          const float pg = __shfl_sync(kFull, p[g], t);
+#pragma unroll
+          for (int e = 0; e < VC; ++e) acc[g][e] = fmaf(pg, vf[e], acc[g][e]);
+        }
+      }
+    }
+    __syncwarp();  // the stage is consumed before this warp reloads it
+  }
+  cp_async_wait<0>();
+
+  // Merge the warps: the tiles' shared memory now holds each warp's
+  // (m, l) per head and its accumulator.
+  __syncthreads();
+  float* sM = reinterpret_cast<float*>(sTiles);  // [kWarps][kMaxG]
+  float* sL = sM + kWarps * kMaxG;                // [kWarps][kMaxG]
+  float* sAcc = sL + kWarps * kMaxG;              // [kWarps][kMaxG][D]
+#pragma unroll
+  for (int g = 0; g < kMaxG; ++g) {
+    if (g >= G) continue;
+    if (lane == 0) {
+      sM[warp * kMaxG + g] = m[g];
+      sL[warp * kMaxG + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < VC; ++e) sAcc[(warp * kMaxG + g) * D + lane * VC + e] = acc[g][e];
+  }
+  __syncthreads();
+
+  const size_t pair = static_cast<size_t>(s) * K + kh;
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sM[w * kMaxG + g]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = sM[w * kMaxG + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      lsum += sL[w * kMaxG + g] * wt;
+      a += sAcc[(w * kMaxG + g) * D + d] * wt;
+    }
+    if (n_row == 1) {
+      out[(static_cast<size_t>(s) * H + kh * G + g) * D + d] =
+          from_float<T>(lsum > 0.f ? a / lsum : 0.f);
+    } else {
+      const size_t pi = pair * n_split + split;  // n_split: the scratch's stride
+      part_acc[(pi * G + g) * D + d] = a;
+      if (d == 0) {
+        part_ml[(pi * G + g) * 2] = mx;
+        part_ml[(pi * G + g) * 2 + 1] = lsum;
+      }
+    }
+  }
+  if (n_row == 1) return;
+
+  // The last of the row's n_row splits to arrive merges them all.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    sLast = atomicAdd(counters + pair, 1) == n_row - 1;
+    if (sLast) counters[pair] = 0;  // ready for the next call
+  }
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  // Each split's weight 2^(m_j - M) per head, then sum_j w_j l_j, in the
+  // tiles' shared memory (free again: every thread is past the barrier
+  // above); the accumulators' loads are then independent across splits.
+  const size_t p0 = pair * n_split;
+  float* sW = reinterpret_cast<float*>(sTiles);  // [n_row][G]: m, then w
+  float* sLj = sW + n_split * kMaxG;              // [n_row][G]: l
+  float* sInv = sLj + n_split * kMaxG;            // [G]: 1 / sum_j w_j l_j
+  for (int i = tid; i < n_row * G; i += kThreads) {
+    sW[i] = __ldcg(part_ml + (p0 * G + i) * 2);
+    sLj[i] = __ldcg(part_ml + (p0 * G + i) * 2 + 1);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mx = -INFINITY;
+    for (int j = 0; j < n_row; ++j) mx = fmaxf(mx, sW[j * G + tid]);
+    float lsum = 0.f;
+    for (int j = 0; j < n_row; ++j) {
+      const float mj = sW[j * G + tid];
+      const float wt = mj == -INFINITY ? 0.f : exp2f(mj - mx);  // no token: 0
+      sW[j * G + tid] = wt;
+      lsum += sLj[j * G + tid] * wt;
+    }
+    sInv[tid] = lsum > 0.f ? 1.f / lsum : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D;
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n_row; ++j) a += __ldcg(part_acc + (p0 + j) * G * D + i) * sW[j * G + g];
+    out[(static_cast<size_t>(s) * H + kh * G) * D + i] = from_float<T>(a * sInv[g]);
   }
 }
 
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
-                         const int* tables, const int* ctx, void* out, int S,
-                         int H, int K, int D, int bs, int bmax, float scale,
-                         int window, cudaStream_t stream) {
-  const dim3 grid(S, K);
+                         const int* tables, const int* ctx, void* out,
+                         float* part_ml, float* part_acc, int* counters, int S,
+                         int H, int K, int D, int bs, int bmax, int n_split,
+                         int split_tokens, float scale, int window,
+                         cudaStream_t stream) {
+  const dim3 grid(S, K, n_split);
   const int G = H / K;
 #define PSTT_DECODE_CASE(DIM)                                                  \
   case DIM:                                                                    \
     paged_decode_kernel<T, DIM><<<grid, kThreads, 0, stream>>>(                \
         static_cast<const T*>(q), static_cast<const T*>(k),                    \
-        static_cast<const T*>(v), tables, ctx, static_cast<T*>(out), H, K, G,  \
-        bs, bmax, scale, window);                                              \
+        static_cast<const T*>(v), tables, ctx, static_cast<T*>(out), part_ml,  \
+        part_acc, counters, H, K, G, bs, bmax, n_split, split_tokens,          \
+        scale * kLog2e, window);                                               \
     break;
   switch (D) {
     PSTT_DECODE_CASE(64)
@@ -203,23 +399,37 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }  // namespace
 
 // C entry point bound with ctypes.  Every tensor is contiguous; dtype is a
-// DType code; window < 0 means no sliding window.  Returns the launch's
-// cudaError_t (0 on success).
+// DType code; window < 0 means no sliding window.  n_split is the most
+// splits a row may take, split_tokens the fewest tokens a split is given.
+// With n_split > 1, part_ml / part_acc are fp32 scratch of
+// S * K * n_split * G * 2 and * G * D floats and counters S * K int32
+// zeros, left zero again by the kernel; with n_split == 1 all three may be
+// null.  Returns the launch's cudaError_t (0 on success).
 extern "C" int paged_decode_launch(const void* q, const void* k_cache,
                                    const void* v_cache, const void* block_tables,
-                                   const void* ctx_lens, void* out, int S, int H,
+                                   const void* ctx_lens, void* out, void* part_ml,
+                                   void* part_acc, void* counters, int S, int H,
                                    int K, int D, int bs, int bmax, int dtype,
-                                   float scale, int window, void* stream) {
+                                   int n_split, int split_tokens, float scale,
+                                   int window, void* stream) {
   if (S == 0) return 0;
   if (K <= 0 || H % K != 0 || H / K > kMaxG) return cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > kMaxSplit || split_tokens < 1 ||
+      (n_split > 1 && (!part_ml || !part_acc || !counters)))
+    return cudaErrorInvalidValue;
   const int* tables = static_cast<const int*>(block_tables);
   const int* ctx = static_cast<const int*>(ctx_lens);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16)
-    return launch_typed<bf16_raw>(q, k_cache, v_cache, tables, ctx, out, S, H,
-                                  K, D, bs, bmax, scale, window, st);
+    return launch_typed<bf16_raw>(q, k_cache, v_cache, tables, ctx, out, ml, acc,
+                                  cnt, S, H, K, D, bs, bmax, n_split,
+                                  split_tokens, scale, window, st);
   if (dtype == kFloat32)
-    return launch_typed<float>(q, k_cache, v_cache, tables, ctx, out, S, H, K,
-                               D, bs, bmax, scale, window, st);
+    return launch_typed<float>(q, k_cache, v_cache, tables, ctx, out, ml, acc, cnt,
+                               S, H, K, D, bs, bmax, n_split, split_tokens, scale,
+                               window, st);
   return cudaErrorInvalidValue;
 }

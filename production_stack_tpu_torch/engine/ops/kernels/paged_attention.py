@@ -11,12 +11,17 @@ bounds it on the card and how its design answers that.
 cache type (or raises on what that kernel does not take) and CPU tensors
 to the plain version for their cache type; there is no other route and
 no switch.
+
+The dense kernel splits each row's context over ``split_count`` blocks
+and merges their partial softmax states by log-sum-exp;
+``split_bounds``, ``paged_decode_partials_plain`` and ``_merge_partials``
+are that split and that merge in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,6 +32,11 @@ NEG_INF = -1e30  # large-but-finite: keeps masked softmax rows NaN-free
 HEAD_DIMS = (64, 128, 256)
 MAX_Q_PER_KV = 8
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The dense kernel's split-KV: the grid has split_count() splits per
+# (row, KV head); each row takes ceil(live tokens / SPLIT_TOKENS) of them.
+MAX_SPLIT = 64  # kMaxSplit in csrc/paged_decode.cu
+BLOCKS_PER_SM = 8
+SPLIT_TOKENS = 128
 
 # Kernel launches since the count was last reset to 0 (plain ints; a run
 # reads them to show that its decode steps went through the kernels):
@@ -115,14 +125,125 @@ def _attend_gathered(q, k, v, ctx_lens, scale, sliding_window) -> torch.Tensor:
     return out.reshape(S, H, D).to(q.dtype)
 
 
+def split_count(S: int, K: int, num_sms: int) -> int:
+    """The most context splits per (row, KV head) the dense kernel's grid
+    holds, from shapes the host knows (never a row's length, which lies on
+    the device): enough blocks, ``S * K * n``, for ``BLOCKS_PER_SM`` on
+    every SM, at most ``MAX_SPLIT``; 1 when the rows alone fill the card.
+    Each row uses as many of them as its length needs (``split_bounds``)."""
+    want = -(-BLOCKS_PER_SM * num_sms // max(1, S * K))
+    return max(1, min(MAX_SPLIT, want))
+
+
+def split_bounds(ctx_lens: torch.Tensor, n_split: int, tile: int,
+                 sliding_window: Optional[int] = None,
+                 split_tokens: int = SPLIT_TOKENS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each split's tokens ``[beg, end)``, ``[S, n_split]`` each, as the
+    dense kernel cuts them: a row takes ``n_row = ceil((ctx - lo) /
+    split_tokens)`` splits (at least 1, at most ``n_split``) and cuts its
+    live range ``[lo, ctx)`` in chunks of ``ceil((ctx - lo) / n_row)``
+    tokens rounded up to whole tiles of ``tile`` tokens; the other splits
+    are empty."""
+    ctx = ctx_lens.long()
+    lo = (ctx - sliding_window).clamp(min=0) if sliding_window is not None else ctx * 0
+    n_row = (-(-(ctx - lo) // split_tokens)).clamp(min=1, max=n_split)
+    chunk = -(-(ctx - lo) // n_row)
+    chunk = -(-chunk // tile) * tile
+    idx = torch.arange(n_split, device=ctx.device)
+    beg = torch.minimum(lo[:, None] + idx[None, :] * chunk[:, None], ctx[:, None])
+    end = torch.minimum(beg + chunk[:, None], ctx[:, None])
+    end = torch.where(idx[None, :] < n_row[:, None], end, beg)
+    return beg, end
+
+
+def paged_decode_partials_plain(
+    q: torch.Tensor,  # [S, H, D]
+    k_cache: torch.Tensor,  # [N, bs, K, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [S, Bmax] int32
+    ctx_lens: torch.Tensor,  # [S] int32
+    *,
+    scale: float,
+    n_split: int,
+    tile: int = 16,
+    split_tokens: int = SPLIT_TOKENS,
+    sliding_window: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each split's partial softmax state over its tokens (``split_bounds``),
+    in fp32: the running max ``m`` [S, H, n] (natural-log units, -inf for a
+    split that saw no token), the sum ``l`` [S, H, n] of exp(score - m) and
+    the unnormalised accumulator [S, H, n, D].  ``_merge_partials`` of the
+    three is the decode attention."""
+    S, H, D = q.shape
+    _, bs, K, _ = k_cache.shape
+    G = H // K
+    tables = _live_tables(block_tables, ctx_lens, bs)
+    k = k_cache[tables].reshape(S, -1, K, D).float()
+    v = v_cache[tables].reshape(S, -1, K, D).float()
+    L = k.shape[1]
+    beg, end = split_bounds(ctx_lens, n_split, tile, sliding_window, split_tokens)
+    pos = torch.arange(L, device=q.device)
+    mask = (pos >= beg[..., None]) & (pos < end[..., None])  # [S, n, L]
+    scores = torch.einsum("skgd,stkd->skgt", q.reshape(S, K, G, D).float(), k) * scale
+    scores = scores[:, :, :, None, :].masked_fill(~mask[:, None, None], float("-inf"))
+    m = scores.amax(dim=-1)  # [S, K, G, n]
+    p = torch.exp(scores - torch.where(torch.isneginf(m), 0.0, m)[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("skgnt,stkd->skgnd", p, v)
+    return m.reshape(S, H, n_split), l.reshape(S, H, n_split), acc.reshape(S, H, n_split, D)
+
+
+def _merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """Merge partial softmax states by log-sum-exp, the dense kernel's
+    reduce (which keeps m in log2 units; the formula is the same): over the
+    last axis of ``m`` and ``l`` and the second-to-last of ``acc``,
+    M = max m_i, w_i = exp(m_i - M), out = sum w_i acc_i / sum w_i l_i.  A
+    part with m_i = -inf (no token) weighs 0; a row whose parts all saw no
+    token gives zeros, never NaN."""
+    mx = m.amax(dim=-1, keepdim=True)
+    w = torch.where(torch.isneginf(m), 0.0, torch.exp(m - torch.where(torch.isneginf(mx), 0.0, mx)))
+    lsum = (l * w).sum(dim=-1)
+    a = (acc * w[..., None]).sum(dim=-2)
+    return torch.where(lsum[..., None] > 0, a / lsum.clamp(min=torch.finfo(lsum.dtype).tiny)[..., None], 0.0)
+
+
+_num_sms: Dict[int, int] = {}
+_counters: Dict[int, torch.Tensor] = {}
+
+
+def _split_scratch(q: torch.Tensor, S: int, K: int, G: int, D: int):
+    """``n_split`` and, when it is > 1, the kernel's fp32 partials and its
+    per-(row, KV head) arrival counters.  The counters are zeros that the
+    kernel leaves zero again, so one buffer per device serves every call
+    (grown, never shrunk)."""
+    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    if dev not in _num_sms:
+        _num_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = split_count(S, K, _num_sms[dev])
+    if n_split == 1:
+        return 1, None, None, None
+    counters = _counters.get(dev)
+    if counters is None or counters.numel() < S * K:
+        counters = torch.zeros(max(S * K, 1024), dtype=torch.int32, device=q.device)
+        _counters[dev] = counters
+    part_ml = torch.empty((S, K, n_split, G, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((S, K, n_split, G, D), dtype=torch.float32, device=q.device)
+    return n_split, part_ml, part_acc, counters
+
+
 def _launcher(int8: bool):
     name = "paged_decode_int8" if int8 else "paged_decode"
     fn = getattr(_build.load(name), name + "_launch")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (8 if int8 else 6) + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        if int8:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+        else:  # + partials, counters; + n_split, split tokens
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
     return fn
 
 
@@ -215,16 +336,25 @@ def paged_decode_attention(
     out = torch.empty_like(q)
     if S == 0:
         return out  # nothing to launch
-    caches = ((k_cache[0], v_cache[0], k_cache[1], v_cache[1]) if int8
-              else (k_cache, v_cache))
+    window = -1 if sliding_window is None else int(sliding_window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher(int8)(
-        q.data_ptr(), *(c.data_ptr() for c in caches),
-        block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-        S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype],
-        float(scale), -1 if sliding_window is None else int(sliding_window),
-        stream,
-    )
+    if int8:
+        err = _launcher(True)(
+            q.data_ptr(), *(c.data_ptr() for c in (k_cache[0], v_cache[0],
+                                                   k_cache[1], v_cache[1])),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype],
+            float(scale), window, stream,
+        )
+    else:
+        n_split, part_ml, part_acc, counters = _split_scratch(q, S, K, H // K, D)
+        err = _launcher(False)(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in (part_ml, part_acc, counters)),
+            S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype], n_split,
+            SPLIT_TOKENS, float(scale), window, stream,
+        )
     if err:
         name = "paged_decode_int8" if int8 else "paged_decode"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -51,6 +51,66 @@ def test_paged_decode_kernel_matches_plain(cuda_device, dtype, tol, window):
     assert torch.all(got[0] == 0)
 
 
+def _paged_inputs(gen, dev, S, H, K, D, bs, ctx_list, dtype):
+    """Random caches and per-row tables over distinct shuffled blocks
+    (block 0 is the null block)."""
+    nbs = [-(-c // bs) for c in ctx_list]
+    N = sum(nbs) + 1
+    tables = torch.zeros((S, max(max(nbs), 1)), dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=gen, device=dev).to(torch.int32) + 1
+    used = 0
+    for s, nb in enumerate(nbs):
+        tables[s, :nb] = perm[used:used + nb]
+        used += nb
+    q, kc, vc = (
+        torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for shape in ((S, H, D), (N, bs, K, D), (N, bs, K, D))
+    )
+    return q, kc, vc, tables, torch.tensor(ctx_list, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize(
+    "ctx_list,window",
+    [
+        ([0, 0, 0, 0], None),                    # ctx 0 only
+        ([1, 2, 3, 5, 0, 7, 4, 9], None),        # ctx < n_split: one split a row
+        ([32000], None),                         # S = 1: all 64 splits, long walk
+        ([16385], None),                         # 64 splits of 264: the last is empty
+        ([5000, 3000], 700),                     # a window across split boundaries
+        ([40, 17, 33, 1, 16, 39, 25, 8], None),  # short rows (S8_short)
+        ([0, 1, 16, 17, 1000, 2048, 3000, 4000], None),  # the main decode batch
+    ],
+)
+def test_paged_decode_split_edges(cuda_device, dtype, tol, ctx_list, window):
+    """The split-KV kernel's split and reduce edges: splits past a row's
+    own count leave at once, an empty split weighs 0, ctx 0 rows are
+    exactly zero, the arrival counters are left at 0, and a second call
+    gives the same bits (the reduce runs in split order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    S, H, K, D, bs = len(ctx_list), 32, 8, 128, 16
+    q, kc, vc, tables, ctx = _paged_inputs(gen, cuda_device, S, H, K, D, bs, ctx_list, dtype)
+    before = tpa.launches
+    got = tpa.paged_decode_attention(q, kc, vc, tables, ctx, scale=D**-0.5,
+                                     sliding_window=window)
+    again = tpa.paged_decode_attention(q, kc, vc, tables, ctx, scale=D**-0.5,
+                                       sliding_window=window)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 2
+    want = tpa.paged_decode_attention_plain(q, kc, vc, tables, ctx, scale=D**-0.5,
+                                            sliding_window=window)
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
+    for s, c in enumerate(ctx_list):
+        if c == 0:
+            assert torch.all(got[s] == 0)
+    n = tpa.split_count(S, K, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert n > 1  # these shapes take the split path
+    assert int(tpa._counters[torch.cuda.current_device()].abs().sum()) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
 @pytest.mark.parametrize("window", [None, 24])
@@ -110,6 +170,43 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, tol, C, cached, 
     want = tfp.flash_prefill_attention_plain(*args, cached, valid, scale=D**-0.5,
                                              sliding_window=window)
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,T,H,K,D,C,cached,valid,window",
+    [
+        (torch.bfloat16, 77, 32, 8, 128, 0, 0, 77, None),       # T under one tile
+        (torch.bfloat16, 1000, 32, 8, 128, 0, 0, 1000, None),   # ragged T
+        (torch.bfloat16, 2048, 32, 8, 128, 512, 512, 2000, None),  # T=2048 over a prefix
+        (torch.bfloat16, 512, 32, 8, 128, 2560, 2560, 512, None),  # a mixed step's chunk
+        (torch.bfloat16, 300, 8, 8, 128, 64, 40, 300, None),    # G = 1
+        (torch.bfloat16, 300, 64, 8, 128, 64, 40, 290, None),   # G = 8
+        (torch.bfloat16, 130, 48, 1, 128, 0, 0, 130, None),     # G = 48: 2 tokens a tile
+        (torch.bfloat16, 333, 32, 8, 64, 100, 90, 333, None),   # D = 64
+        (torch.bfloat16, 333, 16, 4, 256, 100, 90, 333, 96),    # D = 256, window
+        (torch.bfloat16, 600, 32, 8, 128, 256, 256, 600, 200),  # window past the prefix
+        (torch.bfloat16, 64, 32, 8, 128, 128, 0, 0, None),      # no valid key: zeros
+        (torch.float32, 256, 32, 8, 128, 128, 100, 200, None),  # fp32 on the CUDA cores
+        (torch.float32, 333, 16, 4, 256, 100, 90, 333, 96),
+    ],
+)
+def test_flash_prefill_kernel_shapes(cuda_device, dtype, T, H, K, D, C, cached, valid, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    args = [
+        torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
+        for shape in ((T, H, D), (T, K, D), (T, K, D), (C, K, D), (C, K, D))
+    ]
+    tol = dict(TOLS)[dtype]
+    got = tfp.flash_prefill_attention(*args, cached, valid, scale=D**-0.5,
+                                      sliding_window=window)
+    want = tfp.flash_prefill_attention_plain(*args, cached, valid, scale=D**-0.5,
+                                             sliding_window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if cached == 0 and valid == 0:
+        assert torch.all(got == 0)
 
 
 @pytest.mark.cuda
