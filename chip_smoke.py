@@ -19,14 +19,18 @@ non-zero (no phase is caught and passed over):
    sliding windows across split boundaries, D=64 and D=256, G=1, ragged
    T, a prefix with cached_len < C, valid_len < T, fp32); the int8
    paged-decode kernel on caches quantized by the port's
-   ``quantize_vectors``.  Each case reports its max abs error against the
-   stated tolerance and the kernel's, the plain version's and
-   F.scaled_dot_product_attention's times (the last one a yardstick only;
-   the port never calls it) beside the card's bound.  The kernel and the
-   library call are timed as CUDA-graph replays of back-to-back calls
-   (device time, not the host's launch time); the plain version, which
-   reads a device value on the host, with CUDA events around eager
-   calls.
+   ``quantize_vectors``, with the same split edges, and its time over its
+   split settings (``split_int8``: split tokens 64/128/256, blocks an SM
+   8/12/16); the int8 cache writer at a decode step's 8 rows and a
+   512-token chunk, its data and scales equal bit for bit to the plain
+   writer's on the CPU.  Each case reports
+   its max abs error against the stated tolerance and the kernel's, the
+   plain version's and, for attention, F.scaled_dot_product_attention's
+   times (the last one a yardstick only; the port never calls it) beside
+   the card's bound.  The kernel and the library call are timed as
+   CUDA-graph replays of back-to-back calls (device time, not the host's
+   launch time); the plain version, which reads a device value on the
+   host, with CUDA events around eager calls.
 3. The model path on the card against the CPU (plain attention) on a
    small input, once on dense and once on int8 KV caches: 2 layers at
    llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
@@ -39,13 +43,15 @@ non-zero (no phase is caught and passed over):
    decodes), then /health and one /v1/completions over localhost HTTP.
    The kernels' launch counters are set to 0 just before and read just
    after: the dense paged-decode and flash-prefill kernels must be > 0,
-   the int8 one 0; some prompt tokens must have ridden mixed steps.
+   the int8 paged-decode kernel and the int8 cache writer 0; some prompt
+   tokens must have ridden mixed steps.
 5. Where a decode step's time goes: 16 steps of the same engine under
    torch.profiler (device time by kernel, idle share).
 6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
-   engine (the dense one freed first): the int8 paged-decode and the
-   flash-prefill kernels must launch and the dense decode kernel never;
-   the pool must hold at least 1.8x the dense phase's tokens.
+   engine (the dense one freed first): the int8 paged-decode, the int8
+   cache writer and the flash-prefill kernels must launch and the dense
+   decode kernel never; the pool must hold at least 1.8x the dense
+   phase's tokens.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -294,6 +300,93 @@ def check_paged_decode(gen, name, S, H, K, D, ctx_lens, dtype=torch.bfloat16,
     return row
 
 
+def sweep_split_int8(gen, cases) -> list:
+    """The int8 decode kernel's time over its two split settings on the
+    main path's shapes, each case's inputs made once: the fewest tokens a
+    split is given (SPLIT_TOKENS_INT8 in the wrapper) at 64, 128 and 256,
+    and the grid's blocks an SM (BLOCKS_PER_SM_INT8) at 8, 12 and 16, the
+    other setting kept."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+
+    kept = pa.SPLIT_TOKENS_INT8, pa.BLOCKS_PER_SM_INT8
+    rows = []
+    try:
+        for name, S, ctx_lens in cases:
+            q, kc, vc, tables, ctx = _paged_case(gen, S, 32, 8, 128, 16, ctx_lens,
+                                                 torch.bfloat16)
+            kc, vc = kv_quant.quantize_vectors(kc), kv_quant.quantize_vectors(vc)
+            row = {"case": name, "kept": {"split_tokens": kept[0], "blocks_per_sm": kept[1]}}
+            settings = [(st, kept[1]) for st in (64, 128, 256)]
+            settings += [(kept[0], b) for b in (8, 12, 16) if b != kept[1]]
+            for st, b in settings:
+                pa.SPLIT_TOKENS_INT8, pa.BLOCKS_PER_SM_INT8 = st, b
+                row[f"ms_split{st}_bps{b}"] = graph_time_ms(lambda: pa.paged_decode_attention(
+                    q, kc, vc, tables, ctx, scale=128**-0.5), iters=50)
+            rows.append(row)
+    finally:
+        pa.SPLIT_TOKENS_INT8, pa.BLOCKS_PER_SM_INT8 = kept
+    return rows
+
+
+def _writer_rows(gen, R, K, D, dtype):
+    """N(0, 1) rows scaled per vector across e^+-6, with two exact zero
+    vectors and one whose quotients fall on .5 (max 127, scale 1)."""
+    x = torch.randn((R, K, D), generator=gen, device="cuda")
+    x *= torch.exp(torch.rand((R, K, 1), generator=gen, device="cuda") * 12 - 6)
+    x[0, 1] = 0
+    x[R - 1, 0] = 0
+    ties = torch.tensor([127.0, 63.5, -2.5, 0.5, 1.5, -0.5, 100.5, -126.5], device="cuda")
+    x[R // 2, 0] = ties.repeat(D // 8)
+    return x.to(dtype)
+
+
+def check_kv_write(gen, name, rows, decode, dtype=torch.bfloat16) -> dict:
+    """The int8 cache writer at K=8, D=128, block 16: a decode step's
+    ``rows`` tokens, one a row at (block, offset), or a prefill chunk of
+    ``rows`` tokens filling whole blocks, its last two blocks padding (the
+    null block).  Data and scales must equal, bit for bit, the plain
+    writer's on CPU copies (the bits the CPU tests hold equal to the JAX
+    package's)."""
+    from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
+
+    dev, K, D, bs = "cuda", 8, 128, 16
+    N = rows + 64
+    sides = [(torch.zeros((N, bs, K, D), dtype=torch.int8, device=dev),
+              torch.zeros((N, bs, K), device=dev)) for _ in range(2)]
+    perm = torch.randperm(N - 1, generator=gen, device=dev).to(torch.int32) + 1
+    if decode:
+        ids = perm[:rows].contiguous()
+        offsets = torch.randint(0, bs, (rows,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    else:
+        ids = perm[:rows // bs].clone()
+        ids[-2:] = 0
+        offsets = None
+    k_new, v_new = (_writer_rows(gen, rows, K, D, dtype) for _ in range(2))
+    cpu = [tuple(t.cpu() for t in side) for side in sides]
+    kw.write_int8_kv_plain(cpu[0], cpu[1], k_new.cpu(), v_new.cpu(), ids.cpu(),
+                           None if offsets is None else offsets.cpu())
+    kw.write_int8_kv(sides[0], sides[1], k_new, v_new, ids, offsets)
+    torch.cuda.synchronize()
+    if not all(torch.equal(got[1:].cpu(), want[1:])  # block 0: padding writes
+               for gs, ws in zip(sides, cpu) for got, want in zip(gs, ws)):
+        raise AssertionError(f"int8 writer {name}: cache bits differ from the plain writer's")
+    row = {"case": name, "rows": rows, "mode": "decode" if decode else "prefill",
+           "K": K, "D": D, "dtype": str(dtype).replace("torch.", ""),
+           "bits_equal": True, "max_abs_err": 0.0, "tol": 0.0}
+    esz = torch.finfo(dtype).bits // 8
+    ids_bytes = 4 * (2 * rows if decode else rows // bs)
+    nbytes = 2 * rows * K * D * esz + 2 * rows * K * (D + 4) + ids_bytes
+    flops = 5.0 * 2 * rows * K * D  # |x|, max, divide, round, clamp
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, torch.float32)
+    args = (sides[0], sides[1], k_new, v_new, ids, offsets)
+    row["kernel_ms"] = graph_time_ms(lambda: kw.write_int8_kv(*args), iters=50)
+    row["plain_ms"] = cuda_time_ms(lambda: kw.write_int8_kv_plain(*args), iters=5)
+    row["library_ms"] = None  # no single PyTorch call quantizes and scatters
+    return row
+
+
 def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
                         dtype=torch.bfloat16, window=None) -> dict:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
@@ -383,6 +476,20 @@ def phase_kernels() -> dict:
             check_paged_decode(gen, "S8_D256", 8, 16, 4, 256, edge, int8=True),
             check_paged_decode(gen, "S8_fp32", 8, H, K, D, edge, dtype=torch.float32,
                                int8=True),
+            check_paged_decode(gen, "S1_long", 1, H, K, D, [32000], int8=True),
+            check_paged_decode(gen, "S8_short", 8, H, K, D, [40, 17, 33, 1, 16, 39, 25, 8],
+                               int8=True),
+            check_paged_decode(gen, "S2_window_split", 2, H, K, D, [5000, 3000],
+                               window=700, int8=True),
+        ],
+        "split_int8": sweep_split_int8(gen, [
+            ("S8_main", 8, edge), ("S1", 1, [3001]), ("S1_long", 1, [32000]),
+        ]),
+        "kv_write_int8": [
+            check_kv_write(gen, "R8_decode", 8, decode=True),
+            check_kv_write(gen, "T512_chunk", 512, decode=False),
+            check_kv_write(gen, "R8_decode_fp32", 8, decode=True, dtype=torch.float32),
+            check_kv_write(gen, "T2048_prefill", 2048, decode=False),
         ],
         "flash_prefill": [
             check_flash_prefill(gen, "T128", 128, H, K, D, 0, 0, 128),
@@ -402,11 +509,14 @@ def phase_kernels() -> dict:
     }
     emit({"phase": "kernels", **cases})
     # The main path's shapes: 8 decode rows; a 2048-token prompt, and a
-    # 512-token chunk over its prefix (most prefill launches of a run).
+    # 512-token chunk over its prefix (most prefill launches of a run); the
+    # writer's 8 decode rows, and its 512-token chunk.
     chunk = next(r for r in cases["flash_prefill"] if r["case"] == "T512_chunk")
     return {"paged_decode": cases["paged_decode"][1],
             "paged_decode_int8": cases["paged_decode_int8"][1],
-            "flash_prefill": dict(cases["flash_prefill"][1], also=[chunk])}
+            "flash_prefill": dict(cases["flash_prefill"][1], also=[chunk]),
+            "kv_write_int8": dict(cases["kv_write_int8"][0],
+                                  also=[cases["kv_write_int8"][1]])}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -578,6 +688,7 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+    from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
     from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
     from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
@@ -601,9 +712,10 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
     pa.launches = 0
     pa.launches_int8 = 0
     fp.launches = 0
+    kw.launches = 0
     out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size))
     launches = {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
-                "flash_prefill": fp.launches}
+                "flash_prefill": fp.launches, "kv_write_int8": kw.launches}
     stats = eng.stats()
     results = out["results"]
     for i, r in enumerate(results):
@@ -619,9 +731,10 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
         raise AssertionError(f"HTTP path failed: {out['health']} {out['http_body']}")
     if stats["prefill_chunk_tokens"] <= 0:
         raise AssertionError("no prompt token rode a mixed step")
-    decode_on, decode_off = (("paged_decode_int8", "paged_decode") if int8
-                             else ("paged_decode", "paged_decode_int8"))
-    if launches[decode_on] <= 0 or launches["flash_prefill"] <= 0 or launches[decode_off]:
+    on = ["flash_prefill"] + (["paged_decode_int8", "kv_write_int8"] if int8
+                              else ["paged_decode"])
+    if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches
+                                                 if k not in on):
         raise AssertionError(f"{kv_cache_dtype} KV: wrong kernels launched: {launches}")
     total_out = sum(r["tokens"] for r in results)
     row = {
@@ -754,6 +867,12 @@ KERNEL_META = {
         "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
         "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
     },
+    "kv_write_int8": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/kv_write_int8.cu",
+        # No Pallas kernel: the int8 branches of write_prefill_kv (:261-271)
+        # and append_decode_kv (:289-299), which XLA fuses.
+        "replaces": "production_stack_tpu/engine/ops/attention.py:261",
+    },
 }
 
 
@@ -775,10 +894,12 @@ def main() -> int:
     phase_profile(int8["engine"])
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's from the dense
-    # phase, the int8 decode kernel's from the int8 phase.
+    # phase, the int8 decode kernel's and the int8 writer's from the int8
+    # phase.
     launches = {"paged_decode": dense_launches["paged_decode"],
                 "paged_decode_int8": int8["launches"]["paged_decode_int8"],
-                "flash_prefill": dense_launches["flash_prefill"]}
+                "flash_prefill": dense_launches["flash_prefill"],
+                "kv_write_int8": int8["launches"]["kv_write_int8"]}
     kernels = []
     for name, row in main_rows.items():
         kernels.append({

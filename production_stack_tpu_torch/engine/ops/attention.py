@@ -10,11 +10,12 @@ and ``gather_prefix_kv`` dequantizes.  Unlike the JAX package, whose
 arrays are immutable and whose functions return new caches, the cache
 writers here update the cache tensors **in place** and return nothing.
 
-``decode_attention`` and ``prefill_attention`` dispatch on the device of
-their inputs, inside the kernel wrappers: a CUDA tensor runs the
-hand-written kernel (``kernels/``), a CPU tensor its plain PyTorch version;
-nothing else.  The plain versions are exported here under the JAX
-package's names for the gather decode path and the dense prefill path.
+``decode_attention``, ``prefill_attention`` and the int8 branch of the
+cache writers dispatch on the device of their inputs, inside the kernel
+wrappers: a CUDA tensor runs the hand-written kernel (``kernels/``), a CPU
+tensor its plain PyTorch version; nothing else.  The plain versions are
+exported here under the JAX package's names for the gather decode path
+and the dense prefill path.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from production_stack_tpu_torch.engine.ops.kernels.paged_attention import (
     paged_decode_attention_int8_plain,
     paged_decode_attention_plain,
 )
+from production_stack_tpu_torch.engine.ops.kernels.kv_write import write_int8_kv
 
 __all__ = [
     "decode_attention",
@@ -102,21 +104,19 @@ def write_prefill_kv(
     new_block_ids: torch.Tensor,  # [T // bs] int; padding slots -> 0 (null)
 ) -> None:
     """Scatter freshly computed prefill KV into the paged cache, in place
-    (int8 sides quantize per written vector).
+    (int8 sides quantize per written vector, both sides in one call of the
+    int8 writer, ``kernels/kv_write.py``).
 
     Padding slots all name block 0; which of those duplicate writes lands
     is unspecified and harmless, since block 0 is never read."""
-    _, bs, K, D = kv_quant.cache_shape(k_cache)
+    if kv_quant.is_quantized(k_cache):
+        write_int8_kv(k_cache, v_cache, k_new, v_new, new_block_ids)
+        return
+    _, bs, K, D = k_cache.shape
     nb = new_block_ids.shape[0]
     idx = new_block_ids.long()
     for side, new in ((k_cache, k_new), (v_cache, v_new)):
-        blocks = new.reshape(nb, bs, K, D)
-        if kv_quant.is_quantized(side):
-            data, scale = kv_quant.quantize_vectors(blocks)
-            side[0][idx] = data
-            side[1][idx] = scale
-        else:
-            side[idx] = blocks.to(side.dtype)
+        side[idx] = new.reshape(nb, bs, K, D).to(side.dtype)
 
 
 def append_decode_kv(
@@ -128,16 +128,15 @@ def append_decode_kv(
     slot_offsets: torch.Tensor,  # [S] int offset within the block
 ) -> None:
     """Scatter one new token's KV per sequence into the paged cache, in
-    place (padding rows write the null block; int8 sides quantize)."""
+    place (padding rows write the null block; int8 sides quantize, through
+    the int8 writer)."""
+    if kv_quant.is_quantized(k_cache):
+        write_int8_kv(k_cache, v_cache, k, v, slot_block_ids, slot_offsets)
+        return
     blocks = slot_block_ids.long()
     offsets = slot_offsets.long()
     for side, new in ((k_cache, k), (v_cache, v)):
-        if kv_quant.is_quantized(side):
-            data, scale = kv_quant.quantize_vectors(new)
-            side[0][blocks, offsets] = data
-            side[1][blocks, offsets] = scale
-        else:
-            side[blocks, offsets] = new.to(side.dtype)
+        side[blocks, offsets] = new.to(side.dtype)
 
 
 def gather_prefix_kv(

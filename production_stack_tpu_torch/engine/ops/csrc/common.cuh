@@ -1,5 +1,6 @@
-// Shared helpers for the attention kernels: element storage types and
-// 16-byte vector loads.
+// Shared helpers for the kernels: element storage types, vector loads,
+// asynchronous copies, and the split and merge of the split-KV decode
+// kernels.
 //
 // Tensors arrive as raw pointers from the ctypes wrappers.  An element is
 // stored as fp32 (`float`), as bf16 (`unsigned short`, the raw bits) or,
@@ -56,14 +57,15 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f, bf16_raw) {
 
 // Signed bytes to fp32, exactly, without the slow integer-to-float
 // conversion instruction: flipping the sign bit of each byte gives
-// u = b + 128 in [0, 255]; 0x4B000000 | u is the float 2^23 + u; less
-// 2^23 + 128 that is b.
+// u = b + 128 in [0, 255]; one byte permute builds the float 2^23 + u
+// (bytes u, 0, 0, 0x4B); less 2^23 + 128 that is b.  Two instructions a
+// value, on the integer and the fp32 pipes.
 __device__ __forceinline__ void unpack_word_s8(unsigned w, float* f) {
   w ^= 0x80808080u;
-  f[0] = __uint_as_float(0x4B000000u | (w & 0xffu)) - 8388736.f;
-  f[1] = __uint_as_float(0x4B000000u | ((w >> 8) & 0xffu)) - 8388736.f;
-  f[2] = __uint_as_float(0x4B000000u | ((w >> 16) & 0xffu)) - 8388736.f;
-  f[3] = __uint_as_float(0x4B000000u | (w >> 24)) - 8388736.f;
+  f[0] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7443)) - 8388736.f;
 }
 __device__ __forceinline__ void unpack(const uint4& u, float* f, int8_t) {
   unpack_word_s8(u.x, f);
@@ -76,6 +78,56 @@ template <typename T>
 __device__ __forceinline__ void load_vec(const T* p, float* f) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   unpack(u, f, T());
+}
+
+// N consecutive fp32 or bf16 elements (N * sizeof(T) in {4, 8, 16, 32}
+// bytes, aligned to that size) as floats.
+template <typename T, int N>
+__device__ __forceinline__ void load_cols(const T* p, float* f) {
+  constexpr int W = N * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
+  unsigned w[W];
+  if constexpr (W >= 4) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else {
+    w[0] = *reinterpret_cast<const unsigned*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      f[i] = __uint_as_float(w[i]);
+    } else {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+}
+
+// N consecutive int8 values (N in {2, 4, 8}, aligned to N bytes) as floats.
+template <int N>
+__device__ __forceinline__ void load_s8(const int8_t* p, float* f) {
+  if constexpr (N == 2) {
+    float t[4];
+    unpack_word_s8(*reinterpret_cast<const unsigned short*>(p), t);
+    f[0] = t[0];
+    f[1] = t[1];
+  } else if constexpr (N == 4) {
+    unpack_word_s8(*reinterpret_cast<const unsigned*>(p), f);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    unpack_word_s8(u.x, f);
+    unpack_word_s8(u.y, f + 4);
+  }
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -110,6 +162,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
                : "memory");
 }
 
+// The same for 4 bytes (cp.async.cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)),
+               "l"(gmem), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -118,4 +177,171 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// -- Split-KV decode: the split and the merge of both decode kernels -------
+//
+// paged_decode.cu (dense caches) and paged_decode_int8.cu (int8 caches)
+// run a grid (row, KV head, split) of kDecodeWarps warps a block.  Each
+// warp keeps its own online-softmax state per query head g of the block's
+// KV head: the running max m and sum l (log2 units; every lane holds the
+// same) and the accumulator's columns lane * D/32 .. + D/32 - 1.  The
+// Python side of the same arithmetic is kernels/paged_attention.py
+// (split_count, split_bounds, paged_decode_partials_plain,
+// _merge_partials).
+
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeThreads = kDecodeWarps * 32;
+constexpr int kDecodeMaxG = 8;  // query heads per KV head
+constexpr int kMaxSplit = 64;   // splits per (row, KV head); MAX_SPLIT in the wrapper
+
+struct DecodeSplit {
+  int n_row;     // splits this row takes
+  int beg, end;  // this split's tokens [beg, end)
+};
+
+// A row takes n_row = ceil((ctx - lo) / split_tokens) of the grid's
+// n_split splits (at least 1) and cuts its live range [lo, ctx) into
+// chunks of ceil((ctx - lo) / n_row) tokens rounded up to whole tiles of
+// `tile` tokens; lo = ctx - window with a sliding window, else 0.  Splits
+// at or past n_row have nothing to do (the caller returns).
+__device__ __forceinline__ DecodeSplit decode_split(int ctx, int window, int n_split,
+                                                    int split_tokens, int split,
+                                                    int tile) {
+  const int lo = window >= 0 ? max(0, ctx - window) : 0;
+  DecodeSplit r;
+  r.n_row = min(n_split, max(1, (ctx - lo + split_tokens - 1) / split_tokens));
+  int chunk = (ctx - lo + r.n_row - 1) / r.n_row;
+  chunk = (chunk + tile - 1) / tile * tile;
+  r.beg = min(ctx, lo + split * chunk);
+  r.end = min(ctx, r.beg + chunk);
+  return r;
+}
+
+// Bytes of shared memory decode_merge uses: the warps' states, then the
+// last split's ([kMaxSplit][kDecodeMaxG] weights and sums, kDecodeMaxG
+// inverses).
+template <int D>
+struct DecodeMergeSmem {
+  static constexpr size_t WARPS = sizeof(float) * kDecodeWarps * kDecodeMaxG * (D + 2);
+  static constexpr size_t SPLITS = sizeof(float) * (2 * kMaxSplit + 1) * kDecodeMaxG;
+  static constexpr size_t BYTES = WARPS > SPLITS ? WARPS : SPLITS;
+};
+
+// The end of a split, called by every thread of the block once its warps'
+// copies have landed: merge the warps' states; a row with one split writes
+// its output [S, H, D], any other split its fp32 partial (m, l) to part_ml
+// [S, K, n_split, G, 2] and its accumulator to part_acc [S, K, n_split, G,
+// D], then bumps the (row, KV head) counter; the split that takes it to
+// n_row merges all partials by log-sum-exp, in split order (the same bits
+// every call), and sets the counter back to 0 for the next call.  A part
+// that saw no token carries m = -inf and l = 0 and weighs 0; a row with no
+// token gives zeros.  `smem` is the block's shared memory, at least
+// DecodeMergeSmem<D>::BYTES, free to reuse from here on.  NG (<=
+// kDecodeMaxG) is the number of head slots the caller's state arrays hold;
+// heads g >= G are ignored.  This rather than a second kernel: a decode
+// step launches the kernel once per layer, and a reduce kernel would add
+// as many launches again on a host-bound step.
+template <typename T, int D, int NG>
+__device__ __forceinline__ void decode_merge(
+    const float (&m)[NG], const float (&l)[NG],
+    const float (&acc)[NG][D / 32], float* smem, T* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
+    int* __restrict__ counters, int s, int kh, int split, int n_row, int n_split,
+    int H, int K, int G) {
+  constexpr int VC = D / 32;
+  __shared__ int sLast;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Merge the warps: the shared memory now holds each warp's (m, l) per
+  // head and its accumulator.
+  __syncthreads();
+  float* sM = smem;                      // [kDecodeWarps][kDecodeMaxG]
+  float* sL = sM + kDecodeWarps * kDecodeMaxG;  // [kDecodeWarps][kDecodeMaxG]
+  float* sAcc = sL + kDecodeWarps * kDecodeMaxG;  // [kDecodeWarps][kDecodeMaxG][D]
+  static_assert(NG <= kDecodeMaxG, "at most kDecodeMaxG heads per KV head");
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    if (g >= G) continue;
+    if (lane == 0) {
+      sM[warp * kDecodeMaxG + g] = m[g];
+      sL[warp * kDecodeMaxG + g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < VC; ++e)
+      sAcc[(warp * kDecodeMaxG + g) * D + lane * VC + e] = acc[g][e];
+  }
+  __syncthreads();
+
+  const size_t pair = static_cast<size_t>(s) * K + kh;
+  for (int i = tid; i < G * D; i += kDecodeThreads) {
+    const int g = i / D, d = i % D;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) mx = fmaxf(mx, sM[w * kDecodeMaxG + g]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float mw = sM[w * kDecodeMaxG + g];
+      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      lsum += sL[w * kDecodeMaxG + g] * wt;
+      a += sAcc[(w * kDecodeMaxG + g) * D + d] * wt;
+    }
+    if (n_row == 1) {
+      out[(static_cast<size_t>(s) * H + kh * G + g) * D + d] =
+          from_float<T>(lsum > 0.f ? a / lsum : 0.f);
+    } else {
+      const size_t pi = pair * n_split + split;  // n_split: the scratch's stride
+      part_acc[(pi * G + g) * D + d] = a;
+      if (d == 0) {
+        part_ml[(pi * G + g) * 2] = mx;
+        part_ml[(pi * G + g) * 2 + 1] = lsum;
+      }
+    }
+  }
+  if (n_row == 1) return;
+
+  // The last of the row's n_row splits to arrive merges them all.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    sLast = atomicAdd(counters + pair, 1) == n_row - 1;
+    if (sLast) counters[pair] = 0;  // ready for the next call
+  }
+  __syncthreads();
+  if (!sLast) return;
+  __threadfence();
+  // Each split's weight 2^(m_j - M) per head, then sum_j w_j l_j, in
+  // shared memory (free again: every thread is past the barrier above);
+  // the accumulators' loads are then independent across splits.
+  const size_t p0 = pair * n_split;
+  float* sW = smem;                         // [n_row][G]: m, then w
+  float* sLj = sW + n_split * kDecodeMaxG;  // [n_row][G]: l
+  float* sInv = sLj + n_split * kDecodeMaxG;  // [G]: 1 / sum_j w_j l_j
+  for (int i = tid; i < n_row * G; i += kDecodeThreads) {
+    sW[i] = __ldcg(part_ml + (p0 * G + i) * 2);
+    sLj[i] = __ldcg(part_ml + (p0 * G + i) * 2 + 1);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float mx = -INFINITY;
+    for (int j = 0; j < n_row; ++j) mx = fmaxf(mx, sW[j * G + tid]);
+    float lsum = 0.f;
+    for (int j = 0; j < n_row; ++j) {
+      const float mj = sW[j * G + tid];
+      const float wt = mj == -INFINITY ? 0.f : exp2f(mj - mx);  // no token: 0
+      sW[j * G + tid] = wt;
+      lsum += sLj[j * G + tid] * wt;
+    }
+    sInv[tid] = lsum > 0.f ? 1.f / lsum : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kDecodeThreads) {
+    const int g = i / D;
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = 0; j < n_row; ++j)
+      a += __ldcg(part_acc + (p0 + j) * G * D + i) * sW[j * G + g];
+    out[(static_cast<size_t>(s) * H + kh * G) * D + i] = from_float<T>(a * sInv[g]);
+  }
 }

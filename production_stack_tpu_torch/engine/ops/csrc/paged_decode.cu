@@ -24,7 +24,8 @@
 //    split_tokens) splits, at most n_split, so a short row takes one
 //    block and a 32000-token row all of them; its live range [lo, ctx) is
 //    cut into n_row chunks of ceil((ctx - lo) / n_row) tokens, rounded up
-//    to whole warp tiles.  Blocks past n_row leave at once.  On one H100
+//    to whole warp tiles (decode_split in common.cuh, shared with the
+//    int8 kernel).  Blocks past n_row leave at once.  On one H100
 //    (700 W) split_tokens = 128 was as fast as or faster than 64, 256 and
 //    512 at 8 rows of up to 4000 tokens, one of 3001 and one of 32000.
 //  * Inside a block each of the 4 warps owns its own tiles of TT tokens
@@ -34,14 +35,15 @@
 //    in flight while the current one is scored, and synchronises only
 //    itself (__syncwarp); the block's barriers come once, at the end,
 //    where the 4 warps' (max, sum, accumulator) merge in shared memory.
-//  * Reduce: the last split of a (row, KV head) to finish merges the
-//    splits.  Each split writes its fp32 partial (m, l, acc[G * D]) to
-//    scratch from the wrapper, then bumps a per-(row, KV head) counter;
-//    the block that takes the counter to n_row merges all partials by
-//    log-sum-exp and sets the counter back to 0 for the next call (the
-//    wrapper keeps the zeroed counters across calls).  This rather than a
-//    second kernel: a decode step launches this kernel once per layer, and
-//    a reduce kernel would add as many launches again, each costing host
+//  * Reduce (decode_merge in common.cuh, shared with the int8 kernel):
+//    the last split of a (row, KV head) to finish merges the splits.
+//    Each split writes its fp32 partial (m, l, acc[G * D]) to scratch
+//    from the wrapper, then bumps a per-(row, KV head) counter; the block
+//    that takes the counter to n_row merges all partials by log-sum-exp
+//    and sets the counter back to 0 for the next call (the wrapper keeps
+//    the zeroed counters across calls).  This rather than a second
+//    kernel: a decode step launches this kernel once per layer, and a
+//    reduce kernel would add as many launches again, each costing host
 //    time on a step that is partly host-bound.  A row with n_row == 1
 //    writes its output directly.
 //  * Scores are kept in log2 units (q is pre-scaled by scale * log2(e)),
@@ -51,11 +53,10 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxG = 8;    // query heads per KV head
-constexpr int kStages = 2;  // tiles in each warp's ring
-constexpr int kMaxSplit = 64;  // splits per (row, KV head); MAX_SPLIT in the wrapper
+constexpr int kWarps = kDecodeWarps;
+constexpr int kThreads = kDecodeThreads;
+constexpr int kMaxG = kDecodeMaxG;  // query heads per KV head
+constexpr int kStages = 2;          // tiles in each warp's ring
 constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T, int D>
@@ -75,46 +76,10 @@ struct DecodeShape {
   static constexpr int TILE = TT * ROW;        // elements of one K (or V) tile
   static constexpr int LOADS = TT * CH / 32;   // 16-byte copies per lane per side
   static constexpr size_t STAGING = sizeof(T) * kWarps * kStages * 2 * TILE;
-  // The warps' merge, then the last split's ([MAX_SPLIT][kMaxG] weights
-  // and sums, kMaxG inverses), reuse the tiles' shared memory.
-  static constexpr size_t MERGE_WARPS = sizeof(float) * kWarps * kMaxG * (D + 2);
-  static constexpr size_t MERGE_SPLITS = sizeof(float) * (2 * kMaxSplit + 1) * kMaxG;
-  static constexpr size_t MERGE = MERGE_WARPS > MERGE_SPLITS ? MERGE_WARPS : MERGE_SPLITS;
+  // The merge (decode_merge, common.cuh) reuses the tiles' shared memory.
+  static constexpr size_t MERGE = DecodeMergeSmem<D>::BYTES;
   static constexpr size_t SMEM_TILES = STAGING > MERGE ? STAGING : MERGE;
 };
-
-// N consecutive elements (N * sizeof(T) in {4, 8, 16, 32} bytes, aligned
-// to that size) as floats.
-template <typename T, int N>
-__device__ __forceinline__ void load_cols(const T* p, float* f) {
-  constexpr int W = N * static_cast<int>(sizeof(T)) / 4;  // 32-bit words
-  unsigned w[W];
-  if constexpr (W >= 4) {
-#pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      w[4 * i] = u.x;
-      w[4 * i + 1] = u.y;
-      w[4 * i + 2] = u.z;
-      w[4 * i + 3] = u.w;
-    }
-  } else if constexpr (W == 2) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    w[0] = u.x;
-    w[1] = u.y;
-  } else {
-    w[0] = *reinterpret_cast<const unsigned*>(p);
-  }
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    if constexpr (sizeof(T) == 4) {
-      f[i] = __uint_as_float(w[i]);
-    } else {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -136,22 +101,16 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D]
 
   __shared__ __align__(16) float sQ[kMaxG * Sh::PARTS * Sh::QP];  // q * scale * log2(e)
   __shared__ __align__(16) unsigned char sTiles[Sh::SMEM_TILES];
-  __shared__ int sLast;
 
   const int s = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int ctx = ctx_lens[s];
   const int* table = block_tables + static_cast<size_t>(s) * bmax;
 
-  // This row's splits, and this split's tokens [beg, end) of the live
-  // range [lo, ctx).
-  const int lo = window >= 0 ? max(0, ctx - window) : 0;
-  const int n_row = min(n_split, max(1, (ctx - lo + split_tokens - 1) / split_tokens));
-  if (split >= n_row) return;
-  int chunk = (ctx - lo + n_row - 1) / n_row;
-  chunk = (chunk + TT - 1) / TT * TT;
-  const int beg = min(ctx, lo + split * chunk);
-  const int end = min(ctx, beg + chunk);
+  // This row's splits, and this split's tokens [beg, end).
+  const DecodeSplit sp = decode_split(ctx, window, n_split, split_tokens, split, TT);
+  if (split >= sp.n_row) return;
+  const int beg = sp.beg, end = sp.end;
   const int ntile = (end - beg + TT - 1) / TT;
   const int nmine = ntile > warp ? (ntile - warp - 1) / kWarps + 1 : 0;
 
@@ -277,95 +236,8 @@ paged_decode_kernel(const T* __restrict__ q,        // [S, H, D]
     __syncwarp();  // the stage is consumed before this warp reloads it
   }
   cp_async_wait<0>();
-
-  // Merge the warps: the tiles' shared memory now holds each warp's
-  // (m, l) per head and its accumulator.
-  __syncthreads();
-  float* sM = reinterpret_cast<float*>(sTiles);  // [kWarps][kMaxG]
-  float* sL = sM + kWarps * kMaxG;                // [kWarps][kMaxG]
-  float* sAcc = sL + kWarps * kMaxG;              // [kWarps][kMaxG][D]
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    if (g >= G) continue;
-    if (lane == 0) {
-      sM[warp * kMaxG + g] = m[g];
-      sL[warp * kMaxG + g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < VC; ++e) sAcc[(warp * kMaxG + g) * D + lane * VC + e] = acc[g][e];
-  }
-  __syncthreads();
-
-  const size_t pair = static_cast<size_t>(s) * K + kh;
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sM[w * kMaxG + g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = sM[w * kMaxG + g];
-      const float wt = mw == -INFINITY ? 0.f : exp2f(mw - mx);
-      lsum += sL[w * kMaxG + g] * wt;
-      a += sAcc[(w * kMaxG + g) * D + d] * wt;
-    }
-    if (n_row == 1) {
-      out[(static_cast<size_t>(s) * H + kh * G + g) * D + d] =
-          from_float<T>(lsum > 0.f ? a / lsum : 0.f);
-    } else {
-      const size_t pi = pair * n_split + split;  // n_split: the scratch's stride
-      part_acc[(pi * G + g) * D + d] = a;
-      if (d == 0) {
-        part_ml[(pi * G + g) * 2] = mx;
-        part_ml[(pi * G + g) * 2 + 1] = lsum;
-      }
-    }
-  }
-  if (n_row == 1) return;
-
-  // The last of the row's n_row splits to arrive merges them all.
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) {
-    sLast = atomicAdd(counters + pair, 1) == n_row - 1;
-    if (sLast) counters[pair] = 0;  // ready for the next call
-  }
-  __syncthreads();
-  if (!sLast) return;
-  __threadfence();
-  // Each split's weight 2^(m_j - M) per head, then sum_j w_j l_j, in the
-  // tiles' shared memory (free again: every thread is past the barrier
-  // above); the accumulators' loads are then independent across splits.
-  const size_t p0 = pair * n_split;
-  float* sW = reinterpret_cast<float*>(sTiles);  // [n_row][G]: m, then w
-  float* sLj = sW + n_split * kMaxG;              // [n_row][G]: l
-  float* sInv = sLj + n_split * kMaxG;            // [G]: 1 / sum_j w_j l_j
-  for (int i = tid; i < n_row * G; i += kThreads) {
-    sW[i] = __ldcg(part_ml + (p0 * G + i) * 2);
-    sLj[i] = __ldcg(part_ml + (p0 * G + i) * 2 + 1);
-  }
-  __syncthreads();
-  if (tid < G) {
-    float mx = -INFINITY;
-    for (int j = 0; j < n_row; ++j) mx = fmaxf(mx, sW[j * G + tid]);
-    float lsum = 0.f;
-    for (int j = 0; j < n_row; ++j) {
-      const float mj = sW[j * G + tid];
-      const float wt = mj == -INFINITY ? 0.f : exp2f(mj - mx);  // no token: 0
-      sW[j * G + tid] = wt;
-      lsum += sLj[j * G + tid] * wt;
-    }
-    sInv[tid] = lsum > 0.f ? 1.f / lsum : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += kThreads) {
-    const int g = i / D;
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = 0; j < n_row; ++j) a += __ldcg(part_acc + (p0 + j) * G * D + i) * sW[j * G + g];
-    out[(static_cast<size_t>(s) * H + kh * G) * D + i] = from_float<T>(a * sInv[g]);
-  }
+  decode_merge<T, D>(m, l, acc, reinterpret_cast<float*>(sTiles), out, part_ml,
+                     part_acc, counters, s, kh, split, sp.n_row, n_split, H, K, G);
 }
 
 template <typename T>

@@ -12,10 +12,11 @@ cache type (or raises on what that kernel does not take) and CPU tensors
 to the plain version for their cache type; there is no other route and
 no switch.
 
-The dense kernel splits each row's context over ``split_count`` blocks
-and merges their partial softmax states by log-sum-exp;
-``split_bounds``, ``paged_decode_partials_plain`` and ``_merge_partials``
-are that split and that merge in plain PyTorch.
+Both kernels split each row's context over ``split_count`` blocks and
+merge their partial softmax states by log-sum-exp (the same device code,
+``../csrc/common.cuh``); ``split_bounds``, ``paged_decode_partials_plain``
+and ``_merge_partials`` are that split and that merge in plain PyTorch,
+on dense and on int8 caches.
 """
 
 from __future__ import annotations
@@ -32,11 +33,17 @@ NEG_INF = -1e30  # large-but-finite: keeps masked softmax rows NaN-free
 HEAD_DIMS = (64, 128, 256)
 MAX_Q_PER_KV = 8
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The dense kernel's split-KV: the grid has split_count() splits per
-# (row, KV head); each row takes ceil(live tokens / SPLIT_TOKENS) of them.
-MAX_SPLIT = 64  # kMaxSplit in csrc/paged_decode.cu
+# The kernels' split-KV: the grid has split_count() splits per (row, KV
+# head), enough for BLOCKS_PER_SM blocks an SM (dense caches) or
+# BLOCKS_PER_SM_INT8 (int8 caches); each row takes ceil(live tokens /
+# split tokens) of them, SPLIT_TOKENS or SPLIT_TOKENS_INT8.  Each pair
+# was the fastest measured on an H100 at 8 rows of up to 4000 tokens
+# (PERF.md; chip_smoke.py's split_int8 sweep).
+MAX_SPLIT = 64  # kMaxSplit in csrc/common.cuh
 BLOCKS_PER_SM = 8
 SPLIT_TOKENS = 128
+BLOCKS_PER_SM_INT8 = 12
+SPLIT_TOKENS_INT8 = 128
 
 # Kernel launches since the count was last reset to 0 (plain ints; a run
 # reads them to show that its decode steps went through the kernels):
@@ -85,15 +92,9 @@ def paged_decode_attention_int8_plain(
     (``ops/attention.py:paged_decode_attention`` on tuple sides): K and V
     dequantize to fp32, so the probabilities stay fp32 into the value
     product (no rounding to the cache dtype, unlike the dense version)."""
-    _, bs, K, D = k_side[0].shape
-    tables = _live_tables(block_tables, ctx_lens, bs)
-    S = tables.shape[0]
-    k = kv_quant.dequantize(k_side[0][tables], k_side[1][tables])
-    v = kv_quant.dequantize(v_side[0][tables], v_side[1][tables])
-    return _attend_gathered(
-        q, k.reshape(S, -1, K, D), v.reshape(S, -1, K, D), ctx_lens,
-        scale, sliding_window,
-    )
+    tables = _live_tables(block_tables, ctx_lens, k_side[0].shape[1])
+    return _attend_gathered(q, _gather_fp32(k_side, tables), _gather_fp32(v_side, tables),
+                            ctx_lens, scale, sliding_window)
 
 
 def _live_tables(block_tables, ctx_lens, bs) -> torch.Tensor:
@@ -102,6 +103,17 @@ def _live_tables(block_tables, ctx_lens, bs) -> torch.Tensor:
     S = block_tables.shape[0]
     nb = max(1, -(-int(ctx_lens.max()) // bs)) if S else 1
     return block_tables[:, :nb].long()
+
+
+def _gather_fp32(side, tables) -> torch.Tensor:
+    """The blocks ``tables`` [S, nb] names of a dense or int8 cache side as
+    fp32 [S, nb * bs, K, D] (int8 sides dequantized)."""
+    if kv_quant.is_quantized(side):
+        x = kv_quant.dequantize(side[0][tables], side[1][tables])
+    else:
+        x = side[tables].float()
+    S, nb, bs, K, D = x.shape
+    return x.reshape(S, nb * bs, K, D)
 
 
 def _attend_gathered(q, k, v, ctx_lens, scale, sliding_window) -> torch.Tensor:
@@ -125,13 +137,14 @@ def _attend_gathered(q, k, v, ctx_lens, scale, sliding_window) -> torch.Tensor:
     return out.reshape(S, H, D).to(q.dtype)
 
 
-def split_count(S: int, K: int, num_sms: int) -> int:
-    """The most context splits per (row, KV head) the dense kernel's grid
+def split_count(S: int, K: int, num_sms: int,
+                blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """The most context splits per (row, KV head) the decode kernels' grid
     holds, from shapes the host knows (never a row's length, which lies on
-    the device): enough blocks, ``S * K * n``, for ``BLOCKS_PER_SM`` on
+    the device): enough blocks, ``S * K * n``, for ``blocks_per_sm`` on
     every SM, at most ``MAX_SPLIT``; 1 when the rows alone fill the card.
     Each row uses as many of them as its length needs (``split_bounds``)."""
-    want = -(-BLOCKS_PER_SM * num_sms // max(1, S * K))
+    want = -(-blocks_per_sm * num_sms // max(1, S * K))
     return max(1, min(MAX_SPLIT, want))
 
 
@@ -139,7 +152,7 @@ def split_bounds(ctx_lens: torch.Tensor, n_split: int, tile: int,
                  sliding_window: Optional[int] = None,
                  split_tokens: int = SPLIT_TOKENS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each split's tokens ``[beg, end)``, ``[S, n_split]`` each, as the
-    dense kernel cuts them: a row takes ``n_row = ceil((ctx - lo) /
+    decode kernels cut them: a row takes ``n_row = ceil((ctx - lo) /
     split_tokens)`` splits (at least 1, at most ``n_split``) and cuts its
     live range ``[lo, ctx)`` in chunks of ``ceil((ctx - lo) / n_row)``
     tokens rounded up to whole tiles of ``tile`` tokens; the other splits
@@ -158,8 +171,8 @@ def split_bounds(ctx_lens: torch.Tensor, n_split: int, tile: int,
 
 def paged_decode_partials_plain(
     q: torch.Tensor,  # [S, H, D]
-    k_cache: torch.Tensor,  # [N, bs, K, D]
-    v_cache: torch.Tensor,
+    k_cache,  # [N, bs, K, D], or (int8 data, fp32 scale [N, bs, K])
+    v_cache,
     block_tables: torch.Tensor,  # [S, Bmax] int32
     ctx_lens: torch.Tensor,  # [S] int32
     *,
@@ -173,13 +186,14 @@ def paged_decode_partials_plain(
     in fp32: the running max ``m`` [S, H, n] (natural-log units, -inf for a
     split that saw no token), the sum ``l`` [S, H, n] of exp(score - m) and
     the unnormalised accumulator [S, H, n, D].  ``_merge_partials`` of the
-    three is the decode attention."""
+    three is the decode attention.  Int8 sides are dequantized to fp32, as
+    in :func:`paged_decode_attention_int8_plain`; every step is fp32."""
     S, H, D = q.shape
-    _, bs, K, _ = k_cache.shape
+    _, bs, K, _ = kv_quant.cache_shape(k_cache)
     G = H // K
     tables = _live_tables(block_tables, ctx_lens, bs)
-    k = k_cache[tables].reshape(S, -1, K, D).float()
-    v = v_cache[tables].reshape(S, -1, K, D).float()
+    k = _gather_fp32(k_cache, tables)
+    v = _gather_fp32(v_cache, tables)
     L = k.shape[1]
     beg, end = split_bounds(ctx_lens, n_split, tile, sliding_window, split_tokens)
     pos = torch.arange(L, device=q.device)
@@ -194,7 +208,7 @@ def paged_decode_partials_plain(
 
 
 def _merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """Merge partial softmax states by log-sum-exp, the dense kernel's
+    """Merge partial softmax states by log-sum-exp, the decode kernels'
     reduce (which keeps m in log2 units; the formula is the same): over the
     last axis of ``m`` and ``l`` and the second-to-last of ``acc``,
     M = max m_i, w_i = exp(m_i - M), out = sum w_i acc_i / sum w_i l_i.  A
@@ -211,15 +225,17 @@ _num_sms: Dict[int, int] = {}
 _counters: Dict[int, torch.Tensor] = {}
 
 
-def _split_scratch(q: torch.Tensor, S: int, K: int, G: int, D: int):
+def _split_scratch(q: torch.Tensor, S: int, K: int, G: int, D: int,
+                   blocks_per_sm: int):
     """``n_split`` and, when it is > 1, the kernel's fp32 partials and its
-    per-(row, KV head) arrival counters.  The counters are zeros that the
-    kernel leaves zero again, so one buffer per device serves every call
-    (grown, never shrunk)."""
+    per-(row, KV head) arrival counters, for either decode kernel.  The
+    counters are zeros that each kernel leaves zero again, and both run on
+    the current stream, so one buffer per device serves every call of
+    both (grown, never shrunk)."""
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
     if dev not in _num_sms:
         _num_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split = split_count(S, K, _num_sms[dev])
+    n_split = split_count(S, K, _num_sms[dev], blocks_per_sm)
     if n_split == 1:
         return 1, None, None, None
     counters = _counters.get(dev)
@@ -236,14 +252,11 @@ def _launcher(int8: bool):
     fn = getattr(_build.load(name), name + "_launch")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        if int8:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
-        else:  # + partials, counters; + n_split, split tokens
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
+        # q, caches (+ scales), tables, ctx, out, partials, counters; S, H,
+        # K, D, bs, bmax, dtype, n_split, split tokens; scale, window, stream
+        fn.argtypes = [ctypes.c_void_p] * (11 if int8 else 9) + [ctypes.c_int] * 9 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
     return fn
 
 
@@ -338,23 +351,16 @@ def paged_decode_attention(
         return out  # nothing to launch
     window = -1 if sliding_window is None else int(sliding_window)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if int8:
-        err = _launcher(True)(
-            q.data_ptr(), *(c.data_ptr() for c in (k_cache[0], v_cache[0],
-                                                   k_cache[1], v_cache[1])),
-            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype],
-            float(scale), window, stream,
-        )
-    else:
-        n_split, part_ml, part_acc, counters = _split_scratch(q, S, K, H // K, D)
-        err = _launcher(False)(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            *(None if t is None else t.data_ptr() for t in (part_ml, part_acc, counters)),
-            S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype], n_split,
-            SPLIT_TOKENS, float(scale), window, stream,
-        )
+    caches = (k_cache[0], v_cache[0], k_cache[1], v_cache[1]) if int8 else (k_cache, v_cache)
+    n_split, part_ml, part_acc, counters = _split_scratch(
+        q, S, K, H // K, D, BLOCKS_PER_SM_INT8 if int8 else BLOCKS_PER_SM)
+    err = _launcher(int8)(
+        q.data_ptr(), *(c.data_ptr() for c in caches),
+        block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (part_ml, part_acc, counters)),
+        S, H, K, D, bs, block_tables.shape[1], DTYPE_CODES[q.dtype], n_split,
+        SPLIT_TOKENS_INT8 if int8 else SPLIT_TOKENS, float(scale), window, stream,
+    )
     if err:
         name = "paged_decode_int8" if int8 else "paged_decode"
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")

@@ -11,6 +11,7 @@ import torch
 
 from production_stack_tpu_torch.engine.kv import quant as tquant
 from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
+from production_stack_tpu_torch.engine.ops.kernels import kv_write as tkw
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 
 # Max abs error against the plain version: fp32 is the same math with sums
@@ -69,20 +70,21 @@ def _paged_inputs(gen, dev, S, H, K, D, bs, ctx_list, dtype):
     return q, kc, vc, tables, torch.tensor(ctx_list, dtype=torch.int32, device=dev)
 
 
+# The split-KV kernels' edges, for the dense and the int8 kernel.
+SPLIT_EDGES = [
+    ([0, 0, 0, 0], None),                    # ctx 0 only
+    ([1, 2, 3, 5, 0, 7, 4, 9], None),        # ctx < n_split: one split a row
+    ([32000], None),                         # S = 1: all 64 splits, long walk
+    ([16385], None),                         # 64 splits of whole tiles: the last is empty
+    ([5000, 3000], 700),                     # a window across split boundaries
+    ([40, 17, 33, 1, 16, 39, 25, 8], None),  # short rows (S8_short)
+    ([0, 1, 16, 17, 1000, 2048, 3000, 4000], None),  # the main decode batch
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", TOLS)
-@pytest.mark.parametrize(
-    "ctx_list,window",
-    [
-        ([0, 0, 0, 0], None),                    # ctx 0 only
-        ([1, 2, 3, 5, 0, 7, 4, 9], None),        # ctx < n_split: one split a row
-        ([32000], None),                         # S = 1: all 64 splits, long walk
-        ([16385], None),                         # 64 splits of 264: the last is empty
-        ([5000, 3000], 700),                     # a window across split boundaries
-        ([40, 17, 33, 1, 16, 39, 25, 8], None),  # short rows (S8_short)
-        ([0, 1, 16, 17, 1000, 2048, 3000, 4000], None),  # the main decode batch
-    ],
-)
+@pytest.mark.parametrize("ctx_list,window", SPLIT_EDGES)
 def test_paged_decode_split_edges(cuda_device, dtype, tol, ctx_list, window):
     """The split-KV kernel's split and reduce edges: splits past a row's
     own count leave at once, an empty split weighs 0, ctx 0 rows are
@@ -151,6 +153,136 @@ def test_paged_decode_int8_kernel_matches_plain(cuda_device, dtype, tol, window,
     assert (got.float() - want.float()).abs().max().item() <= tol
     if S == 8:
         assert torch.all(got[0] == 0)
+
+
+def _int8_split_case(cuda_device, dtype, ctx_list, window, D):
+    """The int8 kernel's split and reduce edges: as the dense ones, on
+    caches quantized by quantize_vectors (the null block's scales 0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    H, K = (16, 4) if D == 256 else (32, 8)
+    S, bs = len(ctx_list), 16
+    q, kc, vc, tables, ctx = _paged_inputs(gen, cuda_device, S, H, K, D, bs, ctx_list, dtype)
+    k_side, v_side = tquant.quantize_vectors(kc), tquant.quantize_vectors(vc)
+    for side in (k_side, v_side):
+        side[0][0] = 0
+        side[1][0] = 0
+    before = tpa.launches_int8, tpa.launches
+    got = tpa.paged_decode_attention(q, k_side, v_side, tables, ctx, scale=D**-0.5,
+                                     sliding_window=window)
+    again = tpa.paged_decode_attention(q, k_side, v_side, tables, ctx, scale=D**-0.5,
+                                       sliding_window=window)
+    torch.cuda.synchronize()
+    assert (tpa.launches_int8, tpa.launches) == (before[0] + 2, before[1])
+    want = tpa.paged_decode_attention_int8_plain(q, k_side, v_side, tables, ctx,
+                                                 scale=D**-0.5, sliding_window=window)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= dict(TOLS)[dtype]
+    assert torch.equal(got, again)
+    for s, c in enumerate(ctx_list):
+        if c == 0:
+            assert torch.all(got[s] == 0)
+    n = tpa.split_count(S, K, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    assert n > 1  # these shapes take the split path
+    assert int(tpa._counters[torch.cuda.current_device()].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx_list,window", SPLIT_EDGES)
+def test_paged_decode_int8_split_edges(cuda_device, dtype, ctx_list, window):
+    """Splits past a row's own count leave at once, an empty split weighs
+    0, ctx 0 rows are exactly zero, the arrival counters (shared with the
+    dense kernel) are left at 0, and a second call gives the same bits."""
+    _int8_split_case(cuda_device, dtype, ctx_list, window, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx_list,window", [SPLIT_EDGES[4], SPLIT_EDGES[6]])
+@pytest.mark.parametrize("D", [64, 256])
+def test_paged_decode_int8_split_edges_head_dims(cuda_device, dtype, ctx_list, window, D):
+    _int8_split_case(cuda_device, dtype, ctx_list, window, D)
+
+
+def _writer_rows(gen, dev, R, K, D, dtype):
+    """N(0, 1) rows scaled per vector across e^+-6, with exact zero
+    vectors and vectors whose quotients fall on .5 (max 127, scale 1)."""
+    x = torch.randn((R, K, D), generator=gen, device=dev)
+    x *= torch.exp(torch.rand((R, K, 1), generator=gen, device=dev) * 12 - 6)
+    x[1, 0] = 0
+    x[R - 1] = 0
+    ties = torch.tensor([127.0, 63.5, -2.5, 0.5, 1.5, -0.5, 100.5, -126.5], device=dev)
+    x[2] = ties.repeat(D // 8)
+    return x.to(dtype)
+
+
+def _plain_on_cpu(sides, k_new, v_new, block_ids, offsets):
+    """The plain writer on CPU copies: the bits the CPU tests hold equal to
+    the JAX package's (a CUDA division by a Python scalar multiplies by
+    the reciprocal instead, so the plain version is run on the CPU)."""
+    cpu = [tuple(t.cpu().clone() for t in side) for side in sides]
+    tkw.write_int8_kv_plain(cpu[0], cpu[1], k_new.cpu(), v_new.cpu(), block_ids.cpu(),
+                            None if offsets is None else offsets.cpu())
+    return cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+def test_kv_write_int8_kernel_gives_the_plain_bits(cuda_device, dtype, D, mode):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    N, bs, K = 40, 16, 8
+    sides = [(torch.randint(-127, 128, (N, bs, K, D), generator=gen, device=cuda_device,
+                            dtype=torch.int32).to(torch.int8),
+              torch.rand((N, bs, K), generator=gen, device=cuda_device)) for _ in range(2)]
+    if mode == "decode":
+        R = 8
+        block_ids = torch.tensor([3, 17, 9, 0, 22, 5, 31, 0], dtype=torch.int32,
+                                 device=cuda_device)  # two padding rows at block 0
+        offsets = torch.tensor([0, 15, 7, 0, 1, 2, 14, 0], dtype=torch.int32,
+                               device=cuda_device)
+    else:
+        R = 4 * bs
+        block_ids = torch.tensor([12, 4, 0, 0], dtype=torch.int32, device=cuda_device)
+        offsets = None
+    k_new = _writer_rows(gen, cuda_device, R, K, D, dtype)
+    v_new = _writer_rows(gen, cuda_device, R, K, D, dtype).flip(0).contiguous()
+    want = _plain_on_cpu(sides, k_new, v_new, block_ids, offsets)
+    before = tkw.launches
+    tkw.write_int8_kv(sides[0], sides[1], k_new, v_new, block_ids, offsets)
+    torch.cuda.synchronize()
+    assert tkw.launches == before + 1
+    for got_side, want_side in zip(sides, want):
+        for got, ref in zip(got_side, want_side):  # block 0 takes the padding writes
+            assert torch.equal(got[1:].cpu(), ref[1:])
+
+
+@pytest.mark.cuda
+def test_kv_write_int8_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    dev = cuda_device
+    side = (torch.zeros((4, 16, 2, 128), dtype=torch.int8, device=dev),
+            torch.zeros((4, 16, 2), device=dev))
+    x = torch.zeros((2, 2, 128), device=dev)
+    ids = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="want one of"):
+        tkw.write_int8_kv(side, side, x.half(), x.half(), ids, ids)
+    with pytest.raises(TypeError, match="int32"):
+        tkw.write_int8_kv(side, side, x, x, ids.long(), ids)
+    with pytest.raises(ValueError, match="want \\[R"):
+        tkw.write_int8_kv(side, side, torch.zeros((2, 2, 64), device=dev),
+                          torch.zeros((2, 2, 64), device=dev), ids, ids)
+    with pytest.raises(ValueError, match="multiple"):
+        tkw.write_int8_kv(side, side, x, x, ids)  # prefill mode: 2 rows, bs 16
+    with pytest.raises(ValueError, match="on cpu"):
+        tkw.write_int8_kv(side, side, x, x, ids.cpu(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkw.write_int8_kv(side, side, torch.zeros((2, 128, 2), device=dev).transpose(1, 2),
+                          x, ids, ids)
+    with pytest.raises(TypeError, match="scale dtypes"):
+        tkw.write_int8_kv((side[0], side[1].half()), side, x, x, ids, ids)
+    with pytest.raises(TypeError, match=r"\(int8 data, fp32 scale\)"):
+        tkw.write_int8_kv(side[0], side, x, x, ids, ids)
 
 
 @pytest.mark.cuda

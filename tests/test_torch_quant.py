@@ -4,7 +4,9 @@
 the int8 plain decode (what a CPU int8 cache runs, and what chip_smoke.py
 holds the int8 CUDA kernel against) must match the JAX gather path on
 tuple sides and the Pallas int8 kernel in interpret mode at 2e-5 (fp32);
-the int8 cache writers must leave the JAX writers' cache contents, and
+the int8 cache writers must leave the JAX writers' cache contents (also
+when reached through the int8 writer's wrapper, ``kernels/kv_write.py``,
+whose CUDA kernel is held to these same plain bits on the card), and
 ``gather_prefix_kv(dtype=...)`` must dequantize as the JAX one does.
 """
 
@@ -20,6 +22,7 @@ from production_stack_tpu.engine.ops.pallas.paged_attention import (
 )
 from production_stack_tpu_torch.engine.kv import quant as tquant
 from production_stack_tpu_torch.engine.ops import attention as ta
+from production_stack_tpu_torch.engine.ops.kernels import kv_write as tkw
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -189,3 +192,66 @@ def test_int8_cache_writers_match_jax():
                                    np.asarray(jpk).astype(np.float32), **TOL)
         np.testing.assert_allclose(tpv.float().numpy(),
                                    np.asarray(jpv).astype(np.float32), **TOL)
+
+
+def _ties(R, K, D):
+    """Rows whose quotients x / scale fall exactly on .5 (scale 1: the
+    vector's max is 127), to pin round-half-to-even."""
+    x = np.zeros((R, K, D), np.float32)
+    base = np.array([127.0, 63.5, -2.5, 0.5, 1.5, -0.5, 100.5, -126.5], np.float32)
+    x[...] = np.resize(base, D)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_writer_entry_on_cpu_gives_the_jax_writers_bits(dtype):
+    """The int8 writer's entry (``kernels/kv_write.py``), fed CPU tuple
+    sides, runs its plain version in both modes, launches nothing, and
+    leaves the JAX writers' cache bits: a prefill of whole blocks with a
+    padding block (block 0), then a decode of one row per sequence with a
+    padding row; scales across e^+-6, zero vectors and .5 ties."""
+    rng = np.random.default_rng(11)
+    N, bs, K, D = 16, 4, 2, 8
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def sides():
+        return (np.zeros((N, bs, K, D), np.int8), np.zeros((N, bs, K), np.float32))
+
+    jk, jv = (tuple(map(jnp.asarray, sides())) for _ in range(2))
+    tk, tv = (tuple(map(torch.tensor, sides())) for _ in range(2))
+    k_new = _vectors(3, (12, K, D), zero_rows=2)
+    k_new[4:8] = _ties(4, K, D)
+    v_new = _vectors(4, (12, K, D), zero_rows=1)
+    new_ids = np.array([9, 2, 0], np.int32)  # last block padding -> null block
+    before = tkw.launches
+    jk, jv = ja.write_prefill_kv(jk, jv, jnp.asarray(k_new).astype(jdt),
+                                 jnp.asarray(v_new).astype(jdt), jnp.asarray(new_ids))
+    tkw.write_int8_kv(tk, tv, torch.tensor(k_new).to(tdt), torch.tensor(v_new).to(tdt),
+                      torch.tensor(new_ids))
+
+    def same(tside, jside):
+        for t, j in zip(tside, jside):  # block 0 takes the padding writes
+            np.testing.assert_array_equal(t.numpy()[1:], np.asarray(j)[1:])
+
+    same(tk, jk)
+    same(tv, jv)
+    k1 = _ties(3, K, D) * np.float32(np.exp(rng.uniform(-6, 6)))
+    v1 = _vectors(5, (3, K, D), zero_rows=1)
+    slots, offs = np.array([9, 5, 0], np.int32), np.array([3, 1, 0], np.int32)
+    jk, jv = ja.append_decode_kv(jk, jv, jnp.asarray(k1).astype(jdt),
+                                 jnp.asarray(v1).astype(jdt), jnp.asarray(slots),
+                                 jnp.asarray(offs))
+    tkw.write_int8_kv(tk, tv, torch.tensor(k1).to(tdt), torch.tensor(v1).to(tdt),
+                      torch.tensor(slots), torch.tensor(offs))
+    same(tk, jk)
+    same(tv, jv)
+    assert tkw.launches == before  # the CPU takes the plain version
+    assert np.any(np.asarray(jk[0])[2] == 64)  # the 63.5 tie went to even
+
+
+def test_int8_writer_entry_refuses_other_devices():
+    x = torch.zeros((4, 2, 64), device="meta")
+    side = (torch.zeros((2, 4, 2, 64), dtype=torch.int8, device="meta"),
+            torch.zeros((2, 4, 2), device="meta"))
+    with pytest.raises(ValueError, match="no int8 KV writer kernel"):
+        tkw.write_int8_kv(side, side, x, x, torch.zeros(1, dtype=torch.int32, device="meta"))

@@ -1,12 +1,14 @@
 """The split-KV decode's split and merge, in plain PyTorch, on the CPU.
 
-The dense paged-decode kernel cuts each row's context into ``n_split``
-pieces (``split_bounds``), computes a partial softmax state per piece and
-merges the pieces by log-sum-exp (``_merge_partials``).  Here the plain
-partials of n pieces, merged, are held against the plain decode and the
-JAX package's gather path (fp32, 1e-5), with empty pieces and ctx 0 rows;
-``split_count``, the host's choice of n, is a pure function of shapes.
-The kernel itself runs only on the card (tests/test_torch_cuda_kernels.py).
+Both paged-decode kernels (dense and int8 caches) cut each row's context
+into ``n_split`` pieces (``split_bounds``), compute a partial softmax state
+per piece and merge the pieces by log-sum-exp (``_merge_partials``).  Here
+the plain partials of n pieces, merged, are held against the plain decode
+and the JAX package's gather path (fp32, 1e-5), with empty pieces and ctx 0
+rows; on int8 ``(data, scale)`` caches also against the Pallas int8 kernel
+in interpret mode (2e-5); ``split_count``, the host's choice of n, is a
+pure function of shapes.  The kernels themselves run only on the card
+(tests/test_torch_cuda_kernels.py).
 """
 
 import jax.numpy as jnp
@@ -14,10 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from production_stack_tpu.engine.kv import quant as jquant
 from production_stack_tpu.engine.ops import attention as ja
+from production_stack_tpu.engine.ops.pallas.paged_attention import (
+    paged_decode_attention_pallas,
+)
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+INT8_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
 def _case(seed, S, H, K, D, bs, ctx_lens):
@@ -65,6 +72,77 @@ def test_merged_partials_match_plain_and_jax(n_split, ctx_lens, window):
     assert np.all(got.numpy()[~live] == 0.0)
 
 
+INT8_CASES = [
+    ([0, 1, 16, 17, 100, 300], None),  # ctx 0; pieces past short rows are empty
+    ([5, 40, 0, 257], None),          # more pieces than tiles in most rows
+    ([300, 33, 129, 0], 100),         # a window crossing piece boundaries
+]
+_pallas_int8 = {}
+
+
+def _int8_case(ctx_lens):
+    """q and (int8, scale) sides quantized by the JAX quantizer (the
+    port's gives the same bits, tests/test_torch_quant.py); the null block
+    0 holds zero vectors, as in a pool."""
+    S, H, K, D, bs = len(ctx_lens), 8, 2, 32, 16
+    q, kc, vc, tables, ctx = _case(12, S, H, K, D, bs, ctx_lens)
+    kc[0] = vc[0] = 0.0
+    sides = [tuple(np.array(a) for a in jquant.quantize_vectors(jnp.asarray(c)))
+             for c in (kc, vc)]
+    return q, sides[0], sides[1], tables, ctx
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 7])
+@pytest.mark.parametrize("ctx_lens,window", INT8_CASES)
+def test_int8_merged_partials_match_plain_jax_and_pallas(n_split, ctx_lens, window):
+    """Int8 caches: the plain partials dequantize the tuple sides to fp32
+    and keep fp32 probabilities, as the int8 kernel's arithmetic does."""
+    q, ks, vs, tables, ctx = _int8_case(ctx_lens)
+    D = q.shape[2]
+    scale = D**-0.5
+    tq, tt, tc = torch.tensor(q), torch.tensor(tables), torch.tensor(ctx)
+    tk, tv = tuple(map(torch.tensor, ks)), tuple(map(torch.tensor, vs))
+    m, l, acc = tpa.paged_decode_partials_plain(
+        tq, tk, tv, tt, tc, scale=scale, n_split=n_split, tile=16, split_tokens=32,
+        sliding_window=window)
+    assert m.shape == (len(ctx_lens), q.shape[1], n_split)
+    got = tpa._merge_partials(m, l, acc).numpy()
+    assert np.isfinite(got).all()
+    want = tpa.paged_decode_attention_int8_plain(tq, tk, tv, tt, tc, scale=scale,
+                                                 sliding_window=window).numpy()
+    np.testing.assert_allclose(got, want, **INT8_TOL)
+    jargs = (jnp.asarray(q), tuple(map(jnp.asarray, ks)), tuple(map(jnp.asarray, vs)),
+             jnp.asarray(tables), jnp.asarray(ctx))
+    gather = np.asarray(ja.paged_decode_attention(*jargs, scale=scale,
+                                                  sliding_window=window))
+    live = ctx > 0
+    np.testing.assert_allclose(got[live], gather[live], **INT8_TOL)
+    key = (tuple(ctx_lens), window)
+    if key not in _pallas_int8:
+        _pallas_int8[key] = np.asarray(paged_decode_attention_pallas(
+            *jargs, scale=scale, sliding_window=window, interpret=True))
+    np.testing.assert_allclose(got, _pallas_int8[key], **INT8_TOL)
+    assert np.all(got[~live] == 0.0)
+
+
+def test_int8_partials_of_an_empty_piece_weigh_nothing():
+    """A piece that sees no token carries m = -inf, l = 0 and a zero
+    accumulator on int8 caches too, and a row whose scales are all 0 (zero
+    vectors) gives zeros, never NaN."""
+    q, ks, vs, tables, ctx = _int8_case([5, 40, 0, 257])
+    vs[1][...] = 0.0  # every V vector zero: the output is exactly 0
+    args = (torch.tensor(q), tuple(map(torch.tensor, ks)), tuple(map(torch.tensor, vs)),
+            torch.tensor(tables), torch.tensor(ctx))
+    m, l, acc = tpa.paged_decode_partials_plain(*args, scale=0.2, n_split=7, tile=16,
+                                                split_tokens=32)
+    beg, end = tpa.split_bounds(args[4], 7, 16, None, 32)
+    empty = (end <= beg)[:, None, :].expand_as(m)
+    assert empty.any() and torch.all(torch.isneginf(m[empty]))
+    assert torch.all(l[empty] == 0) and torch.all(acc[empty] == 0)
+    out = tpa._merge_partials(m, l, acc)
+    assert torch.isfinite(out).all() and torch.all(out == 0)
+
+
 def test_merge_is_hierarchical():
     """Merging warps' states within each split, then the splits (the
     kernel's two levels), equals merging all parts at once."""
@@ -99,6 +177,12 @@ def test_merge_is_hierarchical():
 )
 def test_split_count(S, K, sms, want):
     assert tpa.split_count(S, K, sms) == want
+
+
+@pytest.mark.parametrize("S,K,sms,want", [(8, 8, 132, 25), (1, 8, 132, 64), (1024, 8, 132, 1)])
+def test_split_count_int8(S, K, sms, want):
+    """The int8 kernel's grid: 12 blocks an SM at the main decode batch."""
+    assert tpa.split_count(S, K, sms, tpa.BLOCKS_PER_SM_INT8) == want
 
 
 def test_split_count_bounds_and_monotone():
