@@ -35,23 +35,38 @@ non-zero (no phase is caught and passed over):
    small input, once on dense and once on int8 KV caches: 2 layers at
    llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
    (a decode row beside a prefill chunk over its cached prefix), logits
-   within 2e-3.
+   within 2e-3.  Then the K-step window path at the same width and depth
+   (fp32, TF32 off, dense and int8): 8 greedy requests on an engine at
+   the default decode path (windows of 8 with the lookahead, each window
+   one CUDA-graph replay) must give the same tokens as eager single
+   steps on a second engine with the same weights, and every dispatch
+   after the first capture runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
 4. The engine at full width: llama-3.1-8b (32 layers, bf16, seeded random
-   init on the card), KV pool sized from free memory, mixed steps on, 8
-   greedy requests through ``AsyncEngine.generate`` (one of them a
-   prefix-cache hit, one chunked, most of them chunked beside running
-   decodes), then /health and one /v1/completions over localhost HTTP.
-   The kernels' launch counters are set to 0 just before and read just
-   after: the dense paged-decode and flash-prefill kernels must be > 0,
-   the int8 paged-decode kernel and the int8 cache writer 0; some prompt
-   tokens must have ridden mixed steps.
-5. Where a decode step's time goes: 16 steps of the same engine under
-   torch.profiler (device time by kernel, idle share).
+   init on the card), KV pool sized from free memory, mixed steps on, K=8
+   windows with the lookahead, 8 greedy requests through
+   ``AsyncEngine.generate`` (one of them a prefix-cache hit, one chunked,
+   most of them chunked beside running decodes), then /health and one
+   /v1/completions over localhost HTTP.  The kernels' launch counters are
+   set to 0 just before and read just after: the dense paged-decode and
+   flash-prefill kernels must be > 0, the int8 paged-decode kernel and
+   the int8 cache writer 0; some prompt tokens must have ridden mixed
+   steps; windows must have been dispatched, chained and replayed, and
+   the decode kernel's count must cover every replayed window (the
+   counters count the launches inside graph replays).
+5. Where a decode token's time goes at 8 rows: the same engine timed over
+   a fixed number of tokens a row (wall, and device busy from CUDA events
+   around each graph replay), then the same under torch.profiler (device
+   time by kernel, ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls),
+   per token step (one token for each of the 8 rows).
 6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
    engine (the dense one freed first): the int8 paged-decode, the int8
    cache writer and the flash-prefill kernels must launch and the dense
    decode kernel never; the pool must hold at least 1.8x the dense
    phase's tokens.
+7. The single-step path (``multi_step_window=False``,
+   ``pipeline_decode=False``) at 4 layers, dense: phase 4's requests
+   through eager single steps, no window and no graph.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -609,6 +624,89 @@ def phase_reference(int8: bool) -> dict:
     return row
 
 
+WINDOW_PROMPT_LENS = (100, 37, 250, 16, 90, 300, 64, 130)
+WINDOW_NEW_TOKENS = 41  # the prefill's token, then five windows of 8
+
+
+def _drive_steps(eng, prompts, sync_check: bool):
+    """Greedy streams of ``prompts`` (all arriving at once) through
+    dispatch/collect.  With ``sync_check``, every dispatch made once a
+    graph is captured and no prompt waits (so every plan is a window) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    for i, ids in enumerate(prompts):
+        eng.add_request(f"w{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
+            max_tokens=WINDOW_NEW_TOKENS, ignore_eos=True))
+    streams, checked = {}, 0
+    while eng.has_unfinished() or eng.has_pending():
+        check = sync_check and eng.graphs.captures > 0 and not eng.scheduler.waiting
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked += check
+        for out in eng.collect():
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+    return streams, checked
+
+
+def phase_window(int8: bool) -> dict:
+    """The K-step window path on the card against eager single steps: two
+    engines with the same weights (2 layers at llama-3.1-8b width, fp32,
+    TF32 off), one at the default decode path (windows of 8 with the
+    lookahead: each window one CUDA-graph replay), one with
+    ``multi_step_window=False, pipeline_decode=False``; 8 greedy requests
+    must give the same tokens, and the window engine's dispatches run with
+    no host sync."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kv = "int8" if int8 else "auto"
+
+    def engine(params=None, **sched):
+        cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+            "model.num_layers": 2, "model.dtype": "float32",
+            "cache.kv_cache_dtype": kv, "cache.num_blocks": 1024,
+            "scheduler.max_num_seqs": 8, "scheduler.max_model_len": 4096,
+            **{f"scheduler.{k}": v for k, v in sched.items()},
+        })
+        return LLMEngine(cfg, params=params)
+
+    rng = np.random.default_rng(2)
+    torch.cuda.reset_peak_memory_stats()
+    eager = engine(multi_step_window=False, pipeline_decode=False)
+    vocab = eager.config.model.vocab_size
+    prompts = [rng.integers(4, vocab, n).tolist() for n in WINDOW_PROMPT_LENS]
+    want, _ = _drive_steps(eager, prompts, sync_check=False)
+    win = engine(params=eager.params)
+    t0 = time.time()
+    got, checked = _drive_steps(win, prompts, sync_check=True)
+    stats = win.stats()
+    row = {"phase": "window", "kv": kv, "layers": 2, "width": win.config.model.hidden_size,
+           "decode_window": win.config.scheduler.window_steps, "rows": len(prompts),
+           "tokens_per_row": WINDOW_NEW_TOKENS, "streams_equal": got == want,
+           "windows": stats["windows_dispatched"], "windows_chained": stats["windows_chained"],
+           "graph_captures": stats["graph_captures"], "graph_replays": stats["graph_replays"],
+           "capture_s": sorted(win.graphs.capture_seconds.values()),
+           "sync_checked_dispatches": checked, "wall_s": time.time() - t0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    if got != want:
+        raise AssertionError(f"{kv} KV: window streams differ from eager single steps")
+    if not (stats["windows_chained"] and stats["graph_replays"] and checked >= 3):
+        raise AssertionError(f"{kv} KV: windows did not chain, replay or get checked: {row}")
+    del eager, win
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 async def _serve(aeng, app, vocab: int) -> dict:
     """Drive 8 requests through AsyncEngine.generate (request 7 shares a
     512-token prefix with request 0 and is submitted when request 0 has
@@ -679,12 +777,15 @@ async def _serve(aeng, app, vocab: int) -> dict:
             "http_status": http_status, "http_body": http_body}
 
 
-def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
+def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
+                 single_step: bool = False, layers: int = None) -> dict:
     """Serve the 8 requests and one HTTP completion on a fresh engine at
-    full width, KV cache dense (``auto``) or ``int8``; mixed steps at their
-    default (on).  ``dense`` is the dense phase's result, which the int8
-    phase is compared with: its pool must hold >= 1.8x the tokens, and the
-    share of requests whose first token agrees is reported."""
+    full width, KV cache dense (``auto``) or ``int8``; mixed steps on and,
+    unless ``single_step``, K=8 windows with the lookahead (the default
+    decode path; ``single_step`` turns both off).  ``layers`` cuts the
+    depth.  ``dense`` is the dense phase's result, which the int8 phase is
+    compared with: its pool must hold >= 1.8x the tokens, and the share of
+    requests whose first token agrees is reported."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
@@ -696,13 +797,22 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
     int8 = kv_cache_dtype == "int8"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+    overrides = {
         "scheduler.max_model_len": 32768,
         "scheduler.max_num_seqs": NUM_REQUESTS,
         "cache.kv_cache_dtype": kv_cache_dtype,
-    })
+    }
+    if single_step:
+        overrides.update({"scheduler.multi_step_window": False,
+                          "scheduler.pipeline_decode": False})
+    if layers is not None:
+        overrides["model.num_layers"] = layers
+    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **overrides)
     if not cfg.scheduler.mixed_enabled:
         raise AssertionError("mixed steps are off by default")
+    K = cfg.scheduler.window_steps
+    if (K == 1) != single_step or cfg.scheduler.pipeline_enabled == single_step:
+        raise AssertionError(f"decode path: K={K}, pipeline {cfg.scheduler.pipeline_enabled}")
     host_us = host_us_per_op()
     t0 = time.time()
     aeng = AsyncEngine(cfg)  # default device: the card
@@ -731,18 +841,36 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
         raise AssertionError(f"HTTP path failed: {out['health']} {out['http_body']}")
     if stats["prefill_chunk_tokens"] <= 0:
         raise AssertionError("no prompt token rode a mixed step")
-    on = ["flash_prefill"] + (["paged_decode_int8", "kv_write_int8"] if int8
-                              else ["paged_decode"])
+    decode = "paged_decode_int8" if int8 else "paged_decode"
+    on = ["flash_prefill", decode] + (["kv_write_int8"] if int8 else [])
     if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches
                                                  if k not in on):
         raise AssertionError(f"{kv_cache_dtype} KV: wrong kernels launched: {launches}")
+    L = cfg.model.num_layers
+    if single_step:
+        if stats["windows_dispatched"] or stats["graph_replays"]:
+            raise AssertionError(f"single steps ran windows or graphs: {stats}")
+    else:
+        if not (stats["windows_dispatched"] and stats["windows_chained"]
+                and stats["graph_replays"]):
+            raise AssertionError(f"no window dispatched, chained or replayed: {stats}")
+        # Every window, the first of its key run eagerly and the rest
+        # replayed, launches the decode kernel (and the int8 writer) once
+        # a layer and iteration: the counters must cover them all.
+        for k in on[1:]:
+            if launches[k] < stats["windows_dispatched"] * K * L:
+                raise AssertionError(f"{k}: {launches[k]} launches for "
+                                     f"{stats['windows_dispatched']} windows")
     total_out = sum(r["tokens"] for r in results)
     row = {
-        "phase": "engine_int8" if int8 else "engine",
+        "phase": ("engine_single_step" if single_step
+                  else "engine_int8" if int8 else "engine"),
         "model": MODEL,
-        "layers": cfg.model.num_layers,
+        "layers": L,
         "dtype": cfg.model.dtype,
         "kv_cache_dtype": kv_cache_dtype,
+        "decode_window": K,
+        "pipeline": cfg.scheduler.pipeline_enabled,
         "boot_s": boot_s,
         "host_us_per_small_op": host_us,
         "kv_blocks": stats["num_kv_blocks"],
@@ -756,6 +884,13 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
         "prefill_chunk_tokens": stats["prefill_chunk_tokens"],
         "prefix_cache_hit_tokens": stats["prefix_cache_hit_tokens"],
         "http_completion_tokens": out["http_body"]["usage"]["completion_tokens"],
+        "windows": stats["windows_dispatched"],
+        "windows_chained": stats["windows_chained"],
+        "multistep_fallback": stats["multistep_fallback"],
+        "decode_host_gap_ms": stats["decode_host_gap_ms"],
+        "graph_captures": stats["graph_captures"],
+        "graph_replays": stats["graph_replays"],
+        "capture_s": sorted(eng.graphs.capture_seconds.values()),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     if dense is not None:
@@ -774,11 +909,24 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None) -> dict:
             "results": results}
 
 
-def phase_profile(eng, steps: int = 16) -> dict:
-    """Where a decode step's time goes: the served engine, stepped
-    synchronously at 8 rows (the same prompt lengths), timed over ``steps``
-    decode steps, then the same number of steps under torch.profiler for
-    device time by kernel.  idle share = 1 - device busy / unprofiled wall."""
+def _decode_tokens(eng, per_row: int, rows: int) -> int:
+    """Step until the rows have emitted ``per_row`` tokens each, then collect
+    what is still in flight; returns the tokens emitted."""
+    emitted = 0
+    while emitted < per_row * rows:
+        emitted += len(eng.step())
+    while eng.has_pending():
+        emitted += len(eng.collect())
+    return emitted
+
+
+def phase_profile(eng, tokens: int = 32) -> dict:
+    """Where a decode token's time goes at 8 rows: the served engine
+    decoding the same prompt lengths, timed over ``tokens`` tokens a row
+    (per token step = wall / (tokens emitted / 8 rows)), device busy from
+    CUDA events around each graph replay, then the same number of tokens
+    under torch.profiler for device time by kernel and the host's launch
+    calls.  idle share = 1 - device busy / unprofiled wall."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -786,28 +934,42 @@ def phase_profile(eng, steps: int = 16) -> dict:
 
     rng = np.random.default_rng(1)
     vocab = eng.config.model.vocab_size
+    rows = len(PROMPT_LENS)
     for i, n in enumerate(PROMPT_LENS):
-        # Enough tokens that no row finishes before the profiled steps:
-        # the first rows decode in every mixed step of the later prefills.
+        # Enough tokens that no row finishes before the profiled tokens.
         eng.add_request(
             f"prof{i}", prompt_token_ids=rng.integers(4, vocab, n).tolist(),
-            sampling_params=SamplingParams(max_tokens=2 * steps + 64, ignore_eos=True),
+            sampling_params=SamplingParams(max_tokens=3 * tokens + 64, ignore_eos=True),
         )
     while eng.scheduler.waiting:
         eng.step()  # prefills, most in chunks beside running decodes
-    eng.step()
-    if eng.scheduler.num_running != len(PROMPT_LENS):
-        raise AssertionError(f"{eng.scheduler.num_running} rows decoding, "
-                             f"want {len(PROMPT_LENS)}")
+    _decode_tokens(eng, 8, rows)
+    if eng.scheduler.num_running != rows:
+        raise AssertionError(f"{eng.scheduler.num_running} rows decoding, want {rows}")
     host_us_before = host_us_per_op()
+    # Device time of each graph replay, by CUDA events on its stream.
+    spans = []
+    run = eng.graphs.run
+
+    def timed_run(key, body):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run(key, body)
+        end.record()
+        spans.append((start, end))
+
+    eng.graphs.run = timed_run
+    replays = eng.graphs.replays
     t0 = time.time()
-    for _ in range(steps):
-        eng.step()
+    emitted = _decode_tokens(eng, tokens, rows)
     torch.cuda.synchronize()
-    wall_ms = (time.time() - t0) * 1e3 / steps
+    wall = time.time() - t0
+    eng.graphs.run = run
+    token_steps = emitted / rows
+    replays = eng.graphs.replays - replays
+    event_busy_ms = sum(s.elapsed_time(e) for s, e in spans) / token_steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
+        prof_steps = _decode_tokens(eng, tokens, rows) / rows
         torch.cuda.synchronize()
     host_us_after = host_us_per_op()
     while eng.has_unfinished():
@@ -819,37 +981,52 @@ def phase_profile(eng, steps: int = 16) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    prof_busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / prof_steps
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     # Host side: PyTorch ops by self CPU time (inflated by the profiler
-    # alike for every op), and the kernel launches the step makes.
+    # alike for every op), and the launch calls a token step makes.
     host = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU
             and e.self_cpu_time_total > 0]
     host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    launch_calls = sum(e.count for e in host if e.key == "cudaLaunchKernel")
+
+    def calls(name):
+        return sum(e.count for e in host if e.key == name) / prof_steps
+
+    wall_ms = wall * 1e3 / token_steps
+    busy_ms = event_busy_ms if spans else prof_busy_ms
     row = {
         "phase": "profile",
         "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
-        "decode_rows": len(PROMPT_LENS),
-        "steps": steps,
-        "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
-        "top_kernels_ms_per_step": [
-            [e.key[:80], e.self_device_time_total / 1e3 / steps, e.count // steps]
+        "decode_window": eng.config.scheduler.window_steps,
+        "decode_rows": rows,
+        "token_steps": token_steps,
+        "graph_replays": replays,
+        "wall_ms_per_token_step": wall_ms,
+        # Graph replays' device time (CUDA events around each replay); the
+        # eager copies around a replay are not in it.
+        "device_busy_ms_per_token_step": busy_ms,
+        "device_busy_ms_per_token_step_profiler": prof_busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "top_kernels_ms_per_token_step": [
+            [e.key[:80], e.self_device_time_total / 1e3 / prof_steps,
+             e.count / prof_steps]
             for e in top
         ],
-        "kernel_launches_per_step": launch_calls / steps,
+        "cudaLaunchKernel_per_token_step": calls("cudaLaunchKernel"),
+        "cudaGraphLaunch_per_token_step": calls("cudaGraphLaunch"),
+        "capture_s": {str(k): v for k, v in eng.graphs.capture_seconds.items()},
         "host_us_per_small_op": host_us_before,
         "host_us_per_small_op_after_profiler": host_us_after,
         "python_threads": threading.active_count(),
-        "top_host_ops_ms_per_step": [
-            [e.key[:60], e.self_cpu_time_total / 1e3 / steps, e.count / steps]
+        "top_host_ops_ms_per_token_step": [
+            [e.key[:60], e.self_cpu_time_total / 1e3 / prof_steps, e.count / prof_steps]
             for e in host_top
         ],
     }
     emit(row)
+    if not spans or not replays:
+        raise AssertionError("the profiled decode made no graph replay")
     return row
 
 
@@ -884,6 +1061,8 @@ def main() -> int:
     main_rows = phase_kernels()
     phase_reference(int8=False)
     phase_reference(int8=True)
+    phase_window(int8=False)
+    phase_window(int8=True)
     dense = phase_engine("auto")
     phase_profile(dense["engine"])
     dense_launches = dense["launches"]
@@ -892,10 +1071,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     int8 = phase_engine("int8", dense=dense)
     phase_profile(int8["engine"])
+    int8.pop("engine")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_engine("auto", single_step=True, layers=4)
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's from the dense
     # phase, the int8 decode kernel's and the int8 writer's from the int8
-    # phase.
+    # phase (both at the default decode path, windows and all).
     launches = {"paged_decode": dense_launches["paged_decode"],
                 "paged_decode_int8": int8["launches"]["paged_decode_int8"],
                 "flash_prefill": dense_launches["flash_prefill"],

@@ -1,0 +1,107 @@
+"""CUDA graphs over the engine's device-resident decode bodies.
+
+The JAX engine jits its K-step decode window (``multi_window``) and its
+decode+sample step, so each dispatch is one executable launch.  Eager
+PyTorch launches every op of those bodies from the host, about 1600
+launches a decode iteration at llama-3.1-8b's 32 layers.  On the card the
+engine therefore captures each body once per shape key into a CUDA graph
+and replays it: a K-step window is one ``cudaGraphLaunch``.
+
+``GraphRunner.run(key, body)`` runs ``body()``, a function of static
+tensors (it reads and writes the same addresses on every call).  The first
+call of a key runs the body eagerly on the runner's side stream: that call's
+real work, and the warm-up that builds what a capture needs (cuBLAS
+workspaces, the kernels' libraries, the SM count).  The body is then
+captured (nothing runs) into a graph that shares one memory pool with every
+other graph of the runner; later calls replay it on the current stream.  A
+capture or replay that fails raises: there is no eager fallback.  On the CPU
+there is no graph and every call runs the body eagerly, so the CPU tests run
+the captured code.
+
+The kernels' launch counters are Python ints bumped where a wrapper launches
+its kernel, which a replay does not run.  The runner records each counter's
+change during capture, takes it back, and adds it on every replay, so the
+counters keep counting the launches the device makes.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Hashable, List, Tuple
+
+import torch
+
+from production_stack_tpu_torch.engine.ops.kernels import (
+    flash_prefill,
+    kv_write,
+    paged_attention,
+)
+
+# (module, attribute) of every kernel's launch counter.
+LAUNCH_COUNTERS = (
+    (paged_attention, "launches"),
+    (paged_attention, "launches_int8"),
+    (kv_write, "launches"),
+    (flash_prefill, "launches"),
+)
+
+
+def _read_counters() -> List[int]:
+    return [getattr(module, attr) for module, attr in LAUNCH_COUNTERS]
+
+
+def _add_counters(deltas: List[int]) -> None:
+    for (module, attr), d in zip(LAUNCH_COUNTERS, deltas):
+        setattr(module, attr, getattr(module, attr) + d)
+
+
+class GraphRunner:
+    """One CUDA graph per shape key, captured lazily and replayed."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, List[int]]] = {}
+        self._pool = None
+        self._stream = None
+        self.replays = 0
+        # Seconds each key's capture took (the graph instantiate included).
+        self.capture_seconds: Dict[Hashable, float] = {}
+
+    @property
+    def captures(self) -> int:
+        return len(self._graphs)
+
+    def run(self, key: Hashable, body: Callable[[], None]) -> None:
+        if self.device.type != "cuda":
+            body()
+            return
+        entry = self._graphs.get(key)
+        if entry is None:
+            self._warm_up_and_capture(key, body)
+            return
+        graph, deltas = entry
+        graph.replay()
+        _add_counters(deltas)
+        self.replays += 1
+
+    def _warm_up_and_capture(self, key: Hashable, body: Callable[[], None]) -> None:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream):
+            body()  # this call's work, eagerly
+            t0 = time.perf_counter()
+            before = _read_counters()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._pool)
+            try:
+                body()  # recorded, not run
+            finally:
+                graph.capture_end()
+            deltas = [a - b for a, b in zip(_read_counters(), before)]
+            _add_counters([-d for d in deltas])
+        main.wait_stream(self._stream)
+        self._graphs[key] = (graph, deltas)
+        self.capture_seconds[key] = time.perf_counter() - t0

@@ -1,11 +1,29 @@
 """LLMEngine: the serving engine core (PyTorch).
 
 Counterpart of ``production_stack_tpu/engine/core/engine.py``, slimmed to
-the main serving path: each ``step()`` runs one scheduler plan — a
-(possibly chunked) prefill of one sequence, one single-token decode of
-every running sequence, or a mixed step that does both in one forward —
-synchronously, then samples on the host side of the one device read per
-step (the sampled ids).
+the main serving path.  ``step()`` is ``dispatch()`` then ``collect()``, as
+in the JAX engine: dispatch launches device work without reading anything
+back, filling the pipeline to its depth (2 with the one-step lookahead, 1
+without), and collect finalizes the oldest dispatched step.  A plan is a
+(possibly chunked) prefill of one sequence, a mixed step (every running
+sequence decodes one token beside one prefill chunk), a K-step decode
+window, or one single-token decode step:
+
+- prefills, mixed steps and decode batches whose rows need host-visible
+  sampling state (logprobs, ``logit_bias``) run synchronously and sample
+  on the host side of one device read;
+- a pure-decode plan runs as a K-step window (``decode_window``, default
+  8): K decode+sample iterations with the penalties, the ``min_tokens``
+  floor and per-row stop masking on the device, the carry (tokens,
+  positions, ctx, done, min_left, occurrence counts) in static buffers
+  that a chained window continues from without a host round-trip;
+- with windows off (``multi_step_window=False``), a pure-decode batch that
+  needs no host state runs as a pipelined single-token step whose input
+  tokens chain from the previous step's in-flight sample.
+
+On the card each window and each pipelined step is one CUDA-graph replay
+(``cuda_graphs.py``); the one host sync a dispatch waits on is its own
+event, in ``collect``.
 
 Owns the params and the paged KV caches on one device, the block pool
 (hash-chained prefix cache, null block 0) and the scheduler.  The caches
@@ -14,25 +32,27 @@ int8 ``(data, scale)`` tuples (``kv/quant.py``).  Prefill runs the
 flash-prefill kernel and decode the paged-decode kernel for the cache
 type whenever the tensors live on a CUDA device (``ops/attention.py``).
 
-The engine serves the JAX package's engine at its K=1 path
-(``SLICE_OVERRIDES``: no K-step windows, no lookahead pipeline, recompute
-preemption, no LoRA / speculation / guided decoding / offload / remote
-KV / parallelism / tracing; mixed steps on by default, dense or int8 KV)
-and raises ``NotImplementedError`` at construction for any setting
-outside it.
+The engine serves the JAX package's default decode path with mixed
+K-step windows off (``SLICE_OVERRIDES``: recompute preemption, no LoRA /
+speculation / guided decoding / offload / remote KV / parallelism /
+tracing; mixed steps on by default, dense or int8 KV) and raises
+``NotImplementedError`` at construction for any setting outside it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional
+from collections import deque
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine import sampling as sampling_lib
 from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.core.cuda_graphs import GraphRunner
 from production_stack_tpu_torch.engine.core.scheduler import (
     DecodePlan,
     PrefillPlan,
@@ -44,19 +64,22 @@ from production_stack_tpu_torch.engine.core.sequence import (
     Sequence,
     SequenceStatus,
     StepOutput,
+    host_state_flags,
 )
 from production_stack_tpu_torch.engine.kv.block_pool import BlockPool
 from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
+from production_stack_tpu_torch.engine.ops.kernels import paged_attention
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 
 logger = logging.getLogger(__name__)
 
 # The configuration this engine serves, as ``config_from_preset``
-# overrides: the JAX engine's K=1 path (mixed steps stay at their default).
+# overrides: the JAX engine's default decode path (K-step windows and the
+# lookahead pipeline) without mixed K-step windows; mixed steps stay at
+# their default.
 SLICE_OVERRIDES = {
-    "scheduler.multi_step_window": False,
-    "scheduler.pipeline_decode": False,
+    "scheduler.mixed_window": False,
     "scheduler.encode_lane": False,
     "scheduler.preemption_mode": "recompute",
     "obs.tracing": False,
@@ -80,9 +103,7 @@ def _unsupported(config: EngineConfig) -> List[str]:
     """Settings outside the served configuration, by name."""
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
-        (s.window_steps != 1, "scheduler.multi_step_window (K-step windows)"),
         (s.mixed_window_enabled, "scheduler.mixed_window (mixed K-step windows)"),
-        (s.pipeline_enabled, "scheduler.pipeline_decode (lookahead pipeline)"),
         (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
         (s.preemption_mode != "recompute", "scheduler.preemption_mode != recompute"),
         (s.spec_drafter is not None, "speculative decoding"),
@@ -114,6 +135,55 @@ def _check_chunk_buckets(config: EngineConfig) -> None:
             )
 
 
+def _pow2_bucket(n: int, floor: int) -> int:
+    """The window's shape bucketing for its stop-id and occurrence arrays:
+    O(log) shapes, not one per length."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _advance_tables(tables: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor) -> None:
+    """Block-table growth in place: ``tables[r, cols[r, j]] = vals[r, j]``
+    where ``cols >= 0`` (col -1 = no growth; those write the value column 0
+    already holds)."""
+    valid = cols >= 0
+    safe = torch.where(valid, cols, 0).long()
+    keep = torch.gather(tables, 1, safe)
+    tables.scatter_(1, safe, torch.where(valid, vals, keep))
+
+
+@dataclasses.dataclass
+class _PendingStep:
+    """One dispatched-but-not-yet-collected engine step.
+
+    Synchronous steps carry their ``outputs``; pipelined decode steps carry
+    the batch rows and a pinned host copy of the still-in-flight sample
+    (``host``, ready when the ``ready`` event has passed; no event on the
+    CPU): [S] for a single-token step, [K, S] emitted tokens for a K-step
+    window (``steps`` holds the rows' token budgets and ``win_key`` the
+    shape key of the window's static carry, which the next window chains
+    from)."""
+
+    outputs: Optional[List[StepOutput]] = None
+    seqs: Optional[List[Sequence]] = None
+    host: Optional[torch.Tensor] = None
+    ready: Optional[object] = None  # torch.cuda.Event
+    is_decode: bool = False
+    host_s: float = 0.0  # host time spent dispatching this step
+    steps: Optional[List[int]] = None
+    win_key: Optional[tuple] = None
+
+    def read(self) -> np.ndarray:
+        """The sample, waiting for its copy to land (the step's one host
+        sync)."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.host.numpy()
+
+
 class LLMEngine:
     def __init__(self, config: EngineConfig, device=None, params=None):
         """``device``: where the model runs (default CUDA; raises without
@@ -122,8 +192,8 @@ class LLMEngine:
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError(
-                "the PyTorch engine serves only the K=1 path; "
-                "unsupported settings: " + ", ".join(bad)
+                "the PyTorch engine does not serve these settings yet: "
+                + ", ".join(bad)
             )
         _check_chunk_buckets(config)
         self.config = config
@@ -173,6 +243,41 @@ class LLMEngine:
         self.num_steps = 0
         self._step_time_accum = 0.0
 
+        # -- K-step windows and the one-step lookahead pipeline ------------
+        self._window_steps = config.scheduler.window_steps
+        self._pipeline_enabled = config.scheduler.pipeline_enabled
+        # Chained-window block-table delta width: a window grows a row by
+        # at most window_max_tokens tokens.
+        self._win_delta_cols = (
+            config.scheduler.window_max_tokens // config.cache.block_size + 2
+        )
+        self._pending: Deque[_PendingStep] = deque()
+        # Static device buffers per graph key (the carry and the inputs a
+        # captured body reads), made on first use and kept.
+        self._buffers: Dict[tuple, Dict[str, torch.Tensor]] = {}
+        self.graphs = GraphRunner(self.device)
+        if self.device.type == "cuda":
+            # Before any capture: a capture must never grow them.
+            paged_attention.reserve_split_counters(
+                self.device, self._smax * cfg.num_kv_heads
+            )
+        # Host mirrors of how many block-table columns of each row the
+        # device tables hold (window carry / pipelined step).
+        self._win_table_lens: List[int] = []
+        self._pipe_table_lens: List[int] = []
+        self._pipe_key: Optional[tuple] = None
+        # Single-step fallbacks of K>1 plans by reason, and emitted window
+        # tokens that could not be delivered (abort while the window flew).
+        self.multistep_fallback: Dict[str, int] = {}
+        self.multistep_wasted_tokens = 0
+        self.windows_dispatched = 0
+        self.windows_chained = 0
+        # decode_host_gap_ms: host time between one decode step retiring
+        # and the next decode launch while the device had nothing queued.
+        self._gap_total_s = 0.0
+        self._gap_steps = 0
+        self._last_decode_end: Optional[float] = None
+
     # -- sizing ------------------------------------------------------------
 
     def _kv_bytes(self, num_blocks: int) -> int:
@@ -217,8 +322,39 @@ class LLMEngine:
         return [(side(), side()) for _ in range(cfg.num_layers)]
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> tensor on the engine's device."""
-        return torch.from_numpy(arr).to(self.device)
+        """Host array -> tensor on the engine's device, without a host
+        sync on the card: a non-blocking copy from pinned memory (the
+        caching host allocator keeps the pinned block until the copy has
+        run)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host(self, t: torch.Tensor):
+        """(host copy, event): a pinned copy of device tensor ``t`` and the
+        event that marks it landed; on the CPU a plain copy and no event."""
+        if self.device.type != "cuda":
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    def _upload(self, bufs: Dict[str, torch.Tensor],
+                arrays: Dict[str, np.ndarray]) -> None:
+        """Host arrays into the static buffers of the same names with one
+        transfer: every array packed as int32 (fp32 bitcast), then each
+        slice copied, and cast, into its buffer on the device."""
+        flat = [a.view(np.int32) if a.dtype == np.float32 else a.astype(np.int32)
+                for a in arrays.values()]
+        stage = self._put(np.concatenate([a.ravel() for a in flat]))
+        at = 0
+        for (name, a), f in zip(arrays.items(), flat):
+            part = stage[at:at + f.size].view(f.shape)
+            bufs[name].copy_(part.view(torch.float32) if a.dtype == np.float32 else part)
+            at += f.size
 
     # -- request lifecycle -------------------------------------------------
 
@@ -270,23 +406,577 @@ class LLMEngine:
     # -- stepping ----------------------------------------------------------
 
     def step(self) -> List[StepOutput]:
-        """One engine step: schedule one plan and run it to its outputs
-        (one dispatch, one collect — the only device read is the sampled
-        ids).  Returns [] when nothing is schedulable."""
+        """One engine step: top up the device pipeline, then collect the
+        oldest in-flight step.  With the lookahead on, the collected
+        outputs belong to a step whose successor is already running on the
+        device; greedy token streams are the same as synchronous stepping.
+        Returns [] when nothing was schedulable."""
+        self.dispatch()
+        return self.collect()
+
+    def has_pending(self) -> bool:
+        """A dispatched step is awaiting collection."""
+        return bool(self._pending)
+
+    def dispatch(self) -> bool:
+        """Launch device work without reading anything back, filling the
+        pipeline to its depth (2 with lookahead, 1 otherwise).  Returns
+        True when at least one step was dispatched."""
+        depth = 2 if self._pipeline_enabled else 1
+        launched = False
+        while len(self._pending) < depth:
+            ok = (
+                self._dispatch_lookahead()
+                if self._pending
+                else self._dispatch_front()
+            )
+            if not ok:
+                break
+            launched = True
+        return launched
+
+    def collect(self) -> List[StepOutput]:
+        """Wait for the oldest dispatched step and finalize it: append
+        sampled tokens and run finish checks; rows whose sequence finished
+        while the step was in flight drop their token (a discarded
+        overrun, vLLM multi-step semantics)."""
+        if not self._pending:
+            return []
+        t0 = time.time()
+        p = self._pending.popleft()
+        if p.outputs is not None:
+            outputs = p.outputs
+        elif p.steps is not None:
+            outputs = self._collect_window(p)
+        else:
+            arr = p.read()
+            live = [(i, s) for i, s in enumerate(p.seqs) if not s.is_finished]
+            outputs = self._append_and_check(
+                [s for _, s in live], [int(arr[i]) for i, _ in live],
+                first_token=False,
+            )
+        if p.outputs is None:
+            # Drop in-flight successors whose every row has now finished:
+            # pure overrun steps produce no outputs and must not wedge the
+            # pipeline when the engine drains.
+            while (
+                self._pending
+                and self._pending[0].host is not None
+                and all(s.is_finished for s in self._pending[0].seqs)
+            ):
+                self._pending.popleft()
+        now = time.time()
+        self._last_decode_end = now if p.is_decode else None
+        self._step_time_accum += (now - t0) + p.host_s
+        self.num_steps += 1
+        return outputs
+
+    def _dispatch_front(self) -> bool:
+        """Dispatch with nothing in flight: full scheduler knowledge
+        (admission, preemption, partial-prefill rollback); the only place
+        synchronous plans run."""
         t0 = time.time()
         plan = self.scheduler.schedule()
         if plan.is_empty:
-            return []
+            return False
+        if plan.window_fallback:
+            self.multistep_fallback[plan.window_fallback] = (
+                self.multistep_fallback.get(plan.window_fallback, 0) + 1
+            )
         if plan.decode is None:
             outputs = self._run_prefill(plan.prefill_chunk)
-        elif plan.prefill_chunk is not None:
+            self._step_counter += 1
+            self._pending.append(_PendingStep(outputs=outputs,
+                                              host_s=time.time() - t0))
+            return True
+        if plan.prefill_chunk is not None:
+            # Fused decode+prefill-chunk step: synchronous (the chunk's
+            # admission and finalization need collected state), so the
+            # lookahead pauses for the step.
             outputs = self._run_mixed(plan)
+            self._step_counter += 1
+            self._pending.append(_PendingStep(
+                outputs=outputs, is_decode=True, host_s=time.time() - t0,
+            ))
+            return True
+        seqs = plan.decode.seqs
+        if plan.decode_window > 1 and self._can_window(seqs):
+            self._pending.append(self._dispatch_window(plan, chain_from=None))
+            return True
+        if self._can_pipeline(seqs):
+            self._pending.append(self._dispatch_decode_async(seqs, False))
         else:
             outputs = self._run_decode(plan.decode)
+            self._step_counter += 1
+            self._pending.append(_PendingStep(
+                outputs=outputs, is_decode=True, host_s=time.time() - t0,
+            ))
+        return True
+
+    def _dispatch_lookahead(self) -> bool:
+        """Provisionally dispatch decode N+1 while N is still in flight.
+        The scheduler plans under the optimistic no-finish assumption
+        (collect discards the overrun when wrong); inputs chain from N's
+        device-resident state, the [S] in-flight sample of a single step
+        or the whole window carry, so no host sync separates them."""
+        if not self._pipeline_enabled:
+            return False
+        prev = self._pending[-1]
+        if prev.host is None:
+            return False  # only pipelined decode steps chain
+        if prev.win_key is not None:
+            plan = self.scheduler.schedule_provisional_window(
+                prev.seqs, prev.steps
+            )
+            if plan is None:
+                return False
+            self._pending.append(self._dispatch_window(plan, chain_from=prev))
+            return True
+        if not self._can_pipeline(prev.seqs):
+            return False
+        plan = self.scheduler.schedule_provisional(prev.seqs)
+        if plan is None:
+            return False
+        self._pending.append(self._dispatch_decode_async(plan.seqs, True))
+        return True
+
+    # (window_fallback, classic_fallback, greedy), cached per sequence.
+    _host_state_flags = staticmethod(host_state_flags)
+
+    def _can_window(self, seqs: List[Sequence]) -> bool:
+        """K-step windows serve everything except host-sampled features
+        (logprobs, logit_bias); each fallback is counted by reason, once a
+        reason a dispatch."""
+        if self._window_steps <= 1:
+            return False
+        reasons = {
+            "logprobs" if s.sampling_params.logprobs else "logit_bias"
+            for s in seqs if self._host_state_flags(s)[0]
+        }
+        for reason in reasons:
+            self.multistep_fallback[reason] = (
+                self.multistep_fallback.get(reason, 0) + 1
+            )
+        return not reasons
+
+    def _can_pipeline(self, seqs: List[Sequence]) -> bool:
+        """The single-step pipeline's sampler has no penalty or floor path,
+        so penalty batches and pending min_tokens floors run synchronous
+        single steps (K-step windows serve those on the device)."""
+        return self._pipeline_enabled and not any(
+            self._host_state_flags(s)[1] or s._min_tok_pending
+            for s in seqs
+        )
+
+    def _note_decode_launch(self) -> None:
+        """Host-gap bookkeeping: time since the previous decode step
+        retired with the device left idle.  Lookahead dispatches count a
+        zero gap by construction (the device was still busy)."""
+        if self._last_decode_end is not None:
+            self._gap_total_s += max(0.0, time.time() - self._last_decode_end)
+            self._gap_steps += 1
+        self._last_decode_end = None
+
+    def _note_lookahead_launch(self) -> None:
+        self._gap_steps += 1  # device busy: zero gap by construction
+        self._last_decode_end = None
+
+    def _key_seed(self) -> int:
+        """This dispatch's step seed, masked to 31 bits: below 2**31 step
+        ordinals (years of serving) the schedule is engine seed + step
+        counter, the same for every window size."""
+        return (self.config.seed + self._step_counter) & 0x7FFFFFFF
+
+    def _buffers_for(self, key: tuple, make) -> Dict[str, torch.Tensor]:
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            bufs = self._buffers[key] = make()
+        return bufs
+
+    # -- pipelined single-token steps ----------------------------------------
+
+    def _pipe_buffers(self, S: int) -> Dict[str, torch.Tensor]:
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        return {
+            "tokens": torch.zeros(S, dtype=torch.int64, device=dev),
+            "tables": torch.zeros((S, self._bmax), **i32),
+            "temps": torch.zeros(S, **f32),
+            "top_ps": torch.ones(S, **f32),
+            "top_ks": torch.zeros(S, **i32),
+            "min_ps": torch.zeros(S, **f32),
+            "seeds": torch.zeros(S, dtype=torch.int64, device=dev),
+            # positions, ctx_lens, table cols, table vals, then the step seed
+            "delta": torch.zeros(4 * S + 1, **i32),
+            "sampled": torch.zeros(S, **i32),
+        }
+
+    def _pipe_body(self, b: Dict[str, torch.Tensor], all_greedy: bool) -> None:
+        """One decode+sample step over static buffers: the table growth and
+        positions from ``delta``, slots looked up on the device, the sample
+        written to ``sampled`` and to ``tokens`` (the next step's input)."""
+        bs = self.block_pool.block_size
+        S = b["tokens"].shape[0]
+        d = b["delta"]
+        positions, ctx_lens = d[:S], d[S:2 * S]
+        _advance_tables(b["tables"], d[2 * S:3 * S, None], d[3 * S:4 * S, None])
+        blk = torch.gather(b["tables"], 1, (positions // bs).long()[:, None])[:, 0]
+        logits = llama.decode(
+            self.params, self.config.model,
+            tokens=b["tokens"],
+            positions=positions,
+            block_tables=b["tables"],
+            ctx_lens=ctx_lens,
+            slot_block_ids=torch.where(ctx_lens > 0, blk, 0),
+            slot_offsets=positions % bs,
+            kv_caches=self.kv_caches,
+        )
+        sampled = sampling_lib.sample_tokens(
+            logits, b["temps"], b["top_ps"], b["top_ks"], d[4 * S:].long(),
+            b["seeds"], min_p=b["min_ps"], all_greedy=all_greedy,
+        )
+        b["sampled"].copy_(sampled)
+        b["tokens"].copy_(sampled)
+
+    def _dispatch_decode_async(self, seqs: List[Sequence],
+                               lookahead: bool) -> _PendingStep:
+        """Enqueue one decode+sample step and return without a host
+        round-trip.  ``lookahead=False`` (re)builds the static batch state
+        from host bookkeeping (one packed transfer); ``lookahead=True`` is
+        the steady "same batch, +1 token" path: one [4S+1] delta, tokens
+        chained on the device from the in-flight sample."""
+        t0 = time.time()
+        if not lookahead:
+            S = self._decode_bucket(len(seqs))
+            all_greedy = all(self._host_state_flags(s)[2] for s in seqs)
+            key = ("pipe", S, all_greedy)
+            b = self._buffers_for(key, lambda: self._pipe_buffers(S))
+            (tokens, positions, tables, ctx_lens, _sb, _so) = (
+                self._decode_batch_arrays(seqs, S)
+            )
+            temps, top_ps, top_ks, min_ps, seeds = self._sampling_arrays(seqs, S)
+            self._upload(b, {
+                "tokens": tokens, "tables": tables, "temps": temps,
+                "top_ps": top_ps, "top_ks": top_ks, "min_ps": min_ps,
+                "seeds": seeds,
+            })
+            cols = np.full((S,), -1, np.int32)
+            vals = np.zeros((S,), np.int32)
+            self._pipe_table_lens = [len(s.block_table) for s in seqs]
+            self._pipe_key = key
+            self._note_decode_launch()
+        else:
+            key = self._pipe_key
+            b = self._buffers[key]
+            S = key[1]
+            positions = np.zeros((S,), np.int32)
+            ctx_lens = np.zeros((S,), np.int32)
+            cols = np.full((S,), -1, np.int32)
+            vals = np.zeros((S,), np.int32)
+            for i, seq in enumerate(seqs):
+                pos = seq.num_tokens  # consumes the in-flight token
+                positions[i] = pos
+                ctx_lens[i] = pos + 1
+                have = self._pipe_table_lens[i]
+                if len(seq.block_table) > have:
+                    # schedule_provisional grows by at most one block.
+                    cols[i] = have
+                    vals[i] = seq.block_table[have]
+                    self._pipe_table_lens[i] = have + 1
+            self._note_lookahead_launch()
+        delta = np.concatenate([positions, ctx_lens, cols, vals,
+                                np.array([self._key_seed()], np.int32)])
+        b["delta"].copy_(self._put(delta))
+        self.graphs.run(key, lambda: self._pipe_body(b, key[2]))
+        host, ready = self._to_host(b["sampled"])
         self._step_counter += 1
-        self.num_steps += 1
-        self._step_time_accum += time.time() - t0
+        return _PendingStep(
+            seqs=list(seqs), host=host, ready=ready, is_decode=True,
+            host_s=time.time() - t0,
+        )
+
+    # -- K-step device-resident decode windows -------------------------------
+
+    def _window_buffers(self, S: int, B: int, use_penalties: bool
+                        ) -> Dict[str, torch.Tensor]:
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        V = self.config.model.vocab_size if use_penalties else 1
+        C = self._win_delta_cols
+        bufs = {
+            "tokens": torch.zeros(S, dtype=torch.int64, device=dev),
+            "done": torch.ones(S, dtype=torch.bool, device=dev),
+            "tables": torch.zeros((S, self._bmax), **i32),
+            "stop_ids": torch.full((S, B), -1, **i32),
+            "counts": torch.zeros((S, V), **f32),
+            "seen": torch.zeros((S, V), dtype=torch.bool, device=dev),
+            "seeds": torch.zeros(S, dtype=torch.int64, device=dev),
+            # max_steps, table cols [S, C], table vals [S, C], the key base
+            "delta": torch.zeros(S * (1 + 2 * C) + 1, **i32),
+            "emitted": torch.zeros((self._window_steps, S), **i32),
+        }
+        for name in ("positions", "ctx_lens", "min_left", "top_ks"):
+            bufs[name] = torch.zeros(S, **i32)
+        for name in ("temps", "top_ps", "min_ps", "presence", "frequency",
+                     "repetition"):
+            bufs[name] = torch.zeros(S, **f32)
+        return bufs
+
+    def _window_body(self, b: Dict[str, torch.Tensor], use_penalties: bool,
+                     use_min_floor: bool, all_greedy: bool) -> None:
+        """K decode+sample iterations over the static carry (the JAX
+        engine's ``multi_window``).  Each iteration decodes every active
+        row (not done, within its token budget), applies the penalties from
+        the carried occurrence state and the ``min_tokens`` ban while the
+        floor is unmet, samples with step seed ``key base + t``, and
+        freezes a row that hits its stop set: frozen and padded rows park
+        their KV write on null block 0 and emit -1.  The carry is written
+        back in place; ``emitted`` holds the [K, S] tokens."""
+        bs = self.block_pool.block_size
+        V = self.config.model.vocab_size
+        S = b["tokens"].shape[0]
+        C = self._win_delta_cols
+        d = b["delta"]
+        max_steps = d[:S]
+        _advance_tables(b["tables"], d[S:S + S * C].view(S, C),
+                        d[S + S * C:S + 2 * S * C].view(S, C))
+        key_base = d[-1:].long()
+        stop_ids = b["stop_ids"]
+        stop_valid = stop_ids >= 0
+        stop_idx = torch.where(stop_valid, stop_ids, 0).long()
+        if use_min_floor:
+            # The stop set as an [S, V] mask: the min_tokens ban set is the
+            # stop set (vLLM semantics).
+            hits = torch.zeros((S, V), dtype=torch.float32, device=d.device)
+            hits.scatter_add_(1, stop_idx, stop_valid.float())
+            stop_mask = hits > 0
+        counts, seen = b["counts"], b["seen"]
+        tokens, positions, ctx_lens = b["tokens"], b["positions"], b["ctx_lens"]
+        done, min_left = b["done"], b["min_left"]
+        for t in range(self._window_steps):
+            active = ~done & (t < max_steps)
+            blk = torch.gather(b["tables"], 1, (positions // bs).long()[:, None])[:, 0]
+            logits = llama.decode(
+                self.params, self.config.model,
+                tokens=tokens,
+                positions=positions,
+                block_tables=b["tables"],
+                ctx_lens=ctx_lens,
+                slot_block_ids=torch.where(active, blk, 0),
+                slot_offsets=positions % bs,
+                kv_caches=self.kv_caches,
+            )
+            if use_penalties:
+                logits = sampling_lib.apply_penalties_state(
+                    logits, counts, seen,
+                    b["presence"], b["frequency"], b["repetition"],
+                )
+            if use_min_floor:
+                # The host path's -1e9 logit bias while the floor is unmet
+                # (+0.0 elsewhere is the identity, bit for bit).
+                logits = logits + (
+                    stop_mask & (min_left > 0)[:, None]
+                ).float() * -1e9
+            sampled = sampling_lib.sample_tokens(
+                logits, b["temps"], b["top_ps"], b["top_ks"], key_base + t,
+                b["seeds"], min_p=b["min_ps"], all_greedy=all_greedy,
+            )
+            stop_hit = active & (
+                (sampled[:, None] == stop_ids) & stop_valid
+            ).any(dim=1)
+            b["emitted"][t].copy_(torch.where(active, sampled, -1))
+            appended = active & ~stop_hit
+            if use_penalties:
+                idx = sampled[:, None]
+                counts.scatter_add_(1, idx, appended[:, None].float())
+                seen.scatter_(1, idx, torch.gather(seen, 1, idx) | appended[:, None])
+            step = active.int()
+            tokens = torch.where(active, sampled, tokens)
+            positions = positions + step
+            ctx_lens = ctx_lens + step
+            done = done | stop_hit
+            min_left = torch.clamp(min_left - step, min=0)
+        for name, value in (("tokens", tokens), ("positions", positions),
+                            ("ctx_lens", ctx_lens), ("done", done),
+                            ("min_left", min_left)):
+            b[name].copy_(value)
+
+    def _window_host_state(self, seqs: List[Sequence]) -> dict:
+        """Host arrays and static flags for a window batch (re)build."""
+        S = self._decode_bucket(len(seqs))
+        (tokens, positions, tables, ctx_lens, _sb, _so) = (
+            self._decode_batch_arrays(seqs, S)
+        )
+        pad = S - len(seqs)
+        done = np.ones((S,), np.int32)
+        done[: len(seqs)] = 0
+        min_left = np.array(
+            [max(0, s.sampling_params.min_tokens - len(s.output_token_ids))
+             for s in seqs] + [0] * pad,
+            np.int32,
+        )
+
+        def per_row(attr, fill):
+            return np.array(
+                [getattr(s.sampling_params, attr) for s in seqs] + [fill] * pad,
+                np.float32,
+            )
+
+        presence = per_row("presence_penalty", 0.0)
+        frequency = per_row("frequency_penalty", 0.0)
+        repetition = per_row("repetition_penalty", 1.0)
+        stop_lists = [self._stop_set_ids(s) for s in seqs]
+        B = _pow2_bucket(max([len(ids) for ids in stop_lists] + [1]), 1)
+        stop_ids = np.full((S, B), -1, np.int32)
+        for i, ids in enumerate(stop_lists):
+            stop_ids[i, : len(ids)] = ids
+        return {
+            "S": S, "B": B, "tokens": tokens, "positions": positions,
+            "tables": tables, "ctx_lens": ctx_lens, "done": done,
+            "min_left": min_left, "presence": presence,
+            "frequency": frequency, "repetition": repetition,
+            "stop_ids": stop_ids,
+            "use_penalties": bool(
+                np.any(presence) or np.any(frequency)
+                or np.any(repetition != 1.0)
+            ),
+            "use_min_floor": bool(np.any(min_left > 0)),
+            "all_greedy": all(self._host_state_flags(s)[2] for s in seqs),
+        }
+
+    def _window_build(self, seqs: List[Sequence]) -> tuple:
+        """Full batch (re)build: every window input to its static buffer
+        in one packed transfer (plus the occurrence state the penalties
+        read).  Returns the graph key; steady-state windows chain through
+        :meth:`_window_table_delta` instead."""
+        h = self._window_host_state(seqs)
+        S = h["S"]
+        key = ("window", S, h["B"], h["use_penalties"], h["use_min_floor"],
+               h["all_greedy"])
+        b = self._buffers_for(
+            key, lambda: self._window_buffers(S, h["B"], h["use_penalties"])
+        )
+        temps, top_ps, top_ks, min_ps, seeds = self._sampling_arrays(seqs, S)
+        self._upload(b, {
+            "tokens": h["tokens"], "positions": h["positions"],
+            "ctx_lens": h["ctx_lens"], "done": h["done"],
+            "min_left": h["min_left"], "tables": h["tables"],
+            "stop_ids": h["stop_ids"], "presence": h["presence"],
+            "frequency": h["frequency"], "repetition": h["repetition"],
+            "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
+            "min_ps": min_ps, "seeds": seeds,
+        })
+        if h["use_penalties"]:
+            # The occurrence state from the bucketed id arrays (the same
+            # content as the host path's arrays, so penalty values match).
+            L = _pow2_bucket(max([len(s.output_token_ids) for s in seqs] + [1]), 64)
+            Lc = _pow2_bucket(max(len(s.all_token_ids) for s in seqs), 64)
+            out_tokens = np.full((S, L), -1, np.int32)
+            ctx_tokens = np.full((S, Lc), -1, np.int32)
+            for i, s in enumerate(seqs):
+                ids = s.output_token_ids[-L:]
+                out_tokens[i, : len(ids)] = ids
+                ids = s.all_token_ids[-Lc:]
+                ctx_tokens[i, : len(ids)] = ids
+            counts, seen = sampling_lib.occurrence_state(
+                self._put(out_tokens), self._put(ctx_tokens),
+                self.config.model.vocab_size,
+            )
+            b["counts"].copy_(counts)
+            b["seen"].copy_(seen)
+        self._win_table_lens = [len(s.block_table) for s in seqs]
+        return key
+
+    def _window_table_delta(self, seqs: List[Sequence], S: int):
+        """The block-table columns each row gained since the device tables
+        were last written (cols, vals [S, C]; col -1 = no growth): all a
+        chained window transfers besides its budgets, since its carry is
+        the previous window's, still in flight on the device."""
+        C = self._win_delta_cols
+        cols = np.full((S, C), -1, np.int32)
+        vals = np.zeros((S, C), np.int32)
+        for i, seq in enumerate(seqs):
+            have = self._win_table_lens[i]
+            new = seq.block_table[have:][:C]
+            cols[i, : len(new)] = np.arange(have, have + len(new))
+            vals[i, : len(new)] = new
+            self._win_table_lens[i] = have + len(new)
+        return cols, vals
+
+    def _dispatch_window(self, plan, chain_from: Optional[_PendingStep] = None
+                         ) -> _PendingStep:
+        """Enqueue one K-step decode window and return without a host
+        round-trip.  ``chain_from=None`` (re)builds the static window state
+        from host bookkeeping; otherwise the window continues from the
+        previous window's in-flight carry (the device never drains between
+        them).  Either way one [S(1+2C)+1] delta (budgets, table growth,
+        key base) transfers, then one replay and one copy of the emitted
+        tokens into this step's pinned host buffer."""
+        t0 = time.time()
+        seqs = plan.decode.seqs
+        if chain_from is None:
+            key = self._window_build(seqs)
+            self._note_decode_launch()
+        else:
+            key = chain_from.win_key
+            self._note_lookahead_launch()
+            self.windows_chained += 1
+        S = key[1]
+        cols, vals = self._window_table_delta(seqs, S)
+        b = self._buffers[key]
+        max_steps = np.zeros((S,), np.int32)
+        max_steps[: len(plan.decode.steps)] = plan.decode.steps
+        b["delta"].copy_(self._put(np.concatenate([
+            max_steps, cols.ravel(), vals.ravel(),
+            np.array([self._key_seed()], np.int32),
+        ])))
+        self.graphs.run(key, lambda: self._window_body(b, *key[3:]))
+        host, ready = self._to_host(b["emitted"])
+        # One step ordinal per iteration: single-token stepping would use
+        # exactly these seeds for the same tokens.
+        self._step_counter += self._window_steps
+        self.windows_dispatched += 1
+        return _PendingStep(
+            seqs=list(seqs), host=host, ready=ready, is_decode=True,
+            host_s=time.time() - t0, steps=list(plan.decode.steps),
+            win_key=key,
+        )
+
+    def _collect_window(self, p: _PendingStep) -> List[StepOutput]:
+        """Read one window's [K, S] emitted tokens and replay them through
+        the finish protocol token by token, as single stepping would.
+        Frozen rows emitted -1 (their stop already retired); tokens of
+        rows that finished while the window flew (abort) count as
+        multistep waste."""
+        arr = p.read()
+        outputs: List[StepOutput] = []
+        delivered = [0] * len(p.seqs)
+        alive = [(i, s) for i, s in enumerate(p.seqs) if not s.is_finished]
+        for t in range(arr.shape[0]):
+            batch, toks = [], []
+            for i, s in alive:
+                if delivered[i] >= p.steps[i]:
+                    continue  # token budget exhausted
+                tok = int(arr[t, i])
+                if tok < 0:
+                    continue  # frozen row
+                batch.append((i, s))
+                toks.append(tok)
+            if not batch:
+                break  # done and budget masks are monotone in a window
+            outputs.extend(self._append_and_check(
+                [s for _, s in batch], toks, first_token=False
+            ))
+            for i, _ in batch:
+                delivered[i] += 1
+            alive = [(i, s) for i, s in alive if not s.is_finished]
+        emitted = int((arr[:, : len(p.seqs)] >= 0).sum())
+        self.multistep_wasted_tokens += emitted - sum(delivered)
         return outputs
+
+    # -- synchronous steps ---------------------------------------------------
 
     def _run_prefill(self, plan: PrefillPlan) -> List[StepOutput]:
         seq = plan.seq
@@ -372,16 +1062,14 @@ class LLMEngine:
     def _decode_bucket(self, n: int) -> int:
         """Decode batch sizes: the smallest power of two holding ``n``
         rows, capped at max_num_seqs."""
-        b = 1
-        while b < n:
-            b *= 2
-        return min(b, self._smax)
+        return min(_pow2_bucket(n, 1), self._smax)
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
         seqs = plan.seqs
         S = self._decode_bucket(len(seqs))
         (tokens, positions, block_tables, ctx_lens, slot_blocks,
          slot_offsets) = self._decode_batch_arrays(seqs, S)
+        self._note_decode_launch()
         logits = llama.decode(
             self.params, self.config.model,
             tokens=self._put(tokens),
@@ -439,8 +1127,10 @@ class LLMEngine:
 
     def _stop_set_ids(self, seq: Sequence) -> tuple:
         """The per-sequence stop set: ``stop_token_ids`` plus EOS unless
-        ``ignore_eos`` — exactly what an unmet min_tokens floor suppresses.
-        Out-of-vocab ids can never be sampled and are dropped."""
+        ``ignore_eos`` — what ends generation at sampling time, and
+        exactly what an unmet min_tokens floor suppresses (the window's
+        device stop mask and the host path's ban share it).  Out-of-vocab
+        ids can never be sampled and are dropped."""
         sp = seq.sampling_params
         V = self.config.model.vocab_size
         ids = [t for t in (sp.stop_token_ids or ()) if 0 <= t < V]
@@ -464,10 +1154,10 @@ class LLMEngine:
         min_ps = np.array(
             [s.sampling_params.min_p for s in seqs] + [0.0] * pad, np.float32
         )
-        seeds = [
+        seeds = np.array([
             s.sampling_params.seed if s.sampling_params.seed is not None else idx
             for idx, s in enumerate(seqs)
-        ] + [0] * pad
+        ] + [0] * pad, np.int32)
         return temps, top_ps, top_ks, min_ps, seeds
 
     def _sample_batch(self, logits: torch.Tensor, seqs: List[Sequence]):
@@ -486,9 +1176,7 @@ class LLMEngine:
             for s in seqs
         ):
             max_len = max(max((len(s.output_token_ids) for s in seqs), default=1), 1)
-            L = 64
-            while L < max_len:
-                L *= 2
+            L = _pow2_bucket(max_len, 64)
             out_tokens = np.full((S, L), -1, np.int32)
             for i, s in enumerate(seqs):
                 ids = s.output_token_ids[-L:]
@@ -504,10 +1192,7 @@ class LLMEngine:
             kwargs = {}
             if use_rep:
                 # repetition_penalty covers prompt AND generated tokens.
-                max_ctx = max(len(s.all_token_ids) for s in seqs)
-                Lc = 64
-                while Lc < max_ctx:
-                    Lc *= 2
+                Lc = _pow2_bucket(max(len(s.all_token_ids) for s in seqs), 64)
                 ctx_tokens = np.full((S, Lc), -1, np.int32)
                 for i, s in enumerate(seqs):
                     ids = s.all_token_ids[-Lc:]
@@ -558,9 +1243,10 @@ class LLMEngine:
             self._put(temps),
             self._put(top_ps),
             self._put(top_ks),
-            step_seed=self.config.seed + self._step_counter,
-            seq_seeds=seeds,
+            step_seed=self._put(np.array([self._key_seed()], np.int32)),
+            seq_seeds=self._put(seeds),
             min_p=self._put(min_ps),
+            all_greedy=all(s.sampling_params.temperature <= 0 for s in seqs),
         )
         token_ids = out[: len(seqs)].tolist()  # the step's device read
 
@@ -604,6 +1290,11 @@ class LLMEngine:
             if not stop_hit:
                 seq.output_token_ids.append(token_id)
                 self.total_generated_tokens += 1
+                if seq._min_tok_pending and (
+                    len(seq.output_token_ids) >= sp.min_tokens
+                ):
+                    # The one boundary crossing of the cached verdict.
+                    seq._min_tok_pending = False
             if seq.first_token_time is None:
                 seq.first_token_time = now
             if stop_hit:
@@ -670,4 +1361,22 @@ class LLMEngine:
             "step_seconds_total": self._step_time_accum,
             "admission_rejected_total": self.admission_rejected,
             "queued_prompt_tokens": self.scheduler.queued_prompt_tokens,
+            # Mean host-side serialization per decode step (ms): time the
+            # device sat idle between decode steps; about 0 when the
+            # lookahead keeps the device fed.
+            "decode_host_gap_ms": (
+                1000.0 * self._gap_total_s / self._gap_steps
+                if self._gap_steps else 0.0
+            ),
+            # K-step windows: single-step fallbacks by reason, emitted but
+            # undeliverable window tokens, windows dispatched and chained.
+            "multistep_fallback": dict(self.multistep_fallback),
+            "multistep_wasted_tokens": self.multistep_wasted_tokens,
+            "windows_dispatched": self.windows_dispatched,
+            "windows_chained": self.windows_chained,
+            # CUDA graphs (0 on the CPU): keys captured, replays, and the
+            # seconds each capture took.
+            "graph_captures": self.graphs.captures,
+            "graph_replays": self.graphs.replays,
+            "graph_capture_seconds": sum(self.graphs.capture_seconds.values()),
         }

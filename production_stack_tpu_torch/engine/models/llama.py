@@ -106,8 +106,10 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: ModelConfig) -> torch.Tens
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed_tokens"][tokens.long()]
-    if cfg.scale_embeddings:  # gemma: sqrt(h) in the input dtype
-        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype, device=x.device)
+    if cfg.scale_embeddings:  # gemma: sqrt(h) rounded to the input dtype
+        # A host scalar, not a device tensor: no copy to the card inside a
+        # captured decode step.
+        x = x * torch.tensor(cfg.hidden_size**0.5, dtype=x.dtype).item()
     return x
 
 

@@ -225,14 +225,33 @@ _num_sms: Dict[int, int] = {}
 _counters: Dict[int, torch.Tensor] = {}
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def reserve_split_counters(device: torch.device, pairs: int) -> None:
+    """Allocate the arrival counters for ``pairs`` (row, KV head) pairs now,
+    outside any CUDA-graph capture: a buffer first made inside a capture
+    would come from the graph's private pool, and growing it later would
+    free memory a captured graph still points to.  Engines call this at
+    boot for ``max_num_seqs * num_kv_heads``."""
+    dev = _device_index(device)
+    if dev not in _num_sms:
+        _num_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    counters = _counters.get(dev)
+    if counters is None or counters.numel() < pairs:
+        _counters[dev] = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=device)
+
+
 def _split_scratch(q: torch.Tensor, S: int, K: int, G: int, D: int,
                    blocks_per_sm: int):
     """``n_split`` and, when it is > 1, the kernel's fp32 partials and its
     per-(row, KV head) arrival counters, for either decode kernel.  The
     counters are zeros that each kernel leaves zero again, and both run on
     the current stream, so one buffer per device serves every call of
-    both (grown, never shrunk)."""
-    dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    both (grown, never shrunk; never grown inside a CUDA-graph capture,
+    which raises instead — see :func:`reserve_split_counters`)."""
+    dev = _device_index(q.device)
     if dev not in _num_sms:
         _num_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split = split_count(S, K, _num_sms[dev], blocks_per_sm)
@@ -240,8 +259,13 @@ def _split_scratch(q: torch.Tensor, S: int, K: int, G: int, D: int,
         return 1, None, None, None
     counters = _counters.get(dev)
     if counters is None or counters.numel() < S * K:
-        counters = torch.zeros(max(S * K, 1024), dtype=torch.int32, device=q.device)
-        _counters[dev] = counters
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"split-KV counters for {S * K} (row, KV head) pairs were not "
+                "reserved before CUDA-graph capture (reserve_split_counters)"
+            )
+        reserve_split_counters(q.device, S * K)
+        counters = _counters[dev]
     part_ml = torch.empty((S, K, n_split, G, 2), dtype=torch.float32, device=q.device)
     part_acc = torch.empty((S, K, n_split, G, D), dtype=torch.float32, device=q.device)
     return n_split, part_ml, part_acc, counters

@@ -7,10 +7,12 @@ and shift the same entries; greedy is the same argmax (first index on
 ties).
 
 Random draws cannot match the JAX package's (threefry keys).  The port's
-own schedule: each sampled row draws its Gumbel noise from a
-``torch.Generator`` seeded by mixing the step seed (engine seed + step
-counter) with the row's sequence seed, so the same seed gives the same
-stream on any engine instance.
+own schedule: each sampled row's Gumbel noise comes from a counter-based
+hash (splitmix64) of the step seed (engine seed + step counter), the row's
+sequence seed and the vocab index, computed in int64 tensor ops on the
+logits' device.  Nothing is read back to the host, so a draw runs inside a
+K-step window and a CUDA graph, and the CPU and the card give the same
+bits; the same seeds give the same stream on any engine instance.
 """
 
 from __future__ import annotations
@@ -20,7 +22,16 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
-_MASK64 = (1 << 64) - 1
+
+
+def _signed64(c: int) -> int:
+    """A 64-bit constant as the int64 value with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLDEN = _signed64(0x9E3779B97F4A7C15)
+_MIX1 = _signed64(0xBF58476D1CE4E5B9)
+_MIX2 = _signed64(0x94D049BB133111EB)
 
 
 def _apply_top_k(logits: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
@@ -73,12 +84,34 @@ def filter_logits(
     return scaled
 
 
-def row_seed(step_seed: int, seq_seed: int) -> int:
-    """The seed of one row's generator: splitmix64 over (step, sequence)."""
-    x = (step_seed * 0x9E3779B97F4A7C15 + seq_seed) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (x ^ (x >> 31)) & ((1 << 63) - 1)
+def _shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bits (torch's ``>>`` is arithmetic)."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix64(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 tensors: the multiplies wrap mod
+    2**64 as the unsigned ones do, and the shifts are logical."""
+    x = (x ^ _shr(x, 30)) * _MIX1
+    x = (x ^ _shr(x, 27)) * _MIX2
+    return x ^ _shr(x, 31)
+
+
+def draw_uniform(
+    step_seed: torch.Tensor,  # [] or [1] int: engine seed + step counter
+    seq_seeds: torch.Tensor,  # [S] int per-sequence seeds
+    vocab_size: int,
+) -> torch.Tensor:
+    """Uniform draws in (0, 1), [S, V] fp32 on ``seq_seeds``' device:
+    ``(x + 0.5) / 2**23`` for x the top 23 bits of splitmix64 over row key
+    ``mix(step * golden + seed)`` plus ``(v + 1) * golden`` (splitmix64's
+    stream at counter v), exact in fp32.  Each value depends only on
+    (step, row seed, v), whatever the batch or the device."""
+    seeds = seq_seeds.long()
+    row = _mix64(step_seed.long().reshape(-1)[:1] * _GOLDEN + seeds)  # [S]
+    idx = torch.arange(1, vocab_size + 1, dtype=torch.int64, device=seeds.device)
+    bits = _mix64(row[:, None] + idx[None, :] * _GOLDEN)
+    return (_shr(bits, 41).float() + 0.5) * (1.0 / (1 << 23))
 
 
 def sample_tokens(
@@ -86,25 +119,24 @@ def sample_tokens(
     temperature: torch.Tensor,  # [S]
     top_p: torch.Tensor,  # [S]
     top_k: torch.Tensor,  # [S] int
-    step_seed: int,  # engine seed + step counter
-    seq_seeds: list,  # [S] per-sequence seeds (host ints)
+    step_seed: torch.Tensor,  # [] int: engine seed + step counter
+    seq_seeds: torch.Tensor,  # [S] int per-sequence seeds
     min_p: Optional[torch.Tensor] = None,  # [S]; None -> disabled
+    all_greedy: bool = False,
 ) -> torch.Tensor:
-    """Sampled token ids [S] (int64, on the logits' device): argmax for
-    rows with temperature <= 0, a Gumbel-max draw from the filtered
-    distribution otherwise."""
-    out = torch.argmax(logits, dim=-1)
-    rows = [i for i, t in enumerate(temperature.tolist()) if t > 0]
-    if not rows:
-        return out
+    """Sampled token ids [S] (int64, on the logits' device): argmax (first
+    index on ties) for rows with temperature <= 0, a Gumbel-max draw from
+    the filtered distribution (:func:`draw_uniform`) otherwise, chosen per
+    row by ``torch.where`` — no value is read back to the host.
+    ``all_greedy`` (a static fact of the batch, known on the host) skips
+    the filters and the draw, as the JAX package's static arguments do."""
+    greedy = torch.argmax(logits, dim=-1)
+    if all_greedy:
+        return greedy
     scaled = filter_logits(logits, temperature, top_p, top_k, min_p)
-    for i in rows:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(row_seed(step_seed, int(seq_seeds[i])))
-        u = torch.rand(logits.shape[-1], generator=gen, device=logits.device)
-        gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-        out[i] = torch.argmax(scaled[i] + gumbel)
-    return out
+    u = draw_uniform(step_seed, seq_seeds, logits.shape[-1])
+    sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(temperature > 0, sampled, greedy)
 
 
 def compute_logprobs(logits: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:

@@ -455,17 +455,57 @@ def build_parser() -> argparse.ArgumentParser:
         "then stall all decoders for a full prefill bucket per step — "
         "the pre-mixed alternating scheduler)",
     )
+    parser.add_argument(
+        "--num-scheduler-steps",
+        type=int,
+        default=1,
+        help="legacy spelling of the K-step decode window (vLLM "
+        "--num-scheduler-steps): a value > 1 forces window size K "
+        "through the same device-resident machinery --decode-window "
+        "sizes; 1 defers to --decode-window",
+    )
+    parser.add_argument(
+        "--no-multi-step-window",
+        action="store_true",
+        help="disable K-step device-resident decode windows (the default "
+        "decode fast path: K decode+sample iterations per dispatch, one "
+        "CUDA-graph replay on the card, with on-device penalties, the "
+        "min_tokens floor and per-row stop masking) and restore "
+        "single-token stepping exactly",
+    )
+    parser.add_argument(
+        "--decode-window",
+        type=int,
+        default=8,
+        help="window size K for the K-step decode fast path (iterations "
+        "fused per pure-decode dispatch; the per-token host round-trip "
+        "is amortized K-fold)",
+    )
+    parser.add_argument(
+        "--no-pipeline-decode",
+        action="store_true",
+        help="disable the lookahead decode pipeline (dispatch decode step "
+        "or K-step window N+1 while N's tokens are in flight; greedy "
+        "streams are identical)",
+    )
     return parser
 
 
 def config_from_args(args):
     """The engine config for parsed flags: the preset, the served slice
-    (``SLICE_OVERRIDES``), then the KV dtype and mixed-step flags."""
+    (``SLICE_OVERRIDES``), then the KV dtype, mixed-step, window and
+    pipeline flags."""
     return config_from_preset(args.model, **{
         **SLICE_OVERRIDES,
         **({"scheduler.mixed_batch": False} if args.no_mixed_batch else {}),
         **({"cache.kv_cache_dtype": args.kv_cache_dtype}
            if args.kv_cache_dtype else {}),
+        "scheduler.num_scheduler_steps": args.num_scheduler_steps,
+        **({"scheduler.multi_step_window": False}
+           if args.no_multi_step_window else {}),
+        "scheduler.decode_window": args.decode_window,
+        **({"scheduler.pipeline_decode": False}
+           if args.no_pipeline_decode else {}),
     })
 
 

@@ -3,8 +3,10 @@
 Counterpart of ``production_stack_tpu/engine/server/async_engine.py``: the
 engine step loop runs in one dedicated thread (CUDA launches and the
 per-step device read release the GIL, so the event loop keeps serving HTTP
-while the card computes).  Requests and per-token outputs cross the thread
-boundary through a lock-guarded submission list and
+while the card computes).  Each iteration dispatches (up to two steps in
+flight with the lookahead pipeline) and then collects the oldest, so the
+outputs fan out while the next step computes.  Requests and per-token
+outputs cross the thread boundary through a lock-guarded submission list and
 ``loop.call_soon_threadsafe`` hand-offs into per-request asyncio queues.
 Multi-host lockstep and the batched encode lane are not ported.
 """
@@ -205,11 +207,13 @@ class AsyncEngine:
                     )
                 except ValueError as e:
                     self._emit(request_id, e)
-            if not self.engine.has_unfinished():
+            if not self.engine.has_unfinished() and not self.engine.has_pending():
                 self._wakeup.wait(timeout=0.01)
                 self._wakeup.clear()
                 continue
             try:
+                # A step still in flight after every request finished (an
+                # abort) is collected too: its tokens are discarded.
                 outputs = self.engine.step()
             except Exception:
                 logger.exception("engine step failed")

@@ -1,0 +1,168 @@
+"""K-step windows and pipelined steps as CUDA-graph replays, on the card.
+Marked ``cuda``: they skip without a CUDA device (a CUDA graph and the
+kernels in it have no CPU mode).  The file imports no jax, so it runs on
+the card machine as it is:
+
+    python -m pytest tests/test_torch_cuda_graphs.py -m cuda -q
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from production_stack_tpu_torch.engine import sampling as ts
+from production_stack_tpu_torch.engine.config import config_from_preset
+from production_stack_tpu_torch.engine.core.cuda_graphs import GraphRunner
+from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+from production_stack_tpu_torch.engine.ops.kernels import kv_write as tkw
+from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
+
+K = 8
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs and the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def small_engine(kv_cache_dtype="auto", params=None, **sched):
+    """A 2-layer fp32 model with head_dim 64 (the kernels' smallest), 16-token
+    blocks, up to 8 rows."""
+    cfg = config_from_preset("tiny-llama", **SLICE_OVERRIDES, **{
+        "cache.kv_cache_dtype": kv_cache_dtype,
+        "cache.block_size": 16,
+        "cache.num_blocks": 256,
+        "scheduler.max_num_seqs": 8,
+        "scheduler.max_model_len": 1024,
+        "scheduler.decode_window": K,
+        **{f"scheduler.{k}": v for k, v in sched.items()},
+    })
+    cfg.model = dataclasses.replace(cfg.model, hidden_size=256, num_heads=4,
+                                    num_kv_heads=2, intermediate_size=512,
+                                    head_dim=64, dtype="float32")
+    return LLMEngine(cfg, device="cuda", params=params)
+
+
+def serve(engine, n_rows=8, max_tokens=3 * K, sync_check=False):
+    """Greedy streams of n_rows prompts arriving together.  With
+    ``sync_check``, every dispatch once all prompts are in and a graph is
+    captured runs under ``torch.cuda.set_sync_debug_mode("error")``;
+    returns (streams, checked dispatches)."""
+    gen = torch.Generator().manual_seed(0)
+    for i in range(n_rows):
+        ids = torch.randint(4, 384, (20 + 13 * i,), generator=gen).tolist()
+        engine.add_request(f"r{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
+            max_tokens=max_tokens, ignore_eos=True))
+    streams, checked = {}, 0
+    while engine.has_unfinished() or engine.has_pending():
+        check = sync_check and engine.graphs.captures and not engine.scheduler.waiting
+        if check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            engine.dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checked += bool(check)
+        for out in engine.collect():
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+    return streams, checked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_replayed_windows_equal_eager_single_steps(cuda_device, kv_cache_dtype):
+    eager = small_engine(kv_cache_dtype, multi_step_window=False, pipeline_decode=False)
+    want, _ = serve(eager)
+    assert eager.graphs.captures == 0
+    windows = small_engine(kv_cache_dtype, params=eager.params)
+    got, checked = serve(windows, sync_check=True)
+    assert got == want
+    s = windows.stats()
+    assert s["windows_chained"] > 0 and s["graph_replays"] > 0
+    assert checked >= 2  # window dispatches with no host sync
+    pipelined = small_engine(kv_cache_dtype, params=eager.params, multi_step_window=False)
+    got, _ = serve(pipelined, sync_check=True)
+    assert got == want
+    assert pipelined.stats()["graph_replays"] > 0
+
+
+@pytest.mark.cuda
+def test_split_counters_reserved_before_capture(cuda_device):
+    engine = small_engine()
+    dev = torch.cuda.current_device()
+    counters = tpa._counters[dev]
+    assert counters.numel() >= 8 * 2
+    serve(engine)
+    assert tpa._counters[dev] is counters and engine.graphs.replays > 0
+    # A capture that would grow them raises instead.
+    tpa._counters[dev] = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    try:
+        S, H, Kh, D = 130, 8, 8, 64  # 1040 (row, KV head) pairs, 2 splits
+        q = torch.randn((S, H, D), device=cuda_device)
+        kc = torch.randn((4, 16, Kh, D), device=cuda_device)
+        tables = torch.ones((S, 1), dtype=torch.int32, device=cuda_device)
+        ctx = torch.full((S,), 16, dtype=torch.int32, device=cuda_device)
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="reserve"):
+            with torch.cuda.graph(graph):
+                tpa.paged_decode_attention(q, kc, kc, tables, ctx, scale=0.125)
+    finally:
+        tpa._counters[dev] = counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_launch_counters_count_replays(cuda_device, int8):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    S, H, Kh, D, N, bs = 8, 8, 2, 64, 32, 16
+    q = torch.randn((S, H, D), generator=gen, device=cuda_device)
+    k_new = torch.randn((S, Kh, D), generator=gen, device=cuda_device)
+    shape = (N, bs, Kh, D)
+    if int8:
+        sides = [(torch.zeros(shape, dtype=torch.int8, device=cuda_device),
+                  torch.zeros(shape[:3], device=cuda_device)) for _ in range(2)]
+    else:
+        sides = [torch.randn(shape, generator=gen, device=cuda_device) for _ in range(2)]
+    blocks = torch.arange(1, S + 1, dtype=torch.int32, device=cuda_device)
+    offsets = torch.zeros(S, dtype=torch.int32, device=cuda_device)
+    tables = blocks[:, None].contiguous()
+    ctx = torch.ones(S, dtype=torch.int32, device=cuda_device)
+
+    def body():
+        if int8:
+            tkw.write_int8_kv(sides[0], sides[1], k_new, k_new, blocks, offsets)
+        tpa.paged_decode_attention(q, sides[0], sides[1], tables, ctx, scale=0.125)
+
+    runner = GraphRunner(cuda_device)
+    before = (tpa.launches, tpa.launches_int8, tkw.launches)
+    for _ in range(3):
+        runner.run("k", body)
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 2
+    if int8:
+        assert (tpa.launches_int8 - before[1], tkw.launches - before[2]) == (3, 3)
+        assert tpa.launches == before[0]
+    else:
+        assert tpa.launches - before[0] == 3
+
+
+@pytest.mark.cuda
+def test_device_draw_equals_cpu_draw(cuda_device):
+    seeds = torch.tensor([0, 3, 7, 2**31 - 1, 11, 5, 9, 1234567])
+    step = torch.tensor([987654])
+    V = 128256
+    cpu = ts.draw_uniform(step, seeds, V)
+    card = ts.draw_uniform(step.to(cuda_device), seeds.to(cuda_device), V)
+    assert torch.equal(card.cpu(), cpu)
+    logits = torch.randn((8, V), generator=torch.Generator().manual_seed(1)) * 3
+    args = (torch.full((8,), 0.9), torch.full((8,), 0.95), torch.zeros(8, dtype=torch.int32))
+    want = ts.sample_tokens(logits, *args, step, seeds, min_p=torch.zeros(8))
+    got = ts.sample_tokens(logits.to(cuda_device), *(a.to(cuda_device) for a in args),
+                           step.to(cuda_device), seeds.to(cuda_device),
+                           min_p=torch.zeros(8, device=cuda_device))
+    assert got.cpu().tolist() == want.tolist()

@@ -45,8 +45,10 @@ def jax_engine(mixed_batch=False, kv_cache_dtype="auto"):
 
 
 def torch_config(mixed_batch=None, kv_cache_dtype="auto"):
-    """The port's config: ``SLICE_OVERRIDES``, with mixed steps at their
-    default (on) unless ``mixed_batch`` is given."""
+    """The port's config: ``SLICE_OVERRIDES`` at the JAX engine's K=1
+    flags (no K-step windows, no lookahead pipeline; tests/
+    test_torch_windows.py holds those), with mixed steps at their default
+    (on) unless ``mixed_batch`` is given."""
     cfg = tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32"),
         cache=tcfg.CacheConfig(block_size=4, num_blocks=128,
@@ -56,6 +58,8 @@ def torch_config(mixed_batch=None, kv_cache_dtype="auto"):
     for key, value in SLICE_OVERRIDES.items():
         part, name = key.split(".")
         setattr(getattr(cfg, part), name, value)
+    cfg.scheduler.multi_step_window = False
+    cfg.scheduler.pipeline_decode = False
     if mixed_batch is not None:
         cfg.scheduler.mixed_batch = mixed_batch
     return cfg
@@ -170,7 +174,8 @@ def test_torch_engine_int8_pool_holds_about_twice_the_tokens():
 
 def test_torch_engine_raises_outside_the_slice():
     cfg = torch_config()
-    cfg.scheduler.multi_step_window = None  # auto: K-step windows, mixed ones too
+    cfg.scheduler.multi_step_window = None  # auto: K-step windows
+    cfg.scheduler.mixed_window = None  # auto: mixed K-step windows too
     with pytest.raises(NotImplementedError, match="mixed_window"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()

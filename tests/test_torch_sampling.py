@@ -3,7 +3,7 @@
 Greedy is exact; the top-k / top-p / min-p masks and the penalties give the
 same arrays.  Random draws cannot match the JAX package's (threefry), so
 seeded sampling is held to the port's own invariant: the same seeds give
-the same stream.
+the same stream (tests/test_torch_windows.py holds the draw itself).
 """
 
 import jax
@@ -31,7 +31,8 @@ def test_greedy_is_exact():
     )
     got = ts.sample_tokens(
         torch.tensor(logits), torch.tensor(zeros), torch.tensor(ones),
-        torch.zeros(S, dtype=torch.int32), step_seed=0, seq_seeds=list(range(S)),
+        torch.zeros(S, dtype=torch.int32), step_seed=torch.tensor(0),
+        seq_seeds=torch.arange(S),
     )
     assert got.tolist() == np.asarray(want).tolist()
     assert got[1].item() == 7
@@ -118,7 +119,8 @@ def test_seeded_stream_repeats_inside_the_port():
 
     def stream(seeds, steps=12):
         return [
-            ts.sample_tokens(*args, step_seed=100 + i, seq_seeds=seeds,
+            ts.sample_tokens(*args, step_seed=torch.tensor(100 + i),
+                             seq_seeds=torch.tensor(seeds),
                              min_p=torch.zeros(S)).tolist()
             for i in range(steps)
         ]
@@ -130,6 +132,6 @@ def test_seeded_stream_repeats_inside_the_port():
     assert all(row[1] == greedy for row in a)
     # top_k=1 at any temperature is the argmax.
     one = ts.sample_tokens(logits, torch.ones(S), torch.ones(S),
-                           torch.ones(S, dtype=torch.int32), step_seed=3,
-                           seq_seeds=[0, 1, 2, 3])
+                           torch.ones(S, dtype=torch.int32),
+                           step_seed=torch.tensor(3), seq_seeds=torch.arange(S))
     assert one.tolist() == logits.argmax(dim=-1).tolist()

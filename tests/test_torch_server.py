@@ -133,14 +133,27 @@ async def test_port_app_matches_jax_app():
 
 
 def test_port_server_flags_match_jax_server():
-    """--kv-cache-dtype and --no-mixed-batch: the JAX server's names,
-    choices and meanings, on top of the served slice."""
-    cfg = config_from_args(build_parser().parse_args(["--model", "tiny-llama"]))
+    """--kv-cache-dtype, --no-mixed-batch and the window and pipeline flags:
+    the JAX server's names, defaults, choices and meanings, on top of the
+    served slice (K=8 windows with the lookahead, no mixed windows)."""
+    def parse(*argv):
+        return config_from_args(build_parser().parse_args(list(argv)))
+
+    cfg = parse("--model", "tiny-llama")
     assert cfg.cache.kv_cache_dtype == "auto" and cfg.scheduler.mixed_enabled
-    assert cfg.scheduler.window_steps == 1 and not cfg.scheduler.pipeline_enabled
-    cfg = config_from_args(build_parser().parse_args(
-        ["--kv-cache-dtype", "int8", "--no-mixed-batch"]))
+    assert cfg.scheduler.window_steps == 8 and cfg.scheduler.pipeline_enabled
+    assert not cfg.scheduler.mixed_window_enabled
+    cfg = parse("--kv-cache-dtype", "int8", "--no-mixed-batch")
     assert cfg.cache.kv_cache_dtype == "int8" and not cfg.scheduler.mixed_enabled
+    cfg = parse("--no-multi-step-window", "--no-pipeline-decode")
+    assert cfg.scheduler.window_steps == 1 and not cfg.scheduler.pipeline_enabled
+    assert parse("--decode-window", "4").scheduler.window_steps == 4
+    assert parse("--num-scheduler-steps", "16").scheduler.window_steps == 16
     parser = build_parser()
     action = {a.dest: a for a in parser._actions}["kv_cache_dtype"]
     assert list(action.choices) == ["auto", "int8"]
+    # The JAX engine's defaults: K=8 windows with the lookahead.
+    jax_default = jcfg.SchedulerConfig()
+    cfg = parse()
+    assert cfg.scheduler.window_steps == jax_default.window_steps
+    assert cfg.scheduler.pipeline_enabled == jax_default.pipeline_enabled
