@@ -17,7 +17,13 @@ non-zero (no phase is caught and passed over):
    chunk over a 2560-token prefix), plus edge cases (ctx 0/1/16/17, short
    rows that take one context split each, one 32000-token row,
    sliding windows across split boundaries, D=64 and D=256, G=1, ragged
-   T, a prefix with cached_len < C, valid_len < T, fp32); the int8
+   T, a prefix with cached_len < C, valid_len < T, fp32); flash
+   prefill's paged entry (the one the serving path runs: the prefix read
+   from the pool through a block-table row padded to the main path's 2048
+   columns, the lengths int32 device tensors) on dense and int8 pools at
+   the main path's chunk (512 over 2560 cached) and prompt (2048) and at
+   its edges (a partial block with ragged valid_len, a sliding window,
+   D=64 G=1, D=256, fp32), each also checked for the same bits twice; the int8
    paged-decode kernel on caches quantized by the port's
    ``quantize_vectors``, with the same split edges, and its time over its
    split settings (``split_int8``: split tokens 64/128/256, blocks an SM
@@ -39,34 +45,50 @@ non-zero (no phase is caught and passed over):
    (fp32, TF32 off, dense and int8): 8 greedy requests on an engine at
    the default decode path (windows of 8 with the lookahead, each window
    one CUDA-graph replay) must give the same tokens as eager single
-   steps on a second engine with the same weights, and every dispatch
-   after the first capture runs under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).
+   steps on a second engine with the same weights.  Then mixed K-step
+   windows at the same width and depth (fp32, TF32 off, dense and int8):
+   8 prompts arriving at staggered steps on an engine at the default
+   serving path (mixed and packed windows, each iteration a CUDA-graph
+   replay) must give the same tokens as eager K=1 mixed steps on a second
+   engine.  In both, every asynchronous dispatch (windows, mixed windows,
+   pipelined steps), those that capture a graph included, runs under
+   ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in one
+   fails the phase; every window and mixed-window dispatch must have been
+   checked so.
 4. The engine at full width: llama-3.1-8b (32 layers, bf16, seeded random
    init on the card), KV pool sized from free memory, mixed steps on, K=8
-   windows with the lookahead, 8 greedy requests through
+   windows with the lookahead, mixed and packed K-step windows, 8 greedy
+   requests through
    ``AsyncEngine.generate`` (one of them a prefix-cache hit, one chunked,
    most of them chunked beside running decodes), then /health and one
    /v1/completions over localhost HTTP.  The kernels' launch counters are
    set to 0 just before and read just after: the dense paged-decode and
-   flash-prefill kernels must be > 0, the int8 paged-decode kernel and
-   the int8 cache writer 0; some prompt tokens must have ridden mixed
-   steps; windows must have been dispatched, chained and replayed, and
-   the decode kernel's count must cover every replayed window (the
-   counters count the launches inside graph replays).
+   flash-prefill kernels must be > 0, the int8 paged-decode kernel, flash
+   prefill over an int8 pool and the int8 cache writer 0; some prompt
+   tokens must have ridden mixed windows; windows and mixed windows must
+   have been dispatched, chained and replayed, the decode kernel's count
+   must cover every window and mixed-window iteration, and flash
+   prefill's every mixed-window iteration (the counters count the
+   launches inside graph replays); waiting_head fallbacks and the capture
+   seconds per graph key are reported.
 5. Where a decode token's time goes at 8 rows: the same engine timed over
    a fixed number of tokens a row (wall, and device busy from CUDA events
    around each graph replay), then the same under torch.profiler (device
    time by kernel, ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls),
-   per token step (one token for each of the 8 rows).
+   per token step (one token for each of the 8 rows).  Then a
+   prefill-carrying step: a prompt with 2560 cached tokens chunks 8 x 512
+   tokens beside 7 decoding rows, timed from its arrival to its first
+   token (wall, device busy from the profiler's kernel sum and from CUDA
+   events around graph replays, idle share), per chunk.
 6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
    engine (the dense one freed first): the int8 paged-decode, the int8
-   cache writer and the flash-prefill kernels must launch and the dense
-   decode kernel never; the pool must hold at least 1.8x the dense
+   cache writer and flash prefill over the int8 pool must launch and the
+   dense kernels never; the pool must hold at least 1.8x the dense
    phase's tokens.
 7. The single-step path (``multi_step_window=False``,
    ``pipeline_decode=False``) at 4 layers, dense: phase 4's requests
-   through eager single steps, no window and no graph.
+   through eager single steps and K=1 mixed steps, no window and no
+   graph.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -77,9 +99,11 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -98,6 +122,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # inputs that is at most ~2 bf16 ulps at |out| < 2.  fp32: the same math
 # with sums taken in another order.
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def scaled_tol(top: float, dtype) -> float:
+    """``TOL[dtype]``, and for bf16 no more than two units in the last place
+    of ``top``, the largest |output|: kernel and plain version round one
+    fp32 result to bf16, so they differ by about one unit at an element's
+    own size, while a flat 2e-2 is as large as the outputs of a 512-token
+    chunk over 2560 keys (about 0.03)."""
+    if dtype != torch.bfloat16 or top == 0:
+        return TOL[dtype]
+    return min(TOL[dtype], 2 * torch.finfo(dtype).eps * 2.0 ** math.floor(math.log2(top)))
 
 MODEL = "llama-3.1-8b"
 NUM_REQUESTS = 8
@@ -183,13 +218,20 @@ def sass_hmma_counts(build_dir: str) -> dict:
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = [lib for lib in sorted(os.listdir(build_dir))
+            if lib.startswith("lib") and lib.endswith(".so")]
+    # One cuobjdump a library, all started together.
+    procs = [subprocess.Popen([tool, "-sass", os.path.join(build_dir, lib)],
+                              stdout=subprocess.PIPE, text=True) for lib in libs]
+    try:
+        dumps = [proc.communicate(timeout=120)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            proc.kill()  # only those still running
     counts = {}
-    for lib in sorted(os.listdir(build_dir)):
-        if not (lib.startswith("lib") and lib.endswith(".so")):
-            continue
-        sass = subprocess.run([tool, "-sass", os.path.join(build_dir, lib)],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
+    for proc, sass in zip(procs, dumps):
+        if proc.returncode:
+            raise RuntimeError(f"cuobjdump failed on {proc.args[-1]}")
         func = None
         for ln in sass.splitlines():
             m = re.search(r"Function : (\S+)", ln)
@@ -426,36 +468,111 @@ def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
         raise AssertionError(f"flash prefill {name}: max abs err {err} > {TOL[dtype]}")
     esz = torch.finfo(dtype).bits // 8
     nbytes = esz * (2 * T * H * D + 2 * T * K * D + 2 * cached * K * D)
-    # Keys each valid query row needs: the prefix plus the new keys up
-    # to itself, within the window.
-    vis = 0
-    for t in range(valid):
-        n = cached + t + 1
-        vis += min(n, window) if window else n
-    flops = 4.0 * vis * H * D
+    flops = 4.0 * _visible_keys(cached, valid, window) * H * D
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
     row["kernel_ms"] = graph_time_ms(lambda: fp.flash_prefill_attention(
         *args, scale=scale, sliding_window=window), iters=10)
     row["plain_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention_plain(
         *args, scale=scale, sliding_window=window), iters=3)
+    row["library_ms"] = _sdpa_prefill_ms(q, torch.cat([kp[:cached], kn[:valid]]),
+                                         torch.cat([vp[:cached], vn[:valid]]),
+                                         cached, valid, window, scale)
+    return row
+
+
+def _visible_keys(cached: int, valid: int, window) -> int:
+    """Keys the valid query rows need in all: each row its prefix and the
+    new keys up to itself, within the window."""
+    vis = 0
+    for t in range(valid):
+        n = cached + t + 1
+        vis += min(n, window) if window else n
+    return vis
+
+
+def _sdpa_prefill_ms(q, keys, vals, cached: int, valid: int, window, scale) -> float:
+    """The yardstick of a flash-prefill case: one
+    F.scaled_dot_product_attention over the live keys and values
+    [cached + valid, K, D] (the valid query rows; causal, within the
+    window), timed as CUDA-graph replays.  The port never calls it."""
+    H, K = q.shape[1], keys.shape[1]
     G = H // K
-    keys = torch.cat([kp[:cached], kn[:valid]]).permute(1, 0, 2)
-    vals = torch.cat([vp[:cached], vn[:valid]]).permute(1, 0, 2)
-    keys = keys.repeat_interleave(G, dim=0)[None].contiguous()
-    vals = vals.repeat_interleave(G, dim=0)[None].contiguous()
+    keys = keys.permute(1, 0, 2).repeat_interleave(G, dim=0)[None].contiguous()
+    vals = vals.permute(1, 0, 2).repeat_interleave(G, dim=0)[None].contiguous()
     qd = q[:valid].permute(1, 0, 2)[None].contiguous()
     if cached == 0 and window is None:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qd, keys, vals, is_causal=True, scale=scale)
     else:
-        qpos = cached + torch.arange(valid, device=dev)
-        kpos = torch.arange(cached + valid, device=dev)
+        qpos = cached + torch.arange(valid, device=q.device)
+        kpos = torch.arange(cached + valid, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
         if window:
             mask &= kpos[None, :] > qpos[:, None] - window
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qd, keys, vals, attn_mask=mask, scale=scale)
-    row["library_ms"] = graph_time_ms(lib, iters=10)
+    return graph_time_ms(lib, iters=10)
+
+
+def check_paged_prefill(gen, name, T, H, K, D, cached, valid, dtype=torch.bfloat16,
+                        window=None, int8=False, bmax=2048, bs=16) -> dict:
+    """One case of flash prefill's paged entry: the prefix read from a pool
+    through a table row zero-padded to ``bmax`` (2048 = the main path's
+    block-table width at max_model_len 32768), dense in q's dtype or int8
+    quantized by the port's ``quantize_vectors``, the lengths int32 device
+    tensors.  The yardstick is SDPA over the live prefix gathered dense
+    (int8 dequantized; the gather untimed)."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+
+    dev = "cuda"
+    nb = -(-cached // bs)
+    N = max(nb, 1) + 64
+    q = torch.randn((T, H, D), generator=gen, device=dev).to(dtype)
+    kn = torch.randn((T, K, D), generator=gen, device=dev).to(dtype)
+    vn = torch.randn((T, K, D), generator=gen, device=dev).to(dtype)
+    sides = [torch.randn((N, bs, K, D), generator=gen, device=dev).to(dtype)
+             for _ in range(2)]
+    if int8:
+        sides = [kv_quant.quantize_vectors(x) for x in sides]
+    table = torch.zeros(bmax, dtype=torch.int32, device=dev)
+    table[:nb] = torch.randperm(N - 1, generator=gen, device=dev)[:nb].to(torch.int32) + 1
+    lens = torch.tensor([cached, valid], dtype=torch.int32, device=dev)
+    scale = D**-0.5
+    args = (q, kn, vn, sides[0], sides[1], table, lens[:1], lens[1:])
+    got = fp.flash_prefill_attention_paged(*args, scale=scale, sliding_window=window)
+    again = fp.flash_prefill_attention_paged(*args, scale=scale, sliding_window=window)
+    want = fp.flash_prefill_attention_paged_plain(*args, scale=scale, sliding_window=window)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    row = {"case": name, "T": T, "H": H, "K": K, "D": D, "cached_len": cached,
+           "valid_len": valid, "table_width": bmax, "window": window,
+           "dtype": str(dtype).replace("torch.", ""), "kv": "int8" if int8 else "dense",
+           "max_abs_err": err, "max_abs_out": top, "tol": scaled_tol(top, dtype),
+           "same_bits_twice": torch.equal(got, again)}
+    if not torch.isfinite(got).all() or err > row["tol"] or not row["same_bits_twice"]:
+        raise AssertionError(f"paged flash prefill {name}: max abs err {err} > {row['tol']}"
+                             f" or bits differ between calls ({row['same_bits_twice']})")
+    esz = torch.finfo(dtype).bits // 8
+    kv_bytes = D + 4 if int8 else D * esz  # one prefix vector a side
+    nbytes = (esz * (2 * T * H * D + 2 * T * K * D) + 2 * cached * K * kv_bytes
+              + 4 * nb + 8)
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, 4.0 * _visible_keys(cached, valid, window) * H * D, dtype)
+    row["kernel_ms"] = graph_time_ms(lambda: fp.flash_prefill_attention_paged(
+        *args, scale=scale, sliding_window=window), iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention_paged_plain(
+        *args, scale=scale, sliding_window=window), iters=3)
+    idx = table[:nb].long()
+
+    def live(side):
+        x = kv_quant.dequantize(side[0][idx], side[1][idx], dtype) if int8 else side[idx]
+        return x.reshape(nb * bs, K, D)[:cached]
+
+    row["library_ms"] = _sdpa_prefill_ms(q, torch.cat([live(sides[0]), kn[:valid]]),
+                                         torch.cat([live(sides[1]), vn[:valid]]),
+                                         cached, valid, window, scale)
     return row
 
 
@@ -521,15 +638,44 @@ def phase_kernels() -> dict:
             check_flash_prefill(gen, "T1000_ragged", 1000, H, K, D, 0, 0, 1000),
             check_flash_prefill(gen, "T512_G1", 512, K, K, D, 256, 256, 512),
         ],
+        # The paged entry, the one the serving path runs: the main path's
+        # chunk (512 tokens over 2560 cached) and prompt (2048, nothing
+        # cached), dense and int8, then the edges.
+        "flash_prefill_paged": [
+            check_paged_prefill(gen, "T512_C2560", 512, H, K, D, 2560, 512),
+            check_paged_prefill(gen, "T2048_C0", 2048, H, K, D, 0, 2048, bmax=256),
+            check_paged_prefill(gen, "T200_C17_ragged", 200, H, K, D, 17, 190),
+            check_paged_prefill(gen, "T512_window", 512, H, K, D, 2560, 512, window=700),
+            check_paged_prefill(gen, "T300_D64_G1", 300, 8, 8, 64, 17, 300),
+            check_paged_prefill(gen, "T333_D256", 333, 16, 4, 256, 2560, 333, window=96),
+            check_paged_prefill(gen, "T256_fp32", 256, H, K, D, 2560, 200,
+                                dtype=torch.float32),
+        ],
+        "flash_prefill_paged_int8": [
+            check_paged_prefill(gen, "T512_C2560", 512, H, K, D, 2560, 512, int8=True),
+            check_paged_prefill(gen, "T2048_C0", 2048, H, K, D, 0, 2048, int8=True,
+                                bmax=256),
+            check_paged_prefill(gen, "T200_C17_ragged", 200, H, K, D, 17, 190, int8=True),
+            check_paged_prefill(gen, "T512_window", 512, H, K, D, 2560, 512, window=700,
+                                int8=True),
+            check_paged_prefill(gen, "T300_D64_G1", 300, 8, 8, 64, 17, 300, int8=True),
+            check_paged_prefill(gen, "T333_D256", 333, 16, 4, 256, 2560, 333, window=96,
+                                int8=True),
+            check_paged_prefill(gen, "T256_fp32", 256, H, K, D, 2560, 200,
+                                dtype=torch.float32, int8=True),
+        ],
     }
     emit({"phase": "kernels", **cases})
-    # The main path's shapes: 8 decode rows; a 2048-token prompt, and a
-    # 512-token chunk over its prefix (most prefill launches of a run); the
-    # writer's 8 decode rows, and its 512-token chunk.
-    chunk = next(r for r in cases["flash_prefill"] if r["case"] == "T512_chunk")
+    # The main path's shapes: 8 decode rows; flash prefill's paged entry at
+    # a 512-token chunk over 2560 cached tokens (most prefill launches of a
+    # run) and at a 2048-token prompt, beside the contiguous entry's rows;
+    # the writer's 8 decode rows, and its 512-token chunk.
+    contiguous = [r for r in cases["flash_prefill"] if r["case"] in ("T2048_main", "T512_chunk")]
+    paged, paged8 = cases["flash_prefill_paged"], cases["flash_prefill_paged_int8"]
     return {"paged_decode": cases["paged_decode"][1],
             "paged_decode_int8": cases["paged_decode_int8"][1],
-            "flash_prefill": dict(cases["flash_prefill"][1], also=[chunk]),
+            "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous),
+            "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]),
             "kv_write_int8": dict(cases["kv_write_int8"][0],
                                   also=[cases["kv_write_int8"][1]])}
 
@@ -537,22 +683,35 @@ def phase_kernels() -> dict:
 # -- phase 3 ---------------------------------------------------------------
 
 
-def phase_reference(int8: bool) -> dict:
-    """The model path on the card against the same path on the CPU (plain
-    attention) on a small input: a 2-layer model at llama-3.1-8b width in
-    fp32 (TF32 off) over dense or int8 KV caches.  One prompt is prefilled
-    in two chunks, then 3 decode steps; a second prompt's first chunk is
-    prefilled, then one mixed step runs the first prompt's next decode
-    row beside the second prompt's last chunk over its cached prefix.
-    Every step's logits must agree within 2e-3."""
+def reference_model() -> tuple:
+    """Phase 3's model: 2 layers at llama-3.1-8b width in fp32, drawn on the
+    CPU from seed 1 (seconds of single-threaded draws, so ``main`` starts
+    it beside the kernels' build and both KV dtypes share it); returns
+    (config, CPU weights, the generator's state after the draw)."""
     from production_stack_tpu_torch.engine.config import PRESETS
     from production_stack_tpu_torch.engine.models import llama
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(PRESETS[MODEL], num_layers=2, dtype="float32")
     gen = torch.Generator(device="cpu")
     gen.manual_seed(1)
     cpu_params = llama.init_params(cfg, gen, torch.device("cpu"))
+    return cfg, cpu_params, gen.get_state()
+
+
+def phase_reference(int8: bool, model: tuple) -> dict:
+    """The model path on the card against the same path on the CPU (plain
+    attention) on a small input: ``model`` (:func:`reference_model`) over
+    dense or int8 KV caches, TF32 off.  One prompt is prefilled
+    in two chunks, then 3 decode steps; a second prompt's first chunk is
+    prefilled, then one mixed step runs the first prompt's next decode
+    row beside the second prompt's last chunk over its cached prefix.
+    Every step's logits must agree within 2e-3."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu_params, state = model
+    gen = torch.Generator(device="cpu")
+    gen.set_state(state)  # the prompts follow the weights' draws
     bs, nblocks = 16, 16
 
     def tree_to(t, dev):
@@ -628,28 +787,60 @@ WINDOW_PROMPT_LENS = (100, 37, 250, 16, 90, 300, 64, 130)
 WINDOW_NEW_TOKENS = 41  # the prefill's token, then five windows of 8
 
 
-def _drive_steps(eng, prompts, sync_check: bool):
-    """Greedy streams of ``prompts`` (all arriving at once) through
-    dispatch/collect.  With ``sync_check``, every dispatch made once a
-    graph is captured and no prompt waits (so every plan is a window) runs
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+# Phase 3's mixed-window requests: (arrival step, prompt length); later
+# prompts arrive while earlier ones decode, so their chunks ride mixed
+# windows, several prompts' chunks packed into one window.
+MIXED_ARRIVALS = ((0, 300), (0, 37), (2, 700), (2, 130), (5, 1100), (5, 64),
+                  (9, 500), (9, 900))
+MIXED_NEW_TOKENS = 24
+
+
+# The engine's asynchronous dispatches: each enqueues device work and
+# returns without reading anything back.
+ASYNC_DISPATCHES = ("_dispatch_window", "_dispatch_mixed_window", "_dispatch_decode_async")
+
+
+def sync_checked(eng) -> dict:
+    """Make every asynchronous dispatch of ``eng`` (window, mixed window,
+    pipelined step), those that capture a graph included, run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in one
+    raises.  Returns the count of checked dispatches by method."""
+    checked = dict.fromkeys(ASYNC_DISPATCHES, 0)
+    for name in ASYNC_DISPATCHES:
+        def run(*args, _fn=getattr(eng, name), _name=name, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step = _fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked[_name] += 1
+            return step
+        setattr(eng, name, run)
+    return checked
+
+
+def _drive_arrivals(eng, prompts, sync_check: bool, max_tokens: int):
+    """Greedy streams of [(arrival step, prompt ids)] (one step = dispatch,
+    then collect), ``max_tokens`` each.  With ``sync_check`` every
+    asynchronous dispatch runs under ``set_sync_debug_mode("error")``
+    (:func:`sync_checked`); returns (streams, checked dispatches)."""
     from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 
-    for i, ids in enumerate(prompts):
-        eng.add_request(f"w{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
-            max_tokens=WINDOW_NEW_TOKENS, ignore_eos=True))
-    streams, checked = {}, 0
-    while eng.has_unfinished() or eng.has_pending():
-        check = sync_check and eng.graphs.captures > 0 and not eng.scheduler.waiting
-        if check:
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            eng.dispatch()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        checked += check
+    arrivals = sorted((step, i, ids) for i, (step, ids) in enumerate(prompts))
+    streams = {}
+    checked = sync_checked(eng) if sync_check else {}
+    step = 0
+    while arrivals or eng.has_unfinished() or eng.has_pending():
+        while arrivals and arrivals[0][0] <= step:
+            _, i, ids = arrivals.pop(0)
+            eng.add_request(f"m{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
+                max_tokens=max_tokens, ignore_eos=True))
+        eng.dispatch()
         for out in eng.collect():
             streams.setdefault(out.seq_id, []).append(out.new_token_id)
+        step += 1
+        if step > 2000:
+            raise AssertionError("the engine did not drain")
     return streams, checked
 
 
@@ -659,8 +850,8 @@ def phase_window(int8: bool) -> dict:
     TF32 off), one at the default decode path (windows of 8 with the
     lookahead: each window one CUDA-graph replay), one with
     ``multi_step_window=False, pipeline_decode=False``; 8 greedy requests
-    must give the same tokens, and the window engine's dispatches run with
-    no host sync."""
+    must give the same tokens, and the window engine's asynchronous
+    dispatches make no host sync."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.config import config_from_preset
@@ -682,11 +873,11 @@ def phase_window(int8: bool) -> dict:
     torch.cuda.reset_peak_memory_stats()
     eager = engine(multi_step_window=False, pipeline_decode=False)
     vocab = eager.config.model.vocab_size
-    prompts = [rng.integers(4, vocab, n).tolist() for n in WINDOW_PROMPT_LENS]
-    want, _ = _drive_steps(eager, prompts, sync_check=False)
+    prompts = [(0, rng.integers(4, vocab, n).tolist()) for n in WINDOW_PROMPT_LENS]
+    want, _ = _drive_arrivals(eager, prompts, False, WINDOW_NEW_TOKENS)
     win = engine(params=eager.params)
     t0 = time.time()
-    got, checked = _drive_steps(win, prompts, sync_check=True)
+    got, checks = _drive_arrivals(win, prompts, True, WINDOW_NEW_TOKENS)
     stats = win.stats()
     row = {"phase": "window", "kv": kv, "layers": 2, "width": win.config.model.hidden_size,
            "decode_window": win.config.scheduler.window_steps, "rows": len(prompts),
@@ -694,14 +885,82 @@ def phase_window(int8: bool) -> dict:
            "windows": stats["windows_dispatched"], "windows_chained": stats["windows_chained"],
            "graph_captures": stats["graph_captures"], "graph_replays": stats["graph_replays"],
            "capture_s": sorted(win.graphs.capture_seconds.values()),
-           "sync_checked_dispatches": checked, "wall_s": time.time() - t0,
+           "sync_checked_dispatches": checks, "wall_s": time.time() - t0,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     emit(row)
     if got != want:
         raise AssertionError(f"{kv} KV: window streams differ from eager single steps")
-    if not (stats["windows_chained"] and stats["graph_replays"] and checked >= 3):
+    # Every window dispatch ran under the "error" sync mode.
+    if not (stats["windows_chained"] and stats["graph_replays"]
+            and checks["_dispatch_window"] == stats["windows_dispatched"] >= 3):
         raise AssertionError(f"{kv} KV: windows did not chain, replay or get checked: {row}")
     del eager, win
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mixed_window(int8: bool) -> dict:
+    """Mixed K-step windows on the card against eager K=1 mixed steps: two
+    engines with the same weights (2 layers at llama-3.1-8b width, fp32,
+    TF32 off), one at the default serving path (mixed and packed windows,
+    each iteration a CUDA-graph replay), one with ``mixed_window=False,
+    multi_step_window=False, pipeline_decode=False`` (eager K=1 mixed
+    steps); staggered prompts must give the same tokens, and every
+    asynchronous dispatch of the window engine makes no host sync."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kv = "int8" if int8 else "auto"
+
+    def engine(params=None, **sched):
+        cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+            "model.num_layers": 2, "model.dtype": "float32",
+            "cache.kv_cache_dtype": kv, "cache.num_blocks": 1024,
+            "scheduler.max_num_seqs": 8, "scheduler.max_model_len": 4096,
+            **{f"scheduler.{k}": v for k, v in sched.items()},
+        })
+        return LLMEngine(cfg, params=params)
+
+    rng = np.random.default_rng(4)
+    eager = engine(mixed_window=False, multi_step_window=False, pipeline_decode=False)
+    vocab = eager.config.model.vocab_size
+    prompts = [(step, rng.integers(4, vocab, n).tolist()) for step, n in MIXED_ARRIVALS]
+    want, _ = _drive_arrivals(eager, prompts, False, MIXED_NEW_TOKENS)
+    mixed = engine(params=eager.params)
+    if not mixed.config.scheduler.multi_prompt_window_enabled:
+        raise AssertionError("mixed and packed windows are off by default")
+    t0 = time.time()
+    got, checks = _drive_arrivals(mixed, prompts, True, MIXED_NEW_TOKENS)
+    stats, ref = mixed.stats(), eager.stats()
+    row = {"phase": "mixed_window", "kv": kv, "layers": 2,
+           "width": mixed.config.model.hidden_size, "rows": len(prompts),
+           "tokens_per_row": MIXED_NEW_TOKENS, "streams_equal": got == want,
+           "mixed_windows": stats["mixed_windows_dispatched"],
+           "mixed_windows_chained": stats["mixed_windows_chained"],
+           "mixed_window_iterations": stats["mixed_window_iterations"],
+           "mixed_window_chunk_tokens": stats["mixed_window_chunk_tokens"],
+           "prefill_chunk_tokens": [stats["prefill_chunk_tokens"], ref["prefill_chunk_tokens"]],
+           "waiting_head": [stats["multistep_fallback"].get("waiting_head", 0),
+                            ref["multistep_fallback"].get("waiting_head", 0)],
+           "graph_captures": stats["graph_captures"], "graph_replays": stats["graph_replays"],
+           "capture_s": {str(k): v for k, v in mixed.graphs.capture_seconds.items()},
+           "sync_checked_dispatches": checks, "wall_s": time.time() - t0}
+    emit(row)
+    if got != want:
+        raise AssertionError(f"{kv} KV: mixed-window streams differ from eager K=1 mixed steps")
+    mixed_keys = [k for k in mixed.graphs.capture_seconds if k[0] == "mixed"]
+    # Every window and mixed-window dispatch ran under the "error" sync
+    # mode, and several mixed windows chained.
+    if not (stats["mixed_window_chunk_tokens"] and mixed_keys and stats["graph_replays"]
+            and checks["_dispatch_mixed_window"] == stats["mixed_windows_dispatched"] >= 3
+            and stats["mixed_windows_chained"] >= 2
+            and checks["_dispatch_window"] == stats["windows_dispatched"]):
+        raise AssertionError(f"{kv} KV: mixed windows did not run, replay or get checked: {row}")
+    del eager, mixed
     gc.collect()
     torch.cuda.empty_cache()
     return row
@@ -822,10 +1081,12 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     pa.launches = 0
     pa.launches_int8 = 0
     fp.launches = 0
+    fp.launches_int8 = 0
     kw.launches = 0
     out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size))
     launches = {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
-                "flash_prefill": fp.launches, "kv_write_int8": kw.launches}
+                "flash_prefill": fp.launches, "flash_prefill_int8": fp.launches_int8,
+                "kv_write_int8": kw.launches}
     stats = eng.stats()
     results = out["results"]
     for i, r in enumerate(results):
@@ -841,26 +1102,35 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         raise AssertionError(f"HTTP path failed: {out['health']} {out['http_body']}")
     if stats["prefill_chunk_tokens"] <= 0:
         raise AssertionError("no prompt token rode a mixed step")
-    decode = "paged_decode_int8" if int8 else "paged_decode"
-    on = ["flash_prefill", decode] + (["kv_write_int8"] if int8 else [])
+    decode, prefill = (("paged_decode_int8", "flash_prefill_int8") if int8
+                       else ("paged_decode", "flash_prefill"))
+    on = [prefill, decode] + (["kv_write_int8"] if int8 else [])
     if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches
                                                  if k not in on):
         raise AssertionError(f"{kv_cache_dtype} KV: wrong kernels launched: {launches}")
     L = cfg.model.num_layers
     if single_step:
-        if stats["windows_dispatched"] or stats["graph_replays"]:
+        if (stats["windows_dispatched"] or stats["graph_replays"]
+                or stats["mixed_windows_dispatched"]):
             raise AssertionError(f"single steps ran windows or graphs: {stats}")
     else:
         if not (stats["windows_dispatched"] and stats["windows_chained"]
                 and stats["graph_replays"]):
             raise AssertionError(f"no window dispatched, chained or replayed: {stats}")
+        if not (stats["mixed_windows_dispatched"] and stats["mixed_windows_chained"]
+                and stats["mixed_window_chunk_tokens"] > 0):
+            raise AssertionError(f"no mixed window dispatched or chained: {stats}")
         # Every window, the first of its key run eagerly and the rest
         # replayed, launches the decode kernel (and the int8 writer) once
-        # a layer and iteration: the counters must cover them all.
+        # a layer and iteration, and every mixed-window iteration flash
+        # prefill once a layer: the counters must cover them all.
+        iters = stats["windows_dispatched"] * K + stats["mixed_window_iterations"]
         for k in on[1:]:
-            if launches[k] < stats["windows_dispatched"] * K * L:
-                raise AssertionError(f"{k}: {launches[k]} launches for "
-                                     f"{stats['windows_dispatched']} windows")
+            if launches[k] < iters * L:
+                raise AssertionError(f"{k}: {launches[k]} launches for {iters} iterations")
+        if launches[prefill] < stats["mixed_window_iterations"] * L:
+            raise AssertionError(f"{prefill}: {launches[prefill]} launches for "
+                                 f"{stats['mixed_window_iterations']} mixed iterations")
     total_out = sum(r["tokens"] for r in results)
     row = {
         "phase": ("engine_single_step" if single_step
@@ -886,11 +1156,18 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "http_completion_tokens": out["http_body"]["usage"]["completion_tokens"],
         "windows": stats["windows_dispatched"],
         "windows_chained": stats["windows_chained"],
+        "mixed_windows": stats["mixed_windows_dispatched"],
+        "mixed_windows_chained": stats["mixed_windows_chained"],
+        "mixed_window_iterations": stats["mixed_window_iterations"],
+        "mixed_window_chunk_tokens": stats["mixed_window_chunk_tokens"],
+        "waiting_head": stats["multistep_fallback"].get("waiting_head", 0),
         "multistep_fallback": stats["multistep_fallback"],
+        "multistep_wasted_tokens": stats["multistep_wasted_tokens"],
         "decode_host_gap_ms": stats["decode_host_gap_ms"],
         "graph_captures": stats["graph_captures"],
         "graph_replays": stats["graph_replays"],
-        "capture_s": sorted(eng.graphs.capture_seconds.values()),
+        "capture_s": {str(k): v for k, v in eng.graphs.capture_seconds.items()},
+        "capture_s_total": stats["graph_capture_seconds"],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     if dense is not None:
@@ -972,12 +1249,15 @@ def phase_profile(eng, tokens: int = 32) -> dict:
         prof_steps = _decode_tokens(eng, tokens, rows) / rows
         torch.cuda.synchronize()
     host_us_after = host_us_per_op()
-    while eng.has_unfinished():
+    for i in range(rows):
+        eng.abort_request(f"prof{i}")  # the rest of their tokens is not measured
+    while eng.has_unfinished() or eng.has_pending():
         eng.step()
     # Device-side events only (kernels, copies): a CPU op's entry repeats
     # the device time of the kernels it launched.
+    averages = prof.key_averages()
     events = [
-        e for e in prof.key_averages()
+        e for e in averages
         if e.device_type == torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0
     ]
@@ -985,7 +1265,7 @@ def phase_profile(eng, tokens: int = 32) -> dict:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:10]
     # Host side: PyTorch ops by self CPU time (inflated by the profiler
     # alike for every op), and the launch calls a token step makes.
-    host = [e for e in prof.key_averages()
+    host = [e for e in averages
             if e.device_type == torch.autograd.DeviceType.CPU
             and e.self_cpu_time_total > 0]
     host_top = sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
@@ -1030,6 +1310,132 @@ def phase_profile(eng, tokens: int = 32) -> dict:
     return row
 
 
+# The measured prompt of phase 5's prefill-carrying steps: a prefix-cache
+# hit of MIXED_SHARED tokens, then MIXED_CHUNKS chunks of 512 tokens that
+# run beside 7 decoding rows.
+MIXED_SHARED = 2560
+MIXED_CHUNKS = 8
+
+
+def phase_mixed_profile(eng, label: str = "") -> dict:
+    """Where a prefill-carrying step's time goes at 7 decode rows: a prompt
+    whose first 2560 tokens are cached (a prefix-cache hit) chunks its
+    next 8 x 512 tokens beside 7 decoding rows, from its arrival to its
+    first token.  Mixed windows run each chunk as an iteration of a
+    graph-replayed window; with them off (or on a tree without them) each
+    chunk is a synchronous K=1 mixed step.  Three admissions: the first
+    captures what it needs, the second is timed (wall, and device busy
+    from CUDA events around each graph replay), the third runs under
+    torch.profiler (device busy as the kernel sum, the host's launch
+    calls).  Per chunk: wall, device busy, idle share = 1 - busy / wall.
+    Uses only the engine's public surface, so an older tree runs it too."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    rng = np.random.default_rng(5)
+    vocab = eng.config.model.vocab_size
+    shared = rng.integers(4, vocab, MIXED_SHARED).tolist()
+    rows = 7
+
+    def drain():
+        while eng.has_pending():
+            eng.collect()
+
+    eng.add_request("mx_prefix", prompt_token_ids=shared,
+                    sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+    while eng.has_unfinished() or eng.has_pending():
+        eng.step()  # the shared prefix lands in the prefix cache
+    for i in range(rows):
+        eng.add_request(f"mx_row{i}",
+                        prompt_token_ids=rng.integers(4, vocab, PROMPT_LENS[i]).tolist(),
+                        sampling_params=SamplingParams(max_tokens=1000, ignore_eos=True))
+    while eng.scheduler.waiting:
+        eng.step()
+    _decode_tokens(eng, 8, rows)
+    if eng.scheduler.num_running != rows:
+        raise AssertionError(f"{eng.scheduler.num_running} rows decoding, want {rows}")
+
+    def admit(tag):
+        drain()
+        ids = shared + rng.integers(4, vocab, 512 * MIXED_CHUNKS).tolist()
+        eng.add_request(tag, prompt_token_ids=ids,
+                        sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+        before = eng.stats()
+        t0 = time.time()
+        while not any(out.seq_id == tag for out in eng.step()):
+            pass
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        after = eng.stats()
+        return wall, {k: after.get(k, 0) - before.get(k, 0) for k in (
+            "prefill_chunk_tokens", "mixed_window_chunk_tokens", "mixed_windows_dispatched",
+            "mixed_window_iterations", "prefix_cache_hit_tokens", "num_steps")}, (
+            after["multistep_fallback"].get("waiting_head", 0)
+            - before["multistep_fallback"].get("waiting_head", 0))
+
+    captures = eng.graphs.captures
+    admit("mx_warm")
+    spans = []
+    run = eng.graphs.run
+
+    def timed_run(key, body):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run(key, body)
+        end.record()
+        spans.append((key, start, end))
+
+    eng.graphs.run = timed_run
+    try:
+        wall, counts, waiting_head = admit("mx_timed")
+    finally:
+        eng.graphs.run = run
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall, _, _ = admit("mx_profiled")
+    for i in range(rows):
+        eng.abort_request(f"mx_row{i}")
+    drain()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    host = [e for e in averages
+            if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0]
+    chunks = counts["prefill_chunk_tokens"] / 512
+    busy_prof_ms = sum(e.self_device_time_total for e in events) / 1e3 / chunks
+    mixed_spans = [s.elapsed_time(e) for k, s, e in spans if k[0] == "mixed"]
+    replay_ms = sum(s.elapsed_time(e) for _, s, e in spans) / chunks
+    wall_ms = wall * 1e3 / chunks
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    row = {
+        "phase": "mixed_profile", "label": label,
+        "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
+        "decode_rows": rows, "chunk_tokens": 512, "cached_prefix": MIXED_SHARED,
+        "chunks": chunks, **counts, "waiting_head": waiting_head,
+        "captures_in_warm_up": eng.graphs.captures - captures,
+        "wall_ms_per_chunk": wall_ms,
+        "device_busy_ms_per_chunk_profiler": busy_prof_ms,
+        "device_busy_ms_per_chunk_replays": replay_ms,
+        "mixed_iteration_replay_ms": (sum(mixed_spans) / len(mixed_spans)
+                                      if mixed_spans else None),
+        "idle_share": 1.0 - busy_prof_ms / wall_ms,
+        "profiled_wall_ms_per_chunk": prof_wall * 1e3 / chunks,
+        "cudaLaunchKernel_per_chunk": sum(
+            e.count for e in host if e.key == "cudaLaunchKernel") / chunks,
+        "cudaGraphLaunch_per_chunk": sum(
+            e.count for e in host if e.key == "cudaGraphLaunch") / chunks,
+        "top_kernels_ms_per_chunk": [
+            [e.key[:80], e.self_device_time_total / 1e3 / chunks, e.count / chunks]
+            for e in top],
+    }
+    emit(row)
+    if counts["prefix_cache_hit_tokens"] < MIXED_SHARED or chunks != MIXED_CHUNKS:
+        raise AssertionError(f"the measured prompt did not chunk over its cached prefix: {row}")
+    return row
+
+
 KERNEL_META = {
     "paged_decode": {
         "source": "production_stack_tpu_torch/engine/ops/csrc/paged_decode.cu",
@@ -1042,6 +1448,12 @@ KERNEL_META = {
     },
     "flash_prefill": {
         "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
+        "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
+    },
+    "flash_prefill_int8": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
+        # The same kernel over gather_prefix_kv's int8 dequantization
+        # (production_stack_tpu/engine/ops/attention.py:306-331), in one.
         "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
     },
     "kv_write_int8": {
@@ -1057,31 +1469,56 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    dev = phase_device()
-    main_rows = phase_kernels()
-    phase_reference(int8=False)
-    phase_reference(int8=True)
-    phase_window(int8=False)
-    phase_window(int8=True)
-    dense = phase_engine("auto")
-    phase_profile(dense["engine"])
+    seconds = {}
+
+    def timed(name, phase, *args, **kwargs):
+        t0 = time.time()
+        out = phase(*args, **kwargs)
+        seconds[name] = time.time() - t0
+        print(f"chip_smoke: phase {name} took {seconds[name]:.1f} s", file=sys.stderr,
+              flush=True)
+        return out
+
+    # The CUDA context's creation and the reference model's CPU draw run
+    # beside the kernels' build.
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pool.submit(torch.zeros, 1, device="cuda")
+    drawn = pool.submit(reference_model)
+    dev = timed("device", phase_device)
+    main_rows = timed("kernels", phase_kernels)
+    model = timed("reference_model_wait", drawn.result)
+    pool.shutdown()
+    timed("reference", phase_reference, False, model)
+    timed("reference_int8", phase_reference, True, model)
+    del model, drawn
+    timed("window", phase_window, int8=False)
+    timed("window_int8", phase_window, int8=True)
+    timed("mixed_window", phase_mixed_window, int8=False)
+    timed("mixed_window_int8", phase_mixed_window, int8=True)
+    dense = timed("engine", phase_engine, "auto")
+    timed("profile", phase_profile, dense["engine"])
+    timed("mixed_profile", phase_mixed_profile, dense["engine"])
     dense_launches = dense["launches"]
     dense.pop("engine")  # free the dense engine before the int8 one boots
     gc.collect()
     torch.cuda.empty_cache()
-    int8 = phase_engine("int8", dense=dense)
-    phase_profile(int8["engine"])
+    int8 = timed("engine_int8", phase_engine, "int8", dense=dense)
+    timed("profile_int8", phase_profile, int8["engine"])
+    timed("mixed_profile_int8", phase_mixed_profile, int8["engine"])
     int8.pop("engine")
     gc.collect()
     torch.cuda.empty_cache()
-    phase_engine("auto", single_step=True, layers=4)
+    timed("engine_single_step", phase_engine, "auto", single_step=True, layers=4)
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
-    # it: the dense decode kernel's and flash prefill's from the dense
-    # phase, the int8 decode kernel's and the int8 writer's from the int8
-    # phase (both at the default decode path, windows and all).
+    # it: the dense decode kernel's and flash prefill's (paged entry, dense
+    # pool) from the dense phase, the int8 decode kernel's, flash
+    # prefill's over the int8 pool and the int8 writer's from the int8
+    # phase (both at the default serving path, mixed windows and all).
     launches = {"paged_decode": dense_launches["paged_decode"],
                 "paged_decode_int8": int8["launches"]["paged_decode_int8"],
                 "flash_prefill": dense_launches["flash_prefill"],
+                "flash_prefill_int8": int8["launches"]["flash_prefill_int8"],
                 "kv_write_int8": int8["launches"]["kv_write_int8"]}
     kernels = []
     for name, row in main_rows.items():

@@ -43,6 +43,7 @@ LAUNCH_COUNTERS = (
     (paged_attention, "launches_int8"),
     (kv_write, "launches"),
     (flash_prefill, "launches"),
+    (flash_prefill, "launches_int8"),
 )
 
 

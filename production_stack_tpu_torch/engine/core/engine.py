@@ -6,24 +6,33 @@ in the JAX engine: dispatch launches device work without reading anything
 back, filling the pipeline to its depth (2 with the one-step lookahead, 1
 without), and collect finalizes the oldest dispatched step.  A plan is a
 (possibly chunked) prefill of one sequence, a mixed step (every running
-sequence decodes one token beside one prefill chunk), a K-step decode
-window, or one single-token decode step:
+sequence decodes one token beside one prefill chunk), a mixed K-step
+window, a K-step decode window, or one single-token decode step:
 
-- prefills, mixed steps and decode batches whose rows need host-visible
-  sampling state (logprobs, ``logit_bias``) run synchronously and sample
-  on the host side of one device read;
+- prefills, K=1 mixed steps and decode batches whose rows need
+  host-visible sampling state (logprobs, ``logit_bias``) run synchronously
+  and sample on the host side of one device read;
 - a pure-decode plan runs as a K-step window (``decode_window``, default
   8): K decode+sample iterations with the penalties, the ``min_tokens``
   floor and per-row stop masking on the device, the carry (tokens,
   positions, ctx, done, min_left, occurrence counts) in static buffers
   that a chained window continues from without a host round-trip;
+- while prompts wait, a mixed K-step window (``mixed_window``, on by
+  default; ``multi_prompt_window`` packs chunks of several prompts into
+  one window): each iteration runs the fused ``[S decode rows + T chunk
+  rows]`` forward, the decode rows advancing the same carry as a plain
+  window, the chunk at its own cursor (tokens, cached and valid lengths,
+  new blocks, prefix table) read on the device; a final chunk's tail
+  logits are kept and its first token sampled at collect, with the step
+  ordinal of its iteration.  Mixed and plain windows chain from one
+  another's carry;
 - with windows off (``multi_step_window=False``), a pure-decode batch that
   needs no host state runs as a pipelined single-token step whose input
   tokens chain from the previous step's in-flight sample.
 
-On the card each window and each pipelined step is one CUDA-graph replay
-(``cuda_graphs.py``); the one host sync a dispatch waits on is its own
-event, in ``collect``.
+On the card each window, each mixed-window iteration and each pipelined
+step is one CUDA-graph replay (``cuda_graphs.py``); the one host sync a
+dispatch waits on is its own event, in ``collect``.
 
 Owns the params and the paged KV caches on one device, the block pool
 (hash-chained prefix cache, null block 0) and the scheduler.  The caches
@@ -32,11 +41,13 @@ int8 ``(data, scale)`` tuples (``kv/quant.py``).  Prefill runs the
 flash-prefill kernel and decode the paged-decode kernel for the cache
 type whenever the tensors live on a CUDA device (``ops/attention.py``).
 
-The engine serves the JAX package's default decode path with mixed
-K-step windows off (``SLICE_OVERRIDES``: recompute preemption, no LoRA /
-speculation / guided decoding / offload / remote KV / parallelism /
-tracing; mixed steps on by default, dense or int8 KV) and raises
-``NotImplementedError`` at construction for any setting outside it.
+The engine serves the JAX package's default serving path, mixed and
+packed K-step windows included (``SLICE_OVERRIDES``: recompute
+preemption, no encode lane, no tracing; no LoRA / speculation / guided
+decoding / offload / remote KV / parallelism; dense or int8 KV;
+``mixed_window=False`` restores K=1 mixed steps while prompts wait) and
+raises ``NotImplementedError`` at construction for any setting outside
+it.
 """
 
 from __future__ import annotations
@@ -75,11 +86,10 @@ from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 logger = logging.getLogger(__name__)
 
 # The configuration this engine serves, as ``config_from_preset``
-# overrides: the JAX engine's default decode path (K-step windows and the
-# lookahead pipeline) without mixed K-step windows; mixed steps stay at
-# their default.
+# overrides: the JAX engine's defaults (K-step windows with the lookahead
+# pipeline, mixed steps, mixed and packed K-step windows) without the
+# encode lane and tracing, with recompute preemption.
 SLICE_OVERRIDES = {
-    "scheduler.mixed_window": False,
     "scheduler.encode_lane": False,
     "scheduler.preemption_mode": "recompute",
     "obs.tracing": False,
@@ -103,7 +113,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
     """Settings outside the served configuration, by name."""
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
-        (s.mixed_window_enabled, "scheduler.mixed_window (mixed K-step windows)"),
         (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
         (s.preemption_mode != "recompute", "scheduler.preemption_mode != recompute"),
         (s.spec_drafter is not None, "speculative decoding"),
@@ -165,7 +174,10 @@ class _PendingStep:
     CPU): [S] for a single-token step, [K, S] emitted tokens for a K-step
     window (``steps`` holds the rows' token budgets and ``win_key`` the
     shape key of the window's static carry, which the next window chains
-    from)."""
+    from).  A mixed window also carries its chunk schedule, the tail
+    logits of its iterations ([k_eff, V] on the device, this step's own
+    copy; None when no chunk is final) and the step ordinal of its first
+    iteration."""
 
     outputs: Optional[List[StepOutput]] = None
     seqs: Optional[List[Sequence]] = None
@@ -175,6 +187,9 @@ class _PendingStep:
     host_s: float = 0.0  # host time spent dispatching this step
     steps: Optional[List[int]] = None
     win_key: Optional[tuple] = None
+    chunk_sched: Optional[List[PrefillPlan]] = None
+    chunk_tails: Optional[torch.Tensor] = None
+    chunk_ordinal: int = 0
 
     def read(self) -> np.ndarray:
         """The sample, waiting for its copy to land (the step's one host
@@ -239,6 +254,8 @@ class LLMEngine:
         # Prompt tokens prefilled inside mixed steps (nonzero: prompts
         # chunk alongside live decodes instead of stalling them).
         self.prefill_chunk_tokens = 0
+        # The part of those that rode mixed K-step windows.
+        self.mixed_window_chunk_tokens = 0
         self.admission_rejected = 0
         self.num_steps = 0
         self._step_time_accum = 0.0
@@ -272,6 +289,9 @@ class LLMEngine:
         self.multistep_wasted_tokens = 0
         self.windows_dispatched = 0
         self.windows_chained = 0
+        self.mixed_windows_dispatched = 0
+        self.mixed_windows_chained = 0
+        self.mixed_window_iterations = 0
         # decode_host_gap_ms: host time between one decode step retiring
         # and the next decode launch while the device had nothing queued.
         self._gap_total_s = 0.0
@@ -458,10 +478,13 @@ class LLMEngine:
         if p.outputs is None:
             # Drop in-flight successors whose every row has now finished:
             # pure overrun steps produce no outputs and must not wedge the
-            # pipeline when the engine drains.
+            # pipeline when the engine drains.  Never a mixed window: its
+            # chunks are not decode rows, and dropping it would skip a
+            # final chunk's first token and the chunk accounting.
             while (
                 self._pending
                 and self._pending[0].host is not None
+                and self._pending[0].chunk_sched is None
                 and all(s.is_finished for s in self._pending[0].seqs)
             ):
                 self._pending.popleft()
@@ -488,6 +511,12 @@ class LLMEngine:
             self._step_counter += 1
             self._pending.append(_PendingStep(outputs=outputs,
                                               host_s=time.time() - t0))
+            return True
+        if plan.chunk_schedule is not None:
+            # Mixed K-step window: the waiting prompts' chunks ride the
+            # decode iterations; a final chunk's first token is sampled at
+            # collect.
+            self._pending.append(self._dispatch_mixed_window(plan, chain_from=None))
             return True
         if plan.prefill_chunk is not None:
             # Fused decode+prefill-chunk step: synchronous (the chunk's
@@ -530,7 +559,12 @@ class LLMEngine:
             )
             if plan is None:
                 return False
-            self._pending.append(self._dispatch_window(plan, chain_from=prev))
+            if plan.chunk_schedule is not None:
+                # A waiting head's chunks chain onto the in-flight carry as
+                # a mixed window: the pipeline never drains for admission.
+                self._pending.append(self._dispatch_mixed_window(plan, chain_from=prev))
+            else:
+                self._pending.append(self._dispatch_window(plan, chain_from=prev))
             return True
         if not self._can_pipeline(prev.seqs):
             return False
@@ -581,11 +615,13 @@ class LLMEngine:
         self._gap_steps += 1  # device busy: zero gap by construction
         self._last_decode_end = None
 
-    def _key_seed(self) -> int:
-        """This dispatch's step seed, masked to 31 bits: below 2**31 step
-        ordinals (years of serving) the schedule is engine seed + step
-        counter, the same for every window size."""
-        return (self.config.seed + self._step_counter) & 0x7FFFFFFF
+    def _key_seed(self, step_ordinal: Optional[int] = None) -> int:
+        """The step seed of step ``step_ordinal`` (default: this dispatch's),
+        masked to 31 bits: below 2**31 step ordinals (years of serving) the
+        schedule is engine seed + step counter, the same for every window
+        size."""
+        ordinal = self._step_counter if step_ordinal is None else step_ordinal
+        return (self.config.seed + ordinal) & 0x7FFFFFFF
 
     def _buffers_for(self, key: tuple, make) -> Dict[str, torch.Tensor]:
         bufs = self._buffers.get(key)
@@ -698,12 +734,13 @@ class LLMEngine:
 
     # -- K-step device-resident decode windows -------------------------------
 
-    def _window_buffers(self, S: int, B: int, use_penalties: bool
-                        ) -> Dict[str, torch.Tensor]:
+    def _window_buffers(self, S: int, B: int, use_penalties: bool,
+                        use_min_floor: bool) -> Dict[str, torch.Tensor]:
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
         f32 = dict(dtype=torch.float32, device=dev)
-        V = self.config.model.vocab_size if use_penalties else 1
+        vocab = self.config.model.vocab_size
+        V = vocab if use_penalties else 1
         C = self._win_delta_cols
         bufs = {
             "tokens": torch.zeros(S, dtype=torch.int64, device=dev),
@@ -712,6 +749,9 @@ class LLMEngine:
             "stop_ids": torch.full((S, B), -1, **i32),
             "counts": torch.zeros((S, V), **f32),
             "seen": torch.zeros((S, V), dtype=torch.bool, device=dev),
+            # The stop set as an [S, vocab] mask, written at each build.
+            "stop_mask": torch.zeros((S, vocab if use_min_floor else 1),
+                                     dtype=torch.bool, device=dev),
             "seeds": torch.zeros(S, dtype=torch.int64, device=dev),
             # max_steps, table cols [S, C], table vals [S, C], the key base
             "delta": torch.zeros(S * (1 + 2 * C) + 1, **i32),
@@ -735,27 +775,11 @@ class LLMEngine:
         their KV write on null block 0 and emit -1.  The carry is written
         back in place; ``emitted`` holds the [K, S] tokens."""
         bs = self.block_pool.block_size
-        V = self.config.model.vocab_size
-        S = b["tokens"].shape[0]
-        C = self._win_delta_cols
-        d = b["delta"]
-        max_steps = d[:S]
-        _advance_tables(b["tables"], d[S:S + S * C].view(S, C),
-                        d[S + S * C:S + 2 * S * C].view(S, C))
-        key_base = d[-1:].long()
-        stop_ids = b["stop_ids"]
-        stop_valid = stop_ids >= 0
-        stop_idx = torch.where(stop_valid, stop_ids, 0).long()
-        if use_min_floor:
-            # The stop set as an [S, V] mask: the min_tokens ban set is the
-            # stop set (vLLM semantics).
-            hits = torch.zeros((S, V), dtype=torch.float32, device=d.device)
-            hits.scatter_add_(1, stop_idx, stop_valid.float())
-            stop_mask = hits > 0
-        counts, seen = b["counts"], b["seen"]
-        tokens, positions, ctx_lens = b["tokens"], b["positions"], b["ctx_lens"]
-        done, min_left = b["done"], b["min_left"]
+        max_steps, key_base = self._apply_window_delta(b)
+        stop_mask = b["stop_mask"] if use_min_floor else None
+        carry = tuple(b[name] for name in self._CARRY)
         for t in range(self._window_steps):
+            tokens, positions, ctx_lens, done, _ = carry
             active = ~done & (t < max_steps)
             blk = torch.gather(b["tables"], 1, (positions // bs).long()[:, None])[:, 0]
             logits = llama.decode(
@@ -768,40 +792,74 @@ class LLMEngine:
                 slot_offsets=positions % bs,
                 kv_caches=self.kv_caches,
             )
-            if use_penalties:
-                logits = sampling_lib.apply_penalties_state(
-                    logits, counts, seen,
-                    b["presence"], b["frequency"], b["repetition"],
-                )
-            if use_min_floor:
-                # The host path's -1e9 logit bias while the floor is unmet
-                # (+0.0 elsewhere is the identity, bit for bit).
-                logits = logits + (
-                    stop_mask & (min_left > 0)[:, None]
-                ).float() * -1e9
-            sampled = sampling_lib.sample_tokens(
-                logits, b["temps"], b["top_ps"], b["top_ks"], key_base + t,
-                b["seeds"], min_p=b["min_ps"], all_greedy=all_greedy,
+            carry = self._sample_and_advance(
+                b, logits, t, active, carry, key_base, stop_mask,
+                use_penalties, all_greedy,
             )
-            stop_hit = active & (
-                (sampled[:, None] == stop_ids) & stop_valid
-            ).any(dim=1)
-            b["emitted"][t].copy_(torch.where(active, sampled, -1))
-            appended = active & ~stop_hit
-            if use_penalties:
-                idx = sampled[:, None]
-                counts.scatter_add_(1, idx, appended[:, None].float())
-                seen.scatter_(1, idx, torch.gather(seen, 1, idx) | appended[:, None])
-            step = active.int()
-            tokens = torch.where(active, sampled, tokens)
-            positions = positions + step
-            ctx_lens = ctx_lens + step
-            done = done | stop_hit
-            min_left = torch.clamp(min_left - step, min=0)
-        for name, value in (("tokens", tokens), ("positions", positions),
-                            ("ctx_lens", ctx_lens), ("done", done),
-                            ("min_left", min_left)):
+        for name, value in zip(self._CARRY, carry):
             b[name].copy_(value)
+
+    # The per-row window carry a chained window continues from.
+    _CARRY = ("tokens", "positions", "ctx_lens", "done", "min_left")
+
+    def _apply_window_delta(self, b: Dict[str, torch.Tensor]):
+        """A window's delta on the device: the block-table growth applied in
+        place (idempotent: a second call rewrites the same columns); returns
+        the rows' token budgets [S] and the key base [1]."""
+        S = b["tokens"].shape[0]
+        C = self._win_delta_cols
+        d = b["delta"]
+        _advance_tables(b["tables"], d[S:S + S * C].view(S, C),
+                        d[S + S * C:S + 2 * S * C].view(S, C))
+        return d[:S], d[-1:].long()
+
+    def _stop_mask(self, b: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The stop set as an [S, V] mask: the min_tokens ban set is the
+        stop set (vLLM semantics)."""
+        stop_ids = b["stop_ids"]
+        stop_valid = stop_ids >= 0
+        hits = torch.zeros((stop_ids.shape[0], self.config.model.vocab_size),
+                           dtype=torch.float32, device=stop_ids.device)
+        hits.scatter_add_(1, torch.where(stop_valid, stop_ids, 0).long(),
+                          stop_valid.float())
+        return hits > 0
+
+    def _sample_and_advance(self, b, logits, t, active, carry, key_base, stop_mask,
+                            use_penalties: bool, all_greedy: bool) -> tuple:
+        """The sampling half of window iteration ``t`` (a host int, or a
+        [1] device counter in a mixed window): penalties from the carried
+        occurrence state, the min_tokens ban while the floor is unmet, the
+        draw with step seed ``key base + t``, the stop masks; writes row t
+        of ``emitted`` and the occurrence state, returns the next carry."""
+        tokens, positions, ctx_lens, done, min_left = carry
+        counts, seen = b["counts"], b["seen"]
+        if use_penalties:
+            logits = sampling_lib.apply_penalties_state(
+                logits, counts, seen, b["presence"], b["frequency"], b["repetition"],
+            )
+        if stop_mask is not None:
+            # The host path's -1e9 logit bias while the floor is unmet
+            # (+0.0 elsewhere is the identity, bit for bit).
+            logits = logits + (stop_mask & (min_left > 0)[:, None]).float() * -1e9
+        sampled = sampling_lib.sample_tokens(
+            logits, b["temps"], b["top_ps"], b["top_ks"], key_base + t,
+            b["seeds"], min_p=b["min_ps"], all_greedy=all_greedy,
+        )
+        stop_ids = b["stop_ids"]
+        stop_hit = active & ((sampled[:, None] == stop_ids) & (stop_ids >= 0)).any(dim=1)
+        row = torch.where(active, sampled, -1)
+        if isinstance(t, int):
+            b["emitted"][t].copy_(row)
+        else:
+            b["emitted"].index_copy_(0, t, row[None].to(b["emitted"].dtype))
+        appended = active & ~stop_hit
+        if use_penalties:
+            idx = sampled[:, None]
+            counts.scatter_add_(1, idx, appended[:, None].float())
+            seen.scatter_(1, idx, torch.gather(seen, 1, idx) | appended[:, None])
+        step = active.int()
+        return (torch.where(active, sampled, tokens), positions + step,
+                ctx_lens + step, done | stop_hit, torch.clamp(min_left - step, min=0))
 
     def _window_host_state(self, seqs: List[Sequence]) -> dict:
         """Host arrays and static flags for a window batch (re)build."""
@@ -856,7 +914,8 @@ class LLMEngine:
         key = ("window", S, h["B"], h["use_penalties"], h["use_min_floor"],
                h["all_greedy"])
         b = self._buffers_for(
-            key, lambda: self._window_buffers(S, h["B"], h["use_penalties"])
+            key, lambda: self._window_buffers(S, h["B"], h["use_penalties"],
+                                              h["use_min_floor"])
         )
         temps, top_ps, top_ks, min_ps, seeds = self._sampling_arrays(seqs, S)
         self._upload(b, {
@@ -868,6 +927,9 @@ class LLMEngine:
             "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
             "min_ps": min_ps, "seeds": seeds,
         })
+        if h["use_min_floor"]:
+            # Once a build: chained windows keep the rows and their stop sets.
+            b["stop_mask"].copy_(self._stop_mask(b))
         if h["use_penalties"]:
             # The occurrence state from the bucketed id arrays (the same
             # content as the host path's arrays, so penalty values match).
@@ -944,6 +1006,179 @@ class LLMEngine:
             win_key=key,
         )
 
+    # -- mixed K-step windows ------------------------------------------------
+
+    def _chunk_buffers(self, T: int) -> Dict[str, torch.Tensor]:
+        """A mixed window's chunk schedule for chunk bucket T, one row an
+        iteration, and the device counter that picks the row: each replay
+        of the iteration graph reads row ``iter`` and advances it."""
+        dev = self.device
+        K = self._window_steps
+        i32 = dict(dtype=torch.int32, device=dev)
+        return {
+            "iter": torch.zeros(1, dtype=torch.int64, device=dev),
+            "tokens": torch.zeros((K, T), **i32),
+            "cached": torch.zeros(K, **i32),
+            "valid": torch.zeros(K, **i32),
+            "new_blocks": torch.zeros((K, T // self.block_pool.block_size), **i32),
+            "prefix": torch.zeros((K, max(self._bmax, 1)), **i32),
+            # Each iteration's chunk tail logits (the last valid row).
+            "tails": torch.zeros((K, self.config.model.vocab_size),
+                                 dtype=torch.float32, device=dev),
+        }
+
+    def _mixed_body(self, b: Dict[str, torch.Tensor], c: Dict[str, torch.Tensor],
+                    use_penalties: bool, use_min_floor: bool,
+                    all_greedy: bool) -> None:
+        """One iteration of a mixed K-step window (the scan body of the JAX
+        engine's ``mixed_window``): the fused [S decode rows + T chunk rows]
+        forward, the decode rows advancing the window carry ``b`` exactly
+        as :meth:`_window_body` does, the chunk at row ``iter`` of the
+        schedule ``c`` (its tokens, cached and valid lengths, new blocks
+        and prefix table, all read on the device).  The chunk's tail
+        logits go to row ``iter`` of ``c["tails"]``, the decode rows'
+        tokens to row ``iter`` of ``emitted``; then ``iter`` advances."""
+        bs = self.block_pool.block_size
+        max_steps, key_base = self._apply_window_delta(b)
+        t = c["iter"]
+
+        def row(name):
+            return c[name].index_select(0, t)
+
+        carry = tuple(b[name] for name in self._CARRY)
+        tokens, positions, ctx_lens, done, _ = carry
+        active = ~done & (t < max_steps)
+        blk = torch.gather(b["tables"], 1, (positions // bs).long()[:, None])[:, 0]
+        logits = llama.mixed_step(
+            self.params, self.config.model,
+            dec_tokens=tokens,
+            dec_positions=positions,
+            dec_block_tables=b["tables"],
+            dec_ctx_lens=ctx_lens,
+            dec_slot_block_ids=torch.where(active, blk, 0),
+            dec_slot_offsets=positions % bs,
+            pf_tokens=row("tokens")[0],
+            pf_cached_len=row("cached"),
+            pf_prefix_block_ids=row("prefix")[0],
+            pf_new_block_ids=row("new_blocks")[0],
+            pf_valid_len=row("valid"),
+            kv_caches=self.kv_caches,
+        )
+        S = tokens.shape[0]
+        c["tails"].index_copy_(0, t, logits[S:])
+        stop_mask = b["stop_mask"] if use_min_floor else None
+        carry = self._sample_and_advance(
+            b, logits[:S], t, active, carry, key_base, stop_mask,
+            use_penalties, all_greedy,
+        )
+        for name, value in zip(self._CARRY, carry):
+            b[name].copy_(value)
+        c["iter"].add_(1)
+
+    def _dispatch_mixed_window(self, plan, chain_from: Optional[_PendingStep] = None
+                               ) -> _PendingStep:
+        """Enqueue one mixed K-step window of k_eff = len(plan.chunk_schedule)
+        iterations and return without a host round-trip (the JAX engine's
+        ``_dispatch_mixed_window``).  The decode rows' carry is built or
+        chained as in :meth:`_dispatch_window` (mixed and plain windows of
+        one (S, stop width, flags) share it); the chunk schedule, one
+        cursor an iteration (packed windows switch prompts between
+        iterations; the prefix row is the prompt's prefix blocks then its
+        new blocks), goes to the static chunk buffers in the same
+        transfer as the delta.  Then k_eff replays of the one-iteration
+        graph: the JAX scan's dead power-of-two iterations change nothing
+        but the null block, so none runs.  Right after, the emitted
+        [k_eff, S] tokens go to this step's pinned host buffer and, when a
+        chunk is final, the iterations' tail logits to this step's own
+        device copy: the next window rewrites both static buffers."""
+        t0 = time.time()
+        seqs = plan.decode.seqs
+        sched = plan.chunk_schedule
+        k_eff = len(sched)
+        if chain_from is None:
+            key = self._window_build(seqs)
+            self._note_decode_launch()
+        else:
+            key = chain_from.win_key
+            self._note_lookahead_launch()
+            self.mixed_windows_chained += 1
+        S = key[1]
+        cols, vals = self._window_table_delta(seqs, S)
+        b = self._buffers[key]
+        T = sched[0].bucket_len
+        c = self._buffers_for(("chunk", T), lambda: self._chunk_buffers(T))
+        K = self._window_steps
+        tokens = np.zeros((K, T), np.int32)
+        cached = np.zeros((K,), np.int32)
+        valid = np.zeros((K,), np.int32)
+        new_blocks = np.zeros(tuple(c["new_blocks"].shape), np.int32)
+        prefix = np.zeros(tuple(c["prefix"].shape), np.int32)
+        for i, cp in enumerate(sched):
+            toks = cp.seq.prompt_token_ids[cp.cached_len:cp.cached_len + cp.num_new_tokens]
+            tokens[i, :len(toks)] = toks
+            cached[i] = cp.cached_len
+            valid[i] = cp.num_new_tokens
+            new_blocks[i, :len(cp.new_block_ids)] = cp.new_block_ids
+            full = list(cp.prefix_block_ids) + list(cp.new_block_ids)
+            prefix[i, :len(full)] = full
+        max_steps = np.zeros((S,), np.int32)
+        max_steps[: len(plan.decode.steps)] = plan.decode.steps
+        delta = np.concatenate([max_steps, cols.ravel(), vals.ravel(),
+                                np.array([self._key_seed()], np.int32)])
+        self._upload(
+            {"delta": b["delta"], "iter": c["iter"], "tokens": c["tokens"],
+             "cached": c["cached"], "valid": c["valid"],
+             "new_blocks": c["new_blocks"], "prefix": c["prefix"]},
+            {"delta": delta, "iter": np.zeros((1,), np.int32), "tokens": tokens,
+             "cached": cached, "valid": valid, "new_blocks": new_blocks,
+             "prefix": prefix},
+        )
+        mkey = ("mixed", S, T) + key[2:]
+        for _ in range(k_eff):
+            self.graphs.run(mkey, lambda: self._mixed_body(b, c, *key[3:]))
+        host, ready = self._to_host(b["emitted"][:k_eff])
+        tails = c["tails"][:k_eff].clone() if any(cp.is_final for cp in sched) else None
+        # A final chunk at iteration i is the K=1 world's step (base + i):
+        # its first token burns that ordinal at collect.
+        ordinal = self._step_counter
+        self._step_counter += k_eff
+        self.mixed_windows_dispatched += 1
+        self.mixed_window_iterations += k_eff
+        return _PendingStep(
+            seqs=list(seqs), host=host, ready=ready, is_decode=True,
+            host_s=time.time() - t0, steps=list(plan.decode.steps),
+            win_key=key, chunk_sched=list(sched), chunk_tails=tails,
+            chunk_ordinal=ordinal,
+        )
+
+    def _collect_chunks(self, p: _PendingStep) -> List[StepOutput]:
+        """The chunk half of a mixed window's collect: account the chunk
+        tokens that rode the window and finalize each packed prompt whose
+        final chunk landed, through :meth:`_finalize_final_prefill` with
+        its iteration's step ordinal, as the K=1 mixed step would.  A
+        prompt aborted while the window flew skips its finalize and its
+        chunk tokens count as waste; the other prompts are unaffected."""
+        by_seq = []  # [(seq, [(iteration, chunk), ...])] in order
+        for i, cp in enumerate(p.chunk_sched):
+            if by_seq and by_seq[-1][0] is cp.seq:
+                by_seq[-1][1].append((i, cp))
+            else:
+                by_seq.append((cp.seq, [(i, cp)]))
+        outputs: List[StepOutput] = []
+        for seq, chunks in by_seq:
+            n = sum(cp.num_new_tokens for _, cp in chunks)
+            if seq.is_finished:
+                self.multistep_wasted_tokens += n
+                continue
+            self.prefill_chunk_tokens += n
+            self.mixed_window_chunk_tokens += n
+            for i, cp in chunks:
+                if cp.is_final:
+                    outputs.extend(self._finalize_final_prefill(
+                        seq, p.chunk_tails[i], step_ordinal=p.chunk_ordinal + i,
+                    ))
+        return outputs
+
     def _collect_window(self, p: _PendingStep) -> List[StepOutput]:
         """Read one window's [K, S] emitted tokens and replay them through
         the finish protocol token by token, as single stepping would.
@@ -974,20 +1209,23 @@ class LLMEngine:
             alive = [(i, s) for i, s in alive if not s.is_finished]
         emitted = int((arr[:, : len(p.seqs)] >= 0).sum())
         self.multistep_wasted_tokens += emitted - sum(delivered)
+        if p.chunk_sched is not None:
+            outputs.extend(self._collect_chunks(p))
         return outputs
 
     # -- synchronous steps ---------------------------------------------------
 
     def _run_prefill(self, plan: PrefillPlan) -> List[StepOutput]:
         seq = plan.seq
-        tokens, new_block_ids, prefix_ids = self._prefill_plan_arrays(plan)
+        tokens, new_block_ids, prefix_ids, lens = self._prefill_plan_arrays(plan)
+        lens = self._put(lens)
         logits = llama.prefill(
             self.params, self.config.model,
             tokens=self._put(tokens),
-            cached_len=plan.cached_len,
+            cached_len=lens[:1],
             prefix_block_ids=self._put(prefix_ids),
             new_block_ids=self._put(new_block_ids),
-            valid_len=plan.num_new_tokens,
+            valid_len=lens[1:],
             kv_caches=self.kv_caches,
         )
         if not plan.is_final:
@@ -997,12 +1235,11 @@ class LLMEngine:
         return self._finalize_final_prefill(seq, logits)
 
     def _prefill_plan_arrays(self, plan: PrefillPlan):
-        """(tokens [T], new_block_ids [T//bs], prefix_ids [P]) host arrays
-        for one PrefillPlan.  The JAX engine pads the prefix ids to the
-        static block-table width (Bmax); eager PyTorch needs no static
-        shape, so only the prefix's own blocks are passed — the result is
-        the same, since padded slots are masked, and the flash kernel never
-        walks the padding."""
+        """(tokens [T], new_block_ids [T//bs], prefix_ids [Bmax], lengths
+        [cached_len, valid_len]) host arrays for one PrefillPlan: the
+        prefix ids padded to the block-table width, as in the JAX engine
+        (the kernel reads the first cached_len tokens through them and
+        never walks the padding)."""
         seq = plan.seq
         bs = self.block_pool.block_size
         T = plan.bucket_len
@@ -1013,15 +1250,20 @@ class LLMEngine:
         tokens[: len(new_tokens)] = new_tokens
         new_block_ids = np.zeros((T // bs,), np.int32)
         new_block_ids[: len(plan.new_block_ids)] = plan.new_block_ids
-        prefix_ids = np.asarray(plan.prefix_block_ids, np.int32).reshape(-1)
-        return tokens, new_block_ids, prefix_ids
+        prefix_ids = np.zeros((max(self._bmax, 1),), np.int32)
+        prefix_ids[: len(plan.prefix_block_ids)] = plan.prefix_block_ids
+        lens = np.array([plan.cached_len, plan.num_new_tokens], np.int32)
+        return tokens, new_block_ids, prefix_ids, lens
 
     def _finalize_final_prefill(
-        self, seq: Sequence, last_logits: torch.Tensor
+        self, seq: Sequence, last_logits: torch.Tensor,
+        step_ordinal: Optional[int] = None,
     ) -> List[StepOutput]:
         """Shared tail of every final prefill: the max_tokens == 0 scoring
         sentinel, or the request's first token sampled from the last valid
-        row's logits [V]."""
+        row's logits [V].  A mixed window's final chunk passes
+        ``step_ordinal``, the K=1 step its iteration stands for, whose seed
+        the draw must take instead of the live step counter's."""
         if seq.sampling_params.max_tokens == 0:
             seq.first_token_time = time.time()
             self._finish_seq_now(seq, FinishReason.LENGTH)
@@ -1033,7 +1275,9 @@ class LLMEngine:
                 num_prompt_tokens=seq.num_prompt_tokens,
                 num_output_tokens=0,
             )]
-        token_ids, logprob_info = self._sample_batch(last_logits[None, :], [seq])
+        token_ids, logprob_info = self._sample_batch(
+            last_logits[None, :], [seq], step_ordinal=step_ordinal
+        )
         return self._append_and_check(
             [seq], token_ids, first_token=True, logprob_info=logprob_info
         )
@@ -1096,7 +1340,8 @@ class LLMEngine:
         S = self._decode_bucket(len(seqs))
         (tokens, positions, block_tables, ctx_lens, slot_blocks,
          slot_offsets) = self._decode_batch_arrays(seqs, S)
-        pf_tokens, pf_new_blocks, pf_prefix = self._prefill_plan_arrays(plan)
+        pf_tokens, pf_new_blocks, pf_prefix, pf_lens = self._prefill_plan_arrays(plan)
+        pf_lens = self._put(pf_lens)
         logits = llama.mixed_step(
             self.params, self.config.model,
             dec_tokens=self._put(tokens),
@@ -1106,10 +1351,10 @@ class LLMEngine:
             dec_slot_block_ids=self._put(slot_blocks),
             dec_slot_offsets=self._put(slot_offsets),
             pf_tokens=self._put(pf_tokens),
-            pf_cached_len=plan.cached_len,
+            pf_cached_len=pf_lens[:1],
             pf_prefix_block_ids=self._put(pf_prefix),
             pf_new_block_ids=self._put(pf_new_blocks),
-            pf_valid_len=plan.num_new_tokens,
+            pf_valid_len=pf_lens[1:],
             kv_caches=self.kv_caches,
         )
         self.prefill_chunk_tokens += plan.num_new_tokens
@@ -1160,11 +1405,13 @@ class LLMEngine:
         ] + [0] * pad, np.int32)
         return temps, top_ps, top_ks, min_ps, seeds
 
-    def _sample_batch(self, logits: torch.Tensor, seqs: List[Sequence]):
+    def _sample_batch(self, logits: torch.Tensor, seqs: List[Sequence],
+                      step_ordinal: Optional[int] = None):
         """Returns (token_ids, logprob_info): penalties, logit_bias and the
-        min_tokens ban on the fp32 logits, then greedy/sampled choice;
-        logprob_info holds None or (chosen_logprob, [(token_id, logprob),
-        ...]) per sequence."""
+        min_tokens ban on the fp32 logits, then greedy/sampled choice with
+        the step seed of ``step_ordinal`` (default: the live step
+        counter); logprob_info holds None or (chosen_logprob, [(token_id,
+        logprob), ...]) per sequence."""
         S = logits.shape[0]
         pad = S - len(seqs)
 
@@ -1243,7 +1490,7 @@ class LLMEngine:
             self._put(temps),
             self._put(top_ps),
             self._put(top_ks),
-            step_seed=self._put(np.array([self._key_seed()], np.int32)),
+            step_seed=self._put(np.array([self._key_seed(step_ordinal)], np.int32)),
             seq_seeds=self._put(seeds),
             min_p=self._put(min_ps),
             all_greedy=all(s.sampling_params.temperature <= 0 for s in seqs),
@@ -1357,6 +1604,7 @@ class LLMEngine:
             "total_finished": self.total_finished,
             "num_preemptions": self.scheduler.num_preemptions,
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
+            "mixed_window_chunk_tokens": self.mixed_window_chunk_tokens,
             "num_steps": self.num_steps,
             "step_seconds_total": self._step_time_accum,
             "admission_rejected_total": self.admission_rejected,
@@ -1369,13 +1617,18 @@ class LLMEngine:
                 if self._gap_steps else 0.0
             ),
             # K-step windows: single-step fallbacks by reason, emitted but
-            # undeliverable window tokens, windows dispatched and chained.
+            # undeliverable window tokens (and chunk tokens of prompts
+            # aborted in flight), plain windows dispatched and chained,
+            # mixed windows dispatched, chained, and their iterations.
             "multistep_fallback": dict(self.multistep_fallback),
             "multistep_wasted_tokens": self.multistep_wasted_tokens,
             "windows_dispatched": self.windows_dispatched,
             "windows_chained": self.windows_chained,
+            "mixed_windows_dispatched": self.mixed_windows_dispatched,
+            "mixed_windows_chained": self.mixed_windows_chained,
+            "mixed_window_iterations": self.mixed_window_iterations,
             # CUDA graphs (0 on the CPU): keys captured, replays, and the
-            # seconds each capture took.
+            # seconds all captures took (per key: graphs.capture_seconds).
             "graph_captures": self.graphs.captures,
             "graph_replays": self.graphs.replays,
             "graph_capture_seconds": sum(self.graphs.capture_seconds.values()),

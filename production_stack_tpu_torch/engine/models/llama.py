@@ -8,9 +8,14 @@ sliding window).  The parameter tree is the JAX package's: a dict with
 the packages without transposes (``weights.params_from_numpy``).
 
 Unlike the JAX package, ``prefill``, ``decode`` and ``mixed_step`` update
-the KV caches **in place** and return only the logits; ``cached_len`` and
-``valid_len`` are host ints.  A cache side is a dense tensor or an int8
-``(data, scale)`` tuple (``kv/quant.py``); the attention ops take both.
+the KV caches **in place** and return only the logits.  A chunk's
+``cached_len`` and ``valid_len`` are int32 device tensors, as the JAX
+package's are traced values: the chunk's positions, its prefix read
+(``attention.prefill_attention_paged``, straight from the paged pool) and
+its tail row all follow them on the device, so a CUDA graph replays a
+chunk at any cursor and nothing is read back.  A cache side is a dense
+tensor or an int8 ``(data, scale)`` tuple (``kv/quant.py``); the attention
+ops take both.
 """
 
 from __future__ import annotations
@@ -170,35 +175,44 @@ def _layer(
     return residual + _mlp(layer, x_n, cfg)
 
 
+def _length(n, device: torch.device) -> torch.Tensor:
+    """A chunk length as an int32 tensor of one value on ``device``: a
+    device tensor is taken as it is; a host int (an eager caller's) is
+    uploaded."""
+    if isinstance(n, torch.Tensor):
+        return n.reshape(1).to(torch.int32)
+    return torch.tensor([n], dtype=torch.int32, device=device)
+
+
 def prefill(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [T] int (padded to a bucket)
-    cached_len: int,  # prefix tokens already in cache
-    prefix_block_ids: torch.Tensor,  # [P] int: the cached prefix's blocks
+    cached_len,  # int32 tensor (or host int): prefix tokens already cached
+    prefix_block_ids: torch.Tensor,  # [P] int32: the prefix's blocks (0-padded)
     new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
-    valid_len: int,  # true number of new tokens
+    valid_len,  # int32 tensor (or host int): true number of new tokens
     kv_caches: KVCaches,  # updated in place
 ) -> torch.Tensor:
     """One sequence's prefill chunk.  Writes the chunk's KV into its new
     blocks and returns the last valid token's logits [V] (fp32).
 
-    ``prefix_block_ids`` may be 0-padded like the JAX package's; the
-    gathered slots past ``cached_len`` are masked.  The engine passes only
-    the prefix's own blocks, so the kernel never walks padding."""
+    ``prefix_block_ids`` may be 0-padded like the JAX package's (to the
+    block-table width): the kernel reads the prefix through it, the first
+    ``cached_len`` tokens only, and never walks the padding."""
     T = tokens.shape[0]
+    dev = tokens.device
     scale = cfg.head_dim**-0.5
-    positions = cached_len + torch.arange(T, device=tokens.device)
+    cached, valid = _length(cached_len, dev), _length(valid_len, dev)
+    prefix = prefix_block_ids.to(torch.int32)
+    positions = cached.long() + torch.arange(T, device=dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     x = _embed(params, cfg, tokens)  # [T, h]
     for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
         def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
-            k_prefix, v_prefix = attn_ops.gather_prefix_kv(
-                k_cache, v_cache, prefix_block_ids, dtype=k.dtype
-            )
-            out = attn_ops.prefill_attention(
-                q, k, v, k_prefix, v_prefix, cached_len, valid_len,
+            out = attn_ops.prefill_attention_paged(
+                q, k, v, k_cache, v_cache, prefix, cached, valid,
                 scale=scale, sliding_window=cfg.sliding_window,
             )
             attn_ops.write_prefill_kv(k_cache, v_cache, k, v, new_block_ids)
@@ -206,7 +220,8 @@ def prefill(
 
         x = _layer(layer, x, cfg, cos, sin, attend)
     x = _norm(x, params["norm"], cfg)
-    return _lm_head(params, cfg, x[max(valid_len - 1, 0)])
+    last = torch.clamp(valid.long() - 1, min=0)  # the last valid row
+    return _lm_head(params, cfg, x.index_select(0, last)[0])
 
 
 def decode(
@@ -252,10 +267,10 @@ def mixed_step(
     dec_slot_block_ids: torch.Tensor,  # [S] int block receiving the token
     dec_slot_offsets: torch.Tensor,  # [S] int offset within that block
     pf_tokens: torch.Tensor,  # [T] int prefill chunk (padded to a bucket)
-    pf_cached_len: int,  # prefix tokens already cached
-    pf_prefix_block_ids: torch.Tensor,  # [P] int: the chunk's cached prefix
+    pf_cached_len,  # int32 tensor (or host int): prefix tokens already cached
+    pf_prefix_block_ids: torch.Tensor,  # [P] int32: the chunk's prefix (0-padded)
     pf_new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
-    pf_valid_len: int,  # true number of chunk tokens
+    pf_valid_len,  # int32 tensor (or host int): true number of chunk tokens
     kv_caches: KVCaches,  # updated in place
 ) -> torch.Tensor:
     """Fused mixed step: S decoding sequences' next tokens and one
@@ -267,15 +282,18 @@ def mixed_step(
 
     Within each layer, in the JAX package's order: the decode rows append
     their KV and attend over their block tables (as :func:`decode`); the
-    chunk gathers its prefix and attends over prefix + chunk (as
+    chunk attends over its prefix, read from the pool, and itself (as
     :func:`prefill`); then the chunk's KV is written.  The two segments
     touch disjoint KV slots.  The lm_head runs on S + 1 rows only."""
     S = dec_tokens.shape[0]
     T = pf_tokens.shape[0]
+    dev = pf_tokens.device
     scale = cfg.head_dim**-0.5
+    cached, valid = _length(pf_cached_len, dev), _length(pf_valid_len, dev)
+    prefix = pf_prefix_block_ids.to(torch.int32)
     positions = torch.cat([
         dec_positions.long(),
-        pf_cached_len + torch.arange(T, device=pf_tokens.device),
+        cached.long() + torch.arange(T, device=dev),
     ])
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
@@ -291,12 +309,8 @@ def mixed_step(
                 q[:S], k_cache, v_cache, dec_block_tables, dec_ctx_lens,
                 scale=scale, sliding_window=cfg.sliding_window,
             )
-            k_prefix, v_prefix = attn_ops.gather_prefix_kv(
-                k_cache, v_cache, pf_prefix_block_ids, dtype=k.dtype
-            )
-            out_pf = attn_ops.prefill_attention(
-                q[S:], k[S:], v[S:], k_prefix, v_prefix,
-                pf_cached_len, pf_valid_len,
+            out_pf = attn_ops.prefill_attention_paged(
+                q[S:], k[S:], v[S:], k_cache, v_cache, prefix, cached, valid,
                 scale=scale, sliding_window=cfg.sliding_window,
             )
             attn_ops.write_prefill_kv(
@@ -306,5 +320,5 @@ def mixed_step(
 
         x = _layer(layer, x, cfg, cos, sin, attend)
     x = _norm(x, params["norm"], cfg)
-    tail = x[S + max(pf_valid_len - 1, 0)]  # the chunk's last valid row
-    return _lm_head(params, cfg, torch.cat([x[:S], tail[None, :]]))
+    tail = S + torch.clamp(valid.long() - 1, min=0)  # the chunk's last valid row
+    return _lm_head(params, cfg, torch.cat([x[:S], x.index_select(0, tail)]))

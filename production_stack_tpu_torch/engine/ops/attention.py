@@ -5,29 +5,35 @@ Counterpart of ``production_stack_tpu/engine/ops/attention.py``.
 KV cache layout per layer: ``[num_blocks, block_size, num_kv_heads,
 head_dim]``, block 0 the null block: padding writes land there and it is
 never read.  An int8 cache side is the tuple ``(int8 data [N, bs, K, D],
-fp32 scale [N, bs, K])`` (``kv/quant.py``): the writers quantize on write
-and ``gather_prefix_kv`` dequantizes.  Unlike the JAX package, whose
-arrays are immutable and whose functions return new caches, the cache
-writers here update the cache tensors **in place** and return nothing.
+fp32 scale [N, bs, K])`` (``kv/quant.py``): the writers quantize on write;
+the paged prefill kernel and ``gather_prefix_kv`` dequantize.  Unlike the
+JAX package, whose arrays are immutable and whose functions return new
+caches, the cache writers here update the cache tensors **in place** and
+return nothing.
 
-``decode_attention``, ``prefill_attention`` and the int8 branch of the
-cache writers dispatch on the device of their inputs, inside the kernel
-wrappers: a CUDA tensor runs the hand-written kernel (``kernels/``), a CPU
-tensor its plain PyTorch version; nothing else.  The plain versions are
-exported here under the JAX package's names for the gather decode path
-and the dense prefill path.
+``decode_attention``, ``prefill_attention``, ``prefill_attention_paged``
+and the int8 branch of the cache writers dispatch on the device of their
+inputs, inside the kernel wrappers: a CUDA tensor runs the hand-written
+kernel (``kernels/``), a CPU tensor its plain PyTorch version; nothing
+else.  The plain versions are exported here under the JAX package's names
+for the gather decode path and the dense prefill path.  The model reads
+cached prefixes through ``prefill_attention_paged`` (the pool, a block
+table row and device lengths); ``gather_prefix_kv`` is the plain
+version's gather.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.ops.kernels.flash_prefill import (
     flash_prefill_attention,
+    flash_prefill_attention_paged,
     flash_prefill_attention_plain as dense_prefill_attention,
+    gather_prefix_kv,
 )
 from production_stack_tpu_torch.engine.ops.kernels.paged_attention import (
     paged_decode_attention as _paged_decode_kernel,
@@ -39,6 +45,7 @@ from production_stack_tpu_torch.engine.ops.kernels.kv_write import write_int8_kv
 __all__ = [
     "decode_attention",
     "prefill_attention",
+    "prefill_attention_paged",
     "paged_decode_attention",
     "dense_prefill_attention",
     "write_prefill_kv",
@@ -96,6 +103,31 @@ def prefill_attention(
     )
 
 
+def prefill_attention_paged(
+    q: torch.Tensor,  # [T, H, D]
+    k_new: torch.Tensor,  # [T, K, D]
+    v_new: torch.Tensor,
+    k_cache,  # [N, bs, K, D], or (int8 data, fp32 scale [N, bs, K])
+    v_cache,
+    prefix_block_ids: torch.Tensor,  # [P] int32, zero-padded past the prefix
+    cached_len: torch.Tensor,  # int32, one value: valid prefix tokens
+    valid_len: torch.Tensor,  # int32, one value: valid new tokens (<= T)
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal attention for one sequence's chunk over its cached prefix,
+    read from the paged pool through ``prefix_block_ids`` (the JAX
+    package's ``prefill_attention`` over ``gather_prefix_kv``'s output, in
+    one kernel): the paged flash-prefill kernel for CUDA tensors, the
+    gather and the dense path for CPU tensors.  The lengths stay on the
+    device: nothing is read back."""
+    return flash_prefill_attention_paged(
+        q, k_new, v_new, k_cache, v_cache, prefix_block_ids, cached_len, valid_len,
+        scale=scale, sliding_window=sliding_window,
+    )
+
+
 def write_prefill_kv(
     k_cache,  # [N, bs, K, D] or (data, scale), updated in place
     v_cache,
@@ -137,26 +169,3 @@ def append_decode_kv(
     offsets = slot_offsets.long()
     for side, new in ((k_cache, k), (v_cache, v)):
         side[blocks, offsets] = new.to(side.dtype)
-
-
-def gather_prefix_kv(
-    k_cache,  # [N, bs, K, D] or (data, scale)
-    v_cache,
-    prefix_block_ids: torch.Tensor,  # [P] int
-    dtype: Optional[torch.dtype] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Gather a cached prefix as contiguous ``[P*bs, K, D]`` tensors.  Int8
-    sides dequantize here, to ``dtype`` (fp32 when None); dense sides come
-    back in the cache dtype and ignore ``dtype``, as in the JAX package."""
-    _, bs, K, D = kv_quant.cache_shape(k_cache)
-    P = prefix_block_ids.shape[0]
-    idx = prefix_block_ids.long()
-
-    def gather(side):
-        if kv_quant.is_quantized(side):
-            out = kv_quant.dequantize(side[0][idx], side[1][idx], dtype=dtype)
-        else:
-            out = side[idx]
-        return out.reshape(P * bs, K, D)
-
-    return gather(k_cache), gather(v_cache)

@@ -47,9 +47,117 @@
 // fp32 tiles in shared memory (4 rows x 4 keys per thread for Q.K^T, 4
 // rows x D/16 columns for P.V), Q and K stored transposed so each thread
 // reads float4 runs.
+//
+// Where the prefix comes from is a template parameter of both bodies (the
+// prefix loader), with two entry points:
+//  * flash_prefill_launch: the prefix gathered contiguous, [C, K, D], and
+//    both lengths host ints;
+//  * flash_prefill_paged_launch: the prefix read straight from the paged
+//    KV pool through a block-table row (prefix key j lives at
+//    cache[table[j / bs]][j % bs]), dense in q's dtype or int8 with fp32
+//    scales, and both lengths read from device memory when the kernel
+//    starts, so a CUDA graph replays it at any cursor.  The walk covers
+//    min(cached_len, P * bs) prefix keys and never the table's padding;
+//    the live part of the table row is staged in shared memory when the
+//    kernel starts (where it fits beside the tiles), so a tile's copies
+//    start without waiting on a table read from device memory.
+//    An int8 tile comes in by cp.async as its bytes and its scales into a
+//    staging area, then each value is converted in shared memory: int8 x
+//    scale in fp32, rounded once to bf16 (nearest even) for the tensor
+//    cores, as kv_quant.dequantize(..., dtype=bf16) rounds it; the fp32
+//    body takes the fp32 product and does not round.  This replaces the
+//    eager gather (and, on int8 caches, dequantization) of the prefix
+//    before every prefill and mixed step.
 #include "common.cuh"
 
 namespace {
+
+// Dynamic shared memory a block may use on Hopper (227 KB).
+constexpr size_t kMaxSmem = 232448;
+
+// -- prefix loaders: where prefix key j of KV head kh lives ------------------
+
+// Contiguous [C, K, D] in q's dtype.
+struct PrefixContig {
+  static constexpr bool kInt8 = false;
+  static constexpr bool kPaged = false;
+  const void* k;
+  const void* v;
+  __device__ __forceinline__ size_t vec(int j, int K, int kh) const {
+    return static_cast<size_t>(j) * K + kh;
+  }
+};
+
+// Block-table addressing: key j sits in block table[j >> shift] at row
+// j & (bs - 1) (bs = 1 << shift).  `table` is a generic pointer: the row in
+// device memory, or its copy in shared memory (stage_table).
+struct PagedRows {
+  static constexpr bool kPaged = true;
+  const int* table;
+  int shift;
+  __device__ __forceinline__ size_t vec(int j, int K, int kh) const {
+    const size_t row = (static_cast<size_t>(table[j >> shift]) << shift) +
+                       (j & ((1 << shift) - 1));
+    return row * K + kh;
+  }
+};
+
+// The paged pool [N, bs, K, D] in q's dtype.
+struct PrefixPaged : PagedRows {
+  static constexpr bool kInt8 = false;
+  const void* k;
+  const void* v;
+};
+
+// The int8 paged pool: data [N, bs, K, D], fp32 scales [N, bs, K].
+struct PrefixPagedInt8 : PagedRows {
+  static constexpr bool kInt8 = true;
+  const int8_t* k;
+  const int8_t* v;
+  const float* k_scale;
+  const float* v_scale;
+};
+
+// Copy the table entries the walk reads (the blocks of the first n_pre
+// keys) into shared memory at s_table, then point the loader at the copy;
+// s_table == nullptr (the row does not fit) leaves the loader reading
+// device memory.  Called by every thread of the block.
+template <class Pre>
+__device__ __forceinline__ void stage_table(Pre& pre, int* s_table, int n_pre) {
+  if constexpr (Pre::kPaged) {
+    if (s_table != nullptr) {
+      const int nb = (n_pre + (1 << pre.shift) - 1) >> pre.shift;
+      for (int i = threadIdx.x; i < nb; i += blockDim.x) s_table[i] = pre.table[i];
+      pre.table = s_table;
+      __syncthreads();
+    }
+  }
+}
+
+// N consecutive values (columns d..d+N-1) of prefix key j as floats: the
+// stored values, or an int8 side's values times their scale in fp32.
+template <typename T, int D, int N, class Pre>
+__device__ __forceinline__ void load_prefix(const Pre& pre, bool v_side, int j, int K,
+                                            int kh, int d, float* f) {
+  const size_t vi = pre.vec(j, K, kh);
+  if constexpr (Pre::kInt8) {
+    load_s8<N>((v_side ? pre.v : pre.k) + vi * D + d, f);
+    const float s = (v_side ? pre.v_scale : pre.k_scale)[vi];
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] *= s;
+  } else {
+    load_cols<T, N>(static_cast<const T*>(v_side ? pre.v : pre.k) + vi * D + d, f);
+  }
+}
+
+// The kernel's lengths: the host ints, or the device int32 values where the
+// pointers are given.  valid_len is clamped to [0, T].
+__device__ __forceinline__ void read_lengths(const int* cached_dev, const int* valid_dev,
+                                             int Tn, int& cached, int& valid) {
+  if (cached_dev != nullptr) cached = max(0, *cached_dev);
+  if (valid_dev != nullptr) valid = *valid_dev;
+  valid = min(max(valid, 0), Tn);
+}
 
 // -- fp32: fp32 FMAs on the CUDA cores --------------------------------------
 namespace simt {
@@ -66,16 +174,17 @@ constexpr size_t smem_bytes() {
           static_cast<size_t>(kKeys) * D + static_cast<size_t>(kKeys) * kRows);
 }
 
-template <typename T, int D>
+template <typename T, int D, class Pre>
 __global__ void __launch_bounds__(kThreads)
 flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
                      const T* __restrict__ k_new,  // [T, K, D]
                      const T* __restrict__ v_new,
-                     const T* __restrict__ k_pre,  // [C, K, D]
-                     const T* __restrict__ v_pre,
+                     Pre pre,  // the prefix, pre_cap keys at most
                      T* __restrict__ out,  // [T, H, D]
                      int Tn, int H, int K, int G, int tok_per_tile,
-                     int cached, int valid, float scale, int window) {
+                     int cached, int valid, const int* cached_dev,
+                     const int* valid_dev, int pre_cap, int staged, float scale,
+                     int window) {
   constexpr int V = Vec<T>::N;
   constexpr int NV = D / V;
   constexpr int CG = D / 64;  // float4 column groups per thread in P.V
@@ -86,6 +195,9 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
   float* sV = sKt + D * kKeys;      // [kKeys][D]
   float* sPt = sV + kKeys * D;      // [kKeys][kRows]
 
+  read_lengths(cached_dev, valid_dev, Tn, cached, valid);
+  const int n_pre = min(cached, pre_cap);  // prefix keys to walk
+  stage_table(pre, staged ? reinterpret_cast<int*>(sPt + kKeys * kRows) : nullptr, n_pre);
   const int kh = blockIdx.y;
   const int t0 = blockIdx.x * tok_per_tile;
   const int ntok = min(tok_per_tile, Tn - t0);
@@ -128,9 +240,7 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
   const int lo_pos = window >= 0 ? cached + t0 - window + 1 : 0;
 
   for (int seg = 0; seg < 2; ++seg) {
-    const T* kp = seg == 0 ? k_pre : k_new;
-    const T* vp = seg == 0 ? v_pre : v_new;
-    const int count = seg == 0 ? cached : new_count;
+    const int count = seg == 0 ? n_pre : new_count;
     const int pos_base = seg == 0 ? 0 : cached;
     const int start = max(0, lo_pos - pos_base);
     for (int j0 = start; j0 < count; j0 += kKeys) {
@@ -139,8 +249,10 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
         // K transposed: consecutive threads take consecutive keys.
         const int j = i % kKeys, dv = i / kKeys;
         float f[V];
-        if (j0 + j < count) {
-          load_vec(kp + (static_cast<size_t>(j0 + j) * K + kh) * D + dv * V, f);
+        if (j0 + j < count && seg == 0) {
+          load_prefix<T, D, V>(pre, false, j0 + j, K, kh, dv * V, f);
+        } else if (j0 + j < count) {
+          load_vec(k_new + (static_cast<size_t>(j0 + j) * K + kh) * D + dv * V, f);
         } else {
 #pragma unroll
           for (int e = 0; e < V; ++e) f[e] = 0.f;
@@ -152,8 +264,10 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
         // V row-major: consecutive threads take consecutive vectors.
         const int j = i / NV, dv = i % NV;
         float f[V];
-        if (j0 + j < count) {
-          load_vec(vp + (static_cast<size_t>(j0 + j) * K + kh) * D + dv * V, f);
+        if (j0 + j < count && seg == 0) {
+          load_prefix<T, D, V>(pre, true, j0 + j, K, kh, dv * V, f);
+        } else if (j0 + j < count) {
+          load_vec(v_new + (static_cast<size_t>(j0 + j) * K + kh) * D + dv * V, f);
         } else {
 #pragma unroll
           for (int e = 0; e < V; ++e) f[e] = 0.f;
@@ -253,24 +367,26 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dim(const void* q, const void* kn, const void* vn,
-                       const void* kp, const void* vp, void* out, int Tn, int H,
-                       int K, int cached, int valid, float scale, int window,
-                       cudaStream_t stream) {
+template <typename T, int D, class Pre>
+cudaError_t launch_dim(const void* q, const void* kn, const void* vn, const Pre& pre,
+                       void* out, int Tn, int H, int K, int cached, int valid,
+                       const int* cached_dev, const int* valid_dev, int pre_cap,
+                       int table_len, float scale, int window, cudaStream_t stream) {
   const int G = H / K;
   const int tok_per_tile = kRows / G;
   const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K);
-  constexpr size_t smem = smem_bytes<D>();
+  const size_t table_bytes = sizeof(int) * static_cast<size_t>(table_len);
+  const int staged = Pre::kPaged && smem_bytes<D>() + table_bytes <= kMaxSmem;
+  const size_t smem = smem_bytes<D>() + (staged ? table_bytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_prefill_kernel<T, D, Pre>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  flash_prefill_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_prefill_kernel<T, D, Pre><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn),
-      static_cast<const T*>(vn), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), static_cast<T*>(out), Tn, H, K, G,
-      tok_per_tile, cached, valid, scale, window);
+      static_cast<const T*>(vn), pre, static_cast<T*>(out), Tn, H, K, G,
+      tok_per_tile, cached, valid, cached_dev, valid_dev, pre_cap, staged, scale,
+      window);
   return cudaGetLastError();
 }
 
@@ -299,6 +415,9 @@ struct Shape {
   static constexpr int KV_ELEMS = kKeys * ROW;
   static constexpr size_t SMEM =
       sizeof(bf16_raw) * (static_cast<size_t>(Q_ELEMS) + 2 * kStages * KV_ELEMS);
+  // An int8 prefix adds one staging tile a side, its bytes and its scales.
+  static constexpr size_t STAGE8 = static_cast<size_t>(kKeys) * (D + sizeof(float));
+  static constexpr size_t SMEM_INT8 = SMEM + 2 * STAGE8;
 };
 
 // Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
@@ -334,16 +453,17 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-template <int D>
+template <int D, class Pre>
 __global__ void __launch_bounds__(Shape<D>::THREADS)
 flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
                           const bf16_raw* __restrict__ k_new,  // [T, K, D]
                           const bf16_raw* __restrict__ v_new,
-                          const bf16_raw* __restrict__ k_pre,  // [C, K, D]
-                          const bf16_raw* __restrict__ v_pre,
+                          Pre pre,  // the prefix, pre_cap keys at most
                           bf16_raw* __restrict__ out,  // [T, H, D]
                           int Tn, int H, int K, int G, int tok_per_tile,
-                          int cached, int valid, float scale_log2, int window) {
+                          int cached, int valid, const int* cached_dev,
+                          const int* valid_dev, int pre_cap, int staged,
+                          float scale_log2, int window) {
   using Sh = Shape<D>;
   constexpr int ROW = Sh::ROW;
   constexpr int CH = Sh::CH;
@@ -355,7 +475,18 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   bf16_raw* sQ = reinterpret_cast<bf16_raw*>(smem_raw);  // [ROWS][ROW]
   bf16_raw* sK = sQ + Sh::Q_ELEMS;                       // [kStages][kKeys][ROW]
   bf16_raw* sV = sK + kStages * Sh::KV_ELEMS;
+  // An int8 prefix tile's staging: bytes [kKeys][D] a side, then scales.
+  int8_t* sK8 = reinterpret_cast<int8_t*>(sV + kStages * Sh::KV_ELEMS);
+  int8_t* sV8 = sK8 + kKeys * D;
+  float* sKs = reinterpret_cast<float*>(sV8 + kKeys * D);
+  float* sVs = sKs + kKeys;
 
+  read_lengths(cached_dev, valid_dev, Tn, cached, valid);
+  const int n_pre = min(cached, pre_cap);  // prefix keys to walk
+  // The staged table follows the tiles (and the int8 staging area).
+  unsigned char* after = Pre::kInt8 ? reinterpret_cast<unsigned char*>(sVs + kKeys)
+                                    : reinterpret_cast<unsigned char*>(sK8);
+  stage_table(pre, staged ? reinterpret_cast<int*>(after) : nullptr, n_pre);
   const int kh = blockIdx.y;
   // Reversed: the latest query tiles see the most keys and start first.
   const int t0 = (gridDim.x - 1 - blockIdx.x) * tok_per_tile;
@@ -382,24 +513,74 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   const int lo_pos = window >= 0 ? cached + t0 - window + 1 : 0;
   const int start0 = max(0, lo_pos);
   const int start1 = max(0, lo_pos - cached);
-  const int n0 = start0 < cached ? (cached - start0 + kKeys - 1) / kKeys : 0;
+  const int n0 = start0 < n_pre ? (n_pre - start0 + kKeys - 1) / kKeys : 0;
   const int n1 = start1 < new_count ? (new_count - start1 + kKeys - 1) / kKeys : 0;
   const int ntiles = n0 + n1;
 
+  // Tile i into stage `stage` of the ring; an int8 prefix tile into the
+  // staging area instead (convert_tile moves it into the ring).
   auto load_tile = [&](int i, int stage) {
-    const bool pre = i < n0;
-    const bf16_raw* kp = pre ? k_pre : k_new;
-    const bf16_raw* vp = pre ? v_pre : v_new;
-    const int count = pre ? cached : new_count;
-    const int j0 = pre ? start0 + i * kKeys : start1 + (i - n0) * kKeys;
     bf16_raw* dk = sK + stage * Sh::KV_ELEMS;
     bf16_raw* dv = sV + stage * Sh::KV_ELEMS;
-    for (int c = tid; c < kKeys * CH; c += THREADS) {
-      const int j = c / CH, ch = c % CH;
-      const bool ok = j0 + j < count;
-      const size_t off = ok ? (static_cast<size_t>(j0 + j) * K + kh) * D + ch * 8 : 0;
-      cp_async16(dk + j * ROW + ch * 8, kp + off, ok);
-      cp_async16(dv + j * ROW + ch * 8, vp + off, ok);
+    if (i >= n0) {  // new keys, contiguous [T, K, D]
+      const int j0 = start1 + (i - n0) * kKeys;
+      for (int c = tid; c < kKeys * CH; c += THREADS) {
+        const int j = c / CH, ch = c % CH;
+        const bool ok = j0 + j < new_count;
+        const size_t off = ok ? (static_cast<size_t>(j0 + j) * K + kh) * D + ch * 8 : 0;
+        cp_async16(dk + j * ROW + ch * 8, k_new + off, ok);
+        cp_async16(dv + j * ROW + ch * 8, v_new + off, ok);
+      }
+      return;
+    }
+    const int j0 = start0 + i * kKeys;
+    if constexpr (Pre::kInt8) {
+      constexpr int CH8 = D / 16;  // 16-byte chunks of an int8 row
+      for (int c = tid; c < kKeys * CH8; c += THREADS) {
+        const int j = c / CH8, ch = c % CH8;
+        const bool ok = j0 + j < n_pre;
+        const size_t off = ok ? pre.vec(j0 + j, K, kh) * D + ch * 16 : 0;
+        cp_async16(sK8 + j * D + ch * 16, pre.k + off, ok);
+        cp_async16(sV8 + j * D + ch * 16, pre.v + off, ok);
+      }
+      for (int j = tid; j < kKeys; j += THREADS) {
+        const bool ok = j0 + j < n_pre;
+        const size_t vi = ok ? pre.vec(j0 + j, K, kh) : 0;
+        cp_async4(sKs + j, pre.k_scale + vi, ok);
+        cp_async4(sVs + j, pre.v_scale + vi, ok);
+      }
+    } else {
+      const bf16_raw* kp = static_cast<const bf16_raw*>(pre.k);
+      const bf16_raw* vp = static_cast<const bf16_raw*>(pre.v);
+      for (int c = tid; c < kKeys * CH; c += THREADS) {
+        const int j = c / CH, ch = c % CH;
+        const bool ok = j0 + j < n_pre;
+        const size_t off = ok ? pre.vec(j0 + j, K, kh) * D + ch * 8 : 0;
+        cp_async16(dk + j * ROW + ch * 8, kp + off, ok);
+        cp_async16(dv + j * ROW + ch * 8, vp + off, ok);
+      }
+    }
+  };
+  // The staged int8 tile into stage `stage`: int8 x scale in fp32, rounded
+  // to nearest-even bf16; 8 values a thread and step.
+  auto convert_tile = [&](int stage) {
+    bf16_raw* dk = sK + stage * Sh::KV_ELEMS;
+    bf16_raw* dv = sV + stage * Sh::KV_ELEMS;
+    constexpr int C8 = D / 8;
+    for (int c = tid; c < kKeys * C8; c += THREADS) {
+      const int j = c / C8, g = c % C8;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        float f[8];
+        load_s8<8>((side ? sV8 : sK8) + j * D + g * 8, f);
+        const float s = (side ? sVs : sKs)[j];
+        uint4 u;
+        u.x = pack_bf16x2(f[0] * s, f[1] * s);
+        u.y = pack_bf16x2(f[2] * s, f[3] * s);
+        u.z = pack_bf16x2(f[4] * s, f[5] * s);
+        u.w = pack_bf16x2(f[6] * s, f[7] * s);
+        *reinterpret_cast<uint4*>((side ? dv : dk) + j * ROW + g * 8) = u;
+      }
     }
   };
   if (ntiles > 0) load_tile(0, 0);
@@ -428,15 +609,28 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
 
   for (int i = 0; i < ntiles; ++i) {
     const int stage = i % kStages;
-    if (i + 1 < ntiles) load_tile(i + 1, (i + 1) % kStages);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile i (and Q) landed for this thread ...
-    __syncthreads();     // ... and for every thread
+    if constexpr (!Pre::kInt8) {
+      if (i + 1 < ntiles) load_tile(i + 1, (i + 1) % kStages);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile i (and Q) landed for this thread ...
+      __syncthreads();     // ... and for every thread
+    } else {
+      // One staging tile: tile i lands and is converted before tile i + 1
+      // is requested, which then loads while tile i is computed.
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i < n0) {
+        convert_tile(stage);
+        __syncthreads();
+      }
+      if (i + 1 < ntiles) load_tile(i + 1, (i + 1) % kStages);
+      cp_async_commit();
+    }
 
-    const bool pre = i < n0;
-    const int count = pre ? cached : new_count;
-    const int j0 = pre ? start0 + i * kKeys : start1 + (i - n0) * kKeys;
-    const int pos0 = (pre ? 0 : cached) + j0;  // position of the tile's key 0
+    const bool in_prefix = i < n0;
+    const int count = in_prefix ? n_pre : new_count;
+    const int j0 = in_prefix ? start0 + i * kKeys : start1 + (i - n0) * kKeys;
+    const int pos0 = (in_prefix ? 0 : cached) + j0;  // position of the tile's key 0
     if (pos0 <= warp_qmax) {  // else every row of this warp precedes the tile
       const bf16_raw* kt = sK + stage * Sh::KV_ELEMS;
       const bf16_raw* vt = sV + stage * Sh::KV_ELEMS;
@@ -550,70 +744,127 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* kn, const void* vn, const void* kp,
-                   const void* vp, void* out, int Tn, int H, int K, int cached,
-                   int valid, float scale, int window, cudaStream_t stream) {
+template <int D, class Pre>
+cudaError_t launch(const void* q, const void* kn, const void* vn, const Pre& pre,
+                   void* out, int Tn, int H, int K, int cached, int valid,
+                   const int* cached_dev, const int* valid_dev, int pre_cap, int table_len,
+                   float scale, int window, cudaStream_t stream) {
   using Sh = Shape<D>;
   const int G = H / K;
   const int tok_per_tile = Sh::ROWS / G;
   const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K);
+  constexpr size_t base = Pre::kInt8 ? Sh::SMEM_INT8 : Sh::SMEM;
+  const size_t table_bytes = sizeof(int) * static_cast<size_t>(table_len);
+  const int staged = Pre::kPaged && base + table_bytes <= kMaxSmem;
+  const size_t smem = base + (staged ? table_bytes : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Sh::SMEM));
+      flash_prefill_bf16_kernel<D, Pre>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_prefill_bf16_kernel<D>,
+    err = cudaFuncSetAttribute(flash_prefill_bf16_kernel<D, Pre>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   using P = const bf16_raw*;
-  flash_prefill_bf16_kernel<D><<<grid, Sh::THREADS, Sh::SMEM, stream>>>(
-      static_cast<P>(q), static_cast<P>(kn), static_cast<P>(vn), static_cast<P>(kp),
-      static_cast<P>(vp), static_cast<bf16_raw*>(out), Tn, H, K, G, tok_per_tile,
-      cached, valid, scale * kLog2e, window);
+  flash_prefill_bf16_kernel<D, Pre><<<grid, Sh::THREADS, smem, stream>>>(
+      static_cast<P>(q), static_cast<P>(kn), static_cast<P>(vn), pre,
+      static_cast<bf16_raw*>(out), Tn, H, K, G, tok_per_tile, cached, valid,
+      cached_dev, valid_dev, pre_cap, staged, scale * kLog2e, window);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
-template <int D>
+template <int D, class Pre>
 cudaError_t launch_dim(int dtype, const void* q, const void* kn, const void* vn,
-                       const void* kp, const void* vp, void* out, int Tn, int H,
-                       int K, int cached, int valid, float scale, int window,
+                       const Pre& pre, void* out, int Tn, int H, int K, int cached,
+                       int valid, const int* cached_dev, const int* valid_dev,
+                       int pre_cap, int table_len, float scale, int window,
                        cudaStream_t stream) {
   if (dtype == kBFloat16)
-    return tc::launch<D>(q, kn, vn, kp, vp, out, Tn, H, K, cached, valid, scale,
-                         window, stream);
-  return simt::launch_dim<float, D>(q, kn, vn, kp, vp, out, Tn, H, K, cached, valid,
-                                    scale, window, stream);
+    return tc::launch<D>(q, kn, vn, pre, out, Tn, H, K, cached, valid, cached_dev,
+                         valid_dev, pre_cap, table_len, scale, window, stream);
+  return simt::launch_dim<float, D>(q, kn, vn, pre, out, Tn, H, K, cached, valid,
+                                    cached_dev, valid_dev, pre_cap, table_len, scale,
+                                    window, stream);
+}
+
+template <class Pre>
+cudaError_t launch_any(int D, int dtype, const void* q, const void* kn, const void* vn,
+                       const Pre& pre, void* out, int Tn, int H, int K, int cached,
+                       int valid, const int* cached_dev, const int* valid_dev,
+                       int pre_cap, int table_len, float scale, int window,
+                       void* stream) {
+  if (Tn == 0) return cudaSuccess;
+  if (K <= 0 || H % K != 0 || H / K > simt::kRows) return cudaErrorInvalidValue;
+  if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_dim<64>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+                            cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
+    case 128:
+      return launch_dim<128>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+                            cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
+    case 256:
+      return launch_dim<256>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+                            cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// C entry point bound with ctypes.  Every tensor is contiguous; dtype is a
-// DType code; window < 0 means no sliding window.  k_prefix / v_prefix may
-// be null when cached_len == 0.  Returns the launch's cudaError_t.
+// C entry points bound with ctypes.  Every tensor is contiguous; dtype is a
+// DType code; window < 0 means no sliding window.  Each returns the launch's
+// cudaError_t.
+//
+// The contiguous prefix [C, K, D], lengths as host ints.  k_prefix /
+// v_prefix may be null when cached_len == 0.
 extern "C" int flash_prefill_launch(const void* q, const void* k_new,
                                     const void* v_new, const void* k_prefix,
                                     const void* v_prefix, void* out, int T,
                                     int H, int K, int D, int cached_len,
                                     int valid_len, int dtype, float scale,
                                     int window, void* stream) {
-  if (T == 0) return 0;
-  if (K <= 0 || H % K != 0 || H / K > simt::kRows) return cudaErrorInvalidValue;
-  if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_dim<64>(dtype, q, k_new, v_new, k_prefix, v_prefix, out, T, H, K,
-                            cached_len, valid_len, scale, window, st);
-    case 128:
-      return launch_dim<128>(dtype, q, k_new, v_new, k_prefix, v_prefix, out, T, H, K,
-                             cached_len, valid_len, scale, window, st);
-    case 256:
-      return launch_dim<256>(dtype, q, k_new, v_new, k_prefix, v_prefix, out, T, H, K,
-                             cached_len, valid_len, scale, window, st);
-    default:
-      return cudaErrorInvalidValue;
+  const PrefixContig pre{k_prefix, v_prefix};
+  return launch_any(D, dtype, q, k_new, v_new, pre, out, T, H, K, cached_len,
+                    valid_len, nullptr, nullptr, cached_len, 0, scale, window, stream);
+}
+
+// The prefix read from the paged pool [N, bs, K, D] through table[P]
+// (int32; any P, zero-padded past the prefix), lengths read from the int32
+// device values cached_len[0] and valid_len[0]; bs a power of two.  int8
+// != 0: the cache is int8 with fp32 scales [N, bs, K] (k_scale, v_scale);
+// else it is in q's dtype and the scales are ignored.
+extern "C" int flash_prefill_paged_launch(const void* q, const void* k_new,
+                                          const void* v_new, const void* k_cache,
+                                          const void* v_cache, const void* k_scale,
+                                          const void* v_scale, const int* table,
+                                          int P, int bs, const int* cached_len,
+                                          const int* valid_len, void* out, int T,
+                                          int H, int K, int D, int int8, int dtype,
+                                          float scale, int window, void* stream) {
+  if (bs <= 0 || (bs & (bs - 1)) != 0 || P < 0) return cudaErrorInvalidValue;
+  const int cap = P * bs;
+  const int shift = __builtin_ctz(static_cast<unsigned>(bs));
+  if (int8) {
+    PrefixPagedInt8 pre;
+    pre.table = table;
+    pre.shift = shift;
+    pre.k = static_cast<const int8_t*>(k_cache);
+    pre.v = static_cast<const int8_t*>(v_cache);
+    pre.k_scale = static_cast<const float*>(k_scale);
+    pre.v_scale = static_cast<const float*>(v_scale);
+    return launch_any(D, dtype, q, k_new, v_new, pre, out, T, H, K, 0, T, cached_len,
+                      valid_len, cap, P, scale, window, stream);
   }
+  PrefixPaged pre;
+  pre.table = table;
+  pre.shift = shift;
+  pre.k = k_cache;
+  pre.v = v_cache;
+  return launch_any(D, dtype, q, k_new, v_new, pre, out, T, H, K, 0, T, cached_len,
+                    valid_len, cap, P, scale, window, stream);
 }

@@ -1,25 +1,33 @@
-"""Flash prefill attention: the CUDA kernel's wrapper, its plain PyTorch
-version and the kernel's launch counter.
+"""Flash prefill attention: the CUDA kernel's wrappers, their plain
+PyTorch versions and the kernel's launch counters.
 
 Port of ``production_stack_tpu/engine/ops/pallas/flash_prefill.py``
 (``flash_prefill_attention``).  The kernel is ``../csrc/flash_prefill.cu``;
 its header says what bounds it on the card and how its design answers
-that.
+that.  It has two entries, which differ only in where the cached prefix
+comes from:
 
-``flash_prefill_attention`` takes CUDA tensors to the kernel (or raises on
-what the kernel does not take) and CPU tensors to
-``flash_prefill_attention_plain``; there is no other route and no switch.
-``cached_len`` and ``valid_len`` are host ints: a device scalar would cost
-a sync to read.
+- ``flash_prefill_attention``: a prefix gathered contiguous ``[C, K, D]``,
+  ``cached_len`` and ``valid_len`` host ints;
+- ``flash_prefill_attention_paged``: the prefix read straight from the
+  paged KV pool (dense, or int8 ``(data, scale)`` sides) through a
+  block-table row, ``cached_len`` and ``valid_len`` int32 device tensors
+  that the kernel reads when it starts, so a CUDA graph replays it at any
+  chunk cursor.  The serving path runs this one.
+
+Each wrapper takes CUDA tensors to the kernel (or raises on what the
+kernel does not take) and CPU tensors to its plain version; there is no
+other route and no switch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.ops import _build
 
 NEG_INF = -1e30  # large-but-finite: keeps masked softmax rows NaN-free
@@ -27,9 +35,12 @@ HEAD_DIMS = (64, 128, 256)
 MAX_Q_PER_KV = 64
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the count was last reset to 0 (plain int; a run
-# reads it to show that its prefills went through the kernel).
+# Kernel launches since the counts were last reset to 0 (plain ints; a run
+# reads them to show that its prefills went through the kernel):
+# ``launches`` over a dense prefix (either entry), ``launches_int8`` over
+# an int8 pool.
 launches = 0
+launches_int8 = 0
 
 
 def flash_prefill_attention_plain(
@@ -75,13 +86,66 @@ def flash_prefill_attention_plain(
     return out.reshape(T, H, D).to(q.dtype)
 
 
-def _launcher():
-    fn = _build.load("flash_prefill").flash_prefill_launch
+def gather_prefix_kv(
+    k_cache,  # [N, bs, K, D] or (data, scale)
+    v_cache,
+    prefix_block_ids: torch.Tensor,  # [P] int
+    dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather a cached prefix as contiguous ``[P*bs, K, D]`` tensors.  Int8
+    sides dequantize here, to ``dtype`` (fp32 when None); dense sides come
+    back in the cache dtype and ignore ``dtype``, as in the JAX package."""
+    _, bs, K, D = kv_quant.cache_shape(k_cache)
+    P = prefix_block_ids.shape[0]
+    idx = prefix_block_ids.long()
+
+    def gather(side):
+        if kv_quant.is_quantized(side):
+            out = kv_quant.dequantize(side[0][idx], side[1][idx], dtype=dtype)
+        else:
+            out = side[idx]
+        return out.reshape(P * bs, K, D)
+
+    return gather(k_cache), gather(v_cache)
+
+
+def flash_prefill_attention_paged_plain(
+    q: torch.Tensor,  # [T, H, D]
+    k_new: torch.Tensor,  # [T, K, D]
+    v_new: torch.Tensor,
+    k_cache,  # [N, bs, K, D] in q's dtype, or (int8 data, fp32 scale [N, bs, K])
+    v_cache,
+    prefix_table: torch.Tensor,  # [P] int32, zero-padded past the prefix
+    cached_len: torch.Tensor,  # int32 tensor of one value: prefix tokens
+    valid_len: torch.Tensor,  # int32 tensor of one value: valid new tokens
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """The paged entry in plain PyTorch: the whole table gathered (int8
+    sides dequantized to q's dtype), then :func:`flash_prefill_attention_plain`
+    with the lengths as tensors (its masks broadcast; no host read)."""
+    k_pre, v_pre = gather_prefix_kv(k_cache, v_cache, prefix_table, dtype=q.dtype)
+    return flash_prefill_attention_plain(
+        q, k_new, v_new, k_pre, v_pre, cached_len.reshape(()), valid_len.reshape(()),
+        scale=scale, sliding_window=sliding_window,
+    )
+
+
+def _launcher(paged: bool = False):
+    lib = _build.load("flash_prefill")
+    fn = lib.flash_prefill_paged_launch if paged else lib.flash_prefill_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        if paged:
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
+                ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
     return fn
 
 
@@ -160,4 +224,118 @@ def flash_prefill_attention(
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: cudaError {err}")
     launches += 1
+    return out
+
+
+def _check_paged(q, k_new, v_new, k_cache, v_cache, prefix_table, cached_len,
+                 valid_len) -> None:
+    if q.dim() != 3 or k_new.dim() != 3:
+        raise ValueError("want q [T, H, D], k/v [T, K, D]")
+    T, H, D = q.shape
+    K = k_new.shape[1]
+    if k_new.shape != (T, K, D) or v_new.shape != k_new.shape:
+        raise ValueError(f"k_new/v_new {tuple(k_new.shape)}/{tuple(v_new.shape)} vs q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if H % K or H // K > MAX_Q_PER_KV:
+        raise ValueError(f"H={H} must be a multiple of K={K}, at most {MAX_Q_PER_KV}x")
+    for name, t in (("q", q), ("k_new", k_new), ("v_new", v_new)):
+        if t.dtype != q.dtype or q.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} is {t.dtype}; want {q.dtype} in {list(DTYPE_CODES)}")
+    int8 = kv_quant.is_quantized(k_cache)
+    if kv_quant.is_quantized(v_cache) != int8:
+        raise TypeError("k_cache and v_cache must both be int8 (data, scale) or both dense")
+    shape = kv_quant.cache_shape(k_cache)
+    if len(shape) != 4 or shape[2:] != (K, D) or kv_quant.cache_shape(v_cache) != shape:
+        raise ValueError(f"cache sides {shape} vs [N, bs, {K}, {D}]")
+    if shape[1] <= 0 or shape[1] & (shape[1] - 1):
+        raise ValueError(f"block size {shape[1]} must be a power of two")
+    # (name, tensor, byte alignment its loads need)
+    tensors = [("q", q, 16), ("k_new", k_new, 16), ("v_new", v_new, 16)]
+    for name, side in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if int8:
+            if side[0].dtype != torch.int8 or side[1].dtype != torch.float32:
+                raise TypeError(f"{name}: want (int8 data, fp32 scale), got "
+                                f"({side[0].dtype}, {side[1].dtype})")
+            if tuple(side[1].shape) != shape[:3]:
+                raise ValueError(f"{name} scales {tuple(side[1].shape)} vs {shape[:3]}")
+            tensors += [(name, side[0], 16), (name + " scales", side[1], 4)]
+        else:
+            if side.dtype != q.dtype:
+                raise TypeError(f"{name} is {side.dtype}; want q's {q.dtype}")
+            tensors.append((name, side, 16))
+    for name, t in (("prefix_table", prefix_table), ("cached_len", cached_len),
+                    ("valid_len", valid_len)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+            raise TypeError(f"{name} must be an int32 device tensor")
+        tensors.append((name, t, 4))
+    if prefix_table.dim() != 1:
+        raise ValueError(f"prefix_table must be [P], got {tuple(prefix_table.shape)}")
+    if cached_len.numel() != 1 or valid_len.numel() != 1:
+        raise ValueError("cached_len and valid_len must hold one value each")
+    for name, t, align in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.numel() and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def flash_prefill_attention_paged(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache,
+    v_cache,
+    prefix_table: torch.Tensor,
+    cached_len: torch.Tensor,
+    valid_len: torch.Tensor,
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal prefill attention over a prefix read from the paged pool:
+    ``[T, H, D]`` in q's dtype.  ``prefix_table`` [P] int32 names the
+    prefix's blocks (any P; slots past ``cached_len`` are never read);
+    ``cached_len`` and ``valid_len`` are int32 tensors of one value on q's
+    device.  CUDA tensors run the hand-written kernel on the current
+    stream (no sync, no host read); CPU tensors run
+    :func:`flash_prefill_attention_paged_plain`."""
+    global launches, launches_int8
+    if q.device.type == "cpu":
+        return flash_prefill_attention_paged_plain(
+            q, k_new, v_new, k_cache, v_cache, prefix_table, cached_len, valid_len,
+            scale=scale, sliding_window=sliding_window,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash prefill kernel for device {q.device}")
+    _check_paged(q, k_new, v_new, k_cache, v_cache, prefix_table, cached_len,
+                 valid_len)
+    T, H, D = q.shape
+    K = k_new.shape[1]
+    int8 = kv_quant.is_quantized(k_cache)
+    out = torch.empty_like(q)
+    if T == 0:
+        return out  # nothing to launch
+    _, bs, _, _ = kv_quant.cache_shape(k_cache)
+    if int8:
+        kd, ks, vd, vs = (k_cache[0].data_ptr(), k_cache[1].data_ptr(),
+                          v_cache[0].data_ptr(), v_cache[1].data_ptr())
+    else:
+        kd, vd, ks, vs = k_cache.data_ptr(), v_cache.data_ptr(), None, None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _launcher(paged=True)(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kd, vd, ks, vs,
+        prefix_table.data_ptr() if prefix_table.numel() else None,
+        prefix_table.shape[0], bs, cached_len.data_ptr(), valid_len.data_ptr(),
+        out.data_ptr(), T, H, K, D, int(int8), DTYPE_CODES[q.dtype], float(scale),
+        -1 if sliding_window is None else int(sliding_window), stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_prefill paged kernel launch failed: cudaError {err}")
+    if int8:
+        launches_int8 += 1
+    else:
+        launches += 1
     return out

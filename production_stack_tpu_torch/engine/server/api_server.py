@@ -456,6 +456,23 @@ def build_parser() -> argparse.ArgumentParser:
         "the pre-mixed alternating scheduler)",
     )
     parser.add_argument(
+        "--no-mixed-window",
+        action="store_true",
+        help="disable mixed K-step windows (a waiting prompt's prefill "
+        "chunks riding the decode window, each iteration one CUDA-graph "
+        "replay on the card) and restore the K=1 mixed scheduling "
+        "exactly: a waiting head forces single-token steps, counted as "
+        'multistep_fallback["waiting_head"]',
+    )
+    parser.add_argument(
+        "--no-multi-prompt-window",
+        action="store_true",
+        help="disable multi-prompt packing inside mixed K-step windows "
+        "and restore the single-head window planner exactly (one "
+        "waiting prompt's chunks per window, adaptive K-halving clamp "
+        "under deep queues)",
+    )
+    parser.add_argument(
         "--num-scheduler-steps",
         type=int,
         default=1,
@@ -493,11 +510,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def config_from_args(args):
     """The engine config for parsed flags: the preset, the served slice
-    (``SLICE_OVERRIDES``), then the KV dtype, mixed-step, window and
-    pipeline flags."""
+    (``SLICE_OVERRIDES``), then the KV dtype, mixed-step, mixed-window,
+    window and pipeline flags."""
     return config_from_preset(args.model, **{
         **SLICE_OVERRIDES,
         **({"scheduler.mixed_batch": False} if args.no_mixed_batch else {}),
+        **({"scheduler.mixed_window": False} if args.no_mixed_window else {}),
+        **({"scheduler.multi_prompt_window": False}
+           if args.no_multi_prompt_window else {}),
         **({"cache.kv_cache_dtype": args.kv_cache_dtype}
            if args.kv_cache_dtype else {}),
         "scheduler.num_scheduler_steps": args.num_scheduler_steps,

@@ -1,4 +1,5 @@
-"""K-step windows and pipelined steps as CUDA-graph replays, on the card.
+"""K-step windows, mixed-window iterations and pipelined steps as
+CUDA-graph replays, on the card.
 Marked ``cuda``: they skip without a CUDA device (a CUDA graph and the
 kernels in it have no CPU mode).  The file imports no jax, so it runs on
 the card machine as it is:
@@ -16,6 +17,7 @@ from production_stack_tpu_torch.engine.config import config_from_preset
 from production_stack_tpu_torch.engine.core.cuda_graphs import GraphRunner
 from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
 from production_stack_tpu_torch.engine.ops.kernels import kv_write as tkw
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 
@@ -91,6 +93,76 @@ def test_replayed_windows_equal_eager_single_steps(cuda_device, kv_cache_dtype):
     assert pipelined.stats()["graph_replays"] > 0
 
 
+def sync_checked(engine) -> dict:
+    """Make every asynchronous dispatch of ``engine`` (window, mixed
+    window, pipelined step), those that capture a graph included, run
+    under ``torch.cuda.set_sync_debug_mode("error")``; returns the count
+    of checked dispatches by method."""
+    names = ("_dispatch_window", "_dispatch_mixed_window", "_dispatch_decode_async")
+    checked = dict.fromkeys(names, 0)
+    for name in names:
+        def run(*args, _fn=getattr(engine, name), _name=name, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                step = _fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            checked[_name] += 1
+            return step
+        setattr(engine, name, run)
+    return checked
+
+
+def serve_staggered(engine, sync_check=False, seed=1):
+    """Greedy streams of 8 prompts arriving in pairs every 3 steps, so later
+    prompts chunk beside running decodes.  With ``sync_check`` every
+    asynchronous dispatch runs under the "error" sync mode
+    (:func:`sync_checked`).  Returns (streams, checked dispatches)."""
+    gen = torch.Generator().manual_seed(seed)
+    arrivals = [(3 * (i // 2), i, torch.randint(4, 384, (30 + 47 * i,), generator=gen).tolist())
+                for i in range(8)]
+    streams, step = {}, 0
+    checked = sync_checked(engine) if sync_check else {}
+    while arrivals or engine.has_unfinished() or engine.has_pending():
+        while arrivals and arrivals[0][0] <= step:
+            _, i, ids = arrivals.pop(0)
+            engine.add_request(f"r{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
+                max_tokens=2 * K, ignore_eos=True))
+        engine.dispatch()
+        for out in engine.collect():
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+        step += 1
+        assert step < 1000
+    return streams, checked
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_cache_dtype", ["auto", "int8"])
+def test_replayed_mixed_iterations_equal_eager_mixed_steps(cuda_device, kv_cache_dtype):
+    eager = small_engine(kv_cache_dtype, mixed_window=False, multi_step_window=False,
+                         pipeline_decode=False)
+    mixed = small_engine(kv_cache_dtype, params=eager.params)
+    counter = "launches_int8" if kv_cache_dtype == "int8" else "launches"
+    before = getattr(tfp, counter)
+    checked = 0
+    # The second pass meets graph keys the first one captured.
+    for seed in (1, 2):
+        want, _ = serve_staggered(eager, seed=seed)
+        got, checks = serve_staggered(mixed, sync_check=True, seed=seed)
+        assert got == want
+        checked += checks["_dispatch_mixed_window"]
+    assert eager.stats()["prefill_chunk_tokens"] > 0 and eager.graphs.captures == 0
+    s = mixed.stats()
+    assert s["mixed_windows_chained"] > 0 and s["mixed_window_chunk_tokens"] > 0
+    assert any(k[0] == "mixed" for k in mixed.graphs.capture_seconds)
+    # Every mixed window was dispatched with no host sync.
+    assert checked == s["mixed_windows_dispatched"] >= 2
+    # Flash prefill counts through the replays: a launch a layer for every
+    # mixed-window iteration, plus the synchronous prefills'.
+    layers = mixed.config.model.num_layers
+    assert getattr(tfp, counter) - before >= s["mixed_window_iterations"] * layers
+
+
 @pytest.mark.cuda
 def test_split_counters_reserved_before_capture(cuda_device):
     engine = small_engine()
@@ -149,6 +221,35 @@ def test_launch_counters_count_replays(cuda_device, int8):
         assert tpa.launches == before[0]
     else:
         assert tpa.launches - before[0] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_prefill_counter_counts_replays(cuda_device, int8):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    T, H, Kh, D, N, bs = 64, 8, 2, 64, 8, 16
+    q, k_new = (torch.randn(shape, generator=gen, device=cuda_device)
+                for shape in ((T, H, D), (T, Kh, D)))
+    sides = [torch.randn((N, bs, Kh, D), generator=gen, device=cuda_device)
+             for _ in range(2)]
+    if int8:
+        from production_stack_tpu_torch.engine.kv import quant as tquant
+        sides = [tquant.quantize_vectors(side) for side in sides]
+    table = torch.arange(1, 5, dtype=torch.int32, device=cuda_device)
+    lens = torch.tensor([40, T], dtype=torch.int32, device=cuda_device)
+
+    def body():
+        tfp.flash_prefill_attention_paged(q, k_new, k_new, sides[0], sides[1], table,
+                                          lens[:1], lens[1:], scale=0.125)
+
+    runner = GraphRunner(cuda_device)
+    before = (tfp.launches, tfp.launches_int8)
+    for _ in range(4):
+        runner.run("p", body)
+    torch.cuda.synchronize()
+    assert runner.captures == 1 and runner.replays == 3
+    assert (tfp.launches - before[0], tfp.launches_int8 - before[1]) == (
+        (0, 4) if int8 else (4, 0))
 
 
 @pytest.mark.cuda

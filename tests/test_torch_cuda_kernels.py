@@ -6,6 +6,8 @@ card machine as it is:
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q
 """
 
+import math
+
 import pytest
 import torch
 
@@ -18,6 +20,18 @@ from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
 # in another order; bf16 adds the plain version's bf16 rounding of the
 # probabilities and both outputs' bf16 rounding.
 TOLS = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+
+
+def scaled_tol(want: torch.Tensor, tol: float) -> float:
+    """``tol``, and for bf16 no more than two units in the last place of
+    the largest |output|: both versions round one fp32 result to bf16, so
+    they differ by about one unit at an element's own size.  A flat 2e-2
+    would pass a wrong prefix block wherever outputs are small (a 512-token
+    chunk over 2560 keys gives outputs of about 0.03)."""
+    if want.dtype != torch.bfloat16:
+        return tol
+    top = want.float().abs().max().item()
+    return min(tol, 2 * torch.finfo(want.dtype).eps * 2.0 ** math.floor(math.log2(top)))
 
 
 @pytest.fixture()
@@ -341,6 +355,88 @@ def test_flash_prefill_kernel_shapes(cuda_device, dtype, T, H, K, D, C, cached, 
         assert torch.all(got == 0)
 
 
+def _pool_inputs(gen, dev, T, H, K, D, cached, bmax, dtype, int8, bs=16):
+    """q / new K/V, a pool holding ``cached`` prefix tokens in shuffled
+    distinct blocks (int8: quantized by the port's quantizer) and the
+    table row zero-padded to ``bmax``; the lengths as int32 tensors."""
+    nb = -(-cached // bs)
+    N = max(nb, 1) + 8
+    q, kn, vn = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((T, H, D), (T, K, D), (T, K, D)))
+    sides = [torch.randn((N, bs, K, D), generator=gen, device=dev).to(dtype)
+             for _ in range(2)]
+    if int8:
+        sides = [tquant.quantize_vectors(side) for side in sides]
+    table = torch.zeros(bmax, dtype=torch.int32, device=dev)
+    perm = torch.randperm(N - 1, generator=gen, device=dev).to(torch.int32) + 1
+    table[:nb] = perm[:nb]
+    return q, kn, vn, sides, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize(
+    "T,H,K,D,cached,valid,window",
+    [
+        (512, 32, 8, 128, 2560, 512, None),   # the main path's chunk
+        (200, 32, 8, 128, 17, 190, None),     # a partial block, ragged valid_len
+        (256, 32, 8, 128, 0, 256, None),      # no prefix
+        (300, 8, 8, 64, 17, 300, None),       # D = 64, G = 1
+        (333, 16, 4, 256, 2560, 333, 96),     # D = 256, G = 4, a sliding window
+        (128, 32, 8, 128, 2560, 100, 700),    # a window across the prefix
+    ],
+)
+def test_paged_prefill_kernel_matches_plain(cuda_device, int8, dtype, tol, T, H, K, D,
+                                            cached, valid, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    bmax = 2048  # max_model_len 32768 at 16-token blocks
+    q, kn, vn, sides, table = _pool_inputs(gen, cuda_device, T, H, K, D, cached, bmax,
+                                           dtype, int8)
+    lens = torch.tensor([cached, valid], dtype=torch.int32, device=cuda_device)
+    args = (q, kn, vn, sides[0], sides[1], table, lens[:1], lens[1:])
+    before = (tfp.launches, tfp.launches_int8)
+    got = tfp.flash_prefill_attention_paged(*args, scale=D**-0.5, sliding_window=window)
+    assert (tfp.launches_int8 - before[1], tfp.launches - before[0]) == (
+        (1, 0) if int8 else (0, 1))
+    again = tfp.flash_prefill_attention_paged(*args, scale=D**-0.5, sliding_window=window)
+    want = tfp.flash_prefill_attention_paged_plain(*args, scale=D**-0.5,
+                                                   sliding_window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)  # the same bits every call
+    assert (got.float() - want.float()).abs().max().item() <= scaled_tol(want, tol)
+
+
+@pytest.mark.cuda
+def test_paged_prefill_kernel_reads_lengths_on_the_device(cuda_device):
+    """One launch per length change, no host read: the same captured graph
+    replayed at other lengths equals the plain version at those lengths."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    T, H, K, D = 128, 32, 8, 128
+    q, kn, vn, sides, table = _pool_inputs(gen, cuda_device, T, H, K, D, 300, 64,
+                                           torch.bfloat16, False)
+    lens = torch.tensor([300, T], dtype=torch.int32, device=cuda_device)
+    out = torch.empty_like(q)
+
+    def body():
+        out.copy_(tfp.flash_prefill_attention_paged(
+            q, kn, vn, sides[0], sides[1], table, lens[:1], lens[1:], scale=D**-0.5))
+
+    body()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for cached, valid in ((300, 128), (0, 77), (160, 1), (299, 128)):
+        lens.copy_(torch.tensor([cached, valid], dtype=torch.int32))
+        graph.replay()
+        want = tfp.flash_prefill_attention_paged_plain(
+            q, kn, vn, sides[0], sides[1], table, lens[:1], lens[1:], scale=D**-0.5)
+        torch.cuda.synchronize()
+        assert (out.float() - want.float()).abs().max().item() <= scaled_tol(want, 2e-2)
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros((2, 8, 96), device=cuda_device)  # head_dim 96: no kernel
@@ -370,3 +466,16 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             torch.zeros((8, 8, 128), device=cuda_device), k, k, k[:0], k[:0],
             torch.tensor(0, device=cuda_device), 8, scale=1.0,
         )
+    lens = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    table = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    q = torch.zeros((8, 8, 128), device=cuda_device)
+    pool = torch.zeros((4, 16, 2, 128), device=cuda_device)
+    with pytest.raises(TypeError, match="int32 device tensor"):
+        tfp.flash_prefill_attention_paged(q, k, k, pool, pool, table, 0, lens[1:],
+                                          scale=1.0)
+    with pytest.raises(TypeError, match="want q's"):
+        tfp.flash_prefill_attention_paged(q, k, k, pool.bfloat16(), pool.bfloat16(),
+                                          table, lens[:1], lens[1:], scale=1.0)
+    with pytest.raises(TypeError, match="must both be int8"):
+        tfp.flash_prefill_attention_paged(q, k, k, (data, scale), pool, table,
+                                          lens[:1], lens[1:], scale=1.0)

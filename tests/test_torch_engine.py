@@ -175,8 +175,9 @@ def test_torch_engine_int8_pool_holds_about_twice_the_tokens():
 def test_torch_engine_raises_outside_the_slice():
     cfg = torch_config()
     cfg.scheduler.multi_step_window = None  # auto: K-step windows
-    cfg.scheduler.mixed_window = None  # auto: mixed K-step windows too
-    with pytest.raises(NotImplementedError, match="mixed_window"):
+    cfg.scheduler.mixed_window = None  # auto: mixed K-step windows, served
+    cfg.scheduler.speculative_ngram = 3  # in-window speculation, not yet
+    with pytest.raises(NotImplementedError, match="speculative decoding"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
     cfg.cache.host_offload_gb = 1.0

@@ -133,16 +133,22 @@ async def test_port_app_matches_jax_app():
 
 
 def test_port_server_flags_match_jax_server():
-    """--kv-cache-dtype, --no-mixed-batch and the window and pipeline flags:
-    the JAX server's names, defaults, choices and meanings, on top of the
-    served slice (K=8 windows with the lookahead, no mixed windows)."""
+    """--kv-cache-dtype, --no-mixed-batch, the mixed-window and the window
+    and pipeline flags: the JAX server's names, defaults, choices and
+    meanings, on top of the served slice (K=8 windows with the lookahead,
+    mixed and packed K-step windows)."""
     def parse(*argv):
         return config_from_args(build_parser().parse_args(list(argv)))
 
     cfg = parse("--model", "tiny-llama")
     assert cfg.cache.kv_cache_dtype == "auto" and cfg.scheduler.mixed_enabled
     assert cfg.scheduler.window_steps == 8 and cfg.scheduler.pipeline_enabled
-    assert not cfg.scheduler.mixed_window_enabled
+    assert cfg.scheduler.mixed_window_enabled
+    assert cfg.scheduler.multi_prompt_window_enabled
+    cfg = parse("--no-multi-prompt-window")
+    assert cfg.scheduler.mixed_window_enabled
+    assert not cfg.scheduler.multi_prompt_window_enabled
+    assert not parse("--no-mixed-window").scheduler.mixed_window_enabled
     cfg = parse("--kv-cache-dtype", "int8", "--no-mixed-batch")
     assert cfg.cache.kv_cache_dtype == "int8" and not cfg.scheduler.mixed_enabled
     cfg = parse("--no-multi-step-window", "--no-pipeline-decode")
@@ -152,8 +158,12 @@ def test_port_server_flags_match_jax_server():
     parser = build_parser()
     action = {a.dest: a for a in parser._actions}["kv_cache_dtype"]
     assert list(action.choices) == ["auto", "int8"]
-    # The JAX engine's defaults: K=8 windows with the lookahead.
+    # The JAX engine's defaults: K=8 windows with the lookahead, mixed and
+    # packed K-step windows.
     jax_default = jcfg.SchedulerConfig()
     cfg = parse()
     assert cfg.scheduler.window_steps == jax_default.window_steps
     assert cfg.scheduler.pipeline_enabled == jax_default.pipeline_enabled
+    assert cfg.scheduler.mixed_window_enabled == jax_default.mixed_window_enabled
+    assert (cfg.scheduler.multi_prompt_window_enabled
+            == jax_default.multi_prompt_window_enabled)

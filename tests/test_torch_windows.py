@@ -42,6 +42,9 @@ def jax_tree_to_numpy(tree):
 
 
 def torch_config(kv_cache_dtype="auto", **sched):
+    """The port at the pair's flags: plain windows, mixed K-step windows
+    off (tests/test_torch_mixed_windows.py holds those)."""
+    sched = {"mixed_window": False, **sched}
     cfg = tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32"),
         cache=tcfg.CacheConfig(block_size=4, num_blocks=128,
