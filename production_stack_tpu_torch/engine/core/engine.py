@@ -82,6 +82,7 @@ from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
+from production_stack_tpu_torch.obs.histogram import Histogram
 
 logger = logging.getLogger(__name__)
 
@@ -256,9 +257,27 @@ class LLMEngine:
         self.prefill_chunk_tokens = 0
         # The part of those that rode mixed K-step windows.
         self.mixed_window_chunk_tokens = 0
+        # Distinct prompts whose chunks rode each mixed K-step window
+        # (tpu:mixed_window_prompts_per_window).
+        self.mixed_window_prompts_hist = Histogram(
+            bounds=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+        )
+        # Host seconds spent staging a chained mixed window's chunk arrays
+        # while the previous window still ran on the device.
+        self.window_transfer_overlap_s = 0.0
+        # Requests shed on an expired client deadline: deadline_expired by
+        # the step thread (queued-expiry sweep), deadline_expired_admission
+        # by the server's event loop (admission sheds), one writer each;
+        # stats() reports the sum.
+        self.deadline_expired = 0
+        self.deadline_expired_admission = 0
         self.admission_rejected = 0
         self.num_steps = 0
         self._step_time_accum = 0.0
+        # (end time, busy seconds) of the steps collected in the trailing
+        # _busy_window_s: duty_cycle is their busy fraction.
+        self._busy_window: List[tuple] = []
+        self._busy_window_s = 10.0
 
         # -- K-step windows and the one-step lookahead pipeline ------------
         self._window_steps = config.scheduler.window_steps
@@ -404,8 +423,6 @@ class LLMEngine:
             )
         if params_obj.echo and params_obj.logprobs:
             raise ValueError("prompt logprobs (echo + logprobs) are not ported yet")
-        if params_obj.deadline is not None:
-            raise ValueError("request deadlines are not ported yet")
         seq = Sequence(
             seq_id=request_id,
             prompt_token_ids=list(prompt_token_ids),
@@ -422,6 +439,19 @@ class LLMEngine:
 
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished()
+
+    def scan_expired_deadlines(self, now: float) -> List[str]:
+        """Ids of waiting or preempted sequences whose client deadline has
+        passed at ``now``.  A pure scan: the step loop aborts them.
+        Running sequences are exempt: they are streaming tokens, and
+        cutting them is the client's call."""
+        expired = []
+        for queue in (self.scheduler.waiting, self.scheduler.preempted):
+            for seq in queue:
+                d = seq.sampling_params.deadline
+                if d is not None and now > d:
+                    expired.append(seq.seq_id)
+        return expired
 
     # -- stepping ----------------------------------------------------------
 
@@ -490,7 +520,11 @@ class LLMEngine:
                 self._pending.popleft()
         now = time.time()
         self._last_decode_end = now if p.is_decode else None
-        self._step_time_accum += (now - t0) + p.host_s
+        busy = (now - t0) + p.host_s
+        self._step_time_accum += busy
+        self._busy_window.append((now, busy))
+        cutoff = now - self._busy_window_s
+        self._busy_window = [(t, d) for (t, d) in self._busy_window if t > cutoff]
         self.num_steps += 1
         return outputs
 
@@ -1105,6 +1139,7 @@ class LLMEngine:
         S = key[1]
         cols, vals = self._window_table_delta(seqs, S)
         b = self._buffers[key]
+        t_stage = time.time()
         T = sched[0].bucket_len
         c = self._buffers_for(("chunk", T), lambda: self._chunk_buffers(T))
         K = self._window_steps
@@ -1133,6 +1168,10 @@ class LLMEngine:
              "cached": cached, "valid": valid, "new_blocks": new_blocks,
              "prefix": prefix},
         )
+        if chain_from is not None:
+            # The previous window still runs on the device: this staging
+            # overlapped its compute.
+            self.window_transfer_overlap_s += time.time() - t_stage
         mkey = ("mixed", S, T) + key[2:]
         for _ in range(k_eff):
             self.graphs.run(mkey, lambda: self._mixed_body(b, c, *key[3:]))
@@ -1177,6 +1216,7 @@ class LLMEngine:
                     outputs.extend(self._finalize_final_prefill(
                         seq, p.chunk_tails[i], step_ordinal=p.chunk_ordinal + i,
                     ))
+        self.mixed_window_prompts_hist.observe(len(by_seq))
         return outputs
 
     def _collect_window(self, p: _PendingStep) -> List[StepOutput]:
@@ -1590,25 +1630,69 @@ class LLMEngine:
 
     # -- stats -------------------------------------------------------------
 
+    def _duty_cycle(self) -> float:
+        """Fraction of the trailing window spent inside collected steps."""
+        cutoff = time.time() - self._busy_window_s
+        busy = sum(
+            # A step straddling the window's edge counts its in-window part.
+            min(d, t - cutoff)
+            for (t, d) in self._busy_window
+            if t > cutoff
+        )
+        return min(1.0, busy / self._busy_window_s)
+
     def stats(self) -> Dict[str, float]:
+        """The JAX engine's stats keys (its ``/metrics`` reads them), plus
+        the port's own window and graph counters.  Keys of features not
+        ported yet (KV offload and prefetch, remote KV and disaggregation,
+        speculation, LoRA, the encode lane, the compile inventory and the
+        trace ring) are 0 or empty, as on a JAX engine without them."""
         return {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
-            "kv_usage_perc": self.block_pool.usage,
+            "hbm_kv_usage_perc": self.block_pool.usage,
             "num_kv_blocks": self.block_pool.num_blocks,
             "prefix_cache_hit_rate": self.block_pool.prefix_hit_rate,
             "prefix_cache_hit_tokens": self.block_pool.hit_tokens,
             "prefix_cache_query_tokens": self.block_pool.query_tokens,
+            "prefix_cache_blocks": self.block_pool.num_cached_blocks,
+            "host_kv_usage_perc": 0.0,
+            "duty_cycle": self._duty_cycle(),
             "total_prompt_tokens": self.total_prompt_tokens,
             "total_generated_tokens": self.total_generated_tokens,
             "total_finished": self.total_finished,
             "num_preemptions": self.scheduler.num_preemptions,
             "prefill_chunk_tokens": self.prefill_chunk_tokens,
             "mixed_window_chunk_tokens": self.mixed_window_chunk_tokens,
+            "window_transfer_overlap_seconds": self.window_transfer_overlap_s,
             "num_steps": self.num_steps,
             "step_seconds_total": self._step_time_accum,
             "admission_rejected_total": self.admission_rejected,
+            "deadline_expired_total": (
+                self.deadline_expired + self.deadline_expired_admission
+            ),
             "queued_prompt_tokens": self.scheduler.queued_prompt_tokens,
+            "encode_texts_total": 0,
+            "encode_queue_depth": 0,
+            "loaded_loras": 0,
+            "remote_prefix_blocks_fetched": 0,
+            "remote_prefix_blocks_exported": 0,
+            "disagg_prefill_primes": 0,
+            "disagg_handoff_hits": 0,
+            "disagg_handoff_misses": 0,
+            "kv_prefetch_hit": 0,
+            "kv_prefetch_waste": 0,
+            "kv_prefetch_inflight": 0,
+            "spec_tokens_drafted": 0,
+            "spec_tokens_accepted": 0,
+            "spec_window_tokens": {},
+            "spec_drafter": "",
+            "spec_draft_fraction_seconds": 0.0,
+            "kv_wire_bytes": {},
+            "kv_snapshot_format": {},
+            "compile_seconds": {},
+            "compiled_shapes": 0,
+            "obs_trace_dropped": 0,
             # Mean host-side serialization per decode step (ms): time the
             # device sat idle between decode steps; about 0 when the
             # lookahead keeps the device fed.

@@ -1,29 +1,51 @@
 """OpenAI-compatible API server for the PyTorch engine.
 
-Counterpart of ``production_stack_tpu/engine/server/api_server.py`` for the
-main serving path: ``/v1/completions`` and ``/v1/chat/completions`` (SSE
-streaming and non-streaming, one choice per request), ``/v1/models`` and
-``/health``, over :class:`AsyncEngine`.  It reuses nothing of the JAX
-module (which forces the JAX platform and starts ``jax.distributed``).
+Counterpart of ``production_stack_tpu/engine/server/api_server.py``: the
+contract the router expects from a serving engine, over
+:class:`AsyncEngine`.
+
+- ``/v1/completions`` and ``/v1/chat/completions``: SSE streaming and not,
+  ``n`` in [1, 16] choices (one engine request each), request deadlines
+  (``X-Request-Deadline`` or a ``timeout`` body field: 504 when expired at
+  admission or while queued), bounded admission (429 + ``Retry-After``);
+- ``/v1/models``, ``/health`` (liveness, step watchdog), ``/ready``
+  (readiness, 503 while draining) and ``POST /drain``; SIGTERM drains too;
+- ``/metrics`` in the ``tpu:`` vocabulary (``router/stats/vocabulary.py``):
+  every family the JAX engine renders with tracing off, those of features
+  not ported yet at zero;
+- ``/tokenize`` and ``/detokenize``;
+- ``/start_profile`` and ``/stop_profile`` on ``torch.profiler`` (CUDA
+  activity on the card), writing a Chrome trace into ``trace_dir``.
+
+It reuses nothing of the JAX module (which forces the JAX platform and
+starts ``jax.distributed``).
 
     python -m production_stack_tpu_torch.engine.server.api_server \
         --model llama-3.1-8b --port 9200 [--device cuda]
 
-Not ported yet: ``n > 1``, tool calls, guided decoding (response_format),
-prompt logprobs, deadlines and drain, /metrics, embeddings / rerank /
-score, LoRA admin, tokenize / detokenize, profiling.
+Not ported yet, with their flags: tool calls, guided decoding
+(``response_format``), prompt logprobs (``echo`` with ``logprobs``),
+embeddings / rerank / score (the encode lane), LoRA admin, the
+``/debug/*`` surfaces (request tracing and the window flight recorder),
+disaggregated prefill/decode, speculation, KV offload and remote KV,
+parallelism, int8 weights and loading a weights path.
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import json
 import logging
+import os
+import signal
+import tempfile
 import time
 import uuid
 from typing import Optional
 
+import torch
 from aiohttp import web
 
 from production_stack_tpu_torch.engine.config import config_from_preset
@@ -32,9 +54,21 @@ from production_stack_tpu_torch.engine.core.sequence import (
     FinishReason,
     SamplingParams,
 )
-from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+from production_stack_tpu_torch.engine.server.async_engine import (
+    AsyncEngine,
+    DeadlineExceeded,
+)
+from production_stack_tpu_torch.obs.histogram import Histogram, render_histogram
+from production_stack_tpu_torch.router.stats import vocabulary as vocab
+from production_stack_tpu_torch.utils.drain import DrainController
+from production_stack_tpu_torch.utils.net import parse_deadline
 
 logger = logging.getLogger(__name__)
+
+# Bucket bounds of the JAX engine's encode-lane histograms, rendered here
+# at zero observations until the lane is ported.
+ENCODE_BATCH_SIZE_BOUNDS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+ENCODE_SECONDS_BOUNDS = (0.005, 0.02, 0.05, 0.1, 0.25, 1.0, 4.0)
 
 
 def _error(message: str, status: int = 400, type_: str = "invalid_request_error",
@@ -167,6 +201,18 @@ class StopChecker:
         self.emitted_text = text
         return delta
 
+    def aligned_token_count(self) -> int:
+        """Largest k such that the first k tokens detokenize within the
+        emitted (stop-trimmed) text: how many tokens' logprobs entries
+        align with the returned content."""
+        emitted = len(self.emitted_text)
+        for k in range(len(self.token_ids), -1, -1):
+            if len(self.tokenizer.decode(self.token_ids[:k])) <= emitted:
+                return k
+        return 0
+
+
+
 
 def _finish_reason(event, stopped: bool) -> str:
     if stopped or event.finish_reason == FinishReason.STOP:
@@ -174,8 +220,191 @@ def _finish_reason(event, stopped: bool) -> str:
     return "length"
 
 
-def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
-    app = web.Application()
+def _is_engine_data_plane(request: web.Request) -> bool:
+    """Model-serving work a draining engine refuses (the router's drain
+    middleware draws the same line): completions and the other POST or
+    DELETE routes of the data plane.  GET control-plane routes (/health,
+    /ready, /metrics) and POST /drain itself stay served throughout."""
+    if request.method not in ("POST", "DELETE") or request.path == "/drain":
+        return False
+    return (
+        request.path.startswith("/v1/")
+        or request.path in ("/rerank", "/score", "/tokenize", "/detokenize")
+        or request.path.startswith("/admin/")
+    )
+
+
+def render_metrics(engine: AsyncEngine) -> str:
+    """The ``/metrics`` body: the JAX engine's families with tracing off,
+    in its order, with this engine's values.  Families of features not
+    ported yet render at zero, their closed label sets pre-seeded, and the
+    request, step and KV histograms at zero observations (the JAX engine
+    observes them only with tracing on)."""
+    s = engine.stats()
+    pairs = [
+        (vocab.TPU_NUM_REQUESTS_RUNNING, s["num_requests_running"]),
+        (vocab.TPU_NUM_REQUESTS_WAITING, s["num_requests_waiting"]),
+        (vocab.TPU_HBM_KV_USAGE_PERC, s["hbm_kv_usage_perc"]),
+        (vocab.TPU_PREFIX_CACHE_HIT_RATE, s["prefix_cache_hit_rate"]),
+        (vocab.TPU_PREFIX_CACHE_HIT_TOKENS, s["prefix_cache_hit_tokens"]),
+        (vocab.TPU_PREFIX_CACHE_QUERY_TOKENS, s["prefix_cache_query_tokens"]),
+        (vocab.TPU_PREFIX_CACHE_BLOCKS, s["prefix_cache_blocks"]),
+        (vocab.TPU_HOST_KV_USAGE_PERC, s["host_kv_usage_perc"]),
+        (vocab.TPU_DUTY_CYCLE, s["duty_cycle"]),
+        (vocab.TPU_DECODE_HOST_GAP_MS, s["decode_host_gap_ms"]),
+        (vocab.TPU_LOADED_LORAS, s["loaded_loras"]),
+        (vocab.TPU_TOTAL_PROMPT_TOKENS, s["total_prompt_tokens"]),
+        (vocab.TPU_TOTAL_GENERATED_TOKENS, s["total_generated_tokens"]),
+        (vocab.TPU_TOTAL_FINISHED_REQUESTS, s["total_finished"]),
+        (vocab.TPU_NUM_PREEMPTIONS, s["num_preemptions"]),
+        (vocab.TPU_REMOTE_PREFIX_BLOCKS_FETCHED, s["remote_prefix_blocks_fetched"]),
+        (vocab.TPU_REMOTE_PREFIX_BLOCKS_EXPORTED, s["remote_prefix_blocks_exported"]),
+        (vocab.TPU_DISAGG_PREFILL_PRIMES, s["disagg_prefill_primes"]),
+        (vocab.TPU_DISAGG_HANDOFF_HITS, s["disagg_handoff_hits"]),
+        (vocab.TPU_DISAGG_HANDOFF_MISSES, s["disagg_handoff_misses"]),
+        (vocab.TPU_KV_PREFETCH_HIT, s["kv_prefetch_hit"]),
+        (vocab.TPU_KV_PREFETCH_WASTE, s["kv_prefetch_waste"]),
+        (vocab.TPU_KV_PREFETCH_INFLIGHT, s["kv_prefetch_inflight"]),
+        (vocab.TPU_SPEC_TOKENS_DRAFTED, s["spec_tokens_drafted"]),
+        (vocab.TPU_SPEC_TOKENS_ACCEPTED, s["spec_tokens_accepted"]),
+        (vocab.TPU_PREFILL_CHUNK_TOKENS, s["prefill_chunk_tokens"]),
+        (vocab.TPU_MIXED_WINDOW_CHUNK_TOKENS, s["mixed_window_chunk_tokens"]),
+        (vocab.TPU_WINDOW_TRANSFER_OVERLAP_SECONDS,
+         s["window_transfer_overlap_seconds"]),
+        (vocab.TPU_ADMISSION_REJECTED, s["admission_rejected_total"]),
+        (vocab.TPU_DEADLINE_EXPIRED, s["deadline_expired_total"]),
+        (vocab.TPU_QUEUED_PROMPT_TOKENS, s["queued_prompt_tokens"]),
+        (vocab.TPU_LAST_STEP_AGE, engine.last_step_age_s),
+        (vocab.TPU_MULTISTEP_WASTED_TOKENS, s["multistep_wasted_tokens"]),
+        # Multi-host slice groups are not ported: one process, epoch 0.
+        (vocab.TPU_LOCKSTEP_GROUP_EPOCH, 0),
+        (vocab.TPU_SLICE_DRAIN_RELAYS, 0),
+    ]
+    spec_tokens = {
+        **{(o, d): 0 for o in vocab.TPU_SPEC_WINDOW_OUTCOMES
+           for d in vocab.TPU_SPEC_WINDOW_DRAFTERS},
+        **{(o, s["spec_drafter"]): v for o, v in s["spec_window_tokens"].items()
+           if s["spec_drafter"]},
+    }
+    wire_bytes = {
+        **{(t, f): 0 for t in vocab.TPU_KV_WIRE_TIERS
+           for f in vocab.TPU_KV_WIRE_FORMATS},
+        **s["kv_wire_bytes"],
+    }
+    parts = [
+        vocab.render_prometheus(pairs),
+        vocab.render_labeled_counter(
+            vocab.TPU_MULTISTEP_FALLBACK, "reason",
+            {**dict.fromkeys(vocab.TPU_MULTISTEP_FALLBACK_REASONS, 0),
+             **s["multistep_fallback"]},
+        ),
+        vocab.render_labeled_counter2(
+            vocab.TPU_SPEC_WINDOW_TOKENS, ("outcome", "drafter"), spec_tokens),
+        vocab.render_prometheus([(vocab.TPU_SPEC_DRAFT_FRACTION_SECONDS,
+                                  s["spec_draft_fraction_seconds"])]),
+        vocab.render_labeled_counter2(
+            vocab.TPU_KV_WIRE_BYTES, ("tier", "format"), wire_bytes),
+        vocab.render_labeled_counter(
+            vocab.TPU_KV_SNAPSHOT_FORMAT, "version",
+            {**dict.fromkeys(vocab.TPU_KV_SNAPSHOT_VERSIONS, 0),
+             **s["kv_snapshot_format"]},
+        ),
+        vocab.render_labeled_gauge(vocab.TPU_LOCKSTEP_MEMBER_LAST_ACK, "member", {}),
+        vocab.render_labeled_counter(
+            vocab.TPU_LOCKSTEP_MEMBER_FAILURES, "reason",
+            dict.fromkeys(vocab.TPU_LOCKSTEP_FAILURE_REASONS, 0),
+        ),
+        render_histogram(vocab.TPU_MIXED_WINDOW_PROMPTS,
+                         engine.engine.mixed_window_prompts_hist),
+        vocab.render_prometheus([
+            (vocab.TPU_ENCODE_TEXTS, s["encode_texts_total"]),
+            (vocab.TPU_ENCODE_QUEUE_DEPTH, s["encode_queue_depth"]),
+        ]),
+        render_histogram(vocab.TPU_ENCODE_BATCH_SIZE,
+                         Histogram(bounds=ENCODE_BATCH_SIZE_BOUNDS)),
+        render_histogram(vocab.TPU_ENCODE_SECONDS,
+                         Histogram(bounds=ENCODE_SECONDS_BOUNDS)),
+        vocab.render_labeled_counter(
+            vocab.TPU_COMPILE_SECONDS, "executable", s["compile_seconds"]),
+        vocab.render_prometheus([
+            (vocab.TPU_COMPILED_SHAPES, s["compiled_shapes"]),
+            (vocab.TPU_OBS_TRACE_DROPPED, s["obs_trace_dropped"]),
+        ]),
+    ]
+    for family in (vocab.TPU_REQUEST_HISTOGRAMS, vocab.TPU_STEP_HISTOGRAMS,
+                   vocab.TPU_KV_HISTOGRAMS):
+        parts.extend(render_histogram(name, Histogram()) for name in family.values())
+    return "".join(parts)
+
+
+def _start_torch_profiler(device: torch.device):
+    """A started ``torch.profiler`` session: CPU activity, and CUDA
+    activity for an engine on the card (an error when this build cannot
+    trace it: a profile of the card without the card's kernels would
+    pass for one)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        cuda = torch.profiler.ProfilerActivity.CUDA
+        if cuda not in torch.profiler.supported_activities():
+            raise RuntimeError("this torch build cannot trace CUDA activity")
+        activities.append(cuda)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _export_trace(prof, trace_dir: str) -> str:
+    """Write a stopped session's Chrome trace into ``trace_dir``; returns
+    its path."""
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(
+        trace_dir, f"trace-{os.getpid()}-{int(time.time() * 1000)}.json"
+    )
+    prof.export_chrome_trace(path)
+    return path
+
+
+def build_engine_app(
+    engine: AsyncEngine, served_model: str, drain_grace_s: float = 30.0
+) -> web.Application:
+    # /drain (helm preStop) and SIGTERM (main) both land on this
+    # controller.  Busy = a stream still attached or a sequence still
+    # decoding.  exit_cb stays None here; main() installs a SIGINT to self
+    # so the process exits 0 once the drain ends.
+    drain = DrainController(
+        grace_s=drain_grace_s,
+        busy_fn=lambda: bool(engine._queues) or engine.engine.has_unfinished(),
+    )
+
+    @web.middleware
+    async def drain_gate(request: web.Request, handler):
+        """503 + Connection: close for all data-plane work during a drain,
+        in one place so no route can forget it."""
+        if drain.draining and _is_engine_data_plane(request):
+            resp = web.json_response(
+                {"error": {"message": "server is draining for shutdown",
+                           "type": "shutting_down", "code": 503}},
+                status=503,
+            )
+            resp.force_close()
+            return resp
+        return await handler(request)
+
+    app = web.Application(middlewares=[drain_gate])
+    app["engine"] = engine
+    app["drain"] = drain
+
+    def _watchdog_problem() -> Optional[str]:
+        if not engine.step_thread_healthy:
+            return "engine step thread died"
+        wd = engine.engine.config.scheduler.step_watchdog_s
+        age = engine.last_step_age_s
+        if wd and age > wd:
+            return (
+                f"step loop stalled: last iteration started {age:.1f}s ago "
+                f"(watchdog {wd:.0f}s)"
+            )
+        return None
 
     async def models(_req: web.Request) -> web.Response:
         return web.json_response({"object": "list", "data": [{
@@ -187,20 +416,46 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
 
     async def health(_req: web.Request) -> web.Response:
         """Liveness: fails when the step thread died or stalled past
-        scheduler.step_watchdog_s."""
-        problem = None
-        if not engine.step_thread_healthy:
-            problem = "engine step thread died"
-        wd = engine.engine.config.scheduler.step_watchdog_s
-        age = engine.last_step_age_s
-        if problem is None and wd and age > wd:
-            problem = f"step loop stalled: last iteration started {age:.1f}s ago"
+        scheduler.step_watchdog_s, not during a drain (a kubelet killing a
+        draining pod would drop the streams the drain exists to finish)."""
+        problem = _watchdog_problem()
         if problem is not None:
             return web.json_response(
                 {"status": "unhealthy", "problem": problem,
-                 "last_step_age_s": age}, status=503,
+                 "last_step_age_s": engine.last_step_age_s}, status=503,
             )
-        return web.json_response({"status": "ok", "last_step_age_s": age})
+        return web.json_response(
+            {"status": "ok", "last_step_age_s": engine.last_step_age_s}
+        )
+
+    async def ready(_req: web.Request) -> web.Response:
+        """Readiness: also fails while draining, so the Service (and the
+        router's discovery) drops the pod while its streams finish."""
+        if drain.draining:
+            return web.json_response(
+                {"status": "draining", "in_flight_streams": len(engine._queues)},
+                status=503,
+            )
+        problem = _watchdog_problem()
+        if problem is not None:
+            return web.json_response(
+                {"status": "unhealthy", "problem": problem}, status=503
+            )
+        return web.json_response({"status": "ready"})
+
+    async def drain_endpoint(_req: web.Request) -> web.Response:
+        """POST /drain: flip readiness, stop admission, let in-flight
+        streams finish within the grace, then exit."""
+        drain.begin()
+        return web.json_response({
+            "draining": True,
+            "in_flight_streams": len(engine._queues),
+            "unfinished_sequences": engine.engine.has_unfinished(),
+            "grace_s": drain.grace_s,
+        })
+
+    async def metrics(_req: web.Request) -> web.Response:
+        return web.Response(text=render_metrics(engine))
 
     async def chat_completions(request: web.Request) -> web.StreamResponse:
         return await _serve_completion(request, chat=True)
@@ -216,8 +471,6 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
         tokenizer = engine.engine.tokenizer
         if chat and body.get("tools"):
             return _error("'tools' (tool calls) are not ported to this engine yet")
-        if body.get("n", 1) not in (None, 1):
-            return _error("n > 1 is not ported to this engine yet")
         if chat:
             prompt = tokenizer.apply_chat_template(list(body.get("messages") or []))
         else:
@@ -251,7 +504,24 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
                 f"but the prompt is {len(prompt_token_ids)} tokens long",
                 code="context_length_exceeded",
             )
-        rejection = engine.check_admission(1, len(prompt_token_ids))
+        # n > 1: one engine request a choice (OpenAI `n`).
+        n_choices = body.get("n", 1)
+        if n_choices is None:
+            n_choices = 1
+        if not isinstance(n_choices, int) or isinstance(n_choices, bool):
+            # int() would silently truncate 2.9 and accept True.
+            return _error(f"n must be an integer, got {body.get('n')!r}")
+        if not 1 <= n_choices <= 16:
+            return _error(f"n must be in [1, 16], got {n_choices}")
+
+        now = time.time()
+        try:
+            deadline = parse_deadline(request.headers, body, now)
+        except ValueError as e:
+            return _error(str(e))
+        rejection = engine.check_admission(
+            n_choices, n_choices * len(prompt_token_ids)
+        )
         if rejection is not None:
             engine.engine.admission_rejected += 1
             return web.json_response(
@@ -267,12 +537,38 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
                 status=429,
                 headers={"Retry-After": str(rejection.retry_after_s)},
             )
+        if deadline is not None:
+            params.deadline = deadline
+            if now >= deadline:
+                # The event loop's own counter: the step thread owns
+                # deadline_expired.  (The JAX server's "deadline
+                # unmeetable" estimate reads the TTFT histogram, which
+                # only tracing feeds; the port serves with tracing off,
+                # where the queued-expiry sweep does that work.)
+                engine.engine.deadline_expired_admission += 1
+                return _error("request deadline already expired at admission",
+                              504, "deadline_expired", code=504)
 
-        gen = engine.generate(
-            prompt_token_ids=prompt_token_ids, sampling_params=params,
-            request_id=request_id,
-        )
-        checker = StopChecker(tokenizer, params.stop)
+        def choice_params(i: int) -> SamplingParams:
+            """Choice i's sampling: a seeded request's choice i takes
+            seed + i, so the choices differ and each replays alone."""
+            if params.seed is None or i == 0:
+                return params if i == 0 else dataclasses.replace(params)
+            return dataclasses.replace(params, seed=params.seed + i)
+
+        choice_ids = [
+            request_id if i == 0 else f"{request_id}-c{i}"
+            for i in range(n_choices)
+        ]
+        gens = [
+            engine.generate(
+                prompt_token_ids=prompt_token_ids,
+                sampling_params=choice_params(i),
+                request_id=choice_ids[i],
+            )
+            for i in range(n_choices)
+        ]
+        checkers = [StopChecker(tokenizer, params.stop) for _ in range(n_choices)]
 
         def token_text(token_id: int) -> str:
             return tokenizer.decode([token_id]) if token_id >= 0 else ""
@@ -287,18 +583,21 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
                 ],
             }
 
-        offset = [0]  # running text_offset for completions logprobs
+        # Running text_offset per choice for completions logprobs.
+        offsets = [0] * n_choices
 
-        def chunk_payload(delta_text: str, finish_reason, first: bool, event=None):
+        def chunk_payload(delta_text: str, finish_reason, first: bool,
+                          event=None, index: int = 0):
             if chat:
                 delta = {"role": "assistant"} if first else {}
                 if delta_text:
                     delta["content"] = delta_text
-                choice = {"index": 0, "delta": delta, "finish_reason": finish_reason}
+                choice = {"index": index, "delta": delta,
+                          "finish_reason": finish_reason}
                 if params.logprobs and event is not None:
                     choice["logprobs"] = {"content": [logprob_entry(event)]}
             else:
-                choice = {"index": 0, "text": delta_text,
+                choice = {"index": index, "text": delta_text,
                           "finish_reason": finish_reason}
                 if params.logprobs and event is not None:
                     tok = token_text(event.token_id)
@@ -309,11 +608,18 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
                             tokenizer.decode([tid]): lp
                             for tid, lp in (event.top_logprobs or [])
                         }],
-                        "text_offset": [offset[0]],
+                        "text_offset": [offsets[index]],
                     }
-                    offset[0] += len(tok)
+                    offsets[index] += len(tok)
             return {"id": request_id, "object": object_name, "created": created,
                     "model": model_name, "choices": [choice]}
+
+        def usage(completion_tokens: int) -> dict:
+            return {
+                "prompt_tokens": len(prompt_token_ids),
+                "completion_tokens": completion_tokens,
+                "total_tokens": len(prompt_token_ids) + completion_tokens,
+            }
 
         if stream:
             response = web.StreamResponse(headers={
@@ -322,104 +628,268 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
                 "X-Request-Id": request_id,
             })
             await response.prepare(request)
-            first = True
-            out_tokens = 0
+            # The n choices' event streams merge through one queue, so
+            # chunks interleave as tokens arrive (each carries its index).
+            queue: asyncio.Queue = asyncio.Queue()
+
+            async def pump(i: int, g):
+                try:
+                    async for ev in g:
+                        await queue.put((i, ev, None))
+                    await queue.put((i, None, None))
+                except Exception as e:  # surfaced on the write loop
+                    await queue.put((i, None, e))
+
+            pumps = [asyncio.create_task(pump(i, g)) for i, g in enumerate(gens)]
+            first = [True] * n_choices
+            live = [True] * n_choices
+            retired = [False] * n_choices  # taken off `remaining` by hand
+            total_out = 0
+            shed_on_deadline = False
             try:
-                async for event in gen:
+                remaining = n_choices
+                while remaining:
+                    i, event, error = await queue.get()
+                    if error is not None:
+                        if isinstance(error, DeadlineExceeded):
+                            # Expired while queued: the stream is already
+                            # open, so a structured SSE error event (and
+                            # no [DONE]: the stream did not complete).
+                            shed_on_deadline = True
+                            err = {"error": {"message": str(error),
+                                             "type": "deadline_expired",
+                                             "code": 504}}
+                            await response.write(
+                                f"data: {json.dumps(err)}\n\n".encode())
+                            break
+                        raise error
+                    if event is None:
+                        # A choice retired on a stop match was deducted
+                        # already; its pump may still send its sentinel.
+                        if not retired[i]:
+                            remaining -= 1
+                        continue
+                    if not live[i]:
+                        continue  # events after a stop of an aborting choice
+                    checker = checkers[i]
                     delta, stopped = checker.push(event.token_id)
                     if event.finished and not stopped:
                         delta += checker.flush()
-                    if delta or first or params.logprobs:
+                    if delta or first[i] or params.logprobs:
                         payload = chunk_payload(
-                            delta, None, first,
+                            delta, None, first[i],
                             event=None if stopped or event.token_id < 0 else event,
+                            index=i,
                         )
                         await response.write(f"data: {json.dumps(payload)}\n\n".encode())
-                        first = False
+                        first[i] = False
                     if stopped or event.finished:
-                        out_tokens = event.num_output_tokens
-                        final = chunk_payload("", _finish_reason(event, stopped), first)
+                        if stopped and not event.finished:
+                            # An abort sends no further events, so this
+                            # pump never sends its sentinel: retire the
+                            # choice here (cancelling the pump closes its
+                            # generator, which aborts it in the engine).
+                            pumps[i].cancel()
+                            retired[i] = True
+                            remaining -= 1
+                        live[i] = False
+                        total_out += event.num_output_tokens
+                        final = chunk_payload("", _finish_reason(event, stopped),
+                                              first[i], index=i)
                         await response.write(f"data: {json.dumps(final)}\n\n".encode())
-                        break
-                if include_usage:
-                    usage = {
-                        "id": request_id, "object": object_name,
-                        "created": created, "model": model_name, "choices": [],
-                        "usage": {
-                            "prompt_tokens": len(prompt_token_ids),
-                            "completion_tokens": out_tokens,
-                            "total_tokens": len(prompt_token_ids) + out_tokens,
-                        },
-                    }
-                    await response.write(f"data: {json.dumps(usage)}\n\n".encode())
-                await response.write(b"data: [DONE]\n\n")
+                if include_usage and not shed_on_deadline:
+                    chunk = {"id": request_id, "object": object_name,
+                             "created": created, "model": model_name,
+                             "choices": [], "usage": usage(total_out)}
+                    await response.write(f"data: {json.dumps(chunk)}\n\n".encode())
+                if not shed_on_deadline:
+                    await response.write(b"data: [DONE]\n\n")
                 await response.write_eof()
             except ConnectionResetError:
-                pass
+                pass  # the finally aborts every live choice
             finally:
-                await gen.aclose()  # aborts in-engine if it did not finish
+                # Cancelling a pump closes its generator, which aborts the
+                # choice in the engine if it has not finished: a
+                # disconnect never leaves siblings decoding for nobody.
+                for task in pumps:
+                    task.cancel()
             return response
 
-        text_parts, entries = [], []
-        finish, out_tokens = "length", 0
-        try:
+        # Not streaming: drain the choices concurrently (a sequential loop
+        # would submit choice i+1 only after choice i finished).
+        async def drain_choice(i: int, gen):
+            checker = checkers[i]
+            text_parts, entries = [], []
+            finish, out_tokens = "length", 0
             async for event in gen:
                 delta, stopped = checker.push(event.token_id)
                 text_parts.append(delta)
-                if params.logprobs and event.token_id >= 0 and not stopped:
+                if params.logprobs and event.token_id >= 0:
                     entries.append(event)
-                if stopped or event.finished:
-                    if not stopped:
-                        text_parts.append(checker.flush())
-                    finish = _finish_reason(event, stopped)
+                if stopped:
+                    finish, out_tokens = "stop", event.num_output_tokens
+                    if not event.finished:
+                        await engine.abort(choice_ids[i])
+                    break
+                if event.finished:
+                    text_parts.append(checker.flush())
+                    finish = _finish_reason(event, False)
                     out_tokens = event.num_output_tokens
                     break
+            if params.logprobs:
+                # Tokens a (multi-token) stop string consumed leave the
+                # content, and their entries with them.
+                entries = entries[: checker.aligned_token_count()]
+            return "".join(text_parts), entries, finish, out_tokens
+
+        tasks = [asyncio.create_task(drain_choice(i, g)) for i, g in enumerate(gens)]
+        try:
+            drained = await asyncio.gather(*tasks)
+        except DeadlineExceeded as e:
+            # One choice expired while queued; the deadline holds for the
+            # whole request, so the siblings go too (below) and it is shed.
+            return _error(str(e), 504, "deadline_expired", code=504)
         finally:
-            await gen.aclose()
-        text = "".join(text_parts)
-        if chat:
-            choice = {"index": 0, "message": {"role": "assistant", "content": text},
-                      "finish_reason": finish}
-            if params.logprobs:
-                choice["logprobs"] = {"content": [logprob_entry(e) for e in entries]}
-        else:
-            choice = {"index": 0, "text": (prompt + text) if params.echo else text,
-                      "finish_reason": finish}
-            if params.logprobs:
-                toks = [token_text(e.token_id) for e in entries]
-                offsets, pos = [], 0
-                for t in toks:
-                    offsets.append(pos)
-                    pos += len(t)
-                choice["logprobs"] = {
-                    "tokens": toks,
-                    "token_logprobs": [e.logprob for e in entries],
-                    "top_logprobs": [
-                        {tokenizer.decode([tid]): lp for tid, lp in (e.top_logprobs or [])}
-                        for e in entries
-                    ],
-                    "text_offset": offsets,
-                }
+            # A failed or expired choice cancels the rest: cancelling closes
+            # a choice's generator, which aborts it in the engine.
+            for t in tasks:
+                t.cancel()
+        choices = []
+        total_out = 0
+        for i, (text, entries, finish, out_tokens) in enumerate(drained):
+            total_out += out_tokens
+            if chat:
+                choice = {"index": i,
+                          "message": {"role": "assistant", "content": text},
+                          "finish_reason": finish}
+                if params.logprobs:
+                    choice["logprobs"] = {"content": [logprob_entry(e) for e in entries]}
+            else:
+                choice = {"index": i, "text": (prompt + text) if params.echo else text,
+                          "finish_reason": finish}
+                if params.logprobs:
+                    toks = [token_text(e.token_id) for e in entries]
+                    text_offsets, pos = [], 0
+                    for t in toks:
+                        text_offsets.append(pos)
+                        pos += len(t)
+                    choice["logprobs"] = {
+                        "tokens": toks,
+                        "token_logprobs": [e.logprob for e in entries],
+                        "top_logprobs": [
+                            {tokenizer.decode([tid]): lp
+                             for tid, lp in (e.top_logprobs or [])}
+                            for e in entries
+                        ],
+                        "text_offset": text_offsets,
+                    }
+            choices.append(choice)
         return web.json_response(
             {
                 "id": request_id,
                 "object": "chat.completion" if chat else "text_completion",
                 "created": created,
                 "model": model_name,
-                "choices": [choice],
-                "usage": {
-                    "prompt_tokens": len(prompt_token_ids),
-                    "completion_tokens": out_tokens,
-                    "total_tokens": len(prompt_token_ids) + out_tokens,
-                },
+                "choices": choices,
+                "usage": usage(total_out),
             },
             headers={"X-Request-Id": request_id},
         )
 
+    # vLLM's /tokenize and /detokenize: clients budget long-context
+    # requests against max_model_len without shipping the tokenizer.
+    async def tokenize(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error("invalid JSON")
+        tokenizer = engine.engine.tokenizer
+        prompt = body.get("prompt")
+        messages = body.get("messages")
+        if isinstance(messages, list):
+            try:
+                prompt = tokenizer.apply_chat_template(messages)
+            except Exception as e:
+                return _error(f"chat template failed: {e}")
+        if not isinstance(prompt, str):
+            return _error("'prompt' (string) or 'messages' (list) is required")
+        ids = tokenizer.encode(prompt)
+        return web.json_response({
+            "tokens": ids,
+            "count": len(ids),
+            "max_model_len": engine.engine.config.scheduler.max_model_len,
+        })
+
+    async def detokenize(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+        except json.JSONDecodeError:
+            return _error("invalid JSON")
+        tokens = body.get("tokens")
+        if not isinstance(tokens, list) or not all(isinstance(t, int) for t in tokens):
+            return _error("'tokens' must be a list of ids")
+        return web.json_response({"prompt": engine.engine.tokenizer.decode(tokens)})
+
+    # On-demand profiling (vLLM's /start_profile and /stop_profile) on
+    # torch.profiler: serving goes on while the trace records, so a
+    # latency spike can be caught in place.  The Chrome trace lands in
+    # trace_dir, viewable in Perfetto.
+    profile_state = {"dir": None, "prof": None}
+
+    async def start_profile(request: web.Request) -> web.Response:
+        if profile_state["dir"] is not None:
+            return web.json_response(
+                {"error": {"message": "profiling already running "
+                           f"(writing {profile_state['dir']})"}},
+                status=409,
+            )
+        try:
+            body = await request.json()
+        except Exception:
+            body = {}
+        trace_dir = body.get("trace_dir") or os.environ.get(
+            "PSTPU_PROFILE_DIR", os.path.join(tempfile.gettempdir(), "pstpu_profile")
+        )
+        try:
+            prof = _start_torch_profiler(engine.engine.device)
+        except Exception as e:
+            return web.json_response(
+                {"error": {"message": f"start_trace failed: {e}"}}, status=500
+            )
+        profile_state.update(dir=trace_dir, prof=prof)
+        logger.info("profiling started -> %s", trace_dir)
+        return web.json_response({"ok": True, "trace_dir": trace_dir})
+
+    async def stop_profile(_req: web.Request) -> web.Response:
+        if profile_state["dir"] is None:
+            return web.json_response(
+                {"error": {"message": "profiling is not running"}}, status=409
+            )
+        trace_dir, prof = profile_state["dir"], profile_state["prof"]
+        profile_state.update(dir=None, prof=None)
+        try:
+            # Stopped on the thread that started it; the export, which
+            # can take seconds, off the event loop.
+            prof.stop()
+            await asyncio.to_thread(_export_trace, prof, trace_dir)
+        except Exception as e:
+            return web.json_response(
+                {"error": {"message": f"stop_trace failed: {e}"}}, status=500
+            )
+        logger.info("profiling stopped; trace in %s", trace_dir)
+        return web.json_response({"ok": True, "trace_dir": trace_dir})
+
     app.router.add_get("/v1/models", models)
     app.router.add_get("/health", health)
+    app.router.add_get("/ready", ready)
+    app.router.add_post("/drain", drain_endpoint)
+    app.router.add_get("/metrics", metrics)
     app.router.add_post("/v1/chat/completions", chat_completions)
     app.router.add_post("/v1/completions", completions)
+    app.router.add_post("/tokenize", tokenize)
+    app.router.add_post("/detokenize", detokenize)
+    app.router.add_post("/start_profile", start_profile)
+    app.router.add_post("/stop_profile", stop_profile)
 
     async def lifecycle(_app):
         await engine.start()
@@ -430,16 +900,67 @@ def build_engine_app(engine: AsyncEngine, served_model: str) -> web.Application:
     return app
 
 
+def _parse_buckets(args):
+    """--prefill-buckets, checked as the parser reads it: each bucket a
+    positive multiple of --block-size (a prefill plan has bucket //
+    block_size new blocks), returned ascending (the scheduler chunks long
+    prompts at the largest)."""
+    try:
+        buckets = sorted(int(b) for b in args.prefill_buckets.split(","))
+    except ValueError:
+        raise SystemExit(f"--prefill-buckets must be integers: {args.prefill_buckets!r}")
+    for b in buckets:
+        if b <= 0 or b % args.block_size:
+            raise SystemExit(
+                f"--prefill-buckets entries must be positive multiples of "
+                f"--block-size={args.block_size}; got {b}"
+            )
+    return tuple(buckets)
+
+
 def build_parser() -> argparse.ArgumentParser:
+    """The flags of what this engine serves, with the JAX server's names,
+    defaults and meanings (plus ``--device``).  Flags of features not
+    ported yet come with their features."""
     parser = argparse.ArgumentParser(
         description="PyTorch/CUDA serving engine (OpenAI API)"
     )
-    parser.add_argument("--model", default="tiny-llama", help="model preset name")
+    parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--model", default="tiny-llama", help="model preset name")
+    parser.add_argument("--served-model-name", default=None)
+    parser.add_argument("--tokenizer", default=None)
+    parser.add_argument(
+        "--chat-template",
+        default=None,
+        help="path to a Jinja chat-template file overriding the "
+        "tokenizer's (the chart mounts modelSpec.chatTemplate here)",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help="torch device the engine runs on (default cuda; cpu on purpose only)",
     )
+    parser.add_argument("--max-num-seqs", type=int, default=8)
+    parser.add_argument("--max-model-len", type=int, default=2048)
+    parser.add_argument("--block-size", type=int, default=16)
+    parser.add_argument("--num-blocks", type=int, default=None)
+    parser.add_argument(
+        "--prefill-buckets",
+        default=None,
+        help="comma-separated prefill bucket lengths (prompts beyond the "
+        "largest bucket run as chunked prefill)",
+    )
+    parser.add_argument(
+        "--max-num-batched-tokens",
+        type=int,
+        default=None,
+        help="token budget per fused mixed step (decode tokens count "
+        "first, the prefill chunk gets the remainder; a mixed K-step "
+        "window applies it per iteration); default admits the largest "
+        "chunk bucket beside a full decode batch",
+    )
+    parser.add_argument("--no-prefix-caching", action="store_true")
+    parser.add_argument("--dtype", default=None, help="override preset dtype")
     parser.add_argument(
         "--kv-cache-dtype",
         default=None,
@@ -505,41 +1026,130 @@ def build_parser() -> argparse.ArgumentParser:
         "or K-step window N+1 while N's tokens are in flight; greedy "
         "streams are identical)",
     )
+    parser.add_argument(
+        "--no-admission-control",
+        action="store_true",
+        help="disable bounded admission (the waiting queue then grows "
+        "without bound; overload times out in the middle instead of being "
+        "shed with a 429 at the edge)",
+    )
+    parser.add_argument(
+        "--max-queued-requests", type=int, default=None,
+        help="waiting-queue request bound for bounded admission "
+        "(default: 4 x --max-num-seqs)",
+    )
+    parser.add_argument(
+        "--max-queued-tokens", type=int, default=None,
+        help="waiting-queue prompt-token bound for bounded admission "
+        "(default: 2 x --max-num-seqs x --max-model-len)",
+    )
+    parser.add_argument(
+        "--step-watchdog-s", type=float, default=300.0,
+        help="fail /health liveness when the engine step loop has not "
+        "iterated in this many seconds (hung device dispatch); 0 disables",
+    )
+    parser.add_argument(
+        "--drain-grace-s", type=float, default=30.0,
+        help="on SIGTERM or POST /drain: stop admitting (503 + "
+        "Connection: close), flip /ready to 503, let in-flight streams "
+        "finish up to this many seconds, then exit 0",
+    )
+    parser.add_argument("--log-level", default="info")
     return parser
 
 
 def config_from_args(args):
     """The engine config for parsed flags: the preset, the served slice
-    (``SLICE_OVERRIDES``), then the KV dtype, mixed-step, mixed-window,
-    window and pipeline flags."""
+    (``SLICE_OVERRIDES``), then the flags, mapped as the JAX server maps
+    them."""
     return config_from_preset(args.model, **{
         **SLICE_OVERRIDES,
-        **({"scheduler.mixed_batch": False} if args.no_mixed_batch else {}),
-        **({"scheduler.mixed_window": False} if args.no_mixed_window else {}),
-        **({"scheduler.multi_prompt_window": False}
-           if args.no_multi_prompt_window else {}),
-        **({"cache.kv_cache_dtype": args.kv_cache_dtype}
-           if args.kv_cache_dtype else {}),
+        "tokenizer": args.tokenizer,
+        "scheduler.max_num_seqs": args.max_num_seqs,
+        "scheduler.max_model_len": args.max_model_len,
+        **({"scheduler.prefill_buckets": _parse_buckets(args)}
+           if args.prefill_buckets else {}),
         "scheduler.num_scheduler_steps": args.num_scheduler_steps,
         **({"scheduler.multi_step_window": False}
            if args.no_multi_step_window else {}),
         "scheduler.decode_window": args.decode_window,
         **({"scheduler.pipeline_decode": False}
            if args.no_pipeline_decode else {}),
+        **({"scheduler.mixed_batch": False} if args.no_mixed_batch else {}),
+        **({"scheduler.mixed_window": False} if args.no_mixed_window else {}),
+        **({"scheduler.multi_prompt_window": False}
+           if args.no_multi_prompt_window else {}),
+        **({"scheduler.max_num_batched_tokens": args.max_num_batched_tokens}
+           if args.max_num_batched_tokens is not None else {}),
+        "cache.block_size": args.block_size,
+        "cache.num_blocks": args.num_blocks,
+        "cache.enable_prefix_caching": not args.no_prefix_caching,
+        **({"cache.kv_cache_dtype": args.kv_cache_dtype}
+           if args.kv_cache_dtype else {}),
+        **({"model.dtype": args.dtype} if args.dtype else {}),
+        **({"scheduler.admission_control": False}
+           if args.no_admission_control else {}),
+        **({"scheduler.max_queued_requests": args.max_queued_requests}
+           if args.max_queued_requests is not None else {}),
+        **({"scheduler.max_queued_tokens": args.max_queued_tokens}
+           if args.max_queued_tokens is not None else {}),
+        "scheduler.step_watchdog_s": args.step_watchdog_s,
     })
+
+
+def on_sigterm(drain: DrainController) -> None:
+    """What SIGTERM does to a serving engine: begin the graceful drain."""
+    logger.info("SIGTERM: beginning graceful drain")
+    drain.begin()
+
+
+def install_sigterm_drain(app: web.Application) -> None:
+    """Graceful SIGTERM (pod termination): a drain instead of aiohttp's
+    immediate exit.  At startup the drain's exit_cb becomes a SIGINT to
+    this process, which takes aiohttp's graceful exit through cleanup_ctx
+    (engine.close), so the process exits 0 once the streams finish.
+    on_startup runs after the runner registered aiohttp's own handlers,
+    so this one wins."""
+
+    async def install(app_: web.Application) -> None:
+        drain = app_["drain"]
+        drain.exit_cb = lambda: os.kill(os.getpid(), signal.SIGINT)
+        loop = asyncio.get_running_loop()
+        try:
+            loop.add_signal_handler(signal.SIGTERM, on_sigterm, drain)
+        except (NotImplementedError, RuntimeError):  # not the main thread
+            pass
+
+    app.on_startup.append(install)
 
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
-        level=logging.INFO,
+        level=args.log_level.upper(),
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s",
     )
     config = config_from_args(args)
     engine = AsyncEngine(config, device=args.device)
-    app = build_engine_app(engine, args.model)
-    logger.info("Starting engine (%s) on port %d", args.model, args.port)
-    web.run_app(app, host="0.0.0.0", port=args.port, access_log=None)
+    if args.chat_template:
+        with open(args.chat_template, "r", encoding="utf-8") as f:
+            engine.engine.tokenizer.chat_template = f.read()
+        try:
+            # Fail at boot, not per request: render a probe conversation.
+            engine.engine.tokenizer.apply_chat_template(
+                [{"role": "system", "content": "probe"},
+                 {"role": "user", "content": "probe"}]
+            )
+        except Exception as e:
+            raise SystemExit(
+                f"--chat-template {args.chat_template} failed to render: "
+                f"{type(e).__name__}: {e}"
+            )
+    served = args.served_model_name or args.model
+    app = build_engine_app(engine, served, drain_grace_s=args.drain_grace_s)
+    install_sigterm_drain(app)
+    logger.info("Starting engine (%s) on %s:%d", served, args.host, args.port)
+    web.run_app(app, host=args.host, port=args.port, access_log=None)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,8 @@ flight with the lookahead pipeline) and then collects the oldest, so the
 outputs fan out while the next step computes.  Requests and per-token
 outputs cross the thread boundary through a lock-guarded submission list and
 ``loop.call_soon_threadsafe`` hand-offs into per-request asyncio queues.
+Before each scheduler pass the loop aborts queued requests whose client
+deadline has passed (the consumer sees :class:`DeadlineExceeded`).
 Multi-host lockstep and the batched encode lane are not ported.
 """
 
@@ -29,6 +31,13 @@ from production_stack_tpu_torch.engine.core.sequence import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+class DeadlineExceeded(Exception):
+    """Raised into a request's event stream when its client deadline
+    expired while the sequence was still waiting or preempted (the step
+    loop's deadline sweep aborted it before it took a batch slot).  The
+    API server maps it to a structured 504."""
 
 
 @dataclasses.dataclass
@@ -75,6 +84,11 @@ class AsyncEngine:
         # Wall clock of the step loop's most recent iteration start
         # (the /health watchdog reads it).
         self._last_step_ts: Optional[float] = None
+        # Set once any request carries a deadline: the sweep runs only then.
+        self._any_deadlines = False
+        # The wall clock the step loop reads (tests substitute one to
+        # expire a deadline without racing the real clock).
+        self._clock = time.time
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -109,6 +123,8 @@ class AsyncEngine:
         if prompt_token_ids is None:
             prompt_token_ids = self.engine.tokenizer.encode(prompt or "")
         params = sampling_params or SamplingParams()
+        if params.deadline is not None:
+            self._any_deadlines = True
         with self._lock:
             self._pending.append((request_id, prompt_token_ids, params))
             self._pending_tokens += len(prompt_token_ids)
@@ -177,7 +193,7 @@ class AsyncEngine:
         ts = self._last_step_ts
         if ts is None:
             return 0.0
-        return max(0.0, time.time() - ts)
+        return max(0.0, self._clock() - ts)
 
     @property
     def step_thread_healthy(self) -> bool:
@@ -192,11 +208,25 @@ class AsyncEngine:
     def _run_loop(self) -> None:
         logger.info("engine step loop started")
         while not self._shutdown.is_set():
-            self._last_step_ts = time.time()
+            self._last_step_ts = self._clock()
             with self._lock:
                 pending, self._pending = self._pending, []
                 aborts, self._aborts = self._aborts, []
                 self._pending_tokens -= sum(len(p[1]) for p in pending)
+            # Deadline sweep, each scheduler pass: expired waiting and
+            # preempted sequences join this iteration's aborts.
+            if self._any_deadlines and self.engine.has_unfinished():
+                for request_id in self.engine.scan_expired_deadlines(
+                    self._last_step_ts
+                ):
+                    if request_id in aborts:
+                        continue
+                    aborts.append(request_id)
+                    self.engine.deadline_expired += 1
+                    self._emit(request_id, DeadlineExceeded(
+                        f"request {request_id} missed its deadline while "
+                        "queued; shed before occupying a batch slot"
+                    ))
             for request_id in aborts:
                 self.engine.abort_request(request_id)
             for request_id, token_ids, params in pending:
