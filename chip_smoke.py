@@ -103,6 +103,26 @@ non-zero (no phase is caught and passed over):
    ``pipeline_decode=False``) at 4 layers, dense: phase 4's requests
    through eager single steps and K=1 mixed steps, no window and no
    graph.
+8. The KV tiers at full width (``phase_kv_tiers``): the port's kvserver
+   runs as a subprocess on localhost.  A dense ``disagg_role="prefill"``
+   engine serves a 3000-token prompt and a 1500-token prompt sharing its
+   first 1024 tokens and exports their blocks (one block read back
+   through the client must equal the pool's bits); export MB/s and the
+   recomputed prompt's TTFT are reported.  A dense ``disagg_role=
+   "decode"`` engine with a host tier and a 512-block pool waits for the
+   3000-token prompt's chain (187 blocks) to be fetched, imports it and
+   serves the prompt (fetch and import seconds, TTFT beside the
+   recomputed one), then serves phase 4's 8 prompts with 256 new tokens
+   each, so sequences are preempted, offloaded and restored (stage and
+   restore seconds, preemptions).  An int8 engine on the int8 wire (v2
+   frames to the store) serves the 8 prompts again.  Every offload,
+   export, restore and import dispatch runs under
+   ``set_sync_debug_mode("error")``; each snapshot is held to the pool
+   blocks it came from, each restored block to its snapshot and each
+   imported block to the fetched one, bit for bit; the pool tensors keep
+   their addresses; every request gets all its tokens; saves, restores
+   and the import are above 0; the decode and flash-prefill kernels of
+   the pool's type launch.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1722,6 +1742,513 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     return row
 
 
+# -- phase 8: the KV tiers -------------------------------------------------
+
+# Phase 8's prompts: a 3000-token prompt (187 full 16-token blocks) and a
+# 1500-token prompt sharing its first 1024 tokens; then the engine
+# phases' 8 prompts with 256 new tokens each through a 512-block pool.
+KV_LONG = 3000
+KV_SHARED = 1024
+KV_SECOND = 1500
+KV_NEW_TOKENS = 256
+KV_POOL_BLOCKS = 512
+KV_HOST_GB = 8.0  # page-locked at each engine's boot; 8 preempted prompts need ~3.2
+KV_STORE_GB = 32.0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_kv_store() -> tuple:
+    """The port's kvserver as a subprocess on localhost; (process, url)
+    once it answers a ping."""
+    from production_stack_tpu_torch.kvserver.client import RemoteKVClient
+
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "production_stack_tpu_torch.kvserver.server",
+         "--host", "127.0.0.1", "--port", str(port),
+         "--capacity-gb", str(KV_STORE_GB), "--log-level", "warning"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    url = f"kv://127.0.0.1:{port}"
+    client = RemoteKVClient(url, timeout=2.0)
+    try:
+        deadline = time.time() + 60
+        while not client.ping():
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"the kvserver did not start (exit {proc.poll()})")
+            time.sleep(0.2)
+    except BaseException:
+        proc.kill()
+        proc.wait(10)
+        raise
+    finally:
+        client.close()
+    return proc, url
+
+
+def _sides_equal(got, want) -> bool:
+    if isinstance(want, tuple):
+        return all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+    return torch.equal(got.cpu(), want.cpu())
+
+
+def tier_checked(eng) -> dict:
+    """Make every transfer dispatch of ``eng`` (offload, export, restore,
+    import) run under ``torch.cuda.set_sync_debug_mode("error")``, and
+    hold what it moved to its source, outside that mode: each offloaded
+    snapshot to the pool blocks it was gathered from and each restored
+    block to its snapshot right after the dispatch (``check_s`` sums the
+    step-thread seconds these checks take), each imported block to the
+    fetched block right after its chain's import, before a later
+    allocation can take the block back (those seconds are left out of the
+    import dispatch's), or, while ``rec["defer_imports"]`` is set, when
+    ``rec["verify_deferred"]()`` is called, so that a measured TTFT does
+    not hold the check.  Returns the counts and the step-thread seconds
+    of each dispatch."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
+
+    rec = {"offload": 0, "export": 0, "restore": 0, "import": 0,
+           "offload_s": [], "export_s": [], "restore_s": [], "import_s": [],
+           "import_hits_s": [], "restored_s": [], "restore_results": {},
+           "snapshots_checked": 0, "restored_blocks_checked": 0,
+           "imported_blocks_checked": 0, "export_enqueued_at": [], "check_s": 0.0}
+    committed, entries, deferred, import_check_s = [], [], [], [0.0]
+    rec["defer_imports"] = False
+
+    def checked(name, fn, *args):
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        rec[name + "_s"].append(time.perf_counter() - t0)
+        rec[name] += 1
+        return out
+
+    def gather(side, ids):
+        return kv_quant.gather_blocks_wire(side, ids, eng._wire_quantized)
+
+    offload, restore = eng.scheduler.offload_cb, eng.scheduler.restore_cb
+
+    def offload_cb(seq, block_ids):
+        ok = checked("offload", offload, seq, block_ids)
+        t0 = time.perf_counter()
+        if ok and committed:
+            host_layers, ready = committed.pop()
+            if ready is not None:
+                ready.synchronize()
+            ids = torch.tensor(block_ids, device=eng.device)
+            for (k, v), (hk, hv) in zip(eng.kv_caches, host_layers):
+                if not (_sides_equal(gather(k, ids), hk) and _sides_equal(gather(v, ids), hv)):
+                    raise AssertionError(f"offload of {seq.seq_id}: snapshot != pool blocks")
+            rec["snapshots_checked"] += 1
+        committed.clear()
+        rec["check_s"] += time.perf_counter() - t0
+        return ok
+
+    def restore_cb(seq):
+        entries.clear()
+        result = checked("restore", restore, seq)
+        rec["restore_results"][result] = rec["restore_results"].get(result, 0) + 1
+        if result == "restored":
+            t0 = time.perf_counter()
+            rec["restored_s"].append(rec["restore_s"][-1])
+            n = len(seq.block_table)
+            ids = torch.tensor(seq.block_table, device=eng.device)
+            for (k, v), (hk, hv) in zip(eng.kv_caches, entries[0].layers):
+                for side, host in ((k, hk), (v, hv)):
+                    if not _sides_equal(gather(side, ids), kv_quant.slice_host_side(host, n)):
+                        raise AssertionError(f"restore of {seq.seq_id}: blocks != snapshot")
+            rec["restored_blocks_checked"] += n
+            rec["check_s"] += time.perf_counter() - t0
+        return result
+
+    eng.scheduler.offload_cb, eng.scheduler.restore_cb = offload_cb, restore_cb
+    if eng._offload_stager is not None:
+        commit = eng._offload_stager.commit
+
+        def commit_spy(seq_id, host_layers, num_tokens, region, ready=None):
+            committed.append((host_layers, ready))
+            return commit(seq_id, host_layers, num_tokens, region, ready=ready)
+
+        eng._offload_stager.commit = commit_spy
+    restore_entry = eng._restore_entry
+
+    def restore_entry_spy(seq_id):
+        entry = restore_entry(seq_id)
+        if entry is not None and entry is not eng._RESTORE_PENDING:
+            entries.append(entry)
+        return entry
+
+    eng._restore_entry = restore_entry_spy
+    export = eng._export_prefix_blocks
+
+    def export_checked(seq):
+        rec["export_enqueued_at"].append(time.time())
+        return checked("export", export, seq)
+
+    eng._export_prefix_blocks = export_checked
+    import_chain = eng._import_prefetch_to_cache
+
+    def verify_import(chain, new):
+        held = eng.block_pool._hash_to_block
+        rows = [(held[d], layers) for d, layers in zip(chain.hashes, chain.blocks)
+                if d in new]
+        ids = torch.tensor([b for b, _ in rows], device=eng.device)
+        for layer, (k, v) in enumerate(eng.kv_caches):
+            for side, i in ((k, 0), (v, 1)):
+                want = kv_quant.stack_wire_blocks([layers[layer][i] for _, layers in rows])
+                if not _sides_equal(gather(side, ids), want):
+                    raise AssertionError("imported blocks != fetched blocks")
+        rec["imported_blocks_checked"] += len(rows)
+
+    def import_spy(chain):
+        held = eng.block_pool._hash_to_block
+        missing = [d for d in chain.hashes if d not in held]
+        out = import_chain(chain)
+        new = {d for d in missing if d in held}
+        if new and rec["defer_imports"]:
+            deferred.append((chain, new))
+        elif new:
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode(0)
+            t0 = time.perf_counter()
+            try:
+                verify_import(chain, new)
+            finally:
+                import_check_s[0] += time.perf_counter() - t0
+                torch.cuda.set_sync_debug_mode(mode)
+        return out
+
+    eng._import_prefetch_to_cache = import_spy
+    drain = eng._drain_prefetched
+
+    def drain_checked():
+        # Every drain runs checked; the seconds of those that imported
+        # are the import dispatches' (their checks' seconds left out).
+        checked_before, n_deferred = rec["imported_blocks_checked"], len(deferred)
+        import_check_s[0] = 0.0
+        checked("import", drain)
+        rec["import_s"][-1] -= import_check_s[0]
+        rec["check_s"] += import_check_s[0]
+        if rec["imported_blocks_checked"] > checked_before or deferred[n_deferred:]:
+            rec["import_hits_s"].append(rec["import_s"][-1])
+
+    def verify_deferred():
+        t0 = time.perf_counter()
+        for chain, new in deferred:
+            verify_import(chain, new)
+        deferred.clear()
+        rec["check_s"] += time.perf_counter() - t0
+
+    eng._drain_prefetched = drain_checked
+    rec["verify_deferred"] = verify_deferred
+    return rec
+
+
+def _serve_greedy(eng, requests: list, walls: list = None) -> dict:
+    """Greedy streams of [(id, prompt ids, max_tokens)] submitted together,
+    driven by step() to the end; returns {id: (ttft_s, tokens)}.  Each
+    step's wall is appended to ``walls`` when given."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    t0 = time.time()
+    for rid, ids, n in requests:
+        eng.add_request(rid, prompt_token_ids=ids, sampling_params=SamplingParams(
+            max_tokens=n, temperature=0.0, ignore_eos=True))
+    first, streams, steps = {}, {}, 0
+    while eng.has_unfinished() or eng.has_pending():
+        t_step = time.time()
+        outs = eng.step()
+        if walls is not None:
+            walls.append(time.time() - t_step)
+        for out in outs:
+            first.setdefault(out.seq_id, time.time() - t0)
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+        steps += 1
+        if steps > 20000:
+            raise AssertionError("the engine did not drain")
+    torch.cuda.synchronize()
+    return {rid: (first.get(rid), streams.get(rid, [])) for rid, _, _ in requests}
+
+
+def _kv_engine(role, url, kv_cache_dtype="auto", host_gb=0.0, num_blocks=None):
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+
+    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+        "scheduler.max_model_len": 32768, "scheduler.max_num_seqs": NUM_REQUESTS,
+        "cache.kv_cache_dtype": kv_cache_dtype, "cache.remote_kv_url": url,
+        "cache.disagg_role": role, "cache.host_offload_gb": host_gb,
+        "cache.num_blocks": num_blocks,
+    })
+    if cfg.scheduler.preemption_mode != "offload":
+        raise AssertionError("offload preemption is the default")
+    t0 = time.time()
+    eng = LLMEngine(cfg)  # default device: the card
+    eng.boot_s = time.time() - t0  # a host tier is page-locked here
+    return eng
+
+
+def _pool_ptrs(eng) -> list:
+    return [t.data_ptr() for layer in eng.kv_caches for side in layer
+            for t in (side if isinstance(side, tuple) else (side,))]
+
+
+def _offload_half(eng, rec, prompts, label: str) -> dict:
+    """The 8 prompts with KV_NEW_TOKENS new tokens each through the
+    512-block pool: preemption is certain, and every preempted sequence is
+    offloaded (or recomputes when the stager is busy) and restored."""
+    ptrs = _pool_ptrs(eng)
+    t0 = time.time()
+    out = _serve_greedy(eng, [(f"{label}{i}", ids, KV_NEW_TOKENS)
+                              for i, ids in enumerate(prompts)])
+    wall = time.time() - t0
+    eng._offload_stager.wait_idle(60)
+    short = {rid: len(t) for rid, (_, t) in out.items() if len(t) != KV_NEW_TOKENS}
+    if short:
+        raise AssertionError(f"{label}: requests short of their tokens: {short}")
+    o, stats = eng.offload, eng.stats()
+    row = {
+        "boot_s": eng.boot_s,
+        "wall_s": wall,
+        "output_tok_s": len(prompts) * KV_NEW_TOKENS / wall,
+        "preemptions": eng.scheduler.num_preemptions,
+        "offload_saves": o.saves, "offload_restores": o.restores,
+        "offload_evictions": o.evictions, "offload_skipped": eng._offload_stager.skipped,
+        "offload_dispatch_s": rec["offload_s"], "restore_dispatch_s": rec["restored_s"],
+        "restore_results": rec["restore_results"],
+        "offload_stage_s": list(eng.kv_phase_seconds["offload_stage"]),
+        "snapshots_checked": rec["snapshots_checked"],
+        "checks_on_step_thread_s": rec["check_s"],
+        "restored_blocks_checked": rec["restored_blocks_checked"],
+        "kv_wire_bytes": {f"{t}/{f}": v for (t, f), v in stats["kv_wire_bytes"].items()},
+        "kv_snapshot_format": stats["kv_snapshot_format"],
+        "sync_checked": {k: rec[k] for k in ("offload", "restore", "export", "import")},
+    }
+    if not (o.saves > 0 and o.restores > 0 and row["restored_blocks_checked"] > 0
+            and row["snapshots_checked"] > 0):
+        raise AssertionError(f"{label}: no offload and restore: {row}")
+    if _pool_ptrs(eng) != ptrs:
+        raise AssertionError(f"{label}: a pool tensor moved")
+    return row
+
+
+def _kv_export(url: str, long: list, second: list, warm: list) -> tuple:
+    """The export half: a dense prefill-role engine serves a warm-up
+    prompt, then ``long`` and ``second``; returns (row, the first tokens of
+    ``long``, the content-key prefix)."""
+    from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
+    from production_stack_tpu_torch.kvserver.client import RemoteKVClient
+
+    exp = _kv_engine("prefill", url)
+    rec = None
+    try:
+        bs = exp.block_pool.block_size
+        px = exp._px_key_prefix()
+        _serve_greedy(exp, [("warm", warm, 4)])  # first-use costs off the TTFTs
+        exp.flush_prefix_exports(60.0)
+        warm_blocks = exp.remote_prefix_blocks_exported
+        warm_bytes = exp.stats()["kv_wire_bytes"].get(("remote", "dense"), 0)
+        rec = tier_checked(exp)
+        first = _serve_greedy(exp, [("long", long, 16)])["long"]
+        # The long prompt's export, from its enqueue at the final prefill
+        # to the last block written (MPUT answered).
+        t_flush = time.time()
+        exp.flush_prefix_exports(120.0)
+        export_s = time.time() - rec["export_enqueued_at"][0]
+        flush_s = time.time() - t_flush
+        export_bytes = exp.stats()["kv_wire_bytes"].get(("remote", "dense"), 0) - warm_bytes
+        _serve_greedy(exp, [("second", second, 16)])
+        exp.flush_prefix_exports(120.0)
+        chain = prefix_block_hashes(long, bs)
+        want_blocks = len(chain) + len(prefix_block_hashes(second, bs)) - KV_SHARED // bs
+        exported = exp.remote_prefix_blocks_exported - warm_blocks
+        if exported != want_blocks or rec["export"] != 2:
+            raise AssertionError(f"exported {exported} blocks in {rec['export']} "
+                                 f"dispatches, want {want_blocks} in 2")
+        # One exported block, read back through the client, bit for bit.
+        client = RemoteKVClient(url)
+        try:
+            digest = chain[len(chain) // 2]
+            layers, _ = client.get_blocks(px + digest.hex())
+        finally:
+            client.close()
+        block = torch.tensor([exp.block_pool._hash_to_block[digest]], device=exp.device)
+        for (k, v), (hk, hv) in zip(exp.kv_caches, layers):
+            if not (torch.equal(k.index_select(0, block).cpu(), hk)
+                    and torch.equal(v.index_select(0, block).cpu(), hv)):
+                raise AssertionError("the exported block read back differs from the pool")
+        row = {"boot_s": exp.boot_s, "blocks": exported, "long_prompt_blocks": len(chain),
+               "long_prompt_bytes": export_bytes,
+               "block_mib": export_bytes / len(chain) / 2**20,
+               "long_prompt_s": export_s, "flush_wait_s": flush_s,
+               "mb_per_s": export_bytes / 1e6 / export_s,
+               "dispatch_s": rec["export_s"], "ttft_s": first[0]}
+        return row, first[1], px
+    finally:
+        exp.close()
+        # rec's closures hold the engine too.  While an error propagates,
+        # its frames hold the engine: free what can be, and let it show.
+        del exp, rec
+        free_engines(strict=sys.exc_info()[0] is None)
+
+
+def _kv_import_offload(url: str, px: str, long: list, miss: list, warm: list,
+                       exported_first: list, prompts: list) -> tuple:
+    """The import-and-offload half on a dense decode-role engine with a
+    host tier and a 512-block pool: a warm-up prompt, a 3000-token prompt
+    the store does not hold (recomputed), the exported chain of ``long``
+    fetched and imported, then the 8 prompts under preemption; returns
+    (import row, offload row)."""
+    from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
+
+    dec = _kv_engine("decode", url, host_gb=KV_HOST_GB, num_blocks=KV_POOL_BLOCKS)
+    rec = None
+    try:
+        if dec._px_key_prefix() != px:
+            raise AssertionError("the decode engine's content keys differ")
+        _serve_greedy(dec, [("warm", warm, 4)])
+        recompute = _serve_greedy(dec, [("miss", miss, 16)])["miss"]
+        rec = tier_checked(dec)
+        _reset_launches()
+        before = dec.remote_prefix_blocks_fetched
+        t0 = time.time()
+        outcome = dec.wait_handoff_prefix(long, 0, {"px": px}, 120.0)
+        fetch_s = time.time() - t0
+        if outcome != "hit":
+            raise AssertionError(f"the chain was not staged: {outcome}")
+        walls = []
+        rec["defer_imports"] = True
+        imported = _serve_greedy(dec, [("long", long, 16)], walls)["long"]
+        # The request's own admission prefetch fetched its chain again
+        # (the reference's dedupe covers in-flight fetches only): let it
+        # land and drain it here, so it imports nothing and does not land
+        # in the offload half.  Then the chain's blocks, still cached (the
+        # pool holds every prompt so far), are held to what was fetched.
+        dec.flush_prefix_imports(120.0)
+        dec._drain_prefetched()
+        rec["verify_deferred"]()
+        rec["defer_imports"] = False
+        fetched = dec.remote_prefix_blocks_fetched - before
+        n = len(prefix_block_hashes(long, dec.block_pool.block_size))
+        if fetched != n or rec["imported_blocks_checked"] != n:
+            raise AssertionError(f"imported {fetched} blocks, checked "
+                                 f"{rec['imported_blocks_checked']}, want {n}")
+        if len(imported[1]) != 16:
+            raise AssertionError(f"the imported request got {len(imported[1])} tokens")
+        import_row = {"blocks": fetched, "fetch_s": fetch_s,
+                      "import_dispatch_s": rec["import_hits_s"],
+                      "import_ttft_s": imported[0], "recompute_ttft_s": recompute[0],
+                      "step_walls_s": walls,
+                      "first_tokens_equal_exporter": imported[1][:4] == exported_first[:4]}
+        row = _offload_half(dec, rec, prompts, "d")
+        row["launches"] = launch_counts()
+        # Every chain fetch's seconds on its fetcher thread, and the blocks
+        # fetched but dropped unused (the imported request's second fetch
+        # of its chain).
+        import_row["fetches_s"] = list(dec.kv_phase_seconds["remote_kv_fetch"])
+        import_row["prefetch_waste_blocks"] = dec.kv_prefetch.waste_blocks
+        for k in ("paged_decode", "flash_prefill"):
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"dense KV tiers: {k} never launched")
+        return import_row, row
+    finally:
+        dec.close()
+        # rec's closures hold the engine too.  While an error propagates,
+        # its frames hold the engine: free what can be, and let it show.
+        del dec, rec
+        free_engines(strict=sys.exc_info()[0] is None)
+
+
+def _kv_int8(url: str, prompts: list) -> dict:
+    """The offload half on an int8 pool on the int8 wire: its snapshots go
+    to the store as v2 frames."""
+    i8 = _kv_engine(None, url, kv_cache_dtype="int8", host_gb=KV_HOST_GB,
+                    num_blocks=KV_POOL_BLOCKS)
+    rec = None
+    try:
+        if not i8._wire_quantized:
+            raise AssertionError("the int8 engine is not on the int8 wire")
+        rec = tier_checked(i8)
+        _reset_launches()
+        row = _offload_half(i8, rec, prompts, "q")
+        row["launches"] = launch_counts()
+        if not (row["kv_snapshot_format"].get("v2", 0) > 0
+                and row["kv_wire_bytes"].get("host/int8", 0) > 0):
+            raise AssertionError(f"int8: no v2 snapshot on the wire: {row}")
+        for k in ("paged_decode_int8", "flash_prefill_int8", "kv_write_int8"):
+            if row["launches"][k] <= 0:
+                raise AssertionError(f"int8 KV tiers: {k} never launched")
+        return row
+    finally:
+        i8.close()
+        # rec's closures hold the engine too.  While an error propagates,
+        # its frames hold the engine: free what can be, and let it show.
+        del i8, rec
+        free_engines(strict=sys.exc_info()[0] is None)
+
+
+def phase_kv_tiers() -> dict:
+    """The KV tiers at full width (llama-3.1-8b, 32 layers, bf16): the
+    port's kvserver in a subprocess; a dense prefill-role engine exports
+    a 3000-token prompt and a 1500-token one sharing its first 1024
+    tokens (one exported block read back through the client equals the
+    engine's pool bit for bit); a dense decode-role engine with a host
+    tier and a 512-block pool imports the 3000-token prompt's chain (187
+    blocks) and serves it, then the 8 prompts with 256 new tokens each,
+    preempting, offloading and restoring; last an int8 engine on the int8
+    wire (v2 frames) serves the 8 prompts the same way.  Every transfer
+    dispatch runs under ``set_sync_debug_mode("error")`` and is held to
+    its source (``tier_checked``).  The launch counters are set to 0
+    before each engine's measured path and read after it."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+
+    vocab = config_from_preset(MODEL).model.vocab_size
+    rng = np.random.default_rng(7)
+    long = rng.integers(4, vocab, KV_LONG).tolist()
+    second = long[:KV_SHARED] + rng.integers(4, vocab, KV_SECOND - KV_SHARED).tolist()
+    miss = rng.integers(4, vocab, KV_LONG).tolist()
+    prompts = [rng.integers(4, vocab, n).tolist() for n in PROMPT_LENS]
+    warm = rng.integers(4, vocab, 64).tolist()
+    proc, url = start_kv_store()
+    try:
+        export_row, exported_first, px = _kv_export(url, long, second, warm)
+        # The decode engine's warm-up prompt differs: the store holds the
+        # exporter's.
+        import_row, dense_row = _kv_import_offload(
+            url, px, long, miss, warm[::-1], exported_first, prompts)
+        int8_row = _kv_int8(url, prompts)
+    finally:
+        proc.terminate()
+        proc.wait(30)
+    row = {"phase": "kv_tiers", "model": MODEL, "pool_blocks": KV_POOL_BLOCKS,
+           "host_offload_gb": KV_HOST_GB, "export": export_row, "import": import_row,
+           "offload_dense": dense_row, "offload_int8": int8_row}
+    emit(row)
+    return row
+
+
+def _reset_launches() -> None:
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+    from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+
+    pa.launches = pa.launches_int8 = 0
+    fp.launches = fp.launches_int8 = 0
+    kw.launches = 0
+
+
 KERNEL_META = {
     "paged_decode": {
         "source": "production_stack_tpu_torch/engine/ops/csrc/paged_decode.cu",
@@ -1751,18 +2278,73 @@ KERNEL_META = {
 }
 
 
-def free_engines() -> None:
-    """Release the card memory of engines no longer referenced.  aiohttp
-    keeps each app's middleware chain (the server's drain gate) in a
-    module-level cache, which holds the app and through it the engine,
-    its weights and its KV pool: clear it first."""
+def free_engines(strict: bool = True, timeout: float = 30.0) -> None:
+    """Release the card memory of engines no longer referenced, and fail,
+    naming what holds them, if an engine outlives its close by
+    ``timeout`` seconds (a worker thread still running holds its engine
+    until it returns).  aiohttp keeps each app's middleware chain (the
+    server's drain gate) in a module-level cache, which holds the app and
+    through it the engine, its weights and its KV pool: clear it first."""
     from aiohttp import web_app
+
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
 
     cache = getattr(web_app, "_cached_build_middleware", None)
     if cache is not None:
         cache.cache_clear()
-    gc.collect()
+    t0, first = time.time(), True
+    while True:
+        gc.collect()
+        live = [o for o in gc.get_objects() if type(o) is LLMEngine]
+        if not live or not strict or time.time() > t0 + timeout:
+            break
+        if first:
+            print(f"chip_smoke: engines alive after their close, held by "
+                  f"{[_holders(e) for e in live]}", file=sys.stderr, flush=True)
+            first = False
+        del live
+        time.sleep(0.5)
+    if strict and not first:
+        print(f"chip_smoke: an engine outlived its close by {time.time() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+    if live and strict:
+        report = [_holders(e) for e in live]
+        threads = sorted(t.name for t in threading.enumerate())
+        del live
+        raise AssertionError(f"engines still referenced {timeout:.0f} s after their close: "
+                             f"{report}; threads: {threads}")
+    del live
     torch.cuda.empty_cache()
+
+
+def _holders(obj, depth: int = 3) -> list:
+    """What refers to ``obj``, ``depth`` levels up: type names, the
+    owners of dicts and cells, and the code and line of frames."""
+    import types
+
+    seen, out, level = {id(obj)}, [], [obj]
+    for _ in range(depth):
+        up = []
+        for o in level:
+            for r in gc.get_referrers(o):
+                if id(r) in seen or r is level or r is up or isinstance(r, types.FrameType) \
+                        and r.f_code.co_name in ("_holders", "free_engines"):
+                    continue
+                seen.add(id(r))
+                if isinstance(r, types.FrameType):
+                    out.append(f"frame {r.f_code.co_name}:{r.f_lineno}")
+                    continue
+                name = type(r).__name__
+                if isinstance(r, dict):
+                    name += f"[{next((k for k, v in r.items() if v is o), '?')!r}]"
+                elif isinstance(r, (types.FunctionType, types.ModuleType)):
+                    name += f" {getattr(r, '__qualname__', r.__name__)}"
+                elif isinstance(r, types.MethodType):
+                    name += f" {r.__func__.__qualname__}"
+                out.append(name)
+                up.append(r)
+        level = up
+    return out
 
 
 def main() -> int:
@@ -1807,6 +2389,8 @@ def main() -> int:
     int8.pop("engine")
     free_engines()
     timed("engine_single_step", phase_engine, "auto", single_step=True, layers=4)
+    free_engines()
+    kv = timed("kv_tiers", phase_kv_tiers)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's (paged entry, dense
@@ -1823,6 +2407,11 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", **KERNEL_META[name],
             "launches": launches[name],
+            # The KV-tiers phase's own path (import, offload and restore):
+            # the dense kernels from its dense engine, the int8 ones from
+            # its int8 engine.
+            "launches_kv_tiers": kv["offload_int8" if "int8" in name
+                                   else "offload_dense"]["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

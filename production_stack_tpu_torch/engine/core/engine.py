@@ -41,21 +41,34 @@ int8 ``(data, scale)`` tuples (``kv/quant.py``).  Prefill runs the
 flash-prefill kernel and decode the paged-decode kernel for the cache
 type whenever the tensors live on a CUDA device (``ops/attention.py``).
 
+The KV tiers (``kv/offload.py``, ``kv/prefetch.py``, ``kvserver/``):
+with ``preemption_mode="offload"`` (the default) and ``host_offload_gb >
+0`` a preempted sequence's blocks are gathered on the device and staged
+into pinned host memory off the step thread, then restored into fresh
+blocks in place of a recompute; ``remote_kv_url`` adds the shared store
+behind the host tier; ``disagg_role`` prefill / decode / both exports
+full prompt blocks under content keys after each final prefill and
+imports them at admission into the prefix cache.  Every gather, copy and
+write of these paths is enqueued on the stream the steps and graph
+replays run on, without a host sync; the writes go into the pool's own
+tensors in place.
+
 The engine serves the JAX package's default serving path, mixed and
-packed K-step windows included (``SLICE_OVERRIDES``: recompute
-preemption, no encode lane, no tracing; no LoRA / speculation / guided
-decoding / offload / remote KV / parallelism; dense or int8 KV;
-``mixed_window=False`` restores K=1 mixed steps while prompts wait) and
-raises ``NotImplementedError`` at construction for any setting outside
-it.
+packed K-step windows and the KV tiers included (``SLICE_OVERRIDES``: no
+encode lane, no tracing; no LoRA / speculation / guided decoding /
+parallelism; dense or int8 KV; ``mixed_window=False`` restores K=1 mixed
+steps while prompts wait) and raises ``NotImplementedError`` at
+construction for any setting outside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import queue
+import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -77,22 +90,35 @@ from production_stack_tpu_torch.engine.core.sequence import (
     StepOutput,
     host_state_flags,
 )
-from production_stack_tpu_torch.engine.kv.block_pool import BlockPool
+from production_stack_tpu_torch.engine.kv import quant as kv_quant
+from production_stack_tpu_torch.engine.kv.block_pool import (
+    BlockPool,
+    prefix_block_hashes,
+)
+from production_stack_tpu_torch.engine.kv.offload import (
+    HostOffloadManager,
+    OffloadStager,
+)
+from production_stack_tpu_torch.engine.kv.prefetch import (
+    PrefetchedChain,
+    PrefetchManager,
+)
 from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
+from production_stack_tpu_torch.kvserver.client import RemoteKVClient
+from production_stack_tpu_torch.kvserver.protocol import KVWireStats
 from production_stack_tpu_torch.obs.histogram import Histogram
 
 logger = logging.getLogger(__name__)
 
 # The configuration this engine serves, as ``config_from_preset``
 # overrides: the JAX engine's defaults (K-step windows with the lookahead
-# pipeline, mixed steps, mixed and packed K-step windows) without the
-# encode lane and tracing, with recompute preemption.
+# pipeline, mixed steps, mixed and packed K-step windows, offload
+# preemption) without the encode lane and tracing.
 SLICE_OVERRIDES = {
     "scheduler.encode_lane": False,
-    "scheduler.preemption_mode": "recompute",
     "obs.tracing": False,
 }
 
@@ -115,11 +141,8 @@ def _unsupported(config: EngineConfig) -> List[str]:
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
         (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
-        (s.preemption_mode != "recompute", "scheduler.preemption_mode != recompute"),
+        (c.disagg_role == "encode", "cache.disagg_role=encode (encode lane)"),
         (s.spec_drafter is not None, "speculative decoding"),
-        (c.host_offload_gb > 0, "cache.host_offload_gb (KV offload)"),
-        (c.remote_kv_url is not None or c.disagg_role is not None,
-         "cache.remote_kv_url / disagg_role (remote KV)"),
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
         (config.lora.enabled, "lora"),
         (config.obs.tracing, "obs.tracing"),
@@ -234,14 +257,42 @@ class LLMEngine:
             config.cache.block_size,
             enable_prefix_caching=config.cache.enable_prefix_caching,
         )
-        # Recompute preemption: no offload/restore/remote callbacks.
-        self.scheduler = Scheduler(config.scheduler, self.block_pool)
+        # Cross-engine prefix sharing (cache.disagg_role): content-keyed
+        # block export/import through the remote store.
+        self._disagg_role = config.cache.disagg_role
+        self._exports = self._disagg_role in ("prefill", "both")
+        self._imports = self._disagg_role in ("decode", "both")
+        # digest -> export expiry: entries re-export after the TTL so a
+        # store-side eviction doesn't silently end sharing.
+        self._exported_hashes: "OrderedDict[bytes, float]" = OrderedDict()
+        self._export_ttl_s = 300.0
+        self._export_queue: Optional[queue.Queue] = None
+        self._export_thread: Optional[threading.Thread] = None
+        # Guards the export thread/queue handles: lazily started from the
+        # step thread, retired from the close path.
+        self._export_lock = threading.Lock()
+        self.remote_prefix_blocks_fetched = 0
+        self.remote_prefix_blocks_exported = 0
+        # Disaggregated serving counters, written only by the API server's
+        # event loop: prefill-phase primes served, and decode-phase handoff
+        # prefetch outcomes.
+        self.disagg_prefill_primes = 0
+        self.disagg_handoff_hits = 0
+        self.disagg_handoff_misses = 0
+        self.scheduler = Scheduler(
+            config.scheduler,
+            self.block_pool,
+            offload_cb=self.offload_seq_blocks,
+            restore_cb=self.restore_seq_blocks,
+            remote_prefix_cb=self.fetch_remote_prefix if self._imports else None,
+        )
         self.kv_caches = self._allocate_kv(num_blocks)
         logger.info(
             "KV pool: %d blocks x %d tokens (%.2f GiB)",
             num_blocks, config.cache.block_size,
             self._kv_bytes(num_blocks) / 2**30,
         )
+        self._init_kv_tiers()
 
         self._bmax = config.scheduler.max_model_len // config.cache.block_size
         self._smax = config.scheduler.max_num_seqs
@@ -370,17 +421,6 @@ class LLMEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _to_host(self, t: torch.Tensor):
-        """(host copy, event): a pinned copy of device tensor ``t`` and the
-        event that marks it landed; on the CPU a plain copy and no event."""
-        if self.device.type != "cuda":
-            return t.clone(), None
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        return host, ready
-
     def _upload(self, bufs: Dict[str, torch.Tensor],
                 arrays: Dict[str, np.ndarray]) -> None:
         """Host arrays into the static buffers of the same names with one
@@ -430,12 +470,29 @@ class LLMEngine:
         )
         self.scheduler.add_seq(seq)
         self.total_prompt_tokens += len(prompt_token_ids)
+        # Admission-time prefetch: resolve the prefix-cache miss tail
+        # against the remote store now, off the step thread, so by the time
+        # the scheduler considers this prompt its blocks are (often) staged.
+        if self.kv_prefetch is not None and self._imports:
+            self._submit_prefix_prefetch(seq)
 
     def abort_request(self, request_id: str) -> None:
         seq = self.scheduler.abort_seq(request_id)
         if seq is not None:
             seq.status = SequenceStatus.FINISHED
             seq.finish_reason = FinishReason.ABORT
+        self._release_transfers(request_id)
+
+    def _release_transfers(self, request_id: str) -> None:
+        """Abort/finish hook of the transfer plane: cancel the request's
+        prefetches, tombstone a snapshot still staging (before the discard,
+        so it is never inserted or PUT after the DEL), drop its snapshot
+        from every tier."""
+        if self.kv_prefetch is not None:
+            self.kv_prefetch.cancel(request_id)
+        if self._offload_stager is not None:
+            self._offload_stager.discard(request_id)
+        self.offload.discard(request_id)
 
     def has_unfinished(self) -> bool:
         return self.scheduler.has_unfinished()
@@ -452,6 +509,641 @@ class LLMEngine:
                 if d is not None and now > d:
                     expired.append(seq.seq_id)
         return expired
+
+    # -- KV tiers: host offload, the remote store, prefix export/import ----
+
+    def _init_kv_tiers(self) -> None:
+        """The transfer plane (the JAX engine's constructor wiring): the
+        host-DRAM tier, the remote store's client, the wire accounting,
+        the admission-time prefetcher and the off-step offload stager."""
+        config = self.config
+        offload_bytes = int(config.cache.host_offload_gb * 2**30)
+        # Wire representation for offload/remote snapshots
+        # (cache.kv_wire_format): with an int8 cache the tiers carry the
+        # native (data, scale) tuples end to end.
+        self._wire_quantized = config.cache.wire_quantized
+        self.kv_wire_stats = KVWireStats()
+        remote_client = None
+        if config.cache.remote_kv_url:
+            remote_client = RemoteKVClient(
+                config.cache.remote_kv_url, wire_stats=self.kv_wire_stats,
+                require_v2=config.cache.kv_wire_format == "int8",
+            )
+        self.offload = HostOffloadManager(
+            offload_bytes, remote_client,
+            quantized_wire=self._wire_quantized,
+            wire_stats=self.kv_wire_stats,
+            pinned=self.device.type == "cuda",
+        )
+        # Seconds each transfer took on its worker thread (the JAX
+        # engine's kv histograms observe them only with tracing on; these
+        # lists are the port's own record of them).
+        self.kv_phase_seconds: Dict[str, List[float]] = {
+            "offload_stage": [], "remote_kv_fetch": [],
+        }
+        # The asynchronous transfer plane (cache.remote_prefetch):
+        # admission-time remote-prefix prefetch on fetcher threads, async
+        # restore page-in.  It delivers through the prefix cache, so a
+        # config without caching keeps the synchronous extension.
+        self.kv_prefetch: Optional[PrefetchManager] = None
+        self._offload_stager: Optional[OffloadStager] = None
+        if (
+            remote_client is not None
+            and config.cache.remote_prefetch_enabled
+            and config.cache.enable_prefix_caching
+        ):
+            self.kv_prefetch = PrefetchManager(
+                remote_client,
+                restore_sink=self.offload,
+                num_threads=config.cache.prefetch_threads,
+                observe_fetch=self.kv_phase_seconds["remote_kv_fetch"].append,
+            )
+        # The stager covers host-DRAM-only offload too: the D2H wait is a
+        # step-thread stall either way.  Only an explicit
+        # remote_prefetch=False keeps the blocking save.
+        if offload_bytes > 0 and config.cache.remote_prefetch is not False:
+            self._offload_stager = OffloadStager(
+                self.offload,
+                observe_stage=self.kv_phase_seconds["offload_stage"].append,
+            )
+        # Completed prefetches awaiting import into the prefix cache (kept
+        # across steps under transient pool pressure).
+        self._pending_prefetch_imports: List[PrefetchedChain] = []
+        if remote_client is not None:
+            # The content-key prefix reads a weight row back from the
+            # device: once, here, not in a dispatch.
+            self._px_key_prefix()
+
+    # -- offload preemption (scheduler offload_cb) -------------------------
+
+    def offload_seq_blocks(self, seq: Sequence, block_ids: List[int]) -> bool:
+        """Scheduler offload_cb.  Async plane: enqueue the device gather of
+        the sequence's blocks (a fresh buffer, so the pool may reuse the
+        blocks at once: later writes to them are enqueued after it) and its
+        copy into a region of the host tier's page-locked arena (reserved
+        here, evicting older snapshots: bookkeeping only), record the event
+        that marks it landed, and hand both to the stager's writer thread,
+        which waits on the event and inserts the snapshot (and PUTs it to
+        the remote tier).  The step thread never waits.  A snapshot the
+        tier cannot hold returns False: the sequence recomputes.  Legacy mode
+        (no stager, ``remote_prefetch=False``) saves synchronously: the
+        copies are waited for on the step thread, its documented A/B
+        baseline contract."""
+        if self._offload_stager is None or self.offload.capacity_bytes <= 0:
+            return self.offload.save(
+                seq.seq_id, self.kv_caches, block_ids, num_tokens=seq.num_tokens
+            )
+        if not block_ids:
+            return False
+        if not self._offload_stager.reserve(seq.seq_id):
+            return False  # slot busy: recompute fallback (double-buffer)
+        reserved = None
+        try:
+            ids = self._put(np.asarray(block_ids, np.int64))
+            # Quantized wire: the gather stays int8 (data, scale) — half
+            # the D2H bytes, and restore adopts the tuples untransformed.
+            wire = [
+                (kv_quant.gather_blocks_wire(k_cache, ids, self._wire_quantized),
+                 kv_quant.gather_blocks_wire(v_cache, ids, self._wire_quantized))
+                for k_cache, v_cache in self.kv_caches
+            ]
+            reserved = self.offload.reserve(wire)
+            if reserved is None:
+                self._offload_stager.release(seq.seq_id)
+                return False  # the host tier cannot hold it: recompute
+            host_layers, ready = kv_quant.stage_to_host(wire, out=reserved[0])
+        except Exception:
+            self._offload_stager.release(seq.seq_id)
+            if reserved is not None:
+                self.offload.drop_region(reserved[1])
+            logger.exception("offload gather dispatch failed; recomputing")
+            return False
+        self._offload_stager.commit(
+            seq.seq_id, host_layers, seq.num_tokens, reserved[1], ready=ready
+        )
+        return True
+
+    # -- restore (scheduler restore_cb) ------------------------------------
+
+    # Sentinel: a remote restore page-in is in flight — schedule again next
+    # pass instead of blocking.
+    _RESTORE_PENDING = object()
+
+    def restore_seq_blocks(self, seq: Sequence) -> str:
+        """Scheduler restore_cb: page an offloaded sequence's KV snapshot
+        back into freshly allocated blocks.  Returns "restored" (the
+        sequence now holds the blocks as a partial-prefill prefix: its
+        suffix prefills over them, no recompute), "gone" (no snapshot:
+        recompute), or "retry" (transient pool pressure or a transfer in
+        flight: try again next step)."""
+        entry = self._restore_entry(seq.seq_id)
+        if entry is self._RESTORE_PENDING:
+            return "retry"
+        if entry is None:
+            return "gone"  # fall back to recompute via normal prefill
+        bs = self.block_pool.block_size
+        usable_tokens = min(entry.num_tokens, len(seq.prompt_token_ids) - 1)
+        usable_blocks = usable_tokens // bs
+        if usable_blocks == 0:
+            self.offload.release(entry)
+            return "gone"
+        if not self.block_pool.can_allocate(usable_blocks):
+            # Transient pool pressure must not cost the snapshot.
+            self.offload.reinsert(entry)
+            return "retry"
+        restored = self.block_pool.allocate(usable_blocks)
+        ids = self._put(np.asarray(restored, np.int64))
+        for (k_cache, v_cache), (k_host, v_host) in zip(self.kv_caches, entry.layers):
+            # Dense hosts quantize into int8 pools on the device; native
+            # (data, scale) tuples are adopted untransformed.
+            kv_quant.set_blocks(
+                k_cache, v_cache, ids,
+                kv_quant.slice_host_side(k_host, usable_blocks),
+                kv_quant.slice_host_side(v_host, usable_blocks),
+            )
+        # The snapshot's arena bytes are reused once the uploads that read
+        # them have run.
+        self.offload.release(entry, kv_quant.copies_done(self.device))
+        seq.block_table = restored
+        seq.num_cached_tokens = usable_blocks * bs
+        seq.partial_prefill = True
+        return "restored"
+
+    def _restore_entry(self, seq_id: str):
+        """Snapshot lookup for restore: local host-DRAM tier first; a
+        remote-tier miss starts an async page-in (a prefetch worker lands
+        it in the local tier) and returns the pending sentinel, so the
+        scheduler re-checks instead of blocking on the RPC.  Legacy mode
+        (no prefetcher) keeps the blocking fetch."""
+        if (
+            self._offload_stager is not None
+            and self._offload_stager.is_inflight(seq_id)
+        ):
+            # The snapshot is still between device and host.
+            return self._RESTORE_PENDING
+        if self.kv_prefetch is None:
+            return self.offload.restore(seq_id)
+        entry = self.offload.restore_local(seq_id)
+        if entry is not None:
+            # Consume a completed page-in job, if one fed this entry.
+            self.kv_prefetch.poll_restore(seq_id)
+            return entry
+        if self.offload.remote_client is None:
+            return None
+        state = self.kv_prefetch.poll_restore(seq_id)
+        if state == "absent":
+            self.kv_prefetch.submit_restore(seq_id)
+            return self._RESTORE_PENDING
+        if state == "inflight":
+            return self._RESTORE_PENDING
+        if state == "ready":
+            return self.offload.restore_local(seq_id)
+        return None  # "missing": recompute
+
+    # -- cross-engine prefix sharing (cache.disagg_role) -------------------
+
+    def _px_key_prefix(self) -> str:
+        """Content-key namespace binding blocks to this model's identity:
+        the structural shape and a weight fingerprint (the float32 bytes of
+        the embedding's row 0), as the JAX engine hashes them, so engines
+        of either package exchange KV exactly when they run the same
+        weights.  The first call (at boot, with a store) reads the row
+        from the device."""
+        if not hasattr(self, "_px_prefix_cache"):
+            import hashlib
+
+            cfg = self.config.model
+            h = hashlib.blake2b(digest_size=8)
+            h.update(
+                f"{cfg.name}|{cfg.num_layers}|{cfg.num_kv_heads}|"
+                f"{cfg.head_dim}|{cfg.dtype}|{self.block_pool.block_size}"
+                .encode()
+            )
+            h.update(self.params["embed_tokens"][0].float().cpu().numpy().tobytes())
+            self._px_prefix_cache = f"px:{h.hexdigest()}:"
+        return self._px_prefix_cache
+
+    def _seq_prefix_hashes(self, seq) -> List[bytes]:
+        """Per-sequence memo of the prompt's block hash chain, keyed on the
+        prompt length so recompute-preemption (which absorbs generated
+        tokens into the prompt) invalidates it."""
+        key = len(seq.prompt_token_ids)
+        if getattr(seq, "_px_hashes_key", None) != key:
+            seq._px_hashes = prefix_block_hashes(
+                seq.prompt_token_ids,
+                self.block_pool.block_size,
+                namespace=seq.cache_ns,
+            )
+            seq._px_hashes_key = key
+        return seq._px_hashes
+
+    def _transfer_inflight(self) -> bool:
+        """Any async KV transfer the scheduler may be waiting out."""
+        if self._offload_stager is not None and self._offload_stager.busy:
+            return True
+        return self.kv_prefetch is not None and self.kv_prefetch.inflight > 0
+
+    # -- admission-time remote-prefix prefetch -----------------------------
+
+    def _submit_prefix_prefetch(self, seq) -> None:
+        """Queue a background fetch of the sequence's local prefix-cache
+        miss tail (at admission, and from the scheduler callback after
+        recompute-preemption grows the prompt).  Host hashing and a queue
+        put: no RPC, no device work."""
+        hashes = self._seq_prefix_hashes(seq)
+        if not hashes:
+            return
+        start = self.block_pool.count_cached_prefix(hashes)
+        if start >= len(hashes):
+            return
+        # One fetch per distinct miss tail, memoized only on an accepted
+        # submit (a declined one stays retryable).
+        memo = (len(hashes), start)
+        if getattr(seq, "_px_prefetch_memo", None) == memo:
+            return
+        key_prefix = self._px_key_prefix()
+        if self.kv_prefetch.submit_chain(
+            seq.seq_id,
+            [key_prefix + d.hex() for d in hashes[start:]],
+            hashes[start:],
+            start,
+        ):
+            seq._px_prefetch_memo = memo
+
+    def _drain_prefetched(self) -> None:
+        """Step-thread landing point for completed prefetches: import the
+        staged host blocks into freshly allocated pool blocks (enqueued
+        copies, no wait), bind them to their chain digests in the prefix
+        cache and park them in the reclaimable cached-free tier, so the
+        next match_prefix serves them like a local hit.  Transient pool
+        pressure keeps a chain pending for a bounded number of retries;
+        anything undeliverable counts as prefetch waste."""
+        if self.kv_prefetch is None:
+            return
+        self._pending_prefetch_imports.extend(self.kv_prefetch.pop_completed())
+        if not self._pending_prefetch_imports:
+            return
+        keep: List[PrefetchedChain] = []
+        for chain in self._pending_prefetch_imports:
+            outcome = self._import_prefetch_to_cache(chain)
+            if outcome == "retry":
+                chain.attempts += 1
+                if chain.attempts < 16:
+                    keep.append(chain)
+                else:
+                    self.kv_prefetch.note_waste(len(chain.blocks))
+        self._pending_prefetch_imports = keep
+
+    def _import_blocks(self, ids: List[int], blocks: List[list]) -> None:
+        """Write fetched blocks (per block, per layer (k, v) one-block wire
+        sides) into pool blocks ``ids``, in place, converted to the pool's
+        format on the device.  A mixed fleet can interleave dense and int8
+        blocks in one chain: each format's blocks go in together, so a
+        dense block bound for an int8 pool is quantized by the int8 cache
+        writer and an int8 block bound for a dense pool is dequantized on
+        the device."""
+        runs: Dict[bool, list] = {}
+        for block_id, layers in zip(ids, blocks):
+            quantized = any(kv_quant.is_quantized(side) for kv in layers for side in kv)
+            runs.setdefault(quantized, []).append((block_id, layers))
+        for run in runs.values():
+            idx = self._put(np.asarray([block_id for block_id, _ in run], np.int64))
+            for layer_idx, (k_cache, v_cache) in enumerate(self.kv_caches):
+                kv_quant.set_blocks(
+                    k_cache, v_cache, idx,
+                    kv_quant.stack_wire_blocks([b[layer_idx][0] for _, b in run]),
+                    kv_quant.stack_wire_blocks([b[layer_idx][1] for _, b in run]),
+                )
+
+    def _import_prefetch_to_cache(self, chain: PrefetchedChain) -> str:
+        """Returns "done" (imported / nothing left to do), "retry" (pool
+        pressure), or "drop" (malformed entries: degrade)."""
+        # A chain is only usable as a prefix: skip leading digests the
+        # cache already holds, stop at the first one after those.
+        ready = []
+        for digest, layers in zip(chain.hashes, chain.blocks):
+            if self.block_pool.has_digest(digest):
+                if not ready:
+                    continue
+                break
+            ready.append((digest, layers))
+        dropped = len(chain.blocks) - len(ready)
+        if not ready:
+            if dropped:
+                self.kv_prefetch.note_waste(dropped)
+            return "done"
+        if not self.block_pool.can_allocate(len(ready)):
+            return "retry"
+        ids = self.block_pool.allocate(len(ready))
+        try:
+            self._import_blocks(ids, [b for _, b in ready])
+        except Exception:
+            # Malformed store entry (wrong layer count / block shape): free
+            # and degrade; unreferenced cache lines are harmless.
+            self.block_pool.free(ids)
+            self.kv_prefetch.note_waste(len(chain.blocks))
+            logger.exception("prefetched block import failed; continuing")
+            return "drop"
+        for (digest, _), block in zip(ready, ids):
+            self.block_pool.adopt_prefix_block(digest, block)
+        self.block_pool.free(ids)
+        self.kv_prefetch.note_hit(len(ids))
+        if dropped:
+            self.kv_prefetch.note_waste(dropped)
+        self.remote_prefix_blocks_fetched += len(ids)
+        return "done"
+
+    def flush_prefix_imports(self, timeout: float = 10.0) -> None:
+        """Block until in-flight prefetches have resolved (tests; drain).
+        The cache import itself happens on the step thread at its next
+        dispatch."""
+        if self.kv_prefetch is not None:
+            self.kv_prefetch.wait_idle(timeout)
+
+    def fetch_remote_prefix(self, seq, prefix_blocks, cached_len):
+        """Scheduler remote_prefix_cb.  With the async plane it never
+        blocks: completed prefetches were imported before schedule() ran,
+        and this only makes sure a fetch is in flight for a remaining miss
+        tail.  Without it (``remote_prefetch=False``), the synchronous
+        per-block GET loop."""
+        client = self.offload.remote_client
+        if client is None:
+            return prefix_blocks, cached_len
+        if self.kv_prefetch is not None:
+            if not self.kv_prefetch.has_job(seq.seq_id):
+                self._submit_prefix_prefetch(seq)
+            return prefix_blocks, cached_len
+        return self._fetch_remote_prefix_sync(seq, prefix_blocks, cached_len)
+
+    def _fetch_remote_prefix_sync(self, seq, prefix_blocks, cached_len):
+        """The synchronous remote-prefix extension: one blocking GET per
+        block inside the scheduler callback (the legacy A/B baseline).
+        Never raises: a store outage or a malformed entry degrades to a
+        local prefill."""
+        client = self.offload.remote_client
+        bs = self.block_pool.block_size
+        hashes = self._seq_prefix_hashes(seq)
+        start = cached_len // bs
+        if start >= len(hashes):
+            return prefix_blocks, cached_len
+        # At least one prompt token is always left to prefill.
+        max_ext_blocks = (seq.num_prompt_tokens - 1 - cached_len) // bs
+        if max_ext_blocks <= 0:
+            return prefix_blocks, cached_len
+        # Don't fetch what admission can't hold.
+        remaining_blocks = -(-(seq.num_prompt_tokens - cached_len) // bs)
+        if not self.block_pool.can_allocate(remaining_blocks):
+            return prefix_blocks, cached_len
+        key_prefix = self._px_key_prefix()
+        try:
+            fetched: List = []
+            for digest in hashes[start : start + max_ext_blocks]:
+                entry = client.get_blocks(key_prefix + digest.hex())
+                if entry is None:
+                    break
+                fetched.append(entry[0])
+            if not fetched or not self.block_pool.can_allocate(len(fetched)):
+                return prefix_blocks, cached_len
+        except Exception:
+            logger.exception("remote prefix fetch failed; continuing local")
+            return prefix_blocks, cached_len
+        ids = self.block_pool.allocate(len(fetched))
+        try:
+            self._import_blocks(ids, fetched)
+        except Exception:
+            self.block_pool.free(ids)
+            logger.exception("remote prefix copy-in failed; continuing local")
+            return prefix_blocks, cached_len
+        self.remote_prefix_blocks_fetched += len(ids)
+        return prefix_blocks + ids, cached_len + len(ids) * bs
+
+    # -- prefix export -----------------------------------------------------
+
+    def _export_worker(self) -> None:
+        """The px-export writer: waits for each export's device-to-host
+        copies (its event), then writes the blocks with batched MPUTs.
+        Queue items are whole exports (one prompt's chain each), so a long
+        prompt is never cut by the queue bound."""
+        client = self.offload.remote_client
+        while True:
+            item = self._export_queue.get()
+            if item is None:
+                self._export_queue.task_done()
+                return
+            # Coalesce the backlog into one MPUT call.
+            batch = [item]
+            while len(batch) < 32:
+                try:
+                    nxt = self._export_queue.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._export_queue.task_done()
+                    self._export_queue.put(None)  # re-arm shutdown
+                    break
+                batch.append(nxt)
+            try:
+                entries = []
+                for export_entries, ready in batch:
+                    if ready is not None:
+                        ready.synchronize()
+                    entries.extend(export_entries)
+                client.mput_blocks(entries)
+                self.remote_prefix_blocks_exported += len(entries)
+            except Exception:
+                logger.exception("remote prefix export failed; continuing")
+            finally:
+                for _ in batch:
+                    self._export_queue.task_done()
+
+    def _export_prefix_blocks(self, seq) -> None:
+        """After a final prefill: push every full prompt block to the
+        shared store under its chain-hash content key, so peer engines
+        (and this one after a restart) import instead of recomputing.  The
+        step thread enqueues the gather and its copy into pinned host
+        memory and records an event; the writer thread waits on it and
+        makes the RPCs.  Dedupe entries expire after a TTL, so a store-side
+        eviction doesn't end sharing for good."""
+        client = self.offload.remote_client
+        if client is None:
+            return
+        bs = self.block_pool.block_size
+        hashes = self._seq_prefix_hashes(seq)
+        now = time.time()
+        todo = [
+            (i, digest)
+            for i, digest in enumerate(hashes)
+            if self._exported_hashes.get(digest, 0.0) < now
+        ]
+        if not todo:
+            return
+        with self._export_lock:
+            if self._export_thread is None:
+                self._export_queue = queue.Queue(maxsize=64)
+                self._export_thread = threading.Thread(
+                    target=self._export_worker, name="px-export", daemon=True
+                )
+                self._export_thread.start()
+        ids = self._put(np.asarray([seq.block_table[i] for i, _ in todo], np.int64))
+        try:
+            # Quantized wire: the int8 cache's (data, scale) tuples go out
+            # natively (serde v2; the client's probe falls back to a dense
+            # v1 encode against a legacy store).  Dense wire: int8 caches
+            # dequantize here so any peer can import.
+            host_layers, ready = kv_quant.stage_to_host([
+                (kv_quant.gather_blocks_wire(k_cache, ids, self._wire_quantized),
+                 kv_quant.gather_blocks_wire(v_cache, ids, self._wire_quantized))
+                for k_cache, v_cache in self.kv_caches
+            ])
+        except Exception:
+            logger.exception("prefix export gather failed; continuing")
+            return
+        key_prefix = self._px_key_prefix()
+        entries = [
+            (key_prefix + digest.hex(),
+             [(kv_quant.row_host_side(k, row), kv_quant.row_host_side(v, row))
+              for k, v in host_layers],
+             bs)
+            for row, (_, digest) in enumerate(todo)
+        ]
+        try:
+            self._export_queue.put_nowait((entries, ready))
+        except queue.Full:
+            return  # writer backlogged: drop this export
+        for _, digest in todo:
+            self._exported_hashes[digest] = now + self._export_ttl_s
+        while len(self._exported_hashes) > 65536:
+            self._exported_hashes.popitem(last=False)
+
+    def flush_prefix_exports(self, timeout: float = 10.0) -> None:
+        """Block until queued exports have been written (tests; graceful
+        shutdown).  No-op when nothing was ever exported."""
+        if self._export_queue is None:
+            return
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            if self._export_queue.unfinished_tasks == 0:
+                return
+            time.sleep(0.01)
+
+    def close(self, timeout: float = 10.0) -> None:
+        """Release every worker thread and socket the engine owns.
+        Producers stop before their sinks: the export writer, the prefetch
+        fetchers and the offload stager first, the host tier's deleter
+        (flushing queued remote DELs) second, the remote client's sockets
+        last.  ``timeout`` is one budget shared by all stages."""
+        deadline = time.monotonic() + timeout
+
+        def left() -> float:
+            return max(0.0, deadline - time.monotonic())
+
+        with self._export_lock:
+            export_thread, self._export_thread = self._export_thread, None
+        if export_thread is not None:
+            self.flush_prefix_exports(left())
+            try:
+                # Bounded put: the queue is full exactly when the writer
+                # is wedged mid-RPC against a hung store.
+                self._export_queue.put(None, timeout=left())
+            except queue.Full:
+                logger.warning(
+                    "prefix-export writer still wedged at shutdown; "
+                    "abandoning its daemon thread past the close deadline"
+                )
+            export_thread.join(left())
+        if self.kv_prefetch is not None:
+            self.kv_prefetch.shutdown(left())
+        if self._offload_stager is not None:
+            self._offload_stager.shutdown(left())
+        self.offload.close(left())
+        if self.offload.remote_client is not None:
+            self.offload.remote_client.close()
+
+    # -- disaggregated prefill/decode handoff ------------------------------
+
+    def cache_ns_of(self, adapter: Optional[str]) -> int:
+        """The prefix-cache namespace a request with this adapter would
+        hash under: 0, the base model (this engine serves no adapters)."""
+        return 0
+
+    def handoff_token(self, prompt_token_ids: List[int], cache_ns: int = 0) -> dict:
+        """The prefill-phase handoff token: the prompt's prefix hash chain
+        (store content keys) and length, and the model-identity key prefix
+        so a decode peer can check it shares the weights before waiting on
+        imports.  ``exported`` says whether this engine can have exported
+        the chain (a store and the prefill role); it is not a per-block
+        receipt."""
+        hashes = prefix_block_hashes(
+            prompt_token_ids, self.block_pool.block_size, namespace=cache_ns
+        )
+        key_prefix = self._px_key_prefix()
+        return {
+            "chain": [key_prefix + d.hex() for d in hashes],
+            "chain_len": len(hashes),
+            "chain_tail": hashes[-1].hex() if hashes else "",
+            "prompt_tokens": len(prompt_token_ids),
+            "block_size": self.block_pool.block_size,
+            "px": key_prefix,
+            "exported": bool(
+                self._exports and self.offload.remote_client is not None
+            ),
+        }
+
+    def wait_handoff_prefix(self, prompt_token_ids: List[int], cache_ns: int,
+                            handoff: dict, timeout: float) -> str:
+        """Decode-phase handoff: make sure a prefetch of the prompt's chain
+        is in flight and wait (bounded) for the fetch to land in host
+        staging.  A staged chain is imported by the step thread at the top
+        of its next dispatch, before any schedule(), so a request admitted
+        after "hit" serves its whole prompt from the prefix cache.  Runs on
+        a worker thread of the server.  Returns "hit", "partial", "miss",
+        or "disabled" (no prefetch plane, imports off, or other weights)."""
+        if self.kv_prefetch is None or not self._imports:
+            return "disabled"
+        hashes = prefix_block_hashes(
+            prompt_token_ids, self.block_pool.block_size, namespace=cache_ns
+        )
+        if not hashes:
+            return "hit"  # shorter than one block: nothing to import
+        peer_px = handoff.get("px")
+        if peer_px and peer_px != self._px_key_prefix():
+            return "disabled"
+        start = self.block_pool.count_cached_prefix(hashes)
+        if start >= len(hashes):
+            return "hit"
+        key_prefix = self._px_key_prefix()
+        sid = f"handoff-{hashes[-1].hex()[:16]}"
+        submitted = self.kv_prefetch.submit_chain(
+            sid,
+            [key_prefix + d.hex() for d in hashes[start:]],
+            hashes[start:],
+            start,
+        )
+        if not submitted:
+            # A same-head job is already in flight: poll coverage on a
+            # shortened budget.
+            timeout = min(timeout, 0.5)
+        deadline = time.time() + max(0.0, timeout)
+        grace_until: Optional[float] = None
+        while time.time() < deadline:
+            covered = self.block_pool.count_cached_prefix(hashes)
+            if covered >= len(hashes):
+                return "hit"
+            status = self.kv_prefetch.chain_status(sid)
+            if status == "done":
+                return "hit"
+            if status == "absent" and submitted:
+                # Our fetch settled empty, or the step thread consumed it:
+                # one short grace window for coverage, then classify.
+                if grace_until is None:
+                    grace_until = time.time() + 0.1
+                elif time.time() >= grace_until:
+                    break
+            time.sleep(0.005)
+        covered = self.block_pool.count_cached_prefix(hashes)
+        if covered >= len(hashes):
+            return "hit"
+        return "partial" if covered > start else "miss"
 
     # -- stepping ----------------------------------------------------------
 
@@ -532,9 +1224,19 @@ class LLMEngine:
         """Dispatch with nothing in flight: full scheduler knowledge
         (admission, preemption, partial-prefill rollback); the only place
         synchronous plans run."""
+        # Land completed remote-prefix prefetches in the prefix cache
+        # before planning, so this schedule()'s match_prefix can serve them
+        # (the copy-in is enqueued on the device, not waited for).
+        self._drain_prefetched()
         t0 = time.time()
         plan = self.scheduler.schedule()
         if plan.is_empty:
+            if self._transfer_inflight():
+                # Nothing schedulable because a restore page-in or an
+                # offload stage is in flight: yield a tick so a tight
+                # caller loop does not spin faster than the workers land
+                # the bytes.  The device is idle here: pacing, not a wait.
+                time.sleep(0.001)
             return False
         if plan.window_fallback:
             self.multistep_fallback[plan.window_fallback] = (
@@ -759,7 +1461,7 @@ class LLMEngine:
                                 np.array([self._key_seed()], np.int32)])
         b["delta"].copy_(self._put(delta))
         self.graphs.run(key, lambda: self._pipe_body(b, key[2]))
-        host, ready = self._to_host(b["sampled"])
+        host, ready = kv_quant.stage_to_host(b["sampled"])
         self._step_counter += 1
         return _PendingStep(
             seqs=list(seqs), host=host, ready=ready, is_decode=True,
@@ -1029,7 +1731,7 @@ class LLMEngine:
             np.array([self._key_seed()], np.int32),
         ])))
         self.graphs.run(key, lambda: self._window_body(b, *key[3:]))
-        host, ready = self._to_host(b["emitted"])
+        host, ready = kv_quant.stage_to_host(b["emitted"])
         # One step ordinal per iteration: single-token stepping would use
         # exactly these seeds for the same tokens.
         self._step_counter += self._window_steps
@@ -1175,7 +1877,7 @@ class LLMEngine:
         mkey = ("mixed", S, T) + key[2:]
         for _ in range(k_eff):
             self.graphs.run(mkey, lambda: self._mixed_body(b, c, *key[3:]))
-        host, ready = self._to_host(b["emitted"][:k_eff])
+        host, ready = kv_quant.stage_to_host(b["emitted"][:k_eff])
         tails = c["tails"][:k_eff].clone() if any(cp.is_final for cp in sched) else None
         # A final chunk at iteration i is the K=1 world's step (base + i):
         # its first token burns that ordinal at collect.
@@ -1303,7 +2005,11 @@ class LLMEngine:
         sentinel, or the request's first token sampled from the last valid
         row's logits [V].  A mixed window's final chunk passes
         ``step_ordinal``, the K=1 step its iteration stands for, whose seed
-        the draw must take instead of the live step counter's."""
+        the draw must take instead of the live step counter's.  An
+        exporting engine (disagg role prefill / both) first pushes the
+        prompt's full blocks to the store."""
+        if self._exports:
+            self._export_prefix_blocks(seq)
         if seq.sampling_params.max_tokens == 0:
             seq.first_token_time = time.time()
             self._finish_seq_now(seq, FinishReason.LENGTH)
@@ -1611,6 +2317,7 @@ class LLMEngine:
         registration, counters, registry removal."""
         seq.finish_reason = reason
         self.scheduler.finish_seq(seq)
+        self._release_transfers(seq.seq_id)
         self.total_finished += 1
         return reason
 
@@ -1643,10 +2350,10 @@ class LLMEngine:
 
     def stats(self) -> Dict[str, float]:
         """The JAX engine's stats keys (its ``/metrics`` reads them), plus
-        the port's own window and graph counters.  Keys of features not
-        ported yet (KV offload and prefetch, remote KV and disaggregation,
-        speculation, LoRA, the encode lane, the compile inventory and the
-        trace ring) are 0 or empty, as on a JAX engine without them."""
+        the port's own window, graph and offload counters.  Keys of
+        features not ported yet (speculation, LoRA, the encode lane, the
+        compile inventory and the trace ring) are 0 or empty, as on a JAX
+        engine without them."""
         return {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
@@ -1656,7 +2363,7 @@ class LLMEngine:
             "prefix_cache_hit_tokens": self.block_pool.hit_tokens,
             "prefix_cache_query_tokens": self.block_pool.query_tokens,
             "prefix_cache_blocks": self.block_pool.num_cached_blocks,
-            "host_kv_usage_perc": 0.0,
+            "host_kv_usage_perc": self.offload.usage,
             "duty_cycle": self._duty_cycle(),
             "total_prompt_tokens": self.total_prompt_tokens,
             "total_generated_tokens": self.total_generated_tokens,
@@ -1675,21 +2382,21 @@ class LLMEngine:
             "encode_texts_total": 0,
             "encode_queue_depth": 0,
             "loaded_loras": 0,
-            "remote_prefix_blocks_fetched": 0,
-            "remote_prefix_blocks_exported": 0,
-            "disagg_prefill_primes": 0,
-            "disagg_handoff_hits": 0,
-            "disagg_handoff_misses": 0,
-            "kv_prefetch_hit": 0,
-            "kv_prefetch_waste": 0,
-            "kv_prefetch_inflight": 0,
+            "remote_prefix_blocks_fetched": self.remote_prefix_blocks_fetched,
+            "remote_prefix_blocks_exported": self.remote_prefix_blocks_exported,
+            "disagg_prefill_primes": self.disagg_prefill_primes,
+            "disagg_handoff_hits": self.disagg_handoff_hits,
+            "disagg_handoff_misses": self.disagg_handoff_misses,
+            "kv_prefetch_hit": self.kv_prefetch.hit_blocks if self.kv_prefetch else 0,
+            "kv_prefetch_waste": self.kv_prefetch.waste_blocks if self.kv_prefetch else 0,
+            "kv_prefetch_inflight": self.kv_prefetch.inflight if self.kv_prefetch else 0,
             "spec_tokens_drafted": 0,
             "spec_tokens_accepted": 0,
             "spec_window_tokens": {},
             "spec_drafter": "",
             "spec_draft_fraction_seconds": 0.0,
-            "kv_wire_bytes": {},
-            "kv_snapshot_format": {},
+            "kv_wire_bytes": self.kv_wire_stats.wire_bytes(),
+            "kv_snapshot_format": self.kv_wire_stats.snapshot_formats(),
             "compile_seconds": {},
             "compiled_shapes": 0,
             "obs_trace_dropped": 0,
@@ -1716,4 +2423,8 @@ class LLMEngine:
             "graph_captures": self.graphs.captures,
             "graph_replays": self.graphs.replays,
             "graph_capture_seconds": sum(self.graphs.capture_seconds.values()),
+            # The host tier: snapshots saved, restored and evicted.
+            "offload_saves": self.offload.saves,
+            "offload_restores": self.offload.restores,
+            "offload_evictions": self.offload.evictions,
         }

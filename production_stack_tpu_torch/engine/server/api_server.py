@@ -15,7 +15,14 @@ contract the router expects from a serving engine, over
   not ported yet at zero;
 - ``/tokenize`` and ``/detokenize``;
 - ``/start_profile`` and ``/stop_profile`` on ``torch.profiler`` (CUDA
-  activity on the card), writing a Chrome trace into ``trace_dir``.
+  activity on the card), writing a Chrome trace into ``trace_dir``;
+- the KV tiers' flags (``--host-offload-gb``, ``--remote-kv-url``,
+  ``--disagg-role``, ...) and the two-phase disaggregated surface the
+  router's ``disagg`` policy drives: ``x-disagg-phase: prefill`` runs the
+  prefill, flushes the prompt's block export to the shared store and
+  answers a handoff token instead of generating; ``x-disagg-handoff``
+  waits (bounded) for that chain to be prefetched before admitting, and
+  the response says how it went in ``X-Disagg-Prefix``.
 
 It reuses nothing of the JAX module (which forces the JAX platform and
 starts ``jax.distributed``).
@@ -27,8 +34,8 @@ Not ported yet, with their flags: tool calls, guided decoding
 (``response_format``), prompt logprobs (``echo`` with ``logprobs``),
 embeddings / rerank / score (the encode lane), LoRA admin, the
 ``/debug/*`` surfaces (request tracing and the window flight recorder),
-disaggregated prefill/decode, speculation, KV offload and remote KV,
-parallelism, int8 weights and loading a weights path.
+the ``encode`` disagg role, speculation, parallelism, int8 weights and
+loading a weights path.
 """
 
 from __future__ import annotations
@@ -549,6 +556,28 @@ def build_engine_app(
                 return _error("request deadline already expired at admission",
                               504, "deadline_expired", code=504)
 
+        # -- disaggregated prefill phase --------------------------------
+        # The router's disagg policy primes a prefill-pool engine with
+        # this marker: run the prefill, flush the prompt's block export
+        # so the shared store holds it before we answer (the decode
+        # side's prefetch must never race the export writer), and return
+        # a handoff token instead of generating.
+        if request.headers.get("x-disagg-phase") == "prefill":
+            return await _serve_prefill_phase(
+                request_id, prompt_token_ids, params, created, model_name)
+
+        # -- disaggregated decode phase ---------------------------------
+        # A handoff-tagged generation waits (bounded, off the event loop
+        # and off the step thread) for the prefetched chain to be staged,
+        # so its first schedule() serves the whole prompt from the prefix
+        # cache.  Any other outcome admits normally: the engine computes
+        # the prefill itself, never failing the request.
+        disagg_prefix_outcome: Optional[str] = None
+        handoff_hdr = request.headers.get("x-disagg-handoff")
+        if handoff_hdr:
+            disagg_prefix_outcome = await _wait_handoff(
+                handoff_hdr, prompt_token_ids, deadline)
+
         def choice_params(i: int) -> SamplingParams:
             """Choice i's sampling: a seeded request's choice i takes
             seed + i, so the choices differ and each replays alone."""
@@ -622,11 +651,14 @@ def build_engine_app(
             }
 
         if stream:
-            response = web.StreamResponse(headers={
+            stream_headers = {
                 "Content-Type": "text/event-stream",
                 "Cache-Control": "no-cache",
                 "X-Request-Id": request_id,
-            })
+            }
+            if disagg_prefix_outcome is not None:
+                stream_headers["X-Disagg-Prefix"] = disagg_prefix_outcome
+            response = web.StreamResponse(headers=stream_headers)
             await response.prepare(request)
             # The n choices' event streams merge through one queue, so
             # chunks interleave as tokens arrive (each carries its index).
@@ -784,6 +816,9 @@ def build_engine_app(
                         "text_offset": text_offsets,
                     }
             choices.append(choice)
+        final_headers = {"X-Request-Id": request_id}
+        if disagg_prefix_outcome is not None:
+            final_headers["X-Disagg-Prefix"] = disagg_prefix_outcome
         return web.json_response(
             {
                 "id": request_id,
@@ -793,8 +828,75 @@ def build_engine_app(
                 "choices": choices,
                 "usage": usage(total_out),
             },
+            headers=final_headers,
+        )
+
+    async def _serve_prefill_phase(request_id, prompt_token_ids, params,
+                                   created, model_name) -> web.Response:
+        """The prefill phase of a disaggregated request: the prompt's
+        prefill as a scoring-only generation (``max_tokens=0``), then the
+        export flush (off the event loop: the writer must have put the
+        chain in the store before the decode side asks), then the handoff
+        token."""
+        prime_params = dataclasses.replace(
+            params, max_tokens=0, logprobs=False, top_logprobs=0, echo=False,
+        )
+        gen = engine.generate(
+            prompt_token_ids=prompt_token_ids, sampling_params=prime_params,
+            request_id=request_id,
+        )
+        try:
+            async for _event in gen:
+                pass
+        except DeadlineExceeded as e:
+            engine.engine.deadline_expired_admission += 1
+            return _error(str(e), 504, "deadline_expired", code=504)
+        await asyncio.to_thread(engine.engine.flush_prefix_exports, 10.0)
+        handoff = await asyncio.to_thread(
+            engine.engine.handoff_token, prompt_token_ids,
+            engine.engine.cache_ns_of(None),
+        )
+        engine.engine.disagg_prefill_primes += 1
+        return web.json_response(
+            {
+                "id": request_id,
+                "object": "disagg.prefill",
+                "created": created,
+                "model": model_name,
+                "disagg": {"handoff": handoff},
+                "usage": {
+                    "prompt_tokens": len(prompt_token_ids),
+                    "completion_tokens": 0,
+                    "total_tokens": len(prompt_token_ids),
+                },
+            },
             headers={"X-Request-Id": request_id},
         )
+
+    async def _wait_handoff(handoff_hdr: str, prompt_token_ids,
+                            deadline: Optional[float]) -> str:
+        """The decode phase's bounded wait for the handed-off chain
+        ("hit", "partial", "miss" or "disabled"), counted as a hit or a
+        miss."""
+        try:
+            handoff = json.loads(handoff_hdr)
+        except json.JSONDecodeError:
+            handoff = None
+        outcome = "disabled"
+        if isinstance(handoff, dict):
+            wait_s = engine.engine.config.cache.disagg_handoff_wait_s
+            if deadline is not None:
+                # Leave headroom for the generation itself.
+                wait_s = min(wait_s, max(0.0, deadline - time.time() - 0.05))
+            outcome = await asyncio.to_thread(
+                engine.engine.wait_handoff_prefix, prompt_token_ids,
+                engine.engine.cache_ns_of(None), handoff, wait_s,
+            )
+        if outcome == "hit":
+            engine.engine.disagg_handoff_hits += 1
+        else:
+            engine.engine.disagg_handoff_misses += 1
+        return outcome
 
     # vLLM's /tokenize and /detokenize: clients budget long-context
     # requests against max_model_len without shipping the tokenizer.
@@ -959,6 +1061,47 @@ def build_parser() -> argparse.ArgumentParser:
         "window applies it per iteration); default admits the largest "
         "chunk bucket beside a full decode batch",
     )
+    parser.add_argument(
+        "--host-offload-gb", type=float, default=0.0,
+        help="host-DRAM tier for offload preemption (pinned memory): a "
+        "preempted sequence's KV blocks are staged here and restored "
+        "instead of recomputed; 0 disables",
+    )
+    parser.add_argument(
+        "--remote-kv-url", default=None,
+        help="shared KV store (kv://host:port) behind the host tier: "
+        "offloaded snapshots are put there, and the disagg roles export "
+        "and import prompt blocks through it",
+    )
+    parser.add_argument(
+        "--disagg-role",
+        default=None,
+        choices=["prefill", "decode", "both", "encode"],
+        help="cross-engine prefix sharing through the remote KV store: "
+        "'prefill' exports prompt KV blocks after prefill, 'decode' "
+        "imports matching blocks instead of recomputing, 'both' shares "
+        "symmetrically (requires --remote-kv-url); 'encode' (an "
+        "embed/rerank/score pool member) is not served by this engine",
+    )
+    parser.add_argument(
+        "--no-remote-prefetch",
+        action="store_true",
+        help="disable the asynchronous batched KV transfer plane "
+        "(admission-time remote-prefix prefetch, off-step offload "
+        "staging, async restore page-in) and restore the legacy "
+        "synchronous in-schedule transfers — A/B baseline / debugging",
+    )
+    parser.add_argument(
+        "--prefetch-threads", type=int, default=2,
+        help="background fetcher threads for the KV prefetch plane",
+    )
+    parser.add_argument(
+        "--disagg-handoff-wait-s", type=float, default=2.0,
+        help="decode-phase handoff: bounded wait for the prefetched "
+        "prefix chain to land in the cache before admitting anyway "
+        "(caps the TTFT tax of a slow store; a store miss exits early; "
+        "0 disables the wait)",
+    )
     parser.add_argument("--no-prefix-caching", action="store_true")
     parser.add_argument("--dtype", default=None, help="override preset dtype")
     parser.add_argument(
@@ -968,6 +1111,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="KV cache precision (vLLM --kv-cache-dtype analogue): int8 "
         "stores cached K/V as int8 with per-(token, head) scales — KV "
         "bytes roughly halve, so the pool holds ~2x the tokens",
+    )
+    parser.add_argument(
+        "--kv-wire-format",
+        default=None,
+        choices=["auto", "fp32", "int8"],
+        help="offload/remote wire representation for int8 KV caches: "
+        "auto (default) sends the cache's native (data, scale) tuples "
+        "(kvserver serde v2, with a probe-once dense-v1 fallback against "
+        "legacy stores); fp32 pins the dense wire; int8 is auto plus "
+        "strictness (requires --kv-cache-dtype int8, warns when the store "
+        "downgrades)",
     )
     parser.add_argument(
         "--no-mixed-batch",
@@ -1083,9 +1237,17 @@ def config_from_args(args):
            if args.max_num_batched_tokens is not None else {}),
         "cache.block_size": args.block_size,
         "cache.num_blocks": args.num_blocks,
+        "cache.host_offload_gb": args.host_offload_gb,
+        "cache.remote_kv_url": args.remote_kv_url,
+        "cache.disagg_role": args.disagg_role,
+        **({"cache.remote_prefetch": False} if args.no_remote_prefetch else {}),
+        "cache.prefetch_threads": args.prefetch_threads,
+        "cache.disagg_handoff_wait_s": args.disagg_handoff_wait_s,
         "cache.enable_prefix_caching": not args.no_prefix_caching,
         **({"cache.kv_cache_dtype": args.kv_cache_dtype}
            if args.kv_cache_dtype else {}),
+        **({"cache.kv_wire_format": args.kv_wire_format}
+           if args.kv_wire_format else {}),
         **({"model.dtype": args.dtype} if args.dtype else {}),
         **({"scheduler.admission_control": False}
            if args.no_admission_control else {}),

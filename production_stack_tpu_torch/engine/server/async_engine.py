@@ -104,6 +104,13 @@ class AsyncEngine:
         self._wakeup.set()
         if self._thread is not None:
             await asyncio.to_thread(self._thread.join, 30)
+        # Release the engine's own workers after the step thread (their
+        # producer) is gone: the prefix exporter (its queued exports
+        # flushed), prefetch fetchers, the offload stager's writer, the
+        # remote-KV deleter (its queued DELs flushed, or the store leaks a
+        # snapshot per in-flight discard) and the kvserver sockets.  A
+        # drain ends here too.
+        await asyncio.to_thread(self.engine.close)
 
     # -- request API (event-loop side) ------------------------------------
 

@@ -180,6 +180,6 @@ def test_torch_engine_raises_outside_the_slice():
     with pytest.raises(NotImplementedError, match="speculative decoding"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
-    cfg.cache.host_offload_gb = 1.0
-    with pytest.raises(NotImplementedError, match="host_offload_gb"):
+    cfg.cache.disagg_role = "encode"  # the encode lane's pool role, not yet
+    with pytest.raises(NotImplementedError, match="disagg_role=encode"):
         LLMEngine(cfg, device="cpu")

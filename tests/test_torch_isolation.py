@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 ``production_stack_tpu_torch`` (and chip_smoke.py) loads neither ``jax``
-nor anything of ``production_stack_tpu``, and its entry points refuse to
-fall back to the CPU when no device was asked for and no GPU exists."""
+nor anything of ``production_stack_tpu`` nor ``ml_dtypes`` (which the
+card machine lacks), and its entry points refuse to fall back to the CPU
+when no device was asked for and no GPU exists."""
 
 import json
 import os
@@ -20,13 +21,14 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "production_stack_tpu"
-             or m.startswith("production_stack_tpu."))
+             if m in ("jax", "production_stack_tpu", "ml_dtypes")
+             or m.startswith(("jax.", "production_stack_tpu.", "ml_dtypes.")))
 print(json.dumps({"modules": len(names), "bad": bad}))
 """
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    """No jax, no module of the JAX package, no ml_dtypes."""
     out = subprocess.run(
         [sys.executable, "-c", PROBE], cwd=REPO, capture_output=True, text=True,
         timeout=120, env=dict(os.environ, PYTHONPATH=REPO),

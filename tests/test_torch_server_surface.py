@@ -417,6 +417,9 @@ SERVED_FLAGS = (
     "--no-multi-step-window", "--decode-window", "--no-pipeline-decode",
     "--no-admission-control", "--max-queued-requests", "--max-queued-tokens",
     "--step-watchdog-s", "--drain-grace-s", "--log-level",
+    "--host-offload-gb", "--remote-kv-url", "--disagg-role",
+    "--no-remote-prefetch", "--prefetch-threads", "--disagg-handoff-wait-s",
+    "--kv-wire-format",
 )
 
 
@@ -457,7 +460,10 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--dtype", "float32", "--no-admission-control", "--max-queued-requests",
             "5", "--max-queued-tokens", "900", "--step-watchdog-s", "7",
             "--tokenizer", "some/tokenizer", "--kv-cache-dtype", "int8",
-            "--decode-window", "4", "--no-mixed-window", "--no-pipeline-decode"]
+            "--decode-window", "4", "--no-mixed-window", "--no-pipeline-decode",
+            "--host-offload-gb", "0.5", "--remote-kv-url", "kv://127.0.0.1:9400",
+            "--disagg-role", "both", "--no-remote-prefetch", "--prefetch-threads",
+            "3", "--disagg-handoff-wait-s", "1.5", "--kv-wire-format", "int8"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
