@@ -123,6 +123,27 @@ non-zero (no phase is caught and passed over):
    their addresses; every request gets all its tokens; saves, restores
    and the import are above 0; the decode and flash-prefill kernels of
    the pool's type launch.
+9. Speculative decoding at full width (``phase_speculation``): 8 greedy
+   requests of 256-2048 prompt tokens (each a repeated 64-token segment,
+   so prompt lookup hits), 128 new tokens each, on llama-3.1-8b (K=8 with
+   the lookahead) with the fused n-gram drafter (D=3) on a dense and on an
+   int8 pool, each beside the same requests with speculation off on the
+   same weights, then with the llama-3.2-1b drafter (D=4, its own dense
+   KV pool); the self-draft check (llama-3.2-1b at fp32 drafting with its
+   own preset from the same seed, prompts within the 128-token history:
+   accepted >= 4 x max(rejected, 1), streams equal to speculation off);
+   the legacy host path at 4 layers.  Every run: every request all its
+   tokens, accepted <= drafted and accepted + rejected = drafted, no
+   window over its budget (at most K x W tokens a row), every window
+   dispatch under ``set_sync_debug_mode("error")``; one HTTP completion
+   on the n-gram engine, whose /metrics spec families must equal the
+   engine's counters; the decode kernel's launches, counted by shape in
+   its wrapper, must equal at each speculative shape of 8 rows (the
+   verifies, the draft steps, the primes) what the run's windows make.
+   Reported: acceptance, tokens a window, wall and device ms a window
+   beside plain windows, capture seconds per graph key (prime and no-prime), output tokens/s with
+   speculation on and off, and at bf16 the matched prefix of the
+   speculative and plain streams with the top-2 margin at a divergence.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -633,6 +654,19 @@ def phase_kernels() -> dict:
             check_paged_decode(gen, "S8_short", 8, H, K, D, [40, 17, 33, 1, 16, 39, 25, 8]),
             check_paged_decode(gen, "S2_window_split", 2, H, K, D, [5000, 3000],
                                window=700),
+            # Speculation's shapes: the verify of 8 rows x W (each
+            # sequence's rows at consecutive lengths; W = 4 for the n-gram
+            # drafter, 5 for the model), the llama-3.2-1b drafter's step
+            # (D=64, 8 rows, up to 448 draft slots) and its causal prime
+            # (8 x 127 rows of 1..127 slots).
+            check_paged_decode(gen, "S32_verify", 32, H, K, D,
+                               [n + j for n in SPEC_PROMPT_LENS for j in range(4)]),
+            check_paged_decode(gen, "S40_verify", 40, H, K, D,
+                               [n + j for n in SPEC_PROMPT_LENS for j in range(5)]),
+            check_paged_decode(gen, "S8_D64_draft", 8, H, K, 64,
+                               [128, 160, 200, 250, 300, 350, 400, 448]),
+            check_paged_decode(gen, "S1016_D64_prime", 1016, H, K, 64,
+                               [c for _ in range(8) for c in range(1, 128)]),
         ],
         "paged_decode_int8": [
             check_paged_decode(gen, "S1", 1, H, K, D, [3001], int8=True),
@@ -648,6 +682,9 @@ def phase_kernels() -> dict:
                                int8=True),
             check_paged_decode(gen, "S2_window_split", 2, H, K, D, [5000, 3000],
                                window=700, int8=True),
+            check_paged_decode(gen, "S32_verify", 32, H, K, D,
+                               [n + j for n in SPEC_PROMPT_LENS for j in range(4)],
+                               int8=True),
         ],
         "split_int8": sweep_split_int8(gen, [
             ("S8_main", 8, edge), ("S1", 1, [3001]), ("S1_long", 1, [32000]),
@@ -707,8 +744,11 @@ def phase_kernels() -> dict:
     # the writer's 8 decode rows, and its 512-token chunk.
     contiguous = [r for r in cases["flash_prefill"] if r["case"] in ("T2048_main", "T512_chunk")]
     paged, paged8 = cases["flash_prefill_paged"], cases["flash_prefill_paged_int8"]
-    return {"paged_decode": cases["paged_decode"][1],
-            "paged_decode_int8": cases["paged_decode_int8"][1],
+    spec = [r for r in cases["paged_decode"]
+            if r["case"] in SPEC_SHAPES]
+    spec8 = [r for r in cases["paged_decode_int8"] if r["case"] in SPEC_SHAPES]
+    return {"paged_decode": dict(cases["paged_decode"][1], also=spec),
+            "paged_decode_int8": dict(cases["paged_decode_int8"][1], also=spec8),
             "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous),
             "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]),
             "kv_write_int8": dict(cases["kv_write_int8"][0],
@@ -2239,6 +2279,401 @@ def phase_kv_tiers() -> dict:
     return row
 
 
+# -- phase 9: speculative decoding ----------------------------------------
+
+# Phase 9's requests: each prompt repeats one random 64-token segment, so
+# prompt lookup finds the trailing bigram; 128 new tokens each.
+SPEC_PROMPT_LENS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)
+SPEC_SEGMENT = 64
+SPEC_NEW_TOKENS = 128
+SPEC_KV_BLOCKS = 2048  # 32768 tokens a pool: two engines of the phase at once
+DRAFT_MODEL = "llama-3.2-1b"
+# The self-draft's prompts fit the drafter's history window (128 tokens),
+# so its first prime covers the whole context, as the target sees it.
+SELF_DRAFT_PROMPT_LENS = (24, 40, 56, 72, 88, 100, 112, 120)
+# The decode kernel's speculative shapes at 8 rows, by kernel case:
+# (rows, head_dim) of the n-gram verify (W = 4), the model drafter's
+# verify (W = 5), its draft step and its prime (8 x 127 rows).
+SPEC_SHAPES = {"S32_verify": (32, 128), "S40_verify": (40, 128),
+               "S8_D64_draft": (8, 64), "S1016_D64_prime": (1016, 64)}
+
+
+def _spec_prompts(vocab: int, lens: tuple = None) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    prompts = []
+    for n in lens or SPEC_PROMPT_LENS:
+        seg = rng.integers(4, vocab, SPEC_SEGMENT).tolist()
+        prompts.append((seg * (n // SPEC_SEGMENT + 1))[:n])
+    return prompts
+
+
+def _spec_config(model: str, **over):
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
+
+    return config_from_preset(model, **SLICE_OVERRIDES, **{
+        "scheduler.max_num_seqs": len(SPEC_PROMPT_LENS),
+        "scheduler.max_model_len": 32768,
+        "cache.num_blocks": SPEC_KV_BLOCKS,
+        **{(k if "." in k else f"scheduler.{k}"): v for k, v in over.items()},
+    })
+
+
+def _spec_serve(eng, prompts: list, sync_check: bool = True) -> dict:
+    """Greedy streams of ``prompts`` (SPEC_NEW_TOKENS each), all arriving
+    at once, on an engine
+    driven by dispatch and collect.  Every asynchronous dispatch runs under
+    ``set_sync_debug_mode("error")`` (``sync_check``); each window is
+    counted as speculative (and primed) or plain, and each speculative
+    window's emitted tokens a row are held to its budget (at most K x W);
+    graph replays are timed with CUDA events by kind; the decode part (all
+    prompts admitted) is timed on the host."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+
+    K = eng.config.scheduler.window_steps
+    W = eng._spec_len + 1
+    max_tokens = SPEC_NEW_TOKENS
+    checked = sync_checked(eng) if sync_check else {}
+    rec = {"spec": 0, "plain": 0, "primes": 0, "spec_s8": 0, "primes_s8": 0,
+           "over_budget": [], "at": []}
+    dispatch, collect, run = eng._dispatch_window, eng._collect_window, eng.graphs.run
+
+    def dispatch_spy(plan, chain_from=None):
+        rec["at"].append(time.time())
+        p = dispatch(plan, chain_from)
+        if p.spec_drafter is None:
+            rec["plain"] += 1
+        else:
+            rec["spec"] += 1
+            full = p.win_key[1] == 8  # a window of 8 rows (key: kind, S, ...)
+            rec["spec_s8"] += full
+            if p.spec_drafter == "model" and eng._draft_windows_since_prime == 0:
+                rec["primes"] += 1
+                rec["primes_s8"] += full
+        return p
+
+    def collect_spy(p):
+        out = collect(p)
+        if p.spec_drafter is not None:
+            emitted = (p.host.numpy()[:, :W, :len(p.seqs)] >= 0).sum(axis=(0, 1))
+            for i, n in enumerate(emitted.tolist()):
+                if n > min(K * W, p.steps[i]):
+                    rec["over_budget"].append((n, p.steps[i]))
+        return out
+
+    spans = {"spec": [], "window": []}
+
+    def timed_run(key, body):
+        timed = key[0] in spans and key in eng.graphs._graphs  # a replay
+        if timed:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        run(key, body)
+        if timed:
+            end.record()
+            spans[key[0]].append((start, end))
+
+    eng._dispatch_window, eng._collect_window = dispatch_spy, collect_spy
+    eng.graphs.run = timed_run
+    streams, windows_at = {}, None
+    pa.launches = pa.launches_int8 = 0
+    pa.launches_by_shape.clear()
+    t0 = time.time()
+    for i, ids in enumerate(prompts):
+        eng.add_request(f"s{i}", prompt_token_ids=ids, sampling_params=SamplingParams(
+            max_tokens=max_tokens, ignore_eos=True))
+    steps = 0
+    while eng.has_unfinished() or eng.has_pending():
+        eng.dispatch()
+        for out in eng.collect():
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+        if windows_at is None and len(streams) == len(prompts) and not eng.scheduler.waiting:
+            windows_at = (time.time(), rec["spec"] + rec["plain"],
+                          sum(len(s) for s in streams.values()))
+        steps += 1
+        if steps > 5000:
+            raise AssertionError("the engine did not drain")
+    torch.cuda.synchronize()
+    t1 = time.time()
+    launches = {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
+                "by_shape": {f"{k}:S{r}:D{d}": n for (k, r, d), n in pa.launches_by_shape.items()}}
+    for name in {"_dispatch_window", "_collect_window", *checked}:
+        eng.__dict__.pop(name, None)  # the class's methods again
+    del eng.graphs.run
+    tokens = sum(len(s) for s in streams.values())
+    windows = rec["spec"] + rec["plain"] - windows_at[1]
+    # Steady state: the median gap between window dispatches once every
+    # prompt is in (a capture's first use is the outlier it drops).
+    gaps = sorted(b - a for a, b in zip(rec["at"][windows_at[1]:], rec["at"][windows_at[1] + 1:]))
+    stats = eng.stats()
+    out = {
+        "model": eng.config.model.name, "dtype": eng.config.model.dtype,
+        "layers": eng.config.model.num_layers,
+        "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
+        "drafter": eng.config.scheduler.spec_drafter, "decode_window": K,
+        "streams": [streams[f"s{i}"] for i in range(len(prompts))],
+        "max_tokens": max_tokens,
+        "wall_s": t1 - t0,
+        "output_tok_s": tokens / (t1 - t0),
+        "windows": {k: rec[k] for k in ("spec", "plain", "primes", "spec_s8", "primes_s8")},
+        "launches": launches,
+        "decode_windows": windows,
+        "wall_ms_per_window": 1e3 * gaps[len(gaps) // 2] if gaps else None,
+        "decode_wall_s": t1 - windows_at[0],
+        "tokens_per_window": (tokens - windows_at[2]) / max(1, windows),
+        "tokens_per_row_window": (tokens - windows_at[2]) / max(1, windows) / len(prompts),
+        "device_ms_per_replay": {k: (sum(s.elapsed_time(e) for s, e in v) / len(v)
+                                     if v else None) for k, v in spans.items()},
+        "replays_timed": {k: len(v) for k, v in spans.items()},
+        "sync_checked_dispatches": checked,
+        "over_budget": rec["over_budget"],
+        "spec_tokens_drafted": stats["spec_tokens_drafted"],
+        "spec_tokens_accepted": stats["spec_tokens_accepted"],
+        "spec_window_tokens": stats["spec_window_tokens"],
+        "acceptance": (stats["spec_tokens_accepted"] / stats["spec_tokens_drafted"]
+                       if stats["spec_tokens_drafted"] else None),
+        "multistep_fallback": stats["multistep_fallback"],
+        "multistep_wasted_tokens": stats["multistep_wasted_tokens"],
+        "capture_s": {str(k): v for k, v in eng.graphs.capture_seconds.items()},
+        "spec_draft_fraction_seconds": stats["spec_draft_fraction_seconds"],
+    }
+    emit({"phase": "speculation_run", **{k: v for k, v in out.items() if k != "streams"}})
+    return out
+
+
+def _spec_checks(label: str, run: dict, eng, spec: bool) -> None:
+    """The checks every run of phase 9 passes: every request its tokens,
+    the acceptance counters consistent, no window over its budget, every
+    asynchronous dispatch sync-checked (every window dispatch)."""
+    if any(len(s) != run["max_tokens"] for s in run["streams"]):
+        raise AssertionError(f"{label}: token counts {[len(s) for s in run['streams']]}")
+    sw = run["spec_window_tokens"]
+    drafted, accepted = run["spec_tokens_drafted"], run["spec_tokens_accepted"]
+    if not 0 <= accepted <= drafted or sw.get("accepted", 0) + sw.get("rejected", 0) != (
+            drafted if eng._spec_window else 0):
+        raise AssertionError(f"{label}: counters {drafted} {accepted} {sw}")
+    if run["over_budget"]:
+        raise AssertionError(f"{label}: windows over their budget {run['over_budget'][:4]}")
+    checked = run["sync_checked_dispatches"]
+    if eng._window_steps > 1 and checked.get("_dispatch_window") != (
+            run["windows"]["spec"] + run["windows"]["plain"]):
+        raise AssertionError(f"{label}: window dispatches not all sync-checked: {checked} "
+                             f"{run['windows']}")
+    if spec and not (run["windows"]["spec"] and drafted > 0):
+        raise AssertionError(f"{label}: no speculative window drafted: {run['windows']}")
+
+
+def _spec_divergence(plain, prompts: list, on: list, off: list) -> list:
+    """Per request: the tokens the speculative and plain streams share,
+    and at the first token they do not, the two tokens and the plain
+    engine's top-2 log-probability margin there (a fresh prefill of the
+    prompt and the shared tokens: the logit margin of that path)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    rows = []
+    for i, (a, b) in enumerate(zip(on, off)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        row = {"matched": len(a) if j is None else j}
+        if j is not None:
+            plain.add_request(f"margin{i}", prompt_token_ids=prompts[i] + b[:j],
+                              sampling_params=SamplingParams(max_tokens=1, logprobs=True,
+                                                             top_logprobs=2))
+            outs = []
+            while plain.has_unfinished() or plain.has_pending():
+                outs += plain.step()
+            top = outs[-1].top_logprobs
+            row.update(spec_token=a[j], plain_token=b[j], top2=top,
+                       margin=top[0][1] - top[1][1])
+        rows.append(row)
+    return rows
+
+
+async def _spec_http(aeng) -> dict:
+    """One completion over HTTP on a speculating engine, then /metrics: the
+    spec families must read the engine's counters."""
+    import aiohttp
+    from aiohttp import web
+
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+
+    runner = web.AppRunner(build_engine_app(aeng, MODEL))
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            seg = "one two three four " * 40
+            async with http.post(f"{base}/v1/completions", json={
+                    "model": MODEL, "prompt": seg, "max_tokens": 64,
+                    "ignore_eos": True}) as r:
+                status, body = r.status, await r.json()
+            _, metrics = await _scrape(http, base)
+    finally:
+        await runner.cleanup()
+    s = aeng.engine.stats()
+    drafter = s["spec_drafter"]
+    want = {"tpu:spec_tokens_drafted": s["spec_tokens_drafted"],
+            "tpu:spec_tokens_accepted": s["spec_tokens_accepted"],
+            **{f'tpu:spec_window_tokens_total{{outcome="{o}",drafter="{drafter}"}}': n
+               for o, n in s["spec_window_tokens"].items()}}
+    got = {k: metrics.get(k) for k in want}
+    if status != 200 or body["usage"]["completion_tokens"] != 64 or got != want:
+        raise AssertionError(f"spec /metrics: {status} {body.get('usage')} {got} != {want}")
+    return got
+
+
+def phase_speculation() -> dict:
+    """Speculative decoding at full width (llama-3.1-8b, 32 layers, bf16,
+    K=8 with the lookahead): the fused n-gram drafter (D=3) on a dense and
+    on an int8 pool, each beside the same requests with speculation off on
+    the same weights; the llama-3.2-1b drafter (D=4, 16 layers); the
+    self-draft acceptance check (llama-3.2-1b at fp32 drafting with its own
+    preset, same seed: acceptance >= 4x the rejections, streams equal to
+    speculation off); the legacy host path at 4 layers.  At bf16 the
+    speculative and plain streams are compared, not required equal: the
+    matched prefix and, at a divergence, the plain top-2 margin."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+    from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+
+    out = {"phase": "speculation"}
+    _reset_launches()
+    # The fused n-gram drafter, dense pool, then one HTTP completion.
+    aeng = AsyncEngine(_spec_config(MODEL, speculative_ngram=3))
+    eng = aeng.engine
+    params = eng.params
+    vocab = eng.config.model.vocab_size
+    prompts = _spec_prompts(vocab)
+    runs = {"ngram": _spec_serve(eng, prompts)}
+    _spec_checks("ngram", runs["ngram"], eng, True)
+    K, L, Dt = eng._window_steps, eng.config.model.num_layers, eng.config.model.head_dim
+    out["metrics"] = asyncio.run(_spec_http(aeng))
+    del aeng, eng
+    free_engines()
+    plain = LLMEngine(_spec_config(MODEL), params=params)
+    runs["plain"] = _spec_serve(plain, prompts)
+    _spec_checks("plain", runs["plain"], plain, False)
+    out["divergence_ngram"] = _spec_divergence(plain, prompts, runs["ngram"]["streams"],
+                                               runs["plain"]["streams"])
+    # The drafter model beside the dense plain engine's weights.
+    model_eng = LLMEngine(_spec_config(MODEL, speculative_model=DRAFT_MODEL,
+                                       speculative_draft_len=4), params=params)
+    D = model_eng._spec_len
+    Ld, Dd = model_eng.draft_cfg.num_layers, model_eng.draft_cfg.head_dim
+    runs["model"] = _spec_serve(model_eng, prompts)
+    _spec_checks("model", runs["model"], model_eng, True)
+    out["divergence_model"] = _spec_divergence(plain, prompts, runs["model"]["streams"],
+                                               runs["plain"]["streams"])
+    del model_eng, plain
+    free_engines()
+    # int8 pool.
+    for name, over in (("ngram_int8", {"speculative_ngram": 3}), ("plain_int8", {})):
+        e8 = LLMEngine(_spec_config(MODEL, **over, **{"cache.kv_cache_dtype": "int8"}),
+                       params=params)
+        runs[name] = _spec_serve(e8, prompts)
+        _spec_checks(name, runs[name], e8, bool(over))
+        del e8
+        free_engines()
+    out["divergence_ngram_int8"] = [
+        {"matched": next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), len(a))}
+        for a, b in zip(runs["ngram_int8"]["streams"], runs["plain_int8"]["streams"])]
+    del params
+    free_engines()
+    # Self-draft at fp32: the drafter's preset from the same seed.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    selfd = LLMEngine(_spec_config(DRAFT_MODEL, speculative_model=DRAFT_MODEL,
+                                   speculative_draft_len=4, max_model_len=8192,
+                                   **{"model.dtype": "float32"}))
+    small = _spec_prompts(selfd.config.model.vocab_size, SELF_DRAFT_PROMPT_LENS)
+    runs["self_draft"] = _spec_serve(selfd, small)
+    _spec_checks("self_draft", runs["self_draft"], selfd, True)
+    selfp = LLMEngine(_spec_config(DRAFT_MODEL, max_model_len=8192,
+                                   **{"model.dtype": "float32"}), params=selfd.params)
+    runs["self_draft_plain"] = _spec_serve(selfp, small)
+    sw = runs["self_draft"]["spec_window_tokens"]
+    out["self_draft_check"] = {"accepted": sw["accepted"], "rejected": sw["rejected"],
+                         "streams_equal": runs["self_draft"]["streams"]
+                         == runs["self_draft_plain"]["streams"]}
+    if not (sw["accepted"] >= 4 * max(sw["rejected"], 1)
+            and out["self_draft_check"]["streams_equal"]):
+        raise AssertionError(f"self-draft: {out['self_draft_check']}, matched "
+                             f"{_spec_divergence(selfp, small, runs['self_draft']['streams'], runs['self_draft_plain']['streams'])}")
+    del selfd, selfp
+    free_engines()
+    # The legacy host path at 4 layers: as served (bf16, prompt lookup),
+    # then at fp32 with the plain single steps' own continuation as the
+    # drafts (random weights' continuations seldom repeat the history, so
+    # lookup proposes little: this holds the wide verify to accepting).
+    legacy_over = dict(speculative_ngram=3, multi_step_window=False,
+                       pipeline_decode=False, mixed_batch=False)
+    legacy = LLMEngine(_spec_config(MODEL, **legacy_over, **{"model.num_layers": 4}))
+    runs["legacy"] = _spec_serve(legacy, prompts[:4], sync_check=False)
+    _spec_checks("legacy", runs["legacy"], legacy, False)
+    del legacy
+    free_engines()
+    fp32 = {"model.num_layers": 4, "model.dtype": "float32"}
+    plain1 = LLMEngine(_spec_config(MODEL, multi_step_window=False, pipeline_decode=False,
+                                    mixed_batch=False, **fp32))
+    runs["legacy_plain_fp32"] = _spec_serve(plain1, prompts[:4], sync_check=False)
+    continuation = dict(zip((f"s{i}" for i in range(4)), runs["legacy_plain_fp32"]["streams"]))
+    oracle = LLMEngine(_spec_config(MODEL, **legacy_over, **fp32), params=plain1.params)
+
+    def own_continuation(seq, k, n=2):
+        done = len(seq.output_token_ids)
+        return continuation[seq.seq_id][done:done + k]
+
+    oracle._draft_ngram = own_continuation
+    runs["legacy_oracle_fp32"] = _spec_serve(oracle, prompts[:4], sync_check=False)
+    _spec_checks("legacy_oracle_fp32", runs["legacy_oracle_fp32"], oracle, False)
+    drafted = runs["legacy_oracle_fp32"]["spec_tokens_drafted"]
+    accepted = runs["legacy_oracle_fp32"]["spec_tokens_accepted"]
+    out["legacy_check"] = {
+        "accepted": accepted, "rejected": drafted - accepted,
+        "streams_equal": runs["legacy_oracle_fp32"]["streams"]
+        == runs["legacy_plain_fp32"]["streams"],
+        "windows": oracle.windows_dispatched}
+    if not (accepted >= 4 * max(drafted - accepted, 1) and out["legacy_check"]["streams_equal"]
+            and oracle.windows_dispatched == 0):
+        raise AssertionError(f"legacy path: {out['legacy_check']}")
+    del plain1, oracle
+    free_engines()
+    # The decode kernel's launches at the speculative shapes of 8 rows, as
+    # the wrapper counted them in each main-path run (from 0 at its start),
+    # held to what the run's windows of 8 rows make: K verify calls of L
+    # layers a window, K x (D + 1) draft steps of Ld layers, Ld a prime.
+    # Windows of fewer rows (a drained batch) launch at other row counts.
+    def measured(run, kernel, case):
+        rows, d = SPEC_SHAPES[case]
+        return run["launches"]["by_shape"].get(f"{kernel}:S{rows}:D{d}", 0)
+
+    w_ng, w_m, w_8 = (runs[n]["windows"] for n in ("ngram", "model", "ngram_int8"))
+    want = {
+        ("ngram", "paged_decode", "S32_verify"): w_ng["spec_s8"] * K * L,
+        ("ngram_int8", "paged_decode_int8", "S32_verify"): w_8["spec_s8"] * K * L,
+        ("model", "paged_decode", "S40_verify"): w_m["spec_s8"] * K * L,
+        ("model", "paged_decode", "S8_D64_draft"): w_m["spec_s8"] * K * (D + 1) * Ld,
+        ("model", "paged_decode", "S1016_D64_prime"): w_m["primes_s8"] * Ld,
+    }
+    if SPEC_SHAPES["S40_verify"] != (8 * (D + 1), Dt) or SPEC_SHAPES["S8_D64_draft"][1] != Dd:
+        raise AssertionError(f"speculative shapes {SPEC_SHAPES} are not the run's")
+    got = {key: measured(runs[key[0]], key[1], key[2]) for key in want}
+    out["launches"] = {}
+    for (run, kernel, case), n in got.items():
+        out["launches"].setdefault(kernel, {})[f"{run}:{case}"] = n
+    if got != want or not all(got.values()):
+        raise AssertionError(f"decode launches at the speculative shapes {got} != {want}")
+    for name, run in runs.items():
+        run = dict(run)
+        run.pop("streams")
+        out[name] = run
+    emit(out)
+    return out
+
+
 def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
@@ -2391,6 +2826,8 @@ def main() -> int:
     timed("engine_single_step", phase_engine, "auto", single_step=True, layers=4)
     free_engines()
     kv = timed("kv_tiers", phase_kv_tiers)
+    free_engines()
+    spec = timed("speculation", phase_speculation)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's (paged entry, dense
@@ -2412,6 +2849,10 @@ def main() -> int:
             # its int8 engine.
             "launches_kv_tiers": kv["offload_int8" if "int8" in name
                                    else "offload_dense"]["launches"][name],
+            # The speculation phase's fused runs: the launches at each
+            # speculative shape that the wrapper counted, by run and case.
+            **({"launches_speculation": spec["launches"][name]}
+               if name in spec["launches"] else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -18,16 +18,19 @@ capture or replay that fails raises: there is no eager fallback.  On the CPU
 there is no graph and every call runs the body eagerly, so the CPU tests run
 the captured code.
 
-The kernels' launch counters are Python ints bumped where a wrapper launches
-its kernel, which a replay does not run.  The runner records each counter's
-change during capture, takes it back, and adds it on every replay, so the
-counters keep counting the launches the device makes.
+The kernels' launch counters are Python ints (or a ``Counter`` of them by
+shape) bumped where a wrapper launches its kernel, which a replay does not
+run.  The runner records each counter's change during capture, takes it
+back, and adds it on every replay, so the counters keep counting the
+launches the device makes.
 """
 
 from __future__ import annotations
 
+import gc
 import time
-from typing import Callable, Dict, Hashable, List, Tuple
+from collections import Counter
+from typing import Callable, Dict, Hashable, Tuple
 
 import torch
 
@@ -41,19 +44,32 @@ from production_stack_tpu_torch.engine.ops.kernels import (
 LAUNCH_COUNTERS = (
     (paged_attention, "launches"),
     (paged_attention, "launches_int8"),
+    (paged_attention, "launches_by_shape"),
     (kv_write, "launches"),
     (flash_prefill, "launches"),
     (flash_prefill, "launches_int8"),
 )
 
 
-def _read_counters() -> List[int]:
-    return [getattr(module, attr) for module, attr in LAUNCH_COUNTERS]
+def _read_counters() -> list:
+    return [Counter(v) if isinstance(v, Counter) else v
+            for v in (getattr(module, attr) for module, attr in LAUNCH_COUNTERS)]
 
 
-def _add_counters(deltas: List[int]) -> None:
+def _change(after, before):
+    if isinstance(after, Counter):
+        return Counter({k: n - before[k] for k, n in after.items() if n != before[k]})
+    return after - before
+
+
+def _add_counters(deltas: list, sign: int = 1) -> None:
     for (module, attr), d in zip(LAUNCH_COUNTERS, deltas):
-        setattr(module, attr, getattr(module, attr) + d)
+        value = getattr(module, attr)
+        if isinstance(value, Counter):
+            for k, n in d.items():
+                value[k] += sign * n
+        else:
+            setattr(module, attr, value + sign * d)
 
 
 class GraphRunner:
@@ -61,7 +77,7 @@ class GraphRunner:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, List[int]]] = {}
+        self._graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, list]] = {}
         self._pool = None
         self._stream = None
         self.replays = 0
@@ -96,13 +112,24 @@ class GraphRunner:
             t0 = time.perf_counter()
             before = _read_counters()
             graph = torch.cuda.CUDAGraph()
-            graph.capture_begin(pool=self._pool)
+            # No cyclic collection inside the capture: it would run the
+            # finalizers of collected objects there (an engine's host
+            # tier unregisters its page-locked buffer), and a CUDA call
+            # such as cudaHostUnregister invalidates the capture.  And
+            # thread-local capture: the engine's worker threads (the
+            # offload writer, the prefix exporter) wait on CUDA events of
+            # their own meanwhile.
+            collecting = gc.isenabled()
+            gc.disable()
+            graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
                 body()  # recorded, not run
             finally:
                 graph.capture_end()
-            deltas = [a - b for a, b in zip(_read_counters(), before)]
-            _add_counters([-d for d in deltas])
+                if collecting:
+                    gc.enable()
+            deltas = [_change(a, b) for a, b in zip(_read_counters(), before)]
+            _add_counters(deltas, sign=-1)
         main.wait_stream(self._stream)
         self._graphs[key] = (graph, deltas)
         self.capture_seconds[key] = time.perf_counter() - t0

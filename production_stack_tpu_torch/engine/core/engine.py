@@ -30,6 +30,15 @@ window, a K-step decode window, or one single-token decode step:
   needs no host state runs as a pipelined single-token step whose input
   tokens chain from the previous step's in-flight sample.
 
+Speculative decoding (greedy batches only, so streams equal plain ones):
+with ``speculative_ngram`` or ``speculative_model`` a greedy decode window
+is a speculative window, each iteration drafting up to D tokens a row (a
+prompt lookup in the carried history, or D+1 forwards of the draft model
+over its own dense KV pool), verifying them beside the committed token in
+one decode over S x (D+1) rows and folding the accepted tokens into the
+carry; with windows off, ``speculative_ngram`` runs the legacy host path
+(drafts built on the host, one wide verify step read back at once).
+
 On the card each window, each mixed-window iteration and each pipelined
 step is one CUDA-graph replay (``cuda_graphs.py``); the one host sync a
 dispatch waits on is its own event, in ``collect``.
@@ -54,11 +63,12 @@ replays run on, without a host sync; the writes go into the pool's own
 tensors in place.
 
 The engine serves the JAX package's default serving path, mixed and
-packed K-step windows and the KV tiers included (``SLICE_OVERRIDES``: no
-encode lane, no tracing; no LoRA / speculation / guided decoding /
-parallelism; dense or int8 KV; ``mixed_window=False`` restores K=1 mixed
-steps while prompts wait) and raises ``NotImplementedError`` at
-construction for any setting outside it.
+packed K-step windows, the KV tiers and speculation included
+(``SLICE_OVERRIDES``: no encode lane, no tracing; no LoRA / guided
+decoding / parallelism / HF weights for the target or the drafter; dense
+or int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
+wait) and raises ``NotImplementedError`` at construction for any setting
+outside it.
 """
 
 from __future__ import annotations
@@ -75,7 +85,7 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine import sampling as sampling_lib
-from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.config import PRESETS, EngineConfig
 from production_stack_tpu_torch.engine.core.cuda_graphs import GraphRunner
 from production_stack_tpu_torch.engine.core.scheduler import (
     DecodePlan,
@@ -142,13 +152,14 @@ def _unsupported(config: EngineConfig) -> List[str]:
     checks = [
         (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
         (c.disagg_role == "encode", "cache.disagg_role=encode (encode lane)"),
-        (s.spec_drafter is not None, "speculative decoding"),
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
         (config.lora.enabled, "lora"),
         (config.obs.tracing, "obs.tracing"),
         (m.quantization is not None, "model.quantization (int8 weights)"),
         (m.num_experts > 0, "model.num_experts (MoE)"),
         (config.weights_path is not None, "weights_path (HF safetensors)"),
+        (config.draft_weights_path is not None,
+         "draft_weights_path (HF safetensors)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -177,6 +188,37 @@ def _pow2_bucket(n: int, floor: int) -> int:
     return b
 
 
+def _param_count(tree) -> int:
+    """Parameters in a tree, without the engine's fp32 lm_head copy."""
+    if isinstance(tree, dict):
+        return sum(_param_count(v) for k, v in tree.items() if k != llama.LM_HEAD_FP32)
+    if isinstance(tree, (list, tuple)):
+        return sum(_param_count(v) for v in tree)
+    return tree.numel()
+
+
+def _ban_stops(logits: torch.Tensor, stop_mask: torch.Tensor,
+               min_left: torch.Tensor) -> torch.Tensor:
+    """The host path's -1e9 logit bias on the stop set while a row's
+    min_tokens floor is unmet (+0.0 elsewhere is the identity, bit for
+    bit)."""
+    return logits + (stop_mask & (min_left > 0)[:, None]).float() * -1e9
+
+
+def _hits_stop(tokens: torch.Tensor, stop_ids: torch.Tensor) -> torch.Tensor:
+    """[S] whether each row's token is in its stop set (-1 padded)."""
+    return ((tokens[:, None] == stop_ids) & (stop_ids >= 0)).any(dim=1)
+
+
+def _count_tokens(counts: torch.Tensor, seen: torch.Tensor, tokens: torch.Tensor,
+                  keep: torch.Tensor) -> None:
+    """The occurrence state the penalties read, in place: each row's token
+    counted and seen where ``keep``."""
+    idx = tokens[:, None].long()
+    counts.scatter_add_(1, idx, keep[:, None].float())
+    seen.scatter_(1, idx, torch.gather(seen, 1, idx) | keep[:, None])
+
+
 def _advance_tables(tables: torch.Tensor, cols: torch.Tensor,
                     vals: torch.Tensor) -> None:
     """Block-table growth in place: ``tables[r, cols[r, j]] = vals[r, j]``
@@ -201,7 +243,9 @@ class _PendingStep:
     from).  A mixed window also carries its chunk schedule, the tail
     logits of its iterations ([k_eff, V] on the device, this step's own
     copy; None when no chunk is final) and the step ordinal of its first
-    iteration."""
+    iteration.  A speculative window (``spec_drafter`` "ngram" or
+    "model") reads back [K, W + 2, S]: per iteration the W emitted rows,
+    then the drafted and the accepted counts."""
 
     outputs: Optional[List[StepOutput]] = None
     seqs: Optional[List[Sequence]] = None
@@ -214,6 +258,7 @@ class _PendingStep:
     chunk_sched: Optional[List[PrefillPlan]] = None
     chunk_tails: Optional[torch.Tensor] = None
     chunk_ordinal: int = 0
+    spec_drafter: Optional[str] = None
 
     def read(self) -> np.ndarray:
         """The sample, waiting for its copy to land (the step's one host
@@ -224,10 +269,13 @@ class _PendingStep:
 
 
 class LLMEngine:
-    def __init__(self, config: EngineConfig, device=None, params=None):
+    def __init__(self, config: EngineConfig, device=None, params=None,
+                 draft_params=None):
         """``device``: where the model runs (default CUDA; raises without
         one).  ``params``: a parameter tree already on ``device`` (e.g. from
-        ``weights.params_from_numpy``); None boots the seeded random init."""
+        ``weights.params_from_numpy``); None boots the seeded random init.
+        ``draft_params``: the same for the draft model of
+        ``scheduler.speculative_model``."""
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError(
@@ -249,6 +297,7 @@ class LLMEngine:
             params = load_params(cfg, config.weights_path, seed=config.seed,
                                  device=self.device)
         self.params = params
+        self._load_draft_model(draft_params)
         llama.add_fp32_lm_head(self.params, cfg)
 
         num_blocks = self._decide_num_blocks()
@@ -293,6 +342,7 @@ class LLMEngine:
             self._kv_bytes(num_blocks) / 2**30,
         )
         self._init_kv_tiers()
+        self._init_draft_pool()
 
         self._bmax = config.scheduler.max_model_len // config.cache.block_size
         self._smax = config.scheduler.max_num_seqs
@@ -346,7 +396,7 @@ class LLMEngine:
         if self.device.type == "cuda":
             # Before any capture: a capture must never grow them.
             paged_attention.reserve_split_counters(
-                self.device, self._smax * cfg.num_kv_heads
+                self.device, self._decode_pairs()
             )
         # Host mirrors of how many block-table columns of each row the
         # device tables hold (window carry / pipelined step).
@@ -367,6 +417,131 @@ class LLMEngine:
         self._gap_total_s = 0.0
         self._gap_steps = 0
         self._last_decode_end: Optional[float] = None
+        self._init_speculation()
+
+    # -- speculative decoding: the drafters' state ------------------------
+
+    # Backward-scan bound of the legacy path's host drafter.
+    _DRAFT_SCAN_WINDOW = 1024
+    # The fused drafters' carried history [S, H] (a static shape: the
+    # graph keys never depend on context length).
+    _SPEC_HIST_WINDOW = 128
+    # Model drafter: windows that chain off one causal prime of the draft
+    # cache before the next; it also sizes the draft pool's rows.
+    _DRAFT_PRIME_CHAIN = 8
+
+    def _load_draft_model(self, draft_params) -> None:
+        """The draft model of ``scheduler.speculative_model``, checked at
+        boot as the JAX engine checks it (a known preset sharing the
+        target's vocab); its parameters are loaded only when the fused
+        window will run."""
+        cfg, sched = self.config.model, self.config.scheduler
+        self.draft_cfg = None
+        self.draft_params = None
+        name = sched.speculative_model
+        if name is None:
+            return
+        if name not in PRESETS:
+            raise ValueError(
+                f"Unknown speculative_model preset {name!r}; "
+                f"available: {sorted(PRESETS)}"
+            )
+        draft_cfg = dataclasses.replace(PRESETS[name])
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"speculative_model {name!r} vocab ({draft_cfg.vocab_size}) "
+                f"!= target {cfg.name!r} vocab ({cfg.vocab_size}): the "
+                "drafter must share the target's tokenizer/vocab; refusing "
+                "to boot"
+            )
+        self.draft_cfg = draft_cfg
+        if not sched.spec_window_enabled:
+            return
+        logger.info("Loading draft params for %s on %s ...", name, self.device)
+        if draft_params is None:
+            draft_params = load_params(draft_cfg, self.config.draft_weights_path,
+                                       seed=self.config.seed, device=self.device)
+        self.draft_params = draft_params
+        llama.add_fp32_lm_head(self.draft_params, draft_cfg)
+
+    def _init_draft_pool(self) -> None:
+        """The draft model's own dense KV pool and ``BlockPool``: each row
+        holds a causal prime of the history window plus
+        ``_DRAFT_PRIME_CHAIN`` windows of max-acceptance growth; the
+        default size fits every decode row at once (+ null block 0).  An
+        undersized explicit pool declines windows to plain ones."""
+        self.draft_block_pool = None
+        self.draft_kv_caches = None
+        self._draft_blocks_per_row = 0
+        # Whether the draft cache extends the batch's committed context,
+        # windows chained since the last prime, this batch's draft blocks,
+        # and whether the last build could allocate them.
+        self._draft_primed = False
+        self._draft_windows_since_prime = 0
+        self._draft_block_alloc: List[int] = []
+        self._draft_tables_ok = False
+        if self.draft_params is None:
+            return
+        sched = self.config.scheduler
+        bs = self.config.cache.block_size
+        cap = self._SPEC_HIST_WINDOW + self._DRAFT_PRIME_CHAIN * sched.window_max_tokens
+        self._draft_blocks_per_row = -(-cap // bs)
+        pool_blocks = sched.speculative_draft_pool_blocks
+        if pool_blocks is None:
+            pool_blocks = sched.max_num_seqs * self._draft_blocks_per_row + 1
+        self.draft_block_pool = BlockPool(pool_blocks, bs, enable_prefix_caching=False)
+        shape = (pool_blocks, bs, self.draft_cfg.num_kv_heads, self.draft_cfg.head_dim)
+        dtype = llama.param_dtype(self.draft_cfg)
+        self.draft_kv_caches = [
+            (torch.zeros(shape, dtype=dtype, device=self.device),
+             torch.zeros(shape, dtype=dtype, device=self.device))
+            for _ in range(self.draft_cfg.num_layers)
+        ]
+        logger.info("Draft KV pool: %d blocks x %d tokens (%d blocks/row)",
+                    pool_blocks, bs, self._draft_blocks_per_row)
+
+    def _init_speculation(self) -> None:
+        """Which speculation runs and its counters (the JAX engine's):
+        the fused drafter inside K-step windows, and the legacy host path
+        (``speculative_ngram`` on every greedy K=1 decode pass: all of
+        them with windows off, single steps between windows with them on)."""
+        sched = self.config.scheduler
+        self._spec_window = sched.spec_window_enabled and self._window_steps > 1
+        self._spec_len = sched.spec_draft_len
+        self._legacy_spec = sched.speculative_ngram
+        self.spec_tokens_drafted = 0
+        self.spec_tokens_accepted = 0
+        # Draft tokens accepted / rejected inside fused windows, and fused
+        # window tokens undeliverable at collect.
+        self.spec_window_tokens: Dict[str, int] = {
+            "accepted": 0, "rejected": 0, "wasted": 0,
+        }
+        # Collect-wait seconds attributed to the model drafter's forwards
+        # by a static split: per iteration D+1 draft rows (plus the
+        # amortized prime) through the draft parameters beside D+1 verify
+        # rows through the target's.
+        self.spec_draft_fraction_s = 0.0
+        self._draft_cost_fraction = 0.0
+        if self.draft_params is not None:
+            tgt_n, dft_n = _param_count(self.params), _param_count(self.draft_params)
+            draft_rows = (self._spec_len + 1) + (self._SPEC_HIST_WINDOW - 1) / (
+                self._DRAFT_PRIME_CHAIN * self._window_steps
+            )
+            self._draft_cost_fraction = (draft_rows * dft_n) / (
+                draft_rows * dft_n + (self._spec_len + 1) * tgt_n
+            )
+
+    def _decode_pairs(self) -> int:
+        """The most (row, KV head) pairs one decode call of this
+        configuration makes: a decode batch, a verify of S x W rows (fused
+        or legacy), a draft step, the draft model's prime of S x (H - 1)
+        rows.  The split-KV arrival counters are reserved for it at boot."""
+        sched, S = self.config.scheduler, self._smax
+        kv = self.config.model.num_kv_heads
+        pairs = [S * kv * (sched.spec_draft_len + 1)]
+        if self.draft_cfg is not None:
+            pairs.append(S * (self._SPEC_HIST_WINDOW - 1) * self.draft_cfg.num_kv_heads)
+        return max(pairs)
 
     # -- sizing ------------------------------------------------------------
 
@@ -1498,6 +1673,15 @@ class LLMEngine:
         for name in ("temps", "top_ps", "min_ps", "presence", "frequency",
                      "repetition"):
             bufs[name] = torch.zeros(S, **f32)
+        if self._spec_window:
+            # The drafters' carried history (left -1-padded, the committed
+            # token last) and a speculative window's outputs.
+            bufs["hist"] = torch.full((S, self._SPEC_HIST_WINDOW), -1, **i32)
+            bufs["spec_out"] = torch.zeros(
+                (self._window_steps, self._spec_len + 3, S), **i32)
+        if self.draft_block_pool is not None:
+            bufs["draft_tables"] = torch.zeros((S, self._draft_blocks_per_row), **i32)
+            bufs["draft_pos"] = torch.zeros(S, **i32)
         return bufs
 
     def _window_body(self, b: Dict[str, torch.Tensor], use_penalties: bool,
@@ -1574,15 +1758,12 @@ class LLMEngine:
                 logits, counts, seen, b["presence"], b["frequency"], b["repetition"],
             )
         if stop_mask is not None:
-            # The host path's -1e9 logit bias while the floor is unmet
-            # (+0.0 elsewhere is the identity, bit for bit).
-            logits = logits + (stop_mask & (min_left > 0)[:, None]).float() * -1e9
+            logits = _ban_stops(logits, stop_mask, min_left)
         sampled = sampling_lib.sample_tokens(
             logits, b["temps"], b["top_ps"], b["top_ks"], key_base + t,
             b["seeds"], min_p=b["min_ps"], all_greedy=all_greedy,
         )
-        stop_ids = b["stop_ids"]
-        stop_hit = active & ((sampled[:, None] == stop_ids) & (stop_ids >= 0)).any(dim=1)
+        stop_hit = active & _hits_stop(sampled, b["stop_ids"])
         row = torch.where(active, sampled, -1)
         if isinstance(t, int):
             b["emitted"][t].copy_(row)
@@ -1590,12 +1771,223 @@ class LLMEngine:
             b["emitted"].index_copy_(0, t, row[None].to(b["emitted"].dtype))
         appended = active & ~stop_hit
         if use_penalties:
-            idx = sampled[:, None]
-            counts.scatter_add_(1, idx, appended[:, None].float())
-            seen.scatter_(1, idx, torch.gather(seen, 1, idx) | appended[:, None])
+            _count_tokens(counts, seen, sampled, appended)
         step = active.int()
         return (torch.where(active, sampled, tokens), positions + step,
                 ctx_lens + step, done | stop_hit, torch.clamp(min_left - step, min=0))
+
+    # -- fused speculative windows -------------------------------------------
+
+    def _spec_body(self, b: Dict[str, torch.Tensor], use_penalties: bool,
+                   use_min_floor: bool, do_prime: bool) -> None:
+        """K speculative iterations over the window carry (the JAX
+        engine's ``spec_window``), greedy only.  Each iteration proposes up
+        to D drafts a row (n-gram lookup in the carried history, or D+1
+        sequential draft-model forwards), verifies them beside the
+        committed token in one decode over S x W rows (W = D + 1; row j of
+        a sequence at position pos + j, so the decode's write-then-attend
+        lets it see rows < j; dead rows park on null block 0), then
+        replays the W rows in order with the penalties, the min_tokens ban
+        and the stop set: a row emits the argmax of each verify row while
+        the drafts before agree, so it advances 1..W tokens.  The row's
+        budget gates tokens, not iterations.  The history shifts by the
+        tokens emitted; the model drafter's cursor by the same count.
+        ``spec_out[t]`` holds iteration t's [W, S] tokens, then the drafted
+        and the accepted counts.  ``do_prime`` first rebuilds the draft
+        cache from the history in one causal decode."""
+        bs = self.block_pool.block_size
+        D = self._spec_len
+        W = D + 1
+        H = self._SPEC_HIST_WINDOW
+        model = self.draft_params is not None
+        max_steps, _ = self._apply_window_delta(b)
+        tables, stop_ids = b["tables"], b["stop_ids"]
+        S, bmax = tables.shape
+        dev = tables.device
+        stop_mask = b["stop_mask"] if use_min_floor else None
+        counts, seen, hist = b["counts"], b["seen"], b["hist"]
+        tokens, positions, ctx_lens, done, min_left = (b[n] for n in self._CARRY)
+        draft_pos = b["draft_pos"] if model else None
+        if model and do_prime:
+            draft_pos = self._draft_prime(b, positions, hist)
+        emitted_cnt = torch.zeros_like(positions)
+        offs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+        d_idx = torch.arange(D, device=dev)[None, :]
+        wide_tables = tables.repeat_interleave(W, dim=0)
+        for t in range(self._window_steps):
+            active = ~done & (emitted_cnt < max_steps)
+            # Drafts: the bonus token always takes one budget slot.
+            room = torch.clamp(max_steps - emitted_cnt - 1, min=0)
+            if model:
+                draft = self._draft_propose(b, tokens, positions, min_left, draft_pos,
+                                            active, use_penalties, stop_mask)
+                dvalid = (d_idx < room[:, None]) & active[:, None]
+            else:
+                draft, dvalid = self._ngram_propose(hist, D)
+                dvalid &= (d_idx < room[:, None]) & active[:, None]
+            # Only a contiguous prefix of the drafts is verifiable.
+            dvalid = torch.cumsum((~dvalid).int(), dim=1) == 0
+            draft = torch.where(dvalid, draft.to(tokens.dtype), 0)
+            chain = torch.cat([tokens[:, None], draft], dim=1)
+            row_live = torch.cat([active[:, None], dvalid], dim=1)
+            wpos = positions[:, None] + offs
+            blk = torch.gather(tables, 1, torch.clamp(wpos // bs, 0, bmax - 1).long())
+            logits = llama.decode(
+                self.params, self.config.model,
+                tokens=chain.reshape(-1),
+                positions=torch.where(row_live, wpos, 0).reshape(-1),
+                block_tables=wide_tables,
+                ctx_lens=torch.where(row_live, ctx_lens[:, None] + offs, 0).reshape(-1),
+                slot_block_ids=torch.where(row_live, blk, 0).reshape(-1),
+                slot_offsets=(wpos % bs).reshape(-1),
+                kv_caches=self.kv_caches,
+            ).view(S, W, -1)
+            # The sequential verify: every accepted token through the
+            # plain window's penalty, ban and stop code, in order.
+            alive, last_tok, new_done = active, tokens, done
+            adv = torch.zeros_like(positions)
+            acc_cnt = torch.zeros_like(positions)
+            out = b["spec_out"][t]
+            for j in range(W):
+                lj = logits[:, j]
+                if use_penalties:
+                    lj = sampling_lib.apply_penalties_state(
+                        lj, counts, seen, b["presence"], b["frequency"],
+                        b["repetition"])
+                if use_min_floor:
+                    lj = _ban_stops(lj, stop_mask, min_left)
+                tok_j = torch.argmax(lj, dim=-1)
+                stop_hit = alive & _hits_stop(tok_j, stop_ids)
+                out[j].copy_(torch.where(alive, tok_j, -1))
+                appended = alive & ~stop_hit
+                if use_penalties:
+                    _count_tokens(counts, seen, tok_j, appended)
+                step = alive.int()
+                adv = adv + step
+                min_left = torch.clamp(min_left - step, min=0)
+                last_tok = torch.where(alive, tok_j, last_tok)
+                new_done = new_done | stop_hit
+                if j < W - 1:
+                    alive = appended & dvalid[:, j] & (tok_j == draft[:, j])
+                    acc_cnt = acc_cnt + alive.int()
+            out[W].copy_(dvalid.sum(dim=1))
+            out[W + 1].copy_(acc_cnt)
+            # Fold: the history shifts by the emitted count.
+            cat = torch.cat([hist, torch.clamp(out[:W].T, min=0)], dim=1)
+            hidx = torch.arange(H, device=dev)[None, :] + adv[:, None]
+            hist = torch.gather(cat, 1, hidx.long())
+            tokens = torch.where(active, last_tok, tokens)
+            positions, ctx_lens = positions + adv, ctx_lens + adv
+            done = new_done
+            emitted_cnt = emitted_cnt + adv
+            if model:
+                # Accepted + 1 slots now hold the context before the new
+                # committed token; the next write lands on the first
+                # rejected draft's slot.
+                draft_pos = draft_pos + adv
+        for name, value in zip(self._CARRY, (tokens, positions, ctx_lens, done, min_left)):
+            b[name].copy_(value)
+        b["hist"].copy_(hist)
+        if model:
+            b["draft_pos"].copy_(draft_pos)
+
+    def _ngram_propose(self, hist: torch.Tensor, D: int):
+        """On-device prompt lookup over the carried history [S, H]: the D
+        tokens after the most recent earlier occurrence of the trailing
+        bigram, else of the committed token alone.  Returns (draft [S, D],
+        valid [S, D])."""
+        H = hist.shape[1]
+        dev = hist.device
+        key0, key1 = hist[:, H - 2:H - 1], hist[:, H - 1:H]
+        starts = torch.arange(H - 2, device=dev)[None, :]
+        head, nxt = hist[:, :H - 2], hist[:, 1:H - 1]
+        match2 = (head == key0) & (nxt == key1) & (head >= 0)
+        best2 = torch.where(match2, starts, -1).amax(dim=1)
+        match1 = (nxt == key1) & (nxt >= 0)
+        best1 = torch.where(match1, starts, -1).amax(dim=1)
+        best = torch.where(best2 >= 0, best2, best1)
+        dpos = best[:, None] + 2 + torch.arange(D, device=dev)[None, :]
+        draft = torch.gather(hist, 1, torch.clamp(dpos, 0, H - 1))
+        valid = (best >= 0)[:, None] & (dpos < H) & (draft >= 0)
+        return draft, valid
+
+    def _draft_propose(self, b, tokens, positions, min_left, draft_pos, active,
+                       use_penalties, stop_mask) -> torch.Tensor:
+        """D+1 sequential draft-model forwards: d = 0 consumes the
+        committed token (its KV at compact slot ``draft_pos``, RoPE at the
+        true position), each d < D takes the argmax, with the penalties and
+        the ban the verifier will apply given the drafts before it, as the
+        next proposal; the last forward only writes the last draft's KV.
+        Inactive rows park on the draft pool's null block 0; ``stop_mask``
+        is None without a min_tokens floor.  Returns the drafts [S, D]."""
+        bs = self.block_pool.block_size
+        D = self._spec_len
+        tables = b["draft_tables"]
+        dbmax = tables.shape[1]
+        if use_penalties:
+            dcounts, dseen = b["counts"].clone(), b["seen"].clone()
+        dmin = min_left
+        cur, drafts = tokens, []
+        for d in range(D + 1):
+            dslot = draft_pos + d
+            dblk = torch.gather(
+                tables, 1, torch.clamp(dslot // bs, 0, dbmax - 1).long()[:, None])[:, 0]
+            dlogits = llama.decode(
+                self.draft_params, self.draft_cfg,
+                tokens=cur,
+                positions=positions + d,
+                block_tables=tables,
+                ctx_lens=torch.where(active, dslot + 1, 0),
+                slot_block_ids=torch.where(active, dblk, 0),
+                slot_offsets=dslot % bs,
+                kv_caches=self.draft_kv_caches,
+            )
+            if d == D:
+                break
+            if use_penalties:
+                dlogits = sampling_lib.apply_penalties_state(
+                    dlogits, dcounts, dseen, b["presence"], b["frequency"],
+                    b["repetition"])
+            if stop_mask is not None:
+                dlogits = _ban_stops(dlogits, stop_mask, dmin)
+            cur = torch.argmax(dlogits, dim=-1)
+            drafts.append(cur)
+            if use_penalties:
+                # The verifier's append gate: a proposed stop is not counted.
+                _count_tokens(dcounts, dseen, cur, active & ~_hits_stop(cur, b["stop_ids"]))
+            if stop_mask is not None:
+                dmin = torch.clamp(dmin - active.int(), min=0)
+        return torch.stack(drafts, dim=1)
+
+    def _draft_prime(self, b, positions, hist) -> torch.Tensor:
+        """The draft cache rebuilt from the history in one causal decode
+        over S x (H - 1) rows: history column c of a row with ``live``
+        entries goes to compact slot c - (H - live) at true position
+        positions + 1 - H + c, with ctx slot + 1, so write-then-attend
+        makes each row attend exactly the slots before it; left padding
+        parks on null block 0.  The committed token is left for the first
+        draft forward.  Returns the draft cursor (live - 1)."""
+        bs = self.block_pool.block_size
+        H = self._SPEC_HIST_WINDOW
+        tables = b["draft_tables"]
+        dbmax = tables.shape[1]
+        live = torch.clamp(positions + 1, max=H)
+        cols = torch.arange(H - 1, dtype=torch.int32, device=tables.device)[None, :]
+        slots = cols - (H - live)[:, None]
+        valid = slots >= 0
+        safe = torch.where(valid, slots, 0)
+        blk = torch.gather(tables, 1, torch.clamp(safe // bs, 0, dbmax - 1).long())
+        llama.decode_kv(
+            self.draft_params, self.draft_cfg,
+            tokens=torch.clamp(hist[:, :H - 1], min=0).reshape(-1),
+            positions=torch.where(valid, positions[:, None] + 1 - H + cols, 0).reshape(-1),
+            block_tables=tables.repeat_interleave(H - 1, dim=0),
+            ctx_lens=torch.where(valid, slots + 1, 0).reshape(-1),
+            slot_block_ids=torch.where(valid, blk, 0).reshape(-1),
+            slot_offsets=(safe % bs).reshape(-1),
+            kv_caches=self.draft_kv_caches,
+        )
+        return live - 1
 
     def _window_host_state(self, seqs: List[Sequence]) -> dict:
         """Host arrays and static flags for a window batch (re)build."""
@@ -1654,7 +2046,7 @@ class LLMEngine:
                                               h["use_min_floor"])
         )
         temps, top_ps, top_ks, min_ps, seeds = self._sampling_arrays(seqs, S)
-        self._upload(b, {
+        arrays = {
             "tokens": h["tokens"], "positions": h["positions"],
             "ctx_lens": h["ctx_lens"], "done": h["done"],
             "min_left": h["min_left"], "tables": h["tables"],
@@ -1662,7 +2054,19 @@ class LLMEngine:
             "frequency": h["frequency"], "repetition": h["repetition"],
             "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
             "min_ps": min_ps, "seeds": seeds,
-        })
+        }
+        if self._spec_window:
+            # The drafters' history: the last H tokens, left -1-padded;
+            # windows carry it on the device, only a build transfers it.
+            H = self._SPEC_HIST_WINDOW
+            hist = np.full((S, H), -1, np.int32)
+            for i, s in enumerate(seqs):
+                ids = s.all_token_ids[-H:]
+                hist[i, H - len(ids):] = ids
+            arrays["hist"] = hist
+        if self.draft_block_pool is not None:
+            arrays.update(self._draft_build(len(seqs), S))
+        self._upload(b, arrays)
         if h["use_min_floor"]:
             # Once a build: chained windows keep the rows and their stop sets.
             b["stop_mask"].copy_(self._stop_mask(b))
@@ -1686,6 +2090,24 @@ class LLMEngine:
             b["seen"].copy_(seen)
         self._win_table_lens = [len(s.block_table) for s in seqs]
         return key
+
+    def _draft_build(self, n: int, S: int) -> Dict[str, np.ndarray]:
+        """The model drafter's part of a batch build: the previous batch's
+        draft blocks freed, fresh ones for its n rows (so a preempted,
+        aborted or restored sequence's draft KV never survives: the next
+        prime rebuilds it from the history), the cursor at 0.  A pool that
+        cannot hold them declines this batch's windows to plain ones."""
+        self._draft_primed = False
+        if self._draft_block_alloc:
+            self.draft_block_pool.free(self._draft_block_alloc)
+            self._draft_block_alloc = []
+        bd = self._draft_blocks_per_row
+        tables = np.zeros((S, bd), np.int32)
+        self._draft_tables_ok = self.draft_block_pool.can_allocate(n * bd)
+        if self._draft_tables_ok:
+            self._draft_block_alloc = self.draft_block_pool.allocate(n * bd)
+            tables[:n] = np.asarray(self._draft_block_alloc, np.int32).reshape(n, bd)
+        return {"draft_tables": tables, "draft_pos": np.zeros((S,), np.int32)}
 
     def _window_table_delta(self, seqs: List[Sequence], S: int):
         """The block-table columns each row gained since the device tables
@@ -1730,17 +2152,56 @@ class LLMEngine:
             max_steps, cols.ravel(), vals.ravel(),
             np.array([self._key_seed()], np.int32),
         ])))
-        self.graphs.run(key, lambda: self._window_body(b, *key[3:]))
-        host, ready = kv_quant.stage_to_host(b["emitted"])
+        drafter = self._spec_drafter_for(key)
+        if drafter is None:
+            # Any other window advances positions without extending the
+            # draft cache: the next model-drafter window re-primes.
+            self._draft_primed = False
+            self.graphs.run(key, lambda: self._window_body(b, *key[3:]))
+            host, ready = kv_quant.stage_to_host(b["emitted"])
+        else:
+            # Re-prime after any break in the chain and every
+            # _DRAFT_PRIME_CHAIN windows (the draft pool's row capacity).
+            do_prime = drafter == "model" and (
+                not self._draft_primed
+                or self._draft_windows_since_prime >= self._DRAFT_PRIME_CHAIN
+            )
+            skey = ("spec",) + key[1:] + (drafter, self._spec_len + 1, do_prime)
+            self.graphs.run(skey, lambda: self._spec_body(b, key[3], key[4], do_prime))
+            host, ready = kv_quant.stage_to_host(b["spec_out"])
+            if drafter == "model":
+                self._draft_windows_since_prime = (
+                    0 if do_prime else self._draft_windows_since_prime + 1
+                )
+                self._draft_primed = True
         # One step ordinal per iteration: single-token stepping would use
-        # exactly these seeds for the same tokens.
+        # exactly these seeds for the same tokens (a greedy speculative
+        # window draws none, and advances the counter all the same).
         self._step_counter += self._window_steps
         self.windows_dispatched += 1
         return _PendingStep(
             seqs=list(seqs), host=host, ready=ready, is_decode=True,
             host_s=time.time() - t0, steps=list(plan.decode.steps),
-            win_key=key,
+            win_key=key, spec_drafter=drafter,
         )
+
+    def _spec_drafter_for(self, key: tuple) -> Optional[str]:
+        """The drafter a window of this key runs: speculation only for
+        all-greedy batches (acceptance compares the argmax), so a sampled
+        batch takes the plain window with its per-iteration seeds; a
+        model-drafter batch whose build found no draft blocks declines to
+        a plain window, counted as ``multistep_fallback["draft_pool"]``
+        once a dispatch."""
+        if not self._spec_window or not key[5]:
+            return None
+        if self.draft_params is None:
+            return "ngram"
+        if not self._draft_tables_ok:
+            self.multistep_fallback["draft_pool"] = (
+                self.multistep_fallback.get("draft_pool", 0) + 1
+            )
+            return None
+        return "model"
 
     # -- mixed K-step windows ------------------------------------------------
 
@@ -1807,6 +2268,14 @@ class LLMEngine:
             b, logits[:S], t, active, carry, key_base, stop_mask,
             use_penalties, all_greedy,
         )
+        if self._spec_window:
+            # Keep the drafters' history warm: one committed token an
+            # active row.
+            hist = b["hist"]
+            H = hist.shape[1]
+            cat = torch.cat([hist, torch.where(active, carry[0], 0)[:, None].to(hist.dtype)], dim=1)
+            hidx = torch.arange(H, device=hist.device)[None, :] + active.long()[:, None]
+            b["hist"].copy_(torch.gather(cat, 1, hidx))
         for name, value in zip(self._CARRY, carry):
             b[name].copy_(value)
         c["iter"].add_(1)
@@ -1838,6 +2307,9 @@ class LLMEngine:
             key = chain_from.win_key
             self._note_lookahead_launch()
             self.mixed_windows_chained += 1
+        # Mixed windows advance positions without extending the draft
+        # cache: the next model-drafter window re-primes.
+        self._draft_primed = False
         S = key[1]
         cols, vals = self._window_table_delta(seqs, S)
         b = self._buffers[key]
@@ -1922,12 +2394,21 @@ class LLMEngine:
         return outputs
 
     def _collect_window(self, p: _PendingStep) -> List[StepOutput]:
-        """Read one window's [K, S] emitted tokens and replay them through
-        the finish protocol token by token, as single stepping would.
-        Frozen rows emitted -1 (their stop already retired); tokens of
-        rows that finished while the window flew (abort) count as
-        multistep waste."""
+        """Read one window's [K, S] emitted tokens (a speculative window's
+        [K, W, S], in emission order) and replay them through the finish
+        protocol token by token, as single stepping would.  Frozen rows
+        emitted -1 (their stop already retired); tokens of rows that
+        finished while the window flew (abort) count as multistep waste,
+        and for a speculative window as its wasted tokens beside the
+        drafts it accepted and rejected."""
+        t_sync = time.time()
         arr = p.read()
+        sync_s = time.time() - t_sync
+        spec = p.spec_drafter is not None
+        if spec:
+            W = self._spec_len + 1
+            drafts = arr[:, W:, : len(p.seqs)]
+            arr = arr[:, :W].reshape(-1, arr.shape[-1])  # [K * W, S]
         outputs: List[StepOutput] = []
         delivered = [0] * len(p.seqs)
         alive = [(i, s) for i, s in enumerate(p.seqs) if not s.is_finished]
@@ -1942,6 +2423,10 @@ class LLMEngine:
                 batch.append((i, s))
                 toks.append(tok)
             if not batch:
+                if spec:
+                    # A row that accepted fewer drafts than another pads
+                    # its iteration with -1: not the end of the window.
+                    continue
                 break  # done and budget masks are monotone in a window
             outputs.extend(self._append_and_check(
                 [s for _, s in batch], toks, first_token=False
@@ -1950,7 +2435,18 @@ class LLMEngine:
                 delivered[i] += 1
             alive = [(i, s) for i, s in alive if not s.is_finished]
         emitted = int((arr[:, : len(p.seqs)] >= 0).sum())
-        self.multistep_wasted_tokens += emitted - sum(delivered)
+        wasted = emitted - sum(delivered)
+        self.multistep_wasted_tokens += wasted
+        if spec:
+            drafted, accepted = int(drafts[:, 0].sum()), int(drafts[:, 1].sum())
+            self.spec_tokens_drafted += drafted
+            self.spec_tokens_accepted += accepted
+            self.spec_window_tokens["accepted"] += accepted
+            self.spec_window_tokens["rejected"] += drafted - accepted
+            self.spec_window_tokens["wasted"] += wasted
+            if p.spec_drafter == "model":
+                # A floor: a pipelined window's wait hides part of it.
+                self.spec_draft_fraction_s += self._draft_cost_fraction * sync_s
         if p.chunk_sched is not None:
             outputs.extend(self._collect_chunks(p))
         return outputs
@@ -2056,6 +2552,20 @@ class LLMEngine:
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
         seqs = plan.seqs
+        # The legacy speculative path: greedy rows without host-state
+        # features only (acceptance compares the argmax); any other batch
+        # takes a plain step.
+        if self._legacy_spec and all(
+            s.sampling_params.temperature <= 0
+            and not s.sampling_params.presence_penalty
+            and not s.sampling_params.frequency_penalty
+            and s.sampling_params.repetition_penalty == 1.0
+            and not s.sampling_params.min_tokens
+            and not s.sampling_params.logprobs
+            and not s.sampling_params.logit_bias
+            for s in seqs
+        ):
+            return self._run_decode_speculative(plan, self._legacy_spec)
         S = self._decode_bucket(len(seqs))
         (tokens, positions, block_tables, ctx_lens, slot_blocks,
          slot_offsets) = self._decode_batch_arrays(seqs, S)
@@ -2074,6 +2584,87 @@ class LLMEngine:
         return self._append_and_check(
             seqs, token_ids, first_token=False, logprob_info=logprob_info
         )
+
+    @classmethod
+    def _draft_ngram(cls, seq: Sequence, k: int, n: int = 2) -> List[int]:
+        """Prompt-lookup drafting: the k tokens that followed the most
+        recent earlier occurrence of the trailing n-gram, within
+        ``_DRAFT_SCAN_WINDOW`` tokens of the sequence's own history; empty
+        when none (the step is then a plain decode)."""
+        hist = seq.all_token_ids
+        if len(hist) < n + 1:
+            return []
+        key = tuple(hist[-n:])
+        lo = max(0, len(hist) - n - 1 - cls._DRAFT_SCAN_WINDOW)
+        for start in range(len(hist) - n - 1, lo - 1, -1):
+            if tuple(hist[start:start + n]) == key:
+                return list(hist[start + n:start + n + k])
+        return []
+
+    def _run_decode_speculative(self, plan: DecodePlan, k: int) -> List[StepOutput]:
+        """The legacy host path: up to k host-drafted tokens a sequence
+        verified in one decode over S x (k+1) rows.  Row j of a sequence
+        consumes the token at position pos0 + j (the last real token, then
+        the drafts) with ctx num_tokens + j, so the decode's
+        write-then-attend makes it see rows < j.  The argmax of every row
+        is read once (this path's one sync); each sequence takes its
+        longest agreeing draft prefix, then the model's own next token.
+        Rejected rows' KV lies past the accepted tokens, overwritten
+        before any row attends it."""
+        seqs = plan.seqs
+        S = self._decode_bucket(len(seqs))
+        W = k + 1
+        R = S * W
+        bs = self.block_pool.block_size
+        tokens = np.zeros((R,), np.int32)
+        positions = np.zeros((R,), np.int32)
+        block_tables = np.zeros((R, self._bmax), np.int32)
+        ctx_lens = np.zeros((R,), np.int32)
+        slot_blocks = np.zeros((R,), np.int32)
+        slot_offsets = np.zeros((R,), np.int32)
+        drafts: List[List[int]] = []
+        for i, seq in enumerate(seqs):
+            # Drafts fit the plan's budget (blocks back steps[i] tokens).
+            nd = min(k, plan.steps[i] - 1)
+            draft = self._draft_ngram(seq, nd) if nd > 0 else []
+            drafts.append(draft)
+            pos0 = seq.num_tokens - 1
+            table = seq.block_table[: self._bmax]
+            for j, tok in enumerate([seq.all_token_ids[-1]] + draft):
+                r = i * W + j
+                tokens[r] = tok
+                positions[r] = pos0 + j
+                block_tables[r, : len(table)] = table
+                ctx_lens[r] = seq.num_tokens + j
+                slot_blocks[r] = seq.block_table[(pos0 + j) // bs]
+                slot_offsets[r] = (pos0 + j) % bs
+            # Rows past the chain stay dead: null block 0, ctx 0.
+        self._note_decode_launch()
+        logits = llama.decode(
+            self.params, self.config.model,
+            tokens=self._put(tokens),
+            positions=self._put(positions),
+            block_tables=self._put(block_tables),
+            ctx_lens=self._put(ctx_lens),
+            slot_block_ids=self._put(slot_blocks),
+            slot_offsets=self._put(slot_offsets),
+            kv_caches=self.kv_caches,
+        )
+        greedy = torch.argmax(logits, dim=-1).tolist()  # the step's device read
+        outputs: List[StepOutput] = []
+        for i, seq in enumerate(seqs):
+            base, draft = i * W, drafts[i]
+            m = 0
+            while m < len(draft) and greedy[base + m] == draft[m]:
+                m += 1
+            self.spec_tokens_drafted += len(draft)
+            self.spec_tokens_accepted += m
+            for tok in draft[:m] + [greedy[base + m]]:
+                outs = self._append_and_check([seq], [tok], first_token=False)
+                outputs.extend(outs)
+                if outs and outs[0].finished:
+                    break
+        return outputs
 
     def _run_mixed(self, step_plan) -> List[StepOutput]:
         """One fused step over the packed [decode bucket + chunk bucket]
@@ -2351,7 +2942,7 @@ class LLMEngine:
     def stats(self) -> Dict[str, float]:
         """The JAX engine's stats keys (its ``/metrics`` reads them), plus
         the port's own window, graph and offload counters.  Keys of
-        features not ported yet (speculation, LoRA, the encode lane, the
+        features not ported yet (LoRA, the encode lane, the
         compile inventory and the trace ring) are 0 or empty, as on a JAX
         engine without them."""
         return {
@@ -2390,11 +2981,11 @@ class LLMEngine:
             "kv_prefetch_hit": self.kv_prefetch.hit_blocks if self.kv_prefetch else 0,
             "kv_prefetch_waste": self.kv_prefetch.waste_blocks if self.kv_prefetch else 0,
             "kv_prefetch_inflight": self.kv_prefetch.inflight if self.kv_prefetch else 0,
-            "spec_tokens_drafted": 0,
-            "spec_tokens_accepted": 0,
-            "spec_window_tokens": {},
-            "spec_drafter": "",
-            "spec_draft_fraction_seconds": 0.0,
+            "spec_tokens_drafted": self.spec_tokens_drafted,
+            "spec_tokens_accepted": self.spec_tokens_accepted,
+            "spec_window_tokens": dict(self.spec_window_tokens),
+            "spec_drafter": self.config.scheduler.spec_drafter or "",
+            "spec_draft_fraction_seconds": self.spec_draft_fraction_s,
             "kv_wire_bytes": self.kv_wire_stats.wire_bytes(),
             "kv_snapshot_format": self.kv_wire_stats.snapshot_formats(),
             "compile_seconds": {},

@@ -237,7 +237,37 @@ def decode(
 ) -> torch.Tensor:
     """Batched single-token decode.  Returns logits [S, V] (fp32).  Each
     layer writes the new token's KV first, then attends (``ctx_lens``
-    already counts the new token)."""
+    already counts the new token).  Every row's KV is written before any
+    row attends, so row j may read what row i < j of the same call wrote
+    (a sequence's verify rows, a causal prime)."""
+    x = _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
+                       slot_block_ids, slot_offsets, kv_caches)
+    x = _norm(x, params["norm"], cfg)
+    return _lm_head(params, cfg, x)
+
+
+def decode_kv(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    block_tables: torch.Tensor,
+    ctx_lens: torch.Tensor,
+    slot_block_ids: torch.Tensor,
+    slot_offsets: torch.Tensor,
+    kv_caches: KVCaches,
+) -> None:
+    """:func:`decode`'s cache writes without its logits: the layers run
+    (each row's KV written, then attended, as in :func:`decode`), the final
+    norm and the lm_head do not.  A draft model's causal prime needs only
+    the cache it leaves."""
+    _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
+                   slot_block_ids, slot_offsets, kv_caches)
+
+
+def _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
+                   slot_block_ids, slot_offsets, kv_caches) -> torch.Tensor:
+    """The decoder layers of :func:`decode`: hidden states [S, h]."""
     scale = cfg.head_dim**-0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
@@ -253,8 +283,7 @@ def decode(
             )
 
         x = _layer(layer, x, cfg, cos, sin, attend)
-    x = _norm(x, params["norm"], cfg)
-    return _lm_head(params, cfg, x)
+    return x
 
 
 def mixed_step(

@@ -22,6 +22,7 @@ on dense and on int8 caches.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,9 +48,17 @@ SPLIT_TOKENS_INT8 = 128
 
 # Kernel launches since the count was last reset to 0 (plain ints; a run
 # reads them to show that its decode steps went through the kernels):
-# ``launches`` counts the dense kernel, ``launches_int8`` the int8 one.
+# ``launches`` counts the dense kernel, ``launches_int8`` the int8 one;
+# ``launches_by_shape`` counts both by (kernel, rows, head_dim), so a run
+# can tell a verify of S x W rows or a drafter's step from a plain decode.
 launches = 0
 launches_int8 = 0
+launches_by_shape: Counter = Counter()
+
+
+def name_of(int8: bool) -> str:
+    """The kernel's name for its cache type."""
+    return "paged_decode_int8" if int8 else "paged_decode"
 
 
 def paged_decode_attention_plain(
@@ -386,10 +395,10 @@ def paged_decode_attention(
         SPLIT_TOKENS_INT8 if int8 else SPLIT_TOKENS, float(scale), window, stream,
     )
     if err:
-        name = "paged_decode_int8" if int8 else "paged_decode"
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name_of(int8)} kernel launch failed: cudaError {err}")
     if int8:
         launches_int8 += 1
     else:
         launches += 1
+    launches_by_shape[(name_of(int8), S, D)] += 1
     return out

@@ -28,14 +28,15 @@ It reuses nothing of the JAX module (which forces the JAX platform and
 starts ``jax.distributed``).
 
     python -m production_stack_tpu_torch.engine.server.api_server \
-        --model llama-3.1-8b --port 9200 [--device cuda]
+        --model llama-3.1-8b --port 9200 [--device cuda] \
+        [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
 Not ported yet, with their flags: tool calls, guided decoding
 (``response_format``), prompt logprobs (``echo`` with ``logprobs``),
 embeddings / rerank / score (the encode lane), LoRA admin, the
 ``/debug/*`` surfaces (request tracing and the window flight recorder),
-the ``encode`` disagg role, speculation, parallelism, int8 weights and
-loading a weights path.
+the ``encode`` disagg role, parallelism, int8 weights and loading a
+weights path (the target's or the drafter's).
 """
 
 from __future__ import annotations
@@ -1181,6 +1182,59 @@ def build_parser() -> argparse.ArgumentParser:
         "streams are identical)",
     )
     parser.add_argument(
+        "--speculative-ngram",
+        type=int,
+        default=0,
+        help="n-gram (prompt-lookup) speculative decoding: draft K tokens "
+        "from the sequence's own history and verify them alongside the "
+        "committed token in one forward.  With the K-step decode window "
+        "active (the default) the drafter runs INSIDE the window (one "
+        "CUDA-graph replay on the card): drafts proposed on the device, "
+        "acceptance folded into the carried state, a rejected draft costs "
+        "a window iteration, never a host round-trip.  Greedy-only; with "
+        "--no-multi-step-window the legacy host-side speculative path "
+        "runs instead",
+    )
+    parser.add_argument(
+        "--speculative-model",
+        default=None,
+        help="draft-MODEL speculative decoding: a model preset name "
+        "sharing the target's tokenizer/vocab (a vocab mismatch refuses "
+        "to boot; e.g. llama-3.2-1b for llama-3.1-8b), loaded as a second "
+        "model on the same card.  It proposes --speculative-draft-len "
+        "tokens per window iteration, autoregressively from its own "
+        "device-resident KV cache (dedicated draft pool; target KV "
+        "capacity untouched), and the target verifies draft+1 rows in "
+        "the same wide forward the n-gram drafter uses.  Mutually "
+        "exclusive with --speculative-ngram; requires the window "
+        "machinery (no legacy host path)",
+    )
+    parser.add_argument(
+        "--speculative-draft-len",
+        type=int,
+        default=4,
+        help="draft tokens the model drafter proposes per window "
+        "iteration (the D in the W = D+1 verify-row fan-out; only "
+        "meaningful with --speculative-model)",
+    )
+    parser.add_argument(
+        "--speculative-draft-pool-blocks",
+        type=int,
+        default=None,
+        help="device blocks reserved for the draft model's dedicated KV "
+        "pool (default: auto-sized for max_num_seqs rows).  Exhaustion "
+        "never stalls: a window that cannot allocate draft blocks "
+        "declines to a plain window, counted under "
+        "tpu:multistep_fallback_total{reason=draft_pool}",
+    )
+    parser.add_argument(
+        "--no-speculative-model",
+        action="store_true",
+        help="force the model drafter OFF even if --speculative-model "
+        "is set (deploy-template escape hatch; restores ngram-only / "
+        "non-speculative behavior exactly)",
+    )
+    parser.add_argument(
         "--no-admission-control",
         action="store_true",
         help="disable bounded admission (the waiting queue then grows "
@@ -1224,6 +1278,15 @@ def config_from_args(args):
         **({"scheduler.prefill_buckets": _parse_buckets(args)}
            if args.prefill_buckets else {}),
         "scheduler.num_scheduler_steps": args.num_scheduler_steps,
+        "scheduler.speculative_ngram": args.speculative_ngram,
+        **({
+            "scheduler.speculative_model": args.speculative_model,
+            "scheduler.speculative_draft_len": args.speculative_draft_len,
+            **({"scheduler.speculative_draft_pool_blocks":
+                args.speculative_draft_pool_blocks}
+               if args.speculative_draft_pool_blocks is not None else {}),
+        } if args.speculative_model is not None
+            and not args.no_speculative_model else {}),
         **({"scheduler.multi_step_window": False}
            if args.no_multi_step_window else {}),
         "scheduler.decode_window": args.decode_window,

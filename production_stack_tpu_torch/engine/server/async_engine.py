@@ -65,10 +65,13 @@ class TokenEvent:
 
 
 class AsyncEngine:
-    def __init__(self, config: EngineConfig, device=None, params=None):
-        """``device`` and ``params`` are passed to :class:`LLMEngine`
-        (default: the CUDA device and the seeded random init)."""
-        self.engine = LLMEngine(config, device=device, params=params)
+    def __init__(self, config: EngineConfig, device=None, params=None,
+                 draft_params=None):
+        """``device``, ``params`` and ``draft_params`` are passed to
+        :class:`LLMEngine` (default: the CUDA device and the seeded random
+        inits)."""
+        self.engine = LLMEngine(config, device=device, params=params,
+                                draft_params=draft_params)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._queues: Dict[str, asyncio.Queue] = {}
         self._pending: List = []  # (request_id, prompt_ids, sampling_params)
@@ -221,7 +224,9 @@ class AsyncEngine:
                 aborts, self._aborts = self._aborts, []
                 self._pending_tokens -= sum(len(p[1]) for p in pending)
             # Deadline sweep, each scheduler pass: expired waiting and
-            # preempted sequences join this iteration's aborts.
+            # preempted sequences join this iteration's aborts, and their
+            # consumers hear of it once they have left the scheduler.
+            expired = []
             if self._any_deadlines and self.engine.has_unfinished():
                 for request_id in self.engine.scan_expired_deadlines(
                     self._last_step_ts
@@ -229,13 +234,15 @@ class AsyncEngine:
                     if request_id in aborts:
                         continue
                     aborts.append(request_id)
+                    expired.append(request_id)
                     self.engine.deadline_expired += 1
-                    self._emit(request_id, DeadlineExceeded(
-                        f"request {request_id} missed its deadline while "
-                        "queued; shed before occupying a batch slot"
-                    ))
             for request_id in aborts:
                 self.engine.abort_request(request_id)
+            for request_id in expired:
+                self._emit(request_id, DeadlineExceeded(
+                    f"request {request_id} missed its deadline while "
+                    "queued; shed before occupying a batch slot"
+                ))
             for request_id, token_ids, params in pending:
                 try:
                     self.engine.add_request(

@@ -1,6 +1,6 @@
 """K-step windows, mixed-window iterations and pipelined steps as
 CUDA-graph replays, on the card.
-Marked ``cuda``: they skip without a CUDA device (a CUDA graph and the
+Marked ``cuda`` (all but the runner's counter arithmetic): they skip without a CUDA device (a CUDA graph and the
 kernels in it have no CPU mode).  The file imports no jax, so it runs on
 the card machine as it is:
 
@@ -212,15 +212,105 @@ def test_launch_counters_count_replays(cuda_device, int8):
 
     runner = GraphRunner(cuda_device)
     before = (tpa.launches, tpa.launches_int8, tkw.launches)
+    shape = (tpa.name_of(int8), S, D)
+    by_shape = tpa.launches_by_shape[shape]
     for _ in range(3):
         runner.run("k", body)
     torch.cuda.synchronize()
     assert runner.captures == 1 and runner.replays == 2
+    assert tpa.launches_by_shape[shape] - by_shape == 3
     if int8:
         assert (tpa.launches_int8 - before[1], tkw.launches - before[2]) == (3, 3)
         assert tpa.launches == before[0]
     else:
         assert tpa.launches - before[0] == 3
+
+
+@pytest.mark.cuda
+def test_capture_tolerates_a_worker_thread_waiting_on_events(cuda_device):
+    """A thread waiting on CUDA events of its own stream (as the offload
+    writer does) while the step thread captures invalidates no capture."""
+    import threading
+
+    stop = threading.Event()
+    side = torch.cuda.Stream(cuda_device)
+    waits = []
+
+    def waiter():
+        x = torch.ones(1 << 16, device=cuda_device)
+        while not stop.is_set():
+            with torch.cuda.stream(side):
+                x.add_(1.0)
+                done = torch.cuda.Event()
+                done.record(side)
+            done.synchronize()
+            waits.append(1)
+
+    a = torch.randn(256, 256, device=cuda_device)
+    out = torch.empty_like(a)
+
+    def body():
+        for _ in range(64):
+            torch.matmul(a, a, out=out)
+
+    runner = GraphRunner(cuda_device)
+    thread = threading.Thread(target=waiter)
+    thread.start()
+    try:
+        for i in range(16):
+            runner.run(("k", i), body)
+            runner.run(("k", i), body)
+    finally:
+        stop.set()
+        thread.join()
+    torch.cuda.synchronize()
+    assert runner.captures == 16 and runner.replays == 16 and waits
+    torch.testing.assert_close(out, a @ a)
+
+
+@pytest.mark.cuda
+def test_capture_runs_without_the_cyclic_collector(cuda_device):
+    """The collector is off while a body is captured (a finalizer it ran
+    there could make a CUDA call that invalidates the capture) and on
+    again after."""
+    import gc
+
+    seen = []
+    x = torch.ones(8, device=cuda_device)
+
+    def body():
+        seen.append(gc.isenabled())
+        x.add_(1.0)
+
+    runner = GraphRunner(cuda_device)
+    runner.run("k", body)
+    runner.run("k", body)
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert torch.equal(x, torch.full_like(x, 3.0))  # the eager call, then one replay
+
+
+def test_capture_changes_are_taken_back_and_replayed():
+    """The runner's counter arithmetic (no card needed): a capture's change
+    to the int counters and to the shape counter comes back out exactly,
+    and a replay adds it again."""
+    from production_stack_tpu_torch.engine.core import cuda_graphs
+
+    shape = ("paged_decode", 40, 128)
+    saved = (tpa.launches, tpa.launches_int8, tpa.launches_by_shape[shape])
+    try:
+        before = cuda_graphs._read_counters()
+        tpa.launches += 2
+        tpa.launches_by_shape[shape] += 3
+        deltas = [cuda_graphs._change(a, b)
+                  for a, b in zip(cuda_graphs._read_counters(), before)]
+        cuda_graphs._add_counters(deltas, sign=-1)
+        assert cuda_graphs._read_counters() == before
+        cuda_graphs._add_counters(deltas)
+        assert tpa.launches == saved[0] + 2 and tpa.launches_int8 == saved[1]
+        assert tpa.launches_by_shape[shape] == saved[2] + 3
+    finally:
+        tpa.launches, tpa.launches_int8, tpa.launches_by_shape[shape] = saved
 
 
 @pytest.mark.cuda

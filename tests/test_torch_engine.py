@@ -176,8 +176,12 @@ def test_torch_engine_raises_outside_the_slice():
     cfg = torch_config()
     cfg.scheduler.multi_step_window = None  # auto: K-step windows
     cfg.scheduler.mixed_window = None  # auto: mixed K-step windows, served
-    cfg.scheduler.speculative_ngram = 3  # in-window speculation, not yet
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
+    cfg.lora.max_loras = 2  # multi-LoRA slots, not yet
+    with pytest.raises(NotImplementedError, match="lora"):
+        LLMEngine(cfg, device="cpu")
+    cfg = torch_config()
+    cfg.draft_weights_path = "draft-checkpoint"  # HF drafter weights, not yet
+    with pytest.raises(NotImplementedError, match="draft_weights_path"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
     cfg.cache.disagg_role = "encode"  # the encode lane's pool role, not yet

@@ -419,7 +419,9 @@ SERVED_FLAGS = (
     "--step-watchdog-s", "--drain-grace-s", "--log-level",
     "--host-offload-gb", "--remote-kv-url", "--disagg-role",
     "--no-remote-prefetch", "--prefetch-threads", "--disagg-handoff-wait-s",
-    "--kv-wire-format",
+    "--kv-wire-format", "--speculative-ngram", "--speculative-model",
+    "--speculative-draft-len", "--speculative-draft-pool-blocks",
+    "--no-speculative-model",
 )
 
 
@@ -463,7 +465,9 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--decode-window", "4", "--no-mixed-window", "--no-pipeline-decode",
             "--host-offload-gb", "0.5", "--remote-kv-url", "kv://127.0.0.1:9400",
             "--disagg-role", "both", "--no-remote-prefetch", "--prefetch-threads",
-            "3", "--disagg-handoff-wait-s", "1.5", "--kv-wire-format", "int8"]
+            "3", "--disagg-handoff-wait-s", "1.5", "--kv-wire-format", "int8",
+            "--speculative-model", "debug-1l", "--speculative-draft-len", "3",
+            "--speculative-draft-pool-blocks", "40"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
