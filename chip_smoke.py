@@ -23,7 +23,13 @@ non-zero (no phase is caught and passed over):
    columns, the lengths int32 device tensors) on dense and int8 pools at
    the main path's chunk (512 over 2560 cached) and prompt (2048) and at
    its edges (a partial block with ragged valid_len, a sliding window,
-   D=64 G=1, D=256, fp32), each also checked for the same bits twice; the int8
+   D=64 G=1, D=256, fp32), each also checked for the same bits twice;
+   flash prefill's batched entry (the encode lane: no prefix, B rows, the
+   lengths an int32 device tensor) at B = 8 and 1, T = 128 / 512 / 2048,
+   bf16 and fp32, ragged lengths with 0, 1, 37 (inside a query tile) and
+   T, plus D=64 and a sliding window: the valid rows within the tolerance,
+   the padded rows zero, the same bits twice, SDPA over [B, H, T, D] with
+   the causal-and-valid mask (``enable_gqa``) as the yardstick; the int8
    paged-decode kernel on caches quantized by the port's
    ``quantize_vectors``, with the same split edges, and its time over its
    split settings (``split_int8``: split tokens 64/128/256, blocks an SM
@@ -41,7 +47,10 @@ non-zero (no phase is caught and passed over):
    small input, once on dense and once on int8 KV caches: 2 layers at
    llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
    (a decode row beside a prefill chunk over its cached prefix), logits
-   within 2e-3.  Then the K-step window path at the same width and depth
+   within 2e-3; and the encode forward (``llama.encode_batch``, 4 texts of
+   128, 1, 37 and 0 tokens) on the card against the CPU within 2e-3, one
+   batched-entry launch a layer.  Then the K-step window path at the same
+   width and depth
    (fp32, TF32 off, dense and int8): 8 greedy requests on an engine at
    the default decode path (windows of 8 with the lookahead, each window
    one CUDA-graph replay) must give the same tokens as eager single
@@ -144,6 +153,23 @@ non-zero (no phase is caught and passed over):
    beside plain windows, capture seconds per graph key (prime and no-prime), output tokens/s with
    speculation on and off, and at bf16 the matched prefix of the
    speculative and plain streams with the top-2 margin at a divergence.
+10. The encode lane at full width (``phase_encode``): llama-3.1-8b with
+   the default pool, over localhost HTTP.  8 greedy streams (first use,
+   then the baseline); /v1/embeddings with 8 texts of 16-2000 tokens with
+   the launch counters at 0 just before: one batch of 8 (8 texts counted,
+   one batch-size observation in the 8 bucket), 32 launches of the batched
+   entry and no other kernel, unit-norm vectors; the same request under
+   torch.profiler: exactly one device-to-host copy, the device busy time
+   and idle share of the batch, its transient peak memory; /v1/rerank and
+   /v1/score ordered and valued as the vectors' cosines; the 8 streams
+   again beside a burst of 3 such requests, every window dispatch under
+   ``set_sync_debug_mode("error")`` (ITL median and max beside the streams
+   alone: reported, not gated).  Then on a second engine with the same
+   weights the serial path (``LLMEngine.embed`` in a worker thread)
+   embeds the texts in a loop while 8 greedy requests run through their
+   first-use captures: some embed must overlap a capture, the streams must
+   equal a second run's (replays), and the serial vectors must be within
+   cosine 0.999 of the batch's.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -632,6 +658,66 @@ def check_paged_prefill(gen, name, T, H, K, D, cached, valid, dtype=torch.bfloat
     return row
 
 
+# Flash prefill's batched entry (the encode lane): valid lengths of the 8
+# rows of a [8, T] batch, ragged, with an empty row, a 1-token row, rows
+# that end inside a 16-token query tile (G = 4) and a full row.
+BATCHED_LENS = {
+    128: (128, 0, 1, 37, 100, 127, 64, 5),
+    512: (512, 0, 1, 37, 300, 511, 64, 200),
+    2048: (0, 1, 37, 2048, 1000, 16, 1500, 777),
+}
+
+
+def check_batched_prefill(gen, name, B, T, H, K, D, lens, dtype=torch.bfloat16,
+                          window=None) -> dict:
+    """One case of flash prefill's batched entry (no prefix, B rows of T
+    tokens, the lengths an int32 device tensor): the valid rows within
+    ``TOL`` of the plain version, the padded rows zero, the same bits
+    twice.  The bound counts the valid rows' bytes (q, k, v read, every
+    output row written) and their causal work; the yardstick is one SDPA
+    over [B, H, T, D] with the causal-and-valid mask (``enable_gqa``)."""
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+
+    dev = "cuda"
+    q = torch.randn((B, T, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, T, K, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, T, K, D), generator=gen, device=dev).to(dtype)
+    valid = torch.tensor(lens, dtype=torch.int32, device=dev)
+    scale = D**-0.5
+    args = (q, k, v, valid)
+    got = fp.flash_prefill_attention_batched(*args, scale=scale, sliding_window=window)
+    again = fp.flash_prefill_attention_batched(*args, scale=scale, sliding_window=window)
+    want = fp.flash_prefill_attention_batched_plain(*args, scale=scale, sliding_window=window)
+    torch.cuda.synchronize()
+    live = torch.arange(T, device=dev)[None, :] < valid[:, None].long()  # [B, T]
+    err = (got.float() - want.float())[live].abs().max().item() if live.any() else 0.0
+    pad_zero = not got[~live].any().item()
+    row = {"case": name, "B": B, "T": T, "H": H, "K": K, "D": D, "valid_lens": list(lens),
+           "window": window, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": TOL[dtype], "padded_rows_zero": pad_zero,
+           "same_bits_twice": torch.equal(got, again)}
+    if (not torch.isfinite(got).all() or err > TOL[dtype] or not pad_zero
+            or not row["same_bits_twice"]):
+        raise AssertionError(f"batched flash prefill {name}: {row}")
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = esz * (sum(lens) * (H + 2 * K) * D + B * T * H * D) + 4 * B
+    flops = 4.0 * sum(_visible_keys(0, n, window) for n in lens) * H * D
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dtype)
+    row["kernel_ms"] = graph_time_ms(lambda: fp.flash_prefill_attention_batched(
+        *args, scale=scale, sliding_window=window), iters=10)
+    row["plain_ms"] = cuda_time_ms(lambda: fp.flash_prefill_attention_batched_plain(
+        *args, scale=scale, sliding_window=window), iters=2, warmup=1)
+    idx = torch.arange(T, device=dev)
+    mask = (idx[None, :] <= idx[:, None])[None] & (idx[None, None, :] < valid[:, None, None])
+    if window:
+        mask &= (idx[None, :] > idx[:, None] - window)[None]
+    qd, kd, vd = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    row["library_ms"] = graph_time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask[:, None], scale=scale, enable_gqa=True), iters=10)
+    del want, got, again
+    return row
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version, all cases on one JSON line;
     returns the main-path row of each kernel, keyed by kernel name."""
@@ -736,6 +822,18 @@ def phase_kernels() -> dict:
             check_paged_prefill(gen, "T256_fp32", 256, H, K, D, 2560, 200,
                                 dtype=torch.float32, int8=True),
         ],
+        # The batched entry (the encode lane) at 8 rows and at 1 (the
+        # serial embed), bf16 and fp32, T = 128 / 512 / 2048; one D=64 case
+        # (llama-3.2-1b's width) and one with a sliding window.
+        "flash_prefill_batched": [
+            check_batched_prefill(gen, f"B{B}_T{T}" + ("_fp32" if dt == torch.float32 else ""),
+                                  B, T, H, K, D, BATCHED_LENS[T] if B == 8 else (T,), dtype=dt)
+            for dt in (torch.bfloat16, torch.float32) for B in (8, 1) for T in (2048, 512, 128)
+        ] + [
+            check_batched_prefill(gen, "B8_T512_D64", 8, 512, H, K, 64, BATCHED_LENS[512]),
+            check_batched_prefill(gen, "B8_T512_window", 8, 512, H, K, D, BATCHED_LENS[512],
+                                  window=200),
+        ],
     }
     emit({"phase": "kernels", **cases})
     # The main path's shapes: 8 decode rows; flash prefill's paged entry at
@@ -747,12 +845,16 @@ def phase_kernels() -> dict:
     spec = [r for r in cases["paged_decode"]
             if r["case"] in SPEC_SHAPES]
     spec8 = [r for r in cases["paged_decode_int8"] if r["case"] in SPEC_SHAPES]
+    batched = cases["flash_prefill_batched"]
     return {"paged_decode": dict(cases["paged_decode"][1], also=spec),
             "paged_decode_int8": dict(cases["paged_decode_int8"][1], also=spec8),
             "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous),
             "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]),
             "kv_write_int8": dict(cases["kv_write_int8"][0],
-                                  also=[cases["kv_write_int8"][1]])}
+                                  also=[cases["kv_write_int8"][1]]),
+            # The encode phase's batch: 8 texts at T = 2048; beside it the
+            # serial embed's B = 1 and the other T buckets.
+            "flash_prefill_batched": dict(batched[0], also=batched[1:6])}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -773,6 +875,47 @@ def reference_model() -> tuple:
     return cfg, cpu_params, gen.get_state()
 
 
+def _tree_to(t, dev):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, dev) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_to(v, dev) for v in t]
+    return t.to(dev)
+
+
+def phase_encode_reference(model: tuple) -> dict:
+    """The encode forward on the card against the CPU: ``model``
+    (:func:`reference_model`, 2 layers at llama-3.1-8b width, fp32, TF32
+    off), 4 texts in a [4, 128] batch of lengths 128, 1, 37 and 0 through
+    ``llama.encode_batch``; the vectors within the reference phase's 2e-3,
+    the empty row zero on both, and the card's attention through flash
+    prefill's batched entry (one launch a layer)."""
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu_params, state = model
+    gen = torch.Generator(device="cpu")
+    gen.set_state(state)
+    lens = torch.tensor([128, 1, 37, 0], dtype=torch.int32)
+    tokens = torch.randint(4, cfg.vocab_size, (4, 128), generator=gen, dtype=torch.int32)
+    want = llama.encode_batch(cpu_params, cfg, tokens, lens)
+    before = fp.launches_batched
+    got = llama.encode_batch(_tree_to(cpu_params, "cuda"), cfg, tokens.cuda(),
+                             lens.cuda()).cpu()
+    launched = fp.launches_batched - before
+    err = (got - want).abs().max().item()
+    row = {"phase": "encode_reference", "layers": cfg.num_layers,
+           "width": cfg.hidden_size, "valid_lens": lens.tolist(), "max_abs_err": err,
+           "tol": 2e-3, "batched_launches": launched,
+           "norms": got.norm(dim=1).tolist()}
+    emit(row)
+    if (not torch.isfinite(got).all() or err > 2e-3 or got[3].any() or want[3].any()
+            or launched != cfg.num_layers):
+        raise AssertionError(f"card vs CPU encode: {row}")
+    return row
+
+
 def phase_reference(int8: bool, model: tuple) -> dict:
     """The model path on the card against the same path on the CPU (plain
     attention) on a small input: ``model`` (:func:`reference_model`) over
@@ -788,13 +931,6 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     gen = torch.Generator(device="cpu")
     gen.set_state(state)  # the prompts follow the weights' draws
     bs, nblocks = 16, 16
-
-    def tree_to(t, dev):
-        if isinstance(t, dict):
-            return {k: tree_to(v, dev) for k, v in t.items()}
-        if isinstance(t, list):
-            return [tree_to(v, dev) for v in t]
-        return t.to(dev)
 
     def caches(dev):
         shape = (nblocks, bs, cfg.num_kv_heads, cfg.head_dim)
@@ -812,7 +948,7 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     worst = 0.0
     runs = {}
     for dev in ("cpu", "cuda"):
-        params = cpu_params if dev == "cpu" else tree_to(cpu_params, dev)
+        params = cpu_params if dev == "cpu" else _tree_to(cpu_params, dev)
         kv = caches(dev)
         t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
         outs = [
@@ -1144,7 +1280,7 @@ def launch_counts() -> dict:
 
     return {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
             "flash_prefill": fp.launches, "flash_prefill_int8": fp.launches_int8,
-            "kv_write_int8": kw.launches}
+            "flash_prefill_batched": fp.launches_batched, "kv_write_int8": kw.launches}
 
 
 def parse_metrics(text: str) -> dict:
@@ -1394,9 +1530,6 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     phase's own numbers are read before it."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
-    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
-    from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
-    from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
     from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 
@@ -1425,11 +1558,7 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     boot_s = time.time() - t0
     eng = aeng.engine
     app = build_engine_app(aeng, MODEL)
-    pa.launches = 0
-    pa.launches_int8 = 0
-    fp.launches = 0
-    fp.launches_int8 = 0
-    kw.launches = 0
+    _reset_launches()
     out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface))
     launches, stats = out["launches"], out["stats"]
     results = out["results"]
@@ -2674,13 +2803,338 @@ def phase_speculation() -> dict:
     return out
 
 
+# The encode phase: 8 texts of 16-2000 tokens (the byte tokenizer: one
+# token a character, plus BOS), so one request is one [8, 2048] batch; 8
+# greedy streams of 128-512 prompt tokens, 64 new each, beside which an
+# embed burst of ENCODE_BURST requests of the 8 texts runs.
+ENCODE_TEXT_TOKENS = (16, 2000, 300, 1200, 64, 700, 1500, 1000)
+ENCODE_STREAM_LENS = (128, 160, 200, 256, 300, 384, 448, 512)
+ENCODE_STREAM_TOKENS = 64
+ENCODE_BURST = 3
+
+
+def _encode_texts(seed: int = 3) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz "), n - 1))
+            for n in ENCODE_TEXT_TOKENS]
+
+
+async def _embed_http(http, base: str, texts: list) -> tuple:
+    """(vectors [n, h] fp32, seconds, usage) of one /v1/embeddings."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    async with http.post(f"{base}/v1/embeddings", json={"model": MODEL, "input": texts}) as r:
+        if r.status != 200:
+            raise AssertionError(f"/v1/embeddings: {r.status} {await r.text()}")
+        body = await r.json()
+    vecs = np.array([d["embedding"] for d in body["data"]], dtype=np.float32)
+    return vecs, time.perf_counter() - t0, body["usage"]
+
+
+async def _encode_streams(aeng, prompts: list, tag: str, during=None) -> tuple:
+    """Greedy streams through ``AsyncEngine.generate``: (token ids per
+    stream, per-stream inter-token latency (last - first) / (n - 1) in s,
+    every gap between consecutive tokens of a stream in s, what ``during``
+    returned).  ``during``, a coroutine function, starts once every stream
+    has its first token."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    started = [asyncio.Event() for _ in prompts]
+
+    async def one(i):
+        sp = SamplingParams(max_tokens=ENCODE_STREAM_TOKENS, temperature=0.0,
+                            ignore_eos=True)
+        ids, times = [], []
+        async for ev in aeng.generate(prompt_token_ids=prompts[i], sampling_params=sp,
+                                      request_id=f"{tag}{i}"):
+            ids.append(ev.token_id)
+            times.append(time.perf_counter())
+            started[i].set()
+        return ids, times
+
+    tasks = [asyncio.create_task(one(i)) for i in range(len(prompts))]
+    extra = None
+    if during is not None:
+        await asyncio.gather(*(e.wait() for e in started))
+        extra = await during()
+    out = await asyncio.wait_for(asyncio.gather(*tasks), timeout=600)
+    itl = [(t[-1] - t[0]) / (len(t) - 1) for _, t in out]
+    gaps = [b - a for _, t in out for a, b in zip(t, t[1:])]
+    return [ids for ids, _ in out], itl, gaps, extra
+
+
+def _itl_summary(itl: list, gaps: list) -> dict:
+    itl, gaps = sorted(itl), sorted(gaps)
+    return {"itl_ms_median": 1e3 * itl[len(itl) // 2], "itl_ms_max": 1e3 * itl[-1],
+            "gap_ms_max": 1e3 * gaps[-1]}
+
+
+async def _encode_serve(aeng, app) -> dict:
+    """The encode lane of a dense llama-3.1-8b engine over localhost HTTP:
+    8 streams twice (first-use captures, then the baseline), the embed
+    requests (a warm-up, the counted one, a profiled one), rerank and
+    score, then the 8 streams again with an embed burst beside them."""
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = aeng.engine
+    runner = web.AppRunner(app)
+    await runner.setup()  # starts the engine's step thread
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    out = {}
+    try:
+        texts = _encode_texts()
+        lens = [len(eng.tokenizer.encode(t)) for t in texts]
+        if lens != list(ENCODE_TEXT_TOKENS):
+            raise AssertionError(f"encode texts tokenize to {lens}")
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(4, eng.config.model.vocab_size, n).tolist()
+                   for n in ENCODE_STREAM_LENS]
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            t0 = time.time()
+            await _encode_streams(aeng, prompts, "warm")
+            out["warm_streams_s"] = time.time() - t0
+            base_ids, itl, gaps, _ = await _encode_streams(aeng, prompts, "base")
+            out["streams_alone"] = _itl_summary(itl, gaps)
+            await _embed_http(http, base, texts)  # warm-up
+
+            # The counted request: one [8, 2048] batch, 32 launches of the
+            # batched entry, one batch-size observation of 8.
+            hist = eng.encode_batch_size_hist
+            before = (eng.encode_texts_total, list(hist.counts), hist.count,
+                      eng.encode_seconds_hist.sum)
+            _reset_launches()
+            vecs, http_s, usage = await _embed_http(http, base, texts)
+            out["launches"] = launch_counts()
+            counted = {
+                "texts": eng.encode_texts_total - before[0],
+                "batches": hist.count - before[2],
+                "batch_size_buckets": [a - b for a, b in zip(hist.counts, before[1])],
+            }
+            out["batch_s"] = eng.encode_seconds_hist.sum - before[3]
+            out["http_s"] = http_s
+            out["usage"] = usage
+            out["counted"] = counted
+            size8 = [int(b == 8.0) for b in hist.bounds] + [0]
+            L = eng.config.model.num_layers
+            others = {k: v for k, v in out["launches"].items() if k != "flash_prefill_batched"}
+            if (counted["texts"] != 8 or counted["batches"] != 1
+                    or counted["batch_size_buckets"] != size8
+                    or out["launches"]["flash_prefill_batched"] != L * counted["batches"]
+                    or any(others.values())):
+                raise AssertionError(f"8 texts did not run as one batch of {L} "
+                                     f"batched-entry launches: {counted}, {out['launches']}")
+            norms = np.linalg.norm(vecs, axis=1)
+            if (vecs.shape != (8, eng.config.model.hidden_size)
+                    or not np.isfinite(vecs).all() or np.abs(norms - 1).max() > 1e-3):
+                raise AssertionError(f"embeddings: shape {vecs.shape}, norms {norms}")
+            out["vectors"] = vecs
+
+            # The same request profiled: one device-to-host copy, the device
+            # time (kernels and copies) and the batch's transient memory.
+            torch.cuda.synchronize()
+            allocated = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            seconds = eng.encode_seconds_hist.sum
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                again, _, _ = await _embed_http(http, base, texts)
+            out["profiled_batch_s"] = eng.encode_seconds_hist.sum - seconds
+            out["peak_transient_gib"] = (torch.cuda.max_memory_allocated() - allocated) / 2**30
+            device = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+            out["d2h_copies"] = sum(e.count for e in device if "DtoH" in e.key)
+            out["device_busy_s"] = sum(e.self_device_time_total for e in device) / 1e6
+            out["idle_share"] = 1.0 - out["device_busy_s"] / out["profiled_batch_s"]
+            out["top_kernels_ms"] = [
+                [e.key[:80], e.self_device_time_total / 1e3, e.count]
+                for e in sorted(device, key=lambda e: e.self_device_time_total,
+                                reverse=True)[:8]]
+            if out["d2h_copies"] != 1 or not np.array_equal(again, vecs):
+                raise AssertionError(f"profiled batch: {out['d2h_copies']} device-to-host "
+                                     f"copies, vectors equal {np.array_equal(again, vecs)}")
+
+            # Rerank and score of the same 8 texts (one batch each): the
+            # ordering and the scores are the batch vectors' cosines.
+            cos = vecs[1:] @ vecs[0]
+            async with http.post(f"{base}/v1/rerank", json={
+                    "model": MODEL, "query": texts[0], "documents": texts[1:]}) as r:
+                rerank = (r.status, await r.json())
+            async with http.post(f"{base}/v1/score", json={
+                    "model": MODEL, "text_1": texts[0], "text_2": texts[1:]}) as r:
+                score = (r.status, await r.json())
+            order = [x["index"] for x in rerank[1].get("results", [])]
+            scores = [x["score"] for x in score[1].get("data", [])]
+            out["rerank_order"], out["cosines"] = order, cos.tolist()
+            if (rerank[0] != 200 or score[0] != 200 or order != list(np.argsort(-cos))
+                    or np.abs(np.array(scores) - cos).max() > 1e-5):
+                raise AssertionError(f"rerank {rerank[0]} {order}, score {score[0]} "
+                                     f"{scores} vs cosines {cos.tolist()}")
+
+            # The 8 streams again with an embed burst beside them; every
+            # dispatch under the "error" sync mode (the lane runs between
+            # them on the step thread).
+            checked = sync_checked(eng)
+
+            async def burst():
+                return await asyncio.gather(*(_embed_http(http, base, texts)
+                                              for _ in range(ENCODE_BURST)))
+
+            n0 = eng.encode_batch_size_hist.count
+            burst_ids, itl, gaps, burst_out = await _encode_streams(
+                aeng, prompts, "burst", during=burst)
+            out["streams_with_burst"] = _itl_summary(itl, gaps)
+            out["burst_batches"] = eng.encode_batch_size_hist.count - n0
+            out["burst_sync_checked"] = checked
+            out["burst_streams_equal_alone"] = burst_ids == base_ids
+            if any(not np.allclose(v, vecs, atol=1e-6) for v, _, _ in burst_out):
+                raise AssertionError("burst vectors differ from the counted batch's")
+            if checked["_dispatch_window"] == 0:
+                raise AssertionError(f"no window dispatched during the burst: {checked}")
+    finally:
+        await runner.cleanup()  # stops the step thread
+    return out
+
+
+def _serial_during_capture(params, texts: list, vecs) -> dict:
+    """The serial embed (the lane off: ``LLMEngine.embed`` in a worker
+    thread, on the engine's embed stream) looping over the 8 texts while
+    the step thread (here the main thread) runs 8 greedy requests through
+    their first-use window captures; then the same requests again (graph
+    replays, no embed beside them).  The streams must be equal, at least
+    one embed must overlap a capture (``capture_begin`` to
+    ``capture_end``), and every serial vector within cosine 0.999 of the
+    batch's."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+        "scheduler.max_num_seqs": 8, "scheduler.encode_lane": False,
+        # Both runs prefill the same prompts whole.
+        "cache.enable_prefix_caching": False})
+    eng = LLMEngine(cfg, params=params)
+    ids = [eng.tokenizer.encode(t) for t in texts]
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(4, cfg.model.vocab_size, n).tolist() for n in ENCODE_STREAM_LENS]
+
+    def drive(tag):
+        for i, p in enumerate(prompts):
+            eng.add_request(f"{tag}{i}", prompt_token_ids=p, sampling_params=SamplingParams(
+                max_tokens=ENCODE_STREAM_TOKENS, temperature=0.0, ignore_eos=True))
+        streams = {}
+        while eng.has_unfinished() or eng.has_pending():
+            for o in eng.step():
+                streams.setdefault(o.seq_id[len(tag):], []).append(o.new_token_id)
+        return streams
+
+    captures, embeds, serial, failed = [], [], {}, []
+    stop = threading.Event()
+
+    def embed_loop():
+        i = 0
+        try:
+            while not stop.is_set() or len(serial) < len(ids):
+                t0 = time.perf_counter()
+                serial[i % len(ids)] = eng.embed(ids[i % len(ids)])
+                embeds.append((t0, time.perf_counter()))
+                i += 1
+        except Exception as e:  # raised again on the main thread
+            failed.append(e)
+
+    cls = torch.cuda.CUDAGraph
+    begin, end = cls.capture_begin, cls.capture_end
+    opened = []
+
+    def timed_begin(self, *a, **k):
+        opened.append(time.perf_counter())
+        return begin(self, *a, **k)
+
+    def timed_end(self, *a, **k):
+        r = end(self, *a, **k)
+        captures.append((opened.pop(), time.perf_counter()))
+        return r
+
+    cls.capture_begin, cls.capture_end = timed_begin, timed_end
+    worker = threading.Thread(target=embed_loop, name="serial-embed")
+    worker.start()
+    try:
+        t0 = time.time()
+        first = drive("a")
+        first_s = time.time() - t0
+    finally:
+        stop.set()
+        worker.join()
+        cls.capture_begin, cls.capture_end = begin, end
+    if failed:
+        raise failed[0]
+    captured = eng.graphs.captures
+    replays = eng.graphs.replays
+    second = drive("b")
+    overlaps = sum(1 for c0, c1 in captures for e0, e1 in embeds if e0 < c1 and e1 > c0)
+    cos = [float(np.dot(serial[i], vecs[i])) for i in range(len(ids))]
+    row = {"captures": len(captures), "capture_s": [c1 - c0 for c0, c1 in captures],
+           "serial_embeds": len(embeds), "embeds_overlapping_a_capture": overlaps,
+           "streams_equal": first == second and len(first) == len(prompts),
+           "replays_second_run": eng.graphs.replays - replays,
+           "captures_second_run": eng.graphs.captures - captured,
+           "first_run_s": first_s, "serial_vs_batch_cos_min": min(cos)}
+    if not (row["captures"] and overlaps and row["streams_equal"]
+            and row["replays_second_run"] and not row["captures_second_run"]
+            and min(cos) >= 0.999):
+        raise AssertionError(f"serial embed during first-use capture: {row}")
+    eng.close()
+    return row
+
+
+def phase_encode() -> dict:
+    """The encode lane at full width: llama-3.1-8b (32 layers, bf16, seeded
+    random init) with the default pool (``hbm_utilization`` 0.90 of free
+    memory after the weights), served over localhost HTTP
+    (``_encode_serve``); then, on a second engine with the same weights,
+    the serial embed during first-use captures (``_serial_during_capture``)."""
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+    from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+
+    torch.cuda.empty_cache()
+    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{"scheduler.max_num_seqs": 8})
+    if not cfg.scheduler.encode_lane_enabled:
+        raise AssertionError("the encode lane is off by default")
+    aeng = AsyncEngine(cfg)
+    params = aeng.engine.params
+    row = {"phase": "encode", "model": MODEL, "layers": cfg.model.num_layers,
+           "dtype": cfg.model.dtype, "kv_blocks": aeng.engine.block_pool.num_blocks,
+           "text_tokens": list(ENCODE_TEXT_TOKENS)}
+    served = asyncio.run(_encode_serve(aeng, build_engine_app(aeng, MODEL)))
+    vecs = served.pop("vectors")
+    row.update(served)
+    del aeng
+    free_engines()
+    row["serial"] = _serial_during_capture(params, _encode_texts(), vecs)
+    del params
+    free_engines()
+    emit(row)
+    return row
+
+
 def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
     from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
 
     pa.launches = pa.launches_int8 = 0
-    fp.launches = fp.launches_int8 = 0
+    fp.launches = fp.launches_int8 = fp.launches_batched = 0
     kw.launches = 0
 
 
@@ -2702,6 +3156,12 @@ KERNEL_META = {
         "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
         # The same kernel over gather_prefix_kv's int8 dequantization
         # (production_stack_tpu/engine/ops/attention.py:306-331), in one.
+        "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
+    },
+    "flash_prefill_batched": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
+        # flash_prefill_batched_launch: the same kernel as llama.encode_batch
+        # vmaps it over B texts with an empty prefix (llama.py:441, :473).
         "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
     },
     "kv_write_int8": {
@@ -2807,6 +3267,7 @@ def main() -> int:
     pool.shutdown()
     timed("reference", phase_reference, False, model)
     timed("reference_int8", phase_reference, True, model)
+    timed("encode_reference", phase_encode_reference, model)
     del model, drawn
     timed("window", phase_window, int8=False)
     timed("window_int8", phase_window, int8=True)
@@ -2828,16 +3289,20 @@ def main() -> int:
     kv = timed("kv_tiers", phase_kv_tiers)
     free_engines()
     spec = timed("speculation", phase_speculation)
+    free_engines()
+    encode = timed("encode", phase_encode)
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's (paged entry, dense
     # pool) from the dense phase, the int8 decode kernel's, flash
     # prefill's over the int8 pool and the int8 writer's from the int8
-    # phase (both at the default serving path, mixed windows and all).
+    # phase (both at the default serving path, mixed windows and all),
+    # the batched entry's from the encode phase's counted request.
     launches = {"paged_decode": dense_launches["paged_decode"],
                 "paged_decode_int8": int8["launches"]["paged_decode_int8"],
                 "flash_prefill": dense_launches["flash_prefill"],
                 "flash_prefill_int8": int8["launches"]["flash_prefill_int8"],
+                "flash_prefill_batched": encode["launches"]["flash_prefill_batched"],
                 "kv_write_int8": int8["launches"]["kv_write_int8"]}
     kernels = []
     for name, row in main_rows.items():
@@ -2846,9 +3311,10 @@ def main() -> int:
             "launches": launches[name],
             # The KV-tiers phase's own path (import, offload and restore):
             # the dense kernels from its dense engine, the int8 ones from
-            # its int8 engine.
-            "launches_kv_tiers": kv["offload_int8" if "int8" in name
-                                   else "offload_dense"]["launches"][name],
+            # its int8 engine (the encode lane's entry runs on neither).
+            **({"launches_kv_tiers": kv["offload_int8" if "int8" in name
+                                        else "offload_dense"]["launches"][name]}
+               if name != "flash_prefill_batched" else {}),
             # The speculation phase's fused runs: the launches at each
             # speculative shape that the wrapper counted, by run and case.
             **({"launches_speculation": spec["launches"][name]}

@@ -48,6 +48,7 @@ LAUNCH_COUNTERS = (
     (kv_write, "launches"),
     (flash_prefill, "launches"),
     (flash_prefill, "launches_int8"),
+    (flash_prefill, "launches_batched"),
 )
 
 

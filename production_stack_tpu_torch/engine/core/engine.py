@@ -62,13 +62,23 @@ write of these paths is enqueued on the stream the steps and graph
 replays run on, without a host sync; the writes go into the pool's own
 tensors in place.
 
+The encode lane (``embed``, ``encode_batch``): embed/rerank/score texts
+run as one ``[B, T]``-bucketed ``llama.encode_batch`` forward, no KV
+written, through flash prefill's batched entry; the token rows and
+lengths go up in one non-blocking copy and the ``[B, hidden]`` vectors
+come back in one device-to-host copy.  ``encode_batch`` runs on the step
+thread, between windows, on the stream the steps run on; the serial
+``embed`` (the lane off) runs from a worker thread on a CUDA stream of its
+own, so it never joins the legacy default stream while the step thread
+captures a graph.
+
 The engine serves the JAX package's default serving path, mixed and
-packed K-step windows, the KV tiers and speculation included
-(``SLICE_OVERRIDES``: no encode lane, no tracing; no LoRA / guided
-decoding / parallelism / HF weights for the target or the drafter; dense
-or int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
-wait) and raises ``NotImplementedError`` at construction for any setting
-outside it.
+packed K-step windows, the KV tiers, speculation and the encode lane
+included (``SLICE_OVERRIDES``: no tracing; no LoRA / guided decoding /
+parallelism / HF weights for the target or the drafter; dense or int8 KV;
+``mixed_window=False`` restores K=1 mixed steps while prompts wait) and
+raises ``NotImplementedError`` at construction for any setting outside
+it.
 """
 
 from __future__ import annotations
@@ -126,9 +136,8 @@ logger = logging.getLogger(__name__)
 # The configuration this engine serves, as ``config_from_preset``
 # overrides: the JAX engine's defaults (K-step windows with the lookahead
 # pipeline, mixed steps, mixed and packed K-step windows, offload
-# preemption) without the encode lane and tracing.
+# preemption, the encode lane) without tracing.
 SLICE_OVERRIDES = {
-    "scheduler.encode_lane": False,
     "obs.tracing": False,
 }
 
@@ -150,8 +159,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
     """Settings outside the served configuration, by name."""
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
-        (s.encode_lane_enabled, "scheduler.encode_lane (batched encode lane)"),
-        (c.disagg_role == "encode", "cache.disagg_role=encode (encode lane)"),
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
         (config.lora.enabled, "lora"),
         (config.obs.tracing, "obs.tracing"),
@@ -419,6 +426,26 @@ class LLMEngine:
         self._last_decode_end: Optional[float] = None
         self._init_speculation()
 
+        # -- the encode lane ------------------------------------------------
+        # Counters of the tpu:encode_* families: the batch counter and
+        # histograms are written by the step thread only (encode_batch);
+        # encode_queue_depth is a gauge the batcher overwrites from either
+        # side (a snapshot, never summed).
+        self.encode_texts_total = 0
+        self.encode_batch_size_hist = Histogram(
+            bounds=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
+        )
+        self.encode_seconds_hist = Histogram(
+            bounds=(0.005, 0.02, 0.05, 0.1, 0.25, 1.0, 4.0)
+        )
+        self.encode_queue_depth = 0
+        # The serial embed's own stream (the lane off: a worker thread),
+        # ordered once after the boot's work on this thread's stream.
+        self._embed_stream = None
+        if self.device.type == "cuda":
+            self._embed_stream = torch.cuda.Stream(self.device)
+            self._embed_stream.wait_stream(torch.cuda.current_stream(self.device))
+
     # -- speculative decoding: the drafters' state ------------------------
 
     # Backward-scan bound of the legacy path's host drafter.
@@ -609,6 +636,93 @@ class LLMEngine:
             part = stage[at:at + f.size].view(f.shape)
             bufs[name].copy_(part.view(torch.float32) if a.dtype == np.float32 else part)
             at += f.size
+
+    # -- the encode lane ---------------------------------------------------
+
+    def encode_max_len(self) -> int:
+        """Longest input (tokens) the embedding path accepts: the bound both
+        ``embed`` and ``encode_batch`` check, for the API layer to reject
+        over-long inputs before queueing."""
+        return min(
+            self.config.scheduler.prefill_buckets[-1],
+            self.config.scheduler.max_model_len,
+        )
+
+    def check_encode_input(self, ids: List[int]) -> None:
+        """Raise ValueError on an input the embedding path refuses: empty,
+        or longer than ``encode_max_len``."""
+        if not ids:
+            # An embedding of the pad token would be silent garbage.
+            raise ValueError("input produced no tokens")
+        max_len = self.encode_max_len()
+        if len(ids) > max_len:
+            # Silent truncation would embed a prefix while reporting the
+            # full token count.
+            raise ValueError(
+                f"input is {len(ids)} tokens; the embedding path supports "
+                f"up to {max_len}"
+            )
+
+    def _encode_rows(self, batch_token_ids: List[List[int]], B: int,
+                     T: int) -> np.ndarray:
+        """The texts as a [B, T] batch (token rows zero-padded, padding
+        rows of length 0) through ``llama.encode_batch``: the rows and
+        lengths go up in one non-blocking copy, and the texts' vectors
+        [len(batch_token_ids), hidden] come back in one copy."""
+        n = len(batch_token_ids)
+        host = np.zeros(B * T + B, np.int32)
+        for i, ids in enumerate(batch_token_ids):
+            host[i * T:i * T + len(ids)] = ids
+            host[B * T + i] = len(ids)
+        stage = self._put(host)
+        out = llama.encode_batch(self.params, self.config.model,
+                                 stage[:B * T].view(B, T), stage[B * T:])
+        return out[:n].cpu().numpy()
+
+    def embed(self, prompt_token_ids: List[int]) -> np.ndarray:
+        """Normalized mean-pooled embedding [hidden] (fp32) of one prompt,
+        padded to the nearest prefill bucket (the serial path: the encode
+        lane off).  On the card it runs on the engine's embed stream, never
+        on the legacy default stream, so a caller's thread can run it while
+        the step thread replays or captures a window graph; the copy back
+        waits for that stream only."""
+        self.check_encode_input(prompt_token_ids)
+        T = next(b for b in self.config.scheduler.prefill_buckets
+                 if b >= len(prompt_token_ids))
+        if self._embed_stream is None:
+            return self._encode_rows([prompt_token_ids], 1, T)[0]
+        with torch.cuda.stream(self._embed_stream):
+            return self._encode_rows([prompt_token_ids], 1, T)[0]
+
+    def encode_batch(self, batch_token_ids: List[List[int]]) -> np.ndarray:
+        """Batched embeddings: one [B, T]-bucketed ``llama.encode_batch``
+        forward for up to ``encode_batch_buckets[-1]`` texts (B pads to an
+        encode-batch bucket, T to a prefill bucket).  Vectors equal
+        per-text ``embed`` output up to the order of float sums.  The
+        step thread is its one caller in serving (the EncodeBatcher): it
+        queues on the stream the windows run on, behind a window in
+        flight, and its copy back waits for both."""
+        if not batch_token_ids:
+            raise ValueError("encode_batch needs at least one input")
+        sched = self.config.scheduler
+        if len(batch_token_ids) > sched.encode_batch_buckets[-1]:
+            raise ValueError(
+                f"encode_batch of {len(batch_token_ids)} texts exceeds the "
+                f"largest encode batch bucket "
+                f"({sched.encode_batch_buckets[-1]})"
+            )
+        for ids in batch_token_ids:
+            self.check_encode_input(ids)
+        B = next(b for b in sched.encode_batch_buckets if b >= len(batch_token_ids))
+        T = next(b for b in sched.prefill_buckets
+                 if b >= max(len(ids) for ids in batch_token_ids))
+        t0 = time.time()
+        vectors = self._encode_rows(batch_token_ids, B, T)
+        # One batch an observation; the seconds include the copy back.
+        self.encode_texts_total += len(batch_token_ids)
+        self.encode_batch_size_hist.observe(float(len(batch_token_ids)))
+        self.encode_seconds_hist.observe(time.time() - t0)
+        return vectors
 
     # -- request lifecycle -------------------------------------------------
 
@@ -2942,9 +3056,8 @@ class LLMEngine:
     def stats(self) -> Dict[str, float]:
         """The JAX engine's stats keys (its ``/metrics`` reads them), plus
         the port's own window, graph and offload counters.  Keys of
-        features not ported yet (LoRA, the encode lane, the
-        compile inventory and the trace ring) are 0 or empty, as on a JAX
-        engine without them."""
+        features not ported yet (LoRA, the compile inventory and the trace
+        ring) are 0 or empty, as on a JAX engine without them."""
         return {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
@@ -2970,8 +3083,8 @@ class LLMEngine:
                 self.deadline_expired + self.deadline_expired_admission
             ),
             "queued_prompt_tokens": self.scheduler.queued_prompt_tokens,
-            "encode_texts_total": 0,
-            "encode_queue_depth": 0,
+            "encode_texts_total": self.encode_texts_total,
+            "encode_queue_depth": self.encode_queue_depth,
             "loaded_loras": 0,
             "remote_prefix_blocks_fetched": self.remote_prefix_blocks_fetched,
             "remote_prefix_blocks_exported": self.remote_prefix_blocks_exported,

@@ -16,6 +16,11 @@ its tail row all follow them on the device, so a CUDA graph replays a
 chunk at any cursor and nothing is read back.  A cache side is a dense
 tensor or an int8 ``(data, scale)`` tuple (``kv/quant.py``); the attention
 ops take both.
+
+``encode`` and ``encode_batch`` are the embedding forward: no KV cache and
+no lm_head, one forward over the flattened ``[B·T, h]`` rows of B texts
+(what the JAX package's vmap compiles to), attention through flash
+prefill's batched entry, then the masked mean pool, L2-normalized.
 """
 
 from __future__ import annotations
@@ -351,3 +356,51 @@ def mixed_step(
     x = _norm(x, params["norm"], cfg)
     tail = S + torch.clamp(valid.long() - 1, min=0)  # the chunk's last valid row
     return _lm_head(params, cfg, torch.cat([x[:S], x.index_select(0, tail)]))
+
+
+def encode_batch(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int (B and T padded to buckets)
+    valid_lens: torch.Tensor,  # [B] int32 (0 for padding rows)
+) -> torch.Tensor:
+    """Embedding forward of B texts: causal self-attention over each text
+    (RoPE positions ``arange(T)`` in every row), no KV cache written, no
+    lm_head; the final norm in the model dtype, then fp32; the mean of the
+    rows t < valid_len, L2-normalized with a 1e-9 floor.  Returns [B, h]
+    float32; a row with valid_len 0 gives the zero vector.  Every GEMM runs
+    once over the B·T rows; attention runs once a layer for all B texts
+    (``attention.encode_attention``), and the lengths stay on the device."""
+    B, T = tokens.shape
+    dev = tokens.device
+    scale = cfg.head_dim**-0.5
+    valid = valid_lens.reshape(B).to(device=dev, dtype=torch.int32)
+    idx = torch.arange(T, device=dev)
+    cos, sin = rope_cos_sin(idx.repeat(B), cfg.head_dim, cfg.rope_theta,
+                            cfg.rope_scaling)
+
+    def attend(q, k, v):
+        return attn_ops.encode_attention(
+            q.reshape(B, T, *q.shape[1:]), k.reshape(B, T, *k.shape[1:]),
+            v.reshape(B, T, *v.shape[1:]), valid,
+            scale=scale, sliding_window=cfg.sliding_window,
+        )
+
+    x = _embed(params, cfg, tokens.reshape(B * T))  # [B*T, h]
+    for layer in params["layers"]:
+        x = _layer(layer, x, cfg, cos, sin, attend)
+    x = _norm(x, params["norm"], cfg).float().reshape(B, T, -1)
+    mask = (idx[None, :] < valid[:, None]).float()  # [B, T]
+    pooled = (x * mask[..., None]).sum(dim=1) / valid.clamp(min=1)[:, None].float()
+    return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
+
+
+def encode(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [T] int (padded to a bucket)
+    valid_len,  # int32 tensor (or host int): true number of tokens
+) -> torch.Tensor:
+    """One text's embedding [h] (fp32): :func:`encode_batch` at B = 1."""
+    valid = _length(valid_len, tokens.device)
+    return encode_batch(params, cfg, tokens[None], valid)[0]

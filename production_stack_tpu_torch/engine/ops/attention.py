@@ -11,15 +11,16 @@ JAX package, whose arrays are immutable and whose functions return new
 caches, the cache writers here update the cache tensors **in place** and
 return nothing.
 
-``decode_attention``, ``prefill_attention``, ``prefill_attention_paged``
-and the int8 branch of the cache writers dispatch on the device of their
+``decode_attention``, ``prefill_attention``, ``prefill_attention_paged``,
+``encode_attention`` and the int8 branch of the cache writers dispatch on the device of their
 inputs, inside the kernel wrappers: a CUDA tensor runs the hand-written
 kernel (``kernels/``), a CPU tensor its plain PyTorch version; nothing
 else.  The plain versions are exported here under the JAX package's names
 for the gather decode path and the dense prefill path.  The model reads
 cached prefixes through ``prefill_attention_paged`` (the pool, a block
 table row and device lengths); ``gather_prefix_kv`` is the plain
-version's gather.
+version's gather.  The encode lane runs ``encode_attention``: B texts with
+no prefix in one launch.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.ops.kernels.flash_prefill import (
     flash_prefill_attention,
+    flash_prefill_attention_batched,
     flash_prefill_attention_paged,
     flash_prefill_attention_plain as dense_prefill_attention,
     gather_prefix_kv,
@@ -46,6 +48,7 @@ __all__ = [
     "decode_attention",
     "prefill_attention",
     "prefill_attention_paged",
+    "encode_attention",
     "paged_decode_attention",
     "dense_prefill_attention",
     "write_prefill_kv",
@@ -125,6 +128,25 @@ def prefill_attention_paged(
     return flash_prefill_attention_paged(
         q, k_new, v_new, k_cache, v_cache, prefix_block_ids, cached_len, valid_len,
         scale=scale, sliding_window=sliding_window,
+    )
+
+
+def encode_attention(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, K, D]
+    v: torch.Tensor,
+    valid_lens: torch.Tensor,  # [B] int32: valid tokens of each text
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal self-attention of B texts with no cached prefix (the JAX
+    package's ``prefill_attention`` with an empty prefix, vmapped over the
+    batch by ``llama.encode_batch``): flash prefill's batched entry for
+    CUDA tensors, its plain version for CPU tensors.  Rows at or past a
+    text's valid length are zeros."""
+    return flash_prefill_attention_batched(
+        q, k, v, valid_lens, scale=scale, sliding_window=sliding_window,
     )
 
 

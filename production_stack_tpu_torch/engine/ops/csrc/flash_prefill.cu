@@ -49,7 +49,7 @@
 // reads float4 runs.
 //
 // Where the prefix comes from is a template parameter of both bodies (the
-// prefix loader), with two entry points:
+// prefix loader), with three entry points:
 //  * flash_prefill_launch: the prefix gathered contiguous, [C, K, D], and
 //    both lengths host ints;
 //  * flash_prefill_paged_launch: the prefix read straight from the paged
@@ -67,7 +67,15 @@
 //    cores, as kv_quant.dequantize(..., dtype=bf16) rounds it; the fp32
 //    body takes the fp32 product and does not round.  This replaces the
 //    eager gather (and, on int8 caches, dequantization) of the prefix
-//    before every prefill and mixed step.
+//    before every prefill and mixed step;
+//  * flash_prefill_batched_launch: no prefix and B independent rows of T
+//    tokens, grid (query tile, KV head, b) (the encode lane, which the JAX
+//    package runs as a vmap of the single-text kernel with C = 0).  Each
+//    block reads valid_lens[b] from device memory when it starts; only
+//    query rows t < valid_lens[b] are computed, the others are written as
+//    zeros, a query tile wholly past valid_lens[b] loads no K/V, and the
+//    walk never loads a key at or past it, so a batch of ragged texts
+//    costs the valid causal work, not B padded passes.
 #include "common.cuh"
 
 namespace {
@@ -81,6 +89,7 @@ constexpr size_t kMaxSmem = 232448;
 struct PrefixContig {
   static constexpr bool kInt8 = false;
   static constexpr bool kPaged = false;
+  static constexpr bool kBatched = false;
   const void* k;
   const void* v;
   __device__ __forceinline__ size_t vec(int j, int K, int kh) const {
@@ -93,6 +102,7 @@ struct PrefixContig {
 // device memory, or its copy in shared memory (stage_table).
 struct PagedRows {
   static constexpr bool kPaged = true;
+  static constexpr bool kBatched = false;
   const int* table;
   int shift;
   __device__ __forceinline__ size_t vec(int j, int K, int kh) const {
@@ -117,6 +127,41 @@ struct PrefixPagedInt8 : PagedRows {
   const float* k_scale;
   const float* v_scale;
 };
+
+// No prefix, B rows (the batched entry): row b = blockIdx.z has its own
+// [T, H, D] slices of q and out, [T, K, D] slices of k and v, and
+// valid_len; pre_cap is 0, so vec() is never called.
+struct PrefixNoneBatched {
+  static constexpr bool kInt8 = false;
+  static constexpr bool kPaged = false;
+  static constexpr bool kBatched = true;
+  const void* k = nullptr;
+  const void* v = nullptr;
+  __device__ __forceinline__ size_t vec(int, int, int) const { return 0; }
+};
+
+// The element offset of this block's row in a [B, T, width] tensor: row
+// blockIdx.z for the batched entry, 0 for the single-row entries.
+template <class Pre>
+__device__ __forceinline__ size_t row_base(int Tn, int width) {
+  if constexpr (Pre::kBatched) {
+    return static_cast<size_t>(blockIdx.z) * Tn * width;
+  } else {
+    return 0;
+  }
+}
+
+// Query tokens of the tile [t0, t0 + ntok) that are computed: all of them,
+// except in the batched entry, which computes only t < valid and writes
+// zeros for the rest.
+template <class Pre>
+__device__ __forceinline__ int live_tokens(int t0, int ntok, int valid) {
+  if constexpr (Pre::kBatched) {
+    return max(0, min(ntok, valid - t0));
+  } else {
+    return ntok;
+  }
+}
 
 // Copy the table entries the walk reads (the blocks of the first n_pre
 // keys) into shared memory at s_table, then point the loader at the copy;
@@ -195,13 +240,19 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
   float* sV = sKt + D * kKeys;      // [kKeys][D]
   float* sPt = sV + kKeys * D;      // [kKeys][kRows]
 
+  q += row_base<Pre>(Tn, H * D);
+  out += row_base<Pre>(Tn, H * D);
+  k_new += row_base<Pre>(Tn, K * D);
+  v_new += row_base<Pre>(Tn, K * D);
+  if (Pre::kBatched) valid_dev += blockIdx.z;
   read_lengths(cached_dev, valid_dev, Tn, cached, valid);
   const int n_pre = min(cached, pre_cap);  // prefix keys to walk
   stage_table(pre, staged ? reinterpret_cast<int*>(sPt + kKeys * kRows) : nullptr, n_pre);
   const int kh = blockIdx.y;
   const int t0 = blockIdx.x * tok_per_tile;
   const int ntok = min(tok_per_tile, Tn - t0);
-  const int rows = ntok * G;  // live rows in this tile
+  const int ltok = live_tokens<Pre>(t0, ntok, valid);
+  const int rows = ltok * G;  // live rows in this tile (computed)
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
 
@@ -233,10 +284,10 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
   }
 
   // Keys any row of this tile can see.  New keys stop at the tile's last
-  // query (causal frontier) and at valid_len; with a window, keys below
-  // the first query's window edge are invisible to every row.
-  const int t_last = t0 + ntok - 1;
-  const int new_count = min(valid, t_last + 1);
+  // live query (causal frontier) and at valid_len; with a window, keys
+  // below the first query's window edge are invisible to every row.
+  const int t_last = t0 + ltok - 1;
+  const int new_count = ltok > 0 ? min(valid, t_last + 1) : 0;
   const int lo_pos = window >= 0 ? cached + t0 - window + 1 : 0;
 
   for (int seg = 0; seg < 2; ++seg) {
@@ -355,7 +406,8 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
-    if (r >= rows) continue;
+    if (r >= ntok * G) continue;
+    const bool live = r < rows;  // else a batched row's padding: zeros
     const int t = t0 + r / G, h = kh * G + r % G;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     T* o = out + (static_cast<size_t>(t) * H + h) * D;
@@ -363,18 +415,18 @@ flash_prefill_kernel(const T* __restrict__ q,      // [T, H, D]
     for (int cg = 0; cg < CG; ++cg)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[cg * 64 + tx * 4 + e] = from_float<T>(acc[i][cg * 4 + e] * inv);
+        o[cg * 64 + tx * 4 + e] = from_float<T>(live ? acc[i][cg * 4 + e] * inv : 0.f);
   }
 }
 
 template <typename T, int D, class Pre>
 cudaError_t launch_dim(const void* q, const void* kn, const void* vn, const Pre& pre,
-                       void* out, int Tn, int H, int K, int cached, int valid,
+                       void* out, int B, int Tn, int H, int K, int cached, int valid,
                        const int* cached_dev, const int* valid_dev, int pre_cap,
                        int table_len, float scale, int window, cudaStream_t stream) {
   const int G = H / K;
   const int tok_per_tile = kRows / G;
-  const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K);
+  const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K, B);
   const size_t table_bytes = sizeof(int) * static_cast<size_t>(table_len);
   const int staged = Pre::kPaged && smem_bytes<D>() + table_bytes <= kMaxSmem;
   const size_t smem = smem_bytes<D>() + (staged ? table_bytes : 0);
@@ -481,6 +533,11 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   float* sKs = reinterpret_cast<float*>(sV8 + kKeys * D);
   float* sVs = sKs + kKeys;
 
+  q += row_base<Pre>(Tn, H * D);
+  out += row_base<Pre>(Tn, H * D);
+  k_new += row_base<Pre>(Tn, K * D);
+  v_new += row_base<Pre>(Tn, K * D);
+  if (Pre::kBatched) valid_dev += blockIdx.z;
   read_lengths(cached_dev, valid_dev, Tn, cached, valid);
   const int n_pre = min(cached, pre_cap);  // prefix keys to walk
   // The staged table follows the tiles (and the int8 staging area).
@@ -491,7 +548,8 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   // Reversed: the latest query tiles see the most keys and start first.
   const int t0 = (gridDim.x - 1 - blockIdx.x) * tok_per_tile;
   const int ntok = min(tok_per_tile, Tn - t0);
-  const int rows = ntok * G;  // live rows in this tile
+  const int ltok = live_tokens<Pre>(t0, ntok, valid);
+  const int rows = ltok * G;  // live rows in this tile (computed)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int warp_row0 = warp * 16;  // the warp's rows: warp_row0 .. + 15
 
@@ -505,11 +563,11 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
   }
 
   // Keys any row of this tile can see.  New keys stop at the tile's last
-  // query (causal frontier) and at valid_len; with a window, keys below
-  // the first query's window edge are invisible to every row.  Tiles
-  // 0..n0-1 walk the prefix, n0..n0+n1-1 the new keys.
-  const int t_last = t0 + ntok - 1;
-  const int new_count = min(valid, t_last + 1);
+  // live query (causal frontier) and at valid_len; with a window, keys
+  // below the first query's window edge are invisible to every row.
+  // Tiles 0..n0-1 walk the prefix, n0..n0+n1-1 the new keys.
+  const int t_last = t0 + ltok - 1;
+  const int new_count = ltok > 0 ? min(valid, t_last + 1) : 0;
   const int lo_pos = window >= 0 ? cached + t0 - window + 1 : 0;
   const int start0 = max(0, lo_pos);
   const int start1 = max(0, lo_pos - cached);
@@ -733,26 +791,27 @@ flash_prefill_bf16_kernel(const bf16_raw* __restrict__ q,      // [T, H, D]
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     const int r = r_base + 8 * ri;
-    if (r >= rows) continue;
+    if (r >= ntok * G) continue;
+    const bool live = r < rows;  // else a batched row's padding: zeros
     const int t = t0 + r / G, h = kh * G + r % G;
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     bf16_raw* orow = out + (static_cast<size_t>(t) * H + h) * D + (lane % 4) * 2;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
       *reinterpret_cast<unsigned*>(orow + dt * 8) =
-          pack_bf16x2(o[dt][2 * ri] * inv, o[dt][2 * ri + 1] * inv);
+          live ? pack_bf16x2(o[dt][2 * ri] * inv, o[dt][2 * ri + 1] * inv) : 0u;
   }
 }
 
 template <int D, class Pre>
 cudaError_t launch(const void* q, const void* kn, const void* vn, const Pre& pre,
-                   void* out, int Tn, int H, int K, int cached, int valid,
+                   void* out, int B, int Tn, int H, int K, int cached, int valid,
                    const int* cached_dev, const int* valid_dev, int pre_cap, int table_len,
                    float scale, int window, cudaStream_t stream) {
   using Sh = Shape<D>;
   const int G = H / K;
   const int tok_per_tile = Sh::ROWS / G;
-  const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K);
+  const dim3 grid((Tn + tok_per_tile - 1) / tok_per_tile, K, B);
   constexpr size_t base = Pre::kInt8 ? Sh::SMEM_INT8 : Sh::SMEM;
   const size_t table_bytes = sizeof(int) * static_cast<size_t>(table_len);
   const int staged = Pre::kPaged && base + table_bytes <= kMaxSmem;
@@ -777,37 +836,39 @@ cudaError_t launch(const void* q, const void* kn, const void* vn, const Pre& pre
 
 template <int D, class Pre>
 cudaError_t launch_dim(int dtype, const void* q, const void* kn, const void* vn,
-                       const Pre& pre, void* out, int Tn, int H, int K, int cached,
+                       const Pre& pre, void* out, int B, int Tn, int H, int K, int cached,
                        int valid, const int* cached_dev, const int* valid_dev,
                        int pre_cap, int table_len, float scale, int window,
                        cudaStream_t stream) {
   if (dtype == kBFloat16)
-    return tc::launch<D>(q, kn, vn, pre, out, Tn, H, K, cached, valid, cached_dev,
+    return tc::launch<D>(q, kn, vn, pre, out, B, Tn, H, K, cached, valid, cached_dev,
                          valid_dev, pre_cap, table_len, scale, window, stream);
-  return simt::launch_dim<float, D>(q, kn, vn, pre, out, Tn, H, K, cached, valid,
+  return simt::launch_dim<float, D>(q, kn, vn, pre, out, B, Tn, H, K, cached, valid,
                                     cached_dev, valid_dev, pre_cap, table_len, scale,
                                     window, stream);
 }
 
+// B rows (grid z) of T tokens; B is 1 for every entry but the batched one.
 template <class Pre>
 cudaError_t launch_any(int D, int dtype, const void* q, const void* kn, const void* vn,
                        const Pre& pre, void* out, int Tn, int H, int K, int cached,
                        int valid, const int* cached_dev, const int* valid_dev,
                        int pre_cap, int table_len, float scale, int window,
-                       void* stream) {
-  if (Tn == 0) return cudaSuccess;
+                       void* stream, int B = 1) {
+  if (Tn == 0 || B == 0) return cudaSuccess;
+  if (B < 0 || B > 65535) return cudaErrorInvalidValue;
   if (K <= 0 || H % K != 0 || H / K > simt::kRows) return cudaErrorInvalidValue;
   if (dtype != kBFloat16 && dtype != kFloat32) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dim<64>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+      return launch_dim<64>(dtype, q, kn, vn, pre, out, B, Tn, H, K, cached, valid,
                             cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
     case 128:
-      return launch_dim<128>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+      return launch_dim<128>(dtype, q, kn, vn, pre, out, B, Tn, H, K, cached, valid,
                             cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
     case 256:
-      return launch_dim<256>(dtype, q, kn, vn, pre, out, Tn, H, K, cached, valid,
+      return launch_dim<256>(dtype, q, kn, vn, pre, out, B, Tn, H, K, cached, valid,
                             cached_dev, valid_dev, pre_cap, table_len, scale, window, st);
     default:
       return cudaErrorInvalidValue;
@@ -867,4 +928,17 @@ extern "C" int flash_prefill_paged_launch(const void* q, const void* k_new,
   pre.v = v_cache;
   return launch_any(D, dtype, q, k_new, v_new, pre, out, T, H, K, 0, T, cached_len,
                     valid_len, cap, P, scale, window, stream);
+}
+
+// No prefix, B rows of T tokens: q and out [B, T, H, D], k and v [B, T, K,
+// D], valid_lens [B] int32 in device memory (each clamped to [0, T]).  Row
+// b's query t < valid_lens[b] attends causally over its keys < valid_lens[b]
+// (within the window); its rows t >= valid_lens[b] are zeros.
+extern "C" int flash_prefill_batched_launch(const void* q, const void* k, const void* v,
+                                            const int* valid_lens, void* out, int B,
+                                            int T, int H, int K, int D, int dtype,
+                                            float scale, int window, void* stream) {
+  const PrefixNoneBatched pre{};
+  return launch_any(D, dtype, q, k, v, pre, out, T, H, K, 0, T, nullptr, valid_lens,
+                    0, 0, scale, window, stream, B);
 }

@@ -4,8 +4,8 @@ PyTorch versions and the kernel's launch counters.
 Port of ``production_stack_tpu/engine/ops/pallas/flash_prefill.py``
 (``flash_prefill_attention``).  The kernel is ``../csrc/flash_prefill.cu``;
 its header says what bounds it on the card and how its design answers
-that.  It has two entries, which differ only in where the cached prefix
-comes from:
+that.  It has three entries, which differ only in where the cached prefix
+comes from and in how many sequences one launch takes:
 
 - ``flash_prefill_attention``: a prefix gathered contiguous ``[C, K, D]``,
   ``cached_len`` and ``valid_len`` host ints;
@@ -13,7 +13,11 @@ comes from:
   paged KV pool (dense, or int8 ``(data, scale)`` sides) through a
   block-table row, ``cached_len`` and ``valid_len`` int32 device tensors
   that the kernel reads when it starts, so a CUDA graph replays it at any
-  chunk cursor.  The serving path runs this one.
+  chunk cursor.  The serving path runs this one;
+- ``flash_prefill_attention_batched``: no prefix, B texts of up to T
+  tokens in one launch, ``valid_lens`` [B] an int32 device tensor (the
+  encode lane: the JAX package vmaps the single-text kernel with an empty
+  prefix).  Query rows at or past a text's valid length are zeros.
 
 Each wrapper takes CUDA tensors to the kernel (or raises on what the
 kernel does not take) and CPU tensors to its plain version; there is no
@@ -37,10 +41,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the counts were last reset to 0 (plain ints; a run
 # reads them to show that its prefills went through the kernel):
-# ``launches`` over a dense prefix (either entry), ``launches_int8`` over
-# an int8 pool.
+# ``launches`` over a dense prefix (the contiguous or the paged entry),
+# ``launches_int8`` over an int8 pool, ``launches_batched`` of the batched
+# entry.
 launches = 0
 launches_int8 = 0
+launches_batched = 0
 
 
 def flash_prefill_attention_plain(
@@ -132,20 +138,22 @@ def flash_prefill_attention_paged_plain(
     )
 
 
-def _launcher(paged: bool = False):
-    lib = _build.load("flash_prefill")
-    fn = lib.flash_prefill_paged_launch if paged else lib.flash_prefill_launch
+# Each C entry's name and argument types, by entry.
+_ENTRIES = {
+    "contiguous": ("flash_prefill_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7),
+    "paged": ("flash_prefill_paged_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+              + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6),
+    "batched": ("flash_prefill_batched_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6),
+}
+
+
+def _launcher(entry: str = "contiguous"):
+    name, head = _ENTRIES[entry]
+    fn = getattr(_build.load("flash_prefill"), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        if paged:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
-                ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
-        else:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-            ]
+        # ... then scale, window and the stream.
+        fn.argtypes = head + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
@@ -325,7 +333,7 @@ def flash_prefill_attention_paged(
     else:
         kd, vd, ks, vs = k_cache.data_ptr(), v_cache.data_ptr(), None, None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher(paged=True)(
+    err = _launcher("paged")(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kd, vd, ks, vs,
         prefix_table.data_ptr() if prefix_table.numel() else None,
         prefix_table.shape[0], bs, cached_len.data_ptr(), valid_len.data_ptr(),
@@ -338,4 +346,112 @@ def flash_prefill_attention_paged(
         launches_int8 += 1
     else:
         launches += 1
+    return out
+
+
+def flash_prefill_attention_batched_plain(
+    q: torch.Tensor,  # [B, T, H, D]
+    k: torch.Tensor,  # [B, T, K, D]
+    v: torch.Tensor,
+    valid_lens: torch.Tensor,  # [B] int32: valid tokens of each row (<= T)
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """The batched entry in plain PyTorch: for each row b, causal attention
+    of its queries over its own keys, both valid while t < valid_lens[b]
+    (what :func:`flash_prefill_attention_plain` computes for one text with
+    an empty prefix, over its valid rows).  Query rows at or past
+    ``valid_lens[b]`` are zeros, as in the kernel (the JAX kernel gives them
+    attention over the valid keys; the encode pool masks them out either
+    way).  Scores and softmax in fp32; the lengths stay tensors (no host
+    read)."""
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    idx = torch.arange(T, device=q.device)
+    valid = valid_lens.to(q.device).long().clamp(0, T)
+    row_ok = idx[None, :] < valid[:, None]  # [B, T]: query t / key s valid
+    allowed = idx[None, :] <= idx[:, None]  # [T (query), T (key)]
+    if sliding_window is not None:
+        allowed = allowed & (idx[None, :] > idx[:, None] - sliding_window)
+    mask = allowed[None] & row_ok[:, None, :] & row_ok[:, :, None]  # [B, Tq, Tk]
+    # Keys and values past a row's length are never read (as in the
+    # kernel): whatever they hold, even a NaN, cannot reach the output.
+    pad = ~row_ok[:, :, None, None]
+    keys = k.float().masked_fill(pad, 0.0)
+    values = v.masked_fill(pad, 0).float()
+    qg = q.reshape(B, T, K, G, D).float()
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, keys) * scale
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype).float(), values)
+    out = out.masked_fill(~mask.any(dim=-1)[:, :, None, None, None], 0.0)
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def _check_batched(q, k, v, valid_lens) -> None:
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("want q [B, T, H, D], k/v [B, T, K, D]")
+    B, T, H, D = q.shape
+    K = k.shape[2]
+    if k.shape != (B, T, K, D) or v.shape != k.shape:
+        raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if H % K or H // K > MAX_Q_PER_KV:
+        raise ValueError(f"H={H} must be a multiple of K={K}, at most {MAX_Q_PER_KV}x")
+    if B > 65535:
+        raise ValueError(f"B={B} rows exceed the grid's 65535")
+    if not isinstance(valid_lens, torch.Tensor) or valid_lens.dtype != torch.int32:
+        raise TypeError("valid_lens must be an int32 device tensor")
+    if tuple(valid_lens.shape) != (B,):
+        raise ValueError(f"valid_lens {tuple(valid_lens.shape)} vs [{B}]")
+    for name, t, align in (("q", q, 16), ("k", k, 16), ("v", v, 16),
+                           ("valid_lens", valid_lens, 4)):
+        if name != "valid_lens" and (t.dtype != q.dtype or q.dtype not in DTYPE_CODES):
+            raise TypeError(f"{name} is {t.dtype}; want {q.dtype} in {list(DTYPE_CODES)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.numel() and t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def flash_prefill_attention_batched(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    valid_lens: torch.Tensor,
+    *,
+    scale: float,
+    sliding_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal attention of B texts, each over its own keys and no prefix:
+    ``[B, T, H, D]`` in q's dtype, zeros at rows t >= ``valid_lens[b]``.
+    ``valid_lens`` [B] is an int32 tensor on q's device, read by the kernel
+    when it starts.  CUDA tensors run the hand-written kernel's batched
+    entry on the current stream (no sync, no host read); CPU tensors run
+    :func:`flash_prefill_attention_batched_plain`."""
+    global launches_batched
+    if q.device.type == "cpu":
+        return flash_prefill_attention_batched_plain(
+            q, k, v, valid_lens, scale=scale, sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash prefill kernel for device {q.device}")
+    _check_batched(q, k, v, valid_lens)
+    B, T, H, D = q.shape
+    out = torch.empty_like(q)
+    if B == 0 or T == 0:
+        return out  # nothing to launch
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _launcher("batched")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), valid_lens.data_ptr(),
+        out.data_ptr(), B, T, H, k.shape[2], D, DTYPE_CODES[q.dtype], float(scale),
+        -1 if sliding_window is None else int(sliding_window), stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_prefill batched kernel launch failed: cudaError {err}")
+    launches_batched += 1
     return out

@@ -22,7 +22,13 @@ contract the router expects from a serving engine, over
   prefill, flushes the prompt's block export to the shared store and
   answers a handoff token instead of generating; ``x-disagg-handoff``
   waits (bounded) for that chain to be prefetched before admitting, and
-  the response says how it went in ``X-Disagg-Prefix``.
+  the response says how it went in ``X-Disagg-Prefix``;
+- the encode surface: ``/v1/embeddings``, ``/v1/rerank`` and ``/rerank``,
+  ``/v1/score`` and ``/score``, through the batched encode lane
+  (``--no-encode-lane`` restores the serial per-text path), with bounded
+  admission against the encode queue (429), deadlines (504) and the
+  ``encode`` disagg role (a pool label the router's encode lane prefers:
+  no KV handoff, no store).
 
 It reuses nothing of the JAX module (which forces the JAX platform and
 starts ``jax.distributed``).
@@ -32,11 +38,11 @@ starts ``jax.distributed``).
         [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
 Not ported yet, with their flags: tool calls, guided decoding
-(``response_format``), prompt logprobs (``echo`` with ``logprobs``),
-embeddings / rerank / score (the encode lane), LoRA admin, the
-``/debug/*`` surfaces (request tracing and the window flight recorder),
-the ``encode`` disagg role, parallelism, int8 weights and loading a
-weights path (the target's or the drafter's).
+(``response_format``), prompt logprobs (``echo`` with ``logprobs``), LoRA
+admin, the ``/debug/*`` surfaces (request tracing and the window flight
+recorder), parallelism and the multi-host lockstep group (with it the
+JAX server's rule that turns the encode lane off in such a group), int8
+weights and loading a weights path (the target's or the drafter's).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ import time
 import uuid
 from typing import Optional
 
+import numpy as np
 import torch
 from aiohttp import web
 
@@ -72,11 +79,6 @@ from production_stack_tpu_torch.utils.drain import DrainController
 from production_stack_tpu_torch.utils.net import parse_deadline
 
 logger = logging.getLogger(__name__)
-
-# Bucket bounds of the JAX engine's encode-lane histograms, rendered here
-# at zero observations until the lane is ported.
-ENCODE_BATCH_SIZE_BOUNDS = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0)
-ENCODE_SECONDS_BOUNDS = (0.005, 0.02, 0.05, 0.1, 0.25, 1.0, 4.0)
 
 
 def _error(message: str, status: int = 400, type_: str = "invalid_request_error",
@@ -329,9 +331,8 @@ def render_metrics(engine: AsyncEngine) -> str:
             (vocab.TPU_ENCODE_QUEUE_DEPTH, s["encode_queue_depth"]),
         ]),
         render_histogram(vocab.TPU_ENCODE_BATCH_SIZE,
-                         Histogram(bounds=ENCODE_BATCH_SIZE_BOUNDS)),
-        render_histogram(vocab.TPU_ENCODE_SECONDS,
-                         Histogram(bounds=ENCODE_SECONDS_BOUNDS)),
+                         engine.engine.encode_batch_size_hist),
+        render_histogram(vocab.TPU_ENCODE_SECONDS, engine.engine.encode_seconds_hist),
         vocab.render_labeled_counter(
             vocab.TPU_COMPILE_SECONDS, "executable", s["compile_seconds"]),
         vocab.render_prometheus([
@@ -899,6 +900,187 @@ def build_engine_app(
             engine.engine.disagg_handoff_misses += 1
         return outcome
 
+    # -- the encode surface: embeddings, rerank, score ---------------------
+
+    def _encode_admission(request, body, texts):
+        """Overload protection of the encode surface, before any device
+        work is queued: the deadline parse (400 on a malformed one),
+        bounded admission against the encode queue's caps (429 +
+        Retry-After), an already-expired deadline (504).  Returns
+        (error response, token lists, deadline); the token lists are reused
+        by the embed call, so each text tokenizes once."""
+        token_lists = [engine.engine.tokenizer.encode(text) for text in texts]
+        now = time.time()
+        try:
+            deadline = parse_deadline(request.headers, body, now)
+        except ValueError as e:
+            return _error(str(e)), None, None
+        rejection = engine.check_encode_admission(
+            len(token_lists), sum(len(ids) for ids in token_lists))
+        if rejection is not None:
+            engine.engine.admission_rejected += 1
+            return web.json_response(
+                {"error": {
+                    "message": (
+                        f"engine overloaded: {rejection.queued_requests} texts "
+                        f"({rejection.queued_tokens} prompt tokens) already "
+                        "queued on the encode lane; retry after "
+                        f"{rejection.retry_after_s}s"
+                    ),
+                    "type": "overloaded", "code": 429,
+                    "detail": dataclasses.asdict(rejection),
+                }},
+                status=429,
+                headers={"Retry-After": str(rejection.retry_after_s)},
+            ), None, None
+        if deadline is not None and now >= deadline:
+            # The event loop's own counter, as for completions.
+            engine.engine.deadline_expired_admission += 1
+            return _error("request deadline already expired at admission",
+                          504, "deadline_expired", code=504), None, None
+        return None, token_lists, deadline
+
+    async def _embed_texts(token_lists, deadline):
+        """Unit vectors of tokenized texts through the encode lane (or the
+        serial path with the lane off), and an error response: 504 for a
+        text whose deadline passed while it was queued, 400 for an
+        over-long input."""
+        try:
+            return await engine.embed_batch(token_lists, deadline=deadline), None
+        except DeadlineExceeded as e:
+            return None, _error(str(e), 504, "deadline_expired", code=504)
+        except ValueError as e:
+            return None, _error(str(e))
+
+    async def _json_body(request):
+        try:
+            return await request.json(), None
+        except json.JSONDecodeError:
+            return None, _error("invalid JSON")
+
+    async def embeddings(request: web.Request) -> web.Response:
+        """OpenAI /v1/embeddings: the normalized mean-pooled final hidden
+        states (``llama.encode_batch``)."""
+        body, err = await _json_body(request)
+        if err is not None:
+            return err
+        raw = body.get("input")
+        if isinstance(raw, str):
+            inputs = [raw]
+        elif isinstance(raw, list) and all(isinstance(x, str) for x in raw):
+            inputs = raw
+        else:
+            return _error("'input' must be a string or list of strings")
+        if not 1 <= len(inputs) <= 128:
+            # Each item is a device forward: an unbounded list would let
+            # one request starve completions.
+            return _error(f"'input' must contain 1-128 items, got {len(inputs)}")
+        err, token_lists, deadline = _encode_admission(request, body, inputs)
+        if err is not None:
+            return err
+        vectors, err = await _embed_texts(token_lists, deadline)
+        if err is not None:
+            return err
+        total = sum(len(ids) for ids in token_lists)
+        return web.json_response({
+            "object": "list",
+            "data": [{"object": "embedding", "index": i,
+                      "embedding": [float(x) for x in vector]}
+                     for i, vector in enumerate(vectors)],
+            "model": body.get("model", served_model),
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+        })
+
+    async def rerank(request: web.Request) -> web.Response:
+        """Jina/Cohere-style rerank (``/v1/rerank`` and ``/rerank``): the
+        cosine relevance of each document to the query, sorted
+        descending."""
+        body, err = await _json_body(request)
+        if err is not None:
+            return err
+        query, documents = body.get("query"), body.get("documents")
+        if not isinstance(query, str) or not isinstance(documents, list) or not all(
+                isinstance(d, str) for d in documents):
+            return _error("'query' must be a string and 'documents' a list of strings")
+        if not 1 <= len(documents) <= 128:
+            return _error(f"'documents' must contain 1-128 items, got {len(documents)}")
+        top_n = body.get("top_n")
+        if top_n is not None and (
+                not isinstance(top_n, int) or isinstance(top_n, bool) or top_n < 1):
+            return _error("'top_n' must be a positive integer")
+        err, token_lists, deadline = _encode_admission(request, body, [query] + documents)
+        if err is not None:
+            return err
+        vectors, err = await _embed_texts(token_lists, deadline)
+        if err is not None:
+            return err
+        total = sum(len(ids) for ids in token_lists)
+        qvec = vectors[0]
+        results = [{"index": i, "document": {"text": documents[i]},
+                    "relevance_score": float(np.dot(qvec, dvec))}
+                   for i, dvec in enumerate(vectors[1:])]
+        results.sort(key=lambda r: r["relevance_score"], reverse=True)
+        if top_n is not None:
+            results = results[:top_n]
+        if not body.get("return_documents", True):
+            for r in results:
+                r.pop("document")
+        return web.json_response({
+            "id": f"rerank-{uuid.uuid4().hex[:16]}",
+            "model": body.get("model", served_model),
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+            "results": results,
+        })
+
+    async def score(request: web.Request) -> web.Response:
+        """vLLM-style ``/v1/score`` and ``/score``: the similarity of
+        text_1 x text_2 pairs; a single text_1 broadcasts over the text_2
+        list, equal-length lists pair elementwise."""
+        body, err = await _json_body(request)
+        if err is not None:
+            return err
+
+        def as_list(v):
+            if isinstance(v, str):
+                return [v]
+            if isinstance(v, list) and all(isinstance(x, str) for x in v):
+                return v
+            return None
+
+        t1, t2 = as_list(body.get("text_1")), as_list(body.get("text_2"))
+        if not t1 or not t2:
+            return _error("'text_1' and 'text_2' must be non-empty strings or "
+                          "lists of strings")
+        if len(t1) == 1:
+            t1 = t1 * len(t2)
+        if len(t1) != len(t2):
+            return _error(f"'text_1' ({len(t1)}) and 'text_2' ({len(t2)}) must "
+                          "broadcast (1-to-N or equal length)")
+        if len(t2) > 128:
+            return _error(f"at most 128 pairs, got {len(t2)}")
+        # Each distinct text is embedded once.
+        distinct = list(dict.fromkeys(t1 + t2))
+        err, token_lists, deadline = _encode_admission(request, body, distinct)
+        if err is not None:
+            return err
+        vectors, err = await _embed_texts(token_lists, deadline)
+        if err is not None:
+            return err
+        by_text = dict(zip(distinct, vectors))
+        n_tokens = {text: len(ids) for text, ids in zip(distinct, token_lists)}
+        # Usage counts the logical pairs, though a broadcast text is
+        # embedded once.
+        total = sum(n_tokens[a] + n_tokens[b] for a, b in zip(t1, t2))
+        return web.json_response({
+            "id": f"score-{uuid.uuid4().hex[:16]}",
+            "object": "list",
+            "model": body.get("model", served_model),
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+            "data": [{"object": "score", "index": i,
+                      "score": float(np.dot(by_text[a], by_text[b]))}
+                     for i, (a, b) in enumerate(zip(t1, t2))],
+        })
+
     # vLLM's /tokenize and /detokenize: clients budget long-context
     # requests against max_model_len without shipping the tokenizer.
     async def tokenize(request: web.Request) -> web.Response:
@@ -989,6 +1171,11 @@ def build_engine_app(
     app.router.add_get("/metrics", metrics)
     app.router.add_post("/v1/chat/completions", chat_completions)
     app.router.add_post("/v1/completions", completions)
+    app.router.add_post("/v1/embeddings", embeddings)
+    app.router.add_post("/v1/rerank", rerank)
+    app.router.add_post("/rerank", rerank)
+    app.router.add_post("/v1/score", score)
+    app.router.add_post("/score", score)
     app.router.add_post("/tokenize", tokenize)
     app.router.add_post("/detokenize", detokenize)
     app.router.add_post("/start_profile", start_profile)
@@ -1081,8 +1268,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="cross-engine prefix sharing through the remote KV store: "
         "'prefill' exports prompt KV blocks after prefill, 'decode' "
         "imports matching blocks instead of recomputing, 'both' shares "
-        "symmetrically (requires --remote-kv-url); 'encode' (an "
-        "embed/rerank/score pool member) is not served by this engine",
+        "symmetrically (requires --remote-kv-url); 'encode' marks a "
+        "dedicated embed/rerank/score pool member (no KV handoff, no "
+        "--remote-kv-url needed) — the router's encode lane prefers it",
     )
     parser.add_argument(
         "--no-remote-prefetch",
@@ -1252,6 +1440,24 @@ def build_parser() -> argparse.ArgumentParser:
         "(default: 2 x --max-num-seqs x --max-model-len)",
     )
     parser.add_argument(
+        "--no-encode-lane",
+        action="store_true",
+        help="disable the batched encode lane (embed/rerank/score then "
+        "run the legacy serial per-text encode off the step thread, and "
+        "encode admission falls back to the generation caps) — A/B "
+        "baseline / debugging",
+    )
+    parser.add_argument(
+        "--encode-batch-buckets", default=None,
+        help="comma-separated B-axis bucket grid for encode batches "
+        "(default 1,2,4,8); the T axis pads to the prefill buckets",
+    )
+    parser.add_argument(
+        "--max-queued-encode-texts", type=int, default=None,
+        help="encode-queue text bound for bounded admission "
+        "(default: 32 x the largest encode batch bucket)",
+    )
+    parser.add_argument(
         "--step-watchdog-s", type=float, default=300.0,
         help="fail /health liveness when the engine step loop has not "
         "iterated in this many seconds (hung device dispatch); 0 disables",
@@ -1318,6 +1524,12 @@ def config_from_args(args):
            if args.max_queued_requests is not None else {}),
         **({"scheduler.max_queued_tokens": args.max_queued_tokens}
            if args.max_queued_tokens is not None else {}),
+        **({"scheduler.encode_lane": False} if args.no_encode_lane else {}),
+        **({"scheduler.encode_batch_buckets": tuple(
+            int(b) for b in args.encode_batch_buckets.split(","))}
+           if args.encode_batch_buckets else {}),
+        **({"scheduler.max_queued_encode_texts": args.max_queued_encode_texts}
+           if args.max_queued_encode_texts is not None else {}),
         "scheduler.step_watchdog_s": args.step_watchdog_s,
     })
 

@@ -10,7 +10,14 @@ outputs cross the thread boundary through a lock-guarded submission list and
 ``loop.call_soon_threadsafe`` hand-offs into per-request asyncio queues.
 Before each scheduler pass the loop aborts queued requests whose client
 deadline has passed (the consumer sees :class:`DeadlineExceeded`).
-Multi-host lockstep and the batched encode lane are not ported.
+
+The encode lane (``encode_batcher.py``): embed/rerank/score texts queue on
+the event loop and the step thread runs them as ``[B, T]``-bucketed encode
+batches: the whole queue while generation is idle, at most one batch after
+each step's outputs are emitted while it is live.  With the lane off
+(``scheduler.encode_lane=False``) each text runs the serial
+``LLMEngine.embed`` in a worker thread.  Multi-host lockstep is not
+ported.
 """
 
 from __future__ import annotations
@@ -92,6 +99,16 @@ class AsyncEngine:
         # The wall clock the step loop reads (tests substitute one to
         # expire a deadline without racing the real clock).
         self._clock = time.time
+        # The batched encode lane: the event loop queues embed/rerank/score
+        # token lists and the step thread drains them as encode batches;
+        # None with the lane off (the serial embed path).
+        self.encode_batcher = None
+        if config.scheduler.encode_lane_enabled:
+            from production_stack_tpu_torch.engine.server.encode_batcher import (
+                EncodeBatcher,
+            )
+
+            self.encode_batcher = EncodeBatcher(self.engine)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -107,6 +124,9 @@ class AsyncEngine:
         self._wakeup.set()
         if self._thread is not None:
             await asyncio.to_thread(self._thread.join, 30)
+        if self.encode_batcher is not None:
+            # The step thread is gone; queued embeds can never run.
+            self.encode_batcher.fail_all(RuntimeError("engine shutting down"))
         # Release the engine's own workers after the step thread (their
         # producer) is gone: the prefix exporter (its queued exports
         # flushed), prefetch fetchers, the offload stager's writer, the
@@ -163,6 +183,30 @@ class AsyncEngine:
             self._aborts.append(request_id)
         self._wakeup.set()
 
+    async def embed_batch(
+        self,
+        batch_token_ids: List[List[int]],
+        deadline: Optional[float] = None,
+    ) -> List:
+        """Embed tokenized inputs.  With the encode lane on (the default)
+        every text is queued on the EncodeBatcher and the step thread runs
+        the [B, T]-bucketed batch between steps; this coroutine's thread
+        never touches the device.  With the lane off each text runs the
+        serial ``embed`` in a worker thread (on the engine's embed stream).
+        Raises ValueError on empty or over-long inputs either way, and
+        DeadlineExceeded when a queued text's deadline passed before its
+        batch ran."""
+        for ids in batch_token_ids:
+            self.engine.check_encode_input(ids)
+        if self.encode_batcher is None:
+            return [await asyncio.to_thread(self.engine.embed, ids)
+                    for ids in batch_token_ids]
+        futures = self.encode_batcher.submit(
+            batch_token_ids, asyncio.get_running_loop(), deadline
+        )
+        self._wakeup.set()
+        return list(await asyncio.gather(*futures))
+
     def stats(self) -> Dict[str, float]:
         return self.engine.stats()
 
@@ -191,6 +235,35 @@ class AsyncEngine:
             queued_requests=queued_requests,
             queued_tokens=queued_tokens,
             max_queued_requests=cfg.queued_requests_cap,
+            max_queued_tokens=cfg.queued_tokens_cap,
+            kv_usage_perc=float(self.engine.block_pool.usage),
+            retry_after_s=min(retry_after, 60),
+        )
+
+    def check_encode_admission(
+        self, n_texts: int, n_tokens: int
+    ) -> Optional[AdmissionRejection]:
+        """Bounded admission for the encode lane: its queue is bounded in
+        texts (``queued_encode_texts_cap``) and tokens (the shared
+        ``queued_tokens_cap``).  With the lane off, encode requests count
+        against the generation caps (one text = one request)."""
+        cfg = self.engine.config.scheduler
+        if not cfg.admission_enabled:
+            return None
+        if self.encode_batcher is None:
+            return self.check_admission(n_texts, n_tokens)
+        depth, queued_tokens = self.encode_batcher.snapshot()
+        if (
+            depth + n_texts <= cfg.queued_encode_texts_cap
+            and queued_tokens + n_tokens <= cfg.queued_tokens_cap
+        ):
+            return None
+        # Each step boundary drains up to one full encode batch bucket.
+        retry_after = max(1, -(-depth // max(1, cfg.encode_batch_buckets[-1])))
+        return AdmissionRejection(
+            queued_requests=depth,
+            queued_tokens=queued_tokens,
+            max_queued_requests=cfg.queued_encode_texts_cap,
             max_queued_tokens=cfg.queued_tokens_cap,
             kv_usage_perc=float(self.engine.block_pool.usage),
             retry_after_s=min(retry_after, 60),
@@ -252,6 +325,13 @@ class AsyncEngine:
                 except ValueError as e:
                     self._emit(request_id, e)
             if not self.engine.has_unfinished() and not self.engine.has_pending():
+                # Generation idle: encode batches are the only work there
+                # is; drain the queue completely before sleeping.
+                if (
+                    self.encode_batcher is not None
+                    and self.encode_batcher.run_pending(max_batches=0)
+                ):
+                    continue
                 self._wakeup.wait(timeout=0.01)
                 self._wakeup.clear()
                 continue
@@ -277,6 +357,11 @@ class AsyncEngine:
                             top_logprobs=out.top_logprobs,
                         ),
                     )
+            # Step boundary: at most one encode batch while generation is
+            # live, so an embed burst adds one encode pass between windows
+            # and the streams' inter-token latency stays bounded.
+            if self.encode_batcher is not None:
+                self.encode_batcher.run_pending(max_batches=1)
         logger.info("engine step loop exited")
 
     def _emit(self, request_id: str, event) -> None:

@@ -479,3 +479,57 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(TypeError, match="must both be int8"):
         tfp.flash_prefill_attention_paged(q, k, k, (data, scale), pool, table,
                                           lens[:1], lens[1:], scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", TOLS)
+@pytest.mark.parametrize(
+    "B,T,H,K,D,lens,window",
+    [
+        (4, 190, 32, 8, 128, (190, 0, 1, 77), None),   # ragged T, an empty row
+        (3, 64, 48, 1, 64, (64, 17, 33), None),        # G = 48: 1 token a tile
+        (2, 300, 16, 4, 256, (300, 129), 96),          # D = 256, a window
+        (1, 33, 8, 8, 64, (33,), None),                # B = 1, G = 1
+        (5, 128, 32, 8, 128, (0, 0, 0, 0, 0), None),   # nothing valid
+    ],
+)
+def test_flash_prefill_batched_kernel_matches_plain(cuda_device, dtype, tol, B, T, H, K, D,
+                                                    lens, window):
+    """The batched entry: valid rows within the tolerance of the plain
+    version, padded rows (and every row of a 0-length text) zero, one
+    launch counted, the same bits twice."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn((B, T, h, D), generator=gen, device=cuda_device).to(dtype)
+               for h in (H, K, K))
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = tfp.launches_batched
+    got = tfp.flash_prefill_attention_batched(q, k, v, valid, scale=D**-0.5,
+                                              sliding_window=window)
+    assert tfp.launches_batched == before + 1
+    again = tfp.flash_prefill_attention_batched(q, k, v, valid, scale=D**-0.5,
+                                                sliding_window=window)
+    want = tfp.flash_prefill_attention_batched_plain(q, k, v, valid, scale=D**-0.5,
+                                                     sliding_window=window)
+    torch.cuda.synchronize()
+    live = torch.arange(T, device=cuda_device)[None, :] < valid[:, None].long()
+    assert torch.equal(got, again)
+    assert not got[~live].any()
+    if live.any():
+        err = (got.float() - want.float())[live].abs().max().item()
+        assert err <= scaled_tol(want, tol), err
+
+
+@pytest.mark.cuda
+def test_flash_prefill_batched_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    q = torch.zeros((2, 16, 8, 64), device=cuda_device)
+    k = torch.zeros((2, 16, 2, 64), device=cuda_device)
+    ok = torch.tensor([16, 3], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        tfp.flash_prefill_attention_batched(q, k, k, ok.long(), scale=0.125)
+    with pytest.raises(ValueError, match="valid_lens"):
+        tfp.flash_prefill_attention_batched(q, k, k, ok[:1], scale=0.125)
+    with pytest.raises(ValueError, match="head_dim"):
+        tfp.flash_prefill_attention_batched(q[..., :32], k[..., :32], k[..., :32], ok,
+                                            scale=0.125)
+    with pytest.raises(ValueError, match="on cpu"):
+        tfp.flash_prefill_attention_batched(q, k, k, ok.cpu(), scale=0.125)

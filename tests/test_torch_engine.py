@@ -184,6 +184,10 @@ def test_torch_engine_raises_outside_the_slice():
     with pytest.raises(NotImplementedError, match="draft_weights_path"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
-    cfg.cache.disagg_role = "encode"  # the encode lane's pool role, not yet
-    with pytest.raises(NotImplementedError, match="disagg_role=encode"):
+    cfg.model.quantization = "int8"  # int8 weights, not yet
+    with pytest.raises(NotImplementedError, match="int8 weights"):
         LLMEngine(cfg, device="cpu")
+    cfg = torch_config()
+    cfg.cache.disagg_role = "encode"  # the encode lane's pool label: served
+    cfg.scheduler.encode_lane = True
+    assert LLMEngine(cfg, device="cpu").encode_max_len() > 0

@@ -60,8 +60,8 @@ def to_numpy(tree):
 
 
 def jax_engine(**sched) -> JaxAsync:
-    """The JAX engine with the port's slice (SLICE_OVERRIDES): no encode
-    lane, recompute preemption, tracing off."""
+    """The JAX engine with the port's slice (SLICE_OVERRIDES): tracing
+    off; recompute preemption, and no encode lane (no test here embeds)."""
     return JaxAsync(jcfg.EngineConfig(
         model=jcfg.ModelConfig(dtype="float32"),
         cache=jcfg.CacheConfig(block_size=4, num_blocks=256),
@@ -421,7 +421,8 @@ SERVED_FLAGS = (
     "--no-remote-prefetch", "--prefetch-threads", "--disagg-handoff-wait-s",
     "--kv-wire-format", "--speculative-ngram", "--speculative-model",
     "--speculative-draft-len", "--speculative-draft-pool-blocks",
-    "--no-speculative-model",
+    "--no-speculative-model", "--no-encode-lane", "--encode-batch-buckets",
+    "--max-queued-encode-texts",
 )
 
 
@@ -467,7 +468,8 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--disagg-role", "both", "--no-remote-prefetch", "--prefetch-threads",
             "3", "--disagg-handoff-wait-s", "1.5", "--kv-wire-format", "int8",
             "--speculative-model", "debug-1l", "--speculative-draft-len", "3",
-            "--speculative-draft-pool-blocks", "40"]
+            "--speculative-draft-pool-blocks", "40", "--no-encode-lane",
+            "--encode-batch-buckets", "1,2,4", "--max-queued-encode-texts", "7"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
