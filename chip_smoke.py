@@ -171,6 +171,23 @@ non-zero (no phase is caught and passed over):
    equal a second run's (replays), and the serial vectors must be within
    cosine 0.999 of the batch's.
 
+11. Multi-LoRA (``phase_lora_reference``, then ``phase_lora`` on a dense
+   and on an int8 pool): the 2-layer fp32 forward with adapters a and b
+   (rank 16) on the card against the CPU (logits within 2e-3, each
+   projection group's delta within 1e-5, the stacks the card's registry
+   staged and committed equal to the CPU's); then llama-3.1-8b (bf16,
+   windows, ``max_loras`` 4 of rank 16) beside a LoRA-free engine on the
+   same weights: 8 base requests give the LoRA-free streams; with base,
+   a and b rows mixed (the launch counters at 0 just before, read just
+   after) the base rows' streams are the LoRA-free engine's, the adapter
+   rows' are not; dense: each adapter row's logits against a
+   merged-weight forward (2 layers, ``scaled_tol``), a token step at 8
+   rows and a prefill-carrying step with LoRA off, on with base rows and
+   on with mixed adapters, the seconds an adapter takes to load; over
+   HTTP an adapter (a bf16 PEFT file) posted to ``/admin/lora`` and
+   deleted while the 8 requests stream: the streams as alone, no graph
+   captured again, no host sync in a dispatch or a commit, then served.
+
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a CUDA device, or without the package beside it, it exits
@@ -3128,6 +3145,589 @@ def phase_encode() -> dict:
     return row
 
 
+# -- phase 11: multi-LoRA --------------------------------------------------
+
+# Phase 11's adapters: max_loras 4 slots of rank 16 (the JAX defaults'
+# rank), factors N(0, 0.02^2) from a seed, alpha 32 (scale 2): a delta
+# about a sixth of a projection's output.
+LORA_SLOTS = 4
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+LORA_STD = 0.02
+# Its 8 requests: prompt lengths, arrival steps and adapters (None: base).
+LORA_PROMPT_LENS = (128, 200, 256, 320, 384, 448, 512, 600)
+LORA_ARRIVALS = (0, 0, 0, 0, 3, 3, 3, 3)
+LORA_ADAPTERS = (None, "a", "b", None, "a", "b", "a", "b")
+LORA_NEW_TOKENS = 48
+LORA_STREAM_TOKENS = 160
+LORA_POOL_BLOCKS = 2048  # 32768 tokens: two engines of the phase at once
+
+
+def _lora_factors(cfg, seed: int) -> list:
+    """Seeded rank-16 factors of every target projection, N(0, 0.02^2),
+    per layer (numpy, drawn on the host)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.lora import _proj_dims
+
+    rng = np.random.default_rng(seed)
+    return [{p: (rng.standard_normal((i, LORA_RANK), np.float32) * LORA_STD,
+                 rng.standard_normal((LORA_RANK, o), np.float32) * LORA_STD)
+             for p, (i, o) in _proj_dims(cfg).items()}
+            for _ in range(cfg.num_layers)]
+
+
+def phase_lora_reference(model: tuple) -> dict:
+    """LoRA on the card against the CPU: ``model`` (:func:`reference_model`,
+    2 layers at llama-3.1-8b width, fp32, TF32 off) with adapters a and b
+    (rank 16) loaded into an ``AdapterRegistry`` on each device (staged and
+    committed there: the stacks must be equal); three 48-token prompts
+    prefilled on slots 1, 2 and 0, one decode of the rows [1, 2, 0], one
+    mixed step of those rows beside a slot-1 chunk: logits within the
+    reference phase's 2e-3; and each projection group's delta at 8 rows on
+    slots 0-4 within 1e-5."""
+    from production_stack_tpu_torch.engine import lora as lora_lib
+    from production_stack_tpu_torch.engine.config import LoraServingConfig
+    from production_stack_tpu_torch.engine.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu_params, state = model
+    lcfg = LoraServingConfig(max_loras=LORA_SLOTS, max_rank=LORA_RANK)
+    factors = {"a": _lora_factors(cfg, 1), "b": _lora_factors(cfg, 2)}
+    gen = torch.Generator(device="cpu")
+    gen.set_state(state)
+    prompts = [torch.randint(4, cfg.vocab_size, (48,), generator=gen, dtype=torch.int32)
+               for _ in range(3)]
+    chunk = torch.randint(4, cfg.vocab_size, (32,), generator=gen, dtype=torch.int32)
+    dims = lora_lib._proj_dims(cfg)
+    xs = {g: torch.randn((8, dims[projs[0]][0]), generator=gen) for g, projs in lora_lib.GROUPS}
+    rows8 = torch.tensor([0, 1, 2, 3, 4, 1, 2, 0], dtype=torch.int32)
+    bs, shape = 16, (16, 16, cfg.num_kv_heads, cfg.head_dim)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        reg = lora_lib.AdapterRegistry(cfg, lcfg, torch.float32, dev)
+        for name in ("a", "b"):
+            reg.load(name, factors[name], LORA_RANK, LORA_ALPHA)
+        stacks = reg.params
+        params = cpu_params if dev == "cpu" else _tree_to(cpu_params, dev)
+        kv = [(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+              for _ in range(cfg.num_layers)]
+        t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        lora = dict(lora=stacks)
+        outs = [llama.prefill(params, cfg, prompts[i].to(dev), 0, t([]),
+                              t([3 * i + 1, 3 * i + 2, 3 * i + 3]), 48, kv,
+                              adapter_idx=slot, **lora)
+                for i, slot in enumerate((1, 2, 0))]
+        tokens = ([int(o.argmax()) for o in outs] if dev == "cpu"
+                  else runs["cpu"]["tokens"][0])
+        tables = t([[1, 2, 3, 10], [4, 5, 6, 11], [7, 8, 9, 12]])
+        dec = llama.decode(params, cfg, t(tokens), t([48] * 3), tables, t([49] * 3),
+                           t([10, 11, 12]), t([0] * 3), kv, adapter_idx=t([1, 2, 0]),
+                           **lora)
+        nxt = (dec.argmax(dim=-1).tolist() if dev == "cpu"
+               else runs["cpu"]["tokens"][1])
+        mixed = llama.mixed_step(
+            params, cfg, dec_tokens=t(nxt), dec_positions=t([49] * 3),
+            dec_block_tables=tables, dec_ctx_lens=t([50] * 3),
+            dec_slot_block_ids=t([10, 11, 12]), dec_slot_offsets=t([1] * 3),
+            pf_tokens=chunk.to(dev), pf_cached_len=0, pf_prefix_block_ids=t([]),
+            pf_new_block_ids=t([13, 14]), pf_valid_len=32, kv_caches=kv,
+            adapter_idx=t([1, 2, 0] + [1] * 32), **lora)
+        mask = lora_lib.slot_mask(stacks, rows8.to(dev))
+        deltas = [d for layer in stacks.layers for g, projs in lora_lib.GROUPS
+                  for d in lora_lib.grouped_delta(
+                      xs[g].to(dev), layer["A"][g], [layer["B"][p] for p in projs], mask)]
+        runs[dev] = {
+            "logits": [o.float().cpu() for o in outs + list(dec) + list(mixed)],
+            "deltas": [d.cpu() for d in deltas],
+            "stacks": [x.cpu() for layer in stacks.layers for part in layer.values()
+                       for x in part.values()] + [stacks.scale.cpu()],
+            "tokens": (tokens, nxt),
+        }
+    cpu, card = runs["cpu"], runs["cuda"]
+    logit_err = max((a - b).abs().max().item() for a, b in zip(cpu["logits"], card["logits"]))
+    delta_err = max((a - b).abs().max().item() for a, b in zip(cpu["deltas"], card["deltas"]))
+    stacks_equal = all(torch.equal(a, b) for a, b in zip(cpu["stacks"], card["stacks"]))
+    base_rows_zero = all(not d[rows8 == 0].any() and not d[rows8 >= 3].any()
+                         for d in card["deltas"])
+    row = {"phase": "lora_reference", "layers": cfg.num_layers, "width": cfg.hidden_size,
+           "slots": LORA_SLOTS, "rank": LORA_RANK, "max_abs_logit_err": logit_err,
+           "logit_tol": 2e-3, "max_abs_delta_err": delta_err, "delta_tol": 1e-5,
+           "delta_absmax": max(d.abs().max().item() for d in cpu["deltas"]),
+           "stacks_equal": stacks_equal, "base_and_free_slot_deltas_zero": base_rows_zero}
+    emit(row)
+    if not all(torch.isfinite(x).all() for x in card["logits"]):
+        raise AssertionError("non-finite LoRA logits on the card")
+    if logit_err > 2e-3 or delta_err > 1e-5 or not stacks_equal or not base_rows_zero:
+        raise AssertionError(f"card vs CPU LoRA: {row}")
+    return row
+
+
+def check_lora_merged(eng, factors: dict) -> dict:
+    """Each adapter row's logits against a merged-weight forward at full
+    width: the engine's weights and slot stacks cut to their first 2
+    layers; a 64-token prompt per row prefilled on its slot (0, a's, b's),
+    then one decode of the three rows, against the LoRA-free forward of
+    weights W + s·A·B (merged in fp32 from the slot's own values).  In fp32 (the weights cast up, TF32
+    off) adapter X's rows must agree within the reference phase's 2e-3 and
+    move from the base by at least 10x their error; in bf16 (the weights
+    as served, the merged ones rounded to bf16) the error is reported: two
+    bf16 forwards that round in other places part by more than two units in
+    the last place.  The base row equals the LoRA-free forward bit for bit
+    in both."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.lora import LoraStacks
+    from production_stack_tpu_torch.engine.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(eng.config.model, num_layers=2)
+    full = eng.lora_registry.params
+    stacks = LoraStacks(max_rank=full.max_rank, col_slot=full.col_slot, scale=full.scale,
+                        layers=full.layers[:2])
+    slots = {None: 0, **{n: eng.lora_registry.slot_of(n) for n in factors}}
+    rng = np.random.default_rng(12)
+    dev = eng.device
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    prompts = [rng.integers(4, cfg.vocab_size, 64).tolist() for _ in slots]
+    shape = (16, 16, cfg.num_kv_heads, cfg.head_dim)
+    rows = list(slots.values())
+    R = len(rows)
+
+    def forward(p, slots_, lora, first):
+        """Prefill each row's prompt, then one decode of all rows on input
+        tokens ``first``: (prefill logits per row, decode logits [R, V])."""
+        dtype = p["embed_tokens"].dtype
+        kv = [(torch.zeros(shape, dtype=dtype, device=dev),
+               torch.zeros(shape, dtype=dtype, device=dev)) for _ in range(2)]
+        kw = lambda slot: dict(lora=stacks, adapter_idx=slot) if lora else {}  # noqa: E731
+        pre = [llama.prefill(p, cfg, t(prompts[i]), 0, t([]),
+                             t([4 * i + 1 + j for j in range(4)]), 64, kv, **kw(slot))
+               for i, slot in enumerate(slots_)]
+        dec = llama.decode(
+            p, cfg, t(first), t([64] * R),
+            t([[4 * i + 1 + j for j in range(4)] + [13 + i] for i in range(R)]),
+            t([65] * R), t([13 + i for i in range(R)]), t([0] * R), kv,
+            **kw(t(slots_)))
+        return pre, dec
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        def cast(x):
+            return x.to(dtype) if x.dtype != torch.float32 or dtype == torch.float32 else x
+        params = {k: cast(v) for k, v in eng.params.items() if k != "layers"}
+        params["layers"] = [{k: cast(v) for k, v in layer.items()}
+                            for layer in eng.params["layers"][:2]]
+        first = [int(x.argmax()) for x in forward(params, rows, True, [0] * R)[0]]
+        pre, dec = forward(params, rows, True, first)
+        base_pre, base_dec = forward(params, [0] * R, False, first)
+        found = {"base_row_bit_equal": bool(torch.equal(pre[0], base_pre[0])
+                                            and torch.equal(dec[0], base_dec[0]))}
+        for i, name in enumerate(slots):
+            if name is None:
+                continue
+            # The factors as the slot holds them (rounded through bf16).
+            slot, merged = slots[name], {**params, "layers": []}
+            for li, layer in enumerate(params["layers"]):
+                layer = dict(layer)
+                for proj in factors[name][li]:
+                    A, B = stacks.views(li, proj, slot)
+                    w = layer[proj].float() + stacks.scale[slot] * (A @ B)
+                    layer[proj] = w.to(dtype)
+                merged["layers"].append(layer)
+            m_pre, m_dec = forward(merged, [0] * R, False, first)
+            found[name] = {
+                "max_abs_err": max((pre[i] - m_pre[i]).abs().max().item(),
+                                   (dec[i] - m_dec[i]).abs().max().item()),
+                "logit_absmax": max(m_pre[i].abs().max().item(), m_dec[i].abs().max().item()),
+                "moved_from_base": max((pre[i] - base_pre[i]).abs().max().item(),
+                                       (dec[i] - base_dec[i]).abs().max().item()),
+            }
+            del merged
+        out["fp32" if dtype == torch.float32 else "bf16"] = found
+        del params
+    out["tol_fp32"] = 2e-3
+    return out
+
+
+def _lora_streams(eng, prompts: list, adapters: tuple, max_tokens: int) -> tuple:
+    """Greedy streams of the phase's requests on ``eng`` driven directly
+    (arrivals at ``LORA_ARRIVALS``), every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``: (streams, checked dispatches)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    checked = sync_checked(eng)
+    pending = sorted(zip(LORA_ARRIVALS, range(len(prompts))))
+    streams, step = {}, 0
+    while pending or eng.has_unfinished() or eng.has_pending():
+        while pending and pending[0][0] <= step:
+            _, i = pending.pop(0)
+            eng.add_request(f"l{i}", prompt_token_ids=prompts[i], adapter=adapters[i],
+                            sampling_params=SamplingParams(max_tokens=max_tokens,
+                                                           ignore_eos=True))
+        eng.dispatch()
+        for out in eng.collect():
+            streams.setdefault(int(out.seq_id[1:]), []).append(out.new_token_id)
+        step += 1
+        if step > 2000:
+            raise AssertionError("the engine did not drain")
+    for name in ASYNC_DISPATCHES:
+        del eng.__dict__[name]  # the wrappers off again
+    return [streams[i] for i in range(len(prompts))], checked
+
+
+def _lora_step_times(eng, adapters: tuple, seed: int, tokens: int = 32) -> dict:
+    """A token step at 8 rows and a prefill-carrying step on ``eng``: 8
+    requests of 512 prompt tokens (adapters ``adapters``) decode ``tokens``
+    tokens a row (wall and device busy from CUDA events around each graph
+    replay, per token step); then 7 of them decode while a 2048-token
+    prompt (adapter ``adapters[1]``) arrives and chunks 4 x 512 beside
+    them (wall from arrival to its first token and device busy, per
+    chunk); last, with the engine idle, a 512-token prompt (adapter
+    ``adapters[1]``) prefilled alone, the eager path: the wall of its step
+    and the host seconds ``llama.prefill`` takes to return (its launches).
+    ``seed`` draws the prompts: a run of its own, with no prefix-cache
+    hit."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.models import llama
+
+    rng = np.random.default_rng(seed)
+    vocab = eng.config.model.vocab_size
+    for i, adapter in enumerate(adapters):
+        eng.add_request(f"t{i}", prompt_token_ids=rng.integers(4, vocab, 512).tolist(),
+                        adapter=adapter, sampling_params=SamplingParams(
+                            max_tokens=4 * tokens + 64, ignore_eos=True))
+    while eng.scheduler.waiting:
+        eng.step()
+    _decode_tokens(eng, 8, len(adapters))
+    spans, run = [], eng.graphs.run
+
+    def timed_run(key, body):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run(key, body)
+        end.record()
+        spans.append((start, end))
+
+    eng.graphs.run = timed_run
+    try:
+        t0 = time.time()
+        steps = _decode_tokens(eng, tokens, len(adapters)) / len(adapters)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        decode_busy = sum(s.elapsed_time(e) for s, e in spans) / steps
+        eng.abort_request("t0")  # 7 rows decode beside the prompt
+        while eng.has_pending():
+            eng.collect()
+        out = {"token_step_wall_ms": wall * 1e3 / steps, "token_step_busy_ms": decode_busy}
+        for tag in ("warm", "timed"):
+            spans.clear()
+            chunk_tokens = eng.prefill_chunk_tokens
+            eng.add_request(f"p_{tag}", prompt_token_ids=rng.integers(4, vocab, 2048).tolist(),
+                            adapter=adapters[1],
+                            sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+            t0 = time.time()
+            while not any(o.seq_id == f"p_{tag}" for o in eng.step()):
+                pass
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        chunks = (eng.prefill_chunk_tokens - chunk_tokens) / 512
+        out.update(chunks=chunks, prefill_step_wall_ms=wall * 1e3 / chunks,
+                   prefill_step_busy_ms=sum(s.elapsed_time(e) for s, e in spans) / chunks)
+    finally:
+        eng.graphs.run = run
+    for i in range(1, len(adapters)):
+        eng.abort_request(f"t{i}")
+    while eng.has_unfinished() or eng.has_pending():
+        eng.step()
+    prefill, host = llama.prefill, []
+
+    def timed_prefill(*args, **kwargs):
+        t = time.perf_counter()
+        logits = prefill(*args, **kwargs)
+        host.append(time.perf_counter() - t)
+        return logits
+
+    llama.prefill = timed_prefill
+    try:
+        for tag in ("warm", "timed"):
+            eng.add_request(f"e_{tag}", prompt_token_ids=rng.integers(4, vocab, 512).tolist(),
+                            adapter=adapters[1],
+                            sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            while eng.has_unfinished() or eng.has_pending():
+                eng.step()
+            wall = time.time() - t0
+    finally:
+        llama.prefill = prefill
+    out.update(eager_prefill_wall_ms=wall * 1e3, eager_prefill_host_ms=host[-1] * 1e3)
+    return out
+
+
+async def _lora_serve(aeng, prompts: list, peft_path: str, out: dict) -> None:
+    """The 8 requests through ``AsyncEngine.generate`` twice over HTTP's
+    engine: alone, then with adapter c loaded (``POST /admin/lora`` of a
+    PEFT file) and unloaded (``DELETE /admin/lora/c``) while they stream,
+    each write committed by the step thread between dispatches; then c
+    loaded again, one completion on ``<base>:c`` beside one on the base,
+    ``/v1/models``, ``/admin/lora`` and ``tpu:loaded_loras``; into ``out``
+    as they come, so a failed step leaves what came before it."""
+    import aiohttp
+    from aiohttp import web
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+
+    eng = aeng.engine
+    registry, commits = eng.lora_registry, []
+
+    def checked(write):
+        """A write into the stacks under the "error" sync mode, noting the
+        thread it ran on and the tokens streamed by then."""
+        def run(*args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return write(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                commits.append({"thread": threading.current_thread().name,
+                                "streamed": sum(len(s) for s in streamed),
+                                "unfinished": eng.has_unfinished()})
+        return run
+
+    registry.commit, registry.unload = checked(registry.commit), checked(registry.unload)
+    runner = web.AppRunner(build_engine_app(aeng, MODEL))
+    await runner.setup()  # starts the engine's step thread
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    streamed = [[] for _ in prompts]
+
+    async def one(i, tag):
+        sp = SamplingParams(max_tokens=LORA_STREAM_TOKENS, ignore_eos=True)
+        async for ev in aeng.generate(prompt_token_ids=prompts[i], sampling_params=sp,
+                                      request_id=f"{tag}{i}", adapter=LORA_ADAPTERS[i]):
+            streamed[i].append(ev.token_id)
+
+    async def until(n):
+        while min(len(s) for s in streamed) < n:
+            await asyncio.sleep(0.002)
+
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            await asyncio.gather(*(one(i, "alone") for i in range(len(prompts))))
+            alone = [list(s) for s in streamed]
+            streamed = [[] for _ in prompts]
+            captures = eng.graphs.captures
+            checked = sync_checked(eng)
+            tasks = [asyncio.create_task(one(i, "during")) for i in range(len(prompts))]
+            await until(8)
+            t0 = time.time()
+            async with http.post(f"{base}/admin/lora", json={
+                    "name": "c", "path": peft_path, "alpha": LORA_ALPHA}) as r:
+                out["load"] = (r.status, await r.json())
+            out["post_load_s"] = time.time() - t0
+            await until(40)
+            async with http.delete(f"{base}/admin/lora/c") as r:
+                out["unload"] = (r.status, await r.json())
+            await asyncio.wait_for(asyncio.gather(*tasks), timeout=600)
+            for name in ASYNC_DISPATCHES:
+                del eng.__dict__[name]
+            out.update(streams_equal=streamed == alone, commits=commits[:2],
+                       recaptures=eng.graphs.captures - captures,
+                       sync_checked_dispatches=checked, streams=alone)
+            async with http.post(f"{base}/admin/lora", json={
+                    "name": "c", "path": peft_path, "alpha": LORA_ALPHA}) as r:
+                out["reload"] = (r.status, await r.json())
+            # The random model's tokens lie past the byte tokenizer's range
+            # (their text is empty): the streams compare by token ids.
+            async with http.post(f"{base}/v1/completions", json={
+                    "model": f"{MODEL}:c", "prompt": "the adapter speaks",
+                    "max_tokens": 16, "ignore_eos": True}) as r:
+                body = await r.json()
+            out["http_c"] = (r.status, body.get("usage", body))
+            ids = {}
+            for adapter in (None, "c"):
+                sp = SamplingParams(max_tokens=16, ignore_eos=True)
+                ids[adapter] = [ev.token_id async for ev in aeng.generate(
+                    prompt_token_ids=prompts[0], sampling_params=sp,
+                    request_id=f"ids-{adapter}", adapter=adapter)]
+            out["c_stream_differs"] = ids[None] != ids["c"]
+            async with http.get(f"{base}/v1/models") as r:
+                out["models"] = sorted(m["id"] for m in (await r.json())["data"])
+            async with http.get(f"{base}/admin/lora") as r:
+                out["adapters"] = (await r.json())["adapters"]
+            out["loaded_loras"] = (await _scrape(http, base))[1].get("tpu:loaded_loras")
+            async with http.delete(f"{base}/admin/lora/c") as r:
+                out["final_unload"] = r.status
+    finally:
+        await runner.cleanup()
+        del registry.commit, registry.unload
+
+
+def _write_peft(cfg, factors: list, path: str) -> None:
+    """``factors`` as an HF/peft adapter file (bf16): ``lora_A [r, in]``,
+    ``lora_B [out, r]`` per target and layer."""
+    from safetensors.torch import save_file
+
+    attn = ("q_proj", "k_proj", "v_proj", "o_proj")
+    tensors = {}
+    for li, layer in enumerate(factors):
+        for proj, (A, B) in layer.items():
+            key = (f"base_model.model.model.layers.{li}."
+                   f"{'self_attn' if proj in attn else 'mlp'}.{proj}")
+            tensors[f"{key}.lora_A.weight"] = torch.from_numpy(A.T.copy()).to(torch.bfloat16)
+            tensors[f"{key}.lora_B.weight"] = torch.from_numpy(B.T.copy()).to(torch.bfloat16)
+    save_file(tensors, path)
+
+
+def phase_lora(kv_cache_dtype: str = "auto") -> dict:
+    """Multi-LoRA at full width: llama-3.1-8b (32 layers, bf16, seeded random
+    init, K=8 windows with the lookahead, mixed and packed windows),
+    ``max_loras`` 4 of rank 16, beside a LoRA-free engine on the same
+    weights (pools of 2048 blocks each).  (1) The phase's 8 requests, all
+    base: the streams equal the LoRA-free engine's.  (2) Adapters a and b
+    loaded (seconds to stage and commit).  (3) dense: each adapter row's
+    logits against a merged-weight forward (:func:`check_lora_merged`).
+    (4) The 8 requests on base, a and b mixed, the launch counters at 0
+    just before and read just after: every request all its tokens, the base
+    rows' streams equal (1)'s, the adapter rows' not; mixed windows ran.
+    (5) dense: a token step at 8 rows and a prefill-carrying step, LoRA off,
+    on with every row on base, and on with mixed adapters.  (6) Over HTTP
+    (``_lora_serve``): adapter c (a bf16 PEFT file) loaded and unloaded
+    while the 8 requests stream: the streams equal the same requests alone,
+    no graph captured again, no host sync in a dispatch or a commit; then c
+    served.  (1), (4) and (6) run every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``."""
+    import tempfile
+
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+    from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+
+    dense = kv_cache_dtype == "auto"
+    torch.cuda.empty_cache()
+
+    def config(max_loras):
+        return config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+            "scheduler.max_model_len": 4096, "scheduler.max_num_seqs": 8,
+            "cache.kv_cache_dtype": kv_cache_dtype, "cache.num_blocks": LORA_POOL_BLOCKS,
+            "lora.max_loras": max_loras, "lora.max_rank": LORA_RANK})
+
+    base = LLMEngine(config(0))
+    t0 = time.time()
+    aeng = AsyncEngine(config(LORA_SLOTS), params=base.params)
+    eng = aeng.engine
+    stacks = eng.lora_registry.params
+    row = {"phase": "lora", "kv": kv_cache_dtype, "model": MODEL,
+           "layers": eng.config.model.num_layers, "slots": LORA_SLOTS, "rank": LORA_RANK,
+           "boot_s": time.time() - t0,
+           "stack_bytes": sum(x.numel() * x.element_size() for layer in stacks.layers
+                              for part in layer.values() for x in part.values())}
+    cfg = eng.config.model
+    rng = np.random.default_rng(11)
+    # (1) and (4) take prompts of their own, so each run starts from an
+    # empty prefix cache and both engines schedule it alike.
+    first, prompts = ([rng.integers(4, cfg.vocab_size, n).tolist() for n in LORA_PROMPT_LENS]
+                      for _ in range(2))
+    # (1) all base.
+    want, _ = _lora_streams(base, first, (None,) * 8, LORA_NEW_TOKENS)
+    got, checked = _lora_streams(eng, first, (None,) * 8, LORA_NEW_TOKENS)
+    row["base_streams_equal"] = got == want
+    # (2) loads.
+    factors = {name: _lora_factors(cfg, seed) for name, seed in (("a", 1), ("b", 2), ("c", 3))}
+    for name in ("a", "b"):
+        t0 = time.time()
+        eng.load_lora(name, factors[name], LORA_RANK, LORA_ALPHA)
+        torch.cuda.synchronize()
+        row[f"load_{name}_s"] = time.time() - t0
+    # (3) merged weights.
+    if dense:
+        row["merged"] = check_lora_merged(eng, {n: factors[n] for n in ("a", "b")})
+    # (4) base, a and b mixed: the LoRA path, counted; beside the LoRA-free
+    # engine's streams of the same prompts.
+    want, _ = _lora_streams(base, prompts, (None,) * 8, LORA_NEW_TOKENS)
+    _reset_launches()
+    before = eng.stats()
+    mixed, checked = _lora_streams(eng, prompts, LORA_ADAPTERS, LORA_NEW_TOKENS)
+    launches = launch_counts()
+    after = eng.stats()
+    row.update(
+        launches=launches, sync_checked_dispatches=checked,
+        adapter_rows_equal_base=[mixed[i] == want[i] for i, a in enumerate(LORA_ADAPTERS)
+                                 if a is not None],
+        base_rows_equal=[mixed[i] == want[i] for i, a in enumerate(LORA_ADAPTERS)
+                         if a is None],
+        **{k: after[k] - before[k] for k in ("windows_dispatched", "mixed_windows_dispatched",
+                                              "mixed_window_chunk_tokens", "graph_replays")})
+    # (5) step times.
+    if dense:
+        row["times"] = {
+            "lora_off": _lora_step_times(base, (None,) * 8, 21),
+            "lora_on_base_rows": _lora_step_times(eng, (None,) * 8, 22),
+            "lora_on_mixed": _lora_step_times(eng, LORA_ADAPTERS, 23),
+            "lora_off_again": _lora_step_times(base, (None,) * 8, 24),
+        }
+    del base
+    free_engines(strict=False)
+    # (6) load and unload while streaming, over HTTP.
+    served = row["serve"] = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "adapter_model.safetensors")
+            _write_peft(cfg, factors["c"], path)
+            asyncio.run(_lora_serve(aeng, prompts, path, served))
+    finally:
+        served.pop("streams", None)
+        emit(row)
+    del aeng, eng, stacks
+    free_engines()
+    decode, prefill = (("paged_decode", "flash_prefill") if dense
+                       else ("paged_decode_int8", "flash_prefill_int8"))
+    on = [decode, prefill] + ([] if dense else ["kv_write_int8"])
+    problems = []
+    if not row["base_streams_equal"]:
+        problems.append("base streams differ from the LoRA-free engine's")
+    if not all(row["base_rows_equal"]) or any(row["adapter_rows_equal_base"]):
+        problems.append("base rows changed beside adapters, or an adapter changed nothing")
+    if any(len(s) != LORA_NEW_TOKENS for s in mixed):
+        problems.append("a request lost tokens")
+    if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches if k not in on):
+        problems.append(f"wrong kernels launched: {launches}")
+    if not (row["mixed_windows_dispatched"] and row["windows_dispatched"]
+            and checked["_dispatch_window"] and checked["_dispatch_mixed_window"]):
+        problems.append("no window or mixed window ran sync-checked")
+    if dense:
+        # fp32: within the tolerance, and the adapter's own effect at least
+        # 10x the error (the check is not vacuous); both: the base row exact.
+        merged = row["merged"]
+        fp32 = merged["fp32"]
+        if not (fp32["base_row_bit_equal"] and merged["bf16"]["base_row_bit_equal"]) or any(
+                fp32[n]["max_abs_err"] > merged["tol_fp32"]
+                or fp32[n]["moved_from_base"] < 10 * fp32[n]["max_abs_err"]
+                for n in ("a", "b")):
+            problems.append(f"merged-weight check: {merged}")
+    if not (served["load"] == (200, {"name": "c", "slot": 3})
+            and served["unload"] == (200, {"ok": True}) and served["streams_equal"]
+            and served["recaptures"] == 0 and len(served["commits"]) == 2
+            and all(c["unfinished"] and c["thread"] == "engine-step-loop"
+                    for c in served["commits"])
+            and served["reload"][0] == 200 and served["http_c"][0] == 200
+            and served["http_c"][1]["completion_tokens"] == 16
+            and served["c_stream_differs"] and served["adapters"] == ["a", "b", "c"]
+            and f"{MODEL}:c" in served["models"] and served["loaded_loras"] == 3
+            and served["final_unload"] == 200):
+        problems.append(f"serving with loads and unloads: {served}")
+    if problems:
+        raise AssertionError(f"{kv_cache_dtype} LoRA phase: {problems}")
+    return row
+
+
 def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
@@ -3268,6 +3868,7 @@ def main() -> int:
     timed("reference", phase_reference, False, model)
     timed("reference_int8", phase_reference, True, model)
     timed("encode_reference", phase_encode_reference, model)
+    timed("lora_reference", phase_lora_reference, model)
     del model, drawn
     timed("window", phase_window, int8=False)
     timed("window_int8", phase_window, int8=True)
@@ -3291,6 +3892,8 @@ def main() -> int:
     spec = timed("speculation", phase_speculation)
     free_engines()
     encode = timed("encode", phase_encode)
+    free_engines()
+    lora = {kv: timed(f"lora_{kv}", phase_lora, kv) for kv in ("auto", "int8")}
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's (paged entry, dense
@@ -3319,6 +3922,11 @@ def main() -> int:
             # speculative shape that the wrapper counted, by run and case.
             **({"launches_speculation": spec["launches"][name]}
                if name in spec["launches"] else {}),
+            # The LoRA phase's counted run (base, a and b rows mixed): the
+            # dense kernels from its dense engine, the int8 ones from its
+            # int8 engine (the encode lane's entry runs on neither).
+            **({"launches_lora": lora["int8" if "int8" in name else "auto"]
+                ["launches"][name]} if name != "flash_prefill_batched" else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

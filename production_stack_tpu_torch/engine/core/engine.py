@@ -72,13 +72,25 @@ thread, between windows, on the stream the steps run on; the serial
 own, so it never joins the legacy default stream while the step thread
 captures a graph.
 
+Multi-LoRA (``lora.max_loras > 0``): the adapter slot stacks
+(``engine/lora.py``) are allocated at boot, before the KV pool is sized,
+and every forward takes each row's slot: a scalar for a prefill, ``[S]``
+in the pipelined step's and the window's static buffers, one slot an
+iteration in a mixed window's chunk schedule (its T rows share it), each
+row's slot repeated W times for a speculative verify.  An adapter load
+stages its factors on a stream of its own from the caller's thread, then
+commits them into the stacks in place on the stream the steps run on,
+between dispatches: on the thread bound by :meth:`bind_commit_thread`
+(the serving step loop) at its drain point :meth:`run_commits`, or on the
+caller's thread when none is bound.  No graph is captured again.
+
 The engine serves the JAX package's default serving path, mixed and
-packed K-step windows, the KV tiers, speculation and the encode lane
-included (``SLICE_OVERRIDES``: no tracing; no LoRA / guided decoding /
-parallelism / HF weights for the target or the drafter; dense or int8 KV;
-``mixed_window=False`` restores K=1 mixed steps while prompts wait) and
-raises ``NotImplementedError`` at construction for any setting outside
-it.
+packed K-step windows, the KV tiers, speculation, the encode lane and
+multi-LoRA included (``SLICE_OVERRIDES``: no tracing; no guided decoding
+/ parallelism / HF weights for the target or the drafter; dense or int8
+KV; ``mixed_window=False`` restores K=1 mixed steps while prompts wait)
+and raises ``NotImplementedError`` at construction for any setting
+outside it.
 """
 
 from __future__ import annotations
@@ -123,6 +135,10 @@ from production_stack_tpu_torch.engine.kv.prefetch import (
     PrefetchedChain,
     PrefetchManager,
 )
+from production_stack_tpu_torch.engine.lora import (
+    AdapterRegistry,
+    load_peft_safetensors,
+)
 from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention
@@ -160,7 +176,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
-        (config.lora.enabled, "lora"),
         (config.obs.tracing, "obs.tracing"),
         (m.quantization is not None, "model.quantization (int8 weights)"),
         (m.num_experts > 0, "model.num_experts (MoE)"),
@@ -237,6 +252,24 @@ def _advance_tables(tables: torch.Tensor, cols: torch.Tensor,
     tables.scatter_(1, safe, torch.where(valid, vals, keep))
 
 
+class _Commit:
+    """A write into the adapter stacks, queued for the commit thread."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.done = threading.Event()
+        self.result = None
+        self.error: Optional[BaseException] = None
+
+    def run(self) -> None:
+        try:
+            self.result = self.fn()
+        except Exception as e:  # handed back to the waiting caller
+            self.error = e
+        finally:
+            self.done.set()
+
+
 @dataclasses.dataclass
 class _PendingStep:
     """One dispatched-but-not-yet-collected engine step.
@@ -306,6 +339,18 @@ class LLMEngine:
         self.params = params
         self._load_draft_model(draft_params)
         llama.add_fp32_lm_head(self.params, cfg)
+        # Multi-LoRA slot stacks (engine/lora.py), before the pool is sized
+        # from what is left; None keeps the model's LoRA-free code path.
+        self.lora_registry = None
+        if config.lora.enabled:
+            self.lora_registry = AdapterRegistry(
+                cfg, config.lora, llama.param_dtype(cfg), self.device
+            )
+        # Stack writes queued for the bound commit thread (run_commits).
+        self._commit_lock = threading.Lock()
+        self._commit_thread: Optional[threading.Thread] = None
+        self._commit_wake = None
+        self._commits: List[_Commit] = []
 
         num_blocks = self._decide_num_blocks()
         self.block_pool = BlockPool(
@@ -442,9 +487,14 @@ class LLMEngine:
         # The serial embed's own stream (the lane off: a worker thread),
         # ordered once after the boot's work on this thread's stream.
         self._embed_stream = None
+        # Adapter uploads' own stream (a loader's thread stages on it).
+        self._lora_stream = None
         if self.device.type == "cuda":
             self._embed_stream = torch.cuda.Stream(self.device)
             self._embed_stream.wait_stream(torch.cuda.current_stream(self.device))
+            if self.lora_registry is not None:
+                self._lora_stream = torch.cuda.Stream(self.device)
+                self._lora_stream.wait_stream(torch.cuda.current_stream(self.device))
 
     # -- speculative decoding: the drafters' state ------------------------
 
@@ -724,6 +774,100 @@ class LLMEngine:
         self.encode_seconds_hist.observe(time.time() - t0)
         return vectors
 
+    # -- multi-LoRA admin (engine/lora.py) ---------------------------------
+
+    def _require_lora(self) -> AdapterRegistry:
+        if self.lora_registry is None:
+            raise ValueError("engine started with max_loras=0")
+        return self.lora_registry
+
+    def load_lora(self, name: str, layer_factors, rank: int,
+                  alpha: float = 16.0) -> int:
+        """Install adapter ``name`` (per-layer {proj: (A [in, r], B [r,
+        out])}); returns its slot.  The factors are validated and staged on
+        the calling thread (on the engine's LoRA stream on the card), then
+        committed into the slot by the commit thread; this returns once the
+        commit is enqueued, so a request admitted afterwards runs the
+        adapter and a window already in flight finishes on the old values."""
+        registry = self._require_lora()
+        staged = registry.stage(layer_factors, rank, stream=self._lora_stream)
+        return self._on_commit_thread(lambda: registry.commit(name, staged, alpha))
+
+    def load_lora_from_path(self, name: str, path: str,
+                            alpha: float = 16.0) -> int:
+        factors, rank = load_peft_safetensors(path, self.config.model.num_layers)
+        return self.load_lora(name, factors, rank, alpha)
+
+    def unload_lora(self, name: str) -> None:
+        """Free ``name``'s slot (its B factors and scale zeroed on the
+        commit thread); rows still running on it carry on as the base
+        model, as in the JAX engine."""
+        registry = self._require_lora()
+        self._on_commit_thread(lambda: registry.unload(name))
+
+    def loaded_adapters(self) -> List[str]:
+        return [] if self.lora_registry is None else self.lora_registry.loaded()
+
+    def bind_commit_thread(self, wake) -> None:
+        """Make the calling thread (the serving step loop) the one that
+        writes the adapter stacks, at :meth:`run_commits`; ``wake()``
+        rouses it when a write is queued."""
+        with self._commit_lock:
+            self._commit_thread = threading.current_thread()
+            self._commit_wake = wake
+
+    def release_commit_thread(self) -> None:
+        """The bound thread's exit: writes still queued run here, later
+        ones on their callers' threads."""
+        with self._commit_lock:
+            self._commit_thread = None
+        self.run_commits()
+
+    def run_commits(self) -> None:
+        """The step loop's drain point, between dispatches: run the queued
+        adapter writes on the calling thread's stream, the one the steps
+        run on (in order behind the steps already enqueued)."""
+        with self._commit_lock:
+            commits, self._commits = self._commits, []
+        for commit in commits:
+            commit.run()
+
+    def _on_commit_thread(self, fn):
+        """``fn()`` on the commit thread (queued, then waited for), or here
+        when no thread is bound or this is it; its result or its error."""
+        with self._commit_lock:
+            owner = self._commit_thread
+            commit = None
+            if owner is not None and owner is not threading.current_thread():
+                commit = _Commit(fn)
+                self._commits.append(commit)
+        if commit is None:
+            return fn()
+        self._commit_wake()
+        commit.done.wait()
+        if commit.error is not None:
+            raise commit.error
+        return commit.result
+
+    def _lora_kwargs(self, adapter_idx) -> dict:
+        """A forward's LoRA arguments: the slot stacks and the rows' slots
+        (a device tensor, or a host int32 array uploaded here); none
+        without LoRA."""
+        if self.lora_registry is None:
+            return {}
+        if isinstance(adapter_idx, np.ndarray):
+            adapter_idx = self._put(adapter_idx)
+        return {"lora": self.lora_registry.params, "adapter_idx": adapter_idx}
+
+    @staticmethod
+    def _adapter_rows(seqs: List[Sequence], S: int, width: int = 1) -> np.ndarray:
+        """[S * width] int32: each sequence's slot repeated ``width`` times
+        (a speculative chain's verify rows), padding rows on slot 0."""
+        rows = np.zeros((S * width,), np.int32)
+        for i, seq in enumerate(seqs):
+            rows[i * width:(i + 1) * width] = seq.adapter_idx
+        return rows
+
     # -- request lifecycle -------------------------------------------------
 
     def add_request(
@@ -741,10 +885,6 @@ class LLMEngine:
         if not prompt_token_ids:
             prompt_token_ids = [self.tokenizer.bos_token_id or 0]
         params_obj = sampling_params or SamplingParams()
-        if adapter:
-            raise ValueError(
-                "LoRA adapter requested but this engine serves no adapters"
-            )
         if params_obj.response_format not in (None, "text"):
             raise ValueError(
                 f"response_format {params_obj.response_format!r}: guided "
@@ -752,10 +892,23 @@ class LLMEngine:
             )
         if params_obj.echo and params_obj.logprobs:
             raise ValueError("prompt logprobs (echo + logprobs) are not ported yet")
+        adapter_idx = 0
+        cache_ns = 0
+        if adapter:
+            if self.lora_registry is None:
+                raise ValueError(
+                    "LoRA adapter requested but the engine was started with "
+                    "max_loras=0"
+                )
+            adapter_idx = self.lora_registry.slot_of(adapter)  # raises if unknown
+            cache_ns = self.lora_registry.namespace_of(adapter)
         seq = Sequence(
             seq_id=request_id,
             prompt_token_ids=list(prompt_token_ids),
             sampling_params=params_obj,
+            adapter=adapter,
+            adapter_idx=adapter_idx,
+            cache_ns=cache_ns,
         )
         self.scheduler.add_seq(seq)
         self.total_prompt_tokens += len(prompt_token_ids)
@@ -1352,7 +1505,9 @@ class LLMEngine:
 
     def cache_ns_of(self, adapter: Optional[str]) -> int:
         """The prefix-cache namespace a request with this adapter would
-        hash under: 0, the base model (this engine serves no adapters)."""
+        hash under (mirrors add_request; 0 = base model)."""
+        if adapter and self.lora_registry is not None:
+            return self.lora_registry.namespace_of(adapter)
         return 0
 
     def handoff_token(self, prompt_token_ids: List[int], cache_ns: int = 0) -> dict:
@@ -1671,6 +1826,7 @@ class LLMEngine:
             # positions, ctx_lens, table cols, table vals, then the step seed
             "delta": torch.zeros(4 * S + 1, **i32),
             "sampled": torch.zeros(S, **i32),
+            **({"adapter": torch.zeros(S, **i32)} if self.lora_registry else {}),
         }
 
     def _pipe_body(self, b: Dict[str, torch.Tensor], all_greedy: bool) -> None:
@@ -1692,6 +1848,7 @@ class LLMEngine:
             slot_block_ids=torch.where(ctx_lens > 0, blk, 0),
             slot_offsets=positions % bs,
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(b.get("adapter")),
         )
         sampled = sampling_lib.sample_tokens(
             logits, b["temps"], b["top_ps"], b["top_ks"], d[4 * S:].long(),
@@ -1721,6 +1878,7 @@ class LLMEngine:
                 "tokens": tokens, "tables": tables, "temps": temps,
                 "top_ps": top_ps, "top_ks": top_ks, "min_ps": min_ps,
                 "seeds": seeds,
+                **({"adapter": self._adapter_rows(seqs, S)} if "adapter" in b else {}),
             })
             cols = np.full((S,), -1, np.int32)
             vals = np.zeros((S,), np.int32)
@@ -1796,6 +1954,8 @@ class LLMEngine:
         if self.draft_block_pool is not None:
             bufs["draft_tables"] = torch.zeros((S, self._draft_blocks_per_row), **i32)
             bufs["draft_pos"] = torch.zeros(S, **i32)
+        if self.lora_registry is not None:
+            bufs["adapter"] = torch.zeros(S, **i32)  # each row's LoRA slot
         return bufs
 
     def _window_body(self, b: Dict[str, torch.Tensor], use_penalties: bool,
@@ -1825,6 +1985,7 @@ class LLMEngine:
                 slot_block_ids=torch.where(active, blk, 0),
                 slot_offsets=positions % bs,
                 kv_caches=self.kv_caches,
+                **self._lora_kwargs(b.get("adapter")),
             )
             carry = self._sample_and_advance(
                 b, logits, t, active, carry, key_base, stop_mask,
@@ -1928,6 +2089,10 @@ class LLMEngine:
         offs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
         d_idx = torch.arange(D, device=dev)[None, :]
         wide_tables = tables.repeat_interleave(W, dim=0)
+        # Each row's LoRA slot on its W verify rows (the drafters run the
+        # base model, as in the JAX engine).
+        wide_lora = self._lora_kwargs(
+            b["adapter"].repeat_interleave(W) if "adapter" in b else None)
         for t in range(self._window_steps):
             active = ~done & (emitted_cnt < max_steps)
             # Drafts: the bonus token always takes one budget slot.
@@ -1955,6 +2120,7 @@ class LLMEngine:
                 slot_block_ids=torch.where(row_live, blk, 0).reshape(-1),
                 slot_offsets=(wpos % bs).reshape(-1),
                 kv_caches=self.kv_caches,
+                **wide_lora,
             ).view(S, W, -1)
             # The sequential verify: every accepted token through the
             # plain window's penalty, ban and stop code, in order.
@@ -2169,6 +2335,8 @@ class LLMEngine:
             "temps": temps, "top_ps": top_ps, "top_ks": top_ks,
             "min_ps": min_ps, "seeds": seeds,
         }
+        if "adapter" in b:
+            arrays["adapter"] = self._adapter_rows(seqs, S)
         if self._spec_window:
             # The drafters' history: the last H tokens, left -1-padded;
             # windows carry it on the device, only a build transfers it.
@@ -2336,6 +2504,8 @@ class LLMEngine:
             # Each iteration's chunk tail logits (the last valid row).
             "tails": torch.zeros((K, self.config.model.vocab_size),
                                  dtype=torch.float32, device=dev),
+            # Each iteration's chunk's LoRA slot (its T rows share it).
+            **({"adapter": torch.zeros(K, **i32)} if self.lora_registry else {}),
         }
 
     def _mixed_body(self, b: Dict[str, torch.Tensor], c: Dict[str, torch.Tensor],
@@ -2360,6 +2530,10 @@ class LLMEngine:
         tokens, positions, ctx_lens, done, _ = carry
         active = ~done & (t < max_steps)
         blk = torch.gather(b["tables"], 1, (positions // bs).long()[:, None])[:, 0]
+        rows = None
+        if "adapter" in c:  # [S decode rows + T chunk rows sharing one slot]
+            rows = torch.cat([b["adapter"],
+                              row("adapter").expand(c["tokens"].shape[1])])
         logits = llama.mixed_step(
             self.params, self.config.model,
             dec_tokens=tokens,
@@ -2374,6 +2548,7 @@ class LLMEngine:
             pf_new_block_ids=row("new_blocks")[0],
             pf_valid_len=row("valid"),
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(rows),
         )
         S = tokens.shape[0]
         c["tails"].index_copy_(0, t, logits[S:])
@@ -2436,6 +2611,7 @@ class LLMEngine:
         valid = np.zeros((K,), np.int32)
         new_blocks = np.zeros(tuple(c["new_blocks"].shape), np.int32)
         prefix = np.zeros(tuple(c["prefix"].shape), np.int32)
+        adapter = np.zeros((K,), np.int32)
         for i, cp in enumerate(sched):
             toks = cp.seq.prompt_token_ids[cp.cached_len:cp.cached_len + cp.num_new_tokens]
             tokens[i, :len(toks)] = toks
@@ -2444,17 +2620,20 @@ class LLMEngine:
             new_blocks[i, :len(cp.new_block_ids)] = cp.new_block_ids
             full = list(cp.prefix_block_ids) + list(cp.new_block_ids)
             prefix[i, :len(full)] = full
+            adapter[i] = cp.seq.adapter_idx
         max_steps = np.zeros((S,), np.int32)
         max_steps[: len(plan.decode.steps)] = plan.decode.steps
         delta = np.concatenate([max_steps, cols.ravel(), vals.ravel(),
                                 np.array([self._key_seed()], np.int32)])
+        lora = "adapter" in c
         self._upload(
             {"delta": b["delta"], "iter": c["iter"], "tokens": c["tokens"],
              "cached": c["cached"], "valid": c["valid"],
-             "new_blocks": c["new_blocks"], "prefix": c["prefix"]},
+             "new_blocks": c["new_blocks"], "prefix": c["prefix"],
+             **({"adapter": c["adapter"]} if lora else {})},
             {"delta": delta, "iter": np.zeros((1,), np.int32), "tokens": tokens,
              "cached": cached, "valid": valid, "new_blocks": new_blocks,
-             "prefix": prefix},
+             "prefix": prefix, **({"adapter": adapter} if lora else {})},
         )
         if chain_from is not None:
             # The previous window still runs on the device: this staging
@@ -2570,6 +2749,8 @@ class LLMEngine:
     def _run_prefill(self, plan: PrefillPlan) -> List[StepOutput]:
         seq = plan.seq
         tokens, new_block_ids, prefix_ids, lens = self._prefill_plan_arrays(plan)
+        if self.lora_registry is not None:
+            lens = np.append(lens, np.int32(seq.adapter_idx))  # up in one copy
         lens = self._put(lens)
         logits = llama.prefill(
             self.params, self.config.model,
@@ -2577,8 +2758,9 @@ class LLMEngine:
             cached_len=lens[:1],
             prefix_block_ids=self._put(prefix_ids),
             new_block_ids=self._put(new_block_ids),
-            valid_len=lens[1:],
+            valid_len=lens[1:2],
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(lens[2:]),
         )
         if not plan.is_final:
             # Non-final chunk of a long prompt: KV is written, the logits
@@ -2693,6 +2875,7 @@ class LLMEngine:
             slot_block_ids=self._put(slot_blocks),
             slot_offsets=self._put(slot_offsets),
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(self._adapter_rows(seqs, S)),
         )
         token_ids, logprob_info = self._sample_batch(logits[: len(seqs)], seqs)
         return self._append_and_check(
@@ -2763,6 +2946,7 @@ class LLMEngine:
             slot_block_ids=self._put(slot_blocks),
             slot_offsets=self._put(slot_offsets),
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(self._adapter_rows(seqs, S, W)),
         )
         greedy = torch.argmax(logits, dim=-1).tolist()  # the step's device read
         outputs: List[StepOutput] = []
@@ -2793,6 +2977,9 @@ class LLMEngine:
          slot_offsets) = self._decode_batch_arrays(seqs, S)
         pf_tokens, pf_new_blocks, pf_prefix, pf_lens = self._prefill_plan_arrays(plan)
         pf_lens = self._put(pf_lens)
+        # [S decode rows + T chunk rows sharing the chunk's slot]
+        rows = np.concatenate([self._adapter_rows(seqs, S),
+                               np.full(len(pf_tokens), plan.seq.adapter_idx, np.int32)])
         logits = llama.mixed_step(
             self.params, self.config.model,
             dec_tokens=self._put(tokens),
@@ -2807,6 +2994,7 @@ class LLMEngine:
             pf_new_block_ids=self._put(pf_new_blocks),
             pf_valid_len=pf_lens[1:],
             kv_caches=self.kv_caches,
+            **self._lora_kwargs(rows),
         )
         self.prefill_chunk_tokens += plan.num_new_tokens
         token_ids, logprob_info = self._sample_batch(logits[: len(seqs)], seqs)
@@ -3056,8 +3244,8 @@ class LLMEngine:
     def stats(self) -> Dict[str, float]:
         """The JAX engine's stats keys (its ``/metrics`` reads them), plus
         the port's own window, graph and offload counters.  Keys of
-        features not ported yet (LoRA, the compile inventory and the trace
-        ring) are 0 or empty, as on a JAX engine without them."""
+        features not ported yet (the compile inventory and the trace ring)
+        are 0 or empty, as on a JAX engine without them."""
         return {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
@@ -3085,7 +3273,7 @@ class LLMEngine:
             "queued_prompt_tokens": self.scheduler.queued_prompt_tokens,
             "encode_texts_total": self.encode_texts_total,
             "encode_queue_depth": self.encode_queue_depth,
-            "loaded_loras": 0,
+            "loaded_loras": len(self.loaded_adapters()),
             "remote_prefix_blocks_fetched": self.remote_prefix_blocks_fetched,
             "remote_prefix_blocks_exported": self.remote_prefix_blocks_exported,
             "disagg_prefill_primes": self.disagg_prefill_primes,

@@ -21,6 +21,14 @@ ops take both.
 no lm_head, one forward over the flattened ``[B·T, h]`` rows of B texts
 (what the JAX package's vmap compiles to), attention through flash
 prefill's batched entry, then the masked mean pool, L2-normalized.
+
+Multi-LoRA: ``prefill``, ``decode`` and ``mixed_step`` take ``lora`` (the
+engine's slot stacks, ``engine/lora.py``) and ``adapter_idx``: a scalar
+slot for a prefill, row-aligned ``[rows]`` slots for decode and mixed
+rows (0 = base).  Each projection's product is the LoRA-free one, to which
+its fp32 delta is added before the cast, so a base row computes bit for
+bit what it computes without LoRA.  ``decode_kv`` (the drafter) and the
+encode forward run the base model, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +37,11 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from production_stack_tpu_torch.engine import lora as lora_lib
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
 from production_stack_tpu_torch.engine.ops.layers import (
+    activation,
     apply_rope,
     rms_norm,
     rope_cos_sin,
@@ -123,13 +133,24 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tens
     return x
 
 
-def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
+def _lora_add(lora_layer, group: str, x: torch.Tensor, mask, ys) -> list:
+    """``group``'s products ``ys`` (``lora.GROUPS`` order) for input ``x``
+    with their LoRA deltas added, in fp32."""
+    projs = dict(lora_lib.GROUPS)[group]
+    return lora_lib.grouped_delta(
+        x, lora_layer["A"][group], [lora_layer["B"][p] for p in projs], mask, ys)
+
+
+def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+                 lora_layer=None, mask=None):
     """x: [T, h] -> q [T, H, D], k/v [T, K, D] in x's dtype; biases (Qwen2
-    style) are added in fp32."""
+    style) and the LoRA deltas are added in fp32."""
     T = x.shape[0]
     q = torch.matmul(x, layer["q_proj"])
     k = torch.matmul(x, layer["k_proj"])
     v = torch.matmul(x, layer["v_proj"])
+    if lora_layer is not None:
+        q, k, v = _lora_add(lora_layer, "qkv", x, mask, (q, k, v))
     if cfg.attention_bias:
         q = q.float() + layer["q_bias"].float()
         k = k.float() + layer["k_bias"].float()
@@ -140,12 +161,22 @@ def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
-def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Dense gated MLP (ops/layers.py swiglu)."""
-    return swiglu(
-        x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],
-        act=cfg.hidden_act,
-    )
+def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+         lora_layer=None, mask=None) -> torch.Tensor:
+    """Dense gated MLP (ops/layers.py swiglu), with the LoRA deltas of
+    gate/up added to their fp32 products and down's added before its
+    cast."""
+    if lora_layer is None:
+        return swiglu(
+            x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],
+            act=cfg.hidden_act,
+        )
+    gate, up = _lora_add(lora_layer, "gate_up", x, mask, (
+        torch.matmul(x, layer["gate_proj"]), torch.matmul(x, layer["up_proj"])))
+    activated = (activation(gate, cfg.hidden_act) * up).to(x.dtype)
+    (down,) = _lora_add(lora_layer, "down", activated, mask,
+                        (torch.matmul(activated, layer["down_proj"]),))
+    return down.to(x.dtype)
 
 
 def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -163,21 +194,36 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
 
 
 def _layer(
-    layer: Params, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend
+    layer: Params, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend,
+    lora_layer=None, mask=None,
 ) -> torch.Tensor:
     """One decoder layer; ``attend(q, k, v)`` writes the KV cache and
-    returns attention outputs [T, H, D]."""
+    returns attention outputs [T, H, D].  ``lora_layer`` (this layer's
+    slot stacks) and ``mask`` (:func:`lora.slot_mask`) add the LoRA deltas;
+    None runs the base model."""
     T = x.shape[0]
     residual = x
     x_n = _norm(x, layer["input_layernorm"], cfg)
-    q, k, v = _project_qkv(layer, x_n, cfg)
+    q, k, v = _project_qkv(layer, x_n, cfg, lora_layer, mask)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = attend(q, k, v).reshape(T, cfg.num_heads * cfg.head_dim)
-    x = residual + torch.matmul(out, layer["o_proj"]).to(x.dtype)
+    o = torch.matmul(out, layer["o_proj"])
+    if lora_layer is not None:
+        (o,) = _lora_add(lora_layer, "o", out, mask, (o,))
+    x = residual + o.to(x.dtype)
     residual = x
     x_n = _norm(x, layer["post_attention_layernorm"], cfg)
-    return residual + _mlp(layer, x_n, cfg)
+    return residual + _mlp(layer, x_n, cfg, lora_layer, mask)
+
+
+def _lora_layers(lora, adapter_idx, num_layers: int):
+    """Per layer (slot stacks, mask) for a forward: (None, None) each
+    without LoRA."""
+    if lora is None:
+        return [(None, None)] * num_layers
+    mask = lora_lib.slot_mask(lora, adapter_idx)
+    return [(layer, mask) for layer in lora.layers]
 
 
 def _length(n, device: torch.device) -> torch.Tensor:
@@ -198,6 +244,8 @@ def prefill(
     new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
     valid_len,  # int32 tensor (or host int): true number of new tokens
     kv_caches: KVCaches,  # updated in place
+    lora=None,  # the LoRA slot stacks (engine/lora.py); None = off
+    adapter_idx=None,  # this sequence's slot: a host int or a [1] tensor
 ) -> torch.Tensor:
     """One sequence's prefill chunk.  Writes the chunk's KV into its new
     blocks and returns the last valid token's logits [V] (fp32).
@@ -214,7 +262,9 @@ def prefill(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     x = _embed(params, cfg, tokens)  # [T, h]
-    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+    for layer, (k_cache, v_cache), lora_layer in zip(
+        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    ):
         def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
             out = attn_ops.prefill_attention_paged(
                 q, k, v, k_cache, v_cache, prefix, cached, valid,
@@ -223,7 +273,7 @@ def prefill(
             attn_ops.write_prefill_kv(k_cache, v_cache, k, v, new_block_ids)
             return out
 
-        x = _layer(layer, x, cfg, cos, sin, attend)
+        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
     x = _norm(x, params["norm"], cfg)
     last = torch.clamp(valid.long() - 1, min=0)  # the last valid row
     return _lm_head(params, cfg, x.index_select(0, last)[0])
@@ -239,6 +289,8 @@ def decode(
     slot_block_ids: torch.Tensor,  # [S] int block receiving the new token
     slot_offsets: torch.Tensor,  # [S] int offset within that block
     kv_caches: KVCaches,  # updated in place
+    lora=None,  # the LoRA slot stacks (engine/lora.py); None = off
+    adapter_idx=None,  # [S] slot per row
 ) -> torch.Tensor:
     """Batched single-token decode.  Returns logits [S, V] (fp32).  Each
     layer writes the new token's KV first, then attends (``ctx_lens``
@@ -246,7 +298,7 @@ def decode(
     row attends, so row j may read what row i < j of the same call wrote
     (a sequence's verify rows, a causal prime)."""
     x = _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
-                       slot_block_ids, slot_offsets, kv_caches)
+                       slot_block_ids, slot_offsets, kv_caches, lora, adapter_idx)
     x = _norm(x, params["norm"], cfg)
     return _lm_head(params, cfg, x)
 
@@ -271,13 +323,16 @@ def decode_kv(
 
 
 def _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
-                   slot_block_ids, slot_offsets, kv_caches) -> torch.Tensor:
+                   slot_block_ids, slot_offsets, kv_caches, lora=None,
+                   adapter_idx=None) -> torch.Tensor:
     """The decoder layers of :func:`decode`: hidden states [S, h]."""
     scale = cfg.head_dim**-0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     x = _embed(params, cfg, tokens)  # [S, h]
-    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+    for layer, (k_cache, v_cache), lora_layer in zip(
+        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    ):
         def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
             attn_ops.append_decode_kv(
                 k_cache, v_cache, k, v, slot_block_ids, slot_offsets
@@ -287,7 +342,7 @@ def _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
                 scale=scale, sliding_window=cfg.sliding_window,
             )
 
-        x = _layer(layer, x, cfg, cos, sin, attend)
+        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
     return x
 
 
@@ -306,6 +361,8 @@ def mixed_step(
     pf_new_block_ids: torch.Tensor,  # [T // block_size] int (null-padded)
     pf_valid_len,  # int32 tensor (or host int): true number of chunk tokens
     kv_caches: KVCaches,  # updated in place
+    lora=None,  # the LoRA slot stacks (engine/lora.py); None = off
+    adapter_idx=None,  # [S + T] row-aligned slots (the chunk's rows share one)
 ) -> torch.Tensor:
     """Fused mixed step: S decoding sequences' next tokens and one
     sequence's prefill chunk in one forward over the packed ``[S + T]``
@@ -332,7 +389,9 @@ def mixed_step(
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
     x = _embed(params, cfg, torch.cat([dec_tokens.long(), pf_tokens.long()]))
-    for layer, (k_cache, v_cache) in zip(params["layers"], kv_caches):
+    for layer, (k_cache, v_cache), lora_layer in zip(
+        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    ):
         def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
             # Slices along dim 0 stay contiguous, as the kernels require.
             attn_ops.append_decode_kv(
@@ -352,7 +411,7 @@ def mixed_step(
             )
             return torch.cat([out_dec, out_pf])
 
-        x = _layer(layer, x, cfg, cos, sin, attend)
+        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
     x = _norm(x, params["norm"], cfg)
     tail = S + torch.clamp(valid.long() - 1, min=0)  # the chunk's last valid row
     return _lm_head(params, cfg, torch.cat([x[:S], x.index_select(0, tail)]))

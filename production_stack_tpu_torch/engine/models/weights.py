@@ -5,7 +5,9 @@ checkpoint ships with the repository, so serving boots from a seeded random
 init (``load_params`` with ``weights_path=None``); loading HF safetensors
 is not ported yet.  ``params_from_numpy`` takes any tree with the JAX
 package's layout (``[in, out]`` weights) given as numpy arrays, with no
-transposes, which is how the tests hand both packages the same weights.
+transposes, which is how the tests hand both packages the same weights;
+``lora_params_from_numpy`` does the same for the JAX adapter registry's
+slot tree.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from production_stack_tpu_torch.engine import lora as lora_lib
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.models import llama
 
@@ -60,3 +63,27 @@ def params_from_numpy(
                             device=device)
 
     return convert(tree)
+
+
+def lora_params_from_numpy(
+    cfg: ModelConfig, lora_cfg, tree, device: torch.device
+) -> lora_lib.LoraStacks:
+    """The JAX adapter registry's slot tree (``{"layers": [{proj: (A [L,
+    in, r], B [L, r, out])}], "scale": [L]}`` as numpy arrays, L =
+    max_loras + 1) to the port's slot stacks on ``device``, every slot's
+    values as they are.  Slot 0 is the base model and holds no columns in
+    the port, so its B factors must be zero."""
+    stacks = lora_lib.init_lora_params(cfg, lora_cfg, device)
+    for li, layer in enumerate(tree["layers"]):
+        for proj, (A, B) in layer.items():
+            A = np.asarray(A, dtype=np.float32)
+            B = np.asarray(B, dtype=np.float32)
+            if np.any(B[0]):
+                raise ValueError(f"layer {li} {proj}: slot 0 (the base model) "
+                                 "has a nonzero B factor")
+            for slot in range(1, lora_cfg.num_slots):
+                A_dst, B_dst = stacks.views(li, proj, slot)
+                A_dst.copy_(torch.tensor(A[slot]))
+                B_dst.copy_(torch.tensor(B[slot]))
+    stacks.scale.copy_(torch.tensor(np.asarray(tree["scale"], dtype=np.float32)))
+    return stacks

@@ -28,7 +28,13 @@ contract the router expects from a serving engine, over
   (``--no-encode-lane`` restores the serial per-text path), with bounded
   admission against the encode queue (429), deadlines (504) and the
   ``encode`` disagg role (a pool label the router's encode lane prefers:
-  no KV handoff, no store).
+  no KV handoff, no store);
+- multi-LoRA (``--max-loras``, ``--max-lora-rank``): a completion whose
+  model is ``"<base>:<adapter>"`` runs a loaded adapter (an unknown one
+  gets a 400 before any stream starts), ``/v1/models`` lists each loaded
+  adapter, and ``GET``/``POST /admin/lora`` and ``DELETE
+  /admin/lora/{name}`` list, load (a PEFT safetensors file, read off the
+  event loop) and unload adapters at run time.
 
 It reuses nothing of the JAX module (which forces the JAX platform and
 starts ``jax.distributed``).
@@ -38,8 +44,8 @@ starts ``jax.distributed``).
         [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
 Not ported yet, with their flags: tool calls, guided decoding
-(``response_format``), prompt logprobs (``echo`` with ``logprobs``), LoRA
-admin, the ``/debug/*`` surfaces (request tracing and the window flight
+(``response_format``), prompt logprobs (``echo`` with ``logprobs``), the
+``/debug/*`` surfaces (request tracing and the window flight
 recorder), parallelism and the multi-host lockstep group (with it the
 JAX server's rule that turns the encode lane off in such a group), int8
 weights and loading a weights path (the target's or the drafter's).
@@ -416,12 +422,20 @@ def build_engine_app(
         return None
 
     async def models(_req: web.Request) -> web.Response:
-        return web.json_response({"object": "list", "data": [{
-            "id": served_model,
-            "object": "model",
-            "created": int(time.time()),
-            "owned_by": "production-stack-tpu",
-        }]})
+        def card(model_id: str) -> dict:
+            return {
+                "id": model_id,
+                "object": "model",
+                "created": int(time.time()),
+                "owned_by": "production-stack-tpu",
+            }
+
+        # Loaded LoRA adapters are addressable as "<base>:<adapter>".
+        data = [card(served_model)] + [
+            card(f"{served_model}:{name}")
+            for name in engine.engine.loaded_adapters()
+        ]
+        return web.json_response({"object": "list", "data": data})
 
     async def health(_req: web.Request) -> web.Response:
         """Liveness: fails when the step thread died or stalled past
@@ -504,6 +518,17 @@ def build_engine_app(
         )
         created = int(time.time())
         model_name = body.get("model", served_model)
+        # "<base>:<adapter>" selects a loaded LoRA adapter; validated before
+        # any stream starts so an unknown adapter gets a clean 400.  Only
+        # on a LoRA-enabled engine: otherwise ':' stays an opaque character
+        # of the model id.
+        adapter = None
+        if ":" in model_name and engine.engine.lora_registry is not None:
+            _, adapter = model_name.split(":", 1)
+            try:
+                engine.engine.lora_registry.slot_of(adapter)
+            except ValueError as e:
+                return _error(str(e), code=404)
         object_name = "chat.completion.chunk" if chat else "text_completion"
         prompt_token_ids = tokenizer.encode(prompt)
         max_len = engine.engine.config.scheduler.max_model_len
@@ -566,7 +591,7 @@ def build_engine_app(
         # a handoff token instead of generating.
         if request.headers.get("x-disagg-phase") == "prefill":
             return await _serve_prefill_phase(
-                request_id, prompt_token_ids, params, created, model_name)
+                request_id, prompt_token_ids, params, created, model_name, adapter)
 
         # -- disaggregated decode phase ---------------------------------
         # A handoff-tagged generation waits (bounded, off the event loop
@@ -578,7 +603,7 @@ def build_engine_app(
         handoff_hdr = request.headers.get("x-disagg-handoff")
         if handoff_hdr:
             disagg_prefix_outcome = await _wait_handoff(
-                handoff_hdr, prompt_token_ids, deadline)
+                handoff_hdr, prompt_token_ids, deadline, adapter)
 
         def choice_params(i: int) -> SamplingParams:
             """Choice i's sampling: a seeded request's choice i takes
@@ -596,6 +621,7 @@ def build_engine_app(
                 prompt_token_ids=prompt_token_ids,
                 sampling_params=choice_params(i),
                 request_id=choice_ids[i],
+                adapter=adapter,
             )
             for i in range(n_choices)
         ]
@@ -834,7 +860,7 @@ def build_engine_app(
         )
 
     async def _serve_prefill_phase(request_id, prompt_token_ids, params,
-                                   created, model_name) -> web.Response:
+                                   created, model_name, adapter) -> web.Response:
         """The prefill phase of a disaggregated request: the prompt's
         prefill as a scoring-only generation (``max_tokens=0``), then the
         export flush (off the event loop: the writer must have put the
@@ -845,7 +871,7 @@ def build_engine_app(
         )
         gen = engine.generate(
             prompt_token_ids=prompt_token_ids, sampling_params=prime_params,
-            request_id=request_id,
+            request_id=request_id, adapter=adapter,
         )
         try:
             async for _event in gen:
@@ -856,7 +882,7 @@ def build_engine_app(
         await asyncio.to_thread(engine.engine.flush_prefix_exports, 10.0)
         handoff = await asyncio.to_thread(
             engine.engine.handoff_token, prompt_token_ids,
-            engine.engine.cache_ns_of(None),
+            engine.engine.cache_ns_of(adapter),
         )
         engine.engine.disagg_prefill_primes += 1
         return web.json_response(
@@ -876,7 +902,7 @@ def build_engine_app(
         )
 
     async def _wait_handoff(handoff_hdr: str, prompt_token_ids,
-                            deadline: Optional[float]) -> str:
+                            deadline: Optional[float], adapter) -> str:
         """The decode phase's bounded wait for the handed-off chain
         ("hit", "partial", "miss" or "disabled"), counted as a hit or a
         miss."""
@@ -892,7 +918,7 @@ def build_engine_app(
                 wait_s = min(wait_s, max(0.0, deadline - time.time() - 0.05))
             outcome = await asyncio.to_thread(
                 engine.engine.wait_handoff_prefix, prompt_token_ids,
-                engine.engine.cache_ns_of(None), handoff, wait_s,
+                engine.engine.cache_ns_of(adapter), handoff, wait_s,
             )
         if outcome == "hit":
             engine.engine.disagg_handoff_hits += 1
@@ -1164,6 +1190,44 @@ def build_engine_app(
         logger.info("profiling stopped; trace in %s", trace_dir)
         return web.json_response({"ok": True, "trace_dir": trace_dir})
 
+    # -- multi-LoRA admin -------------------------------------------------
+
+    async def lora_list(_req: web.Request) -> web.Response:
+        return web.json_response({"adapters": engine.engine.loaded_adapters()})
+
+    async def lora_load(request: web.Request) -> web.Response:
+        try:
+            body = await request.json()
+            name = body["name"]
+            path = body["path"]
+        except (json.JSONDecodeError, KeyError):
+            return web.json_response(
+                {"error": {"message": "need JSON body with 'name' and 'path'"}},
+                status=400,
+            )
+        try:
+            # Off the loop: the file read and the upload, then the wait for
+            # the step thread's commit, would stall every in-flight stream.
+            # Broad catch: a corrupt file raises safetensors' own error.
+            slot = await asyncio.to_thread(
+                engine.engine.load_lora_from_path,
+                name, path, float(body.get("alpha", 16.0)),
+            )
+        except Exception as e:
+            return web.json_response(
+                {"error": {"message": f"{type(e).__name__}: {e}"}}, status=400
+            )
+        return web.json_response({"name": name, "slot": slot})
+
+    async def lora_unload(request: web.Request) -> web.Response:
+        try:
+            # Off the loop: the step thread commits the write.
+            await asyncio.to_thread(
+                engine.engine.unload_lora, request.match_info["name"])
+        except ValueError as e:
+            return web.json_response({"error": {"message": str(e)}}, status=400)
+        return web.json_response({"ok": True})
+
     app.router.add_get("/v1/models", models)
     app.router.add_get("/health", health)
     app.router.add_get("/ready", ready)
@@ -1180,6 +1244,9 @@ def build_engine_app(
     app.router.add_post("/detokenize", detokenize)
     app.router.add_post("/start_profile", start_profile)
     app.router.add_post("/stop_profile", stop_profile)
+    app.router.add_get("/admin/lora", lora_list)
+    app.router.add_post("/admin/lora", lora_load)
+    app.router.add_delete("/admin/lora/{name}", lora_unload)
 
     async def lifecycle(_app):
         await engine.start()
@@ -1292,6 +1359,9 @@ def build_parser() -> argparse.ArgumentParser:
         "0 disables the wait)",
     )
     parser.add_argument("--no-prefix-caching", action="store_true")
+    # Multi-LoRA slots (engine/lora.py); adapters load via POST /admin/lora.
+    parser.add_argument("--max-loras", type=int, default=0)
+    parser.add_argument("--max-lora-rank", type=int, default=16)
     parser.add_argument("--dtype", default=None, help="override preset dtype")
     parser.add_argument(
         "--kv-cache-dtype",
@@ -1513,6 +1583,8 @@ def config_from_args(args):
         "cache.prefetch_threads": args.prefetch_threads,
         "cache.disagg_handoff_wait_s": args.disagg_handoff_wait_s,
         "cache.enable_prefix_caching": not args.no_prefix_caching,
+        "lora.max_loras": args.max_loras,
+        "lora.max_rank": args.max_lora_rank,
         **({"cache.kv_cache_dtype": args.kv_cache_dtype}
            if args.kv_cache_dtype else {}),
         **({"cache.kv_wire_format": args.kv_wire_format}

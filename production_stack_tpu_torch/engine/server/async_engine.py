@@ -16,8 +16,15 @@ the event loop and the step thread runs them as ``[B, T]``-bucketed encode
 batches: the whole queue while generation is idle, at most one batch after
 each step's outputs are emitted while it is live.  With the lane off
 (``scheduler.encode_lane=False``) each text runs the serial
-``LLMEngine.embed`` in a worker thread.  Multi-host lockstep is not
-ported.
+``LLMEngine.embed`` in a worker thread.
+
+Multi-LoRA: a request names its adapter (``generate(adapter=...)``), which
+the step thread resolves to its slot at admission.  The step thread is
+the engine's commit thread (``LLMEngine.bind_commit_thread``): an adapter
+load or unload from any other thread stages its factors there, and the
+step loop writes them into the slot stacks at the top of an iteration,
+before that iteration's admissions and dispatch.  Multi-host lockstep is
+not ported.
 """
 
 from __future__ import annotations
@@ -81,7 +88,7 @@ class AsyncEngine:
                                 draft_params=draft_params)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._queues: Dict[str, asyncio.Queue] = {}
-        self._pending: List = []  # (request_id, prompt_ids, sampling_params)
+        self._pending: List = []  # (request_id, prompt_ids, sampling_params, adapter)
         self._aborts: List[str] = []
         self._lock = threading.Lock()
         self._shutdown = threading.Event()
@@ -143,10 +150,12 @@ class AsyncEngine:
         prompt_token_ids: Optional[List[int]] = None,
         sampling_params: Optional[SamplingParams] = None,
         request_id: Optional[str] = None,
+        adapter: Optional[str] = None,
     ) -> AsyncIterator[TokenEvent]:
-        """Submit one request and yield its token events until the one
-        marked ``finished``.  Closing the iterator early aborts the request
-        in the engine."""
+        """Submit one request (on LoRA adapter ``adapter``, None = the base
+        model) and yield its token events until the one marked
+        ``finished``.  Closing the iterator early aborts the request in the
+        engine."""
         request_id = request_id or f"req-{uuid.uuid4().hex[:12]}"
         queue: asyncio.Queue = asyncio.Queue()
         self._queues[request_id] = queue
@@ -156,7 +165,7 @@ class AsyncEngine:
         if params.deadline is not None:
             self._any_deadlines = True
         with self._lock:
-            self._pending.append((request_id, prompt_token_ids, params))
+            self._pending.append((request_id, prompt_token_ids, params, adapter))
             self._pending_tokens += len(prompt_token_ids)
         self._wakeup.set()
         finished = False
@@ -290,8 +299,19 @@ class AsyncEngine:
 
     def _run_loop(self) -> None:
         logger.info("engine step loop started")
+        self.engine.bind_commit_thread(self._wakeup.set)
+        try:
+            self._loop_until_shutdown()
+        finally:
+            self.engine.release_commit_thread()
+        logger.info("engine step loop exited")
+
+    def _loop_until_shutdown(self) -> None:
         while not self._shutdown.is_set():
             self._last_step_ts = self._clock()
+            # Adapter writes land here, between dispatches, before this
+            # iteration admits anything.
+            self.engine.run_commits()
             with self._lock:
                 pending, self._pending = self._pending, []
                 aborts, self._aborts = self._aborts, []
@@ -316,11 +336,11 @@ class AsyncEngine:
                     f"request {request_id} missed its deadline while "
                     "queued; shed before occupying a batch slot"
                 ))
-            for request_id, token_ids, params in pending:
+            for request_id, token_ids, params, adapter in pending:
                 try:
                     self.engine.add_request(
                         request_id, prompt_token_ids=token_ids,
-                        sampling_params=params,
+                        sampling_params=params, adapter=adapter,
                     )
                 except ValueError as e:
                     self._emit(request_id, e)
@@ -362,7 +382,6 @@ class AsyncEngine:
             # and the streams' inter-token latency stays bounded.
             if self.encode_batcher is not None:
                 self.encode_batcher.run_pending(max_batches=1)
-        logger.info("engine step loop exited")
 
     def _emit(self, request_id: str, event) -> None:
         queue = self._queues.get(request_id)

@@ -176,8 +176,11 @@ def test_torch_engine_raises_outside_the_slice():
     cfg = torch_config()
     cfg.scheduler.multi_step_window = None  # auto: K-step windows
     cfg.scheduler.mixed_window = None  # auto: mixed K-step windows, served
-    cfg.lora.max_loras = 2  # multi-LoRA slots, not yet
-    with pytest.raises(NotImplementedError, match="lora"):
+    cfg.lora.max_loras = 2  # multi-LoRA slots: served
+    assert LLMEngine(cfg, device="cpu").lora_registry.loaded() == []
+    cfg = torch_config()
+    cfg.obs.tracing = True  # tracing, not yet
+    with pytest.raises(NotImplementedError, match="obs.tracing"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
     cfg.draft_weights_path = "draft-checkpoint"  # HF drafter weights, not yet

@@ -422,7 +422,7 @@ SERVED_FLAGS = (
     "--kv-wire-format", "--speculative-ngram", "--speculative-model",
     "--speculative-draft-len", "--speculative-draft-pool-blocks",
     "--no-speculative-model", "--no-encode-lane", "--encode-batch-buckets",
-    "--max-queued-encode-texts",
+    "--max-queued-encode-texts", "--max-loras", "--max-lora-rank",
 )
 
 
@@ -469,7 +469,8 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "3", "--disagg-handoff-wait-s", "1.5", "--kv-wire-format", "int8",
             "--speculative-model", "debug-1l", "--speculative-draft-len", "3",
             "--speculative-draft-pool-blocks", "40", "--no-encode-lane",
-            "--encode-batch-buckets", "1,2,4", "--max-queued-encode-texts", "7"]
+            "--encode-batch-buckets", "1,2,4", "--max-queued-encode-texts", "7",
+            "--max-loras", "3", "--max-lora-rank", "32"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
