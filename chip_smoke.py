@@ -1279,6 +1279,14 @@ async def _serve(aeng, app, vocab: int, surface: bool = False) -> dict:
             # What the phase reports, read before the surface adds requests.
             stats, launches = aeng.engine.stats(), launch_counts()
             capture_s = dict(aeng.engine.graphs.capture_seconds)
+            # Tracing: the compile events over /debug/compiles, and the
+            # requests that rode a compile-tainted dispatch (the 8 run
+            # through generate, which starts no trace: read from the
+            # flight records).
+            async with http.get(f"{base}/debug/compiles") as r:
+                compiles = await r.json()
+            tainted = {sid for d in aeng.engine.obs.recorder.snapshot() if d.get("compile")
+                       for sid in d["seq_ids"]}
             server = None
             if surface:
                 server = await _drive_surface(aeng, http, base, scrapes, after, results)
@@ -1286,7 +1294,19 @@ async def _serve(aeng, app, vocab: int, surface: bool = False) -> dict:
         await runner.cleanup()  # stops the step thread
     return {"results": results, "wall_s": wall, "health": health,
             "http_status": http_status, "http_body": http_body, "server": server,
-            "stats": stats, "launches": launches, "capture_s": capture_s}
+            "stats": stats, "launches": launches, "capture_s": capture_s,
+            "compiles": compiles,
+            "tainted": sorted(t for t in tainted if t in {f"r{i}" for i in range(NUM_REQUESTS)})}
+
+
+def _by_family(executables: list) -> dict:
+    """Seconds of /debug/compiles' executable rows by family (the graph
+    key's kind, or ``csrc`` for a kernel library's first load)."""
+    out = {}
+    for r in executables:
+        fam = r["executable"].split("[", 1)[0]
+        out[fam] = out.get(fam, 0.0) + r["seconds"]
+    return out
 
 
 def launch_counts() -> dict:
@@ -1658,6 +1678,12 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "graph_replays": stats["graph_replays"],
         "capture_s": {str(k): v for k, v in out["capture_s"].items()},
         "capture_s_total": stats["graph_capture_seconds"],
+        # Tracing: the compile events by graph family (/debug/compiles),
+        # their total against the captures', and the share of the 8
+        # requests that rode a dispatch which captured a graph.
+        "compile_s_by_family": _by_family(out["compiles"]["executables"]),
+        "compile_s_total": out["compiles"]["compile_seconds"],
+        "compile_tainted_share": len(out["tainted"]) / NUM_REQUESTS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     if dense is not None:
@@ -1674,6 +1700,10 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     if dense is not None and row["kv_tokens_vs_dense"] < 1.8:
         raise AssertionError(f"int8 pool holds {row['kv_tokens_vs_dense']:.3f}x "
                              "the dense pool's tokens, under 1.8x")
+    graph_s = sum(v for k, v in row["compile_s_by_family"].items() if k != "csrc")
+    if not out["compiles"]["enabled"] or abs(graph_s - row["capture_s_total"]) > 1e-4:
+        raise AssertionError(f"compile events {row['compile_s_by_family']} against "
+                             f"{row['capture_s_total']} s of captures")
     return {"launches": launches, "engine": eng, "kv_tokens": row["kv_tokens"],
             "results": results}
 
@@ -2212,7 +2242,9 @@ def _offload_half(eng, rec, prompts, label: str) -> dict:
         "offload_evictions": o.evictions, "offload_skipped": eng._offload_stager.skipped,
         "offload_dispatch_s": rec["offload_s"], "restore_dispatch_s": rec["restored_s"],
         "restore_results": rec["restore_results"],
-        "offload_stage_s": list(eng.kv_phase_seconds["offload_stage"]),
+        # The stager's seconds a snapshot, from its histogram (tracing on).
+        "offload_stages": eng.obs.kv_hists["offload_stage"].count,
+        "offload_stage_s_sum": eng.obs.kv_hists["offload_stage"].sum,
         "snapshots_checked": rec["snapshots_checked"],
         "checks_on_step_thread_s": rec["check_s"],
         "restored_blocks_checked": rec["restored_blocks_checked"],
@@ -2338,10 +2370,12 @@ def _kv_import_offload(url: str, px: str, long: list, miss: list, warm: list,
                       "first_tokens_equal_exporter": imported[1][:4] == exported_first[:4]}
         row = _offload_half(dec, rec, prompts, "d")
         row["launches"] = launch_counts()
-        # Every chain fetch's seconds on its fetcher thread, and the blocks
+        # The chain fetches on the fetcher threads (their count and
+        # seconds, from the histogram tracing feeds), and the blocks
         # fetched but dropped unused (the imported request's second fetch
         # of its chain).
-        import_row["fetches_s"] = list(dec.kv_phase_seconds["remote_kv_fetch"])
+        fetch = dec.obs.kv_hists["remote_kv_fetch"]
+        import_row["fetches"], import_row["fetches_s_sum"] = fetch.count, fetch.sum
         import_row["prefetch_waste_blocks"] = dec.kv_prefetch.waste_blocks
         for k in ("paged_decode", "flash_prefill"):
             if row["launches"][k] <= 0:
@@ -3728,6 +3762,288 @@ def phase_lora(kv_cache_dtype: str = "auto") -> dict:
     return row
 
 
+# -- phase 12: observability ----------------------------------------------
+
+TRACE_POOL_BLOCKS = 2048  # 32768 tokens a pool: two engines on one set of weights
+TRACE_ARRIVALS = (0, 0, 0, 0, 3, 3, 6, 6)  # later prompts chunk beside decodes
+
+
+def _dispatch_counter(eng) -> dict:
+    """Wrap every dispatch entry of ``eng`` (the asynchronous ones and the
+    synchronous prefill, K=1 mixed step and decode): each call's host
+    seconds, by method."""
+    names = ("_dispatch_window", "_dispatch_mixed_window", "_dispatch_decode_async",
+             "_run_prefill", "_run_mixed", "_run_decode")
+    out = {name: [] for name in names}
+    for name in names:
+        def run(*args, _fn=getattr(eng, name), _name=name, **kwargs):
+            t = time.perf_counter()
+            step = _fn(*args, **kwargs)
+            out[_name].append(time.perf_counter() - t)
+            return step
+        setattr(eng, name, run)
+    return out
+
+
+def _traced_streams(eng, prompts: list) -> dict:
+    """The 8 greedy requests (``TRACE_ARRIVALS``, NEW_TOKENS each) driven
+    directly on ``eng``: every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``, every dispatch counted and timed, and
+    each request's first and last token time.  The wrappers come off at
+    the end."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    calls = _dispatch_counter(eng)
+    checked = sync_checked(eng)
+    pending = sorted(zip(TRACE_ARRIVALS, range(len(prompts))))
+    streams, first, last, step = {}, {}, {}, 0
+    t0 = time.time()
+    while pending or eng.has_unfinished() or eng.has_pending():
+        while pending and pending[0][0] <= step:
+            _, i = pending.pop(0)
+            eng.add_request(f"tr{i}", prompt_token_ids=prompts[i], sampling_params=SamplingParams(
+                max_tokens=NEW_TOKENS, temperature=0.0, ignore_eos=True))
+        eng.dispatch()
+        outs = eng.collect()
+        now = time.time()
+        for out in outs:
+            streams.setdefault(out.seq_id, []).append(out.new_token_id)
+            first.setdefault(out.seq_id, now)
+            last[out.seq_id] = now
+        step += 1
+        if step > 2000:
+            raise AssertionError("the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    for name in list(calls):
+        del eng.__dict__[name]
+    return {"streams": streams, "first": first, "last": last, "calls": calls,
+            "checked": checked, "wall_s": wall}
+
+
+def _attribution(eng, run: dict, delivering: bool = True) -> dict:
+    """Each request's attributed seconds over the dispatches it rode as a
+    decode row (a rider's index below the record's ``rows``), against its
+    decode wall (first token to last, as the stepping loop saw them).  A row whose
+    last token came out of window n still rides window n+1, chained before
+    its finish was known, and emits nothing there: ``delivering`` counts
+    only the windows collected by its last token."""
+    snap = eng.obs.recorder.snapshot()
+    out = {}
+    for rid in run["streams"]:
+        got = sum(d["attributed_s"] for d in snap
+                  if rid in d["seq_ids"][: d["rows"]]
+                  and (not delivering or d["collected_at"] <= run["last"][rid]))
+        out[rid] = (got, run["last"][rid] - run["first"][rid])
+    return out
+
+
+def _set_tracing(eng, on: bool) -> None:
+    """Turn an engine's obs hooks on or off in place (what ``--no-tracing``
+    sets at boot; the graph runner's first-use hook stays, and fires only
+    on a key's first use): the same engine, the same pool and graphs,
+    timed with its hooks and without."""
+    obs = eng.obs
+    obs.enabled = obs.tracer.enabled = obs.recorder.enabled = on
+    obs.compile_tracker.enabled = on
+
+
+async def _traced_http(aeng, app) -> dict:
+    """Over HTTP on a fresh traced engine: a cold completion (its windows
+    capture graphs: ``"compile": true``), the same completion warm (no
+    marker), the cold one's trace at /debug/requests/{id}, the ring, the
+    flight recorder and /debug/compiles."""
+    import aiohttp
+    from aiohttp import web
+
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    out = {}
+    try:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300)) as http:
+            body = {"model": MODEL, "prompt": "The H100 port traces", "max_tokens": 16,
+                    "ignore_eos": True}
+            for rid in ("trace-cold", "trace-warm"):
+                t = time.time()
+                async with http.post(f"{base}/v1/completions", json=body, headers={
+                        "X-Request-Id": rid,
+                        "traceparent": f"00-{'ab' * 16}-{'cd' * 8}-01"}) as r:
+                    out[rid] = {"status": r.status, "s": time.time() - t,
+                                "compile": (await r.json()).get("compile")}
+            async with http.get(f"{base}/debug/requests/trace-cold") as r:
+                trace = await r.json()
+            out["trace_id"] = trace.get("trace_id")
+            out["spans"] = sorted({s["name"] for s in trace.get("spans", [])})
+            out["trace_windows"] = [(w["kind"], w["k"], w.get("compile", False))
+                                    for w in trace.get("windows", [])]
+            async with http.get(f"{base}/debug/requests") as r:
+                out["ring"] = [t["request_id"] for t in (await r.json())["requests"]]
+            async with http.get(f"{base}/debug/windows") as r:
+                out["windows_recorded"] = (await r.json())["recorded"]
+            async with http.get(f"{base}/debug/compiles") as r:
+                out["compiles"] = await r.json()
+    finally:
+        await runner.cleanup()
+    return out
+
+
+def phase_tracing(kv_cache_dtype: str = "auto") -> dict:
+    """Observability at full width: llama-3.1-8b (32 layers, bf16, seeded
+    random init, the served defaults: K=8 windows with the lookahead, mixed
+    and packed windows) with tracing on, beside a tracing-off engine on the
+    same weights (pools of 2048 blocks each).  (1) dense: over HTTP on the
+    fresh traced engine, a cold completion carries ``"compile": true``
+    and the same one warm does not; the cold one's trace holds the engine
+    spans under the propagated trace id.  (2) The engine phase's 8 greedy
+    requests (128-3000 prompt tokens, 64 new, arriving in three waves) on
+    both, driven directly, every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``: token ids equal; one flight record
+    per dispatch of any kind, the window kinds matching the engine's window
+    counters; each request's attributed seconds within 5% of its decode
+    wall; the compile events equal, key for key and second for second, to
+    ``graphs.capture_seconds``.  (3) dense: a token step at 8 rows and a
+    prefill-carrying step (``_lora_step_times``), tracing off, on, on,
+    off."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+    from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+    from production_stack_tpu_torch.obs.compile_tracker import executable_key
+
+    dense = kv_cache_dtype == "auto"
+    torch.cuda.empty_cache()
+
+    def config(tracing):
+        return config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+            "scheduler.max_model_len": 4096, "scheduler.max_num_seqs": NUM_REQUESTS,
+            "cache.kv_cache_dtype": kv_cache_dtype, "cache.num_blocks": TRACE_POOL_BLOCKS,
+            "obs.tracing": tracing})
+
+    if not config_from_preset(MODEL, **SLICE_OVERRIDES).obs.tracing:
+        raise AssertionError("the served config has tracing off")
+    off = LLMEngine(config(False))
+    aeng = AsyncEngine(config(True), params=off.params)
+    on = aeng.engine
+    row = {"phase": "tracing", "kv": kv_cache_dtype, "model": MODEL,
+           "layers": on.config.model.num_layers}
+    problems = []
+    if off.graphs._first_use is not None or on.graphs._first_use is None:
+        problems.append("the first-use hook is not installed exactly on the traced engine")
+    # (1) HTTP on the fresh traced engine.
+    if dense:
+        http = row["http"] = asyncio.run(_traced_http(aeng, build_engine_app(aeng, MODEL)))
+        if not (http["trace-cold"]["status"] == http["trace-warm"]["status"] == 200
+                and http["trace-cold"]["compile"] is True
+                and http["trace-warm"]["compile"] is None
+                and http["trace_id"] == "ab" * 16
+                and {"engine.queue", "engine.prefill", "engine.decode",
+                     "engine.detokenize"} <= set(http["spans"])
+                and any(c for _, _, c in http["trace_windows"])):
+            problems.append(f"HTTP tracing: {http}")
+        http["compile_s_by_family"] = _by_family(http.pop("compiles")["executables"])
+    # (2) the 8 requests, tracing on and off.
+    rng = np.random.default_rng(12)
+    vocab = on.config.model.vocab_size
+    prompts = [rng.integers(4, vocab, n).tolist() for n in PROMPT_LENS]
+    _reset_launches()
+    before = on.stats()
+    recorded = on.obs.recorder.windows_recorded
+    run_on = _traced_streams(on, prompts)
+    launches = launch_counts()
+    after = on.stats()
+    run_off = _traced_streams(off, prompts)
+    counters = {k: after[k] - before[k] for k in (
+        "windows_dispatched", "mixed_windows_dispatched", "mixed_window_iterations",
+        "graph_replays")}
+    calls = {k: len(v) for k, v in run_on["calls"].items()}
+    snap = on.obs.recorder.snapshot()[: on.obs.recorder.windows_recorded - recorded]
+    kinds = {}
+    for d in snap:
+        kinds[d["kind"]] = kinds.get(d["kind"], 0) + 1
+    attribution = _attribution(on, run_on)
+    worst = max(abs(got - wall) / wall for got, wall in attribution.values())
+    worst_all = max(abs(got - wall) / wall
+                    for got, wall in _attribution(on, run_on, delivering=False).values())
+    events = {k: v for k, v in on.obs.compile_tracker.seconds_by_executable().items()
+              if not k.startswith("csrc[")}
+    captures = {executable_key(k): v for k, v in on.graphs.capture_seconds.items()}
+    row.update(
+        streams_equal=run_on["streams"] == run_off["streams"],
+        tokens=sum(len(s) for s in run_on["streams"].values()),
+        wall_s_on=run_on["wall_s"], wall_s_off=run_off["wall_s"],
+        dispatch_calls=calls, records=len(snap), record_kinds=kinds,
+        records_recorded=on.obs.recorder.windows_recorded,
+        records_dropped=on.obs.recorder.dropped, counters=counters,
+        sync_checked_dispatches=run_on["checked"],
+        # Median host ms a dispatch, by method, traced against untraced
+        # (a key's first use, which captures its graph, is in the list).
+        host_ms_per_dispatch_median={
+            name: [1e3 * sorted(run[name])[len(run[name]) // 2] if run[name] else None
+                   for run in (run_on["calls"], run_off["calls"])]
+            for name in run_on["calls"]},
+        attribution_worst_rel_err=worst,
+        # Counting the window each row rides after its last token too.
+        attribution_worst_rel_err_every_window=worst_all,
+        attribution_s={rid: [round(g, 4), round(w, 4)] for rid, (g, w) in attribution.items()},
+        compile_events=len(events), compile_s_total=sum(events.values()),
+        capture_s_total=sum(captures.values()),
+        compile_s_by_family=_by_family(
+            [{"executable": k, "seconds": v} for k, v in events.items()]),
+        csrc_events=[k for k in on.obs.compile_tracker.seconds_by_executable()
+                     if k.startswith("csrc[")],
+        compile_tainted_records=sum(1 for d in snap if d.get("compile")),
+        histogram_counts={name: h.count for name, h in on.obs.request_hists.items()},
+        step_phase_counts={name: h.count for name, h in on.obs.step_hists.items()},
+        launches=launches,
+    )
+    if not row["streams_equal"]:
+        problems.append("token ids differ between tracing on and off")
+    if any(len(s) != NEW_TOKENS for s in run_on["streams"].values()):
+        problems.append("a request lost tokens")
+    if len(snap) != sum(calls.values()) or row["records_dropped"]:
+        problems.append(f"{len(snap)} flight records for {calls} dispatches")
+    plain_windows = sum(1 for d in snap if d["kind"] in ("decode", "spec")
+                        and d["k"] == on.config.scheduler.window_steps)
+    if not (calls["_dispatch_window"] == counters["windows_dispatched"] == plain_windows > 0
+            and calls["_dispatch_mixed_window"] == counters["mixed_windows_dispatched"] > 0):
+        problems.append(f"records {kinds} against dispatches {calls} and counters {counters}")
+    if not (run_on["checked"]["_dispatch_window"] and run_on["checked"]["_dispatch_mixed_window"]):
+        problems.append("no window or mixed window ran sync-checked")
+    if worst > 0.05:
+        problems.append(f"attribution off by {worst:.3f} of a decode wall")
+    if events != captures:
+        problems.append(f"compile events {events} against captures {captures}")
+    decode, prefill = (("paged_decode", "flash_prefill") if dense
+                       else ("paged_decode_int8", "flash_prefill_int8"))
+    if launches[decode] <= 0 or launches[prefill] <= 0:
+        problems.append(f"kernels not launched: {launches}")
+    # (3) step times, tracing off and on, on the same weights; then the
+    # traced engine with its hooks turned off in place between two traced
+    # runs (the same pool and graphs: the hooks' own cost).
+    if dense:
+        times = row["times"] = {
+            "tracing_off": _lora_step_times(off, (None,) * 8, 31),
+            "tracing_on": _lora_step_times(on, (None,) * 8, 32),
+            "tracing_on_again": _lora_step_times(on, (None,) * 8, 33),
+            "tracing_off_again": _lora_step_times(off, (None,) * 8, 34),
+        }
+        _set_tracing(on, False)
+        times["traced_engine_hooks_off"] = _lora_step_times(on, (None,) * 8, 35)
+        _set_tracing(on, True)
+        times["traced_engine_hooks_on"] = _lora_step_times(on, (None,) * 8, 36)
+    emit(row)
+    del off, on, aeng
+    free_engines()
+    if problems:
+        raise AssertionError(f"{kv_cache_dtype} tracing phase: {problems}")
+    return row
+
+
 def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
@@ -3894,6 +4210,9 @@ def main() -> int:
     encode = timed("encode", phase_encode)
     free_engines()
     lora = {kv: timed(f"lora_{kv}", phase_lora, kv) for kv in ("auto", "int8")}
+    for cache in ("auto", "int8"):
+        timed(f"tracing_{cache}", phase_tracing, cache)
+        free_engines()
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     # Each kernel's launches come from the engine phase whose path runs
     # it: the dense decode kernel's and flash prefill's (paged entry, dense

@@ -23,6 +23,12 @@ shape) bumped where a wrapper launches its kernel, which a replay does not
 run.  The runner records each counter's change during capture, takes it
 back, and adds it on every replay, so the counters keep counting the
 launches the device makes.
+
+With tracing on, the engine installs the compile tracker's first-use hook
+(:meth:`GraphRunner.track_first_use`): the runner reports each new key
+once, with the seconds its capture took on the card or, on the CPU, the
+wall time of its first eager run, so the CPU tests see the keys the card
+captures.  Without a hook the runner keeps no state for it.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from __future__ import annotations
 import gc
 import time
 from collections import Counter
-from typing import Callable, Dict, Hashable, Tuple
+from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -84,6 +90,16 @@ class GraphRunner:
         self.replays = 0
         # Seconds each key's capture took (the graph instantiate included).
         self.capture_seconds: Dict[Hashable, float] = {}
+        # The compile tracker's first-use hook (tracing on), and on the CPU
+        # the keys it has been told of.
+        self._first_use: Optional[Callable[[Hashable, float], None]] = None
+        self._seen_keys = None
+
+    def track_first_use(self, hook: Callable[[Hashable, float], None]) -> None:
+        """Report each key's first use to ``hook(key, seconds)``, once."""
+        self._first_use = hook
+        if self.device.type != "cuda":
+            self._seen_keys = set()
 
     @property
     def captures(self) -> int:
@@ -91,11 +107,19 @@ class GraphRunner:
 
     def run(self, key: Hashable, body: Callable[[], None]) -> None:
         if self.device.type != "cuda":
+            if self._first_use is not None and key not in self._seen_keys:
+                t0 = time.perf_counter()
+                body()
+                self._seen_keys.add(key)
+                self._first_use(key, time.perf_counter() - t0)
+                return
             body()
             return
         entry = self._graphs.get(key)
         if entry is None:
             self._warm_up_and_capture(key, body)
+            if self._first_use is not None:
+                self._first_use(key, self.capture_seconds[key])
             return
         graph, deltas = entry
         graph.replay()

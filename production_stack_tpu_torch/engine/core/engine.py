@@ -84,12 +84,30 @@ between dispatches: on the thread bound by :meth:`bind_commit_thread`
 (the serving step loop) at its drain point :meth:`run_commits`, or on the
 caller's thread when none is bound.  No graph is captured again.
 
-The engine serves the JAX package's default serving path, mixed and
-packed K-step windows, the KV tiers, speculation, the encode lane and
-multi-LoRA included (``SLICE_OVERRIDES``: no tracing; no guided decoding
-/ parallelism / HF weights for the target or the drafter; dense or int8
-KV; ``mixed_window=False`` restores K=1 mixed steps while prompts wait)
-and raises ``NotImplementedError`` at construction for any setting
+Observability (``obs.tracing``, on by default as in the JAX engine;
+``obs/``): ``self.obs`` (``EngineObs``) is fed from the step thread at the
+JAX engine's places: the step-phase histograms (schedule, dispatch,
+collect, sample, mixed), the request hooks (first scheduled, first token,
+token gaps, finish, abort), one flight record per dispatch of every kind
+(K=1 and pipelined steps, plain, mixed and speculative windows, the legacy
+host verify, prefill and the synchronous fallbacks) completed at collect
+from what collect copied back, the KV spans and the transfer plane's
+histograms.  A compile event is the first use of a ``GraphRunner`` key
+(``obs/compile_tracker.py``), and also the first load of a kernel library
+(``ops/_build.py``: the ``nvcc`` build when nothing is built, then the
+``dlopen``), which can land inside a first request as Pallas lowering does
+inside an XLA compile; both are drained after each dispatch into the
+owning record and the co-scheduled requests' traces.  No hook reads a
+device tensor, syncs the host or touches what a graph body reads.  With
+tracing off every hook returns before touching state and the runner gets
+no first-use hook.
+
+The engine serves the JAX package's default configuration, mixed and
+packed K-step windows, the KV tiers, speculation, the encode lane,
+multi-LoRA and tracing included (``SLICE_OVERRIDES`` is empty: no guided
+decoding / parallelism / HF weights for the target or the drafter; dense
+or int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
+wait) and raises ``NotImplementedError`` at construction for any setting
 outside it.
 """
 
@@ -141,21 +159,21 @@ from production_stack_tpu_torch.engine.lora import (
 )
 from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
+from production_stack_tpu_torch.engine.ops import _build
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient
 from production_stack_tpu_torch.kvserver.protocol import KVWireStats
+from production_stack_tpu_torch.obs.engine import EngineObs
 from production_stack_tpu_torch.obs.histogram import Histogram
 
 logger = logging.getLogger(__name__)
 
 # The configuration this engine serves, as ``config_from_preset``
-# overrides: the JAX engine's defaults (K-step windows with the lookahead
-# pipeline, mixed steps, mixed and packed K-step windows, offload
-# preemption, the encode lane) without tracing.
-SLICE_OVERRIDES = {
-    "obs.tracing": False,
-}
+# overrides: none, the JAX engine's defaults (K-step windows with the
+# lookahead pipeline, mixed steps, mixed and packed K-step windows, offload
+# preemption, the encode lane, tracing).
+SLICE_OVERRIDES: Dict[str, object] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -176,7 +194,6 @@ def _unsupported(config: EngineConfig) -> List[str]:
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
-        (config.obs.tracing, "obs.tracing"),
         (m.quantization is not None, "model.quantization (int8 weights)"),
         (m.num_experts > 0, "model.num_experts (MoE)"),
         (config.weights_path is not None, "weights_path (HF safetensors)"),
@@ -299,6 +316,10 @@ class _PendingStep:
     chunk_tails: Optional[torch.Tensor] = None
     chunk_ordinal: int = 0
     spec_drafter: Optional[str] = None
+    # The flight record (obs/flight_recorder.WindowRecord) stamped at
+    # dispatch, which collect completes; None with tracing off or when the
+    # step completed its record at dispatch.
+    rec: Optional[object] = None
 
     def read(self) -> np.ndarray:
         """The sample, waiting for its copy to land (the step's one host
@@ -326,6 +347,15 @@ class LLMEngine:
         self.config = config
         self.device = resolve_device(device)
         cfg = config.model
+        # Observability hub: request tracer + step-phase/latency histograms
+        # + window flight recorder + compile-event tracker (all hooks no-op
+        # when config.obs.tracing is off).
+        self.obs = EngineObs(
+            enabled=config.obs.tracing,
+            ring_size=config.obs.trace_ring_size,
+            ring_bytes=config.obs.trace_ring_bytes,
+            window_ring_size=config.obs.window_ring_size,
+        )
         self.tokenizer = get_tokenizer(config.tokenizer)
         if self.tokenizer.vocab_size > cfg.vocab_size:
             raise ValueError(
@@ -445,6 +475,11 @@ class LLMEngine:
         # captured body reads), made on first use and kept.
         self._buffers: Dict[tuple, Dict[str, torch.Tensor]] = {}
         self.graphs = GraphRunner(self.device)
+        if self.obs.enabled:
+            # Each graph key's first use is a compile event; kernel
+            # libraries first loaded after this boot are too.
+            self.graphs.track_first_use(self.obs.compile_tracker.first_use_hook())
+            self._csrc_loads_seen = len(_build.first_loads)
         if self.device.type == "cuda":
             # Before any capture: a capture must never grow them.
             paged_attention.reserve_split_counters(
@@ -458,6 +493,7 @@ class LLMEngine:
         # Single-step fallbacks of K>1 plans by reason, and emitted window
         # tokens that could not be delivered (abort while the window flew).
         self.multistep_fallback: Dict[str, int] = {}
+        self._last_window_decline: Optional[str] = None
         self.multistep_wasted_tokens = 0
         self.windows_dispatched = 0
         self.windows_chained = 0
@@ -924,6 +960,7 @@ class LLMEngine:
             seq.status = SequenceStatus.FINISHED
             seq.finish_reason = FinishReason.ABORT
         self._release_transfers(request_id)
+        self.obs.on_abort(request_id)
 
     def _release_transfers(self, request_id: str) -> None:
         """Abort/finish hook of the transfer plane: cancel the request's
@@ -977,12 +1014,6 @@ class LLMEngine:
             wire_stats=self.kv_wire_stats,
             pinned=self.device.type == "cuda",
         )
-        # Seconds each transfer took on its worker thread (the JAX
-        # engine's kv histograms observe them only with tracing on; these
-        # lists are the port's own record of them).
-        self.kv_phase_seconds: Dict[str, List[float]] = {
-            "offload_stage": [], "remote_kv_fetch": [],
-        }
         # The asynchronous transfer plane (cache.remote_prefetch):
         # admission-time remote-prefix prefetch on fetcher threads, async
         # restore page-in.  It delivers through the prefix cache, so a
@@ -998,7 +1029,7 @@ class LLMEngine:
                 remote_client,
                 restore_sink=self.offload,
                 num_threads=config.cache.prefetch_threads,
-                observe_fetch=self.kv_phase_seconds["remote_kv_fetch"].append,
+                observe_fetch=lambda s: self.obs.kv_phase("remote_kv_fetch", s),
             )
         # The stager covers host-DRAM-only offload too: the D2H wait is a
         # step-thread stall either way.  Only an explicit
@@ -1006,7 +1037,7 @@ class LLMEngine:
         if offload_bytes > 0 and config.cache.remote_prefetch is not False:
             self._offload_stager = OffloadStager(
                 self.offload,
-                observe_stage=self.kv_phase_seconds["offload_stage"].append,
+                observe_stage=lambda s: self.obs.kv_phase("offload_stage", s),
             )
         # Completed prefetches awaiting import into the prefix cache (kept
         # across steps under transient pool pressure).
@@ -1032,13 +1063,23 @@ class LLMEngine:
         copies are waited for on the step thread, its documented A/B
         baseline contract."""
         if self._offload_stager is None or self.offload.capacity_bytes <= 0:
-            return self.offload.save(
+            t0 = time.time()
+            saved = self.offload.save(
                 seq.seq_id, self.kv_caches, block_ids, num_tokens=seq.num_tokens
             )
+            if saved and self.obs.enabled:
+                # Preemption paging on the request's timeline: the span
+                # names why this request's decode stalled.
+                self.obs.tracer.add_span(
+                    seq.seq_id, "engine.kv_offload", t0, time.time(),
+                    blocks=len(block_ids),
+                )
+            return saved
         if not block_ids:
             return False
         if not self._offload_stager.reserve(seq.seq_id):
             return False  # slot busy: recompute fallback (double-buffer)
+        t0 = time.time()
         reserved = None
         try:
             ids = self._put(np.asarray(block_ids, np.int64))
@@ -1063,6 +1104,13 @@ class LLMEngine:
         self._offload_stager.commit(
             seq.seq_id, host_layers, seq.num_tokens, reserved[1], ready=ready
         )
+        if self.obs.enabled:
+            # Step-thread cost only (the gather's dispatch): the D2H wait
+            # lives in tpu:offload_stage_seconds, observed by the writer.
+            self.obs.tracer.add_span(
+                seq.seq_id, "engine.kv_offload", t0, time.time(),
+                blocks=len(block_ids), staged=True,
+            )
         return True
 
     # -- restore (scheduler restore_cb) ------------------------------------
@@ -1077,7 +1125,19 @@ class LLMEngine:
         sequence now holds the blocks as a partial-prefill prefix: its
         suffix prefills over them, no recompute), "gone" (no snapshot:
         recompute), or "retry" (transient pool pressure or a transfer in
-        flight: try again next step)."""
+        flight: try again next step).  With tracing on, a restore that is
+        not a retry is an ``engine.kv_restore`` span of the request."""
+        if not self.obs.enabled:
+            return self._restore_seq_blocks(seq)
+        t0 = time.time()
+        result = self._restore_seq_blocks(seq)
+        if result != "retry":
+            self.obs.tracer.add_span(
+                seq.seq_id, "engine.kv_restore", t0, time.time(), result=result,
+            )
+        return result
+
+    def _restore_seq_blocks(self, seq: Sequence) -> str:
         entry = self._restore_entry(seq.seq_id)
         if entry is self._RESTORE_PENDING:
             return "retry"
@@ -1636,11 +1696,26 @@ class LLMEngine:
             outputs = self._collect_window(p)
         else:
             arr = p.read()
+            if self.obs.enabled:
+                self.obs.step_phase("collect", time.time() - t0)
+            t_post = time.time()
             live = [(i, s) for i, s in enumerate(p.seqs) if not s.is_finished]
             outputs = self._append_and_check(
                 [s for _, s in live], [int(arr[i]) for i, _ in live],
                 first_token=False,
             )
+            if self.obs.enabled:
+                self.obs.step_phase("sample", time.time() - t_post)
+            if p.rec is not None:
+                # Rows whose sequence finished while the step flew sampled
+                # a discarded overrun token.
+                self._note_compiles([s.seq_id for s in p.seqs], p.rec)
+                self.obs.recorder.on_collect(
+                    p.rec, host_s=p.host_s,
+                    tokens_emitted=len(p.seqs),
+                    tokens_delivered=len(live),
+                    tokens_wasted=len(p.seqs) - len(live),
+                )
         if p.outputs is None:
             # Drop in-flight successors whose every row has now finished:
             # pure overrun steps produce no outputs and must not wedge the
@@ -1653,7 +1728,21 @@ class LLMEngine:
                 and self._pending[0].chunk_sched is None
                 and all(s.is_finished for s in self._pending[0].seqs)
             ):
-                self._pending.popleft()
+                d = self._pending.popleft()
+                if d.rec is not None:
+                    # Every dispatched step appears exactly once: a plain
+                    # window's rows are all frozen (the device emitted
+                    # nothing), a single step sampled one discarded token
+                    # a row.
+                    n = 0 if d.steps is not None else len(d.seqs)
+                    self.obs.recorder.on_collect(
+                        d.rec, host_s=d.host_s, tokens_emitted=n, tokens_wasted=n,
+                    )
+            if self.obs.enabled:
+                # Only pipelined steps have a pure-dispatch host_s: a
+                # synchronous step's fuses the build, the device compute
+                # and the sampling, so it feeds only the schedule phase.
+                self.obs.step_phase("dispatch", p.host_s)
         now = time.time()
         self._last_decode_end = now if p.is_decode else None
         busy = (now - t0) + p.host_s
@@ -1674,6 +1763,8 @@ class LLMEngine:
         self._drain_prefetched()
         t0 = time.time()
         plan = self.scheduler.schedule()
+        if self.obs.enabled:
+            self.obs.step_phase("schedule", time.time() - t0)
         if plan.is_empty:
             if self._transfer_inflight():
                 # Nothing schedulable because a restore page-in or an
@@ -1689,8 +1780,13 @@ class LLMEngine:
         if plan.decode is None:
             outputs = self._run_prefill(plan.prefill_chunk)
             self._step_counter += 1
-            self._pending.append(_PendingStep(outputs=outputs,
-                                              host_s=time.time() - t0))
+            host_s = time.time() - t0
+            if self.obs.enabled:
+                self._record_sync_step(
+                    "prefill", t0, host_s, (), plan.prefill_chunk, len(outputs),
+                    len(outputs), fallback=plan.window_fallback,
+                )
+            self._pending.append(_PendingStep(outputs=outputs, host_s=host_s))
             return True
         if plan.chunk_schedule is not None:
             # Mixed K-step window: the waiting prompts' chunks ride the
@@ -1702,25 +1798,69 @@ class LLMEngine:
             # Fused decode+prefill-chunk step: synchronous (the chunk's
             # admission and finalization need collected state), so the
             # lookahead pauses for the step.
+            gap = self._recorder_gap(t0) if self.obs.enabled else 0.0
             outputs = self._run_mixed(plan)
             self._step_counter += 1
+            host_s = time.time() - t0
+            if self.obs.enabled:
+                self._record_sync_step(
+                    "mixed", t0, host_s, plan.decode.seqs, plan.prefill_chunk,
+                    len(outputs), len(outputs), fallback=plan.window_fallback,
+                    host_gap_s=gap,
+                )
             self._pending.append(_PendingStep(
-                outputs=outputs, is_decode=True, host_s=time.time() - t0,
+                outputs=outputs, is_decode=True, host_s=host_s,
             ))
             return True
         seqs = plan.decode.seqs
         if plan.decode_window > 1 and self._can_window(seqs):
             self._pending.append(self._dispatch_window(plan, chain_from=None))
             return True
+        # A K>1 plan that fell out of the window path carries the decline
+        # reason onto the replacing K=1 dispatch's flight record.
+        decline = plan.window_fallback or (
+            self._last_window_decline if plan.decode_window > 1 else None
+        )
         if self._can_pipeline(seqs):
-            self._pending.append(self._dispatch_decode_async(seqs, False))
+            p = self._dispatch_decode_async(seqs, False)
+            if p.rec is not None and decline:
+                p.rec.fallback = decline
+            self._pending.append(p)
         else:
+            gap = self._recorder_gap(t0) if self.obs.enabled else 0.0
             outputs = self._run_decode(plan.decode)
             self._step_counter += 1
+            host_s = time.time() - t0
+            if self.obs.enabled:
+                self._record_sync_step(
+                    "decode", t0, host_s, seqs, None, len(seqs), len(outputs),
+                    fallback=decline, host_gap_s=gap,
+                )
             self._pending.append(_PendingStep(
-                outputs=outputs, is_decode=True, host_s=time.time() - t0,
+                outputs=outputs, is_decode=True, host_s=host_s,
             ))
         return True
+
+    def _record_sync_step(self, kind: str, t0: float, host_s: float, seqs,
+                          chunk: Optional[PrefillPlan], emitted: int,
+                          delivered: int, **stamp) -> None:
+        """The flight record of a synchronous step (prefill, K=1 mixed step,
+        sync decode), stamped and completed at once: its decode rows
+        ``seqs``, then the chunk's prompt; ``stamp`` carries the fallback
+        and the host gap."""
+        sids = tuple(s.seq_id for s in seqs)
+        chunk_kw = {}
+        if chunk is not None:
+            sids += (chunk.seq.seq_id,)
+            chunk_kw = dict(chunk_prompts=1, chunk_tokens_planned=chunk.num_new_tokens)
+        rec = self.obs.recorder.on_dispatch(
+            kind, k=1, rows=len(seqs), seq_ids=sids, now=t0, **chunk_kw, **stamp,
+        )
+        self._note_compiles(sids, rec)
+        self.obs.recorder.on_collect(
+            rec, host_s=host_s, tokens_emitted=emitted, tokens_delivered=delivered,
+            chunk_tokens_delivered=chunk.num_new_tokens if chunk is not None else 0,
+        )
 
     def _dispatch_lookahead(self) -> bool:
         """Provisionally dispatch decode N+1 while N is still in flight.
@@ -1734,9 +1874,12 @@ class LLMEngine:
         if prev.host is None:
             return False  # only pipelined decode steps chain
         if prev.win_key is not None:
+            t0 = time.time()
             plan = self.scheduler.schedule_provisional_window(
                 prev.seqs, prev.steps
             )
+            if self.obs.enabled:
+                self.obs.step_phase("schedule", time.time() - t0)
             if plan is None:
                 return False
             if plan.chunk_schedule is not None:
@@ -1748,7 +1891,10 @@ class LLMEngine:
             return True
         if not self._can_pipeline(prev.seqs):
             return False
+        t0 = time.time()
         plan = self.scheduler.schedule_provisional(prev.seqs)
+        if self.obs.enabled:
+            self.obs.step_phase("schedule", time.time() - t0)
         if plan is None:
             return False
         self._pending.append(self._dispatch_decode_async(plan.seqs, True))
@@ -1760,7 +1906,9 @@ class LLMEngine:
     def _can_window(self, seqs: List[Sequence]) -> bool:
         """K-step windows serve everything except host-sampled features
         (logprobs, logit_bias); each fallback is counted by reason, once a
-        reason a dispatch."""
+        reason a dispatch, and the first reason by name is remembered for
+        the flight record of the K=1 dispatch that replaces the window."""
+        self._last_window_decline = None
         if self._window_steps <= 1:
             return False
         reasons = {
@@ -1771,6 +1919,7 @@ class LLMEngine:
             self.multistep_fallback[reason] = (
                 self.multistep_fallback.get(reason, 0) + 1
             )
+        self._last_window_decline = min(reasons) if reasons else None
         return not reasons
 
     def _can_pipeline(self, seqs: List[Sequence]) -> bool:
@@ -1781,6 +1930,28 @@ class LLMEngine:
             self._host_state_flags(s)[1] or s._min_tok_pending
             for s in seqs
         )
+
+    def _recorder_gap(self, t0: float) -> float:
+        """Host gap this dispatch inherited from the previous window (the
+        device idle since the last decode retired), stamped onto the flight
+        record.  Read before the launch bookkeeping clears it."""
+        last = self._last_decode_end
+        return max(0.0, t0 - last) if last is not None else 0.0
+
+    def _note_compiles(self, seq_ids, rec=None) -> None:
+        """Drain the compile events the dispatch just made (graph keys
+        used for the first time, kernel libraries loaded for the first
+        time since this engine booted) and attribute them: the flight
+        record goes compile-tainted and every co-scheduled request's trace
+        is tagged compile=true."""
+        if not self.obs.enabled:
+            return
+        loads = _build.first_loads
+        if len(loads) > self._csrc_loads_seen:
+            for name, seconds in loads[self._csrc_loads_seen:]:
+                self.obs.compile_tracker.record("csrc", name, seconds)
+            self._csrc_loads_seen = len(loads)
+        self.obs.on_compile(seq_ids, self.obs.compile_tracker.drain_events(), rec)
 
     def _note_decode_launch(self) -> None:
         """Host-gap bookkeeping: time since the previous decode step
@@ -1865,6 +2036,7 @@ class LLMEngine:
         the steady "same batch, +1 token" path: one [4S+1] delta, tokens
         chained on the device from the in-flight sample."""
         t0 = time.time()
+        gap = self._recorder_gap(t0) if self.obs.enabled else 0.0
         if not lookahead:
             S = self._decode_bucket(len(seqs))
             all_greedy = all(self._host_state_flags(s)[2] for s in seqs)
@@ -1910,9 +2082,17 @@ class LLMEngine:
         self.graphs.run(key, lambda: self._pipe_body(b, key[2]))
         host, ready = kv_quant.stage_to_host(b["sampled"])
         self._step_counter += 1
+        rec = None
+        if self.obs.enabled:
+            sids = tuple(s.seq_id for s in seqs)
+            rec = self.obs.recorder.on_dispatch(
+                "decode", k=1, rows=len(seqs), seq_ids=sids,
+                provisional=lookahead, host_gap_s=gap, now=t0,
+            )
+            self._note_compiles(sids, rec)
         return _PendingStep(
             seqs=list(seqs), host=host, ready=ready, is_decode=True,
-            host_s=time.time() - t0,
+            host_s=time.time() - t0, rec=rec,
         )
 
     # -- K-step device-resident decode windows -------------------------------
@@ -2418,6 +2598,7 @@ class LLMEngine:
         tokens into this step's pinned host buffer."""
         t0 = time.time()
         seqs = plan.decode.seqs
+        gap = self._recorder_gap(t0) if self.obs.enabled else 0.0
         if chain_from is None:
             key = self._window_build(seqs)
             self._note_decode_launch()
@@ -2461,10 +2642,26 @@ class LLMEngine:
         # window draws none, and advances the counter all the same).
         self._step_counter += self._window_steps
         self.windows_dispatched += 1
+        rec = None
+        if self.obs.enabled:
+            depth = 0
+            if chain_from is not None and chain_from.rec is not None:
+                depth = chain_from.rec.chain_depth + 1
+            sids = tuple(s.seq_id for s in seqs)
+            rec = self.obs.recorder.on_dispatch(
+                "spec" if drafter is not None else "decode",
+                k=self._window_steps, rows=len(seqs), seq_ids=sids,
+                chain_depth=depth, provisional=chain_from is not None,
+                spec_width=(self.config.scheduler.spec_draft_len
+                            if drafter is not None else 0),
+                drafter=drafter or "",
+                fallback=plan.window_fallback, host_gap_s=gap, now=t0,
+            )
+            self._note_compiles(sids, rec)
         return _PendingStep(
             seqs=list(seqs), host=host, ready=ready, is_decode=True,
             host_s=time.time() - t0, steps=list(plan.decode.steps),
-            win_key=key, spec_drafter=drafter,
+            win_key=key, spec_drafter=drafter, rec=rec,
         )
 
     def _spec_drafter_for(self, key: tuple) -> Optional[str]:
@@ -2589,6 +2786,12 @@ class LLMEngine:
         seqs = plan.decode.seqs
         sched = plan.chunk_schedule
         k_eff = len(sched)
+        gap = self._recorder_gap(t0) if self.obs.enabled else 0.0
+        if self.obs.enabled:
+            for cp in sched:
+                if cp.seq.first_scheduled_time is None:
+                    cp.seq.first_scheduled_time = t0
+                    self.obs.on_first_scheduled(cp.seq, t0)
         if chain_from is None:
             key = self._window_build(seqs)
             self._note_decode_launch()
@@ -2635,10 +2838,12 @@ class LLMEngine:
              "cached": cached, "valid": valid, "new_blocks": new_blocks,
              "prefix": prefix, **({"adapter": adapter} if lora else {})},
         )
+        overlap_s = 0.0
         if chain_from is not None:
             # The previous window still runs on the device: this staging
             # overlapped its compute.
-            self.window_transfer_overlap_s += time.time() - t_stage
+            overlap_s = time.time() - t_stage
+            self.window_transfer_overlap_s += overlap_s
         mkey = ("mixed", S, T) + key[2:]
         for _ in range(k_eff):
             self.graphs.run(mkey, lambda: self._mixed_body(b, c, *key[3:]))
@@ -2650,20 +2855,38 @@ class LLMEngine:
         self._step_counter += k_eff
         self.mixed_windows_dispatched += 1
         self.mixed_window_iterations += k_eff
+        rec = None
+        if self.obs.enabled:
+            depth = 0
+            if chain_from is not None and chain_from.rec is not None:
+                depth = chain_from.rec.chain_depth + 1
+            sids = tuple(s.seq_id for s in seqs) + tuple(
+                dict.fromkeys(cp.seq.seq_id for cp in sched)
+            )
+            rec = self.obs.recorder.on_dispatch(
+                "mixed", k=k_eff, rows=len(seqs), seq_ids=sids,
+                chain_depth=depth, provisional=chain_from is not None,
+                chunk_prompts=len({cp.seq.seq_id for cp in sched}),
+                chunk_tokens_planned=sum(cp.num_new_tokens for cp in sched),
+                fallback=plan.window_fallback, host_gap_s=gap,
+                transfer_overlap_s=overlap_s, now=t0,
+            )
+            self._note_compiles(sids, rec)
         return _PendingStep(
             seqs=list(seqs), host=host, ready=ready, is_decode=True,
             host_s=time.time() - t0, steps=list(plan.decode.steps),
             win_key=key, chunk_sched=list(sched), chunk_tails=tails,
-            chunk_ordinal=ordinal,
+            chunk_ordinal=ordinal, rec=rec,
         )
 
-    def _collect_chunks(self, p: _PendingStep) -> List[StepOutput]:
+    def _collect_chunks(self, p: _PendingStep) -> tuple:
         """The chunk half of a mixed window's collect: account the chunk
         tokens that rode the window and finalize each packed prompt whose
         final chunk landed, through :meth:`_finalize_final_prefill` with
         its iteration's step ordinal, as the K=1 mixed step would.  A
         prompt aborted while the window flew skips its finalize and its
-        chunk tokens count as waste; the other prompts are unaffected."""
+        chunk tokens count as waste; the other prompts are unaffected.
+        Returns (outputs, chunk tokens delivered)."""
         by_seq = []  # [(seq, [(iteration, chunk), ...])] in order
         for i, cp in enumerate(p.chunk_sched):
             if by_seq and by_seq[-1][0] is cp.seq:
@@ -2671,6 +2894,7 @@ class LLMEngine:
             else:
                 by_seq.append((cp.seq, [(i, cp)]))
         outputs: List[StepOutput] = []
+        delivered = 0
         for seq, chunks in by_seq:
             n = sum(cp.num_new_tokens for _, cp in chunks)
             if seq.is_finished:
@@ -2678,13 +2902,14 @@ class LLMEngine:
                 continue
             self.prefill_chunk_tokens += n
             self.mixed_window_chunk_tokens += n
+            delivered += n
             for i, cp in chunks:
                 if cp.is_final:
                     outputs.extend(self._finalize_final_prefill(
                         seq, p.chunk_tails[i], step_ordinal=p.chunk_ordinal + i,
                     ))
         self.mixed_window_prompts_hist.observe(len(by_seq))
-        return outputs
+        return outputs, delivered
 
     def _collect_window(self, p: _PendingStep) -> List[StepOutput]:
         """Read one window's [K, S] emitted tokens (a speculative window's
@@ -2697,6 +2922,9 @@ class LLMEngine:
         t_sync = time.time()
         arr = p.read()
         sync_s = time.time() - t_sync
+        if self.obs.enabled:
+            self.obs.step_phase("collect", sync_s)
+        t_post = time.time()
         spec = p.spec_drafter is not None
         if spec:
             W = self._spec_len + 1
@@ -2730,6 +2958,7 @@ class LLMEngine:
         emitted = int((arr[:, : len(p.seqs)] >= 0).sum())
         wasted = emitted - sum(delivered)
         self.multistep_wasted_tokens += wasted
+        drafted = accepted = chunk_delivered = 0
         if spec:
             drafted, accepted = int(drafts[:, 0].sum()), int(drafts[:, 1].sum())
             self.spec_tokens_drafted += drafted
@@ -2741,13 +2970,29 @@ class LLMEngine:
                 # A floor: a pipelined window's wait hides part of it.
                 self.spec_draft_fraction_s += self._draft_cost_fraction * sync_s
         if p.chunk_sched is not None:
-            outputs.extend(self._collect_chunks(p))
+            chunk_outputs, chunk_delivered = self._collect_chunks(p)
+            outputs.extend(chunk_outputs)
+        if self.obs.enabled:
+            self.obs.step_phase("sample", time.time() - t_post)
+        if p.rec is not None:
+            # A final chunk's first-token sample ran above: drain its
+            # compile events onto this record, then complete it.
+            self._note_compiles([s.seq_id for s in p.seqs], p.rec)
+            self.obs.recorder.on_collect(
+                p.rec, host_s=p.host_s,
+                tokens_emitted=emitted, tokens_delivered=emitted - wasted,
+                tokens_wasted=wasted, chunk_tokens_delivered=chunk_delivered,
+                drafted=drafted, accepted=accepted,
+            )
         return outputs
 
     # -- synchronous steps ---------------------------------------------------
 
     def _run_prefill(self, plan: PrefillPlan) -> List[StepOutput]:
         seq = plan.seq
+        if self.obs.enabled and seq.first_scheduled_time is None:
+            seq.first_scheduled_time = time.time()
+            self.obs.on_first_scheduled(seq, seq.first_scheduled_time)
         tokens, new_block_ids, prefix_ids, lens = self._prefill_plan_arrays(plan)
         if self.lora_registry is not None:
             lens = np.append(lens, np.int32(seq.adapter_idx))  # up in one copy
@@ -2970,8 +3215,12 @@ class LLMEngine:
         the head waiting sequence's prefill chunk rides along.  Decode rows
         are sampled first; only a final chunk samples its last valid row,
         through _finalize_final_prefill, as _run_prefill does."""
+        t_start = time.time()
         plan = step_plan.prefill_chunk
         seqs = step_plan.decode.seqs
+        if self.obs.enabled and plan.seq.first_scheduled_time is None:
+            plan.seq.first_scheduled_time = t_start
+            self.obs.on_first_scheduled(plan.seq, t_start)
         S = self._decode_bucket(len(seqs))
         (tokens, positions, block_tables, ctx_lens, slot_blocks,
          slot_offsets) = self._decode_batch_arrays(seqs, S)
@@ -3005,6 +3254,8 @@ class LLMEngine:
             # The last row is the chunk's last valid token: the request's
             # first sampled token.
             outputs.extend(self._finalize_final_prefill(plan.seq, logits[-1]))
+        if self.obs.enabled:
+            self.obs.step_phase("mixed", time.time() - t_start)
         return outputs
 
     # -- sampling ----------------------------------------------------------
@@ -3183,6 +3434,12 @@ class LLMEngine:
                     seq._min_tok_pending = False
             if seq.first_token_time is None:
                 seq.first_token_time = now
+                if self.obs.enabled:
+                    self.obs.on_first_token(seq, now)
+            elif self.obs.enabled and seq.last_token_time is not None:
+                self.obs.on_token_gap(seq, now - seq.last_token_time)
+            if self.obs.enabled:
+                seq.last_token_time = now
             if stop_hit:
                 finish = FinishReason.STOP
                 token_id = -1
@@ -3212,6 +3469,7 @@ class LLMEngine:
         self.scheduler.finish_seq(seq)
         self._release_transfers(seq.seq_id)
         self.total_finished += 1
+        self.obs.on_finish(seq)
         return reason
 
     def _check_finish(self, seq: Sequence, token_id: int) -> Optional[FinishReason]:
@@ -3228,6 +3486,75 @@ class LLMEngine:
             return FinishReason.LENGTH
         return None
 
+    # -- compile inventory -------------------------------------------------
+
+    # The JAX engine's jit families that run eagerly here (no graph key, so
+    # no compile event): the prefill and the K=1 mixed step launch their
+    # kernels from the host, the host-side sampler is eager PyTorch, and an
+    # encode batch is one eager forward.
+    EAGER_FAMILIES = {
+        "prefill_fn": "llama.prefill, eager",
+        "mixed_fn": "llama.mixed_step (K=1 mixed step), eager",
+        "sample_fn": "_sample_batch, eager (windows and pipelined steps "
+                     "sample inside their graphs)",
+        "encode_batch_fn": "llama.encode_batch, eager",
+    }
+
+    def compile_inventory(self) -> Dict[str, int]:
+        """Config-derived expected graph keys per family, the denominator
+        of /debug/compiles' warmup coverage report (the JAX engine's over
+        its jit families).  Upper bounds on the steady-state inventory at
+        one stop-width bucket and one flag set a family: a deployment that
+        never sees a shape never captures it; the point is naming families
+        still cold.  ``pipe`` stands for the JAX ``decode_fn`` (a pipelined
+        decode+sample step), ``window`` / ``spec`` / ``mixed`` for
+        ``window_fn`` / ``spec_window_fn`` / ``mixed_window_fn`` (here one
+        graph an iteration per (decode bucket, chunk bucket), replayed
+        k_eff times, where the JAX scan compiles one executable per
+        power-of-two scan length)."""
+        sched = self.config.scheduler
+        decode_buckets = 1
+        b = 1
+        while b < sched.max_num_seqs:
+            b *= 2
+            decode_buckets += 1
+        inv: Dict[str, int] = {}
+        if sched.pipeline_enabled:
+            inv["pipe"] = decode_buckets
+        if sched.window_steps > 1:
+            inv["window"] = decode_buckets
+            if sched.spec_window_enabled:
+                # The model drafter's prime / no-prime keys double it.
+                inv["spec"] = decode_buckets * (
+                    2 if sched.spec_drafter == "model" else 1
+                )
+            if sched.mixed_window_enabled:
+                inv["mixed"] = decode_buckets * len(sched.prefill_chunk_buckets)
+        return inv
+
+    def compiles_payload(self) -> Dict:
+        """GET /debug/compiles: per-executable compile events (most
+        expensive first) + the warmup coverage join (first-used keys per
+        graph family against :meth:`compile_inventory`), and the JAX jit
+        families that run eagerly here."""
+        rows = self.obs.compile_tracker.snapshot()
+        by_family: Dict[str, int] = {}
+        for r in rows:
+            fam = r["executable"].split("[", 1)[0]
+            by_family[fam] = by_family.get(fam, 0) + 1
+        coverage = {
+            fam: {"compiled": by_family.get(fam, 0), "expected": exp}
+            for fam, exp in self.compile_inventory().items()
+        }
+        return {
+            "enabled": self.obs.enabled,
+            "compiled_shapes": self.obs.compile_tracker.compiled_shapes(),
+            "compile_seconds": round(self.obs.compile_tracker.compile_seconds(), 6),
+            "executables": rows,
+            "coverage": coverage,
+            "eager": dict(self.EAGER_FAMILIES),
+        }
+
     # -- stats -------------------------------------------------------------
 
     def _duty_cycle(self) -> float:
@@ -3243,9 +3570,7 @@ class LLMEngine:
 
     def stats(self) -> Dict[str, float]:
         """The JAX engine's stats keys (its ``/metrics`` reads them), plus
-        the port's own window, graph and offload counters.  Keys of
-        features not ported yet (the compile inventory and the trace ring)
-        are 0 or empty, as on a JAX engine without them."""
+        the port's own window, graph and offload counters."""
         return {
             "num_requests_running": self.scheduler.num_running,
             "num_requests_waiting": self.scheduler.num_waiting,
@@ -3289,9 +3614,12 @@ class LLMEngine:
             "spec_draft_fraction_seconds": self.spec_draft_fraction_s,
             "kv_wire_bytes": self.kv_wire_stats.wire_bytes(),
             "kv_snapshot_format": self.kv_wire_stats.snapshot_formats(),
-            "compile_seconds": {},
-            "compiled_shapes": 0,
-            "obs_trace_dropped": 0,
+            # Compile events (obs/compile_tracker.py: graph keys' first
+            # use, kernel libraries' first load): seconds per executable
+            # key and the distinct-key count, and trace-ring evictions.
+            "compile_seconds": self.obs.compile_tracker.seconds_by_executable(),
+            "compiled_shapes": self.obs.compile_tracker.compiled_shapes(),
+            "obs_trace_dropped": self.obs.tracer.dropped,
             # Mean host-side serialization per decode step (ms): time the
             # device sat idle between decode steps; about 0 when the
             # lookahead keeps the device fed.

@@ -26,7 +26,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_ROOT = Path(__file__).parent / "_kernels_build"
@@ -37,6 +37,10 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# (name, seconds) of each library's first load in this process, the build
+# included when it ran: one entry a source at most.  A tracing engine reads
+# the entries added since it booted as compile events.
+first_loads: List[Tuple[str, float]] = []
 
 
 def kernel_sources() -> List[Path]:
@@ -117,7 +121,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.time()
             info = build_all()
             lib = ctypes.CDLL(os.path.join(info["dir"], f"lib{name}.so"))
             _libs[name] = lib
+            first_loads.append((name, time.time() - t0))
         return lib

@@ -11,8 +11,19 @@ contract the router expects from a serving engine, over
 - ``/v1/models``, ``/health`` (liveness, step watchdog), ``/ready``
   (readiness, 503 while draining) and ``POST /drain``; SIGTERM drains too;
 - ``/metrics`` in the ``tpu:`` vocabulary (``router/stats/vocabulary.py``):
-  every family the JAX engine renders with tracing off, those of features
-  not ported yet at zero;
+  every family the JAX engine renders, in its order, those of features not
+  ported yet at zero, and the request, step and KV histograms that tracing
+  feeds;
+- request tracing (``obs/``, on by default; ``--no-tracing`` restores the
+  untraced path): a trace starts after a request's validation with the
+  router-propagated ``traceparent``, the detokenize time is added when it
+  ends, and the first data chunk (or a non-streamed body) of a request in
+  which a compile event fired (a CUDA-graph key's first use) carries
+  ``"compile": true``; ``/debug/requests``, ``/debug/requests/{id}`` (the
+  timeline joined with the windows it rode), ``/debug/windows`` (the
+  flight recorder, ``?seq=``) and ``/debug/compiles`` (the compile events
+  and the warmup coverage); a deadline the TTFT histogram says cannot be
+  met is shed at admission (504 ``deadline_unmeetable``);
 - ``/tokenize`` and ``/detokenize``;
 - ``/start_profile`` and ``/stop_profile`` on ``torch.profiler`` (CUDA
   activity on the card), writing a Chrome trace into ``trace_dir``;
@@ -44,9 +55,8 @@ starts ``jax.distributed``).
         [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
 Not ported yet, with their flags: tool calls, guided decoding
-(``response_format``), prompt logprobs (``echo`` with ``logprobs``), the
-``/debug/*`` surfaces (request tracing and the window flight
-recorder), parallelism and the multi-host lockstep group (with it the
+(``response_format``), prompt logprobs (``echo`` with ``logprobs``),
+parallelism and the multi-host lockstep group (with it the
 JAX server's rule that turns the encode lane off in such a group), int8
 weights and loading a weights path (the target's or the drafter's).
 """
@@ -79,7 +89,8 @@ from production_stack_tpu_torch.engine.server.async_engine import (
     AsyncEngine,
     DeadlineExceeded,
 )
-from production_stack_tpu_torch.obs.histogram import Histogram, render_histogram
+from production_stack_tpu_torch.obs.histogram import render_histogram
+from production_stack_tpu_torch.obs.trace import parse_traceparent
 from production_stack_tpu_torch.router.stats import vocabulary as vocab
 from production_stack_tpu_torch.utils.drain import DrainController
 from production_stack_tpu_torch.utils.net import parse_deadline
@@ -251,11 +262,11 @@ def _is_engine_data_plane(request: web.Request) -> bool:
 
 
 def render_metrics(engine: AsyncEngine) -> str:
-    """The ``/metrics`` body: the JAX engine's families with tracing off,
-    in its order, with this engine's values.  Families of features not
-    ported yet render at zero, their closed label sets pre-seeded, and the
-    request, step and KV histograms at zero observations (the JAX engine
-    observes them only with tracing on)."""
+    """The ``/metrics`` body: the JAX engine's families in its order, with
+    this engine's values.  Families of features not ported yet render at
+    zero, their closed label sets pre-seeded; the request, step and KV
+    histograms last (observed only with tracing on, rendered either way so
+    the names are scrape-stable)."""
     s = engine.stats()
     pairs = [
         (vocab.TPU_NUM_REQUESTS_RUNNING, s["num_requests_running"]),
@@ -345,10 +356,8 @@ def render_metrics(engine: AsyncEngine) -> str:
             (vocab.TPU_COMPILED_SHAPES, s["compiled_shapes"]),
             (vocab.TPU_OBS_TRACE_DROPPED, s["obs_trace_dropped"]),
         ]),
+        engine.engine.obs.render_metrics(),
     ]
-    for family in (vocab.TPU_REQUEST_HISTOGRAMS, vocab.TPU_STEP_HISTOGRAMS,
-                   vocab.TPU_KV_HISTOGRAMS):
-        parts.extend(render_histogram(name, Histogram()) for name in family.values())
     return "".join(parts)
 
 
@@ -480,6 +489,34 @@ def build_engine_app(
     async def metrics(_req: web.Request) -> web.Response:
         return web.Response(text=render_metrics(engine))
 
+    # -- request tracing debug surface (obs/) ------------------------------
+
+    async def debug_requests(_req: web.Request) -> web.Response:
+        """Ring buffer of completed request timelines, newest first."""
+        return web.json_response(engine.engine.obs.debug_payload())
+
+    async def debug_request(request: web.Request) -> web.Response:
+        snap = engine.engine.obs.request_payload(request.match_info["request_id"])
+        if snap is None:
+            return web.json_response(
+                {"error": {"message": "unknown request id (expired from the "
+                           "trace ring, or tracing is off)"}},
+                status=404,
+            )
+        return web.json_response(snap)
+
+    async def debug_windows(request: web.Request) -> web.Response:
+        """Window flight-recorder ring, newest first (?seq= filters to
+        windows one sequence rode)."""
+        return web.json_response(
+            engine.engine.obs.windows_payload(seq=request.query.get("seq") or None)
+        )
+
+    async def debug_compiles(_req: web.Request) -> web.Response:
+        """Compile events (graph keys' first use) per executable key +
+        warmup coverage report."""
+        return web.json_response(engine.engine.compiles_payload())
+
     async def chat_completions(request: web.Request) -> web.StreamResponse:
         return await _serve_completion(request, chat=True)
 
@@ -575,13 +612,27 @@ def build_engine_app(
             params.deadline = deadline
             if now >= deadline:
                 # The event loop's own counter: the step thread owns
-                # deadline_expired.  (The JAX server's "deadline
-                # unmeetable" estimate reads the TTFT histogram, which
-                # only tracing feeds; the port serves with tracing off,
-                # where the queued-expiry sweep does that work.)
+                # deadline_expired.
                 engine.engine.deadline_expired_admission += 1
                 return _error("request deadline already expired at admission",
                               504, "deadline_expired", code=504)
+            # "Would miss the deadline before its first token: shed now":
+            # the observed median TTFT scaled by the queue depth in batch
+            # units.  Only once the histogram holds real observations;
+            # with tracing off it holds none, and the queued-expiry sweep
+            # does the work.
+            ttft_hist = engine.engine.obs.request_hists["ttft"]
+            if ttft_hist.count >= 8:
+                est_wait = ttft_hist.quantile(0.5) * (
+                    1.0 + engine.engine.scheduler.num_waiting
+                    / max(1, engine.engine.config.scheduler.max_num_seqs)
+                )
+                if now + est_wait > deadline:
+                    engine.engine.deadline_expired_admission += 1
+                    return _error(
+                        f"deadline unmeetable: estimated {est_wait:.2f}s to "
+                        "first token exceeds the remaining budget",
+                        504, "deadline_unmeetable", code=504)
 
         # -- disaggregated prefill phase --------------------------------
         # The router's disagg policy primes a prefill-pool engine with
@@ -605,6 +656,18 @@ def build_engine_app(
             disagg_prefix_outcome = await _wait_handoff(
                 handoff_hdr, prompt_token_ids, deadline, adapter)
 
+        obs = engine.engine.obs
+        if obs.enabled:
+            # Only after every validation 400 above: a rejected request
+            # must not leave an active trace behind.  The router-propagated
+            # W3C context joins this timeline to the router's.  With n > 1
+            # the trace follows choice 0, which shares the request id.
+            obs.start_request(
+                request_id,
+                parse_traceparent(request.headers.get("traceparent")),
+                model=model_name, path=request.path, stream=stream, n=n_choices,
+            )
+
         def choice_params(i: int) -> SamplingParams:
             """Choice i's sampling: a seeded request's choice i takes
             seed + i, so the choices differ and each replays alone."""
@@ -626,6 +689,18 @@ def build_engine_app(
             for i in range(n_choices)
         ]
         checkers = [StopChecker(tokenizer, params.stop) for _ in range(n_choices)]
+        # Host detokenize time across all choices, reported to the obs
+        # layer when the request ends; with tracing off the push is untimed.
+        detok_s = [0.0]
+        if obs.enabled:
+            def push(checker: StopChecker, token_id: int):
+                t0 = time.perf_counter()
+                out = checker.push(token_id)
+                detok_s[0] += time.perf_counter() - t0
+                return out
+        else:
+            def push(checker: StopChecker, token_id: int):
+                return checker.push(token_id)
 
         def token_text(token_id: int) -> str:
             return tokenizer.decode([token_id]) if token_id >= 0 else ""
@@ -706,6 +781,10 @@ def build_engine_app(
             retired = [False] * n_choices  # taken off `remaining` by hand
             total_out = 0
             shed_on_deadline = False
+            # The compile taint rides the first data chunk (the headers
+            # left at prepare(), before the first token): the router's
+            # proxy reads it to keep a compile-excluded TTFT window.
+            compile_stamped = False
             try:
                 remaining = n_choices
                 while remaining:
@@ -732,7 +811,7 @@ def build_engine_app(
                     if not live[i]:
                         continue  # events after a stop of an aborting choice
                     checker = checkers[i]
-                    delta, stopped = checker.push(event.token_id)
+                    delta, stopped = push(checker, event.token_id)
                     if event.finished and not stopped:
                         delta += checker.flush()
                     if delta or first[i] or params.logprobs:
@@ -741,6 +820,10 @@ def build_engine_app(
                             event=None if stopped or event.token_id < 0 else event,
                             index=i,
                         )
+                        if not compile_stamped:
+                            compile_stamped = True
+                            if obs.compile_tainted(request_id):
+                                payload["compile"] = True
                         await response.write(f"data: {json.dumps(payload)}\n\n".encode())
                         first[i] = False
                     if stopped or event.finished:
@@ -773,6 +856,7 @@ def build_engine_app(
                 # disconnect never leaves siblings decoding for nobody.
                 for task in pumps:
                     task.cancel()
+                obs.record_detokenize(request_id, detok_s[0])
             return response
 
         # Not streaming: drain the choices concurrently (a sequential loop
@@ -782,7 +866,7 @@ def build_engine_app(
             text_parts, entries = [], []
             finish, out_tokens = "length", 0
             async for event in gen:
-                delta, stopped = checker.push(event.token_id)
+                delta, stopped = push(checker, event.token_id)
                 text_parts.append(delta)
                 if params.logprobs and event.token_id >= 0:
                     entries.append(event)
@@ -808,12 +892,14 @@ def build_engine_app(
         except DeadlineExceeded as e:
             # One choice expired while queued; the deadline holds for the
             # whole request, so the siblings go too (below) and it is shed.
+            obs.on_abort(request_id)
             return _error(str(e), 504, "deadline_expired", code=504)
         finally:
             # A failed or expired choice cancels the rest: cancelling closes
             # a choice's generator, which aborts it in the engine.
             for t in tasks:
                 t.cancel()
+        obs.record_detokenize(request_id, detok_s[0])
         choices = []
         total_out = 0
         for i, (text, entries, finish, out_tokens) in enumerate(drained):
@@ -847,17 +933,20 @@ def build_engine_app(
         final_headers = {"X-Request-Id": request_id}
         if disagg_prefix_outcome is not None:
             final_headers["X-Disagg-Prefix"] = disagg_prefix_outcome
-        return web.json_response(
-            {
-                "id": request_id,
-                "object": "chat.completion" if chat else "text_completion",
-                "created": created,
-                "model": model_name,
-                "choices": choices,
-                "usage": usage(total_out),
-            },
-            headers=final_headers,
-        )
+        final_body = {
+            "id": request_id,
+            "object": "chat.completion" if chat else "text_completion",
+            "created": created,
+            "model": model_name,
+            "choices": choices,
+            "usage": usage(total_out),
+        }
+        if obs.compile_tainted(request_id):
+            # A compile event fired inside this request's dispatches: its
+            # latency is cold start (the marker the streamed path puts in
+            # its first chunk).
+            final_body["compile"] = True
+        return web.json_response(final_body, headers=final_headers)
 
     async def _serve_prefill_phase(request_id, prompt_token_ids, params,
                                    created, model_name, adapter) -> web.Response:
@@ -1233,6 +1322,10 @@ def build_engine_app(
     app.router.add_get("/ready", ready)
     app.router.add_post("/drain", drain_endpoint)
     app.router.add_get("/metrics", metrics)
+    app.router.add_get("/debug/requests", debug_requests)
+    app.router.add_get("/debug/requests/{request_id}", debug_request)
+    app.router.add_get("/debug/windows", debug_windows)
+    app.router.add_get("/debug/compiles", debug_compiles)
     app.router.add_post("/v1/chat/completions", chat_completions)
     app.router.add_post("/v1/completions", completions)
     app.router.add_post("/v1/embeddings", embeddings)
@@ -1538,6 +1631,28 @@ def build_parser() -> argparse.ArgumentParser:
         "Connection: close), flip /ready to 503, let in-flight streams "
         "finish up to this many seconds, then exit 0",
     )
+    parser.add_argument(
+        "--no-tracing",
+        action="store_true",
+        help="disable request tracing + step-phase histograms "
+        "(obs.tracing=off: restores the untraced hot path; /debug/requests "
+        "returns an empty ring and /metrics drops the histogram families' "
+        "samples growth)",
+    )
+    parser.add_argument(
+        "--trace-ring-size", type=int, default=256,
+        help="completed request timelines kept for GET /debug/requests",
+    )
+    parser.add_argument(
+        "--trace-ring-bytes", type=int, default=8 * 1024 * 1024,
+        help="byte bound on the completed-trace ring (JSON-encoded size; "
+        "evictions past it count in tpu:obs_trace_dropped_total; 0 = "
+        "count bound only)",
+    )
+    parser.add_argument(
+        "--window-ring-size", type=int, default=1024,
+        help="window flight records kept for GET /debug/windows",
+    )
     parser.add_argument("--log-level", default="info")
     return parser
 
@@ -1603,6 +1718,10 @@ def config_from_args(args):
         **({"scheduler.max_queued_encode_texts": args.max_queued_encode_texts}
            if args.max_queued_encode_texts is not None else {}),
         "scheduler.step_watchdog_s": args.step_watchdog_s,
+        "obs.tracing": not args.no_tracing,
+        "obs.trace_ring_size": args.trace_ring_size,
+        "obs.trace_ring_bytes": args.trace_ring_bytes,
+        "obs.window_ring_size": args.window_ring_size,
     })
 
 

@@ -50,7 +50,9 @@ def tiny_engine(**sched):
         scheduler=SchedulerConfig(**{"max_num_seqs": 2, "prefill_buckets": (16, 32, 64),
                                      "max_model_len": 128, **sched}),
     )
-    cfg.obs.tracing = SLICE_OVERRIDES["obs.tracing"]
+    for key, value in SLICE_OVERRIDES.items():
+        part, name = key.split(".")
+        setattr(getattr(cfg, part), name, value)
     return LLMEngine(cfg, device="cpu")
 
 

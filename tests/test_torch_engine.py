@@ -179,9 +179,8 @@ def test_torch_engine_raises_outside_the_slice():
     cfg.lora.max_loras = 2  # multi-LoRA slots: served
     assert LLMEngine(cfg, device="cpu").lora_registry.loaded() == []
     cfg = torch_config()
-    cfg.obs.tracing = True  # tracing, not yet
-    with pytest.raises(NotImplementedError, match="obs.tracing"):
-        LLMEngine(cfg, device="cpu")
+    cfg.obs.tracing = True  # tracing: served
+    assert LLMEngine(cfg, device="cpu").obs.enabled
     cfg = torch_config()
     cfg.draft_weights_path = "draft-checkpoint"  # HF drafter weights, not yet
     with pytest.raises(NotImplementedError, match="draft_weights_path"):

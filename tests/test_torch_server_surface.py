@@ -60,8 +60,8 @@ def to_numpy(tree):
 
 
 def jax_engine(**sched) -> JaxAsync:
-    """The JAX engine with the port's slice (SLICE_OVERRIDES): tracing
-    off; recompute preemption, and no encode lane (no test here embeds)."""
+    """The JAX engine with tracing off (the untraced surface), recompute
+    preemption, and no encode lane (no test here embeds)."""
     return JaxAsync(jcfg.EngineConfig(
         model=jcfg.ModelConfig(dtype="float32"),
         cache=jcfg.CacheConfig(block_size=4, num_blocks=256),
@@ -73,7 +73,9 @@ def jax_engine(**sched) -> JaxAsync:
 
 def port_engine(params=None, **sched) -> AsyncEngine:
     """A port engine on the CPU with the numpy parameter tree ``params``
-    (None: the port's own seeded init)."""
+    (None: the port's own seeded init), with tracing off as the JAX engine
+    above: this file holds the untraced surface (``--no-tracing``), and
+    tests/test_torch_obs_server.py the traced one."""
     cfg = tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32"),
         cache=tcfg.CacheConfig(block_size=4, num_blocks=256),
@@ -82,6 +84,7 @@ def port_engine(params=None, **sched) -> AsyncEngine:
     for key, value in SLICE_OVERRIDES.items():
         part, name = key.split(".")
         setattr(getattr(cfg, part), name, value)
+    cfg.obs.tracing = False
     if params is not None:
         params = params_from_numpy(cfg.model, params, "cpu")
     return AsyncEngine(cfg, device="cpu", params=params)
@@ -423,6 +426,8 @@ SERVED_FLAGS = (
     "--speculative-draft-len", "--speculative-draft-pool-blocks",
     "--no-speculative-model", "--no-encode-lane", "--encode-batch-buckets",
     "--max-queued-encode-texts", "--max-loras", "--max-lora-rank",
+    "--no-tracing", "--trace-ring-size", "--trace-ring-bytes",
+    "--window-ring-size",
 )
 
 
@@ -470,7 +475,9 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--speculative-model", "debug-1l", "--speculative-draft-len", "3",
             "--speculative-draft-pool-blocks", "40", "--no-encode-lane",
             "--encode-batch-buckets", "1,2,4", "--max-queued-encode-texts", "7",
-            "--max-loras", "3", "--max-lora-rank", "32"]
+            "--max-loras", "3", "--max-lora-rank", "32", "--no-tracing",
+            "--trace-ring-size", "9", "--trace-ring-bytes", "4096",
+            "--window-ring-size", "33"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
