@@ -103,6 +103,28 @@ non-zero (no phase is caught and passed over):
    tokens beside 7 decoding rows, timed from its arrival to its first
    token (wall, device busy from the profiler's kernel sum and from CUDA
    events around graph replays, idle share), per chunk.
+   Then guided decoding, tool calls and prompt logprobs on the same dense
+   engine (``phase_guided``; the byte tokenizer gives text to 260 of the
+   128256 ids, so a guided row's scan usually sorts its whole logits row:
+   a worst case).  (a) Over an AsyncEngine on that engine, with the launch
+   counters at 0 just before and read just after, 4 plain greedy streams
+   of 256-1024 prompt tokens beside 4 ``json_object`` rows (2 greedy, 2 at
+   temperature 0.8 with a seed), 2 ``json_schema`` rows and one forced
+   tool call over HTTP ``/v1/chat/completions``, 96 tokens each: every
+   guided output parses and every schema output validates, the finish
+   reasons are ``stop`` (the tool call ``tool_calls``), windows declined
+   for ``"guided"`` as often as the flight records say, and once the
+   guided rows are done the plain rows run K=8 windows again, every
+   asynchronous dispatch under ``set_sync_debug_mode("error")``.  (b)
+   echo + logprobs (top 5) on a 2048-token prompt P with ``max_tokens`` 0
+   and 1: one entry a position, entry 0 null, each top list sorted with
+   its first at least the target's, and P's greedy first token t's
+   logprob equal to the last entry of P + [t] within 2e-2.  (c) A token
+   step at 8 rows with 0 and with 1 guided row (wall, device busy from
+   the profiler's kernel sum, idle share, bytes read back, the host ms of
+   ``_guided_override`` a token), and a 2048-token prefill with and
+   without prompt logprobs.  Phase 3's reference also holds the 100-token
+   prompt's prompt-logprob entries, card against CPU, within 2e-3.
 6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
    engine (the dense one freed first): the int8 paged-decode, the int8
    cache writer and flash prefill over the int8 pool must launch and the
@@ -940,7 +962,10 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     in two chunks, then 3 decode steps; a second prompt's first chunk is
     prefilled, then one mixed step runs the first prompt's next decode
     row beside the second prompt's last chunk over its cached prefix.
-    Every step's logits must agree within 2e-3."""
+    Every step's logits must agree within 2e-3, and so must the first
+    prompt's prompt-logprob entries (its chunks' next-token targets: the
+    target's and the top 5 logprobs), their top ids equal up to the order
+    of neighbours that tie within that bound."""
     from production_stack_tpu_torch.engine.models import llama
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -964,16 +989,24 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     prompt2 = torch.randint(4, cfg.vocab_size, (48,), generator=gen, dtype=torch.int32)
     worst = 0.0
     runs = {}
+    # Each chunk row's next prompt token (the second chunk's 12 padding
+    # rows and its last valid row target 0; their entries are not compared).
+    targets = [prompt[1:65], torch.cat([prompt[65:], torch.zeros(13, dtype=torch.int32)])]
+    plps = {}
     for dev in ("cpu", "cuda"):
         params = cpu_params if dev == "cpu" else _tree_to(cpu_params, dev)
         kv = caches(dev)
         t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-        outs = [
-            llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
-                          t([1, 2, 3, 4]), 64, kv),
-            llama.prefill(params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev),
-                          64, t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv),
-        ]
+        first, plp1 = llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
+                                    t([1, 2, 3, 4]), 64, kv,
+                                    prompt_targets=targets[0].to(dev), prompt_topk=5)
+        second, plp2 = llama.prefill(
+            params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev), 64,
+            t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv,
+            prompt_targets=targets[1].to(dev), prompt_topk=5)
+        # Positions 1..99: the first chunk's 64 rows, the second's first 35.
+        plps[dev] = [torch.cat([a.cpu(), b[:35].cpu()]) for a, b in zip(plp1, plp2)]
+        outs = [first, second]
         tokens = [int(outs[-1].argmax())] if dev == "cpu" else runs["cpu_tokens"]
         table = [[1, 2, 3, 4, 5, 6, 7, 0]]
         for i, pos in enumerate(range(100, 103)):
@@ -1000,14 +1033,32 @@ def phase_reference(int8: bool, model: tuple) -> dict:
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite logits on the card")
         worst = max(worst, (a - b).abs().max().item())
+    (want_t, want_ids, want_lps), (got_t, got_ids, got_lps) = plps["cpu"], plps["cuda"]
+    plp_err = max((got_t - want_t).abs().max().item(),
+                  (got_lps - want_lps).abs().max().item())
+    # Top ids, compared as sets within each run of logprobs that tie
+    # within the bound (the sums run in another order on the card).
+    ids_differ = 0
+    for r in range(want_ids.shape[0]):
+        start = 0
+        for j in range(1, 6):
+            if j == 5 or want_lps[r, j - 1] - want_lps[r, j] > 2e-3:
+                ids_differ += sorted(got_ids[r, start:j].tolist()) != sorted(
+                    want_ids[r, start:j].tolist())
+                start = j
     row = {"phase": "reference", "kv": "int8" if int8 else "dense",
            "layers": cfg.num_layers, "width": cfg.hidden_size,
            "steps": len(runs["cpu"]), "mixed_rows": 2,
            "max_abs_logit_err": worst, "tol": 2e-3,
-           "logit_absmax": max(x.abs().max().item() for x in runs["cpu"])}
+           "logit_absmax": max(x.abs().max().item() for x in runs["cpu"]),
+           "prompt_logprob_entries": int(want_t.numel()),
+           "prompt_logprob_max_abs_err": plp_err,
+           "prompt_logprob_top_ids_differ": ids_differ}
     emit(row)
     if worst > 2e-3:
         raise AssertionError(f"card vs CPU logits differ by {worst} ({row['kv']} KV)")
+    if plp_err > 2e-3 or ids_differ or not torch.isfinite(got_lps).all():
+        raise AssertionError(f"card vs CPU prompt logprobs: {row}")
     return row
 
 
@@ -1955,6 +2006,383 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     emit(row)
     if counts["prefix_cache_hit_tokens"] < MIXED_SHARED or chunks != MIXED_CHUNKS:
         raise AssertionError(f"the measured prompt did not chunk over its cached prefix: {row}")
+    return row
+
+
+# -- phase 4b: guided decoding, tool calls and prompt logprobs ---------------
+
+GUIDED_SCHEMAS = (
+    {"type": "object", "properties": {
+        "name": {"type": "string"}, "age": {"type": "integer"},
+        "mode": {"enum": ["fast", "slow"]},
+        "tags": {"type": "array", "items": {"type": "string"}, "maxItems": 2}}},
+    {"type": "object", "properties": {
+        "city": {"type": "string"}, "days": {"type": "integer"},
+        "units": {"enum": ["metric", "imperial"]}}},
+)
+GUIDED_MAX_TOKENS = 96
+GUIDED_PLAIN_LENS = (256, 512, 768, 1024)
+# The timed guided row: 16 string fields, so the value cannot close before
+# ~128 tokens of forced keys and punctuation (the timing needs the row
+# alive); every token still goes through the guided scan.
+GUIDED_TIMED_SCHEMA = {"type": "object", "properties": {
+    f"field{i}": {"type": "string"} for i in range(16)}}
+PLP_PROMPT_LEN = 2048
+
+
+def _async_over(eng):
+    """An AsyncEngine over the already booted ``eng`` (a phase adds
+    requests to the dense engine without a second boot)."""
+    from production_stack_tpu_torch.engine.server import async_engine as ae
+
+    real = ae.LLMEngine
+    ae.LLMEngine = lambda *args, **kwargs: eng
+    try:
+        return ae.AsyncEngine(eng.config)
+    finally:
+        ae.LLMEngine = real
+
+
+class _D2HBytes:
+    """Counts the bytes the host reads from the card through ``tolist``,
+    ``cpu``, ``item`` and ``copy_`` into host memory while active."""
+
+    METHODS = ("tolist", "cpu", "item", "copy_")
+
+    def __init__(self):
+        self.bytes = 0
+        self.real = {}
+
+    def __enter__(self):
+        for name in self.METHODS:
+            real = getattr(torch.Tensor, name)
+            self.real[name] = (real, name in vars(torch.Tensor))
+
+            def counted(t, *args, _real=real, _name=name, **kwargs):
+                src = args[0] if _name == "copy_" else t
+                if isinstance(src, torch.Tensor) and src.is_cuda and (
+                        _name != "copy_" or not t.is_cuda):
+                    self.bytes += src.numel() * src.element_size()
+                return _real(t, *args, **kwargs)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (real, own) in self.real.items():
+            if own:
+                setattr(torch.Tensor, name, real)
+            else:  # inherited from the C base class
+                delattr(torch.Tensor, name)
+
+
+def _guided_text(eng, ids) -> str:
+    return eng.tokenizer.decode([t for t in ids if t >= 0])
+
+
+async def _guided_serve(aeng, app, vocab: int) -> dict:
+    """Part (a): 4 plain greedy streams of 256-1024 prompt tokens beside
+    4 json_object rows (2 greedy, 2 sampled at temperature 0.8 with a
+    seed), 2 json_schema rows and a forced tool call over HTTP, 96 tokens
+    each; the plain rows outlive the guided ones."""
+    import aiohttp
+    import numpy as np
+    from aiohttp import web
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    eng = aeng.engine
+    runner = web.AppRunner(app)
+    await runner.setup()
+    site = web.TCPSite(runner, "127.0.0.1", 0)
+    await site.start()
+    base = f"http://127.0.0.1:{runner.addresses[0][1]}"
+    rng = np.random.default_rng(13)
+    out = {"guided": {}, "plain": {}}
+    guided_left = [7]
+    try:
+        async def one(rid, ids, sp, kind):
+            toks, last = [], None
+            async for ev in aeng.generate(prompt_token_ids=ids, sampling_params=sp,
+                                          request_id=rid):
+                toks.append(ev.token_id)
+                last = ev
+            out[kind][rid] = {"ids": toks, "finish": last.finish_reason.value}
+            if kind == "guided":
+                await guided_done()
+
+        async def guided_done():
+            guided_left[0] -= 1
+            if not guided_left[0]:
+                out["windows_at_guided_end"] = eng.windows_dispatched
+
+        jobs = [one(f"plain{i}", rng.integers(4, vocab, n).tolist(),
+                    SamplingParams(max_tokens=384, ignore_eos=True), "plain")
+                for i, n in enumerate(GUIDED_PLAIN_LENS)]
+        for i, (temp, seed) in enumerate(((0.0, None), (0.0, None), (0.8, 7), (0.8, 8))):
+            jobs.append(one(f"obj{i}", rng.integers(4, vocab, 128).tolist(), SamplingParams(
+                max_tokens=GUIDED_MAX_TOKENS, temperature=temp, seed=seed,
+                response_format="json_object"), "guided"))
+        for i, schema in enumerate(GUIDED_SCHEMAS):
+            jobs.append(one(f"schema{i}", rng.integers(4, vocab, 128).tolist(), SamplingParams(
+                max_tokens=GUIDED_MAX_TOKENS,
+                response_format={"type": "json_schema", "schema": schema}), "guided"))
+
+        async def tool_call(http):
+            body = {"model": MODEL, "max_tokens": GUIDED_MAX_TOKENS,
+                    "messages": [{"role": "user", "content": "Forecast for Paris?"}],
+                    "tools": [{"type": "function", "function": {
+                        "name": "forecast", "parameters": GUIDED_SCHEMAS[1]}}],
+                    "tool_choice": {"type": "function", "function": {"name": "forecast"}}}
+            async with http.post(f"{base}/v1/chat/completions", json=body) as r:
+                out["tool"] = {"status": r.status, "body": await r.json()}
+            await guided_done()
+
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as http:
+            t0 = time.time()
+            await asyncio.wait_for(asyncio.gather(*jobs, tool_call(http)), timeout=600)
+            out["wall_s"] = time.time() - t0
+    finally:
+        await runner.cleanup()  # stops the step thread
+    return out
+
+
+def _guided_token_steps(eng, label: str, tokens: int) -> dict:
+    """A token step at the engine's 8 running rows: wall over ``tokens``
+    tokens a row, then device busy from torch.profiler's kernel sum over
+    as many, then the bytes read back over 4 tokens a row; with a guided
+    row, the host ms of each ``_guided_override`` call (one guided row:
+    one token) in the timed pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = eng.scheduler.num_running
+    override_ms = []
+    real = eng._guided_override
+
+    def timed_override(*args):
+        t = time.perf_counter()
+        got = real(*args)
+        override_ms.append((time.perf_counter() - t) * 1e3)
+        return got
+
+    eng._guided_override = timed_override
+    windows = eng.windows_dispatched
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        steps = _decode_tokens(eng, tokens, rows) / rows
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3 / steps
+    finally:
+        del eng._guided_override
+    windows = eng.windows_dispatched - windows
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_steps = _decode_tokens(eng, tokens, rows) / rows
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / prof_steps
+    with _D2HBytes() as d2h:
+        d2h_steps = _decode_tokens(eng, 4, rows) / rows
+    row = {"case": label, "rows": rows, "token_steps": steps, "windows": windows,
+           "wall_ms_per_token_step": wall_ms,
+           "device_busy_ms_per_token_step": busy_ms,
+           "idle_share": 1.0 - busy_ms / wall_ms,
+           "d2h_bytes_per_token_step": d2h.bytes / d2h_steps}
+    if override_ms:
+        ms = sorted(override_ms)
+        row["guided_override_ms"] = {"calls": len(ms), "median": ms[len(ms) // 2],
+                                     "p90": ms[int(0.9 * (len(ms) - 1))], "max": ms[-1]}
+    return row
+
+
+def _prefill_wall_ms(eng, ids, plp: bool) -> tuple:
+    """(wall ms, first event) of one prompt prefilled alone on the idle
+    engine, with or without prompt logprobs (top 5)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    sp = SamplingParams(max_tokens=1, ignore_eos=True, echo=plp, logprobs=plp,
+                        top_logprobs=5 if plp else 0)
+    rid = f"pf{time.time_ns()}"
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.add_request(rid, prompt_token_ids=ids, sampling_params=sp)
+    first = None
+    while first is None:
+        first = next((o for o in eng.step() if o.seq_id == rid), None)
+    torch.cuda.synchronize()
+    wall = (time.time() - t0) * 1e3
+    while eng.has_unfinished() or eng.has_pending():
+        eng.step()
+    return wall, first
+
+
+def _echo(eng, ids, max_tokens: int) -> tuple:
+    """(prompt entries, token events) of an echo + logprobs (top 5)
+    request of ``ids`` served alone."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    rid = f"echo{time.time_ns()}"
+    eng.add_request(rid, prompt_token_ids=ids, sampling_params=SamplingParams(
+        max_tokens=max_tokens, temperature=0.0, echo=True, logprobs=True,
+        top_logprobs=5, ignore_eos=True))
+    entries, events = None, []
+    while eng.has_unfinished() or eng.has_pending():
+        for o in eng.step():
+            if o.prompt_logprobs is not None:
+                entries = o.prompt_logprobs
+            events.append(o)
+    return entries, events
+
+
+def phase_guided(eng) -> dict:
+    """Guided decoding, a forced tool call and prompt logprobs on the dense
+    engine phase's engine (llama-3.1-8b, bf16, random weights, the byte
+    tokenizer: 260 of the 128256 ids have text, so a guided row's scan
+    usually sorts the whole row, the worst case).
+
+    (a) :func:`_guided_serve` with the launch counters at 0 just before
+    and read just after, every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``: each guided output parses (schema
+    outputs validate), finishes ``stop`` (the tool call ``tool_calls``);
+    windows declined for ``"guided"`` while guided rows ran, as many times
+    as the flight records say; the plain rows ran windows again after.
+    (b) echo + logprobs (top 5) on a 2048-token prompt, ``max_tokens`` 0
+    and 1: one entry a position, entry 0 null, each top list sorted with
+    its first at least the target's; P's greedy first token t and its
+    logprob against the last entry of P + [t] within 2e-2; flash prefill
+    launched for each prefill.  (c) a token step at 8 rows with 0 and
+    with 1 guided row (wall, device busy, idle share, bytes read back,
+    the host ms of ``_guided_override``), and a 2048-token prefill with
+    and without prompt logprobs."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.guided_schema import validate_instance
+    from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+
+    vocab = eng.config.model.vocab_size
+    L = eng.config.model.num_layers
+    problems = []
+    # (a)
+    aeng = _async_over(eng)
+    app = build_engine_app(aeng, MODEL)
+    fallback = eng.multistep_fallback.get("guided", 0)
+    record_ids = {d["window_id"] for d in eng.obs.recorder.snapshot()}
+    windows = eng.windows_dispatched
+    checked = sync_checked(eng)
+    _reset_launches()
+    try:
+        served = asyncio.run(_guided_serve(aeng, app, vocab))
+    finally:
+        for name in ASYNC_DISPATCHES:
+            delattr(eng, name)
+    launches = launch_counts()
+    del aeng, app
+    declines = eng.multistep_fallback.get("guided", 0) - fallback
+    recorded = sum(1 for d in eng.obs.recorder.snapshot()
+                   if d["window_id"] not in record_ids and d.get("fallback") == "guided")
+    outputs = {}
+    for rid, r in served["guided"].items():
+        text = _guided_text(eng, r["ids"])
+        outputs[rid] = {"finish": r["finish"], "tokens": len(r["ids"]), "text": text[:200]}
+        try:
+            value = json.loads(text)
+        except ValueError:
+            problems.append(f"{rid}: does not parse: {text!r}")
+            continue
+        if r["finish"] != "stop":
+            problems.append(f"{rid}: finish {r['finish']}")
+        if rid.startswith("schema") and not validate_instance(
+                GUIDED_SCHEMAS[int(rid[-1])], value):
+            problems.append(f"{rid}: does not validate: {text!r}")
+        elif rid.startswith("obj") and not isinstance(value, dict):
+            problems.append(f"{rid}: not an object: {text!r}")
+    tool = served["tool"]
+    choice = tool["body"]["choices"][0] if tool["status"] == 200 else {}
+    calls = (choice.get("message") or {}).get("tool_calls") or []
+    if choice.get("finish_reason") != "tool_calls" or len(calls) != 1 or not validate_instance(
+            GUIDED_SCHEMAS[1], json.loads(calls[0]["function"]["arguments"])):
+        problems.append(f"tool call: {tool}")
+    for rid, r in served["plain"].items():
+        if len(r["ids"]) != 384 or r["finish"] != "length":
+            problems.append(f"{rid}: {len(r['ids'])} tokens, {r['finish']}")
+    windows_after = eng.windows_dispatched - served["windows_at_guided_end"]
+    if not declines or declines != recorded:
+        problems.append(f"guided declines: counter {declines}, flight records {recorded}")
+    if windows_after <= 0 or checked["_dispatch_window"] <= 0:
+        problems.append(f"no window after the guided rows: {windows_after}, {checked}")
+    on = ("paged_decode", "flash_prefill")
+    if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches if k not in on):
+        problems.append(f"wrong kernels launched: {launches}")
+    # (b)
+    rng = np.random.default_rng(17)
+    prompt = rng.integers(4, vocab, PLP_PROMPT_LEN).tolist()
+    fp_before = launch_counts()["flash_prefill"]
+    e0, ev0 = _echo(eng, prompt, 0)
+    e1, ev1 = _echo(eng, prompt, 1)
+    t, chosen = ev1[0].new_token_id, ev1[0].logprob
+    e2, _ = _echo(eng, prompt + [t], 0)
+    fp_launched = launch_counts()["flash_prefill"] - fp_before
+    unsorted = 0
+    for entries in (e0, e1, e2):
+        if entries is None or entries[0] != (None, None):
+            problems.append("prompt logprobs: no entries, or entry 0 not null")
+            continue
+        for lp, pairs in entries[1:]:
+            lps = [p[1] for p in pairs]
+            if len(pairs) != 5 or lps != sorted(lps, reverse=True) or lps[0] < lp:
+                unsorted += 1
+    if [len(e or ()) for e in (e0, e1, e2)] != [PLP_PROMPT_LEN] * 2 + [PLP_PROMPT_LEN + 1]:
+        problems.append(f"prompt logprobs: entry counts {[len(e or ()) for e in (e0, e1, e2)]}")
+    consistency = abs(e2[-1][0] - chosen) if e2 else float("inf")
+    entries_01 = max(abs(a[0] - b[0]) for a, b in zip(e0[1:], e1[1:])) if e0 and e1 else None
+    if unsorted or consistency > 2e-2 or ev0[0].new_token_id != -1:
+        problems.append(f"prompt logprobs: {unsorted} bad top lists, P+[t] vs P "
+                        f"{consistency}, max_tokens 0 gave {ev0[0].new_token_id}")
+    if fp_launched < 4 * L:  # 2048 + 2048 + (2048 + 1): four chunks
+        problems.append(f"prompt logprobs: {fp_launched} flash prefill launches")
+    # (c)
+    plain = [f"ts{i}" for i in range(NUM_REQUESTS)]
+    for i, rid in enumerate(plain):
+        eng.add_request(rid, prompt_token_ids=rng.integers(
+            4, vocab, GUIDED_PLAIN_LENS[i % 4]).tolist(),
+            sampling_params=SamplingParams(max_tokens=4000, ignore_eos=True))
+    while eng.scheduler.waiting:
+        eng.step()
+    _decode_tokens(eng, 8, NUM_REQUESTS)
+    steps = [_guided_token_steps(eng, "0 guided rows", 24)]
+    eng.abort_request(plain[-1])
+    eng.add_request("ts_guided", prompt_token_ids=rng.integers(4, vocab, 128).tolist(),
+                    sampling_params=SamplingParams(max_tokens=512, response_format={
+                        "type": "json_schema", "schema": GUIDED_TIMED_SCHEMA}))
+    while eng.scheduler.waiting or eng.scheduler.num_running < NUM_REQUESTS:
+        eng.step()
+    _decode_tokens(eng, 4, NUM_REQUESTS)
+    steps.append(_guided_token_steps(eng, "1 guided row", 24))
+    alive = any(s.seq_id == "ts_guided" for s in eng.scheduler.running)
+    for rid in plain[:-1] + ["ts_guided"]:
+        eng.abort_request(rid)
+    while eng.has_unfinished() or eng.has_pending():
+        eng.step()
+    if not alive or steps[1]["windows"] or not steps[0]["windows"]:
+        problems.append(f"token steps: guided row alive {alive}, {steps}")
+    prefill = {"plain": [], "prompt_logprobs": []}
+    for plp in (False, True, True, False):
+        ms, _ = _prefill_wall_ms(eng, rng.integers(4, vocab, PLP_PROMPT_LEN).tolist(), plp)
+        prefill["prompt_logprobs" if plp else "plain"].append(ms)
+    row = {"phase": "guided", "model": MODEL, "layers": L,
+           "wall_s": served["wall_s"], "outputs": outputs,
+           "tool_call": calls[0]["function"] if calls else None,
+           "guided_declines": declines, "guided_decline_records": recorded,
+           "windows_after_guided": windows_after,
+           "sync_checked_dispatches": checked, "launches": launches,
+           "prompt_logprobs": {"prompt_len": PLP_PROMPT_LEN, "self_consistency_err": consistency,
+                               "tol": 2e-2, "max_tokens_0_vs_1_max_err": entries_01,
+                               "flash_prefill_launches": fp_launched},
+           "token_steps": steps, "prefill_2048_ms": prefill,
+           "problems": problems}
+    emit(row)
+    if problems:
+        raise AssertionError(f"guided phase: {problems}")
     return row
 
 
@@ -4193,6 +4621,7 @@ def main() -> int:
     dense = timed("engine", phase_engine, "auto", surface=True)
     timed("profile", phase_profile, dense["engine"])
     timed("mixed_profile", phase_mixed_profile, dense["engine"])
+    guided = timed("guided", phase_guided, dense["engine"])
     dense_launches = dense["launches"]
     dense.pop("engine")  # free the dense engine before the int8 one boots
     free_engines()
@@ -4246,6 +4675,10 @@ def main() -> int:
             # int8 engine (the encode lane's entry runs on neither).
             **({"launches_lora": lora["int8" if "int8" in name else "auto"]
                 ["launches"][name]} if name != "flash_prefill_batched" else {}),
+            # The guided phase's counted run (guided rows, a tool call and
+            # plain rows on the dense engine): the kernels it launched.
+            **({"launches_guided": guided["launches"][name]}
+               if guided["launches"][name] else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

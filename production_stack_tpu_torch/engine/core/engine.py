@@ -10,8 +10,14 @@ sequence decodes one token beside one prefill chunk), a mixed K-step
 window, a K-step decode window, or one single-token decode step:
 
 - prefills, K=1 mixed steps and decode batches whose rows need
-  host-visible sampling state (logprobs, ``logit_bias``) run synchronously
-  and sample on the host side of one device read;
+  host-visible sampling state (logprobs, ``logit_bias``, guided decoding)
+  run synchronously and sample on the host side of one device read; a
+  guided row's choice is checked against its JSON automaton
+  (``engine/guided.py``, ``engine/guided_schema.py``) and replaced by the
+  best valid candidate when the device's pick does not fit;
+- an ``echo`` + ``logprobs`` prompt runs the dedicated prefill with its
+  next-token targets: the lm_head sweeps the chunk's rows in slices and
+  the per-position logprobs are stitched across chunks;
 - a pure-decode plan runs as a K-step window (``decode_window``, default
   8): K decode+sample iterations with the penalties, the ``min_tokens``
   floor and per-row stop masking on the device, the carry (tokens,
@@ -104,20 +110,22 @@ no first-use hook.
 
 The engine serves the JAX package's default configuration, mixed and
 packed K-step windows, the KV tiers, speculation, the encode lane,
-multi-LoRA and tracing included (``SLICE_OVERRIDES`` is empty: no guided
-decoding / parallelism / HF weights for the target or the drafter; dense
-or int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
-wait) and raises ``NotImplementedError`` at construction for any setting
-outside it.
+multi-LoRA, tracing, guided decoding and prompt logprobs included
+(``SLICE_OVERRIDES`` is empty: no parallelism / HF weights for the target
+or the drafter; dense or int8 KV; ``mixed_window=False`` restores K=1
+mixed steps while prompts wait) and raises ``NotImplementedError`` at
+construction for any setting outside it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import queue
 import threading
 import time
+import zlib
 from collections import OrderedDict, deque
 from typing import Deque, Dict, List, Optional
 
@@ -139,6 +147,11 @@ from production_stack_tpu_torch.engine.core.sequence import (
     SequenceStatus,
     StepOutput,
     host_state_flags,
+)
+from production_stack_tpu_torch.engine.guided import JsonGuide, TokenTextCache
+from production_stack_tpu_torch.engine.guided_schema import (
+    SchemaGuide,
+    validate_instance,
 )
 from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.kv.block_pool import (
@@ -430,6 +443,10 @@ class LLMEngine:
         self._smax = config.scheduler.max_num_seqs
         self._step_counter = 0
         self._bias_cache = None
+        # Guided decoding: token id -> text, and [V] "may be valid" (the id
+        # has text, or is EOS), built at the first guided scan.
+        self._token_texts = TokenTextCache(self.tokenizer)
+        self._guided_live: Optional[np.ndarray] = None
         # Cumulative counters for stats().  admission_rejected is written
         # by the server's event loop, the rest by the step thread.
         self.total_prompt_tokens = 0
@@ -921,13 +938,21 @@ class LLMEngine:
         if not prompt_token_ids:
             prompt_token_ids = [self.tokenizer.bos_token_id or 0]
         params_obj = sampling_params or SamplingParams()
-        if params_obj.response_format not in (None, "text"):
-            raise ValueError(
-                f"response_format {params_obj.response_format!r}: guided "
-                "decoding is not ported yet"
-            )
-        if params_obj.echo and params_obj.logprobs:
-            raise ValueError("prompt logprobs (echo + logprobs) are not ported yet")
+        guide = None
+        rf = params_obj.response_format
+        if rf == "json_object":
+            guide = JsonGuide(require_object=True)
+            # Completion forces EOS; ignore_eos would append EOS text
+            # forever.  Enforced here (not only at the API boundary) so
+            # direct engine users get the same behaviour.
+            params_obj.ignore_eos = False
+        elif isinstance(rf, dict) and rf.get("type") == "json_schema":
+            # Raises SchemaCompileError (a ValueError) for schemas outside
+            # the supported subset: a 400 at the API boundary.
+            guide = SchemaGuide(rf.get("schema") or {})
+            params_obj.ignore_eos = False
+        elif rf not in (None, "text"):
+            raise ValueError(f"Unsupported response_format {rf!r}")
         adapter_idx = 0
         cache_ns = 0
         if adapter:
@@ -945,6 +970,8 @@ class LLMEngine:
             adapter=adapter,
             adapter_idx=adapter_idx,
             cache_ns=cache_ns,
+            echo_prompt_len=len(prompt_token_ids),
+            guide=guide,
         )
         self.scheduler.add_seq(seq)
         self.total_prompt_tokens += len(prompt_token_ids)
@@ -1905,14 +1932,17 @@ class LLMEngine:
 
     def _can_window(self, seqs: List[Sequence]) -> bool:
         """K-step windows serve everything except host-sampled features
-        (logprobs, logit_bias); each fallback is counted by reason, once a
+        (logprobs, logit_bias, guided decoding); each fallback is counted
+        by reason (a row's first of logprobs, logit_bias, guided), once a
         reason a dispatch, and the first reason by name is remembered for
         the flight record of the K=1 dispatch that replaces the window."""
         self._last_window_decline = None
         if self._window_steps <= 1:
             return False
         reasons = {
-            "logprobs" if s.sampling_params.logprobs else "logit_bias"
+            "logprobs" if s.sampling_params.logprobs
+            else "logit_bias" if s.sampling_params.logit_bias
+            else "guided"
             for s in seqs if self._host_state_flags(s)[0]
         }
         for reason in reasons:
@@ -2997,7 +3027,24 @@ class LLMEngine:
         if self.lora_registry is not None:
             lens = np.append(lens, np.int32(seq.adapter_idx))  # up in one copy
         lens = self._put(lens)
-        logits = llama.prefill(
+        sp = seq.sampling_params
+        want_plp = sp.echo and sp.logprobs
+        plp_kwargs = {}
+        if want_plp:
+            # Row t's target is the next prompt token (absolute position
+            # cached_len + t + 1); rows at or past the prompt's tail target
+            # 0 and their entries are discarded.
+            targets = np.zeros((len(tokens),), np.int32)
+            m = min(plan.num_new_tokens,
+                    len(seq.prompt_token_ids) - plan.cached_len - 1)
+            if m > 0:
+                targets[:m] = seq.prompt_token_ids[
+                    plan.cached_len + 1 : plan.cached_len + 1 + m
+                ]
+            # A fixed k, as the JAX engine's (a static jit argument there);
+            # _collect_prompt_logprobs slices to the request's k.
+            plp_kwargs = {"prompt_targets": self._put(targets), "prompt_topk": 20}
+        out = llama.prefill(
             self.params, self.config.model,
             tokens=self._put(tokens),
             cached_len=lens[:1],
@@ -3005,13 +3052,45 @@ class LLMEngine:
             new_block_ids=self._put(new_block_ids),
             valid_len=lens[1:2],
             kv_caches=self.kv_caches,
+            **plp_kwargs,
             **self._lora_kwargs(lens[2:]),
         )
+        if want_plp:
+            logits, plp = out
+            self._collect_prompt_logprobs(seq, plan, plp)
+        else:
+            logits = out
         if not plan.is_final:
             # Non-final chunk of a long prompt: KV is written, the logits
             # are mid-prompt — nothing to sample yet.
             return []
-        return self._finalize_final_prefill(seq, logits)
+        outputs = self._finalize_final_prefill(seq, logits)
+        if want_plp and outputs and seq.prompt_lp is not None:
+            # The assembled per-position entries ride the request's first
+            # event (position 0 has no predictor: None).
+            outputs[0].prompt_logprobs = [(None, None)] + [
+                seq.prompt_lp.get(pos, (None, None))
+                for pos in range(1, seq.echo_prompt_len)
+            ]
+        return outputs
+
+    def _collect_prompt_logprobs(self, seq: Sequence, plan: PrefillPlan, plp) -> None:
+        """Stitch one chunk's (target_lp [T], top_ids [T, k], top_lps
+        [T, k]) into the sequence's absolute-position map (a prompt longer
+        than the largest bucket arrives in several chunks)."""
+        tlp, top_ids, top_lps = (t.cpu().numpy() for t in plp)
+        if seq.prompt_lp is None:
+            seq.prompt_lp = {}
+        k = min(seq.sampling_params.top_logprobs or 0, top_ids.shape[1])
+        for t in range(plan.num_new_tokens):
+            pos = plan.cached_len + t + 1  # the entry of the predicted token
+            if pos >= seq.echo_prompt_len:
+                break
+            pairs = (
+                [(int(top_ids[t, j]), float(top_lps[t, j])) for j in range(k)]
+                if k else None
+            )
+            seq.prompt_lp[pos] = (float(tlp[t]), pairs)
 
     def _prefill_plan_arrays(self, plan: PrefillPlan):
         """(tokens [T], new_block_ids [T//bs], prefix_ids [Bmax], lengths
@@ -3104,6 +3183,7 @@ class LLMEngine:
             and not s.sampling_params.min_tokens
             and not s.sampling_params.logprobs
             and not s.sampling_params.logit_bias
+            and s.guide is None
             for s in seqs
         ):
             return self._run_decode_speculative(plan, self._legacy_spec)
@@ -3386,9 +3466,15 @@ class LLMEngine:
             all_greedy=all(s.sampling_params.temperature <= 0 for s in seqs),
         )
         token_ids = out[: len(seqs)].tolist()  # the step's device read
+        any_logprobs = any(s.sampling_params.logprobs for s in seqs)
+        if any(s.guide is not None for s in seqs):
+            token_ids = self._guided_override(logits, seqs, token_ids)
+            if any_logprobs:
+                # The logprobs gather below reads the constrained choices.
+                out = self._put(np.array(token_ids + [0] * pad, np.int32))
 
         logprob_info: List = [None] * len(seqs)
-        if any(s.sampling_params.logprobs for s in seqs):
+        if any_logprobs:
             chosen, top_ids, top_logps = sampling_lib.top_logprobs_of(
                 logits, out, k=20
             )
@@ -3404,6 +3490,117 @@ class LLMEngine:
                          for j in range(n)],
                     )
         return token_ids, logprob_info
+
+    def _guided_live_mask(self, V: int) -> np.ndarray:
+        """[V] bool: the ids a guide could accept, those with text and EOS
+        (an id with no text never advances an automaton), decoded once."""
+        if self._guided_live is None or len(self._guided_live) != V:
+            live = np.array([bool(self._token_texts.text(t)) for t in range(V)])
+            eos = self.tokenizer.eos_token_id
+            if eos is not None and 0 <= eos < V:
+                live[eos] = True
+            self._guided_live = live
+        return self._guided_live
+
+    def _guided_override(self, logits: torch.Tensor, seqs: List[Sequence],
+                         token_ids: List[int]) -> List[int]:
+        """Constrained choice for guided sequences (engine/guided.py), as
+        the JAX engine makes it: the device's pick is kept when the
+        automaton accepts it; otherwise candidates are checked in
+        descending-logit order (post bias and penalties) and the best valid
+        one replaces it, or with temperature one of the first 8 valid ones
+        is drawn from a per-sequence numpy stream.  A completed JSON value
+        forces EOS.  The guided rows' logits come back in one copy, at the
+        first row whose pick does not fit."""
+        cache = self._token_texts
+        eos = self.tokenizer.eos_token_id or 0
+        out = list(token_ids)
+        rows = None  # guided row index -> host logits [V]
+        for i, seq in enumerate(seqs):
+            guide = seq.guide
+            if guide is None:
+                continue
+            if guide.done:
+                out[i] = eos
+                continue
+            # Budget-aware closing: near the bytes needed to close the
+            # value, admit only closure-reducing tokens so it completes
+            # instead of truncating (a token is >= 1 byte).
+            sp = seq.sampling_params
+            remaining = min(
+                sp.max_tokens - seq.num_generated,
+                self.config.scheduler.max_model_len - seq.num_tokens,
+            )
+            guide.closing = remaining <= guide.closure_cost() + 4
+            # Fast path: the unconstrained choice usually fits.  EOS at a
+            # may-finish point is a valid choice to end.
+            if out[i] == eos and guide.may_finish():
+                guide.finalize()
+                continue
+            fast_bytes = cache.text(out[i]).encode()
+            st = guide.try_token(fast_bytes)
+            if st is not None and out[i] != eos:
+                guide.accept(st, fast_bytes)
+                continue
+            if rows is None:
+                idx = [j for j, s in enumerate(seqs)
+                       if s.guide is not None and not s.guide.done]
+                rows = dict(zip(idx, logits[idx].float().cpu().numpy()))
+            row = rows[i]
+            live = self._guided_live_mask(len(row))
+            # Valid tokens sit at the top of the distribution in practice:
+            # scan an argpartitioned top slice first and pay the full sort
+            # only when it has none.  Ids that cannot be valid are skipped.
+            want = 1 if sp.temperature <= 0 else 8
+            valid: List = []
+            for scope in (64, len(row)):
+                if scope >= len(row):
+                    order = np.argsort(-row)
+                else:
+                    top = np.argpartition(-row, scope)[:scope]
+                    order = top[np.argsort(-row[top])]
+                for tid in order[live[order]].tolist():
+                    if tid == eos:
+                        if guide.may_finish():
+                            valid.append((tid, "FINISH"))
+                            if len(valid) >= want:
+                                break
+                        continue
+                    st = guide.try_token(cache.text(tid).encode())
+                    if st is not None:
+                        valid.append((tid, st))
+                        if len(valid) >= want:
+                            break
+                if valid:
+                    break
+            if not valid:
+                # No token makes progress: end the request rather than loop.
+                logger.warning(
+                    "guided decoding: no valid continuation for %s", seq.seq_id
+                )
+                out[i] = eos
+                continue
+            if len(valid) == 1:
+                tid, st = valid[0]
+            else:
+                lps = np.array([row[t] for t, _ in valid], np.float64)
+                lps = lps / max(sp.temperature, 1e-5)
+                p = np.exp(lps - lps.max())
+                p /= p.sum()
+                rng = np.random.default_rng(
+                    # A stream a sequence: co-batched guided choices (the
+                    # n > 1 fan-out) must not collapse to the same picks.
+                    (sp.seed if sp.seed is not None else 0) * 1000003
+                    + self._step_counter * 31
+                    + zlib.crc32(seq.seq_id.encode())
+                )
+                tid, st = valid[int(rng.choice(len(valid), p=p))]
+            if st == "FINISH":
+                guide.finalize()
+            else:
+                guide.accept(st, cache.text(tid).encode())
+            out[i] = tid
+        return out
 
     # -- finishing ---------------------------------------------------------
 
@@ -3464,7 +3661,29 @@ class LLMEngine:
 
     def _finish_seq_now(self, seq: Sequence, reason: FinishReason) -> FinishReason:
         """The single finish protocol: scheduler release + prefix-cache
-        registration, counters, registry removal."""
+        registration, counters, registry removal.  Returns the final
+        reason: a guided sequence's assembled text is checked again, and
+        one that does not parse (or, for json_schema, validate) finishes
+        as GUIDED_INVALID."""
+        rf = seq.sampling_params.response_format
+        if (
+            reason == FinishReason.STOP
+            and seq.guide is not None
+            and (rf == "json_object" or isinstance(rf, dict))
+        ):
+            # The automaton checked each token's text from decode([id]);
+            # the assembled text is what the client receives.
+            try:
+                obj = json.loads(self.tokenizer.decode(seq.output_token_ids))
+                valid = not isinstance(rf, dict) or validate_instance(
+                    rf.get("schema") or {}, obj)
+            except (ValueError, RecursionError):  # a JSONDecodeError, deep nesting
+                valid = False
+            if not valid:
+                logger.warning(
+                    "guided json output failed final parse for %s", seq.seq_id
+                )
+                reason = FinishReason.GUIDED_INVALID
         seq.finish_reason = reason
         self.scheduler.finish_seq(seq)
         self._release_transfers(seq.seq_id)

@@ -33,6 +33,7 @@ encode forward run the base model, as in the JAX package.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import torch
@@ -246,9 +247,15 @@ def prefill(
     kv_caches: KVCaches,  # updated in place
     lora=None,  # the LoRA slot stacks (engine/lora.py); None = off
     adapter_idx=None,  # this sequence's slot: a host int or a [1] tensor
-) -> torch.Tensor:
+    prompt_targets=None,  # [T] int: each row's next-token id (echo logprobs)
+    prompt_topk: int = 0,  # top-k alternatives a prompt position
+):
     """One sequence's prefill chunk.  Writes the chunk's KV into its new
-    blocks and returns the last valid token's logits [V] (fp32).
+    blocks and returns the last valid token's logits [V] (fp32).  With
+    ``prompt_targets`` it returns ``(logits, (target_logprob [T], top_ids
+    [T, k], top_logprobs [T, k]))``, the per-position next-token logprobs
+    of the OpenAI ``echo`` + ``logprobs`` surface (see
+    :func:`prompt_logprobs`).
 
     ``prefix_block_ids`` may be 0-padded like the JAX package's (to the
     block-table width): the kernel reads the prefix through it, the first
@@ -276,7 +283,31 @@ def prefill(
         x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
     x = _norm(x, params["norm"], cfg)
     last = torch.clamp(valid.long() - 1, min=0)  # the last valid row
-    return _lm_head(params, cfg, x.index_select(0, last)[0])
+    logits = _lm_head(params, cfg, x.index_select(0, last)[0])
+    if prompt_targets is None:
+        return logits
+    return logits, prompt_logprobs(params, cfg, x, prompt_targets, prompt_topk)
+
+
+def prompt_logprobs(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                    targets: torch.Tensor, k: int):
+    """The lm_head sweep of a prefill chunk's final hidden rows ``x``
+    [T, h]: each row's log-softmax (fp32), the entry of its target, and its
+    top ``k`` (at least 1).  It runs over C = gcd(T, 128) rows at a time
+    (buckets are any ints, e.g. 192), so the whole [T, V] array is never
+    built: at V = 128256 a [128, V] slice is 65 MB of fp32.  As in the JAX
+    package, plain tensor ops, outside any kernel."""
+    T = x.shape[0]
+    C = math.gcd(T, 128)
+    k = max(k, 1)
+    tlp, top_ids, top_lps = [], [], []
+    for r in range(0, T, C):
+        lsm = torch.log_softmax(_lm_head(params, cfg, x[r:r + C]), dim=-1)
+        tlp.append(lsm.gather(-1, targets[r:r + C, None].long())[:, 0])
+        lp, ids = torch.topk(lsm, k, dim=-1)
+        top_ids.append(ids.to(torch.int32))
+        top_lps.append(lp)
+    return torch.cat(tlp), torch.cat(top_ids), torch.cat(top_lps)
 
 
 def decode(

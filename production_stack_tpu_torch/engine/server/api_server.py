@@ -45,7 +45,15 @@ contract the router expects from a serving engine, over
   gets a 400 before any stream starts), ``/v1/models`` lists each loaded
   adapter, and ``GET``/``POST /admin/lora`` and ``DELETE
   /admin/lora/{name}`` list, load (a PEFT safetensors file, read off the
-  event loop) and unload adapters at run time.
+  event loop) and unload adapters at run time;
+- guided decoding (``response_format`` ``json_object`` and
+  ``json_schema``; a schema outside the compiled subset gets a 400 before
+  any stream starts), tool calls (``tools`` / ``tool_choice``: a forced
+  tool's arguments are generated as guided JSON, under the tool's schema
+  when it compiles, and answered as ``tool_calls``), and prompt logprobs
+  (``echo`` with ``logprobs`` on completions: the prompt's per-position
+  entries first in the ``logprobs`` block; ``max_tokens`` 0 scores the
+  prompt alone).
 
 It reuses nothing of the JAX module (which forces the JAX platform and
 starts ``jax.distributed``).
@@ -54,11 +62,10 @@ starts ``jax.distributed``).
         --model llama-3.1-8b --port 9200 [--device cuda] \
         [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
-Not ported yet, with their flags: tool calls, guided decoding
-(``response_format``), prompt logprobs (``echo`` with ``logprobs``),
-parallelism and the multi-host lockstep group (with it the
-JAX server's rule that turns the encode lane off in such a group), int8
-weights and loading a weights path (the target's or the drafter's).
+Not ported yet, with their flags: parallelism and the multi-host
+lockstep group (with it the JAX server's rule that turns the encode lane
+off in such a group), int8 weights and loading a weights path (the
+target's or the drafter's).
 """
 
 from __future__ import annotations
@@ -84,6 +91,10 @@ from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
 from production_stack_tpu_torch.engine.core.sequence import (
     FinishReason,
     SamplingParams,
+)
+from production_stack_tpu_torch.engine.guided_schema import (
+    SchemaCompileError,
+    compile_schema_cached,
 )
 from production_stack_tpu_torch.engine.server.async_engine import (
     AsyncEngine,
@@ -139,16 +150,42 @@ def _sampling_from_body(body: dict, chat: bool) -> SamplingParams:
     min_p = float(body.get("min_p") or 0.0)
     if not 0.0 <= min_p <= 1.0:
         raise ValueError(f"'min_p' must be in [0, 1], got {min_p}")
+    response_format = None
     rf = body.get("response_format")
-    rf_type = rf.get("type") if isinstance(rf, dict) else rf
-    if rf_type not in (None, "text"):
-        raise ValueError(
-            f"response_format {rf_type!r}: guided decoding is not ported "
-            "to this engine yet (supported: text)"
-        )
+    if rf is not None:
+        rf_type = rf.get("type") if isinstance(rf, dict) else rf
+        if rf_type == "json_object":
+            response_format = "json_object"
+        elif rf_type == "json_schema":
+            # OpenAI structured outputs: {"type": "json_schema",
+            # "json_schema": {"name": ..., "schema": {...}, "strict": ...}}.
+            spec = rf.get("json_schema") if isinstance(rf, dict) else None
+            if not isinstance(spec, dict):
+                raise ValueError(
+                    "response_format json_schema requires a 'json_schema' "
+                    "object"
+                )
+            schema = spec.get("schema")
+            if not isinstance(schema, dict):
+                raise ValueError(
+                    "response_format json_schema requires "
+                    "json_schema.schema (an object)"
+                )
+            # Compiled here so an unsupported schema gets a 400 before any
+            # stream starts (SchemaCompileError is a ValueError); the
+            # cache lets each sequence's guide reuse this compilation.
+            compile_schema_cached(schema)
+            response_format = {"type": "json_schema", "schema": schema}
+        elif rf_type not in ("text", None):
+            raise ValueError(
+                f"Unsupported response_format type {rf_type!r} "
+                "(supported: text, json_object, json_schema)"
+            )
     raw_max = body.get("max_tokens")
     if raw_max is None:
         raw_max = body.get("max_completion_tokens")
+    # An explicit 0 scores the prompt (echo + logprobs) and generates
+    # nothing; only absence takes the default.
     max_tokens = 128 if raw_max is None else int(raw_max)
     if max_tokens < 0:
         raise ValueError(f"'max_tokens' must be >= 0, got {max_tokens}")
@@ -162,9 +199,6 @@ def _sampling_from_body(body: dict, chat: bool) -> SamplingParams:
         raise ValueError(
             f"'min_tokens' must be in [0, max_tokens], got {min_tokens}"
         )
-    echo = bool(body.get("echo")) and not chat
-    if echo and want_logprobs:
-        raise ValueError("'echo' with 'logprobs' (prompt logprobs) is not ported yet")
     return SamplingParams(
         max_tokens=max_tokens,
         temperature=float(body.get("temperature") or 0.0),
@@ -174,8 +208,11 @@ def _sampling_from_body(body: dict, chat: bool) -> SamplingParams:
         stop=stop,
         stop_token_ids=stop_token_ids,
         logit_bias=logit_bias,
-        echo=echo,
-        ignore_eos=bool(body.get("ignore_eos", False)),
+        echo=bool(body.get("echo")) and not chat,
+        # Guided decoding forces EOS when the value completes, so
+        # ignore_eos would loop forever: response_format wins.
+        ignore_eos=bool(body.get("ignore_eos", False)) and response_format is None,
+        response_format=response_format,
         seed=body.get("seed"),
         logprobs=want_logprobs,
         top_logprobs=max(0, min(top_logprobs, 20)),
@@ -244,7 +281,89 @@ class StopChecker:
 def _finish_reason(event, stopped: bool) -> str:
     if stopped or event.finish_reason == FinishReason.STOP:
         return "stop"
+    if event.finish_reason == FinishReason.GUIDED_INVALID:
+        return "guided_invalid"
     return "length"
+
+
+def _forced_tool(tools, tool_choice) -> Optional[dict]:
+    """The tool a chat request forces (``tool_choice`` a function or
+    ``"required"``), None for ``"auto"`` / ``"none"``; raises ValueError
+    with the JAX server's message for a malformed request."""
+    if tool_choice not in ("auto", "none") and not tools:
+        # OpenAI: tool_choice is only allowed when tools are given.
+        raise ValueError("'tool_choice' requires a non-empty 'tools' array")
+    if not tools:
+        return None
+    if not isinstance(tools, list) or not all(
+        isinstance(t, dict) and t.get("type") == "function"
+        and isinstance(t.get("function"), dict) and t["function"].get("name")
+        for t in tools
+    ):
+        raise ValueError(
+            "'tools' must be a list of {type: function, function: {name, ...}}"
+        )
+    if isinstance(tool_choice, dict):
+        wanted = (tool_choice.get("function") or {}).get("name")
+        match = [t for t in tools if t["function"]["name"] == wanted]
+        if not match:
+            raise ValueError(f"tool_choice function {wanted!r} not in tools")
+        return match[0]
+    if tool_choice == "required":
+        if len(tools) > 1:
+            # Choosing among several tools needs a per-family output
+            # parser; the caller forces one instead of getting tools[0].
+            raise ValueError(
+                "tool_choice 'required' with multiple tools is not "
+                "supported; force one with {type: function, function: "
+                "{name: ...}}"
+            )
+        return tools[0]
+    if tool_choice not in ("auto", "none"):
+        raise ValueError(
+            f"Unsupported tool_choice {tool_choice!r} (auto | none | "
+            "required | {type: function, ...})"
+        )
+    return None
+
+
+def _steer_messages(messages: list, tool: dict) -> list:
+    """The messages with a forced tool's instruction on the last user
+    turn (an appended system message would be refused by strict
+    templates); the JSON guarantee itself comes from guided decoding."""
+    steer = (
+        f"\n\n(Call the function {tool['function']['name']} by replying "
+        "with ONLY its JSON arguments object.)"
+    )
+    messages = list(messages)
+    if messages and messages[-1].get("role") == "user" and \
+            isinstance(messages[-1].get("content"), str):
+        messages[-1] = dict(messages[-1], content=messages[-1]["content"] + steer)
+    else:
+        messages.append({"role": "user", "content": steer.strip()})
+    return messages
+
+
+def _tool_response_format(tool: dict):
+    """A forced tool's arguments format: its parameters schema when that
+    compiles under the guided subset (strict tool calls), else any JSON
+    object."""
+    schema = (tool.get("function") or {}).get("parameters")
+    if isinstance(schema, dict):
+        try:
+            compile_schema_cached(schema)
+            return {"type": "json_schema", "schema": schema}
+        except SchemaCompileError:
+            pass  # outside the subset: the generic JSON guarantee
+    return "json_object"
+
+
+def _parses(text: str) -> bool:
+    try:
+        json.loads(text)
+        return True
+    except json.JSONDecodeError:
+        return False
 
 
 def _is_engine_data_plane(request: web.Request) -> bool:
@@ -529,10 +648,23 @@ def build_engine_app(
         except json.JSONDecodeError:
             return _error("invalid JSON")
         tokenizer = engine.engine.tokenizer
-        if chat and body.get("tools"):
-            return _error("'tools' (tool calls) are not ported to this engine yet")
+        forced_tool = None
         if chat:
-            prompt = tokenizer.apply_chat_template(list(body.get("messages") or []))
+            tools = body.get("tools")
+            tool_choice = body.get("tool_choice", "auto")
+            try:
+                forced_tool = _forced_tool(tools, tool_choice)
+            except ValueError as e:
+                return _error(str(e))
+            messages = list(body.get("messages") or [])
+            if forced_tool is not None:
+                messages = _steer_messages(messages, forced_tool)
+            prompt = tokenizer.apply_chat_template(
+                messages,
+                # 'none': the model must not call tools, so it is not
+                # prompted with them.
+                tools=tools if tool_choice != "none" else None,
+            )
         else:
             prompt = body.get("prompt") or ""
             if isinstance(prompt, list):
@@ -550,6 +682,11 @@ def build_engine_app(
         include_usage = bool((stream_options or {}).get("include_usage"))
         if params.echo and stream:
             return _error("'echo' is not supported with streaming")
+        if forced_tool is not None:
+            if stream:
+                return _error("forced tool_choice is not supported with streaming")
+            params.response_format = _tool_response_format(forced_tool)
+            params.ignore_eos = False
         request_id = (
             request.headers.get("x-request-id") or f"cmpl-{uuid.uuid4().hex[:16]}"
         )
@@ -864,8 +1001,10 @@ def build_engine_app(
         async def drain_choice(i: int, gen):
             checker = checkers[i]
             text_parts, entries = [], []
-            finish, out_tokens = "length", 0
+            finish, out_tokens, prompt_lp = "length", 0, None
             async for event in gen:
+                if event.prompt_logprobs is not None:
+                    prompt_lp = event.prompt_logprobs
                 delta, stopped = push(checker, event.token_id)
                 text_parts.append(delta)
                 if params.logprobs and event.token_id >= 0:
@@ -884,7 +1023,7 @@ def build_engine_app(
                 # Tokens a (multi-token) stop string consumed leave the
                 # content, and their entries with them.
                 entries = entries[: checker.aligned_token_count()]
-            return "".join(text_parts), entries, finish, out_tokens
+            return "".join(text_parts), entries, finish, out_tokens, prompt_lp
 
         tasks = [asyncio.create_task(drain_choice(i, g)) for i, g in enumerate(gens)]
         try:
@@ -902,12 +1041,28 @@ def build_engine_app(
         obs.record_detokenize(request_id, detok_s[0])
         choices = []
         total_out = 0
-        for i, (text, entries, finish, out_tokens) in enumerate(drained):
+        for i, (text, entries, finish, out_tokens, prompt_lp) in enumerate(drained):
             total_out += out_tokens
             if chat:
-                choice = {"index": i,
-                          "message": {"role": "assistant", "content": text},
-                          "finish_reason": finish}
+                message = {"role": "assistant", "content": text}
+                if forced_tool is not None and _parses(text):
+                    # The OpenAI tool-call shape: the arguments are the
+                    # guided JSON verbatim.  A value cut by the budget is
+                    # answered as plain content with its finish reason.
+                    message = {
+                        "role": "assistant",
+                        "content": None,
+                        "tool_calls": [{
+                            "id": f"call_{uuid.uuid4().hex[:20]}",
+                            "type": "function",
+                            "function": {
+                                "name": forced_tool["function"]["name"],
+                                "arguments": text,
+                            },
+                        }],
+                    }
+                    finish = "tool_calls"
+                choice = {"index": i, "message": message, "finish_reason": finish}
                 if params.logprobs:
                     choice["logprobs"] = {"content": [logprob_entry(e) for e in entries]}
             else:
@@ -915,18 +1070,31 @@ def build_engine_app(
                           "finish_reason": finish}
                 if params.logprobs:
                     toks = [token_text(e.token_id) for e in entries]
+                    lps = [e.logprob for e in entries]
+                    tops = [
+                        {tokenizer.decode([tid]): lp
+                         for tid, lp in (e.top_logprobs or [])}
+                        for e in entries
+                    ]
+                    if params.echo and prompt_lp is not None:
+                        # The echoed prompt's entries first (the lm-eval
+                        # loglikelihood surface); position 0's is null.
+                        toks = [tokenizer.decode([tid]) for tid in
+                                prompt_token_ids[: len(prompt_lp)]] + toks
+                        lps = [lp for lp, _ in prompt_lp] + lps
+                        tops = [
+                            None if pairs is None else
+                            {tokenizer.decode([tid]): lp for tid, lp in pairs}
+                            for _, pairs in prompt_lp
+                        ] + tops
                     text_offsets, pos = [], 0
                     for t in toks:
                         text_offsets.append(pos)
                         pos += len(t)
                     choice["logprobs"] = {
                         "tokens": toks,
-                        "token_logprobs": [e.logprob for e in entries],
-                        "top_logprobs": [
-                            {tokenizer.decode([tid]): lp
-                             for tid, lp in (e.top_logprobs or [])}
-                            for e in entries
-                        ],
+                        "token_logprobs": lps,
+                        "top_logprobs": tops,
                         "text_offset": text_offsets,
                     }
             choices.append(choice)

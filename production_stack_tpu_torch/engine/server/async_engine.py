@@ -76,6 +76,8 @@ class TokenEvent:
     num_output_tokens: int
     logprob: Optional[float] = None
     top_logprobs: Optional[list] = None  # [(token_id, logprob), ...]
+    # First event of an echo+logprobs request: per-prompt-position entries.
+    prompt_logprobs: Optional[list] = None
 
 
 class AsyncEngine:
@@ -375,6 +377,7 @@ class AsyncEngine:
                             num_output_tokens=out.num_output_tokens,
                             logprob=out.logprob,
                             top_logprobs=out.top_logprobs,
+                            prompt_logprobs=out.prompt_logprobs,
                         ),
                     )
             # Step boundary: at most one encode batch while generation is

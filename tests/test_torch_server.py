@@ -124,9 +124,17 @@ async def test_port_app_matches_jax_app():
             assert outs[0] == outs[1]
             assert outs[1][1] == "stop" and stop not in outs[1][0]
 
-        r = await tclient.post("/v1/completions", json={
-            "prompt": "x", "response_format": {"type": "json_object"}})
-        assert r.status == 400
+        # Guided decoding: both servers answer the same parsed JSON.
+        parsed = []
+        for client in (jclient, tclient):
+            r = await client.post("/v1/completions", json={
+                "prompt": "x", "response_format": {"type": "json_object"},
+                "model": "tiny-llama"})
+            assert r.status == 200, await r.text()
+            c = (await r.json())["choices"][0]
+            parsed.append((json.loads(c["text"]), c["finish_reason"]))
+        assert parsed[0] == parsed[1]
+        assert parsed[1][1] == "stop" and isinstance(parsed[1][0], dict)
     finally:
         await jclient.close()
         await tclient.close()
