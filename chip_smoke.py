@@ -35,7 +35,14 @@ non-zero (no phase is caught and passed over):
    split settings (``split_int8``: split tokens 64/128/256, blocks an SM
    8/12/16); the int8 cache writer at a decode step's 8 rows and a
    512-token chunk, its data and scales equal bit for bit to the plain
-   writer's on the CPU.  Each case reports
+   writer's on the CPU; the W8A16 GEMM of int8 weights at llama-3.1-8b's
+   projections (q/o, k/v, gate/up, down, lm_head) and the main path's row
+   counts (1, 8, 40, 128, 520, 2048, 16384), ragged M/N/K edges and fp32
+   activations, within 1e-3 of the largest |output| (TF32 off), timed
+   over weight copies past the L2 cache beside cuBLAS's bf16 GEMM over
+   the same-shaped bf16 weight (and ``torch._weight_int8pack_mm`` at
+   decode row counts where this torch has it), with a forward's 225
+   launches summed at 8 and 520 rows.  Each case reports
    its max abs error against the stated tolerance and the kernel's, the
    plain version's and, for attention, F.scaled_dot_product_attention's
    times (the last one a yardstick only; the port never calls it) beside
@@ -47,7 +54,9 @@ non-zero (no phase is caught and passed over):
    small input, once on dense and once on int8 KV caches: 2 layers at
    llama-3.1-8b width, fp32, chunked prefill, decode and one mixed step
    (a decode row beside a prefill chunk over its cached prefix), logits
-   within 2e-3; and the encode forward (``llama.encode_batch``, 4 texts of
+   within 2e-3, then both again with int8 weights (``quantize_params``;
+   every projection through the W8A16 kernel's fp32 body, its launches
+   counted); and the encode forward (``llama.encode_batch``, 4 texts of
    128, 1, 37 and 0 tokens) on the card against the CPU within 2e-3, one
    batched-entry launch a layer.  Then the K-step window path at the same
    width and depth
@@ -125,6 +134,20 @@ non-zero (no phase is caught and passed over):
    ``_guided_override`` a token), and a 2048-token prefill with and
    without prompt logprobs.  Phase 3's reference also holds the 100-token
    prompt's prompt-logprob entries, card against CPU, within 2e-3.
+   Then int8 weights (``model.quantization="int8"``) on a fresh engine,
+   dense KV (the bf16 one freed first): the 8 requests and the HTTP
+   completion with every window, mixed-window and pipelined dispatch
+   under ``set_sync_debug_mode("error")``; the W8A16 kernel must launch
+   7 times a layer and once for the lm_head in every forward (a whole
+   number of forwards, at least one a window and mixed iteration) and
+   no other phase's engine may launch it; the pool must hold more tokens
+   than the bf16-weight engine's; then its token step and
+   prefill-carrying step as in phase 5.  Then HF safetensors
+   (``phase_hf``): a 2-layer llama-3.1-8b checkpoint written with
+   ``safetensors.torch`` as two shards and an index, loaded onto the card
+   (every tensor bit-equal, a 512-token prefill's logits equal to the
+   source tree's bit for bit), and an engine booted from it with int8
+   weights (its int8 tree the source's, one greedy request served).
 6. Phases 4 and 5 again with ``cache.kv_cache_dtype="int8"`` on a fresh
    engine (the dense one freed first): the int8 paged-decode, the int8
    cache writer and flash prefill over the int8 pool must launch and the
@@ -757,6 +780,134 @@ def check_batched_prefill(gen, name, B, T, H, K, D, lens, dtype=torch.bfloat16,
     return row
 
 
+# llama-3.1-8b's projections as (K, N) of the [in, out] weight, and the
+# rows the main path gives them: 8 (a token step of 8 rows), 1 (a K=1
+# step), 40 (the drafter's verify, 8 x 5 rows), 128 (the prompt-logprob
+# sweep's slice), 520 (a mixed iteration: 8 decode rows + a 512-token
+# chunk), 2048 (a prompt) and 16384 (an encode batch of 8 x 2048).
+W8A16_SHAPES = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
+                "down": (14336, 4096), "lm_head": (4096, 128256)}
+W8A16_PER_LAYER = {"q_o": 2, "k_v": 2, "gate_up": 2, "down": 1}
+W8A16_L2_BYTES = 150 << 20  # weight copies the timed calls cycle through: past the 50 MB L2
+
+
+def check_w8a16(gen, name, M, K, N, dtype=torch.bfloat16, time_it=True) -> dict:
+    """The W8A16 GEMM at x [M, K] (N(0, 1), ``dtype``), an int8 weight [K,
+    N] of uniform values in [-127, 127] and fp32 scales of a 0.02-std
+    weight's size, against its plain version on the card with TF32 off:
+    within 1e-3 of the largest |output| (the same fp32 sums of exact
+    products, in another order); for bf16 x its bf16 output equal to its
+    fp32 output rounded.  The timed calls cycle through copies of
+    the weight that together exceed the L2 cache, as a forward finds each
+    weight cold; the yardstick is cuBLAS's bf16 product over the
+    dequantized bf16 weight of the same shape (what the bf16-weight engine
+    runs), and ``torch._weight_int8pack_mm`` where this torch has it for
+    CUDA (bf16 scales, so not the same function bit for bit), at decode row
+    counts.  The port calls neither."""
+    from production_stack_tpu_torch.engine.ops.kernels import w8a16
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    x = torch.randn((M, K), generator=gen, device=dev).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    s = (torch.rand((N,), generator=gen, device=dev) + 0.5) * (0.08 / 127)
+    got = w8a16.w8a16_matmul(x, q, s)
+    want = w8a16.w8a16_matmul_plain(x, q, s)
+    # The bf16 output (what callers that cast at once take): the fp32
+    # result rounded, bit for bit.
+    rounded = (torch.equal(w8a16.w8a16_matmul(x, q, s, dtype), got.to(dtype))
+               if dtype == torch.bfloat16 else None)
+    torch.cuda.synchronize()
+    top = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    tol = 1e-3 * top
+    row = {"case": name, "M": M, "K": K, "N": N, "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": err, "tol": tol, "out_absmax": top,
+           "bf16_out_is_rounded_fp32": rounded}
+    if not torch.isfinite(got).all() or got.shape != (M, N) or err > tol or rounded is False:
+        raise AssertionError(f"w8a16 {name}: max abs err {err} > {tol} or bf16 output "
+                             f"not the rounded fp32 result ({rounded})")
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = M * K * esz + K * N + 4 * N + 4 * M * N
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
+    if not time_it:
+        return row
+    copies = max(1, min(8, -(-W8A16_L2_BYTES // (K * N))))
+    qs = [q] + [q.clone() for _ in range(copies - 1)]
+    turn = [0]
+
+    def cycle(fn, ws):
+        def run():
+            turn[0] = (turn[0] + 1) % len(ws)
+            return fn(ws[turn[0]])
+        return run
+
+    row["weight_copies"] = copies
+    row["kernel_ms"] = graph_time_ms(cycle(lambda w: w8a16.w8a16_matmul(x, w, s), qs),
+                                     iters=8 * copies if M < 4096 else copies)
+    row["plain_ms"] = cuda_time_ms(lambda: w8a16.w8a16_matmul_plain(x, q, s), iters=3)
+    del qs
+    if dtype == torch.bfloat16:
+        ws = [q.to(torch.bfloat16) for _ in range(copies)]
+        row["library_ms"] = graph_time_ms(cycle(lambda w: torch.matmul(x, w), ws),
+                                          iters=8 * copies if M < 4096 else copies)
+        row["library"] = "torch.matmul(x, w_bf16) (cuBLAS, the bf16-weight engine's GEMM)"
+        del ws
+        try:
+            if M > 40:  # 0.15-0.6 s a call above decode row counts on the card
+                raise NotImplementedError("timed at decode row counts (M <= 40) only")
+            wt = [q.t().contiguous() for _ in range(copies)]
+            sb = s.to(torch.bfloat16)
+            torch._weight_int8pack_mm(x, wt[0], sb)
+            row["int8pack_mm_ms"] = graph_time_ms(
+                cycle(lambda w: torch._weight_int8pack_mm(x, w, sb), wt),
+                iters=8 * copies if M < 4096 else copies)
+            del wt
+        except (RuntimeError, NotImplementedError, AttributeError) as e:
+            row["int8pack_mm_ms"] = None
+            row["int8pack_mm"] = f"not available: {type(e).__name__}: {str(e)[:120]}"
+    else:
+        row["library_ms"] = None  # cuBLAS fp32 over q.float() is the plain version
+    torch.cuda.empty_cache()
+    return row
+
+
+def w8a16_cases(gen) -> list:
+    """:func:`check_w8a16` at the main path's shapes, then the edges."""
+    rows = []
+    for M in (8, 1, 40, 520, 128, 2048):
+        for proj, (K, N) in W8A16_SHAPES.items():
+            if M in (1, 40) and proj not in ("q_o", "gate_up"):
+                continue
+            if M == 128 and proj != "lm_head" or M == 2048 and proj != "gate_up":
+                continue
+            rows.append(check_w8a16(gen, f"M{M}_{proj}", M, K, N))
+    rows.append(check_w8a16(gen, "M16384_q_o", 16384, 4096, 4096))
+    # Ragged edges (M, N, K not multiples of the tiles) at each tile shape,
+    # and the fp32 body.
+    for M in (3, 17, 77, 300):
+        rows.append(check_w8a16(gen, f"M{M}_ragged", M, 4104, 1040, time_it=False))
+    rows.append(check_w8a16(gen, "M8_fp32", 8, 4096, 1024, dtype=torch.float32))
+    rows.append(check_w8a16(gen, "M100_fp32_ragged", 100, 4104, 1040, dtype=torch.float32,
+                            time_it=False))
+    return rows
+
+
+def w8a16_forward(rows: list, layers: int = 32) -> dict:
+    """A llama-3.1-8b forward's W8A16 launches at M rows (7 a layer and the
+    lm_head), summed from the cases: kernel, bound and yardstick ms."""
+    out = {}
+    for M in (8, 520):
+        by = {r["case"].split("_", 1)[1]: r for r in rows
+              if r["case"].startswith(f"M{M}_") and "kernel_ms" in r}
+        if not all(p in by for p in W8A16_SHAPES):
+            continue
+        total = {k: sum(by[p][k] * n * layers for p, n in W8A16_PER_LAYER.items())
+                 + by["lm_head"][k] for k in ("kernel_ms", "bound_ms", "library_ms")}
+        out[f"M{M}"] = dict(total, launches=7 * layers + 1)
+    return out
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version, all cases on one JSON line;
     returns the main-path row of each kernel, keyed by kernel name."""
@@ -864,6 +1015,8 @@ def phase_kernels() -> dict:
         # The batched entry (the encode lane) at 8 rows and at 1 (the
         # serial embed), bf16 and fp32, T = 128 / 512 / 2048; one D=64 case
         # (llama-3.2-1b's width) and one with a sliding window.
+        # The W8A16 GEMM at llama-3.1-8b's projections and row counts.
+        "w8a16": w8a16_cases(gen),
         "flash_prefill_batched": [
             check_batched_prefill(gen, f"B{B}_T{T}" + ("_fp32" if dt == torch.float32 else ""),
                                   B, T, H, K, D, BATCHED_LENS[T] if B == 8 else (T,), dtype=dt)
@@ -874,6 +1027,7 @@ def phase_kernels() -> dict:
                                   window=200),
         ],
     }
+    cases["w8a16_forward"] = w8a16_forward(cases["w8a16"])
     emit({"phase": "kernels", **cases})
     # The main path's shapes: 8 decode rows; flash prefill's paged entry at
     # a 512-token chunk over 2560 cached tokens (most prefill launches of a
@@ -893,7 +1047,13 @@ def phase_kernels() -> dict:
                                   also=[cases["kv_write_int8"][1]]),
             # The encode phase's batch: 8 texts at T = 2048; beside it the
             # serial embed's B = 1 and the other T buckets.
-            "flash_prefill_batched": dict(batched[0], also=batched[1:6])}
+            "flash_prefill_batched": dict(batched[0], also=batched[1:6]),
+            # A token step's largest projections (gate and up, 8 rows);
+            # beside them every other shape of the main path.
+            "w8a16": dict(next(r for r in cases["w8a16"] if r["case"] == "M8_gate_up"),
+                          also=[r for r in cases["w8a16"]
+                                if "kernel_ms" in r and r["case"] != "M8_gate_up"],
+                          forward=cases["w8a16_forward"])}
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -955,10 +1115,14 @@ def phase_encode_reference(model: tuple) -> dict:
     return row
 
 
-def phase_reference(int8: bool, model: tuple) -> dict:
+def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dict:
     """The model path on the card against the same path on the CPU (plain
     attention) on a small input: ``model`` (:func:`reference_model`) over
-    dense or int8 KV caches, TF32 off.  One prompt is prefilled
+    dense or int8 KV caches, TF32 off; with ``weights_int8`` its weights
+    quantized (``llama.quantize_params``), so every projection runs the
+    W8A16 kernel on the card (its fp32 body) and its plain version on the
+    CPU, and each card forward must launch it 7 times a layer and once for
+    the lm_head.  One prompt is prefilled
     in two chunks, then 3 decode steps; a second prompt's first chunk is
     prefilled, then one mixed step runs the first prompt's next decode
     row beside the second prompt's last chunk over its cached prefix.
@@ -967,9 +1131,13 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     target's and the top 5 logprobs), their top ids equal up to the order
     of neighbours that tie within that bound."""
     from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops.kernels import w8a16
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, cpu_params, state = model
+    if weights_int8:
+        cfg = dataclasses.replace(cfg, quantization="int8")
+        cpu_params = llama.quantize_params(cpu_params, cfg)
     gen = torch.Generator(device="cpu")
     gen.set_state(state)  # the prompts follow the weights' draws
     bs, nblocks = 16, 16
@@ -993,13 +1161,40 @@ def phase_reference(int8: bool, model: tuple) -> dict:
     # rows and its last valid row target 0; their entries are not compared).
     targets = [prompt[1:65], torch.cat([prompt[65:], torch.zeros(13, dtype=torch.int32)])]
     plps = {}
-    for dev in ("cpu", "cuda"):
+    # Int8 weights on int8 caches: every step starts from the card's cache
+    # as it stood before that step, copied into the CPU's (the card runs
+    # first).  Values on a rounding boundary of the cache's quantization
+    # land one code apart on the two sides (PR 14's chip runs: 1079 codes
+    # of the free-running int8-weight run, each one code apart, against 59
+    # with fp32 weights), and a free-running comparison carries each such
+    # code into every later step.
+    forced = int8 and weights_int8
+    snaps = []
+    for dev in (("cuda", "cpu") if forced else ("cpu", "cuda")):
         params = cpu_params if dev == "cpu" else _tree_to(cpu_params, dev)
         kv = caches(dev)
+        w8a16.launches = 0
         t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+        leads = "tokens" not in runs  # this run picks the decode tokens
+        step = iter(range(7))
+
+        def from_card(kv=kv, dev=dev, step=step):
+            i = next(step)
+            if forced and dev == "cuda":
+                snaps.append([tuple(_tree_to(list(side), "cpu") if isinstance(side, tuple)
+                                    else side.cpu() for side in layer) for layer in kv])
+            elif forced:
+                for layer, saved in zip(kv, snaps[i]):
+                    for side, src in zip(layer, saved):
+                        for dst, val in (zip(side, src) if isinstance(side, tuple)
+                                         else ((side, src),)):
+                            dst.copy_(val)
+
+        from_card()
         first, plp1 = llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
                                     t([1, 2, 3, 4]), 64, kv,
                                     prompt_targets=targets[0].to(dev), prompt_topk=5)
+        from_card()
         second, plp2 = llama.prefill(
             params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev), 64,
             t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv,
@@ -1007,16 +1202,19 @@ def phase_reference(int8: bool, model: tuple) -> dict:
         # Positions 1..99: the first chunk's 64 rows, the second's first 35.
         plps[dev] = [torch.cat([a.cpu(), b[:35].cpu()]) for a, b in zip(plp1, plp2)]
         outs = [first, second]
-        tokens = [int(outs[-1].argmax())] if dev == "cpu" else runs["cpu_tokens"]
+        tokens = [int(outs[-1].argmax())] if leads else runs["tokens"]
         table = [[1, 2, 3, 4, 5, 6, 7, 0]]
         for i, pos in enumerate(range(100, 103)):
+            from_card()
             outs.append(llama.decode(
                 params, cfg, t([tokens[i]]), t([pos]), t(table),
                 t([pos + 1]), t([7]), t([pos % bs]), kv)[0])
-            if dev == "cpu":
+            if leads:
                 tokens.append(int(outs[-1].argmax()))
+        from_card()
         outs.append(llama.prefill(params, cfg, prompt2[:32].to(dev), 0, t([]),
                                   t([8, 9]), 32, kv))
+        from_card()
         mixed = llama.mixed_step(
             params, cfg, dec_tokens=t([tokens[3]]), dec_positions=t([103]),
             dec_block_tables=t(table), dec_ctx_lens=t([104]),
@@ -1027,12 +1225,25 @@ def phase_reference(int8: bool, model: tuple) -> dict:
         )
         outs.extend(mixed)  # the decode row, then the chunk's last row
         runs[dev] = [o.float().cpu() for o in outs]
-        if dev == "cpu":
-            runs["cpu_tokens"] = tokens
+        runs[dev + "_kv"] = [tuple(t.cpu() if not isinstance(t, tuple) else
+                                   tuple(u.cpu() for u in t) for t in side) for side in kv]
+        runs["tokens"] = tokens
+        if dev == "cuda":
+            w8_launches = w8a16.launches  # the card's forwards
+    step_errs = []
     for a, b in zip(runs["cpu"], runs["cuda"]):
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite logits on the card")
-        worst = max(worst, (a - b).abs().max().item())
+        step_errs.append((a - b).abs().max().item())
+        worst = max(worst, step_errs[-1])
+    # Where the two int8 caches part: codes that differ (a value that sits
+    # on a rounding boundary on one side only) and by how many steps.
+    codes = {}
+    if int8:
+        diff = [(c[0].int() - g[0].int()).abs()
+                for cl, gl in zip(runs["cpu_kv"], runs["cuda_kv"]) for c, g in zip(cl, gl)]
+        codes = {"int8_kv_codes_differ": int(sum((d[1:] > 0).sum() for d in diff)),
+                 "int8_kv_codes_max_step": int(max(d[1:].max() for d in diff))}
     (want_t, want_ids, want_lps), (got_t, got_ids, got_lps) = plps["cpu"], plps["cuda"]
     plp_err = max((got_t - want_t).abs().max().item(),
                   (got_lps - want_lps).abs().max().item())
@@ -1047,14 +1258,24 @@ def phase_reference(int8: bool, model: tuple) -> dict:
                     want_ids[r, start:j].tolist())
                 start = j
     row = {"phase": "reference", "kv": "int8" if int8 else "dense",
+           "weights": cfg.quantization or cfg.dtype,
            "layers": cfg.num_layers, "width": cfg.hidden_size,
            "steps": len(runs["cpu"]), "mixed_rows": 2,
            "max_abs_logit_err": worst, "tol": 2e-3,
            "logit_absmax": max(x.abs().max().item() for x in runs["cpu"]),
            "prompt_logprob_entries": int(want_t.numel()),
            "prompt_logprob_max_abs_err": plp_err,
-           "prompt_logprob_top_ids_differ": ids_differ}
+           "prompt_logprob_top_ids_differ": ids_differ,
+           "w8a16_launches": w8_launches, "step_max_abs_logit_err": step_errs,
+           "caches_from_card_each_step": forced, **codes}
     emit(row)
+    # 7 forwards (2 chunks, 3 decodes, a prefill, a mixed step), each 7
+    # projections a layer and the lm_head, and one more lm_head for each
+    # prompt-logprob slice of the first prompt's two chunks (64 rows: one
+    # slice of 64; 48 rows: three of gcd(48, 128) = 16).
+    want_w8 = 7 * (7 * cfg.num_layers + 1) + 4 if weights_int8 else 0
+    if w8_launches != want_w8:
+        raise AssertionError(f"w8a16 launched {w8_launches} times, want {want_w8}")
     if worst > 2e-3:
         raise AssertionError(f"card vs CPU logits differ by {worst} ({row['kv']} KV)")
     if plp_err > 2e-3 or ids_differ or not torch.isfinite(got_lps).all():
@@ -1365,10 +1586,12 @@ def launch_counts() -> dict:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
     from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+    from production_stack_tpu_torch.engine.ops.kernels import w8a16
 
     return {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
             "flash_prefill": fp.launches, "flash_prefill_int8": fp.launches_int8,
-            "flash_prefill_batched": fp.launches_batched, "kv_write_int8": kw.launches}
+            "flash_prefill_batched": fp.launches_batched, "kv_write_int8": kw.launches,
+            "w8a16": w8a16.launches}
 
 
 def parse_metrics(text: str) -> dict:
@@ -1606,7 +1829,8 @@ async def _drive_surface(aeng, http, base: str, scrapes: list, after: tuple,
 
 def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
                  single_step: bool = False, layers: int = None,
-                 surface: bool = False) -> dict:
+                 surface: bool = False, quantization: str = None,
+                 bf16_weights: dict = None) -> dict:
     """Serve the 8 requests and one HTTP completion on a fresh engine at
     full width, KV cache dense (``auto``) or ``int8``; mixed steps on and,
     unless ``single_step``, K=8 windows with the lookahead (the default
@@ -1615,7 +1839,15 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     compared with: its pool must hold >= 1.8x the tokens, and the share of
     requests whose first token agrees is reported.  ``surface`` drives the
     rest of the server surface after them (``_drive_surface``); the
-    phase's own numbers are read before it."""
+    phase's own numbers are read before it.
+
+    ``quantization="int8"`` serves int8 weights: every asynchronous
+    dispatch (window, mixed window, pipelined step) runs under
+    ``set_sync_debug_mode("error")``, the W8A16 kernel must launch 7 times
+    a layer and once for the lm_head in every forward (a whole number of
+    forwards, at least one a window iteration and mixed iteration), and
+    the pool must hold more tokens than ``bf16_weights``' (the bf16-weight
+    phase on the same KV dtype)."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
@@ -1634,6 +1866,8 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
                           "scheduler.pipeline_decode": False})
     if layers is not None:
         overrides["model.num_layers"] = layers
+    if quantization is not None:
+        overrides["model.quantization"] = quantization
     cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **overrides)
     if not cfg.scheduler.mixed_enabled:
         raise AssertionError("mixed steps are off by default")
@@ -1644,10 +1878,19 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     t0 = time.time()
     aeng = AsyncEngine(cfg)  # default device: the card
     boot_s = time.time() - t0
+    # Memory the caching allocator holds but no tensor uses, after the
+    # pool was sized from what mem_get_info saw and allocated.
+    held_unused = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
     eng = aeng.engine
     app = build_engine_app(aeng, MODEL)
+    checked = sync_checked(eng) if quantization else None
     _reset_launches()
-    out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface))
+    try:
+        out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface))
+    finally:
+        if checked is not None:
+            for name in ASYNC_DISPATCHES:
+                delattr(eng, name)
     launches, stats = out["launches"], out["stats"]
     results = out["results"]
     for i, r in enumerate(results):
@@ -1665,7 +1908,8 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         raise AssertionError("no prompt token rode a mixed step")
     decode, prefill = (("paged_decode_int8", "flash_prefill_int8") if int8
                        else ("paged_decode", "flash_prefill"))
-    on = [prefill, decode] + (["kv_write_int8"] if int8 else [])
+    on = [prefill, decode] + (["kv_write_int8"] if int8 else []) + (
+        ["w8a16"] if quantization else [])
     if any(launches[k] <= 0 for k in on) or any(launches[k] for k in launches
                                                  if k not in on):
         raise AssertionError(f"{kv_cache_dtype} KV: wrong kernels launched: {launches}")
@@ -1686,19 +1930,34 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         # a layer and iteration, and every mixed-window iteration flash
         # prefill once a layer: the counters must cover them all.
         iters = stats["windows_dispatched"] * K + stats["mixed_window_iterations"]
-        for k in on[1:]:
+        for k in on[1:2] + (["kv_write_int8"] if int8 else []):
             if launches[k] < iters * L:
                 raise AssertionError(f"{k}: {launches[k]} launches for {iters} iterations")
         if launches[prefill] < stats["mixed_window_iterations"] * L:
             raise AssertionError(f"{prefill}: {launches[prefill]} launches for "
                                  f"{stats['mixed_window_iterations']} mixed iterations")
+    per_forward = 7 * L + (0 if cfg.model.tie_word_embeddings else 1)
+    w8 = {}
+    if quantization:
+        forwards, rest = divmod(launches["w8a16"], per_forward)
+        iters = stats["windows_dispatched"] * K + stats["mixed_window_iterations"]
+        w8 = {"w8a16_launches_per_forward": per_forward, "w8a16_forwards": forwards,
+              "window_and_mixed_iterations": iters, "sync_checked_dispatches": checked}
+        if rest or forwards < iters:
+            raise AssertionError(f"w8a16: {launches['w8a16']} launches, not whole forwards "
+                                 f"of {per_forward} covering {iters} iterations")
+        if (checked["_dispatch_window"] != stats["windows_dispatched"]
+                or checked["_dispatch_mixed_window"] != stats["mixed_windows_dispatched"]):
+            raise AssertionError(f"dispatches not sync-checked: {checked} against {stats}")
     total_out = sum(r["tokens"] for r in results)
     row = {
         "phase": ("engine_single_step" if single_step
+                  else "engine_int8_weights" if quantization
                   else "engine_int8" if int8 else "engine"),
         "model": MODEL,
         "layers": L,
         "dtype": cfg.model.dtype,
+        "quantization": cfg.model.quantization,
         "kv_cache_dtype": kv_cache_dtype,
         "decode_window": K,
         "pipeline": cfg.scheduler.pipeline_enabled,
@@ -1736,7 +1995,20 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "compile_s_total": out["compiles"]["compile_seconds"],
         "compile_tainted_share": len(out["tainted"]) / NUM_REQUESTS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "allocator_held_unused_gib_at_boot": held_unused,
+        "params_gib": sum(t.numel() * t.element_size()
+                          for t in _leaves(eng.params)) / 2**30,
+        **w8,
     }
+    if bf16_weights is not None:
+        row["kv_tokens_vs_bf16_weights"] = row["kv_tokens"] / bf16_weights["kv_tokens"]
+        row["kv_tokens_more_than_bf16_weights"] = (row["kv_tokens"]
+                                                   - bf16_weights["kv_tokens"])
+        # Reported, not asserted: int8 rounding of random weights may
+        # change which token wins.
+        row["first_token_match_share_vs_bf16_weights"] = sum(
+            a["ids"][0] == b["ids"][0] for a, b in zip(results, bf16_weights["results"])
+        ) / NUM_REQUESTS
     if dense is not None:
         row["kv_tokens_vs_dense"] = row["kv_tokens"] / dense["kv_tokens"]
         # Reported, not asserted: random weights give near-flat logits,
@@ -1751,12 +2023,23 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     if dense is not None and row["kv_tokens_vs_dense"] < 1.8:
         raise AssertionError(f"int8 pool holds {row['kv_tokens_vs_dense']:.3f}x "
                              "the dense pool's tokens, under 1.8x")
+    if bf16_weights is not None and row["kv_tokens_vs_bf16_weights"] <= 1.0:
+        raise AssertionError(f"the int8-weight pool holds {row['kv_tokens']} tokens, not "
+                             f"more than the bf16-weight pool's {bf16_weights['kv_tokens']}")
     graph_s = sum(v for k, v in row["compile_s_by_family"].items() if k != "csrc")
     if not out["compiles"]["enabled"] or abs(graph_s - row["capture_s_total"]) > 1e-4:
         raise AssertionError(f"compile events {row['compile_s_by_family']} against "
                              f"{row['capture_s_total']} s of captures")
     return {"launches": launches, "engine": eng, "kv_tokens": row["kv_tokens"],
             "results": results}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def _decode_tokens(eng, per_row: int, rows: int) -> int:
@@ -1850,6 +2133,7 @@ def phase_profile(eng, tokens: int = 32) -> dict:
     busy_ms = event_busy_ms if spans else prof_busy_ms
     row = {
         "phase": "profile",
+        "weights": eng.config.model.quantization or eng.config.model.dtype,
         "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
         "decode_window": eng.config.scheduler.window_steps,
         "decode_rows": rows,
@@ -1984,6 +2268,7 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     row = {
         "phase": "mixed_profile", "label": label,
+        "weights": eng.config.model.quantization or eng.config.model.dtype,
         "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
         "decode_rows": rows, "chunk_tokens": 512, "cached_prefix": MIXED_SHARED,
         "chunks": chunks, **counts, "waiting_head": waiting_head,
@@ -2006,6 +2291,123 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     emit(row)
     if counts["prefix_cache_hit_tokens"] < MIXED_SHARED or chunks != MIXED_CHUNKS:
         raise AssertionError(f"the measured prompt did not chunk over its cached prefix: {row}")
+    return row
+
+
+# -- phase 4c: HF safetensors at full width -----------------------------------
+
+HF_LAYERS = 2
+HF_PROMPT = 512
+
+
+def _hf_names(params: dict) -> dict:
+    """{HF name: tensor in torch's [out, in] Linear layout} of a llama tree."""
+    hf = {"model.embed_tokens.weight": params["embed_tokens"],
+          "model.norm.weight": params["norm"], "lm_head.weight": params["lm_head"].T}
+    for i, layer in enumerate(params["layers"]):
+        p = f"model.layers.{i}."
+        hf[p + "input_layernorm.weight"] = layer["input_layernorm"]
+        hf[p + "post_attention_layernorm.weight"] = layer["post_attention_layernorm"]
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            hf[p + f"self_attn.{name}.weight"] = layer[name].T
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            hf[p + f"mlp.{name}.weight"] = layer[name].T
+    return hf
+
+
+def phase_hf() -> dict:
+    """HF safetensors at full width: a 2-layer llama-3.1-8b checkpoint
+    (seeded random bf16 weights under the HF names, in torch's ``[out,
+    in]`` layout) written with ``safetensors.torch`` as two shards and an
+    index into a temporary directory, then ``weights.load_params`` onto
+    the card: every tensor bit-equal to its source, and a 512-token
+    prefill's logits over the loaded tree equal, bit for bit, to those over
+    the source tree passed directly.  Then the deployment path: an engine
+    booted from the directory with ``quantization="int8"`` (load, then
+    quantize) holds the int8 tree of the source weights bit for bit and
+    serves a greedy request."""
+    import tempfile
+
+    from safetensors.torch import save_file
+
+    from production_stack_tpu_torch.engine.config import PRESETS, config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.models import llama, weights
+
+    cfg = dataclasses.replace(PRESETS[MODEL], num_layers=HF_LAYERS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    src = llama.init_params(cfg, gen, dev)
+    hf = _hf_names(src)
+    names = sorted(hf)
+    shards = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
+              "model-00002-of-00002.safetensors": names[len(names) // 2:]}
+    row = {"phase": "hf", "model": MODEL, "layers": HF_LAYERS, "tensors": len(hf)}
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.time()
+        for shard, part in shards.items():
+            save_file({n: hf[n].contiguous().cpu() for n in part}, os.path.join(path, shard))
+        with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+            json.dump({"metadata": {}, "weight_map": {
+                n: shard for shard, part in shards.items() for n in part}}, f)
+        row["write_s"] = time.time() - t0
+        row["checkpoint_gb"] = sum(os.path.getsize(os.path.join(path, f))
+                                   for f in os.listdir(path)) / 1e9
+        t0 = time.time()
+        loaded = weights.load_params(cfg, path, device=dev)
+        torch.cuda.synchronize()
+        row["load_s"] = time.time() - t0
+        got = _hf_names(loaded)
+        row["tensors_differ"] = [n for n in names if not torch.equal(got[n], hf[n])]
+        row["contiguous"] = all(t.is_contiguous() for t in _leaves(loaded))
+        tokens = torch.randint(4, cfg.vocab_size, (HF_PROMPT,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        nblocks = HF_PROMPT // 16
+        blocks = torch.arange(1, nblocks + 1, dtype=torch.int32, device=dev)
+        logits = []
+        for params in (src, loaded):
+            shape = (nblocks + 1, 16, cfg.num_kv_heads, cfg.head_dim)
+            kv = [(torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                   torch.zeros(shape, dtype=torch.bfloat16, device=dev))
+                  for _ in range(cfg.num_layers)]
+            llama.add_fp32_lm_head(params, cfg)
+            logits.append(llama.prefill(params, cfg, tokens, 0, blocks[:0], blocks,
+                                        HF_PROMPT, kv))
+        row["logits_equal"] = torch.equal(logits[0], logits[1])
+        row["logits_finite"] = bool(torch.isfinite(logits[1]).all())
+        del loaded, logits, kv
+        # The deployment path: load, then quantize.
+        ecfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **{
+            "model.num_layers": HF_LAYERS, "model.quantization": "int8",
+            "weights_path": path, "cache.num_blocks": 512,
+            "scheduler.max_num_seqs": NUM_REQUESTS, "scheduler.max_model_len": 4096})
+        t0 = time.time()
+        eng = LLMEngine(ecfg)
+        row["engine_boot_s"] = time.time() - t0
+    want = llama.quantize_params(src, ecfg.model)
+    row["int8_tree_differs"] = [
+        f"{li}.{n}" for li, (a, b) in enumerate(zip(eng.params["layers"], want["layers"]))
+        for n in llama._QUANT_TARGETS
+        if not (torch.equal(a[n]["q"], b[n]["q"]) and torch.equal(a[n]["s"], b[n]["s"]))]
+    if not (torch.equal(eng.params["lm_head"]["q"], want["lm_head"]["q"])
+            and torch.equal(eng.params["lm_head"]["s"], want["lm_head"]["s"])):
+        row["int8_tree_differs"].append("lm_head")
+    ids = tokens[:100].tolist()
+    eng.add_request("hf", prompt_token_ids=ids,
+                    sampling_params=SamplingParams(max_tokens=16, ignore_eos=True))
+    out = []
+    while eng.has_unfinished() or eng.has_pending():
+        out += [o.new_token_id for o in eng.step()]
+    row["engine_tokens"] = len(out)
+    eng.close()
+    del eng, src, want, hf
+    emit(row)
+    if (row["tensors_differ"] or not row["contiguous"] or not row["logits_equal"]
+            or not row["logits_finite"] or row["int8_tree_differs"]
+            or row["engine_tokens"] != 16):
+        raise AssertionError(f"HF phase: {row}")
     return row
 
 
@@ -4476,10 +4878,12 @@ def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
     from production_stack_tpu_torch.engine.ops.kernels import paged_attention as pa
+    from production_stack_tpu_torch.engine.ops.kernels import w8a16
 
     pa.launches = pa.launches_int8 = 0
     fp.launches = fp.launches_int8 = fp.launches_batched = 0
     kw.launches = 0
+    w8a16.launches = 0
 
 
 KERNEL_META = {
@@ -4513,6 +4917,12 @@ KERNEL_META = {
         # No Pallas kernel: the int8 branches of write_prefill_kv (:261-271)
         # and append_decode_kv (:289-299), which XLA fuses.
         "replaces": "production_stack_tpu/engine/ops/attention.py:261",
+    },
+    "w8a16": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/w8a16_gemm.cu",
+        # No Pallas kernel: the int8 branch of _dot (:119-129), plain jnp
+        # whose int8 -> bf16 convert XLA fuses into the matrix unit's read.
+        "replaces": "production_stack_tpu/engine/models/llama.py:119",
     },
 }
 
@@ -4611,6 +5021,8 @@ def main() -> int:
     pool.shutdown()
     timed("reference", phase_reference, False, model)
     timed("reference_int8", phase_reference, True, model)
+    timed("reference_w8a16", phase_reference, False, model, weights_int8=True)
+    timed("reference_w8a16_int8", phase_reference, True, model, weights_int8=True)
     timed("encode_reference", phase_encode_reference, model)
     timed("lora_reference", phase_lora_reference, model)
     del model, drawn
@@ -4624,6 +5036,14 @@ def main() -> int:
     guided = timed("guided", phase_guided, dense["engine"])
     dense_launches = dense["launches"]
     dense.pop("engine")  # free the dense engine before the int8 one boots
+    free_engines()
+    w8 = timed("engine_int8_weights", phase_engine, "auto", quantization="int8",
+               bf16_weights=dense)
+    timed("profile_int8_weights", phase_profile, w8["engine"])
+    timed("mixed_profile_int8_weights", phase_mixed_profile, w8["engine"])
+    w8.pop("engine")
+    free_engines()
+    timed("hf", phase_hf)
     free_engines()
     int8 = timed("engine_int8", phase_engine, "int8", dense=dense)
     timed("profile_int8", phase_profile, int8["engine"])
@@ -4654,7 +5074,10 @@ def main() -> int:
                 "flash_prefill": dense_launches["flash_prefill"],
                 "flash_prefill_int8": int8["launches"]["flash_prefill_int8"],
                 "flash_prefill_batched": encode["launches"]["flash_prefill_batched"],
-                "kv_write_int8": int8["launches"]["kv_write_int8"]}
+                "kv_write_int8": int8["launches"]["kv_write_int8"],
+                "w8a16": w8["launches"]["w8a16"]}
+    # The phases below run bf16 weights: they launch no W8A16 GEMM.
+    bf16_only = ("flash_prefill_batched", "w8a16")
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
@@ -4665,7 +5088,7 @@ def main() -> int:
             # its int8 engine (the encode lane's entry runs on neither).
             **({"launches_kv_tiers": kv["offload_int8" if "int8" in name
                                         else "offload_dense"]["launches"][name]}
-               if name != "flash_prefill_batched" else {}),
+               if name not in bf16_only else {}),
             # The speculation phase's fused runs: the launches at each
             # speculative shape that the wrapper counted, by run and case.
             **({"launches_speculation": spec["launches"][name]}
@@ -4674,11 +5097,11 @@ def main() -> int:
             # dense kernels from its dense engine, the int8 ones from its
             # int8 engine (the encode lane's entry runs on neither).
             **({"launches_lora": lora["int8" if "int8" in name else "auto"]
-                ["launches"][name]} if name != "flash_prefill_batched" else {}),
+                ["launches"][name]} if name not in bf16_only else {}),
             # The guided phase's counted run (guided rows, a tool call and
             # plain rows on the dense engine): the kernels it launched.
             **({"launches_guided": guided["launches"][name]}
-               if guided["launches"][name] else {}),
+               if guided["launches"].get(name) else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4689,6 +5112,8 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms")}
                 for r in row["also"]
             ]
+        if "forward" in row:  # the W8A16 GEMM's launches of one forward, summed
+            kernels[-1]["forward"] = row["forward"]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

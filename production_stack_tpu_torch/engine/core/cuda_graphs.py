@@ -44,6 +44,7 @@ from production_stack_tpu_torch.engine.ops.kernels import (
     flash_prefill,
     kv_write,
     paged_attention,
+    w8a16,
 )
 
 # (module, attribute) of every kernel's launch counter.
@@ -55,6 +56,7 @@ LAUNCH_COUNTERS = (
     (flash_prefill, "launches"),
     (flash_prefill, "launches_int8"),
     (flash_prefill, "launches_batched"),
+    (w8a16, "launches"),
 )
 
 

@@ -108,6 +108,14 @@ device tensor, syncs the host or touches what a graph body reads.  With
 tracing off every hook returns before touching state and the runner gets
 no first-use hook.
 
+Weights: ``weights_path`` (and ``draft_weights_path`` for the drafter)
+name an HF safetensors checkpoint (``models/weights.py``); without one the
+seeded random init.  With ``model.quantization="int8"`` the target's
+projections and untied lm_head become int8 ``{"q", "s"}`` pairs after
+loading (``llama.quantize_params``), and every forward runs them through
+the W8A16 kernel; the drafter stays in the model dtype, as in the JAX
+engine.
+
 The engine serves the JAX package's default configuration, mixed and
 packed K-step windows, the KV tiers, speculation, the encode lane,
 multi-LoRA, tracing, guided decoding and prompt logprobs included
@@ -173,7 +181,7 @@ from production_stack_tpu_torch.engine.lora import (
 from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops import _build
-from production_stack_tpu_torch.engine.ops.kernels import paged_attention
+from production_stack_tpu_torch.engine.ops.kernels import paged_attention, w8a16
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient
 from production_stack_tpu_torch.kvserver.protocol import KVWireStats
@@ -207,11 +215,7 @@ def _unsupported(config: EngineConfig) -> List[str]:
     m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
         (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
-        (m.quantization is not None, "model.quantization (int8 weights)"),
         (m.num_experts > 0, "model.num_experts (MoE)"),
-        (config.weights_path is not None, "weights_path (HF safetensors)"),
-        (config.draft_weights_path is not None,
-         "draft_weights_path (HF safetensors)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -347,7 +351,8 @@ class LLMEngine:
                  draft_params=None):
         """``device``: where the model runs (default CUDA; raises without
         one).  ``params``: a parameter tree already on ``device`` (e.g. from
-        ``weights.params_from_numpy``); None boots the seeded random init.
+        ``weights.params_from_numpy``); None loads ``weights_path`` or
+        boots the seeded random init.
         ``draft_params``: the same for the draft model of
         ``scheduler.speculative_model``."""
         bad = _unsupported(config)
@@ -376,9 +381,19 @@ class LLMEngine:
                 f"vocab ({cfg.vocab_size})"
             )
         logger.info("Loading params for %s on %s ...", cfg.name, self.device)
-        if params is None:
+        loaded = params is None
+        if loaded:
             params = load_params(cfg, config.weights_path, seed=config.seed,
                                  device=self.device)
+        if cfg.quantization is not None:
+            # As the JAX engine: the loaded (or given) tree, then its
+            # projections to int8.  A tree loaded here is quantized in
+            # place, weight by weight, each full-precision weight freed
+            # once its pair is written (the peak: the model, its int8
+            # pairs and one weight's fp32 temporaries, before the pool is
+            # sized); a caller's tree is left as it was.
+            logger.info("Quantizing projections to %s ...", cfg.quantization)
+            params = llama.quantize_params(params, cfg, in_place=loaded)
         self.params = params
         self._load_draft_model(draft_params)
         llama.add_fp32_lm_head(self.params, cfg)
@@ -502,6 +517,8 @@ class LLMEngine:
             paged_attention.reserve_split_counters(
                 self.device, self._decode_pairs()
             )
+            if self.config.model.quantization is not None:
+                w8a16.reserve_counters(self.device)
         # Host mirrors of how many block-table columns of each row the
         # device tables hold (window carry / pipelined step).
         self._win_table_lens: List[int] = []
@@ -697,6 +714,9 @@ class LLMEngine:
             return cache.num_blocks
         if self.device.type != "cuda":
             return 512
+        # mem_get_info does not see the blocks the caching allocator keeps
+        # (the bf16 weights that quantization or loading freed, say).
+        torch.cuda.empty_cache()
         free, _total = torch.cuda.mem_get_info(self.device)
         return max(int(free * cache.hbm_utilization // self._kv_bytes(1)), 16)
 

@@ -17,6 +17,12 @@ chunk at any cursor and nothing is read back.  A cache side is a dense
 tensor or an int8 ``(data, scale)`` tuple (``kv/quant.py``); the attention
 ops take both.
 
+Int8 weights (``cfg.quantization == "int8"``): :func:`quantize_params`
+turns the seven projections and an untied lm_head into ``{"q": int8 [in,
+out], "s": fp32 [out]}`` pairs, as the JAX package's does, and
+:func:`_dot` sends a pair to the W8A16 kernel (``ops/kernels/w8a16.py``),
+whose fp32 result the callers cast as they cast the JAX ``_dot``'s.
+
 ``encode`` and ``encode_batch`` are the embedding forward: no KV cache and
 no lm_head, one forward over the flattened ``[B·T, h]`` rows of B texts
 (what the JAX package's vmap compiles to), attention through flash
@@ -41,6 +47,7 @@ import torch
 from production_stack_tpu_torch.engine import lora as lora_lib
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
+from production_stack_tpu_torch.engine.ops.kernels.w8a16 import w8a16_matmul
 from production_stack_tpu_torch.engine.ops.layers import (
     activation,
     apply_rope,
@@ -115,10 +122,73 @@ def init_params(
 def add_fp32_lm_head(params: Params, cfg: ModelConfig) -> None:
     """Store an fp32 copy of the lm_head weight in ``params`` (in place),
     so every step's logits come from one fp32 product without casting the
-    [h, V] weight again.  A no-op for fp32 models."""
+    [h, V] weight again.  A no-op for fp32 models and for an int8 head
+    (an fp32 copy would undo the point of int8)."""
     w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
-    if w.dtype != torch.float32:
+    if not isinstance(w, dict) and w.dtype != torch.float32:
         params[LM_HEAD_FP32] = w.float().contiguous()
+
+
+_QUANT_TARGETS = (
+    "q_proj", "k_proj", "v_proj", "o_proj",
+    "gate_proj", "up_proj", "down_proj",
+)
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-out-channel symmetric int8 of one ``[in, out]`` weight, with the
+    JAX package's bits: s = amax / 127 (1 where a column is all zeros), q =
+    round-half-even(w / s) clamped to +-127.  The divisions take a tensor
+    divisor: on the card a Python scalar divisor becomes a multiplication
+    by its reciprocal, which rounds differently."""
+    w32 = w.float()
+    amax = w32.abs().amax(dim=0)
+    s = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                    torch.ones_like(amax))
+    q = torch.clamp(torch.round(w32 / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def quantize_params(params: Params, cfg: ModelConfig, *, in_place: bool = False) -> Params:
+    """Int8 weight-only quantization (``cfg.quantization``), as the JAX
+    package's: the seven projections of every layer and an untied lm_head
+    become ``{"q", "s"}`` pairs (:func:`quantize_weight`); embeddings,
+    norms and biases keep the model dtype, and a tied head stays the
+    embedding.  A pair already in the tree is kept, so a tree the JAX
+    package quantized carries across as it is.  ``in_place`` replaces the
+    weights in ``params`` itself, one at a time, so each full-precision
+    weight is freed once its pair is written (an engine's boot); otherwise
+    a new tree is returned and ``params`` is left as it was."""
+    if cfg.quantization is None:
+        return params
+    out = params if in_place else dict(params, layers=[dict(l) for l in params["layers"]])
+    slots = [(layer, name) for layer in out["layers"] for name in _QUANT_TARGETS
+             if name in layer and not isinstance(layer[name], dict)]
+    if "lm_head" in out and not isinstance(out["lm_head"], dict):
+        slots.append((out, "lm_head"))
+    if not slots:
+        return out
+    # Every pair lives in one int8 and one fp32 allocation, each view
+    # 16-byte aligned for the kernel: on the card, pairs allocated one at
+    # a time land in blocks the freed full-precision weights leave behind
+    # and pin them, so the caching allocator cannot return that memory to
+    # the KV pool.
+    q_at, s_at, q_len, s_len = [], [], 0, 0
+    for d, name in slots:
+        K, N = d[name].shape
+        q_at.append(q_len)
+        s_at.append(s_len)
+        q_len += -(-K * N // 16) * 16
+        s_len += -(-N // 4) * 4
+    device = slots[0][0][slots[0][1]].device
+    q_buf = torch.empty(q_len, dtype=torch.int8, device=device)
+    s_buf = torch.empty(s_len, dtype=torch.float32, device=device)
+    for (d, name), qo, so in zip(slots, q_at, s_at):
+        K, N = d[name].shape
+        pair = quantize_weight(d[name])
+        d[name] = {"q": q_buf[qo:qo + K * N].view(K, N).copy_(pair["q"]),
+                   "s": s_buf[so:so + N].copy_(pair["s"])}
+    return out
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -134,6 +204,19 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tens
     return x
 
 
+def _dot(x: torch.Tensor, w, cast: bool = False) -> torch.Tensor:
+    """A projection's product ``x @ w``.  An int8 pair ``{"q", "s"}`` goes to
+    the W8A16 kernel, which returns fp32 as the JAX ``_dot`` does, or with
+    ``cast`` (a caller that casts the product to x's dtype straight away)
+    that result already rounded to x's dtype; x keeps its leading axes.  A
+    plain tensor goes to ``torch.matmul`` in x's dtype."""
+    if not isinstance(w, dict):
+        return torch.matmul(x, w)
+    y = w8a16_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w["q"], w["s"],
+                     x.dtype if cast else torch.float32)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
 def _lora_add(lora_layer, group: str, x: torch.Tensor, mask, ys) -> list:
     """``group``'s products ``ys`` (``lora.GROUPS`` order) for input ``x``
     with their LoRA deltas added, in fp32."""
@@ -147,9 +230,10 @@ def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: [T, h] -> q [T, H, D], k/v [T, K, D] in x's dtype; biases (Qwen2
     style) and the LoRA deltas are added in fp32."""
     T = x.shape[0]
-    q = torch.matmul(x, layer["q_proj"])
-    k = torch.matmul(x, layer["k_proj"])
-    v = torch.matmul(x, layer["v_proj"])
+    cast = lora_layer is None and not cfg.attention_bias
+    q = _dot(x, layer["q_proj"], cast)
+    k = _dot(x, layer["k_proj"], cast)
+    v = _dot(x, layer["v_proj"], cast)
     if lora_layer is not None:
         q, k, v = _lora_add(lora_layer, "qkv", x, mask, (q, k, v))
     if cfg.attention_bias:
@@ -166,17 +250,20 @@ def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
          lora_layer=None, mask=None) -> torch.Tensor:
     """Dense gated MLP (ops/layers.py swiglu), with the LoRA deltas of
     gate/up added to their fp32 products and down's added before its
-    cast."""
-    if lora_layer is None:
+    cast.  Int8 weights take the LoRA path's structure (fp32 gate and up,
+    the act * up product cast, down), as in the JAX package."""
+    if lora_layer is None and not isinstance(layer["gate_proj"], dict):
         return swiglu(
             x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],
             act=cfg.hidden_act,
         )
-    gate, up = _lora_add(lora_layer, "gate_up", x, mask, (
-        torch.matmul(x, layer["gate_proj"]), torch.matmul(x, layer["up_proj"])))
-    activated = (activation(gate, cfg.hidden_act) * up).to(x.dtype)
-    (down,) = _lora_add(lora_layer, "down", activated, mask,
-                        (torch.matmul(activated, layer["down_proj"]),))
+    gate, up = _dot(x, layer["gate_proj"]), _dot(x, layer["up_proj"])
+    if lora_layer is not None:
+        gate, up = _lora_add(lora_layer, "gate_up", x, mask, (gate, up))
+    activated = (activation(gate.float(), cfg.hidden_act) * up.float()).to(x.dtype)
+    down = _dot(activated, layer["down_proj"], lora_layer is None)
+    if lora_layer is not None:
+        (down,) = _lora_add(lora_layer, "down", activated, mask, (down,))
     return down.to(x.dtype)
 
 
@@ -186,7 +273,11 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
     Both operands are fp32 (hidden is cast; the weight is the fp32 copy
     from :func:`add_fp32_lm_head` when present, else cast here), so the
     products and sums are fp32 as in the JAX package (which asks its bf16
-    product for an fp32 result).  Logits feed sampling and logprobs."""
+    product for an fp32 result).  An int8 head takes the hidden rows in the
+    model dtype through :func:`_dot`, as the JAX ``_dot`` does.  Logits
+    feed sampling and logprobs."""
+    if not cfg.tie_word_embeddings and isinstance(params["lm_head"], dict):
+        return _dot(hidden, params["lm_head"])
     w = params.get(LM_HEAD_FP32)
     if w is None:
         w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
@@ -209,7 +300,7 @@ def _layer(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = attend(q, k, v).reshape(T, cfg.num_heads * cfg.head_dim)
-    o = torch.matmul(out, layer["o_proj"])
+    o = _dot(out, layer["o_proj"], lora_layer is None)
     if lora_layer is not None:
         (o,) = _lora_add(lora_layer, "o", out, mask, (o,))
     x = residual + o.to(x.dtype)

@@ -62,10 +62,13 @@ starts ``jax.distributed``).
         --model llama-3.1-8b --port 9200 [--device cuda] \
         [--speculative-ngram 3 | --speculative-model llama-3.2-1b]
 
+``--weights-path`` loads an HF safetensors checkpoint and
+``--quantization int8`` serves its projections as int8 weights (the
+W8A16 kernel), as the JAX server's flags do.
+
 Not ported yet, with their flags: parallelism and the multi-host
 lockstep group (with it the JAX server's rule that turns the encode lane
-off in such a group), int8 weights and loading a weights path (the
-target's or the drafter's).
+off in such a group).
 """
 
 from __future__ import annotations
@@ -1547,6 +1550,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--model", default="tiny-llama", help="model preset name")
     parser.add_argument("--served-model-name", default=None)
+    parser.add_argument("--weights-path", default=None)
     parser.add_argument("--tokenizer", default=None)
     parser.add_argument(
         "--chat-template",
@@ -1624,6 +1628,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-loras", type=int, default=0)
     parser.add_argument("--max-lora-rank", type=int, default=16)
     parser.add_argument("--dtype", default=None, help="override preset dtype")
+    parser.add_argument(
+        "--quantization",
+        default=None,
+        choices=["int8"],
+        help="weight-only quantization of the projection matmuls "
+        "(halves decode's HBM weight traffic)",
+    )
     parser.add_argument(
         "--kv-cache-dtype",
         default=None,
@@ -1831,6 +1842,7 @@ def config_from_args(args):
     them."""
     return config_from_preset(args.model, **{
         **SLICE_OVERRIDES,
+        "weights_path": args.weights_path,
         "tokenizer": args.tokenizer,
         "scheduler.max_num_seqs": args.max_num_seqs,
         "scheduler.max_model_len": args.max_model_len,
@@ -1873,6 +1885,7 @@ def config_from_args(args):
         **({"cache.kv_wire_format": args.kv_wire_format}
            if args.kv_wire_format else {}),
         **({"model.dtype": args.dtype} if args.dtype else {}),
+        **({"model.quantization": args.quantization} if args.quantization else {}),
         **({"scheduler.admission_control": False}
            if args.no_admission_control else {}),
         **({"scheduler.max_queued_requests": args.max_queued_requests}

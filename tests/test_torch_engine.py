@@ -182,12 +182,19 @@ def test_torch_engine_raises_outside_the_slice():
     cfg.obs.tracing = True  # tracing: served
     assert LLMEngine(cfg, device="cpu").obs.enabled
     cfg = torch_config()
-    cfg.draft_weights_path = "draft-checkpoint"  # HF drafter weights, not yet
-    with pytest.raises(NotImplementedError, match="draft_weights_path"):
+    cfg.draft_weights_path = "draft-checkpoint"  # HF drafter weights: served,
+    assert LLMEngine(cfg, device="cpu").draft_params is None  # read with a drafter only
+    cfg = torch_config()
+    cfg.model.quantization = "int8"  # int8 weights: served
+    layer = LLMEngine(cfg, device="cpu").params["layers"][0]
+    assert layer["q_proj"]["q"].dtype == torch.int8
+    cfg = torch_config()
+    cfg.model.num_experts = 4  # MoE: not yet
+    with pytest.raises(NotImplementedError, match="MoE"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
-    cfg.model.quantization = "int8"  # int8 weights, not yet
-    with pytest.raises(NotImplementedError, match="int8 weights"):
+    cfg.parallel.tensor_parallel = 2  # the parallel layer: not yet
+    with pytest.raises(NotImplementedError, match="parallel"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
     cfg.cache.disagg_role = "encode"  # the encode lane's pool label: served

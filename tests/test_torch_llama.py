@@ -30,11 +30,23 @@ LLAMA31_SWITCHES = dict(
     tie_word_embeddings=False,
 )
 TIED_BIASED = dict(name="tiny-tied-bias", tie_word_embeddings=True, attention_bias=True)
+# Gemma's switches (config.py's gemma-2b / gemma-7b): zero-centred norms,
+# tanh GeGLU, sqrt(h)-scaled embeddings, a tied head and a head_dim apart
+# from hidden / heads; MQA (one KV head) and MHA.
+GEMMA = dict(rms_norm_offset=1.0, hidden_act="gelu_tanh", scale_embeddings=True,
+             tie_word_embeddings=True, head_dim=32, rms_norm_eps=1e-6)
+GEMMA_MQA = dict(GEMMA, name="tiny-gemma-mqa", num_heads=4, num_kv_heads=1)
+GEMMA_MHA = dict(GEMMA, name="tiny-gemma-mha", num_heads=4, num_kv_heads=4)
+# Mistral's sliding window, shorter than the 22-token prompt and its decodes.
+MISTRAL_WINDOW = dict(name="tiny-mistral-window", sliding_window=8)
 
 CASES = {
     "tiny-llama": {},
     "llama-3.1-switches": LLAMA31_SWITCHES,
     "tied-lm-head-qkv-bias": TIED_BIASED,
+    "gemma-mqa": GEMMA_MQA,
+    "gemma-mha": GEMMA_MHA,
+    "mistral-sliding-window": MISTRAL_WINDOW,
 }
 
 

@@ -427,7 +427,7 @@ SERVED_FLAGS = (
     "--no-speculative-model", "--no-encode-lane", "--encode-batch-buckets",
     "--max-queued-encode-texts", "--max-loras", "--max-lora-rank",
     "--no-tracing", "--trace-ring-size", "--trace-ring-bytes",
-    "--window-ring-size",
+    "--window-ring-size", "--weights-path", "--quantization",
 )
 
 
@@ -477,7 +477,8 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--encode-batch-buckets", "1,2,4", "--max-queued-encode-texts", "7",
             "--max-loras", "3", "--max-lora-rank", "32", "--no-tracing",
             "--trace-ring-size", "9", "--trace-ring-bytes", "4096",
-            "--window-ring-size", "33"]
+            "--window-ring-size", "33", "--weights-path", "/some/checkpoint",
+            "--quantization", "int8"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
