@@ -9,8 +9,11 @@ non-zero (no phase is caught and passed over):
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    the hand-written CUDA kernels built from ``csrc/`` with their build
-   seconds, ptxas register/shared-memory reports and, per kernel
-   function, the count of tensor-core (HMMA) instructions in its SASS.
+   seconds, ptxas register/shared-memory reports (and any note on
+   wgmma) and, per kernel function, the count of tensor-core (HMMA)
+   instructions in its SASS; on a line of its own the W8A16 GEMM's wgmma
+   bf16 body's HGMMA and TMA-load (UTMALDG) counts per instantiation, 0
+   of either failing the run.
 2. Each kernel against its plain PyTorch version at the main path's shapes
    (llama-3.1-8b attention: bf16, H=32, K=8, D=128, block size 16; flash
    prefill both as a 2048-token prompt and as a mixed step's 512-token
@@ -37,8 +40,10 @@ non-zero (no phase is caught and passed over):
    512-token chunk, its data and scales equal bit for bit to the plain
    writer's on the CPU; the W8A16 GEMM of int8 weights at llama-3.1-8b's
    projections (q/o, k/v, gate/up, down, lm_head) and the main path's row
-   counts (1, 8, 40, 128, 520, 2048, 16384), ragged M/N/K edges and fp32
-   activations, within 1e-3 of the largest |output| (TF32 off), timed
+   counts (1, 8, 40, 128, 520, 2048, 16384), ragged M/N/K edges (row
+   tiles of several widths, split over K or not) and fp32
+   activations, within 1e-3 of the largest |output| (TF32 off), the bf16
+   output the fp32 one rounded and two calls bit-equal, timed
    over weight copies past the L2 cache beside cuBLAS's bf16 GEMM over
    the same-shaped bf16 weight (and ``torch._weight_int8pack_mm`` at
    decode row counts where this torch has it), with a forward's 225
@@ -354,9 +359,15 @@ def bound(nbytes: float, flops: float, dtype) -> tuple:
 # -- phase 1 ---------------------------------------------------------------
 
 
-def sass_hmma_counts(build_dir: str) -> dict:
-    """Tensor-core (HMMA) instructions in each kernel function's SASS, by
-    ``cuobjdump -sass`` on the built libraries."""
+SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG")
+# The W8A16 GEMM's bf16 body, one instantiation a row-tile width and split.
+W8A16_WIDE_FUNC = "w8a16_wide_kernel"
+
+
+def sass_counts(build_dir: str) -> dict:
+    """``{opcode: {function: count}}`` of each of SASS_OPCODES (mma.sync's
+    HMMA, wgmma's HGMMA, the TMA load UTMALDG) in each kernel function's
+    SASS, by ``cuobjdump -sass`` on the built libraries."""
     import os
     import re
     import shutil
@@ -372,7 +383,8 @@ def sass_hmma_counts(build_dir: str) -> dict:
     finally:
         for proc in procs:
             proc.kill()  # only those still running
-    counts = {}
+    counts = {op: {} for op in SASS_OPCODES}
+    pattern = re.compile(r"\b(" + "|".join(SASS_OPCODES) + r")\b")
     for proc, sass in zip(procs, dumps):
         if proc.returncode:
             raise RuntimeError(f"cuobjdump failed on {proc.args[-1]}")
@@ -381,10 +393,36 @@ def sass_hmma_counts(build_dir: str) -> dict:
             m = re.search(r"Function : (\S+)", ln)
             if m:
                 func = m.group(1)
-                counts[func] = 0
-            elif func and "HMMA" in ln:
-                counts[func] += 1
+                for op in SASS_OPCODES:
+                    counts[op][func] = 0
+            elif func:
+                hit = pattern.search(ln)
+                if hit:
+                    counts[hit.group(1)][func] += 1
     return counts
+
+
+def check_w8a16_sass(counts: dict) -> dict:
+    """wgmma (HGMMA) and TMA-load (UTMALDG) instructions in each
+    instantiation of the W8A16 GEMM's bf16 body; fails where either is 0
+    (the body would not run on Hopper's tensor-core path)."""
+    import re
+
+    wide = {}
+    for func in counts["HGMMA"]:
+        if W8A16_WIDE_FUNC in func:
+            # <rows, split over K>
+            args = re.search(W8A16_WIDE_FUNC + r"ILi(\d+)ELb([01])E", func)
+            name = (f"{W8A16_WIDE_FUNC}<{args.group(1)}, "
+                    f"{'true' if args.group(2) == '1' else 'false'}>" if args else func)
+            wide[name] = {op: counts[op][func] for op in ("HGMMA", "UTMALDG")}
+    row = {"phase": "w8a16_sass", "functions": len(wide),
+           "HGMMA": sum(c["HGMMA"] for c in wide.values()),
+           "UTMALDG": sum(c["UTMALDG"] for c in wide.values()), "by_function": wide}
+    emit(row)
+    if not wide or any(n == 0 for c in wide.values() for n in c.values()):
+        raise AssertionError(f"w8a16 wgmma body: a function without HGMMA or UTMALDG: {wide}")
+    return row
 
 
 def phase_device() -> dict:
@@ -396,14 +434,17 @@ def phase_device() -> dict:
     from production_stack_tpu_torch.engine.ops import _build
 
     info = _build.build_all(verbose=True)  # one nvcc per source, in parallel
+    # Registers, spills, and any note of ptxas on wgmma (a serialised
+    # wgmma loses the overlap of MMA and convert).
     ptxas = {
         name: [ln.strip() for ln in out.splitlines()
-               if "registers" in ln or "spill" in ln]
+               if "registers" in ln or "spill" in ln or "wgmma" in ln.lower()]
         for name, out in info["ptxas"].items()
     }
+    sass = sass_counts(info["dir"])
     dev = {
         "phase": "device",
-        "tensor_core_instructions": sass_hmma_counts(info["dir"]),
+        "tensor_core_instructions": sass["HMMA"],
         "nvidia_smi": smi,
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
@@ -413,6 +454,7 @@ def phase_device() -> dict:
         "ptxas": ptxas,
     }
     emit(dev)
+    dev["w8a16_sass"] = check_w8a16_sass(sass)
     return dev
 
 
@@ -817,16 +859,23 @@ def check_w8a16(gen, name, M, K, N, dtype=torch.bfloat16, time_it=True) -> dict:
     # result rounded, bit for bit.
     rounded = (torch.equal(w8a16.w8a16_matmul(x, q, s, dtype), got.to(dtype))
                if dtype == torch.bfloat16 else None)
+    # A second call gives the same bits (calls split over K included).
+    repeat = torch.equal(w8a16.w8a16_matmul(x, q, s), got)
     torch.cuda.synchronize()
     top = want.abs().max().item()
     err = (got - want).abs().max().item()
     tol = 1e-3 * top
     row = {"case": name, "M": M, "K": K, "N": N, "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err, "tol": tol, "out_absmax": top,
-           "bf16_out_is_rounded_fp32": rounded}
-    if not torch.isfinite(got).all() or got.shape != (M, N) or err > tol or rounded is False:
-        raise AssertionError(f"w8a16 {name}: max abs err {err} > {tol} or bf16 output "
-                             f"not the rounded fp32 result ({rounded})")
+           "bf16_out_is_rounded_fp32": rounded, "two_calls_bit_equal": repeat}
+    if dtype == torch.bfloat16:
+        dev = torch.cuda.current_device()
+        row["rows"], row["splits"] = w8a16.wide_plan(M, N, K, w8a16._clusters[dev])
+    if (not torch.isfinite(got).all() or got.shape != (M, N) or err > tol
+            or rounded is False or not repeat):
+        raise AssertionError(f"w8a16 {name}: max abs err {err} > {tol}, bf16 output not "
+                             f"the rounded fp32 result ({rounded}) or two calls apart "
+                             f"({not repeat})")
     esz = torch.finfo(dtype).bits // 8
     nbytes = M * K * esz + K * N + 4 * N + 4 * M * N
     row["bound_ms"], row["bound_by"] = bound(nbytes, 2.0 * M * N * K, dtype)
@@ -879,13 +928,14 @@ def w8a16_cases(gen) -> list:
         for proj, (K, N) in W8A16_SHAPES.items():
             if M in (1, 40) and proj not in ("q_o", "gate_up"):
                 continue
-            if M == 128 and proj != "lm_head" or M == 2048 and proj != "gate_up":
+            if M == 128 and proj != "lm_head":
                 continue
             rows.append(check_w8a16(gen, f"M{M}_{proj}", M, K, N))
     rows.append(check_w8a16(gen, "M16384_q_o", 16384, 4096, 4096))
-    # Ragged edges (M, N, K not multiples of the tiles) at each tile shape,
-    # and the fp32 body.
-    for M in (3, 17, 77, 300):
+    # Ragged edges (M, N, K not multiples of the tiles) at row tiles of 32
+    # to 256 rows, one and several a call, split over K or not, and the
+    # fp32 body.
+    for M in (3, 17, 77, 300, 65, 129, 176, 257, 1000):
         rows.append(check_w8a16(gen, f"M{M}_ragged", M, 4104, 1040, time_it=False))
     rows.append(check_w8a16(gen, "M8_fp32", 8, 4096, 1024, dtype=torch.float32))
     rows.append(check_w8a16(gen, "M100_fp32_ragged", 100, 4104, 1040, dtype=torch.float32,
@@ -897,7 +947,7 @@ def w8a16_forward(rows: list, layers: int = 32) -> dict:
     """A llama-3.1-8b forward's W8A16 launches at M rows (7 a layer and the
     lm_head), summed from the cases: kernel, bound and yardstick ms."""
     out = {}
-    for M in (8, 520):
+    for M in (8, 520, 2048):
         by = {r["case"].split("_", 1)[1]: r for r in rows
               if r["case"].startswith(f"M{M}_") and "kernel_ms" in r}
         if not all(p in by for p in W8A16_SHAPES):
@@ -2053,6 +2103,38 @@ def _decode_tokens(eng, per_row: int, rows: int) -> int:
     return emitted
 
 
+GAP_WITHIN_US = 100.0  # shorter gaps lie inside a replay or an eager burst
+
+
+def kernel_gaps(prof, steps: float, top: int = 12) -> dict:
+    """Idle time between consecutive device events (kernels, copies) on the
+    profiler's timeline, in us per token step: the gaps shorter than
+    GAP_WITHIN_US (between kernels of one graph replay or eager burst)
+    grouped by the kernel that ran before each, the longest groups first;
+    longer gaps (the host between dispatches) summed apart."""
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_prev = {}
+    within = between = 0.0
+    last_end, last_name = None, None
+    for start, end, name in evs:
+        if last_end is not None and start > last_end:
+            gap = start - last_end
+            if gap < GAP_WITHIN_US:
+                within += gap
+                key = last_name[:90]
+                count, total = by_prev.get(key, (0, 0.0))
+                by_prev[key] = (count + 1, total + gap)
+            else:
+                between += gap
+        if last_end is None or end > last_end:
+            last_end, last_name = end, name
+    ranked = sorted(by_prev.items(), key=lambda kv: kv[1][1], reverse=True)[:top]
+    return {"within_us_per_token_step": within / steps,
+            "between_us_per_token_step": between / steps,
+            "by_kernel_before": [[k, c / steps, t / steps, t / c] for k, (c, t) in ranked]}
+
+
 def phase_profile(eng, tokens: int = 32) -> dict:
     """Where a decode token's time goes at 8 rows: the served engine
     decoding the same prompt lengths, timed over ``tokens`` tokens a row
@@ -2152,6 +2234,9 @@ def phase_profile(eng, tokens: int = 32) -> dict:
         ],
         "cudaLaunchKernel_per_token_step": calls("cudaLaunchKernel"),
         "cudaGraphLaunch_per_token_step": calls("cudaGraphLaunch"),
+        # Where the time between kernels goes: [kernel before, gaps, us,
+        # us a gap] per token step.
+        "kernel_gaps": kernel_gaps(prof, prof_steps),
         "capture_s": {str(k): v for k, v in eng.graphs.capture_seconds.items()},
         "host_us_per_small_op": host_us_before,
         "host_us_per_small_op_after_profiler": host_us_after,

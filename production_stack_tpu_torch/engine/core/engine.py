@@ -518,7 +518,7 @@ class LLMEngine:
                 self.device, self._decode_pairs()
             )
             if self.config.model.quantization is not None:
-                w8a16.reserve_counters(self.device)
+                w8a16.prepare(self.device)
         # Host mirrors of how many block-table columns of each row the
         # device tables hold (window carry / pipelined step).
         self._win_table_lens: List[int] = []

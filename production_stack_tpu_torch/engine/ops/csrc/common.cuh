@@ -179,8 +179,8 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// -- Tensor-core fragments (mma.sync, sm_80+): flash_prefill.cu and
-// w8a16_gemm.cu -------------------------------------------------------
+// -- Tensor-core fragments (mma.sync, sm_80+): flash_prefill.cu, and
+// w8a16_gemm.cu's ldmatrix.trans ----------------------------------------
 
 // Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
 // addresses of matrix i.

@@ -21,8 +21,9 @@ no other route and no switch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,61 +31,80 @@ from production_stack_tpu_torch.engine.ops import _build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# The decode-row body's tiles (csrc/w8a16_gemm.cu, ``Skinny``): up to
-# SKINNY_MAX_M rows in one row tile, SKINNY_BN columns a block, K in tiles
-# of SKINNY_KT, eight warps a block; a split keeps at least
-# SPLIT_MIN_TILES K tiles (two a warp).  A block of it fills an SM's
-# shared memory, so one runs at a time on each SM.
-SKINNY_MAX_M = 64
-SKINNY_BN = 64
-SKINNY_KT = 32
-SPLIT_MIN_TILES = 16
-# Arrival counters, one a (row, column) tile of a split call: a split
-# call has fewer tiles than the card has SMs.
-COUNTERS = 1024
+# The bf16 body (csrc/w8a16_gemm.cu, ``w8a16_wide_kernel``): WIDE_BN output
+# features a block, K in tiles of WIDE_BK, a row tile of a multiple of
+# WIDE_ROW_STEP rows from WIDE_MIN_ROWS to WIDE_MAX_ROWS (the widths the
+# kernel is built for); a split walks at least WIDE_SPLIT_MIN K tiles (512
+# of K), at most WIDE_MAX_SPLITS a call (a cluster's portable size).  One
+# block a SM (a producer and two consumer warpgroups).
+WIDE_BN = 128
+WIDE_BK = 64
+WIDE_ROW_STEP = 16
+WIDE_MIN_ROWS = 32
+WIDE_MAX_ROWS = 256
+WIDE_SPLIT_MIN = 8
+WIDE_MAX_SPLITS = 8
 
 # Kernel launches since the count was last reset to 0 (plain int; a run
 # reads it to show that its int8-weight projections went through the
 # kernel).
 launches = 0
 
-_num_sms: Dict[int, int] = {}
-# Per device: zeros that each split call leaves zero again.
-_counters: Dict[int, torch.Tensor] = {}
+# Per device: clusters of 1 .. WIDE_MAX_SPLITS blocks of the bf16 body the
+# card holds at once (one block an SM, so the first is the SM count).
+_clusters: Dict[int, Tuple[int, ...]] = {}
 
 
-def split_k(M: int, N: int, K: int, num_sms: int) -> int:
-    """The K splits of a call at decode row counts (1 above SKINNY_MAX_M
-    rows): the count that minimises waves of one block an SM times the K
-    tiles each block walks, a larger count taken only where it saves at
-    least a tenth over the best smaller one.  A weight with few column
-    tiles (k_proj's 1024 columns: 16) is then streamed by enough SMs."""
-    tiles = math.ceil(N / SKINNY_BN)  # one row tile holds every row
-    if M > SKINNY_MAX_M or tiles >= num_sms:
-        return 1
-    k_tiles = math.ceil(K / SKINNY_KT)
-    best, best_cost = 1, 1.0
-    for splits in range(2, max(1, k_tiles // SPLIT_MIN_TILES) + 1):
-        cost = math.ceil(tiles * splits / num_sms) / splits
-        if cost <= 0.9 * best_cost:
-            best, best_cost = splits, cost
-    return best
+@functools.lru_cache(maxsize=4096)
+def wide_plan(M: int, N: int, K: int, clusters: Tuple[int, ...]) -> Tuple[int, int]:
+    """``(rows, splits)`` of a bf16 call ``[M, K] x [K, N]``.  Rows: the
+    fewest row tiles of at most WIDE_MAX_ROWS rows, each rounded up to a
+    multiple of WIDE_ROW_STEP (520 rows: 3 x 176).  Splits over K: the most
+    whose clusters, one a (row, feature) tile, the card holds in one wave
+    (``clusters[s - 1]`` clusters of s blocks, which :func:`prepare` asks
+    the card), each split walking at least WIDE_SPLIT_MIN K tiles and none
+    empty; 1 where none fits, so a call with as many tiles as SMs is not
+    split.  Of the split counts that leave a split as many K tiles, the
+    fewest."""
+    m_tiles = math.ceil(M / WIDE_MAX_ROWS)
+    rows = max(WIDE_MIN_ROWS, math.ceil(M / m_tiles / WIDE_ROW_STEP) * WIDE_ROW_STEP)
+    tiles = m_tiles * math.ceil(N / WIDE_BN)
+    k_tiles = math.ceil(K / WIDE_BK)
+    best = (k_tiles, 1)
+    for splits in range(2, WIDE_MAX_SPLITS + 1):
+        per = math.ceil(k_tiles / splits)
+        if (tiles <= clusters[splits - 1] and per >= WIDE_SPLIT_MIN
+                and (splits - 1) * per < k_tiles and per < best[0]):
+            best = (per, splits)
+    return rows, best[1]
 
 
 def _device_index(device: torch.device) -> int:
     return device.index if device.index is not None else torch.cuda.current_device()
 
 
-def reserve_counters(device: torch.device) -> None:
-    """Allocate the arrival counters of split calls on ``device`` now,
-    outside any CUDA-graph capture: a buffer first made inside a capture
-    would come from the graph's private pool.  Engines with int8 weights
-    call this at boot."""
+def prepare(device: torch.device) -> None:
+    """Ask the card, once and outside any CUDA-graph capture, for the
+    driver's tensor-map encoder and for how many clusters of the bf16 body
+    it holds at once (:func:`wide_plan`).  Engines with int8 weights call
+    this at boot; the wrapper calls it at a device's first call."""
     dev = _device_index(device)
-    if dev not in _num_sms:
-        _num_sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    if dev not in _counters:
-        _counters[dev] = torch.zeros(COUNTERS, dtype=torch.int32, device=device)
+    if dev in _clusters:
+        return
+    lib = _build.load("w8a16_gemm")
+    err = lib.w8a16_gemm_prepare()
+    if err:
+        raise RuntimeError(f"w8a16_gemm: no tensor-map encoder in the driver (cudaError {err})")
+    counts = []
+    with torch.cuda.device(dev):
+        for splits in range(1, WIDE_MAX_SPLITS + 1):
+            n = ctypes.c_int(0)
+            err = lib.w8a16_gemm_cluster_capacity(splits, ctypes.byref(n))
+            if err or n.value < 1:
+                raise RuntimeError(f"w8a16_gemm: clusters of {splits} do not fit the card "
+                                   f"(cudaError {err}, {n.value})")
+            counts.append(n.value)
+    _clusters[dev] = tuple(counts)
 
 
 def w8a16_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -100,7 +120,7 @@ def _launcher():
     fn = _build.load("w8a16_gemm").w8a16_gemm_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     return fn
 
 
@@ -120,8 +140,8 @@ def _check(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                          "want [M, K], [K, N], [N]")
     K, N = q.shape
     if K % 8 or N % 16:
-        raise ValueError(f"K={K}, N={N}: the kernel's 16-byte loads want K % 8 == 0 "
-                         "and N % 16 == 0")
+        raise ValueError(f"K={K}, N={N}: the kernel's TMA rows want K % 8 == 0 "
+                         "and N % 16 == 0 (16-byte strides and tiles)")
     for name, t in (("x", x), ("q", q), ("s", s)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
@@ -136,8 +156,8 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     """``(x @ q) * s`` as [M, N]: fp32, or with ``out_dtype`` x's dtype the
     fp32 result rounded to it (what a caller's cast gives, without a
     kernel for the cast).  CUDA tensors run the hand-written kernel on the
-    current stream (no sync; no allocation but the output and, for a call
-    split over K (:func:`split_k`), its fp32 partials); CPU tensors run
+    current stream (no sync; no allocation but the output; bf16 x at the
+    row tile and split of :func:`wide_plan`); CPU tensors run
     :func:`w8a16_matmul_plain`."""
     global launches
     if x.device.type == "cpu":
@@ -151,17 +171,14 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     if M == 0:
         return out  # nothing to launch
     dev = _device_index(x.device)
-    if dev not in _counters:
+    if dev not in _clusters:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the W8A16 arrival counters must be reserved before "
-                               "CUDA-graph capture (reserve_counters)")
-        reserve_counters(x.device)
-    splits = split_k(M, N, K, _num_sms[dev]) if x.dtype == torch.bfloat16 else 1
-    ws = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+            raise RuntimeError("w8a16.prepare must run before CUDA-graph capture")
+        prepare(x.device)
+    rows, splits = (wide_plan(M, N, K, _clusters[dev])
+                    if x.dtype == torch.bfloat16 else (0, 1))
     err = _launcher()(
-        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if ws is None else ws.data_ptr(), _counters[dev].data_ptr(), M, N, K, splits,
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K, splits, rows,
         DTYPE_CODES[x.dtype], int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -157,21 +157,30 @@ def test_w8a16_wrapper_refuses_what_the_kernel_does_not_take():
 
 
 def test_split_k_streams_short_weights_from_every_sm():
-    """The decode-row body's split over K (an H100's 132 SMs): weights with
-    fewer column tiles than SMs are split until their blocks cover the SMs
-    (k_proj's 16 tiles 8 ways, q_proj's 64 two ways), wide ones and calls
-    above 64 rows are not, and every split keeps at least
-    SPLIT_MIN_TILES tiles of K."""
+    """The bf16 body's split over K at decode rows (an H100's 132 SMs and
+    the clusters of 1 .. 8 blocks it holds at once): weights with fewer
+    (row, feature) tiles than SMs are split as many ways as the card
+    holds their clusters in one wave (k_proj's 8 tiles 8 ways, q_proj's
+    and down_proj's 32 three ways: 39 clusters of 3 fit, 30 of 4 do not),
+    wide ones are not, and every split keeps at least WIDE_SPLIT_MIN tiles
+    of K."""
+    clusters = (132, 66, 39, 30, 22, 17, 15, 15)
     shapes = {"q_o": (4096, 4096), "k_v": (4096, 1024), "gate_up": (4096, 14336),
               "down": (14336, 4096), "lm_head": (4096, 128256)}
-    want = {"q_o": 2, "k_v": 8, "gate_up": 1, "down": 2, "lm_head": 1}
+    want = {"q_o": 3, "k_v": 8, "gate_up": 1, "down": 3, "lm_head": 1}
     for name, (K, N) in shapes.items():
+        k_tiles = -(-K // w8a16.WIDE_BK)
         for M in (1, 8, 40, 64):
-            got = w8a16.split_k(M, N, K, 132)
+            rows, got = w8a16.wide_plan(M, N, K, clusters)
             assert got == want[name], (name, M)
-            assert K // w8a16.SKINNY_KT // got >= w8a16.SPLIT_MIN_TILES
-        assert w8a16.split_k(65, N, K, 132) == 1
-    assert w8a16.split_k(8, 1024, 256, 132) == 1  # too short to split
+            tiles = -(-M // rows) * -(-N // w8a16.WIDE_BN)
+            assert -(-k_tiles // got) >= w8a16.WIDE_SPLIT_MIN
+            assert got == 1 or tiles <= clusters[got - 1]  # one wave
+            # One split more would not fit one wave, or would walk too few tiles.
+            assert got == w8a16.WIDE_MAX_SPLITS or tiles > clusters[got] or (
+                -(-k_tiles // (got + 1)) < w8a16.WIDE_SPLIT_MIN)
+        assert w8a16.wide_plan(2048, N, K, clusters)[1] == (2 if name == "k_v" else 1)
+    assert w8a16.wide_plan(8, 1024, 256, clusters)[1] == 1  # too short to split
 
 
 # -- (b) the model's forwards --------------------------------------------------
