@@ -78,6 +78,21 @@ non-zero (no phase is caught and passed over):
    ``torch.cuda.set_sync_debug_mode("error")``, so a host sync in one
    fails the phase; every window and mixed-window dispatch must have been
    checked so.
+3b. Sparse MoE: phase 3's protocol on a 2-layer model at mixtral-8x7b's
+   width (h 4096, I 14336, 8 experts, top-2, fp32, TF32 off, weights drawn
+   on the card) holds the card path against the same path on the card
+   with the plain versions of the attention kernels and of the W8A16 GEMM
+   (``plain_kernels``), on dense and int8 KV and once with int8 weights
+   (4 W8A16 launches a layer and one for the lm_head a forward): logits
+   within 2e-3.  Then mixtral-8x7b at full width and 16 of its 32 layers
+   (bf16, seeded random init on the card; its bf16 experts take 2.82 GB a
+   layer, so 32 layers do not fit one card) serves phase 4's requests at
+   the default serving path with the checks of phase 4, every
+   asynchronous dispatch under ``set_sync_debug_mode("error")``, then
+   phase 5's token step and prefill-carrying step; ``phase_moe_layer``
+   times the MoE layer at 8 and 520 rows (its share of each step) beside
+   each step's bound, and takes the transient peak memory of a 2048-token
+   prefill and of the encode lane's largest batch (16384 rows).
 4. The engine at full width: llama-3.1-8b (32 layers, bf16, seeded random
    init on the card), KV pool sized from free memory, mixed steps on, K=8
    windows with the lookahead, mixed and packed K-step windows, 8 greedy
@@ -248,6 +263,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1124,6 +1140,47 @@ def reference_model() -> tuple:
     return cfg, cpu_params, gen.get_state()
 
 
+MOE_MODEL = "mixtral-8x7b"
+
+
+def reference_moe_model() -> tuple:
+    """The MoE reference model: 2 layers at mixtral-8x7b width (h 4096, I
+    14336, E 8, top-2, GQA 32/8) in fp32, drawn on the card from seed 1
+    (its 11.3 GB of fp32 expert stacks would take about a minute to draw on
+    the CPU); returns (config, weights on the card, the state of a CPU
+    generator seeded 2, from which the prompts are drawn)."""
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models import llama
+
+    cfg = dataclasses.replace(PRESETS[MOE_MODEL], num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    params = llama.init_params(cfg, gen, torch.device("cuda"))
+    torch.cuda.synchronize()
+    return cfg, params, torch.Generator(device="cpu").manual_seed(2).get_state()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside the block the model runs the plain PyTorch versions of the
+    attention kernels and of the W8A16 GEMM on any device (the reference
+    side of a card-against-card comparison); the int8 cache writer stays
+    the kernel."""
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops import attention as attn_ops
+    from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
+    from production_stack_tpu_torch.engine.ops.kernels import w8a16
+
+    saved = (attn_ops.decode_attention, attn_ops.prefill_attention_paged, llama.w8a16_matmul)
+    attn_ops.decode_attention = attn_ops.paged_decode_attention
+    attn_ops.prefill_attention_paged = fp.flash_prefill_attention_paged_plain
+    llama.w8a16_matmul = w8a16.w8a16_matmul_plain
+    try:
+        yield
+    finally:
+        attn_ops.decode_attention, attn_ops.prefill_attention_paged, llama.w8a16_matmul = saved
+
+
 def _tree_to(t, dev):
     if isinstance(t, dict):
         return {k: _tree_to(v, dev) for k, v in t.items()}
@@ -1171,8 +1228,12 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     dense or int8 KV caches, TF32 off; with ``weights_int8`` its weights
     quantized (``llama.quantize_params``), so every projection runs the
     W8A16 kernel on the card (its fp32 body) and its plain version on the
-    CPU, and each card forward must launch it 7 times a layer and once for
-    the lm_head.  One prompt is prefilled
+    CPU, and each card forward must launch it 7 times a layer (4 on a MoE
+    model: q, k, v, o) and once for the lm_head.  A ``model`` whose
+    weights live on the card (:func:`reference_moe_model`) is held against
+    the same path on the card with the plain versions of the attention
+    kernels and of the W8A16 GEMM (:func:`plain_kernels`; the int8 cache
+    writer stays the kernel on both sides).  One prompt is prefilled
     in two chunks, then 3 decode steps; a second prompt's first chunk is
     prefilled, then one mixed step runs the first prompt's next decode
     row beside the second prompt's last chunk over its cached prefix.
@@ -1184,13 +1245,16 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     from production_stack_tpu_torch.engine.ops.kernels import w8a16
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg, cpu_params, state = model
+    cfg, ref_params, state = model
     if weights_int8:
         cfg = dataclasses.replace(cfg, quantization="int8")
-        cpu_params = llama.quantize_params(cpu_params, cfg)
+        ref_params = llama.quantize_params(ref_params, cfg)
     gen = torch.Generator(device="cpu")
     gen.set_state(state)  # the prompts follow the weights' draws
     bs, nblocks = 16, 16
+    # The reference side: the CPU, or the card with the plain versions.
+    on_card = ref_params["embed_tokens"].is_cuda
+    ref_dev, ref_ctx = ("cuda", plain_kernels) if on_card else ("cpu", contextlib.nullcontext)
 
     def caches(dev):
         shape = (nblocks, bs, cfg.num_kv_heads, cfg.head_dim)
@@ -1220,68 +1284,72 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     # code into every later step.
     forced = int8 and weights_int8
     snaps = []
-    for dev in (("cuda", "cpu") if forced else ("cpu", "cuda")):
-        params = cpu_params if dev == "cpu" else _tree_to(cpu_params, dev)
+    for side in (("card", "ref") if forced else ("ref", "card")):
+        dev = "cuda" if side == "card" else ref_dev
+        params = _tree_to(ref_params, dev)
         kv = caches(dev)
-        w8a16.launches = 0
-        t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-        leads = "tokens" not in runs  # this run picks the decode tokens
-        step = iter(range(7))
+        with ref_ctx() if side == "ref" else contextlib.nullcontext():
+            _reset_launches()
+            t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+            leads = "tokens" not in runs  # this run picks the decode tokens
+            step = iter(range(7))
 
-        def from_card(kv=kv, dev=dev, step=step):
-            i = next(step)
-            if forced and dev == "cuda":
-                snaps.append([tuple(_tree_to(list(side), "cpu") if isinstance(side, tuple)
-                                    else side.cpu() for side in layer) for layer in kv])
-            elif forced:
-                for layer, saved in zip(kv, snaps[i]):
-                    for side, src in zip(layer, saved):
-                        for dst, val in (zip(side, src) if isinstance(side, tuple)
-                                         else ((side, src),)):
-                            dst.copy_(val)
+            def from_card(kv=kv, card=side == "card", step=step):
+                i = next(step)
+                if forced and card:
+                    snaps.append([tuple(_tree_to(list(c), "cpu") if isinstance(c, tuple)
+                                        else c.cpu() for c in layer) for layer in kv])
+                elif forced:
+                    for layer, saved in zip(kv, snaps[i]):
+                        for c, src in zip(layer, saved):
+                            for dst, val in (zip(c, src) if isinstance(c, tuple)
+                                             else ((c, src),)):
+                                dst.copy_(val)
 
-        from_card()
-        first, plp1 = llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
-                                    t([1, 2, 3, 4]), 64, kv,
-                                    prompt_targets=targets[0].to(dev), prompt_topk=5)
-        from_card()
-        second, plp2 = llama.prefill(
-            params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev), 64,
-            t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv,
-            prompt_targets=targets[1].to(dev), prompt_topk=5)
-        # Positions 1..99: the first chunk's 64 rows, the second's first 35.
-        plps[dev] = [torch.cat([a.cpu(), b[:35].cpu()]) for a, b in zip(plp1, plp2)]
-        outs = [first, second]
-        tokens = [int(outs[-1].argmax())] if leads else runs["tokens"]
-        table = [[1, 2, 3, 4, 5, 6, 7, 0]]
-        for i, pos in enumerate(range(100, 103)):
             from_card()
-            outs.append(llama.decode(
-                params, cfg, t([tokens[i]]), t([pos]), t(table),
-                t([pos + 1]), t([7]), t([pos % bs]), kv)[0])
-            if leads:
-                tokens.append(int(outs[-1].argmax()))
-        from_card()
-        outs.append(llama.prefill(params, cfg, prompt2[:32].to(dev), 0, t([]),
-                                  t([8, 9]), 32, kv))
-        from_card()
-        mixed = llama.mixed_step(
-            params, cfg, dec_tokens=t([tokens[3]]), dec_positions=t([103]),
-            dec_block_tables=t(table), dec_ctx_lens=t([104]),
-            dec_slot_block_ids=t([7]), dec_slot_offsets=t([103 % bs]),
-            pf_tokens=prompt2[32:].to(dev), pf_cached_len=32,
-            pf_prefix_block_ids=t([8, 9]), pf_new_block_ids=t([10]),
-            pf_valid_len=16, kv_caches=kv,
-        )
-        outs.extend(mixed)  # the decode row, then the chunk's last row
-        runs[dev] = [o.float().cpu() for o in outs]
-        runs[dev + "_kv"] = [tuple(t.cpu() if not isinstance(t, tuple) else
-                                   tuple(u.cpu() for u in t) for t in side) for side in kv]
+            first, plp1 = llama.prefill(params, cfg, prompt[:64].to(dev), 0, t([]),
+                                        t([1, 2, 3, 4]), 64, kv,
+                                        prompt_targets=targets[0].to(dev), prompt_topk=5)
+            from_card()
+            second, plp2 = llama.prefill(
+                params, cfg, torch.cat([prompt[64:], prompt[:12]]).to(dev), 64,
+                t([1, 2, 3, 4]), t([5, 6, 7]), 36, kv,
+                prompt_targets=targets[1].to(dev), prompt_topk=5)
+            # Positions 1..99: the first chunk's 64 rows, the second's first 35.
+            plps[side] = [torch.cat([a.cpu(), b[:35].cpu()]) for a, b in zip(plp1, plp2)]
+            outs = [first, second]
+            tokens = [int(outs[-1].argmax())] if leads else runs["tokens"]
+            table = [[1, 2, 3, 4, 5, 6, 7, 0]]
+            for i, pos in enumerate(range(100, 103)):
+                from_card()
+                outs.append(llama.decode(
+                    params, cfg, t([tokens[i]]), t([pos]), t(table),
+                    t([pos + 1]), t([7]), t([pos % bs]), kv)[0])
+                if leads:
+                    tokens.append(int(outs[-1].argmax()))
+            from_card()
+            outs.append(llama.prefill(params, cfg, prompt2[:32].to(dev), 0, t([]),
+                                      t([8, 9]), 32, kv))
+            from_card()
+            mixed = llama.mixed_step(
+                params, cfg, dec_tokens=t([tokens[3]]), dec_positions=t([103]),
+                dec_block_tables=t(table), dec_ctx_lens=t([104]),
+                dec_slot_block_ids=t([7]), dec_slot_offsets=t([103 % bs]),
+                pf_tokens=prompt2[32:].to(dev), pf_cached_len=32,
+                pf_prefix_block_ids=t([8, 9]), pf_new_block_ids=t([10]),
+                pf_valid_len=16, kv_caches=kv,
+            )
+            outs.extend(mixed)  # the decode row, then the chunk's last row
+        runs[side] = [o.float().cpu() for o in outs]
+        runs[side + "_kv"] = [tuple(t.cpu() if not isinstance(t, tuple) else
+                                    tuple(u.cpu() for u in t) for t in kv_side)
+                              for kv_side in kv]
         runs["tokens"] = tokens
-        if dev == "cuda":
+        if side == "card":
             w8_launches = w8a16.launches  # the card's forwards
+            card_launches = launch_counts()
     step_errs = []
-    for a, b in zip(runs["cpu"], runs["cuda"]):
+    for a, b in zip(runs["ref"], runs["card"]):
         if not torch.isfinite(b).all():
             raise AssertionError("non-finite logits on the card")
         step_errs.append((a - b).abs().max().item())
@@ -1291,10 +1359,10 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     codes = {}
     if int8:
         diff = [(c[0].int() - g[0].int()).abs()
-                for cl, gl in zip(runs["cpu_kv"], runs["cuda_kv"]) for c, g in zip(cl, gl)]
+                for cl, gl in zip(runs["ref_kv"], runs["card_kv"]) for c, g in zip(cl, gl)]
         codes = {"int8_kv_codes_differ": int(sum((d[1:] > 0).sum() for d in diff)),
                  "int8_kv_codes_max_step": int(max(d[1:].max() for d in diff))}
-    (want_t, want_ids, want_lps), (got_t, got_ids, got_lps) = plps["cpu"], plps["cuda"]
+    (want_t, want_ids, want_lps), (got_t, got_ids, got_lps) = plps["ref"], plps["card"]
     plp_err = max((got_t - want_t).abs().max().item(),
                   (got_lps - want_lps).abs().max().item())
     # Top ids, compared as sets within each run of logprobs that tie
@@ -1307,29 +1375,35 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
                 ids_differ += sorted(got_ids[r, start:j].tolist()) != sorted(
                     want_ids[r, start:j].tolist())
                 start = j
-    row = {"phase": "reference", "kv": "int8" if int8 else "dense",
+    moe = cfg.num_experts > 0
+    row = {"phase": "moe_reference" if moe else "reference",
+           "kv": "int8" if int8 else "dense",
            "weights": cfg.quantization or cfg.dtype,
            "layers": cfg.num_layers, "width": cfg.hidden_size,
-           "steps": len(runs["cpu"]), "mixed_rows": 2,
+           "experts": cfg.num_experts, "reference": "card_plain" if on_card else "cpu",
+           "steps": len(runs["ref"]), "mixed_rows": 2,
            "max_abs_logit_err": worst, "tol": 2e-3,
-           "logit_absmax": max(x.abs().max().item() for x in runs["cpu"]),
+           "logit_absmax": max(x.abs().max().item() for x in runs["ref"]),
            "prompt_logprob_entries": int(want_t.numel()),
            "prompt_logprob_max_abs_err": plp_err,
            "prompt_logprob_top_ids_differ": ids_differ,
            "w8a16_launches": w8_launches, "step_max_abs_logit_err": step_errs,
-           "caches_from_card_each_step": forced, **codes}
+           "caches_from_card_each_step": forced, "card_launches": card_launches,
+           **codes}
     emit(row)
     # 7 forwards (2 chunks, 3 decodes, a prefill, a mixed step), each 7
-    # projections a layer and the lm_head, and one more lm_head for each
-    # prompt-logprob slice of the first prompt's two chunks (64 rows: one
-    # slice of 64; 48 rows: three of gcd(48, 128) = 16).
-    want_w8 = 7 * (7 * cfg.num_layers + 1) + 4 if weights_int8 else 0
+    # projections a layer (4 on a MoE model) and the lm_head, and one more
+    # lm_head for each prompt-logprob slice of the first prompt's two
+    # chunks (64 rows: one slice of 64; 48 rows: three of gcd(48, 128) = 16).
+    projections = 4 if moe else 7
+    want_w8 = 7 * (projections * cfg.num_layers + 1) + 4 if weights_int8 else 0
     if w8_launches != want_w8:
         raise AssertionError(f"w8a16 launched {w8_launches} times, want {want_w8}")
     if worst > 2e-3:
-        raise AssertionError(f"card vs CPU logits differ by {worst} ({row['kv']} KV)")
+        raise AssertionError(f"card vs {row['reference']} logits differ by {worst} "
+                             f"({row['kv']} KV)")
     if plp_err > 2e-3 or ids_differ or not torch.isfinite(got_lps).all():
-        raise AssertionError(f"card vs CPU prompt logprobs: {row}")
+        raise AssertionError(f"card vs {row['reference']} prompt logprobs: {row}")
     return row
 
 
@@ -1516,7 +1590,7 @@ def phase_mixed_window(int8: bool) -> dict:
     return row
 
 
-async def _serve(aeng, app, vocab: int, surface: bool = False) -> dict:
+async def _serve(aeng, app, vocab: int, surface: bool = False, model: str = MODEL) -> dict:
     """Drive 8 requests through AsyncEngine.generate (request 7 shares a
     512-token prefix with request 0 and is submitted when request 0 has
     finished, so it hits the prefix cache), then one HTTP completion.
@@ -1593,7 +1667,7 @@ async def _serve(aeng, app, vocab: int, surface: bool = False) -> dict:
                 health = r.status
             async with http.post(
                 f"{base}/v1/completions",
-                json={"model": MODEL, "prompt": "The H100 port says", "max_tokens": 8,
+                json={"model": model, "prompt": "The H100 port says", "max_tokens": 8,
                       "ignore_eos": True},
             ) as r:
                 http_status = r.status
@@ -1880,7 +1954,7 @@ async def _drive_surface(aeng, http, base: str, scrapes: list, after: tuple,
 def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
                  single_step: bool = False, layers: int = None,
                  surface: bool = False, quantization: str = None,
-                 bf16_weights: dict = None) -> dict:
+                 bf16_weights: dict = None, model: str = MODEL) -> dict:
     """Serve the 8 requests and one HTTP completion on a fresh engine at
     full width, KV cache dense (``auto``) or ``int8``; mixed steps on and,
     unless ``single_step``, K=8 windows with the lookahead (the default
@@ -1897,7 +1971,12 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     a layer and once for the lm_head in every forward (a whole number of
     forwards, at least one a window iteration and mixed iteration), and
     the pool must hold more tokens than ``bf16_weights``' (the bf16-weight
-    phase on the same KV dtype)."""
+    phase on the same KV dtype).
+
+    ``model`` names the preset served (llama-3.1-8b by default).  A MoE
+    preset (mixtral-8x7b) runs every asynchronous dispatch under
+    ``set_sync_debug_mode("error")`` as int8 weights do, and its W8A16
+    forwards count 4 projections a layer (q, k, v, o)."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
@@ -1918,7 +1997,8 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         overrides["model.num_layers"] = layers
     if quantization is not None:
         overrides["model.quantization"] = quantization
-    cfg = config_from_preset(MODEL, **SLICE_OVERRIDES, **overrides)
+    cfg = config_from_preset(model, **SLICE_OVERRIDES, **overrides)
+    moe = cfg.model.num_experts > 0
     if not cfg.scheduler.mixed_enabled:
         raise AssertionError("mixed steps are off by default")
     K = cfg.scheduler.window_steps
@@ -1932,11 +2012,11 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     # pool was sized from what mem_get_info saw and allocated.
     held_unused = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
     eng = aeng.engine
-    app = build_engine_app(aeng, MODEL)
-    checked = sync_checked(eng) if quantization else None
+    app = build_engine_app(aeng, model)
+    checked = sync_checked(eng) if quantization or moe else None
     _reset_launches()
     try:
-        out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface))
+        out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface, model))
     finally:
         if checked is not None:
             for name in ASYNC_DISPATCHES:
@@ -1986,25 +2066,28 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         if launches[prefill] < stats["mixed_window_iterations"] * L:
             raise AssertionError(f"{prefill}: {launches[prefill]} launches for "
                                  f"{stats['mixed_window_iterations']} mixed iterations")
-    per_forward = 7 * L + (0 if cfg.model.tie_word_embeddings else 1)
-    w8 = {}
+    per_forward = (4 if moe else 7) * L + (0 if cfg.model.tie_word_embeddings else 1)
+    extra = {}
     if quantization:
         forwards, rest = divmod(launches["w8a16"], per_forward)
         iters = stats["windows_dispatched"] * K + stats["mixed_window_iterations"]
-        w8 = {"w8a16_launches_per_forward": per_forward, "w8a16_forwards": forwards,
-              "window_and_mixed_iterations": iters, "sync_checked_dispatches": checked}
+        extra = {"w8a16_launches_per_forward": per_forward, "w8a16_forwards": forwards,
+              "window_and_mixed_iterations": iters}
         if rest or forwards < iters:
             raise AssertionError(f"w8a16: {launches['w8a16']} launches, not whole forwards "
                                  f"of {per_forward} covering {iters} iterations")
+    if checked is not None:
+        extra["sync_checked_dispatches"] = checked
         if (checked["_dispatch_window"] != stats["windows_dispatched"]
                 or checked["_dispatch_mixed_window"] != stats["mixed_windows_dispatched"]):
             raise AssertionError(f"dispatches not sync-checked: {checked} against {stats}")
     total_out = sum(r["tokens"] for r in results)
     row = {
         "phase": ("engine_single_step" if single_step
+                  else "engine_moe" if moe
                   else "engine_int8_weights" if quantization
                   else "engine_int8" if int8 else "engine"),
-        "model": MODEL,
+        "model": model,
         "layers": L,
         "dtype": cfg.model.dtype,
         "quantization": cfg.model.quantization,
@@ -2048,7 +2131,7 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "allocator_held_unused_gib_at_boot": held_unused,
         "params_gib": sum(t.numel() * t.element_size()
                           for t in _leaves(eng.params)) / 2**30,
-        **w8,
+        **extra,
     }
     if bf16_weights is not None:
         row["kv_tokens_vs_bf16_weights"] = row["kv_tokens"] / bf16_weights["kv_tokens"]
@@ -2081,7 +2164,7 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         raise AssertionError(f"compile events {row['compile_s_by_family']} against "
                              f"{row['capture_s_total']} s of captures")
     return {"launches": launches, "engine": eng, "kv_tokens": row["kv_tokens"],
-            "results": results}
+            "results": results, "row": row}
 
 
 def _leaves(tree) -> list:
@@ -2214,7 +2297,7 @@ def phase_profile(eng, tokens: int = 32) -> dict:
     wall_ms = wall * 1e3 / token_steps
     busy_ms = event_busy_ms if spans else prof_busy_ms
     row = {
-        "phase": "profile",
+        "phase": "profile", "model": eng.config.model.name,
         "weights": eng.config.model.quantization or eng.config.model.dtype,
         "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
         "decode_window": eng.config.scheduler.window_steps,
@@ -2352,7 +2435,7 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     wall_ms = wall * 1e3 / chunks
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
     row = {
-        "phase": "mixed_profile", "label": label,
+        "phase": "mixed_profile", "label": label, "model": eng.config.model.name,
         "weights": eng.config.model.quantization or eng.config.model.dtype,
         "kv_cache_dtype": eng.config.cache.kv_cache_dtype,
         "decode_rows": rows, "chunk_tokens": 512, "cached_prefix": MIXED_SHARED,
@@ -2376,6 +2459,153 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
     emit(row)
     if counts["prefix_cache_hit_tokens"] < MIXED_SHARED or chunks != MIXED_CHUNKS:
         raise AssertionError(f"the measured prompt did not chunk over its cached prefix: {row}")
+    return row
+
+
+# -- phase 4b: sparse MoE at full width ---------------------------------------
+
+# mixtral-8x7b's bf16 experts take 2.82 GB a layer (90 GB over its 32
+# layers), more than one 80 GB card holds: the engine phase serves its
+# full width at 16 layers (full depth waits for the parallel layer).
+MOE_LAYERS = 16
+MOE_ROWS = {"token_step": 8, "prefill_carrying": 520}  # 7 decode rows (8) + 512
+
+
+def _moe_weight_bytes(cfg, params) -> dict:
+    """Bytes a forward reads of each weight group: the experts, the router,
+    attention's projections and the lm_head (its fp32 copy where the
+    engine keeps one); embedding rows and norms are left out (KB)."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    def nbytes(t):
+        return sum(x.numel() * x.element_size() for x in _leaves(t))
+
+    layers = params["layers"]
+    head = params.get(llama.LM_HEAD_FP32, params.get("lm_head"))
+    return {
+        "experts": sum(nbytes([l["experts_gate"], l["experts_up"], l["experts_down"]])
+                       for l in layers),
+        "router": sum(nbytes(l["gate"]) for l in layers),
+        "attention": sum(nbytes([l[n] for n in ("q_proj", "k_proj", "v_proj", "o_proj")])
+                         for l in layers),
+        "lm_head": nbytes(head),
+    }
+
+
+def phase_moe_layer(eng, served: dict, profile: dict, mixed: dict) -> dict:
+    """The MoE layer on the served mixtral engine: its device time at the
+    token step's 8 rows and the prefill-carrying step's 520 rows (one
+    layer's ``llama._moe_mlp`` on random bf16 rows, CUDA-graph replays,
+    times the layer count) and its share of each step's device time
+    (``profile``'s busy ms a token step, ``mixed``'s replay ms a mixed
+    iteration); each step's bound (the token step's bytes: every weight
+    once, every expert whatever the routing, and the 8 rows' KV; the
+    prefill-carrying step's operations: 2 x 520 rows x every parameter, E /
+    k = 4x the routed work, and the chunk's attention over its prefix);
+    the transient peak memory (above what is allocated before) of a
+    2048-token prefill and of the encode lane's largest batch, 8 texts of
+    2048 tokens (16384 rows), whose vectors must be finite and whose
+    attention must launch flash prefill's batched entry once a layer."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.models import llama
+
+    cfg = eng.config.model
+    L, h, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dtype = llama.param_dtype(cfg)
+    layer = eng.params["layers"][0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    moe_ms = {}
+    for name, rows in MOE_ROWS.items():
+        x = torch.randn(rows, h, generator=gen, device="cuda").to(dtype)
+        moe_ms[name] = L * graph_time_ms(lambda: llama._moe_mlp(layer, x, cfg),
+                                         iters=4, reps=3)
+        del x
+    weights = _moe_weight_bytes(cfg, eng.params)
+    params_per_row = sum(weights[k] for k in ("experts", "router", "attention")) / dtype.itemsize
+    kv_per_token = 2 * K * D * dtype.itemsize * L
+    # The profiled token steps' mean context: each prompt, the prefill's
+    # token, 8 warm-up tokens and half of the 32 measured.
+    kv_tokens = sum(PROMPT_LENS) + len(PROMPT_LENS) * (1 + 8 + 16)
+    token_bytes = sum(weights.values()) + kv_tokens * kv_per_token
+    token_bound = bound(token_bytes, 2 * 8 * (params_per_row + h * V), dtype)
+    # A mixed iteration: 520 rows through every parameter, the chunk's 512
+    # queries over their keys (the prefix, 2560 + 512 c for chunk c, and
+    # the chunk's own causal half), QK and PV.
+    keys = MIXED_SHARED + 512 * (MIXED_CHUNKS - 1) / 2 + 256
+    mixed_flops = (2 * MOE_ROWS["prefill_carrying"] * params_per_row
+                   + 4 * 512 * keys * H * D * L + 2 * 8 * h * V)
+    mixed_bound = bound(sum(weights.values()), mixed_flops, dtype)
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    rng = torch.Generator().manual_seed(4)
+    longest = eng.encode_max_len()
+
+    def prefill():
+        ids = torch.randint(4, V, (longest,), generator=rng).tolist()
+        eng.add_request("moe_prefill", prompt_token_ids=ids,
+                        sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+        while eng.has_unfinished() or eng.has_pending():
+            eng.step()
+
+    texts = [torch.randint(4, V, (longest,), generator=rng).tolist()
+             for _ in range(eng.config.scheduler.encode_batch_buckets[-1])]
+    _reset_launches()
+    vectors = []
+    peaks = {"prefill_2048": peak_gib(prefill),
+             "encode_rows_%d" % (len(texts) * longest): peak_gib(
+                 lambda: vectors.append(eng.encode_batch(texts)))}
+    encode_launches = launch_counts()["flash_prefill_batched"]
+    row = {
+        "phase": "moe_layer", "model": cfg.name, "layers": L, "experts": cfg.num_experts,
+        "top_k": cfg.num_experts_per_tok,
+        "weight_gib": {k: v / 2**30 for k, v in weights.items()},
+        "params_gib": served["row"]["params_gib"], "kv_tokens": served["row"]["kv_tokens"],
+        "peak_mem_gib_serving": served["row"]["peak_mem_gib"],
+        "transient_peak_gib": peaks,
+        "allocator_reserved_gib": torch.cuda.memory_reserved() / 2**30,
+        "allocator_reserved_unused_gib": (torch.cuda.memory_reserved()
+                                          - torch.cuda.memory_allocated()) / 2**30,
+        "card_total_gib": torch.cuda.mem_get_info()[1] / 2**30,
+        "encode_batched_launches": encode_launches,
+        "token_step": {
+            "rows": MOE_ROWS["token_step"],
+            "wall_ms": profile["wall_ms_per_token_step"],
+            "device_busy_ms": profile["device_busy_ms_per_token_step"],
+            "bound_ms": token_bound[0], "bound_by": token_bound[1],
+            "bound_bytes": token_bytes, "kv_tokens_read": kv_tokens,
+            "moe_layer_ms": moe_ms["token_step"],
+            "moe_share_of_device": moe_ms["token_step"]
+            / profile["device_busy_ms_per_token_step"],
+        },
+        "prefill_carrying_step": {
+            "rows": MOE_ROWS["prefill_carrying"],
+            "wall_ms_per_chunk": mixed["wall_ms_per_chunk"],
+            "mixed_iteration_replay_ms": mixed["mixed_iteration_replay_ms"],
+            "device_busy_ms_per_chunk": mixed["device_busy_ms_per_chunk_profiler"],
+            "bound_ms": mixed_bound[0], "bound_by": mixed_bound[1],
+            "bound_flops": mixed_flops,
+            "moe_layer_ms": moe_ms["prefill_carrying"],
+            "moe_share_of_device": moe_ms["prefill_carrying"]
+            / mixed["device_busy_ms_per_chunk_profiler"],
+        },
+        "capture_s_total": served["row"]["capture_s_total"],
+    }
+    emit(row)
+    vec = vectors[0]
+    if vec.shape != (len(texts), h) or not np.isfinite(vec).all():
+        raise AssertionError(f"encode on the MoE engine: {vec.shape}")
+    if encode_launches != L:
+        raise AssertionError(f"encode: {encode_launches} batched launches, want {L}")
     return row
 
 
@@ -5111,6 +5341,21 @@ def main() -> int:
     timed("encode_reference", phase_encode_reference, model)
     timed("lora_reference", phase_lora_reference, model)
     del model, drawn
+    # Sparse MoE: the 2-layer mixtral-width reference (card against the
+    # plain versions on the card), then mixtral-8x7b at 16 layers served.
+    moe_model = timed("moe_reference_model", reference_moe_model)
+    moe_refs = {"dense": timed("moe_reference", phase_reference, False, moe_model),
+                "int8": timed("moe_reference_int8", phase_reference, True, moe_model)}
+    timed("moe_reference_w8a16", phase_reference, False, moe_model, weights_int8=True)
+    del moe_model
+    torch.cuda.empty_cache()
+    moe = timed("engine_moe", phase_engine, "auto", model=MOE_MODEL, layers=MOE_LAYERS)
+    moe_profile = timed("profile_moe", phase_profile, moe["engine"])
+    moe_mixed = timed("mixed_profile_moe", phase_mixed_profile, moe["engine"], "moe")
+    moe_layer = timed("moe_layer", phase_moe_layer, moe["engine"], moe, moe_profile,
+                      moe_mixed)
+    moe.pop("engine")
+    free_engines()
     timed("window", phase_window, int8=False)
     timed("window_int8", phase_window, int8=True)
     timed("mixed_window", phase_mixed_window, int8=False)
@@ -5163,6 +5408,13 @@ def main() -> int:
                 "w8a16": w8["launches"]["w8a16"]}
     # The phases below run bf16 weights: they launch no W8A16 GEMM.
     bf16_only = ("flash_prefill_batched", "w8a16")
+    # The MoE phases: the mixtral engine's served run (dense pool) and its
+    # encode probe; the int8-pool kernels from the 2-layer MoE reference's
+    # card forwards on the int8 pool (the served engine's pool is dense).
+    moe_launches = {"paged_decode": moe["launches"]["paged_decode"],
+                    "flash_prefill": moe["launches"]["flash_prefill"],
+                    "flash_prefill_batched": moe_layer["encode_batched_launches"]}
+    moe_ref_launches = moe_refs["int8"]["card_launches"]
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
@@ -5187,6 +5439,10 @@ def main() -> int:
             # plain rows on the dense engine): the kernels it launched.
             **({"launches_guided": guided["launches"][name]}
                if guided["launches"].get(name) else {}),
+            **({"launches_moe": moe_launches[name]} if name in moe_launches else
+               {"launches_moe_reference": moe_ref_launches[name]}
+               if name in ("paged_decode_int8", "flash_prefill_int8", "kv_write_int8")
+               else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

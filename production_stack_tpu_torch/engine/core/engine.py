@@ -119,10 +119,12 @@ engine.
 The engine serves the JAX package's default configuration, mixed and
 packed K-step windows, the KV tiers, speculation, the encode lane,
 multi-LoRA, tracing, guided decoding and prompt logprobs included
-(``SLICE_OVERRIDES`` is empty: no parallelism / HF weights for the target
-or the drafter; dense or int8 KV; ``mixed_window=False`` restores K=1
-mixed steps while prompts wait) and raises ``NotImplementedError`` at
-construction for any setting outside it.
+(``SLICE_OVERRIDES`` is empty; HF weights for the target or the drafter;
+dense models and Mixtral-style sparse MoE ones, whose block
+``llama._moe_mlp`` runs inside every forward and captured graph; dense or
+int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
+wait).  It raises ``NotImplementedError`` at construction for the one
+setting outside it, parallelism (tp/dp/sp/ep).
 """
 
 from __future__ import annotations
@@ -212,10 +214,8 @@ def resolve_device(device=None) -> torch.device:
 
 def _unsupported(config: EngineConfig) -> List[str]:
     """Settings outside the served configuration, by name."""
-    m, c, s, p = config.model, config.cache, config.scheduler, config.parallel
     checks = [
-        (p.world_size != 1, "parallel (tp/dp/sp/ep)"),
-        (m.num_experts > 0, "model.num_experts (MoE)"),
+        (config.parallel.world_size != 1, "parallel (tp/dp/sp/ep)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -513,6 +513,11 @@ class LLMEngine:
             self.graphs.track_first_use(self.obs.compile_tracker.first_use_hook())
             self._csrc_loads_seen = len(_build.first_loads)
         if self.device.type == "cuda":
+            # fp32 products stay fp32 (a MoE router's logits, which pick
+            # the experts, and the lm_head's): no TF32, which rounds their
+            # operands to 10 bits of mantissa.  PyTorch's default; the
+            # switch is process-wide.
+            torch.backends.cuda.matmul.allow_tf32 = False
             # Before any capture: a capture must never grow them.
             paged_attention.reserve_split_counters(
                 self.device, self._decode_pairs()

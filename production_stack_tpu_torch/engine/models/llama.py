@@ -1,11 +1,13 @@
 """Llama-family model (PyTorch, paged-KV attention).
 
-Counterpart of ``production_stack_tpu/engine/models/llama.py`` for the
-dense decoder (RMSNorm + rotate-half RoPE with optional llama3 scaling +
-GQA + gated MLP, optional QKV biases, tied or untied lm_head, optional
-sliding window).  The parameter tree is the JAX package's: a dict with
-``[in, out]`` weights, so the forward is ``x @ W`` and a tree moves between
-the packages without transposes (``weights.params_from_numpy``).
+Counterpart of ``production_stack_tpu/engine/models/llama.py``: the
+decoder (RMSNorm + rotate-half RoPE with optional llama3 scaling + GQA +
+gated MLP, optional QKV biases, tied or untied lm_head, optional sliding
+window), and Mixtral's sparse MoE block in place of the MLP when
+``cfg.num_experts`` is set (:func:`_moe_mlp`).  The parameter tree is
+the JAX package's: a dict with ``[in, out]`` weights, so the forward is
+``x @ W`` and a tree moves between the packages without transposes
+(``weights.params_from_numpy``).
 
 Unlike the JAX package, ``prefill``, ``decode`` and ``mixed_step`` update
 the KV caches **in place** and return only the logits.  A chunk's
@@ -18,8 +20,10 @@ tensor or an int8 ``(data, scale)`` tuple (``kv/quant.py``); the attention
 ops take both.
 
 Int8 weights (``cfg.quantization == "int8"``): :func:`quantize_params`
-turns the seven projections and an untied lm_head into ``{"q": int8 [in,
-out], "s": fp32 [out]}`` pairs, as the JAX package's does, and
+turns the seven projections (q, k, v and o on a MoE model, whose router
+and expert stacks keep the model dtype) and an untied lm_head into
+``{"q": int8 [in, out], "s": fp32 [out]}`` pairs, as the JAX package's
+does, and
 :func:`_dot` sends a pair to the W8A16 kernel (``ops/kernels/w8a16.py``),
 whose fp32 result the callers cast as they cast the JAX ``_dot``'s.
 
@@ -34,7 +38,8 @@ slot for a prefill, row-aligned ``[rows]`` slots for decode and mixed
 rows (0 = base).  Each projection's product is the LoRA-free one, to which
 its fp32 delta is added before the cast, so a base row computes bit for
 bit what it computes without LoRA.  ``decode_kv`` (the drafter) and the
-encode forward run the base model, as in the JAX package.
+encode forward run the base model, as in the JAX package.  On a MoE
+model LoRA reaches attention only: the MLP has no flat projections.
 """
 
 from __future__ import annotations
@@ -74,9 +79,12 @@ def init_params(
     """Random init (normal, std 0.02; norms at one; biases at zero) with the
     JAX package's tree structure.  Draws come from ``generator``, which must
     live on ``device``; the same seed gives the same weights, though not
-    the JAX package's (``weights.params_from_numpy`` carries those over)."""
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
+    the JAX package's (``weights.params_from_numpy`` carries those over).
+    A MoE layer holds the router ``gate`` [h, E] and the expert stacks
+    ``experts_gate`` / ``experts_up`` [E, h, I] and ``experts_down`` [E, I,
+    h] in place of the MLP's three projections; a stack is drawn one expert
+    at a time into its allocation, so the fp32 draw of a whole stack (1.9
+    GB at mixtral-8x7b's width) never exists at once."""
     dtype = param_dtype(cfg)
     h, hd = cfg.hidden_size, cfg.head_dim
     H, K, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
@@ -85,6 +93,12 @@ def init_params(
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (w * 0.02).to(dtype)
+
+    def stack(E, *shape):
+        out = torch.empty((E, *shape), dtype=dtype, device=device)
+        for e in range(E):
+            out[e] = dense(*shape)
+        return out
 
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
@@ -107,10 +121,17 @@ def init_params(
             "k_proj": dense(h, K * hd),
             "v_proj": dense(h, K * hd),
             "o_proj": dense(H * hd, h),
-            "gate_proj": dense(h, I),
-            "up_proj": dense(h, I),
-            "down_proj": dense(I, h),
         }
+        if cfg.num_experts:
+            E = cfg.num_experts
+            layer["gate"] = dense(h, E)
+            layer["experts_gate"] = stack(E, h, I)
+            layer["experts_up"] = stack(E, h, I)
+            layer["experts_down"] = stack(E, I, h)
+        else:
+            layer["gate_proj"] = dense(h, I)
+            layer["up_proj"] = dense(h, I)
+            layer["down_proj"] = dense(I, h)
         if cfg.attention_bias:
             layer["q_bias"] = zeros(H * hd)
             layer["k_bias"] = zeros(K * hd)
@@ -153,9 +174,10 @@ def quantize_params(params: Params, cfg: ModelConfig, *, in_place: bool = False)
     """Int8 weight-only quantization (``cfg.quantization``), as the JAX
     package's: the seven projections of every layer and an untied lm_head
     become ``{"q", "s"}`` pairs (:func:`quantize_weight`); embeddings,
-    norms and biases keep the model dtype, and a tied head stays the
-    embedding.  A pair already in the tree is kept, so a tree the JAX
-    package quantized carries across as it is.  ``in_place`` replaces the
+    norms, biases, and a MoE layer's router and expert stacks keep the
+    model dtype (a MoE layer quantizes q, k, v and o only), and a tied
+    head stays the embedding.  A pair already in the tree is kept, so a
+    tree the JAX package quantized carries across as it is.  ``in_place`` replaces the
     weights in ``params`` itself, one at a time, so each full-precision
     weight is freed once its pair is written (an engine's boot); otherwise
     a new tree is returned and ``params`` is left as it was."""
@@ -246,12 +268,67 @@ def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v
 
 
+# Rows of the MoE block at a time: its transients are O(rows x I) (gate
+# and up in fp32, 59 MB each at 1024 rows and mixtral's I = 14336),
+# whatever T is.  A mixed iteration's 520 rows take one chunk; the encode
+# lane's 16384 take 16.  With 16 mixtral layers on one 80 GB card every
+# activation lives in the tenth of the memory left after the weights that
+# the KV pool does not take (``hbm_utilization``; PERF.md §5).
+MOE_ROW_CHUNK = 1024
+
+
+def _moe_mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Mixtral-style sparse MoE block, the JAX ``_moe_mlp``: a full-softmax
+    router over fp32 logits, the top-k probabilities renormalized over their
+    sum, SwiGLU experts.  As there, every row goes through every expert with
+    its routing weight, zero outside its top-k: static shapes, no capacity
+    factor, no token dropped, nothing sorted or counted on the host, so the
+    block runs inside every captured graph and each row's output depends on
+    that row alone.  Rows go ``MOE_ROW_CHUNK`` at a time
+    (:func:`_moe_rows`)."""
+    if x.shape[0] <= MOE_ROW_CHUNK:
+        return _moe_rows(layer, x, cfg)
+    return torch.cat([_moe_rows(layer, x[r:r + MOE_ROW_CHUNK], cfg)
+                      for r in range(0, x.shape[0], MOE_ROW_CHUNK)])
+
+
+def _moe_rows(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_moe_mlp` of the rows ``x``.  The router's logits are a true
+    fp32 product (``x.float() @ gate.float()``; the engine keeps TF32 off,
+    ``LLMEngine``), so bf16 rounding or TF32 never moves a routing choice.
+    The ``[T, E]`` weights are the renormalized top-k values scattered into
+    zeros, so only which experts were chosen matters, not the order
+    ``topk`` returns them in.  The experts run one at a time, each adding
+    its weighted output into an fp32 ``[T, h]`` accumulator, so the
+    transients are O(T x I), not the einsums' O(T x E x I); each product
+    follows :func:`swiglu`'s convention (a matmul in x's dtype, then fp32),
+    the weighted sum over experts is fp32, cast to x's dtype at the end.
+    Routing only the chosen rows (a grouped GEMM over device-side counts)
+    is the faster formulation the JAX docstring names."""
+    probs = torch.softmax(x.float() @ layer["gate"].float(), dim=-1)  # [T, E]
+    top_vals, top_idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    weights = torch.zeros_like(probs).scatter_(1, top_idx, top_vals)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        gate = torch.matmul(x, layer["experts_gate"][e]).float()
+        up = torch.matmul(x, layer["experts_up"][e]).float()
+        activated = (activation(gate, cfg.hidden_act) * up).to(x.dtype)
+        down = torch.matmul(activated, layer["experts_down"][e]).float()
+        out.addcmul_(weights[:, e:e + 1], down)
+    return out.to(x.dtype)
+
+
 def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
          lora_layer=None, mask=None) -> torch.Tensor:
     """Dense gated MLP (ops/layers.py swiglu), with the LoRA deltas of
     gate/up added to their fp32 products and down's added before its
     cast.  Int8 weights take the LoRA path's structure (fp32 gate and up,
-    the act * up product cast, down), as in the JAX package."""
+    the act * up product cast, down), as in the JAX package.  A MoE model
+    runs :func:`_moe_mlp` instead, LoRA or not (its adapters reach
+    attention only)."""
+    if cfg.num_experts:
+        return _moe_mlp(layer, x, cfg)
     if lora_layer is None and not isinstance(layer["gate_proj"], dict):
         return swiglu(
             x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],

@@ -6,14 +6,16 @@ Counterpart of ``production_stack_tpu/engine/models/weights.py``.
 (:func:`load_hf_safetensors`: ``model.safetensors.index.json`` or the
 sorted ``*.safetensors`` shards, torch's ``[out, in]`` Linear weights
 transposed to the ``[in, out]`` layout, Qwen2's QKV biases) or, with no
-``weights_path``, draws a seeded random init.  A departure from the JAX
-package, whose loader falls back to random init on a missing directory or
-on any error: the port raises instead, so a typo never serves random
-weights.  ``params_from_numpy`` takes any tree with the JAX package's
-layout (``[in, out]`` weights) given as numpy arrays, with no transposes,
-which is how the tests hand both packages the same weights (int8 ``{"q",
-"s"}`` pairs included); ``lora_params_from_numpy`` does the same for the
-JAX adapter registry's slot tree.
+``weights_path``, draws a seeded random init.  Mixtral checkpoints
+(``block_sparse_moe``) load into the MoE tree (router and ``[E, ...]``
+expert stacks).  A departure from the JAX package, whose loader falls back
+to random init on a missing directory or on any error: the port raises
+instead, so a typo never serves random weights.  ``params_from_numpy``
+takes any tree with the JAX package's layout (``[in, out]`` weights) given
+as numpy arrays, with no transposes, which is how the tests hand both
+packages the same weights (int8 ``{"q", "s"}`` pairs included);
+``lora_params_from_numpy`` does the same for the JAX adapter registry's
+slot tree.
 """
 
 from __future__ import annotations
@@ -111,30 +113,42 @@ def _shard_index(weights_path: str) -> Dict[str, str]:
 def load_hf_safetensors(cfg: ModelConfig, weights_path: str,
                         device: torch.device) -> llama.Params:
     """An HF ``LlamaForCausalLM``-layout checkpoint (llama, mistral, qwen2,
-    gemma names) as the port's tree on ``device`` in the model dtype.
-    Tensors are read one at a time with ``framework="pt"`` (numpy holds no
-    bf16), moved to ``device``, transposed there where torch stores
-    ``[out, in]``, cast and made contiguous: no second full copy of the
-    model sits on the host.  MoE checkpoints (Mixtral's
-    ``block_sparse_moe``) raise, as the engine refuses MoE."""
+    gemma names) or a ``MixtralForCausalLM`` one as the port's tree on
+    ``device`` in the model dtype.  Tensors are read one at a time with
+    ``framework="pt"`` (numpy holds no bf16), moved to ``device``,
+    transposed there where torch stores ``[out, in]``, cast and made
+    contiguous: no second full copy of the model sits on the host.
+    Mixtral's ``block_sparse_moe`` names map as the JAX loader's do:
+    ``gate.weight`` to the router ``gate`` [h, E], each expert's ``w1`` /
+    ``w3`` / ``w2`` to slot e of ``experts_gate`` / ``experts_up``
+    ``[E, h, I]`` and ``experts_down`` ``[E, I, h]``, each written into
+    its preallocated stack, so a layer's experts are never held twice."""
     from safetensors import safe_open
 
-    if cfg.num_experts:
-        raise NotImplementedError("MoE checkpoints (block_sparse_moe) are not ported yet")
     where = _shard_index(weights_path)
     dtype = llama.param_dtype(cfg)
     handles = {}
 
-    def take(name: str, transpose: bool = False) -> torch.Tensor:
+    def read(name: str) -> torch.Tensor:
         if name not in where:
             raise KeyError(f"{name} not in the checkpoint at {weights_path!r}")
         shard = where[name]
         if shard not in handles:
             handles[shard] = safe_open(os.path.join(weights_path, shard), framework="pt")
-        t = handles[shard].get_tensor(name).to(device)
+        return handles[shard].get_tensor(name).to(device)
+
+    def take(name: str, transpose: bool = False) -> torch.Tensor:
+        t = read(name)
         if transpose:
             t = t.T
         return t.to(dtype).contiguous()
+
+    def experts(prefix: str, w: str, shape: tuple) -> torch.Tensor:
+        """The E experts' ``w`` weights, transposed, in one [E, ...] stack."""
+        out = torch.empty((cfg.num_experts, *shape), dtype=dtype, device=device)
+        for e in range(cfg.num_experts):
+            out[e].copy_(read(f"{prefix}experts.{e}.{w}.weight").T)
+        return out
 
     params = {
         "embed_tokens": take("model.embed_tokens.weight"),
@@ -152,10 +166,17 @@ def load_hf_safetensors(cfg: ModelConfig, weights_path: str,
             "k_proj": take(p + "self_attn.k_proj.weight", transpose=True),
             "v_proj": take(p + "self_attn.v_proj.weight", transpose=True),
             "o_proj": take(p + "self_attn.o_proj.weight", transpose=True),
-            "gate_proj": take(p + "mlp.gate_proj.weight", transpose=True),
-            "up_proj": take(p + "mlp.up_proj.weight", transpose=True),
-            "down_proj": take(p + "mlp.down_proj.weight", transpose=True),
         }
+        if cfg.num_experts:
+            moe, h, I = p + "block_sparse_moe.", cfg.hidden_size, cfg.intermediate_size
+            layer["gate"] = take(moe + "gate.weight", transpose=True)
+            layer["experts_gate"] = experts(moe, "w1", (h, I))
+            layer["experts_up"] = experts(moe, "w3", (h, I))
+            layer["experts_down"] = experts(moe, "w2", (I, h))
+        else:
+            layer["gate_proj"] = take(p + "mlp.gate_proj.weight", transpose=True)
+            layer["up_proj"] = take(p + "mlp.up_proj.weight", transpose=True)
+            layer["down_proj"] = take(p + "mlp.down_proj.weight", transpose=True)
         if cfg.attention_bias:
             # Qwen2-style QKV biases (bias=True on q/k/v only).
             layer["q_bias"] = take(p + "self_attn.q_proj.bias")

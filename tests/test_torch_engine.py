@@ -189,9 +189,10 @@ def test_torch_engine_raises_outside_the_slice():
     layer = LLMEngine(cfg, device="cpu").params["layers"][0]
     assert layer["q_proj"]["q"].dtype == torch.int8
     cfg = torch_config()
-    cfg.model.num_experts = 4  # MoE: not yet
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LLMEngine(cfg, device="cpu")
+    cfg.model.num_experts = 4  # MoE: served
+    cfg.model.intermediate_size = 64
+    layer = LLMEngine(cfg, device="cpu").params["layers"][0]
+    assert tuple(layer["experts_gate"].shape) == (4, 64, 64) and "gate_proj" not in layer
     cfg = torch_config()
     cfg.parallel.tensor_parallel = 2  # the parallel layer: not yet
     with pytest.raises(NotImplementedError, match="parallel"):

@@ -1,10 +1,11 @@
 """HF safetensors checkpoints in the PyTorch port against the JAX package.
 
-Tiny ``LlamaForCausalLM`` and ``Qwen2ForCausalLM`` models (random init,
-fp32) are written with ``save_pretrained`` into a temporary directory, in
+Tiny ``LlamaForCausalLM``, ``Qwen2ForCausalLM`` and ``MixtralForCausalLM``
+models (random init, fp32) are written with ``save_pretrained`` into a temporary directory, in
 one file and in shards with an index; both packages' loaders read them
 into equal trees (``[out, in]`` transposed to ``[in, out]``, Qwen2's QKV
-biases, a tied head), the port's logits equal the JAX package's, a port
+biases, a tied head, Mixtral's router and per-expert weights stacked
+into ``[E, ...]``), the port's logits equal the JAX package's, a port
 engine and a JAX engine booted from the same ``weights_path`` with int8
 weights (the deployment path: load, then quantize) give equal greedy
 streams, and a ``draft_weights_path`` loads the drafter.  A stated
@@ -37,6 +38,8 @@ from production_stack_tpu_torch.engine.models import weights as tweights
 FAMILIES = {
     "llama": dict(tie_word_embeddings=False, attention_bias=False),
     "qwen2": dict(tie_word_embeddings=True, attention_bias=True),
+    "mixtral": dict(tie_word_embeddings=False, attention_bias=False, num_experts=4,
+                    num_experts_per_tok=2),
 }
 
 
@@ -54,6 +57,11 @@ def hf_model(family: str, seed: int, num_layers: int = 2):
     torch.manual_seed(seed)
     if family == "qwen2":
         model = transformers.Qwen2ForCausalLM(transformers.Qwen2Config(**kw))
+    elif family == "mixtral":
+        model = transformers.MixtralForCausalLM(transformers.MixtralConfig(
+            **kw, num_local_experts=FAMILIES[family]["num_experts"],
+            num_experts_per_tok=FAMILIES[family]["num_experts_per_tok"],
+            sliding_window=None, attention_dropout=0.0))
     else:
         model = transformers.LlamaForCausalLM(transformers.LlamaConfig(**kw))
     with torch.no_grad():  # HF zero-inits biases: give them values
@@ -107,6 +115,7 @@ def test_loaded_trees_equal_the_jax_loaders(checkpoints, family, sharded, dtype)
     assert sorted(got) == sorted(want)
     assert ("lm_head" in got) == (not jc.tie_word_embeddings)
     assert ("layers.0.q_bias" in got) == jc.attention_bias
+    assert ("layers.0.experts_gate" in got) == bool(jc.num_experts)
     for name, t in got.items():
         assert t.dtype == tllama.param_dtype(tc) and t.is_contiguous(), name
         np.testing.assert_array_equal(t.float().numpy(), np.asarray(want[name], np.float32),
@@ -230,10 +239,11 @@ def test_draft_weights_path_loads_the_drafter(checkpoints, monkeypatch):
         eng.spec_window_tokens.values()) > 0
 
 
-def test_missing_weights_path_raises_where_jax_falls_back(tmp_path):
+def test_missing_weights_path_raises_where_jax_falls_back(tmp_path, checkpoints):
     """The stated departure: a ``weights_path`` that is not a directory, or
     holds no checkpoint, raises in the port; the JAX loader logs and draws
-    random weights instead.  MoE checkpoints raise (not ported)."""
+    random weights instead.  A MoE checkpoint loads (its tree against the
+    JAX loader's: ``test_loaded_trees_equal_the_jax_loaders``)."""
     missing = str(tmp_path / "no-such-checkpoint")
     jc, tc = configs("llama")
     assert jweights.load_params(jc, missing)["layers"]  # random init
@@ -246,6 +256,7 @@ def test_missing_weights_path_raises_where_jax_falls_back(tmp_path):
                             weights_path=missing)
     with pytest.raises(FileNotFoundError):
         LLMEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tweights.load_hf_safetensors(dataclasses.replace(tc, num_experts=4), missing,
-                                     torch.device("cpu"))
+    moe = tweights.load_hf_safetensors(configs("mixtral")[1], checkpoints["mixtral", False],
+                                       torch.device("cpu"))
+    assert tuple(moe["layers"][0]["experts_gate"].shape) == (4, 64, 128)
+    assert "gate_proj" not in moe["layers"][0]

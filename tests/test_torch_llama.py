@@ -39,6 +39,9 @@ GEMMA_MQA = dict(GEMMA, name="tiny-gemma-mqa", num_heads=4, num_kv_heads=1)
 GEMMA_MHA = dict(GEMMA, name="tiny-gemma-mha", num_heads=4, num_kv_heads=4)
 # Mistral's sliding window, shorter than the 22-token prompt and its decodes.
 MISTRAL_WINDOW = dict(name="tiny-mistral-window", sliding_window=8)
+# Mixtral's sparse MoE block in place of the MLP (E = 4, top-2).
+MIXTRAL_MOE = dict(name="tiny-mixtral", num_experts=4, num_experts_per_tok=2,
+                   intermediate_size=64)
 
 CASES = {
     "tiny-llama": {},
@@ -47,6 +50,7 @@ CASES = {
     "gemma-mqa": GEMMA_MQA,
     "gemma-mha": GEMMA_MHA,
     "mistral-sliding-window": MISTRAL_WINDOW,
+    "mixtral-moe": MIXTRAL_MOE,
 }
 
 

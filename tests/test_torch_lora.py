@@ -198,8 +198,8 @@ def test_registry_matches_jax(dtype):
 def test_moe_config_refuses_mlp_targets():
     """A MoE model has no flat MLP projections: an adapter shipping
     gate/up/down factors fails to load (unknown projection, as in JAX);
-    an attention-only one loads.  (The port's engine does not serve MoE
-    yet, so this holds the registry.)"""
+    an attention-only one loads.  (This holds the registry; a MoE engine's
+    refusal and its attention-only streams: tests/test_torch_moe.py.)"""
     moe = dataclasses.replace(tcfg.PRESETS["tiny-llama"], dtype="float32",
                               num_experts=4, num_experts_per_tok=2, intermediate_size=64)
     dense_twin = dataclasses.replace(moe, num_experts=0)
