@@ -252,6 +252,27 @@ non-zero (no phase is caught and passed over):
    HTTP an adapter (a bf16 PEFT file) posted to ``/admin/lora`` and
    deleted while the 8 requests stream: the streams as alone, no graph
    captured again, no host sync in a dispatch or a commit, then served.
+12. Tensor parallelism (every tp position on this one card: the numbers
+   show the cost of the split, nothing of speed across cards).  Phase 2
+   also holds each kernel against its plain version at a tp position's
+   shapes, tp = 2 (H 16, K 4) and tp = 4 (H 8, K 2), and the W8A16 GEMM
+   at the shard shapes of every projection (cases ``tp2_*``, ``tp4_*``).
+   Phase 3's reference runs again with the card side at tp = 2 (the
+   weights cut by ``shard_params``, the pool sharded by heads) on dense
+   and int8 KV, with int8 weights, and on the 2-layer mixtral-width model
+   with 4 experts a position, against the same reference side within
+   2e-3: every kernel launches twice as often as at tp = 1.  After
+   phase 5 the dense engine runs ``phase_tp``: 5 teacher-forced steps'
+   logits (a 512-token prefill and 4 decodes), then 6 staggered greedy
+   requests driven step by step, every asynchronous dispatch under
+   ``set_sync_debug_mode("error")``, and one encode batch, the launches
+   counted from 0.  Then llama-3.1-8b at tp = 2 (``device=[cuda:0] *
+   2``, the same seeded weights) serves phase 4's requests, phase 5's
+   token step and prefill-carrying step (printed beside tp = 1's), and
+   ``phase_tp`` again: each step's logits within ``TP_LOGIT_BOUND`` of
+   the step's largest |logit| at tp = 1, windows and mixed windows
+   replayed as graphs, each kernel's launches twice tp = 1's; the
+   streams' agreement is reported.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -600,8 +621,9 @@ def _writer_rows(gen, R, K, D, dtype):
     return x.to(dtype)
 
 
-def check_kv_write(gen, name, rows, decode, dtype=torch.bfloat16) -> dict:
-    """The int8 cache writer at K=8, D=128, block 16: a decode step's
+def check_kv_write(gen, name, rows, decode, dtype=torch.bfloat16, K=8) -> dict:
+    """The int8 cache writer at ``K`` KV heads (8; 8/tp for a tp
+    position's pool), D=128, block 16: a decode step's
     ``rows`` tokens, one a row at (block, offset), or a prefill chunk of
     ``rows`` tokens filling whole blocks, its last two blocks padding (the
     null block).  Data and scales must equal, bit for bit, the plain
@@ -609,7 +631,7 @@ def check_kv_write(gen, name, rows, decode, dtype=torch.bfloat16) -> dict:
     package's)."""
     from production_stack_tpu_torch.engine.ops.kernels import kv_write as kw
 
-    dev, K, D, bs = "cuda", 8, 128, 16
+    dev, D, bs = "cuda", 128, 16
     N = rows + 64
     sides = [(torch.zeros((N, bs, K, D), dtype=torch.int8, device=dev),
               torch.zeros((N, bs, K), device=dev)) for _ in range(2)]
@@ -959,6 +981,22 @@ def w8a16_cases(gen) -> list:
     return rows
 
 
+# A tp position's projections of llama-3.1-8b: q, k/v, gate/up and the
+# lm_head column-parallel (out / tp), o and down row-parallel (in / tp).
+def w8a16_shard_shapes(tp: int) -> dict:
+    return {"q": (4096, 4096 // tp), "k_v": (4096, 1024 // tp), "o": (4096 // tp, 4096),
+            "gate_up": (4096, 14336 // tp), "down": (14336 // tp, 4096),
+            "lm_head": (4096, 128256 // tp)}
+
+
+def w8a16_shard_cases(gen, tp: int) -> list:
+    """:func:`check_w8a16` at a tp position's shapes (its plan from
+    ``wide_plan`` reported beside each), at a token step's 8 rows and a
+    prefill-carrying step's 520; the 520-row calls timed at tp = 2 only."""
+    return [check_w8a16(gen, f"tp{tp}_M{M}_{proj}", M, K, N, time_it=M == 8 or tp == 2)
+            for M in (8, 520) for proj, (K, N) in w8a16_shard_shapes(tp).items()]
+
+
 def w8a16_forward(rows: list, layers: int = 32) -> dict:
     """A llama-3.1-8b forward's W8A16 launches at M rows (7 a layer and the
     lm_head), summed from the cases: kernel, bound and yardstick ms."""
@@ -1093,6 +1131,27 @@ def phase_kernels() -> dict:
                                   window=200),
         ],
     }
+    # Tensor parallelism: each kernel at a tp position's shapes, tp = 2 (H
+    # 16, K 4) and tp = 4 (H 8, K 2); the W8A16 GEMM at the shard shapes.
+    for tp in (2, 4):
+        h, k = H // tp, K // tp
+        cases["paged_decode"].append(check_paged_decode(gen, f"tp{tp}_S8_main", 8, h, k, D,
+                                                        edge))
+        cases["paged_decode_int8"].append(check_paged_decode(
+            gen, f"tp{tp}_S8_main", 8, h, k, D, edge, int8=True))
+        cases["kv_write_int8"].append(check_kv_write(gen, f"tp{tp}_R8_decode", 8,
+                                                     decode=True, K=k))
+        cases["flash_prefill_paged"].append(check_paged_prefill(
+            gen, f"tp{tp}_T512_C2560", 512, h, k, D, 2560, 512))
+        cases["flash_prefill_paged_int8"].append(check_paged_prefill(
+            gen, f"tp{tp}_T512_C2560", 512, h, k, D, 2560, 512, int8=True))
+        cases["flash_prefill_batched"].append(check_batched_prefill(
+            gen, f"tp{tp}_B8_T2048", 8, 2048, h, k, D, BATCHED_LENS[2048]))
+        cases["w8a16"] += w8a16_shard_cases(gen, tp)
+    cases["kv_write_int8"].append(check_kv_write(gen, "tp2_T512_chunk", 512, decode=False,
+                                                 K=K // 2))
+    cases["flash_prefill_paged"].append(check_paged_prefill(
+        gen, "tp2_T2048_C0", 2048, H // 2, K // 2, D, 0, 2048, bmax=256))
     cases["w8a16_forward"] = w8a16_forward(cases["w8a16"])
     emit({"phase": "kernels", **cases})
     # The main path's shapes: 8 decode rows; flash prefill's paged entry at
@@ -1105,15 +1164,23 @@ def phase_kernels() -> dict:
             if r["case"] in SPEC_SHAPES]
     spec8 = [r for r in cases["paged_decode_int8"] if r["case"] in SPEC_SHAPES]
     batched = cases["flash_prefill_batched"]
-    return {"paged_decode": dict(cases["paged_decode"][1], also=spec),
-            "paged_decode_int8": dict(cases["paged_decode_int8"][1], also=spec8),
-            "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous),
-            "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]),
+
+    def shard(name):  # the cases at a tp position's shapes
+        return [r for r in cases[name] if r["case"].startswith("tp")]
+
+    return {"paged_decode": dict(cases["paged_decode"][1], also=spec + shard("paged_decode")),
+            "paged_decode_int8": dict(cases["paged_decode_int8"][1],
+                                      also=spec8 + shard("paged_decode_int8")),
+            "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous
+                                  + shard("flash_prefill_paged")),
+            "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]
+                                       + shard("flash_prefill_paged_int8")),
             "kv_write_int8": dict(cases["kv_write_int8"][0],
-                                  also=[cases["kv_write_int8"][1]]),
+                                  also=[cases["kv_write_int8"][1]] + shard("kv_write_int8")),
             # The encode phase's batch: 8 texts at T = 2048; beside it the
             # serial embed's B = 1 and the other T buckets.
-            "flash_prefill_batched": dict(batched[0], also=batched[1:6]),
+            "flash_prefill_batched": dict(batched[0], also=batched[1:6]
+                                          + shard("flash_prefill_batched")),
             # A token step's largest projections (gate and up, 8 rows);
             # beside them every other shape of the main path.
             "w8a16": dict(next(r for r in cases["w8a16"] if r["case"] == "M8_gate_up"),
@@ -1222,7 +1289,25 @@ def phase_encode_reference(model: tuple) -> dict:
     return row
 
 
-def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dict:
+# The reference side of phase_reference, by (model, int8, weights_int8):
+# it does not depend on the card side's tp, so a tp > 1 run reuses it.
+_REFERENCE_RUNS: dict = {}
+
+
+def _full_heads(kv: list, dev) -> list:
+    """Every block of every layer's sides on ``dev``, a pool sharded by
+    heads gathered to full heads (``kv_quant.gather_blocks_wire``)."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
+
+    n = kv_quant.cache_tensor(kv[0][0]).shape[1 if kv_quant.tp_size(kv[0][0]) > 1 else 0]
+    ids = torch.arange(n, device=kv_quant.cache_tensor(kv[0][0]).device)
+    return [tuple(_tree_to(list(g), dev) if isinstance(g, tuple) else g.to(dev)
+                  for g in (kv_quant.gather_blocks_wire(c, ids, True) for c in layer))
+            for layer in kv]
+
+
+def phase_reference(int8: bool, model: tuple, weights_int8: bool = False,
+                    tp: int = 1) -> dict:
     """The model path on the card against the same path on the CPU (plain
     attention) on a small input: ``model`` (:func:`reference_model`) over
     dense or int8 KV caches, TF32 off; with ``weights_int8`` its weights
@@ -1240,9 +1325,19 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     Every step's logits must agree within 2e-3, and so must the first
     prompt's prompt-logprob entries (its chunks' next-token targets: the
     target's and the top 5 logprobs), their top ids equal up to the order
-    of neighbours that tie within that bound."""
+    of neighbours that tie within that bound.
+
+    ``tp`` > 1 runs the card side tensor-parallel: the weights cut by
+    ``shard_params`` over ``[cuda] * tp``, the pool sharded by heads, so
+    every kernel runs at a tp position's shapes, tp times a layer; the
+    reference side stays tp = 1 (and is the tp = 1 run's, reused).  On
+    int8 caches at tp > 1 every step starts from the card's cache, as with
+    int8 weights."""
+    from production_stack_tpu_torch.engine.config import ParallelConfig
     from production_stack_tpu_torch.engine.models import llama
     from production_stack_tpu_torch.engine.ops.kernels import w8a16
+    from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
+    from production_stack_tpu_torch.engine.parallel.shardings import shard_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg, ref_params, state = model
@@ -1256,13 +1351,14 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     on_card = ref_params["embed_tokens"].is_cuda
     ref_dev, ref_ctx = ("cuda", plain_kernels) if on_card else ("cpu", contextlib.nullcontext)
 
-    def caches(dev):
-        shape = (nblocks, bs, cfg.num_kv_heads, cfg.head_dim)
+    def caches(dev, tp=1):
+        shape = (nblocks, bs, cfg.num_kv_heads // tp, cfg.head_dim)
+        shape = shape if tp == 1 else (tp, *shape)
 
         def side():
             if int8:
                 return (torch.zeros(shape, dtype=torch.int8, device=dev),
-                        torch.zeros(shape[:3], device=dev))
+                        torch.zeros(shape[:-1], device=dev))
             return torch.zeros(shape, device=dev)
 
         return [(side(), side()) for _ in range(cfg.num_layers)]
@@ -1282,12 +1378,25 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     # of the free-running int8-weight run, each one code apart, against 59
     # with fp32 weights), and a free-running comparison carries each such
     # code into every later step.
-    forced = int8 and weights_int8
+    # The same at tp > 1 on int8 caches: the positions' fp32 partial sums
+    # land other values on a boundary (on an H100: 425 codes one apart,
+    # 3.7e-3 free-running, against 59 and 1.4e-3 at tp = 1; PERF.md §6).
+    forced = int8 and (weights_int8 or tp > 1)
     snaps = []
+    key = (id(model[1]), int8, weights_int8)
+    if not forced and key in _REFERENCE_RUNS:
+        saved = _REFERENCE_RUNS[key]
+        runs.update(saved["runs"])
+        plps["ref"] = saved["plp"]
     for side in (("card", "ref") if forced else ("ref", "card")):
+        if side == "ref" and "ref" in runs:
+            continue  # the tp = 1 run's reference side
         dev = "cuda" if side == "card" else ref_dev
         params = _tree_to(ref_params, dev)
-        kv = caches(dev)
+        kv = caches(dev, tp if side == "card" else 1)
+        if side == "card" and tp > 1:
+            mesh = build_mesh(ParallelConfig(tensor_parallel=tp), ["cuda"] * tp)
+            params = shard_params(params, cfg, mesh, consume=True)
         with ref_ctx() if side == "ref" else contextlib.nullcontext():
             _reset_launches()
             t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
@@ -1297,8 +1406,7 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
             def from_card(kv=kv, card=side == "card", step=step):
                 i = next(step)
                 if forced and card:
-                    snaps.append([tuple(_tree_to(list(c), "cpu") if isinstance(c, tuple)
-                                        else c.cpu() for c in layer) for layer in kv])
+                    snaps.append(_full_heads(kv, "cpu"))
                 elif forced:
                     for layer, saved in zip(kv, snaps[i]):
                         for c, src in zip(layer, saved):
@@ -1341,13 +1449,15 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
             )
             outs.extend(mixed)  # the decode row, then the chunk's last row
         runs[side] = [o.float().cpu() for o in outs]
-        runs[side + "_kv"] = [tuple(t.cpu() if not isinstance(t, tuple) else
-                                    tuple(u.cpu() for u in t) for t in kv_side)
-                              for kv_side in kv]
+        runs[side + "_kv"] = _full_heads(kv, "cpu")
         runs["tokens"] = tokens
         if side == "card":
             w8_launches = w8a16.launches  # the card's forwards
             card_launches = launch_counts()
+        del params, kv
+    if not forced:
+        _REFERENCE_RUNS[key] = {
+            "runs": {k: runs[k] for k in ("ref", "ref_kv", "tokens")}, "plp": plps["ref"]}
     step_errs = []
     for a, b in zip(runs["ref"], runs["card"]):
         if not torch.isfinite(b).all():
@@ -1377,7 +1487,7 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
                 start = j
     moe = cfg.num_experts > 0
     row = {"phase": "moe_reference" if moe else "reference",
-           "kv": "int8" if int8 else "dense",
+           "tp": tp, "kv": "int8" if int8 else "dense",
            "weights": cfg.quantization or cfg.dtype,
            "layers": cfg.num_layers, "width": cfg.hidden_size,
            "experts": cfg.num_experts, "reference": "card_plain" if on_card else "cpu",
@@ -1395,8 +1505,9 @@ def phase_reference(int8: bool, model: tuple, weights_int8: bool = False) -> dic
     # projections a layer (4 on a MoE model) and the lm_head, and one more
     # lm_head for each prompt-logprob slice of the first prompt's two
     # chunks (64 rows: one slice of 64; 48 rows: three of gcd(48, 128) = 16).
+    # At tp > 1 every launch is made once by each tp position.
     projections = 4 if moe else 7
-    want_w8 = 7 * (projections * cfg.num_layers + 1) + 4 if weights_int8 else 0
+    want_w8 = tp * (7 * (projections * cfg.num_layers + 1) + 4) if weights_int8 else 0
     if w8_launches != want_w8:
         raise AssertionError(f"w8a16 launched {w8_launches} times, want {want_w8}")
     if worst > 2e-3:
@@ -1954,7 +2065,7 @@ async def _drive_surface(aeng, http, base: str, scrapes: list, after: tuple,
 def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
                  single_step: bool = False, layers: int = None,
                  surface: bool = False, quantization: str = None,
-                 bf16_weights: dict = None, model: str = MODEL) -> dict:
+                 bf16_weights: dict = None, model: str = MODEL, tp: int = 1) -> dict:
     """Serve the 8 requests and one HTTP completion on a fresh engine at
     full width, KV cache dense (``auto``) or ``int8``; mixed steps on and,
     unless ``single_step``, K=8 windows with the lookahead (the default
@@ -1976,7 +2087,11 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     ``model`` names the preset served (llama-3.1-8b by default).  A MoE
     preset (mixtral-8x7b) runs every asynchronous dispatch under
     ``set_sync_debug_mode("error")`` as int8 weights do, and its W8A16
-    forwards count 4 projections a layer (q, k, v, o)."""
+    forwards count 4 projections a layer (q, k, v, o).
+
+    ``tp`` > 1 serves the model tensor-parallel with every tp position on
+    this card (``device=[cuda:0] * tp``), every asynchronous dispatch under
+    ``set_sync_debug_mode("error")``."""
     from production_stack_tpu_torch.engine.config import config_from_preset
     from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
@@ -1997,6 +2112,8 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         overrides["model.num_layers"] = layers
     if quantization is not None:
         overrides["model.quantization"] = quantization
+    if tp > 1:
+        overrides["parallel.tensor_parallel"] = tp
     cfg = config_from_preset(model, **SLICE_OVERRIDES, **overrides)
     moe = cfg.model.num_experts > 0
     if not cfg.scheduler.mixed_enabled:
@@ -2006,14 +2123,15 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         raise AssertionError(f"decode path: K={K}, pipeline {cfg.scheduler.pipeline_enabled}")
     host_us = host_us_per_op()
     t0 = time.time()
-    aeng = AsyncEngine(cfg)  # default device: the card
+    # Default device: the card; at tp > 1 every position on it.
+    aeng = AsyncEngine(cfg, device=["cuda:0"] * tp if tp > 1 else None)
     boot_s = time.time() - t0
     # Memory the caching allocator holds but no tensor uses, after the
     # pool was sized from what mem_get_info saw and allocated.
     held_unused = (torch.cuda.memory_reserved() - torch.cuda.memory_allocated()) / 2**30
     eng = aeng.engine
     app = build_engine_app(aeng, model)
-    checked = sync_checked(eng) if quantization or moe else None
+    checked = sync_checked(eng) if quantization or moe or tp > 1 else None
     _reset_launches()
     try:
         out = asyncio.run(_serve(aeng, app, cfg.model.vocab_size, surface, model))
@@ -2086,9 +2204,10 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "phase": ("engine_single_step" if single_step
                   else "engine_moe" if moe
                   else "engine_int8_weights" if quantization
-                  else "engine_int8" if int8 else "engine"),
+                  else "engine_int8" if int8 else "engine") + (f"_tp{tp}" if tp > 1 else ""),
         "model": model,
         "layers": L,
+        "tp": tp,
         "dtype": cfg.model.dtype,
         "quantization": cfg.model.quantization,
         "kv_cache_dtype": kv_cache_dtype,
@@ -2129,8 +2248,8 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
         "compile_tainted_share": len(out["tainted"]) / NUM_REQUESTS,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "allocator_held_unused_gib_at_boot": held_unused,
-        "params_gib": sum(t.numel() * t.element_size()
-                          for t in _leaves(eng.params)) / 2**30,
+        "params_gib": sum(t.numel() * t.element_size()  # a replicated tensor once
+                          for t in {id(t): t for t in _leaves(eng.params)}.values()) / 2**30,
         **extra,
     }
     if bf16_weights is not None:
@@ -2165,6 +2284,190 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
                              f"{row['capture_s_total']} s of captures")
     return {"launches": launches, "engine": eng, "kv_tokens": row["kv_tokens"],
             "results": results, "row": row}
+
+
+# The tp phase's requests: (arrival step, prompt length); later prompts
+# arrive while earlier ones decode, so their chunks ride mixed windows.
+TP_ARRIVALS = ((0, 700), (0, 128), (1, 1500), (3, 400), (6, 2100), (9, 300))
+TP_NEW_TOKENS = 40
+# The tp = 2 logits' bound against tp = 1's on the same weights (bf16, 32
+# layers): each step's max |tp 2 - tp 1| within this many times the step's
+# max |tp 1 - fp32|, the bf16 rounding of the tp = 1 forward itself against
+# the same weights in fp32 (:func:`phase_tp_fp32`).  The two bf16 forwards
+# differ by rounding only (each tp position's o_proj and down partials are
+# rounded to bf16 before the fp32 sum), so neither should stray from the
+# fp32 forward further than the other; a wrong shard would miss by the
+# logits' own size.
+TP_LOGIT_BOUND = 2.0
+
+
+def phase_tp(eng, baseline: dict = None) -> dict:
+    """Tensor parallelism at full width on ``eng`` (a served engine, idle):
+
+    1. Teacher-forced logits: a 512-token prompt prefilled into blocks the
+       block pool lends (``llama.prefill`` on the engine's params and pool),
+       then 4 decode steps on fixed tokens (the tp = 1 run's greedy picks):
+       5 steps' logits [V].
+    2. Greedy streams of ``TP_ARRIVALS`` (``TP_NEW_TOKENS`` each, EOS
+       ignored, so the schedule does not depend on the tokens) driven step
+       by step at the default serving path, every asynchronous dispatch
+       under ``set_sync_debug_mode("error")``: windows, mixed windows and
+       graph replays must run, and the kernels' launches are counted from
+       0 just before the drive to just after.
+
+    With ``baseline`` (this phase's tp = 1 result on the same seeded
+    weights, with its fp32 forward's logits from :func:`phase_tp_fp32`)
+    each step's max |tp - tp 1| must lie within ``TP_LOGIT_BOUND`` times
+    the step's max |tp 1 - fp32|, each kernel's launches must be tp times
+    the baseline's, and the streams' agreement is reported (not required:
+    bf16 rounding may turn a near-tie)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.models import llama
+
+    cfg, dev, tp = eng.config.model, eng.device, eng.tp
+    rng = np.random.default_rng(7)
+    bs = eng.block_pool.block_size
+    prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
+                          device=dev)
+    blocks = eng.block_pool.allocate(512 // bs + 1)
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    try:
+        ids = t(blocks)
+        logits = [llama.prefill(eng.params, cfg, prompt, 0, ids[:0], ids[:-1], 512,
+                                eng.kv_caches)]
+        tokens = list(baseline["teacher_tokens"]) if baseline else [int(logits[0].argmax())]
+        for i, pos in enumerate(range(512, 516)):
+            logits.append(llama.decode(eng.params, cfg, t([tokens[i]]), t([pos]), ids[None],
+                                       t([pos + 1]), ids[-1:], t([pos % bs]),
+                                       eng.kv_caches)[0])
+            if baseline is None:
+                tokens.append(int(logits[-1].argmax()))
+        logits = [x.float().cpu() for x in logits]
+    finally:
+        eng.block_pool.free(blocks)
+    prompts = [(step, rng.integers(4, cfg.vocab_size, n).tolist()) for step, n in TP_ARRIVALS]
+    keys = ("windows_dispatched", "mixed_windows_dispatched", "mixed_window_iterations",
+            "graph_replays", "prefill_chunk_tokens")
+    before = eng.stats()
+    _reset_launches()
+    t0 = time.time()
+    try:
+        streams, checked = _drive_arrivals(eng, prompts, True, TP_NEW_TOKENS)
+    finally:
+        for name in ASYNC_DISPATCHES:
+            if name in vars(eng):
+                delattr(eng, name)
+    wall = time.time() - t0
+    # The encode lane's forward at this tp: three texts in one batch.
+    vecs = eng.encode_batch([p[1][:n] for p, n in zip(prompts, (128, 37, 300))])
+    launches = launch_counts()
+    after = eng.stats()
+    ran = {k: after[k] - before[k] for k in keys}
+    row = {"phase": f"tp{tp}", "model": cfg.name, "layers": cfg.num_layers, "tp": tp,
+           "dtype": cfg.dtype, "teacher_steps": len(logits),
+           "rows": len(prompts), "tokens_per_row": TP_NEW_TOKENS, "drive_wall_s": wall,
+           **ran, "sync_checked_dispatches": checked, "launches": launches,
+           "embed_norms": np.linalg.norm(vecs, axis=1).tolist()}
+    if any(len(v) != TP_NEW_TOKENS for v in streams.values()) or len(streams) != len(prompts):
+        raise AssertionError(f"tp={tp}: streams {[len(v) for v in streams.values()]}")
+    if not (ran["windows_dispatched"] and ran["mixed_windows_dispatched"]
+            and ran["graph_replays"] and ran["prefill_chunk_tokens"]):
+        raise AssertionError(f"tp={tp}: windows, mixed windows or replays missing: {ran}")
+    if (checked["_dispatch_window"] != ran["windows_dispatched"]
+            or checked["_dispatch_mixed_window"] != ran["mixed_windows_dispatched"]):
+        raise AssertionError(f"tp={tp}: dispatches not sync-checked: {checked} {ran}")
+    if baseline is not None:
+        errs = [(a - b).abs().max().item() for a, b in zip(logits, baseline["logits"])]
+        tops = [b.abs().max().item() for b in baseline["logits"]]
+        noise = [(a - b).abs().max().item() for a, b in zip(baseline["logits"],
+                                                             baseline["fp32_logits"])]
+        own = [(a - b).abs().max().item() for a, b in zip(logits, baseline["fp32_logits"])]
+        agree = {k: sum(x == y for x, y in zip(v, baseline["streams"][k]))
+                 for k, v in streams.items()}
+        prefix = {k: next((i for i, (x, y) in enumerate(zip(v, baseline["streams"][k]))
+                           if x != y), len(v)) for k, v in streams.items()}
+        row.update({
+            "step_max_abs_logit_diff": errs, "step_logit_absmax": tops,
+            "step_rel_logit_diff": [e / m for e, m in zip(errs, tops)],
+            "step_max_abs_diff_tp1_vs_fp32": noise,
+            "step_max_abs_diff_vs_fp32": own,
+            "logit_bound_times_tp1_vs_fp32": TP_LOGIT_BOUND,
+            "step_top1_agree": [int(a.argmax()) == int(b.argmax())
+                                for a, b in zip(logits, baseline["logits"])],
+            "embed_max_abs_diff": float(np.abs(vecs - baseline["vecs"]).max()),
+            "stream_tokens_agree": sum(agree.values()),
+            "stream_tokens": sum(len(v) for v in streams.values()),
+            "stream_matched_prefix": prefix,
+            "launches_tp1": baseline["launches"],
+            "stats_tp1": {k: baseline["row"][k] for k in keys},
+        })
+    emit(row)
+    if not all(torch.isfinite(x).all() for x in logits) or not np.isfinite(vecs).all():
+        raise AssertionError(f"tp={tp}: non-finite logits or embeddings")
+    if baseline is not None:
+        if any(e > TP_LOGIT_BOUND * n for e, n in zip(errs, noise)):
+            raise AssertionError(f"tp={tp} logits {errs} beyond {TP_LOGIT_BOUND} x tp=1's "
+                                 f"own bf16 error {noise}")
+        want = {k: tp * v for k, v in baseline["launches"].items()}
+        if launches != want:
+            raise AssertionError(f"tp={tp} launches {launches}, want tp x tp=1's {want}")
+    return {"logits": logits, "teacher_tokens": tokens, "streams": streams,
+            "launches": launches, "row": row, "vecs": vecs}
+
+
+def phase_tp_fp32(tp1: dict, seed: int = 0) -> dict:
+    """The fp32 forward of :func:`phase_tp`'s teacher-forced steps on the
+    served engine's seeded weights (drawn again on the card, in bf16 as the
+    engine draws them, each tensor then cast to fp32 in place), with its own
+    33-block fp32 pool, TF32 off: the logits a bf16 forward rounds.  Stored
+    in ``tp1["fp32_logits"]``; run with no engine on the card (32 GB of
+    fp32 weights)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.models.weights import load_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS[MODEL]
+    params = load_params(cfg, None, seed=seed, device=torch.device("cuda"))
+
+    def to_fp32(tree):
+        for key, value in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+            if isinstance(value, torch.Tensor):
+                tree[key] = value.float()
+            else:
+                to_fp32(value)
+
+    to_fp32(params)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(7)  # phase_tp's prompt
+    prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
+                          device="cuda")
+    bs, n = 16, 512 // 16 + 1
+    shape = (n + 1, bs, cfg.num_kv_heads, cfg.head_dim)
+    kv = [(torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda"))
+          for _ in range(cfg.num_layers)]
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
+    ids = t(list(range(1, n + 1)))
+    logits = [llama.prefill(params, cfg, prompt, 0, ids[:0], ids[:-1], 512, kv)]
+    for i, pos in enumerate(range(512, 516)):
+        logits.append(llama.decode(params, cfg, t([tp1["teacher_tokens"][i]]), t([pos]),
+                                   ids[None], t([pos + 1]), ids[-1:], t([pos % bs]), kv)[0])
+    tp1["fp32_logits"] = [x.float().cpu() for x in logits]
+    noise = [(a - b).abs().max().item() for a, b in zip(tp1["logits"], tp1["fp32_logits"])]
+    row = {"phase": "tp_fp32", "model": cfg.name, "layers": cfg.num_layers,
+           "step_max_abs_diff_bf16_tp1_vs_fp32": noise,
+           "step_top1_agree_bf16_tp1_vs_fp32": [
+               int(a.argmax()) == int(b.argmax())
+               for a, b in zip(tp1["logits"], tp1["fp32_logits"])]}
+    emit(row)
+    del params, kv, logits
+    torch.cuda.empty_cache()
+    if not all(torch.isfinite(x).all() for x in tp1["fp32_logits"]):
+        raise AssertionError("non-finite fp32 logits")
+    return row
 
 
 def _leaves(tree) -> list:
@@ -2492,6 +2795,73 @@ def _moe_weight_bytes(cfg, params) -> dict:
     }
 
 
+def _moe_transients(eng) -> tuple:
+    """The transient peak memory (GiB above what is allocated before) of a
+    2048-token prefill and of the encode lane's largest batch on ``eng``;
+    returns (peaks, the batch's vectors, its batched-entry launches)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    def peak_gib(fn) -> float:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    V = eng.config.model.vocab_size
+    rng = torch.Generator().manual_seed(4)
+    longest = eng.encode_max_len()
+
+    def prefill():
+        ids = torch.randint(4, V, (longest,), generator=rng).tolist()
+        eng.add_request("moe_prefill", prompt_token_ids=ids,
+                        sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+        while eng.has_unfinished() or eng.has_pending():
+            eng.step()
+
+    texts = [torch.randint(4, V, (longest,), generator=rng).tolist()
+             for _ in range(eng.config.scheduler.encode_batch_buckets[-1])]
+    _reset_launches()
+    vectors = []
+    peaks = {"prefill_2048": peak_gib(prefill),
+             "encode_rows_%d" % (len(texts) * longest): peak_gib(
+                 lambda: vectors.append(eng.encode_batch(texts)))}
+    return peaks, vectors, launch_counts()["flash_prefill_batched"]
+
+
+def phase_moe_tp(served_tp1: dict, layer_tp1: dict) -> dict:
+    """Experts over tp at full width: mixtral-8x7b at ``MOE_LAYERS`` layers
+    and tp = 2 (4 of the 8 experts a position, both positions on this card)
+    serves phase 4's requests (``phase_engine``: every dispatch
+    sync-checked), then the transient peaks of a 2048-token prefill and of
+    the encode lane's largest batch beside tp = 1's (``layer_tp1``, from
+    :func:`phase_moe_layer`): splitting the experts must not take the
+    margin the pool leaves (PERF.md §7), so each peak may exceed tp = 1's
+    by at most 0.25 GiB."""
+    import numpy as np
+
+    served = phase_engine("auto", model=MOE_MODEL, layers=MOE_LAYERS, tp=2)
+    eng = served.pop("engine")
+    peaks, vectors, encode_launches = _moe_transients(eng)
+    L = eng.config.model.num_layers
+    row = {"phase": "moe_tp2", "model": MOE_MODEL, "layers": L, "tp": 2,
+           "kv_tokens": served["kv_tokens"], "kv_tokens_tp1": served_tp1["kv_tokens"],
+           "peak_mem_gib_serving": served["row"]["peak_mem_gib"],
+           "peak_mem_gib_serving_tp1": served_tp1["row"]["peak_mem_gib"],
+           "transient_peak_gib": peaks,
+           "transient_peak_gib_tp1": layer_tp1["transient_peak_gib"],
+           "card_total_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+           "encode_batched_launches": encode_launches}
+    emit(row)
+    if encode_launches != 2 * L or not all(np.isfinite(v).all() for v in vectors):
+        raise AssertionError(f"encode at tp=2 on the MoE engine: {row}")
+    if any(peaks[k] > layer_tp1["transient_peak_gib"][k] + 0.25 for k in peaks):
+        raise AssertionError(f"experts over tp grew the transient peaks: {row}")
+    del eng
+    return row
+
+
 def phase_moe_layer(eng, served: dict, profile: dict, mixed: dict) -> dict:
     """The MoE layer on the served mixtral engine: its device time at the
     token step's 8 rows and the prefill-carrying step's 520 rows (one
@@ -2508,7 +2878,6 @@ def phase_moe_layer(eng, served: dict, profile: dict, mixed: dict) -> dict:
     attention must launch flash prefill's batched entry once a layer."""
     import numpy as np
 
-    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
     from production_stack_tpu_torch.engine.models import llama
 
     cfg = eng.config.model
@@ -2539,32 +2908,7 @@ def phase_moe_layer(eng, served: dict, profile: dict, mixed: dict) -> dict:
                    + 4 * 512 * keys * H * D * L + 2 * 8 * h * V)
     mixed_bound = bound(sum(weights.values()), mixed_flops, dtype)
 
-    def peak_gib(fn) -> float:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return (torch.cuda.max_memory_allocated() - base) / 2**30
-
-    rng = torch.Generator().manual_seed(4)
-    longest = eng.encode_max_len()
-
-    def prefill():
-        ids = torch.randint(4, V, (longest,), generator=rng).tolist()
-        eng.add_request("moe_prefill", prompt_token_ids=ids,
-                        sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
-        while eng.has_unfinished() or eng.has_pending():
-            eng.step()
-
-    texts = [torch.randint(4, V, (longest,), generator=rng).tolist()
-             for _ in range(eng.config.scheduler.encode_batch_buckets[-1])]
-    _reset_launches()
-    vectors = []
-    peaks = {"prefill_2048": peak_gib(prefill),
-             "encode_rows_%d" % (len(texts) * longest): peak_gib(
-                 lambda: vectors.append(eng.encode_batch(texts)))}
-    encode_launches = launch_counts()["flash_prefill_batched"]
+    peaks, vectors, encode_launches = _moe_transients(eng)
     row = {
         "phase": "moe_layer", "model": cfg.name, "layers": L, "experts": cfg.num_experts,
         "top_k": cfg.num_experts_per_tok,
@@ -2602,7 +2946,8 @@ def phase_moe_layer(eng, served: dict, profile: dict, mixed: dict) -> dict:
     }
     emit(row)
     vec = vectors[0]
-    if vec.shape != (len(texts), h) or not np.isfinite(vec).all():
+    if vec.shape != (eng.config.scheduler.encode_batch_buckets[-1], h) \
+            or not np.isfinite(vec).all():
         raise AssertionError(f"encode on the MoE engine: {vec.shape}")
     if encode_launches != L:
         raise AssertionError(f"encode: {encode_launches} batched launches, want {L}")
@@ -5334,10 +5679,19 @@ def main() -> int:
     main_rows = timed("kernels", phase_kernels)
     model = timed("reference_model_wait", drawn.result)
     pool.shutdown()
-    timed("reference", phase_reference, False, model)
-    timed("reference_int8", phase_reference, True, model)
-    timed("reference_w8a16", phase_reference, False, model, weights_int8=True)
+    refs = {"dense": timed("reference", phase_reference, False, model),
+            "int8": timed("reference_int8", phase_reference, True, model),
+            "w8a16": timed("reference_w8a16", phase_reference, False, model,
+                           weights_int8=True)}
     timed("reference_w8a16_int8", phase_reference, True, model, weights_int8=True)
+    # The same forwards at tp = 2 on the card (every kernel at a tp
+    # position's shapes) against the same CPU side: tp times the launches.
+    refs_tp2 = {name: timed(f"reference_tp2_{name}", phase_reference, name == "int8", model,
+                            weights_int8=name == "w8a16", tp=2) for name in refs}
+    for name, row in refs_tp2.items():
+        if row["card_launches"] != {k: 2 * v for k, v in refs[name]["card_launches"].items()}:
+            raise AssertionError(f"reference {name} at tp=2 launched {row['card_launches']}, "
+                                 f"not twice tp=1's {refs[name]['card_launches']}")
     timed("encode_reference", phase_encode_reference, model)
     timed("lora_reference", phase_lora_reference, model)
     del model, drawn
@@ -5347,6 +5701,8 @@ def main() -> int:
     moe_refs = {"dense": timed("moe_reference", phase_reference, False, moe_model),
                 "int8": timed("moe_reference_int8", phase_reference, True, moe_model)}
     timed("moe_reference_w8a16", phase_reference, False, moe_model, weights_int8=True)
+    # Experts over tp: 4 of the 8 experts a position.
+    moe_tp2 = timed("moe_reference_tp2", phase_reference, False, moe_model, tp=2)
     del moe_model
     torch.cuda.empty_cache()
     moe = timed("engine_moe", phase_engine, "auto", model=MOE_MODEL, layers=MOE_LAYERS)
@@ -5356,16 +5712,35 @@ def main() -> int:
                       moe_mixed)
     moe.pop("engine")
     free_engines()
+    timed("engine_moe_tp2", phase_moe_tp, moe, moe_layer)
+    free_engines()
     timed("window", phase_window, int8=False)
     timed("window_int8", phase_window, int8=True)
     timed("mixed_window", phase_mixed_window, int8=False)
     timed("mixed_window_int8", phase_mixed_window, int8=True)
     dense = timed("engine", phase_engine, "auto", surface=True)
-    timed("profile", phase_profile, dense["engine"])
-    timed("mixed_profile", phase_mixed_profile, dense["engine"])
+    profile1 = timed("profile", phase_profile, dense["engine"])
+    mixed1 = timed("mixed_profile", phase_mixed_profile, dense["engine"])
     guided = timed("guided", phase_guided, dense["engine"])
+    tp1 = timed("tp1", phase_tp, dense["engine"])
     dense_launches = dense["launches"]
     dense.pop("engine")  # free the dense engine before the int8 one boots
+    free_engines()
+    timed("tp_fp32", phase_tp_fp32, tp1)
+    # Tensor parallelism: the same model, config and seeded weights at tp =
+    # 2, both positions on this card, against the tp = 1 engine above.
+    tp2 = timed("engine_tp2", phase_engine, "auto", tp=2)
+    profile2 = timed("profile_tp2", phase_profile, tp2["engine"])
+    mixed2 = timed("mixed_profile_tp2", phase_mixed_profile, tp2["engine"], "tp2")
+    tp2_run = timed("tp2", phase_tp, tp2["engine"], baseline=tp1)
+    emit({"phase": "tp_steps", "card_shared_by_tp_positions": True,
+          **{f"{key}_tp{n}": row[key]
+             for n, rows in ((1, (profile1, mixed1)), (2, (profile2, mixed2)))
+             for row, key in ((rows[0], "wall_ms_per_token_step"),
+                              (rows[0], "device_busy_ms_per_token_step"),
+                              (rows[1], "wall_ms_per_chunk"),
+                              (rows[1], "device_busy_ms_per_chunk_replays"))}})
+    tp2.pop("engine")
     free_engines()
     w8 = timed("engine_int8_weights", phase_engine, "auto", quantization="int8",
                bf16_weights=dense)
@@ -5415,6 +5790,17 @@ def main() -> int:
                     "flash_prefill": moe["launches"]["flash_prefill"],
                     "flash_prefill_batched": moe_layer["encode_batched_launches"]}
     moe_ref_launches = moe_refs["int8"]["card_launches"]
+    # The tp = 2 path: the served engine's dense kernels and its encode
+    # batch (phase_tp's counted drive), the int8-pool kernels and the W8A16
+    # GEMM from the 2-layer references' card forwards at tp = 2.
+    launches_tp2 = {"paged_decode": tp2_run["launches"]["paged_decode"],
+                    "flash_prefill": tp2_run["launches"]["flash_prefill"],
+                    "flash_prefill_batched": tp2_run["launches"]["flash_prefill_batched"],
+                    **{k: refs_tp2["int8"]["card_launches"][k]
+                       for k in ("paged_decode_int8", "flash_prefill_int8", "kv_write_int8")},
+                    "w8a16": refs_tp2["w8a16"]["card_launches"]["w8a16"]}
+    if min(launches_tp2.values()) <= 0:
+        raise AssertionError(f"a kernel of the tp = 2 path never launched: {launches_tp2}")
     kernels = []
     for name, row in main_rows.items():
         kernels.append({
@@ -5443,6 +5829,9 @@ def main() -> int:
                {"launches_moe_reference": moe_ref_launches[name]}
                if name in ("paged_decode_int8", "flash_prefill_int8", "kv_write_int8")
                else {}),
+            "launches_tp2": launches_tp2[name],
+            **({"launches_moe_reference_tp2": moe_tp2["card_launches"][name]}
+               if name in ("paged_decode", "flash_prefill") else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

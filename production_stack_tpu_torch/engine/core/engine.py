@@ -123,8 +123,17 @@ multi-LoRA, tracing, guided decoding and prompt logprobs included
 dense models and Mixtral-style sparse MoE ones, whose block
 ``llama._moe_mlp`` runs inside every forward and captured graph; dense or
 int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
-wait).  It raises ``NotImplementedError`` at construction for the one
-setting outside it, parallelism (tp/dp/sp/ep).
+wait).  Tensor parallelism (``parallel.tensor_parallel``) runs in this
+process over a mesh of devices (``engine/parallel/``), in the JAX
+engine's order: ``validate_tp``, ``validate_sp_mode``, the mesh, then the
+params cut into one tree per tp position (the draft model's on the same
+mesh) and the KV pool into one pool a position by heads; every dispatch
+and graph body takes them as they are, so each window and mixed iteration
+stays one CUDA-graph replay holding every position's launches and
+reductions.  The tiers move full-head blocks, gathered from the positions'
+pools and scattered back.  Every tp position sits on one device.  It
+raises ``NotImplementedError`` at construction, by name, for the settings
+outside it: dp > 1, sp > 1 and a multi-process group.
 """
 
 from __future__ import annotations
@@ -184,6 +193,8 @@ from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops import _build
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention, w8a16
+from production_stack_tpu_torch.engine.parallel import shardings
+from production_stack_tpu_torch.engine.parallel.mesh import build_mesh, detect_num_processes
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient
 from production_stack_tpu_torch.kvserver.protocol import KVWireStats
@@ -213,9 +224,14 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _unsupported(config: EngineConfig) -> List[str]:
-    """Settings outside the served configuration, by name."""
+    """Settings outside the served configuration, by name, each with the
+    ROADMAP item that ports it."""
+    par = config.parallel
     checks = [
-        (config.parallel.world_size != 1, "parallel (tp/dp/sp/ep)"),
+        (par.data_parallel > 1, "data_parallel > 1 (ROADMAP item 13c)"),
+        (par.sequence_parallel > 1, "sequence_parallel > 1 (ROADMAP item 13d)"),
+        (detect_num_processes() > 1,
+         "a multi-process group (PSTPU_NUM_PROCESSES > 1; ROADMAP item 13b)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -245,12 +261,23 @@ def _pow2_bucket(n: int, floor: int) -> int:
 
 
 def _param_count(tree) -> int:
-    """Parameters in a tree, without the engine's fp32 lm_head copy."""
-    if isinstance(tree, dict):
-        return sum(_param_count(v) for k, v in tree.items() if k != llama.LM_HEAD_FP32)
-    if isinstance(tree, (list, tuple)):
-        return sum(_param_count(v) for v in tree)
-    return tree.numel()
+    """Parameters in a tree (or in the tp positions' trees, a replicated
+    tensor counted once), without the engine's fp32 lm_head copy."""
+    seen: Dict[int, int] = {}
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k != llama.LM_HEAD_FP32:
+                    walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+        else:
+            seen[id(node)] = node.numel()
+
+    walk(tree)
+    return sum(seen.values())
 
 
 def _ban_stops(logits: torch.Tensor, stop_mask: torch.Tensor,
@@ -350,11 +377,19 @@ class LLMEngine:
     def __init__(self, config: EngineConfig, device=None, params=None,
                  draft_params=None):
         """``device``: where the model runs (default CUDA; raises without
-        one).  ``params``: a parameter tree already on ``device`` (e.g. from
-        ``weights.params_from_numpy``); None loads ``weights_path`` or
-        boots the seeded random init.
+        one): one device, which then holds every position of the mesh, or
+        the mesh's device list (``parallel/mesh.build_mesh``; None at tp >
+        1: the visible CUDA devices, one a position).  ``params``: a full
+        parameter tree (e.g. from ``weights.params_from_numpy``); None
+        loads ``weights_path`` or boots the seeded random init.  At tp > 1
+        it is cut into one tree per tp position (``shardings.shard_params``).
         ``draft_params``: the same for the draft model of
         ``scheduler.speculative_model``."""
+        cfg, par = config.model, config.parallel
+        # The JAX engine's order: tp and sp-mode validation, then the
+        # dp/sp gates (here refusals), then the mesh.
+        shardings.validate_tp(cfg, par.tensor_parallel)
+        shardings.validate_sp_mode(cfg, par)
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError(
@@ -363,8 +398,16 @@ class LLMEngine:
             )
         _check_chunk_buckets(config)
         self.config = config
-        self.device = resolve_device(device)
-        cfg = config.model
+        world = int(np.prod(par.mesh_shape))
+        if isinstance(device, (list, tuple)):
+            devices = [resolve_device(d) for d in device]
+        elif device is None and world > 1:
+            devices = None
+        else:
+            devices = [resolve_device(device)] * world
+        self.mesh = build_mesh(par, devices)
+        self.tp = par.tensor_parallel
+        self.device = self.mesh.tp_devices()[0]
         # Observability hub: request tracer + step-phase/latency histograms
         # + window flight recorder + compile-event tracker (all hooks no-op
         # when config.obs.tracing is off).
@@ -394,6 +437,9 @@ class LLMEngine:
             # sized); a caller's tree is left as it was.
             logger.info("Quantizing projections to %s ...", cfg.quantization)
             params = llama.quantize_params(params, cfg, in_place=loaded)
+        if self.tp > 1:
+            # As the JAX engine places the tree by param_shardings.
+            params = shardings.shard_params(params, cfg, self.mesh, consume=loaded)
         self.params = params
         self._load_draft_model(draft_params)
         llama.add_fp32_lm_head(self.params, cfg)
@@ -606,13 +652,19 @@ class LLMEngine:
                 "drafter must share the target's tokenizer/vocab; refusing "
                 "to boot"
             )
+        shardings.validate_tp(draft_cfg, self.tp)
         self.draft_cfg = draft_cfg
         if not sched.spec_window_enabled:
             return
         logger.info("Loading draft params for %s on %s ...", name, self.device)
-        if draft_params is None:
+        loaded = draft_params is None
+        if loaded:
             draft_params = load_params(draft_cfg, self.config.draft_weights_path,
                                        seed=self.config.seed, device=self.device)
+        if self.tp > 1:
+            # Sharded on the target's mesh.
+            draft_params = shardings.shard_params(draft_params, draft_cfg, self.mesh,
+                                                  consume=loaded)
         self.draft_params = draft_params
         llama.add_fp32_lm_head(self.draft_params, draft_cfg)
 
@@ -642,7 +694,7 @@ class LLMEngine:
         if pool_blocks is None:
             pool_blocks = sched.max_num_seqs * self._draft_blocks_per_row + 1
         self.draft_block_pool = BlockPool(pool_blocks, bs, enable_prefix_caching=False)
-        shape = (pool_blocks, bs, self.draft_cfg.num_kv_heads, self.draft_cfg.head_dim)
+        shape = self._pool_shape(pool_blocks, self.draft_cfg)
         dtype = llama.param_dtype(self.draft_cfg)
         self.draft_kv_caches = [
             (torch.zeros(shape, dtype=dtype, device=self.device),
@@ -687,7 +739,10 @@ class LLMEngine:
         """The most (row, KV head) pairs one decode call of this
         configuration makes: a decode batch, a verify of S x W rows (fused
         or legacy), a draft step, the draft model's prime of S x (H - 1)
-        rows.  The split-KV arrival counters are reserved for it at boot."""
+        rows.  The split-KV arrival counters are reserved for it at boot.
+        Under tp a position's call makes 1/tp of the pairs, and the
+        positions' calls run one after another on one stream, each leaving
+        the counters zero, so they share them."""
         sched, S = self.config.scheduler, self._smax
         kv = self.config.model.num_kv_heads
         pairs = [S * kv * (sched.spec_draft_len + 1)]
@@ -723,17 +778,29 @@ class LLMEngine:
         # (the bf16 weights that quantization or loading freed, say).
         torch.cuda.empty_cache()
         free, _total = torch.cuda.mem_get_info(self.device)
-        return max(int(free * cache.hbm_utilization // self._kv_bytes(1)), 16)
+        # A device holds 1/tp of a block for each tp position it hosts (the
+        # JAX engine's divide by tp, one position a device); every
+        # position here shares this one.
+        shared = self.mesh.tp_devices().count(self.device)
+        per_block = self._kv_bytes(1) * shared // self.tp
+        return max(int(free * cache.hbm_utilization // per_block), 16)
+
+    def _pool_shape(self, num_blocks: int, cfg) -> tuple:
+        """A pool side's data shape: [N, bs, K, D], or at tp > 1 one [N,
+        bs, K/tp, D] pool a position, stacked on a leading tp axis
+        (``kv/quant.shard_side``)."""
+        shape = (num_blocks, self.config.cache.block_size,
+                 cfg.num_kv_heads // self.tp, cfg.head_dim)
+        return shape if self.tp == 1 else (self.tp, *shape)
 
     def _allocate_kv(self, num_blocks: int):
         cfg = self.config.model
-        shape = (num_blocks, self.config.cache.block_size, cfg.num_kv_heads,
-                 cfg.head_dim)
+        shape = self._pool_shape(num_blocks, cfg)
         if self.config.cache.kv_cache_dtype == "int8":
             # (data int8, scale fp32 [N, bs, K]) per side — kv/quant.py.
             def side():
                 return (torch.zeros(shape, dtype=torch.int8, device=self.device),
-                        torch.zeros(shape[:3], dtype=torch.float32,
+                        torch.zeros(shape[:-1], dtype=torch.float32,
                                     device=self.device))
         else:
             def side():
@@ -1273,7 +1340,8 @@ class LLMEngine:
                 f"{cfg.head_dim}|{cfg.dtype}|{self.block_pool.block_size}"
                 .encode()
             )
-            h.update(self.params["embed_tokens"][0].float().cpu().numpy().tobytes())
+            embed = llama.shard_trees(self.params)[0]["embed_tokens"]
+            h.update(embed[0].float().cpu().numpy().tobytes())
             self._px_prefix_cache = f"px:{h.hexdigest()}:"
         return self._px_prefix_cache
 

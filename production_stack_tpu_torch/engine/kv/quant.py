@@ -37,6 +37,40 @@ def cache_shape(side) -> Tuple[int, ...]:
     return tuple((side[0] if is_quantized(side) else side).shape)
 
 
+def tp_size(side) -> int:
+    """The tensor-parallel positions a pool side holds: 1 for a side of one
+    position ([N, bs, K, D]); tp for a side sharded by heads, whose tensors
+    carry a leading tp axis (data [tp, N, bs, K/tp, D], int8 scale [tp, N,
+    bs, K/tp]: one contiguous pool per position, the JAX package's
+    ``kv_cache_spec`` with every shard on one device)."""
+    t = cache_tensor(side)
+    return t.shape[0] if t.dim() == 5 else 1
+
+
+def shard_side(side, r: int):
+    """Position ``r``'s pool of a side sharded by heads (the side itself
+    when it holds one position)."""
+    if cache_tensor(side).dim() != 5:
+        return side
+    return (side[0][r], side[1][r]) if is_quantized(side) else side[r]
+
+
+def _merge_heads(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Blocks ``ids`` of a sharded tensor [tp, N, bs, K/tp, ...] as one
+    fresh full-head tensor [n, bs, K, ...], heads in tp order."""
+    g = t.index_select(1, ids).movedim(0, 2)  # [n, bs, tp, K/tp, ...]
+    return g.reshape(*g.shape[:2], -1, *g.shape[4:])
+
+
+def _head_slice(host, r: int, tp: int):
+    """Position ``r``'s heads of a full-head block side (dense [n, bs, K,
+    D] or (data, scale [n, bs, K])), contiguous."""
+    if is_quantized(host):
+        return tuple(_head_slice(t, r, tp) for t in host)
+    k = host.shape[2] // tp
+    return host[:, :, r * k:(r + 1) * k].contiguous()
+
+
 def quantize_vectors(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-vector symmetric int8 quantization over the trailing (D) axis.
 
@@ -74,6 +108,10 @@ def gather_blocks_device(side, ids: torch.Tensor) -> torch.Tensor:
     fresh dense tensor [n, bs, K, D], dequantized for an int8 side.  The
     pool may reuse the source blocks at once: later writes to them are
     enqueued after this gather."""
+    if tp_size(side) > 1:
+        if is_quantized(side):
+            return dequantize(_merge_heads(side[0], ids), _merge_heads(side[1], ids))
+        return _merge_heads(side, ids)
     if is_quantized(side):
         data, scale = side
         return dequantize(data.index_select(0, ids), scale.index_select(0, ids))
@@ -87,6 +125,8 @@ def gather_blocks_wire(side, ids: torch.Tensor, quantized_wire: bool):
     :func:`gather_blocks_device` gives."""
     if quantized_wire and is_quantized(side):
         data, scale = side
+        if tp_size(side) > 1:
+            return (_merge_heads(data, ids), _merge_heads(scale, ids))
         return (data.index_select(0, ids), scale.index_select(0, ids))
     return gather_blocks_device(side, ids)
 
@@ -168,6 +208,14 @@ def stack_wire_blocks(rows: List):
     return torch.cat(rows)
 
 
+def _to_device(side, device):
+    """A host block side on ``device`` (a non-blocking copy of each
+    tensor)."""
+    if is_quantized(side):
+        return tuple(t.to(device, non_blocking=True) for t in side)
+    return side.to(device, non_blocking=True)
+
+
 def set_blocks(k_side, v_side, ids: torch.Tensor, k_host, v_host) -> None:
     """Write host blocks into one layer's cache sides, IN PLACE (the pool
     tensors keep their addresses, which captured graphs hold).  ``ids``:
@@ -177,10 +225,19 @@ def set_blocks(k_side, v_side, ids: torch.Tensor, k_host, v_host) -> None:
     dequantized for a dense side; a dense host side is cast into a dense
     side, and quantized into an int8 side by the int8 cache writer
     (``ops/kernels/kv_write.write_int8_kv``: on the card its kernel, one
-    row a token with the block id repeated and offsets ``arange(bs)``)."""
+    row a token with the block id repeated and offsets ``arange(bs)``).
+    A side sharded by heads takes the full-head blocks: they go to the
+    device whole, then each position is written its own heads."""
     from production_stack_tpu_torch.engine.ops.kernels.kv_write import write_int8_kv
 
     dev = ids.device
+    tp = tp_size(k_side)
+    if tp > 1:
+        k_dev, v_dev = (_to_device(h, dev) for h in (k_host, v_host))
+        for r in range(tp):
+            set_blocks(shard_side(k_side, r), shard_side(v_side, r), ids,
+                       _head_slice(k_dev, r, tp), _head_slice(v_dev, r, tp))
+        return
     if is_quantized(k_side) and not is_quantized(k_host):
         n, bs = k_host.shape[:2]
         rows = []

@@ -32,6 +32,15 @@ thread); :meth:`AdapterRegistry.commit` picks the slot and copies the
 staged values into it on the current stream, which the engine makes the
 step thread's, between dispatches (``LLMEngine.load_lora``).  Work already
 enqueued reads the old values, work enqueued after the new ones.
+
+Tensor parallelism: the stacks hold every slot's full factors, replicated
+over tp as the JAX package leaves its adapter arrays (no spec; GSPMD
+partitions the products).  The model cuts them per tp position
+(``llama._lora_add``): a column-parallel group (q/k/v, gate/up) takes its
+shrink on the replicated input and keeps the position's columns of each
+B; a row-parallel one (o, down) meets the position's input slice with the
+matching rows of A and adds its partial delta before the reduction, the
+delta being linear in x.  A base row's delta stays exactly zero.
 """
 
 from __future__ import annotations

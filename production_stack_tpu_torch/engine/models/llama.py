@@ -40,6 +40,20 @@ its fp32 delta is added before the cast, so a base row computes bit for
 bit what it computes without LoRA.  ``decode_kv`` (the drafter) and the
 encode forward run the base model, as in the JAX package.  On a MoE
 model LoRA reaches attention only: the MLP has no flat projections.
+
+Tensor parallelism (``parallel/``): every forward takes ``params`` as one
+tree or as a ``TPShards``, one tree per tp position
+(``shardings.shard_params``), and the KV pool's sides sharded by heads (a
+leading tp axis, ``kv/quant.shard_side``).  Each layer is Megatron-style,
+with the JAX package's specs: each position computes q/k/v for its heads
+and gate/up for its channels (column-parallel, from the replicated input),
+attends over its own pool with the same kernels at H/tp and K/tp heads,
+and multiplies by its rows of o_proj and down_proj (row-parallel); the
+positions' partials are summed by ``collectives.psum``, once after o_proj
+and once after the MLP.  The embedding is vocab-parallel (each position
+looks up its vocab slice, zeros elsewhere, then ``psum``), the lm_head too
+(the positions' logits concatenated in vocab order), and a MoE layer's
+experts are split over tp.  One tree is tp = 1: the code above, unchanged.
 """
 
 from __future__ import annotations
@@ -51,8 +65,11 @@ import torch
 
 from production_stack_tpu_torch.engine import lora as lora_lib
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.kv.quant import shard_side
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
 from production_stack_tpu_torch.engine.ops.kernels.w8a16 import w8a16_matmul
+from production_stack_tpu_torch.engine.parallel.collectives import psum
+from production_stack_tpu_torch.engine.parallel.shardings import TPShards
 from production_stack_tpu_torch.engine.ops.layers import (
     activation,
     apply_rope,
@@ -140,14 +157,22 @@ def init_params(
     return params
 
 
+def shard_trees(params) -> list:
+    """The parameter trees of the tp positions: a ``TPShards`` as it is
+    (``parallel/shardings.shard_params``), a plain tree as one position."""
+    return list(params) if isinstance(params, TPShards) else [params]
+
+
 def add_fp32_lm_head(params: Params, cfg: ModelConfig) -> None:
-    """Store an fp32 copy of the lm_head weight in ``params`` (in place),
-    so every step's logits come from one fp32 product without casting the
-    [h, V] weight again.  A no-op for fp32 models and for an int8 head
-    (an fp32 copy would undo the point of int8)."""
-    w = params["embed_tokens"].T if cfg.tie_word_embeddings else params["lm_head"]
-    if not isinstance(w, dict) and w.dtype != torch.float32:
-        params[LM_HEAD_FP32] = w.float().contiguous()
+    """Store an fp32 copy of the lm_head weight in ``params`` (in place;
+    in each tp position's tree, of its vocab slice), so every step's
+    logits come from one fp32 product without casting the [h, V] weight
+    again.  A no-op for fp32 models and for an int8 head (an fp32 copy
+    would undo the point of int8)."""
+    for tree in shard_trees(params):
+        w = tree["embed_tokens"].T if cfg.tie_word_embeddings else tree["lm_head"]
+        if not isinstance(w, dict) and w.dtype != torch.float32:
+            tree[LM_HEAD_FP32] = w.float().contiguous()
 
 
 _QUANT_TARGETS = (
@@ -217,8 +242,22 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return rms_norm(x, weight, cfg.rms_norm_eps, cfg.rms_norm_offset)
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed_tokens"][tokens.long()]
+def _embed(trees: list, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  Vocab-parallel over several tp
+    positions: each looks up the ids of its vocab slice, zeros elsewhere,
+    and the positions' rows are summed (exact: one of them is nonzero)."""
+    if len(trees) == 1:
+        x = trees[0]["embed_tokens"][tokens.long()]
+    else:
+        ids, parts, lo = tokens.long(), [], 0
+        for tree in trees:
+            emb = tree["embed_tokens"]
+            local = ids - lo
+            inside = (local >= 0) & (local < emb.shape[0])
+            rows = emb[local.clamp(0, emb.shape[0] - 1)]
+            parts.append(rows.masked_fill(~inside[..., None], 0))
+            lo += emb.shape[0]
+        x = psum(parts).to(trees[0]["embed_tokens"].dtype)
     if cfg.scale_embeddings:  # gemma: sqrt(h) rounded to the input dtype
         # A host scalar, not a device tensor: no copy to the card inside a
         # captured decode step.
@@ -239,32 +278,52 @@ def _dot(x: torch.Tensor, w, cast: bool = False) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
-def _lora_add(lora_layer, group: str, x: torch.Tensor, mask, ys) -> list:
+# Groups whose input is the tp positions' own slice (row-parallel: each
+# position adds its partial delta before the reduction); the others read
+# the replicated input and each position keeps its output columns.
+_ROW_PARALLEL = ("o", "down")
+
+
+def _lora_add(lora_layer, group: str, x: torch.Tensor, mask, ys,
+              r: int = 0, tp: int = 1) -> list:
     """``group``'s products ``ys`` (``lora.GROUPS`` order) for input ``x``
-    with their LoRA deltas added, in fp32."""
+    with their LoRA deltas added, in fp32, for tp position ``r`` of ``tp``.
+    The stacks are the full factors of every position: a column-parallel
+    group's delta is taken on the replicated ``x`` and its B columns cut to
+    the position's slice; a row-parallel group's ``x`` is the position's
+    slice, which meets the matching rows of A, and the delta is a partial
+    that the reduction sums (it is linear in x)."""
     projs = dict(lora_lib.GROUPS)[group]
-    return lora_lib.grouped_delta(
-        x, lora_layer["A"][group], [lora_layer["B"][p] for p in projs], mask, ys)
+    A = lora_layer["A"][group]
+    Bs = [lora_layer["B"][p] for p in projs]
+    if tp > 1:
+        if group in _ROW_PARALLEL:
+            n = A.shape[0] // tp
+            A = A[r * n:(r + 1) * n]
+        else:
+            Bs = [B[:, r * (B.shape[1] // tp):(r + 1) * (B.shape[1] // tp)] for B in Bs]
+    return lora_lib.grouped_delta(x, A, Bs, mask, ys)
 
 
 def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig,
-                 lora_layer=None, mask=None):
-    """x: [T, h] -> q [T, H, D], k/v [T, K, D] in x's dtype; biases (Qwen2
-    style) and the LoRA deltas are added in fp32."""
+                 lora_layer=None, mask=None, r: int = 0, tp: int = 1):
+    """x: [T, h] -> q [T, H, D], k/v [T, K, D] in x's dtype (H/tp and K/tp
+    heads for tp position ``r``); biases (Qwen2 style) and the LoRA deltas
+    are added in fp32."""
     T = x.shape[0]
     cast = lora_layer is None and not cfg.attention_bias
     q = _dot(x, layer["q_proj"], cast)
     k = _dot(x, layer["k_proj"], cast)
     v = _dot(x, layer["v_proj"], cast)
     if lora_layer is not None:
-        q, k, v = _lora_add(lora_layer, "qkv", x, mask, (q, k, v))
+        q, k, v = _lora_add(lora_layer, "qkv", x, mask, (q, k, v), r, tp)
     if cfg.attention_bias:
         q = q.float() + layer["q_bias"].float()
         k = k.float() + layer["k_bias"].float()
         v = v.float() + layer["v_bias"].float()
-    q = q.to(x.dtype).reshape(T, cfg.num_heads, cfg.head_dim)
-    k = k.to(x.dtype).reshape(T, cfg.num_kv_heads, cfg.head_dim)
-    v = v.to(x.dtype).reshape(T, cfg.num_kv_heads, cfg.head_dim)
+    q = q.to(x.dtype).reshape(T, -1, cfg.head_dim)
+    k = k.to(x.dtype).reshape(T, -1, cfg.head_dim)
+    v = v.to(x.dtype).reshape(T, -1, cfg.head_dim)
     return q, k, v
 
 
@@ -277,58 +336,87 @@ def _project_qkv(layer: Params, x: torch.Tensor, cfg: ModelConfig,
 MOE_ROW_CHUNK = 1024
 
 
-def _moe_mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(layers, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Mixtral-style sparse MoE block, the JAX ``_moe_mlp``: a full-softmax
     router over fp32 logits, the top-k probabilities renormalized over their
     sum, SwiGLU experts.  As there, every row goes through every expert with
     its routing weight, zero outside its top-k: static shapes, no capacity
     factor, no token dropped, nothing sorted or counted on the host, so the
     block runs inside every captured graph and each row's output depends on
-    that row alone.  Rows go ``MOE_ROW_CHUNK`` at a time
-    (:func:`_moe_rows`)."""
+    that row alone.  ``layers``: one layer's tree, or the list of its tp
+    positions' trees, each holding E/tp experts (the JAX block under
+    ``P(TP, None, None)``): every position runs its experts over every row
+    with the replicated router's weights for them, and the positions'
+    fp32 sums are added (``psum``).  Rows go ``MOE_ROW_CHUNK`` at a time
+    (:func:`_moe_chunk`)."""
+    layers = layers if isinstance(layers, list) else [layers]
     if x.shape[0] <= MOE_ROW_CHUNK:
-        return _moe_rows(layer, x, cfg)
-    return torch.cat([_moe_rows(layer, x[r:r + MOE_ROW_CHUNK], cfg)
+        return _moe_chunk(layers, x, cfg)
+    return torch.cat([_moe_chunk(layers, x[r:r + MOE_ROW_CHUNK], cfg)
                       for r in range(0, x.shape[0], MOE_ROW_CHUNK)])
 
 
-def _moe_rows(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_chunk(layers: list, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """:func:`_moe_mlp` of the rows ``x``.  The router's logits are a true
     fp32 product (``x.float() @ gate.float()``; the engine keeps TF32 off,
     ``LLMEngine``), so bf16 rounding or TF32 never moves a routing choice.
     The ``[T, E]`` weights are the renormalized top-k values scattered into
     zeros, so only which experts were chosen matters, not the order
-    ``topk`` returns them in.  The experts run one at a time, each adding
-    its weighted output into an fp32 ``[T, h]`` accumulator, so the
-    transients are O(T x I), not the einsums' O(T x E x I); each product
-    follows :func:`swiglu`'s convention (a matmul in x's dtype, then fp32),
-    the weighted sum over experts is fp32, cast to x's dtype at the end.
-    Routing only the chosen rows (a grouped GEMM over device-side counts)
-    is the faster formulation the JAX docstring names."""
-    probs = torch.softmax(x.float() @ layer["gate"].float(), dim=-1)  # [T, E]
+    ``topk`` returns them in.  Each tp position's experts then run
+    (:func:`_moe_rows`) on its columns of the weights; the sum over
+    positions is cast to x's dtype.  Routing only the chosen rows (a
+    grouped GEMM over device-side counts) is the faster formulation the
+    JAX docstring names."""
+    probs = torch.softmax(x.float() @ layers[0]["gate"].float(), dim=-1)  # [T, E]
     top_vals, top_idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
     weights = torch.zeros_like(probs).scatter_(1, top_idx, top_vals)
+    parts, lo = [], 0
+    for layer in layers:
+        n = layer["experts_gate"].shape[0]
+        parts.append(_moe_rows(layer, x, weights[:, lo:lo + n], cfg))
+        lo += n
+    return psum(parts).to(x.dtype)
+
+
+def _moe_rows(layer: Params, x: torch.Tensor, weights: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """The weighted sum [T, h] (fp32) of the rows ``x`` through the
+    experts of ``layer`` (``weights`` [T, n]: their routing weights).  The
+    experts run one at a time, each adding its weighted output into an
+    fp32 ``[T, h]`` accumulator, so the transients are O(T x I), not the
+    einsums' O(T x E x I); each product follows :func:`swiglu`'s
+    convention (a matmul in x's dtype, then fp32)."""
     out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e in range(cfg.num_experts):
+    for e in range(weights.shape[1]):
         gate = torch.matmul(x, layer["experts_gate"][e]).float()
         up = torch.matmul(x, layer["experts_up"][e]).float()
         activated = (activation(gate, cfg.hidden_act) * up).to(x.dtype)
         down = torch.matmul(activated, layer["experts_down"][e]).float()
         out.addcmul_(weights[:, e:e + 1], down)
-    return out.to(x.dtype)
+    return out
 
 
-def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+def _mlp(layers: list, x: torch.Tensor, cfg: ModelConfig,
          lora_layer=None, mask=None) -> torch.Tensor:
-    """Dense gated MLP (ops/layers.py swiglu), with the LoRA deltas of
-    gate/up added to their fp32 products and down's added before its
-    cast.  Int8 weights take the LoRA path's structure (fp32 gate and up,
-    the act * up product cast, down), as in the JAX package.  A MoE model
-    runs :func:`_moe_mlp` instead, LoRA or not (its adapters reach
-    attention only)."""
+    """The MLP of one layer over its tp positions' trees ``layers``: each
+    position's partial (:func:`_mlp_partial`), summed (``psum``) and cast
+    to x's dtype.  A MoE model runs :func:`_moe_mlp` instead, LoRA or not
+    (its adapters reach attention only)."""
     if cfg.num_experts:
-        return _moe_mlp(layer, x, cfg)
+        return _moe_mlp(layers, x, cfg)
+    tp = len(layers)
+    return psum([_mlp_partial(layer, x, cfg, lora_layer, mask, r, tp)
+                 for r, layer in enumerate(layers)]).to(x.dtype)
+
+
+def _mlp_partial(layer: Params, x: torch.Tensor, cfg: ModelConfig,
+                 lora_layer, mask, r: int, tp: int) -> torch.Tensor:
+    """Dense gated MLP (ops/layers.py swiglu) of tp position ``r``: its
+    gate/up columns and down rows, the down product before the reduction.
+    The LoRA deltas of gate/up are added to their fp32 products and down's
+    to its partial.  Int8 weights take the LoRA path's structure (fp32 gate
+    and up, the act * up product cast, down), as in the JAX package."""
     if lora_layer is None and not isinstance(layer["gate_proj"], dict):
         return swiglu(
             x, layer["gate_proj"], layer["up_proj"], layer["down_proj"],
@@ -336,16 +424,18 @@ def _mlp(layer: Params, x: torch.Tensor, cfg: ModelConfig,
         )
     gate, up = _dot(x, layer["gate_proj"]), _dot(x, layer["up_proj"])
     if lora_layer is not None:
-        gate, up = _lora_add(lora_layer, "gate_up", x, mask, (gate, up))
+        gate, up = _lora_add(lora_layer, "gate_up", x, mask, (gate, up), r, tp)
     activated = (activation(gate.float(), cfg.hidden_act) * up.float()).to(x.dtype)
-    down = _dot(activated, layer["down_proj"], lora_layer is None)
+    down = _dot(activated, layer["down_proj"], lora_layer is None and tp == 1)
     if lora_layer is not None:
-        (down,) = _lora_add(lora_layer, "down", activated, mask, (down,))
-    return down.to(x.dtype)
+        (down,) = _lora_add(lora_layer, "down", activated, mask, (down,), r, tp)
+    return down
 
 
 def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """hidden [..., h] -> logits [..., V] in fp32.
+    """hidden [..., h] -> logits [..., V] in fp32; over several tp
+    positions (a ``TPShards``), each position's vocab slice, concatenated
+    in vocab order.
 
     Both operands are fp32 (hidden is cast; the weight is the fp32 copy
     from :func:`add_fp32_lm_head` when present, else cast here), so the
@@ -353,6 +443,9 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
     product for an fp32 result).  An int8 head takes the hidden rows in the
     model dtype through :func:`_dot`, as the JAX ``_dot`` does.  Logits
     feed sampling and logprobs."""
+    trees = shard_trees(params)
+    if len(trees) > 1:
+        return torch.cat([_lm_head(tree, cfg, hidden) for tree in trees], dim=-1)
     if not cfg.tie_word_embeddings and isinstance(params["lm_head"], dict):
         return _dot(hidden, params["lm_head"])
     w = params.get(LM_HEAD_FP32)
@@ -363,27 +456,39 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
 
 
 def _layer(
-    layer: Params, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend,
+    layers: list, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend,
     lora_layer=None, mask=None,
 ) -> torch.Tensor:
-    """One decoder layer; ``attend(q, k, v)`` writes the KV cache and
-    returns attention outputs [T, H, D].  ``lora_layer`` (this layer's
+    """One decoder layer over its tp positions' trees ``layers``
+    (Megatron-style): each position projects its heads' q/k/v from the
+    replicated normed input, attends (``attend(r, q, k, v)`` writes
+    position ``r``'s KV pool and returns its attention outputs [T, H/tp,
+    D]) and multiplies by its rows of o_proj; the partials are summed
+    (``psum``), then the MLP the same way.  ``lora_layer`` (this layer's
     slot stacks) and ``mask`` (:func:`lora.slot_mask`) add the LoRA deltas;
     None runs the base model."""
-    T = x.shape[0]
+    T, tp = x.shape[0], len(layers)
     residual = x
-    x_n = _norm(x, layer["input_layernorm"], cfg)
-    q, k, v = _project_qkv(layer, x_n, cfg, lora_layer, mask)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    out = attend(q, k, v).reshape(T, cfg.num_heads * cfg.head_dim)
-    o = _dot(out, layer["o_proj"], lora_layer is None)
-    if lora_layer is not None:
-        (o,) = _lora_add(lora_layer, "o", out, mask, (o,))
-    x = residual + o.to(x.dtype)
+    x_n = _norm(x, layers[0]["input_layernorm"], cfg)
+    parts = []
+    for r, layer in enumerate(layers):
+        q, k, v = _project_qkv(layer, x_n, cfg, lora_layer, mask, r, tp)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        out = attend(r, q, k, v).reshape(T, -1)
+        o = _dot(out, layer["o_proj"], lora_layer is None and tp == 1)
+        if lora_layer is not None:
+            (o,) = _lora_add(lora_layer, "o", out, mask, (o,), r, tp)
+        parts.append(o)
+    x = residual + psum(parts).to(x.dtype)
     residual = x
-    x_n = _norm(x, layer["post_attention_layernorm"], cfg)
-    return residual + _mlp(layer, x_n, cfg, lora_layer, mask)
+    x_n = _norm(x, layers[0]["post_attention_layernorm"], cfg)
+    return residual + _mlp(layers, x_n, cfg, lora_layer, mask)
+
+
+def _shard_layers(params) -> list:
+    """Per layer, the list of its tp positions' layer trees."""
+    return [list(layers) for layers in zip(*(t["layers"] for t in shard_trees(params)))]
 
 
 def _lora_layers(lora, adapter_idx, num_layers: int):
@@ -436,11 +541,12 @@ def prefill(
     positions = cached.long() + torch.arange(T, device=dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = _embed(params, cfg, tokens)  # [T, h]
-    for layer, (k_cache, v_cache), lora_layer in zip(
-        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    x = _embed(shard_trees(params), cfg, tokens)  # [T, h]
+    for layers, (k_pool, v_pool), lora_layer in zip(
+        _shard_layers(params), kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
     ):
-        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+        def attend(r, q, k, v, k_pool=k_pool, v_pool=v_pool):
+            k_cache, v_cache = shard_side(k_pool, r), shard_side(v_pool, r)
             out = attn_ops.prefill_attention_paged(
                 q, k, v, k_cache, v_cache, prefix, cached, valid,
                 scale=scale, sliding_window=cfg.sliding_window,
@@ -448,8 +554,8 @@ def prefill(
             attn_ops.write_prefill_kv(k_cache, v_cache, k, v, new_block_ids)
             return out
 
-        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
-    x = _norm(x, params["norm"], cfg)
+        x = _layer(layers, x, cfg, cos, sin, attend, *lora_layer)
+    x = _norm(x, shard_trees(params)[0]["norm"], cfg)
     last = torch.clamp(valid.long() - 1, min=0)  # the last valid row
     logits = _lm_head(params, cfg, x.index_select(0, last)[0])
     if prompt_targets is None:
@@ -498,7 +604,7 @@ def decode(
     (a sequence's verify rows, a causal prime)."""
     x = _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
                        slot_block_ids, slot_offsets, kv_caches, lora, adapter_idx)
-    x = _norm(x, params["norm"], cfg)
+    x = _norm(x, shard_trees(params)[0]["norm"], cfg)
     return _lm_head(params, cfg, x)
 
 
@@ -528,11 +634,12 @@ def _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
     scale = cfg.head_dim**-0.5
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = _embed(params, cfg, tokens)  # [S, h]
-    for layer, (k_cache, v_cache), lora_layer in zip(
-        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    x = _embed(shard_trees(params), cfg, tokens)  # [S, h]
+    for layers, (k_pool, v_pool), lora_layer in zip(
+        _shard_layers(params), kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
     ):
-        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+        def attend(r, q, k, v, k_pool=k_pool, v_pool=v_pool):
+            k_cache, v_cache = shard_side(k_pool, r), shard_side(v_pool, r)
             attn_ops.append_decode_kv(
                 k_cache, v_cache, k, v, slot_block_ids, slot_offsets
             )
@@ -541,7 +648,7 @@ def _decode_layers(params, cfg, tokens, positions, block_tables, ctx_lens,
                 scale=scale, sliding_window=cfg.sliding_window,
             )
 
-        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
+        x = _layer(layers, x, cfg, cos, sin, attend, *lora_layer)
     return x
 
 
@@ -587,11 +694,13 @@ def mixed_step(
     ])
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = _embed(params, cfg, torch.cat([dec_tokens.long(), pf_tokens.long()]))
-    for layer, (k_cache, v_cache), lora_layer in zip(
-        params["layers"], kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
+    x = _embed(shard_trees(params), cfg,
+               torch.cat([dec_tokens.long(), pf_tokens.long()]))
+    for layers, (k_pool, v_pool), lora_layer in zip(
+        _shard_layers(params), kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
     ):
-        def attend(q, k, v, k_cache=k_cache, v_cache=v_cache):
+        def attend(r, q, k, v, k_pool=k_pool, v_pool=v_pool):
+            k_cache, v_cache = shard_side(k_pool, r), shard_side(v_pool, r)
             # Slices along dim 0 stay contiguous, as the kernels require.
             attn_ops.append_decode_kv(
                 k_cache, v_cache, k[:S], v[:S],
@@ -610,8 +719,8 @@ def mixed_step(
             )
             return torch.cat([out_dec, out_pf])
 
-        x = _layer(layer, x, cfg, cos, sin, attend, *lora_layer)
-    x = _norm(x, params["norm"], cfg)
+        x = _layer(layers, x, cfg, cos, sin, attend, *lora_layer)
+    x = _norm(x, shard_trees(params)[0]["norm"], cfg)
     tail = S + torch.clamp(valid.long() - 1, min=0)  # the chunk's last valid row
     return _lm_head(params, cfg, torch.cat([x[:S], x.index_select(0, tail)]))
 
@@ -637,17 +746,17 @@ def encode_batch(
     cos, sin = rope_cos_sin(idx.repeat(B), cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
 
-    def attend(q, k, v):
+    def attend(r, q, k, v):
         return attn_ops.encode_attention(
             q.reshape(B, T, *q.shape[1:]), k.reshape(B, T, *k.shape[1:]),
             v.reshape(B, T, *v.shape[1:]), valid,
             scale=scale, sliding_window=cfg.sliding_window,
         )
 
-    x = _embed(params, cfg, tokens.reshape(B * T))  # [B*T, h]
-    for layer in params["layers"]:
-        x = _layer(layer, x, cfg, cos, sin, attend)
-    x = _norm(x, params["norm"], cfg).float().reshape(B, T, -1)
+    x = _embed(shard_trees(params), cfg, tokens.reshape(B * T))  # [B*T, h]
+    for layers in _shard_layers(params):
+        x = _layer(layers, x, cfg, cos, sin, attend)
+    x = _norm(x, shard_trees(params)[0]["norm"], cfg).float().reshape(B, T, -1)
     mask = (idx[None, :] < valid[:, None]).float()  # [B, T]
     pooled = (x * mask[..., None]).sum(dim=1) / valid.clamp(min=1)[:, None].float()
     return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)

@@ -15,7 +15,9 @@ takes any tree with the JAX package's layout (``[in, out]`` weights) given
 as numpy arrays, with no transposes, which is how the tests hand both
 packages the same weights (int8 ``{"q", "s"}`` pairs included);
 ``lora_params_from_numpy`` does the same for the JAX adapter registry's
-slot tree.
+slot tree.  Every loader builds the full tree; an engine at tp > 1 cuts
+it afterwards (``parallel/shardings.shard_params``), after any int8
+quantization, as the JAX engine loads, quantizes, then places.
 """
 
 from __future__ import annotations

@@ -21,6 +21,14 @@ cached prefixes through ``prefill_attention_paged`` (the pool, a block
 table row and device lengths); ``gather_prefix_kv`` is the plain
 version's gather.  The encode lane runs ``encode_attention``: B texts with
 no prefix in one launch.
+
+Under tensor parallelism (``parallel/``) the model calls these once per tp
+position with that position's q heads [.., H/tp, D] and its pool [N, bs,
+K/tp, D] (``kv/quant.shard_side``), as the JAX package runs its decode
+kernel per shard under ``shard_map``; the JAX package's prefill goes to its
+dense path under a mesh (a bare ``pallas_call`` cannot be partitioned),
+while the port keeps the flash-prefill kernel per position, which computes
+the same function.
 """
 
 from __future__ import annotations

@@ -66,9 +66,13 @@ starts ``jax.distributed``).
 ``--quantization int8`` serves its projections as int8 weights (the
 W8A16 kernel), as the JAX server's flags do.
 
-Not ported yet, with their flags: parallelism and the multi-host
-lockstep group (with it the JAX server's rule that turns the encode lane
-off in such a group).
+``--tensor-parallel N`` shards the model over N tp positions, all run by
+this process on the engine's device (``engine/parallel/``).
+
+Not ported yet: ``--data-parallel`` and ``--sequence-parallel`` above 1
+(the flags are here and boot-refuse by name), tp across cards and the
+multi-host lockstep group (with it the JAX server's rule that turns the
+encode lane off in such a group).
 """
 
 from __future__ import annotations
@@ -1560,7 +1564,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--device", default="cuda",
-        help="torch device the engine runs on (default cuda; cpu on purpose only)",
+        help="torch device the engine runs on (default cuda; cpu on purpose "
+        "only); it holds every tp position",
     )
     parser.add_argument("--max-num-seqs", type=int, default=8)
     parser.add_argument("--max-model-len", type=int, default=2048)
@@ -1634,6 +1639,14 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["int8"],
         help="weight-only quantization of the projection matmuls "
         "(halves decode's HBM weight traffic)",
+    )
+    # Mesh axes (config.ParallelConfig): tp is served, every tp position in
+    # this process on the engine's device; dp and sp boot-refuse by name.
+    parser.add_argument("--data-parallel", type=int, default=1)
+    parser.add_argument("--tensor-parallel", type=int, default=1)
+    parser.add_argument("--sequence-parallel", type=int, default=1)
+    parser.add_argument(
+        "--sequence-parallel-mode", choices=["ring", "ulysses"], default="ring"
     )
     parser.add_argument(
         "--kv-cache-dtype",
@@ -1886,6 +1899,10 @@ def config_from_args(args):
            if args.kv_wire_format else {}),
         **({"model.dtype": args.dtype} if args.dtype else {}),
         **({"model.quantization": args.quantization} if args.quantization else {}),
+        "parallel.data_parallel": args.data_parallel,
+        "parallel.tensor_parallel": args.tensor_parallel,
+        "parallel.sequence_parallel": args.sequence_parallel,
+        "parallel.sequence_parallel_mode": args.sequence_parallel_mode,
         **({"scheduler.admission_control": False}
            if args.no_admission_control else {}),
         **({"scheduler.max_queued_requests": args.max_queued_requests}

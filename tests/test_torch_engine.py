@@ -160,6 +160,14 @@ def test_torch_engine_mixed_streams_match_jax(kv_cache_dtype):
     assert port.stats()["prefill_chunk_tokens"] == ref.stats()["prefill_chunk_tokens"]
 
 
+def test_torch_engine_refuses_a_multi_process_group(monkeypatch):
+    """A multi-process environment (the JAX package's lockstep group) is
+    refused by name, as dp and sp are."""
+    monkeypatch.setenv("PSTPU_NUM_PROCESSES", "2")
+    with pytest.raises(NotImplementedError, match="multi-process group"):
+        LLMEngine(torch_config(), device="cpu")
+
+
 def test_torch_engine_int8_pool_holds_about_twice_the_tokens():
     """``_kv_bytes`` per token: 2*K*(D+4) for int8, 2*K*D*itemsize dense."""
     dense = LLMEngine(torch_config(), device="cpu")
@@ -194,8 +202,12 @@ def test_torch_engine_raises_outside_the_slice():
     layer = LLMEngine(cfg, device="cpu").params["layers"][0]
     assert tuple(layer["experts_gate"].shape) == (4, 64, 64) and "gate_proj" not in layer
     cfg = torch_config()
-    cfg.parallel.tensor_parallel = 2  # the parallel layer: not yet
-    with pytest.raises(NotImplementedError, match="parallel"):
+    cfg.parallel.data_parallel = 2  # dp: not yet, refused by name
+    with pytest.raises(NotImplementedError, match="data_parallel > 1"):
+        LLMEngine(cfg, device="cpu")
+    cfg = torch_config()
+    cfg.parallel.sequence_parallel = 2  # sp: not yet, refused by name
+    with pytest.raises(NotImplementedError, match="sequence_parallel > 1"):
         LLMEngine(cfg, device="cpu")
     cfg = torch_config()
     cfg.cache.disagg_role = "encode"  # the encode lane's pool label: served

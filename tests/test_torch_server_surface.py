@@ -428,6 +428,8 @@ SERVED_FLAGS = (
     "--max-queued-encode-texts", "--max-loras", "--max-lora-rank",
     "--no-tracing", "--trace-ring-size", "--trace-ring-bytes",
     "--window-ring-size", "--weights-path", "--quantization",
+    "--data-parallel", "--tensor-parallel", "--sequence-parallel",
+    "--sequence-parallel-mode",
 )
 
 
@@ -478,7 +480,8 @@ def test_port_flags_have_the_jax_servers_names_defaults_and_meanings(monkeypatch
             "--max-loras", "3", "--max-lora-rank", "32", "--no-tracing",
             "--trace-ring-size", "9", "--trace-ring-bytes", "4096",
             "--window-ring-size", "33", "--weights-path", "/some/checkpoint",
-            "--quantization", "int8"]
+            "--quantization", "int8", "--tensor-parallel", "2",
+            "--sequence-parallel-mode", "ulysses"]
     jax = _capture_config_overrides(monkeypatch, jax_server,
                                     lambda: jax_server.main(argv))
     port = _capture_config_overrides(
