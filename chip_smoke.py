@@ -273,6 +273,22 @@ non-zero (no phase is caught and passed over):
    the step's largest |logit| at tp = 1, windows and mixed windows
    replayed as graphs, each kernel's launches twice tp = 1's; the
    streams' agreement is reported.
+13. Tensor parallelism across processes, on this card: a one-rank NCCL
+   group (``parallel/distributed.initialize`` over a ``TCPStore`` on
+   localhost) serves llama-3.1-8b at tp = 2 through ``phase_tp`` (both
+   positions this rank's, each reduction NCCL's all-reduce over the
+   group, the lm_head's logits its all-gather, every asynchronous dispatch
+   under ``set_sync_debug_mode("error")``): its logits and streams must
+   equal the in-process tp = 2 engine's bit for bit and token for token,
+   and the window and mixed graphs must have captured the collectives
+   (counted at the ``torch.distributed`` calls made while a graph
+   captures; NCCL's one-rank all-reduce in place enqueues no kernel).
+
+``python3 chip_smoke.py --group`` (a four-card machine; not part of the
+default run) drives tp across cards, one process a card, through
+``main_group``: llama-3.1-8b at tp = 1, 2 and 4, mixtral-8x7b at 16 layers
+(tp = 1 and 4) and at its full 32 (tp = 4 and 2), and the group's
+lifecycle through the real ``api_server`` processes.
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2092,29 +2108,19 @@ def phase_engine(kv_cache_dtype: str = "auto", dense: dict = None,
     ``tp`` > 1 serves the model tensor-parallel with every tp position on
     this card (``device=[cuda:0] * tp``), every asynchronous dispatch under
     ``set_sync_debug_mode("error")``."""
-    from production_stack_tpu_torch.engine.config import config_from_preset
-    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
     from production_stack_tpu_torch.engine.server.api_server import build_engine_app
     from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 
     int8 = kv_cache_dtype == "int8"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    overrides = {
-        "scheduler.max_model_len": 32768,
-        "scheduler.max_num_seqs": NUM_REQUESTS,
-        "cache.kv_cache_dtype": kv_cache_dtype,
-    }
+    overrides = {"cache.kv_cache_dtype": kv_cache_dtype}
     if single_step:
         overrides.update({"scheduler.multi_step_window": False,
                           "scheduler.pipeline_decode": False})
-    if layers is not None:
-        overrides["model.num_layers"] = layers
     if quantization is not None:
         overrides["model.quantization"] = quantization
-    if tp > 1:
-        overrides["parallel.tensor_parallel"] = tp
-    cfg = config_from_preset(model, **SLICE_OVERRIDES, **overrides)
+    cfg = _serving_config(model, tp, layers, **overrides)
     moe = cfg.model.num_experts > 0
     if not cfg.scheduler.mixed_enabled:
         raise AssertionError("mixed steps are off by default")
@@ -2301,7 +2307,7 @@ TP_NEW_TOKENS = 40
 TP_LOGIT_BOUND = 2.0
 
 
-def phase_tp(eng, baseline: dict = None) -> dict:
+def phase_tp(eng, baseline: dict = None, gate_logits: bool = True) -> dict:
     """Tensor parallelism at full width on ``eng`` (a served engine, idle):
 
     1. Teacher-forced logits: a 512-token prompt prefilled into blocks the
@@ -2318,14 +2324,22 @@ def phase_tp(eng, baseline: dict = None) -> dict:
     With ``baseline`` (this phase's tp = 1 result on the same seeded
     weights, with its fp32 forward's logits from :func:`phase_tp_fp32`)
     each step's max |tp - tp 1| must lie within ``TP_LOGIT_BOUND`` times
-    the step's max |tp 1 - fp32|, each kernel's launches must be tp times
-    the baseline's, and the streams' agreement is reported (not required:
-    bf16 rounding may turn a near-tie)."""
+    the step's max |tp 1 - fp32|, each kernel's
+    launches must be the baseline's times the tp positions this process
+    runs, and the streams' agreement is reported (not required: bf16
+    rounding may turn a near-tie).  ``gate_logits`` False reports the
+    logits' distances without the bound (mixtral-8x7b at 16 layers, whose
+    bf16 forward a routing near-tie carries far from fp32 at tp = 1
+    already; its fp32 forwards are held instead, :func:`group_rank_main`).
+    In a multi-process group each rank
+    runs this phase alike, so their collectives pair up, and the encode
+    batch is left out (the port refuses the encode forward in a group)."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.models import llama
 
     cfg, dev, tp = eng.config.model, eng.device, eng.tp
+    grouped = eng.group is not None and eng.group.world > 1
     rng = np.random.default_rng(7)
     bs = eng.block_pool.block_size
     prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
@@ -2360,15 +2374,17 @@ def phase_tp(eng, baseline: dict = None) -> dict:
                 delattr(eng, name)
     wall = time.time() - t0
     # The encode lane's forward at this tp: three texts in one batch.
-    vecs = eng.encode_batch([p[1][:n] for p, n in zip(prompts, (128, 37, 300))])
+    vecs = None if grouped else eng.encode_batch(
+        [p[1][:n] for p, n in zip(prompts, (128, 37, 300))])
     launches = launch_counts()
     after = eng.stats()
     ran = {k: after[k] - before[k] for k in keys}
     row = {"phase": f"tp{tp}", "model": cfg.name, "layers": cfg.num_layers, "tp": tp,
            "dtype": cfg.dtype, "teacher_steps": len(logits),
            "rows": len(prompts), "tokens_per_row": TP_NEW_TOKENS, "drive_wall_s": wall,
+           "tp_local": eng.tp_local, "world": eng.group.world if eng.group else 1,
            **ran, "sync_checked_dispatches": checked, "launches": launches,
-           "embed_norms": np.linalg.norm(vecs, axis=1).tolist()}
+           "embed_norms": None if vecs is None else np.linalg.norm(vecs, axis=1).tolist()}
     if any(len(v) != TP_NEW_TOKENS for v in streams.values()) or len(streams) != len(prompts):
         raise AssertionError(f"tp={tp}: streams {[len(v) for v in streams.values()]}")
     if not (ran["windows_dispatched"] and ran["mixed_windows_dispatched"]
@@ -2380,9 +2396,10 @@ def phase_tp(eng, baseline: dict = None) -> dict:
     if baseline is not None:
         errs = [(a - b).abs().max().item() for a, b in zip(logits, baseline["logits"])]
         tops = [b.abs().max().item() for b in baseline["logits"]]
-        noise = [(a - b).abs().max().item() for a, b in zip(baseline["logits"],
-                                                             baseline["fp32_logits"])]
-        own = [(a - b).abs().max().item() for a, b in zip(logits, baseline["fp32_logits"])]
+        fp32 = baseline["fp32_logits"]
+        noise = [(a - b).abs().max().item() for a, b in zip(baseline["logits"], fp32)]
+        own = [(a - b).abs().max().item() for a, b in zip(logits, fp32)]
+        limits = [TP_LOGIT_BOUND * n for n in noise]
         agree = {k: sum(x == y for x, y in zip(v, baseline["streams"][k]))
                  for k, v in streams.items()}
         prefix = {k: next((i for i, (x, y) in enumerate(zip(v, baseline["streams"][k]))
@@ -2392,10 +2409,11 @@ def phase_tp(eng, baseline: dict = None) -> dict:
             "step_rel_logit_diff": [e / m for e, m in zip(errs, tops)],
             "step_max_abs_diff_tp1_vs_fp32": noise,
             "step_max_abs_diff_vs_fp32": own,
-            "logit_bound_times_tp1_vs_fp32": TP_LOGIT_BOUND,
+            "step_logit_limit": limits,
             "step_top1_agree": [int(a.argmax()) == int(b.argmax())
                                 for a, b in zip(logits, baseline["logits"])],
-            "embed_max_abs_diff": float(np.abs(vecs - baseline["vecs"]).max()),
+            "embed_max_abs_diff": (None if vecs is None or baseline.get("vecs") is None
+                                   else float(np.abs(vecs - baseline["vecs"]).max())),
             "stream_tokens_agree": sum(agree.values()),
             "stream_tokens": sum(len(v) for v in streams.values()),
             "stream_matched_prefix": prefix,
@@ -2403,35 +2421,57 @@ def phase_tp(eng, baseline: dict = None) -> dict:
             "stats_tp1": {k: baseline["row"][k] for k in keys},
         })
     emit(row)
-    if not all(torch.isfinite(x).all() for x in logits) or not np.isfinite(vecs).all():
+    if not all(torch.isfinite(x).all() for x in logits) or (
+            vecs is not None and not np.isfinite(vecs).all()):
         raise AssertionError(f"tp={tp}: non-finite logits or embeddings")
     if baseline is not None:
-        if any(e > TP_LOGIT_BOUND * n for e, n in zip(errs, noise)):
+        if gate_logits and any(e > lim for e, lim in zip(errs, limits)):
             raise AssertionError(f"tp={tp} logits {errs} beyond {TP_LOGIT_BOUND} x tp=1's "
                                  f"own bf16 error {noise}")
-        want = {k: tp * v for k, v in baseline["launches"].items()}
-        if launches != want:
-            raise AssertionError(f"tp={tp} launches {launches}, want tp x tp=1's {want}")
+        want = {k: eng.tp_local * v for k, v in baseline["launches"].items()
+                if vecs is not None or k != "flash_prefill_batched"}
+        got = {k: v for k, v in launches.items() if k in want or v}
+        if got != want:
+            raise AssertionError(f"tp={tp} launches {launches}, want the tp positions "
+                                 f"here ({eng.tp_local}) x tp=1's {want}")
     return {"logits": logits, "teacher_tokens": tokens, "streams": streams,
             "launches": launches, "row": row, "vecs": vecs}
 
 
-def phase_tp_fp32(tp1: dict, seed: int = 0) -> dict:
-    """The fp32 forward of :func:`phase_tp`'s teacher-forced steps on the
-    served engine's seeded weights (drawn again on the card, in bf16 as the
-    engine draws them, each tensor then cast to fp32 in place), with its own
-    33-block fp32 pool, TF32 off: the logits a bf16 forward rounds.  Stored
-    in ``tp1["fp32_logits"]``; run with no engine on the card (32 GB of
-    fp32 weights)."""
+def fp32_teacher_logits(tokens: list, seed: int = 0, model: str = MODEL,
+                        layers: int = None, tp: int = 1) -> list:
+    """The fp32 forward of :func:`phase_tp`'s teacher-forced steps (its
+    512-token prompt, then a decode of each of ``tokens[:4]``) on the
+    seeded weights of ``model`` at ``layers`` (drawn again on the card, in
+    bf16 as the engine draws them, each tensor then cast to fp32 in place),
+    with its own 33-block fp32 pool, TF32 off: the logits a bf16 forward
+    rounds, 5 steps [V] on the CPU.  Run with no engine on the card (32 GB
+    of fp32 weights at llama-3.1-8b's 32 layers).  ``tp`` > 1 runs it in
+    this process's multi-process group, every rank alike, each drawing only
+    its slices (``RankSlicer``): the fp32 forward of a model whose fp32
+    weights one card cannot hold (mixtral-8x7b at 16 layers: 88 GB)."""
     import numpy as np
 
-    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.config import PRESETS, ParallelConfig
     from production_stack_tpu_torch.engine.models import llama
     from production_stack_tpu_torch.engine.models.weights import load_params
+    from production_stack_tpu_torch.engine.parallel import distributed, shardings
+    from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = PRESETS[MODEL]
-    params = load_params(cfg, None, seed=seed, device=torch.device("cuda"))
+    cfg = PRESETS[model]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    local = 1
+    if tp > 1:
+        group = distributed.tp_group()
+        mesh = build_mesh(ParallelConfig(tensor_parallel=tp), group=group)
+        params = shardings.shard_params(
+            load_params(cfg, None, seed=seed, device=group.device,
+                        place=shardings.RankSlicer(cfg, mesh)), cfg, mesh)
+        local = len(params)
+    else:
+        params = load_params(cfg, None, seed=seed, device=torch.device("cuda"))
 
     def to_fp32(tree):
         for key, value in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
@@ -2446,27 +2486,37 @@ def phase_tp_fp32(tp1: dict, seed: int = 0) -> dict:
     prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
                           device="cuda")
     bs, n = 16, 512 // 16 + 1
-    shape = (n + 1, bs, cfg.num_kv_heads, cfg.head_dim)
+    shape = (n + 1, bs, cfg.num_kv_heads // tp, cfg.head_dim)
+    shape = shape if tp == 1 else (local, *shape)
     kv = [(torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda"))
           for _ in range(cfg.num_layers)]
     t = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
     ids = t(list(range(1, n + 1)))
     logits = [llama.prefill(params, cfg, prompt, 0, ids[:0], ids[:-1], 512, kv)]
     for i, pos in enumerate(range(512, 516)):
-        logits.append(llama.decode(params, cfg, t([tp1["teacher_tokens"][i]]), t([pos]),
+        logits.append(llama.decode(params, cfg, t([tokens[i]]), t([pos]),
                                    ids[None], t([pos + 1]), ids[-1:], t([pos % bs]), kv)[0])
-    tp1["fp32_logits"] = [x.float().cpu() for x in logits]
+    out = [x.float().cpu() for x in logits]
+    del params, kv, logits
+    torch.cuda.empty_cache()
+    if not all(torch.isfinite(x).all() for x in out):
+        raise AssertionError("non-finite fp32 logits")
+    return out
+
+
+def phase_tp_fp32(tp1: dict, seed: int = 0, model: str = MODEL, layers: int = None,
+                  tp: int = 1) -> dict:
+    """:func:`fp32_teacher_logits` on ``tp1``'s teacher tokens, stored in
+    ``tp1["fp32_logits"]``, with the bf16 tp = 1 forward's distance from
+    them a step."""
+    tp1["fp32_logits"] = fp32_teacher_logits(tp1["teacher_tokens"], seed, model, layers, tp)
     noise = [(a - b).abs().max().item() for a, b in zip(tp1["logits"], tp1["fp32_logits"])]
-    row = {"phase": "tp_fp32", "model": cfg.name, "layers": cfg.num_layers,
+    row = {"phase": "tp_fp32", "model": model, "layers": layers, "tp": tp,
            "step_max_abs_diff_bf16_tp1_vs_fp32": noise,
            "step_top1_agree_bf16_tp1_vs_fp32": [
                int(a.argmax()) == int(b.argmax())
                for a, b in zip(tp1["logits"], tp1["fp32_logits"])]}
     emit(row)
-    del params, kv, logits
-    torch.cuda.empty_cache()
-    if not all(torch.isfinite(x).all() for x in tp1["fp32_logits"]):
-        raise AssertionError("non-finite fp32 logits")
     return row
 
 
@@ -2519,6 +2569,25 @@ def kernel_gaps(prof, steps: float, top: int = 12) -> dict:
     return {"within_us_per_token_step": within / steps,
             "between_us_per_token_step": between / steps,
             "by_kernel_before": [[k, c / steps, t / steps, t / c] for k, (c, t) in ranked]}
+
+
+def nccl_kernels(events, per: float, busy_ms: float) -> dict:
+    """The NCCL kernels among the profiler's device events: device ms and
+    launches a step (``per`` steps profiled) by collective, and their share
+    of the step's device busy time ``busy_ms``."""
+    out = {"all_reduce_ms": 0.0, "all_gather_ms": 0.0, "other_ms": 0.0,
+           "all_reduce_launches": 0.0, "all_gather_launches": 0.0, "other_launches": 0.0}
+    for e in events:
+        key = e.key.lower()
+        if "nccl" not in key or key.startswith("nccl:"):  # not a range annotation
+            continue
+        kind = ("all_reduce" if "allreduce" in key else
+                "all_gather" if "allgather" in key else "other")
+        out[f"{kind}_ms"] += e.self_device_time_total / 1e3 / per
+        out[f"{kind}_launches"] += e.count / per
+    total = out["all_reduce_ms"] + out["all_gather_ms"] + out["other_ms"]
+    out["share_of_busy"] = total / busy_ms if busy_ms else None
+    return out
 
 
 def phase_profile(eng, tokens: int = 32) -> dict:
@@ -2620,6 +2689,7 @@ def phase_profile(eng, tokens: int = 32) -> dict:
         ],
         "cudaLaunchKernel_per_token_step": calls("cudaLaunchKernel"),
         "cudaGraphLaunch_per_token_step": calls("cudaGraphLaunch"),
+        "nccl_per_token_step": nccl_kernels(events, prof_steps, prof_busy_ms),
         # Where the time between kernels goes: [kernel before, gaps, us,
         # us a gap] per token step.
         "kernel_gaps": kernel_gaps(prof, prof_steps),
@@ -2755,6 +2825,7 @@ def phase_mixed_profile(eng, label: str = "") -> dict:
             e.count for e in host if e.key == "cudaLaunchKernel") / chunks,
         "cudaGraphLaunch_per_chunk": sum(
             e.count for e in host if e.key == "cudaGraphLaunch") / chunks,
+        "nccl_per_chunk": nccl_kernels(events, chunks, busy_prof_ms),
         "top_kernels_ms_per_chunk": [
             [e.key[:80], e.self_device_time_total / 1e3 / chunks, e.count / chunks]
             for e in top],
@@ -5656,6 +5727,575 @@ def _holders(obj, depth: int = 3) -> list:
     return out
 
 
+# -- phase 13: tensor parallelism across processes -------------------------------
+
+
+def _serving_config(model: str = MODEL, tp: int = 1, layers: int = None, **extra):
+    """The engine phases' configuration (phase 4) at ``tp`` and ``layers``,
+    with ``extra`` overrides."""
+    from production_stack_tpu_torch.engine.config import config_from_preset
+    from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
+
+    overrides = {"scheduler.max_model_len": 32768, "scheduler.max_num_seqs": NUM_REQUESTS,
+                 "cache.kv_cache_dtype": "auto", **extra}
+    if tp > 1:
+        overrides["parallel.tensor_parallel"] = tp
+    if layers is not None:
+        overrides["model.num_layers"] = layers
+    return config_from_preset(model, **SLICE_OVERRIDES, **overrides)
+
+
+def _count_collectives() -> tuple:
+    """Count the all-reduces and all-gathers the port issues
+    (``collectives.psum`` / ``all_gather`` call ``torch.distributed`` at
+    call time) and those issued while a CUDA graph captures, which the
+    graph then replays.  Returns (counts, restore)."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0,
+              "all_reduce_in_capture": 0, "all_gather_in_capture": 0}
+    originals = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            if torch.cuda.is_current_stream_capturing():
+                counts[f"{name}_in_capture"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, counted(name, fn))
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+    return counts, restore
+
+
+def _profile_replays(eng, tokens: int = 24) -> dict:
+    """Two requests (300 and 128 prompt tokens, ``tokens`` new) under
+    torch.profiler: every device kernel by name, the NCCL ones apart, and
+    the graph launches; the replayed windows' kernels are among them."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(11)
+    vocab = eng.config.model.vocab_size
+    prompts = [(0, rng.integers(4, vocab, n).tolist()) for n in (300, 128)]
+    replays = eng.graphs.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _drive_arrivals(eng, prompts, False, tokens)
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    device = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    nccl = [e for e in device if "nccl" in e.key.lower()]
+    return {"graph_replays": eng.graphs.replays - replays,
+            "cudaGraphLaunch": sum(e.count for e in averages if e.key == "cudaGraphLaunch"),
+            "device_kernels": sum(e.count for e in device),
+            "nccl_kernels": {e.key[:60]: e.count for e in nccl},
+            "memcpy": {e.key[:40]: e.count for e in device if "memcpy" in e.key.lower()}}
+
+
+def phase_group_one_rank(tp1: dict, tp2: dict, layers: int = None) -> dict:
+    """The group path on this one card: a one-rank NCCL group, formed
+    explicitly (``distributed.initialize`` over a ``TCPStore`` on
+    localhost), serves llama-3.1-8b at full width at tp = 2 (both positions
+    this rank's, each reduction the local fp32 sum, then NCCL's all-reduce
+    over the one-rank group; the lm_head's logits through NCCL's
+    all-gather), through :func:`phase_tp` (its checks against tp = 1, every
+    asynchronous dispatch under ``set_sync_debug_mode("error")``).  Its
+    teacher-forced logits and greedy streams must equal the in-process
+    tp = 2 engine's (``tp2``, the same seeded weights) bit for bit and
+    token for token; every all-reduce and all-gather the graphs replay
+    must have been issued inside their capture (counted at the
+    ``torch.distributed`` calls), and the NCCL kernels and copies of a
+    short profiled drive are reported (NCCL's one-rank all-reduce in place
+    enqueues no kernel).  The group is left at the end."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    t0 = time.time()
+    denv = distributed.DistributedEnv(f"127.0.0.1:{_free_port()}", 1, 0)
+    group = distributed.initialize(denv, device="cuda:0")
+    counts, restore = _count_collectives()
+    try:
+        eng = LLMEngine(_serving_config(tp=2, layers=layers))
+        torch.cuda.synchronize()  # the draw runs on the card
+        boot_s = time.time() - t0
+        if eng.group is not group or eng.tp_local != 2:
+            raise AssertionError("the engine did not take the one-rank group")
+        captures = eng.graphs.captures
+        run = phase_tp(eng, baseline=tp1)
+        captured = eng.graphs.captures - captures
+        in_capture = dict(counts)
+        profiled = _profile_replays(eng)
+    finally:
+        restore()
+    diffs = [(a - b).abs().max().item() for a, b in zip(run["logits"], tp2["logits"])]
+    row = {"phase": "group_one_rank", "backend": "nccl", "world": 1, "tp": 2,
+           "model": eng.config.model.name, "layers": eng.config.model.num_layers,
+           "boot_s": boot_s, "kv_tokens": eng.block_pool.num_blocks * eng.block_pool.block_size,
+           "graphs_captured": captured, "collectives": in_capture,
+           "profiled_drive": profiled,
+           "step_max_abs_diff_vs_in_process_tp2": diffs,
+           "streams_equal_in_process_tp2": run["streams"] == tp2["streams"],
+           "launches": run["launches"]}
+    emit(row)
+    eng.close()
+    del eng, run
+    distributed.shutdown()
+    free_engines()
+    if any(diffs) or not row["streams_equal_in_process_tp2"]:
+        raise AssertionError(f"the one-rank group differs from the in-process tp = 2 "
+                             f"engine: logits {diffs}, streams equal "
+                             f"{row['streams_equal_in_process_tp2']}")
+    if not (captured and in_capture["all_reduce_in_capture"]
+            and in_capture["all_gather_in_capture"]):
+        raise AssertionError(f"no collective was captured in a graph: {in_capture}")
+    return row
+
+
+# The --group mode: tp across cards, one process a card (four-card machine).
+GROUP_CARDS = 4
+GROUP_CASE_TIMEOUT_S = 300
+GROUP_MEMBER_TIMEOUT_S = 10.0
+GROUP_PROMPTS = ("the quick brown fox jumps over the lazy dog. " * 12,
+                 "tensor parallelism splits every layer over the cards; " * 9,
+                 "a short prompt",
+                 "0123456789 " * 40)
+GROUP_NEW_TOKENS = 32
+# The fp32 check of the MoE path across cards: the teacher-forced fp32
+# forward at this depth (its fp32 weights fit one card), tp = 4 across
+# cards against one card, within phase 3's fp32 tolerance.
+GROUP_FP32_LAYERS = 4
+GROUP_FP32_TOKENS = (11, 222, 3333, 4444)
+GROUP_FP32_TOL = 2e-3
+
+
+def _group_env(rank: int, world: int, coordinator: str) -> dict:
+    env = dict(os.environ, LOCAL_RANK=str(rank))
+    if world > 1:
+        env.update(PSTPU_NUM_PROCESSES=str(world), PSTPU_PROCESS_ID=str(rank),
+                   PSTPU_COORDINATOR_ADDRESS=coordinator)
+    return env
+
+
+def _wait_group(procs: list, timeout_s: float, label: str) -> list:
+    """The exit codes; every process killed, and the run failed, when the
+    group outlives ``timeout_s`` (a rank that diverged leaves the others
+    waiting in a collective forever)."""
+    deadline = time.time() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"group {label} did not finish within {timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    return [p.returncode for p in procs]
+
+
+def _nvlink_bytes(cfg, tp: int, world: int, rows: int) -> dict:
+    """The bytes one rank sends over NVLink for one forward of ``rows``
+    rows (ring algorithms, computed from shapes, not measured): each fp32
+    all-reduce of [rows, h] moves 2 (world - 1) / world of it, twice a
+    layer and once for the embedding; the lm_head's all-gather of [rows,
+    V / world] fp32 logits (world - 1) / world of the whole."""
+    if world == 1:
+        return {"all_reduce": 0, "all_gather": 0}
+    h = cfg.hidden_size
+    reduce = (2 * cfg.num_layers + 1) * rows * h * 4 * 2 * (world - 1) / world
+    gather = rows * cfg.vocab_size * 4 * (world - 1) / world
+    return {"all_reduce": reduce, "all_gather": gather}
+
+
+def group_rank_main(spec_path: str, rank: int) -> int:
+    """One rank of a ``--group`` case (``python3 chip_smoke.py --group-rank
+    SPEC RANK``): forms the group from the ``PSTPU_*`` variables on card
+    ``LOCAL_RANK`` (none for one process), boots the case's engine, and
+    runs, like every rank, :func:`phase_tp` against the case's tp = 1
+    baseline (saved by the tp = 1 case), then the case's profiles; rank 0
+    saves its result (and, for a baseline case, its logits and streams,
+    then the fp32 forward's logits)."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    denv = distributed.maybe_initialize(device="cuda")
+    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    cfg = _serving_config(spec["model"], spec["tp"], spec["layers"])
+    baseline = (torch.load(spec["baseline"], weights_only=False)
+                if spec.get("baseline") else None)
+    check = {}
+    if spec.get("fp32") and denv is not None:
+        # The fp32 forwards across the group, before the engine takes the
+        # cards' memory (their fp32 weights do not fit one card): at the
+        # case's depth (the bf16 logits' distance from it is reported),
+        # and at GROUP_FP32_LAYERS, held to the one card's fp32 forward.
+        phase_tp_fp32(baseline, model=spec["model"], layers=spec["layers"], tp=spec["tp"])
+        got = fp32_teacher_logits(GROUP_FP32_TOKENS, model=spec["model"],
+                                  layers=GROUP_FP32_LAYERS, tp=spec["tp"])
+        diffs = [(a - b).abs().max().item() for a, b in zip(got, baseline["fp32_check"])]
+        check = {"fp32_layers": GROUP_FP32_LAYERS, "fp32_step_max_abs_diff_vs_tp1": diffs,
+                 "fp32_tolerance": GROUP_FP32_TOL}
+        emit({"phase": "group_fp32_check", **check})
+        if max(diffs) > GROUP_FP32_TOL:
+            raise AssertionError(f"fp32 logits at tp = {spec['tp']} across cards differ "
+                                 f"from one card's by {diffs} (> {GROUP_FP32_TOL})")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    # One process at tp > 1 (a check of this mode on one card): every
+    # position on its card.
+    eng = LLMEngine(cfg, device=None if denv is not None or spec["tp"] == 1
+                    else ["cuda:0"] * spec["tp"])
+    torch.cuda.synchronize()  # the draw runs on the card
+    boot_s = time.time() - t0
+    free, total = torch.cuda.mem_get_info()
+    result = {"case": spec["name"], "rank": rank, "world": spec["world"], "tp": spec["tp"],
+              **check,
+              "tp_local": eng.tp_local, "device": str(eng.device),
+              "kind": torch.cuda.get_device_name(), "boot_s": boot_s,
+              "kv_tokens": eng.block_pool.num_blocks * eng.block_pool.block_size,
+              "gib_allocated_after_boot": torch.cuda.memory_allocated() / 2**30,
+              "gib_peak_boot": torch.cuda.max_memory_allocated() / 2**30,
+              "gib_free_after_boot": free / 2**30, "gib_total": total / 2**30}
+    run = phase_tp(eng, baseline=baseline, gate_logits=spec.get("gate_logits", True))
+    result.update({"tp_row": run["row"], "launches": run["launches"]})
+    if spec.get("http_reference"):
+        result["http_reference"] = _greedy_logprobs(eng)
+    if spec.get("profile"):
+        result["profile"] = phase_profile(eng)
+        result["mixed_profile"] = phase_mixed_profile(eng, spec["name"])
+        result["nvlink_bytes_token_step"] = _nvlink_bytes(cfg.model, spec["tp"],
+                                                          spec["world"], 8)
+        result["nvlink_bytes_chunk_step"] = _nvlink_bytes(cfg.model, spec["tp"],
+                                                          spec["world"], 7 + 512)
+    result["gib_peak"] = torch.cuda.max_memory_allocated() / 2**30
+    eng.close()
+    del eng
+    free_engines()
+    if spec.get("save_baseline") and rank == 0:
+        keep = {k: run[k] for k in ("logits", "teacher_tokens", "streams", "launches",
+                                    "row", "vecs")}
+        if spec.get("fp32"):
+            phase_tp_fp32(keep, model=spec["model"], layers=spec["layers"])
+        if spec.get("fp32_check"):
+            keep["fp32_check"] = fp32_teacher_logits(GROUP_FP32_TOKENS, model=spec["model"],
+                                                     layers=GROUP_FP32_LAYERS)
+        torch.save(keep, spec["save_baseline"])
+    if rank == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(result, f)
+    if denv is not None:
+        distributed.shutdown()
+    return 0
+
+
+def _run_group_case(name: str, work: str, *, model: str, tp: int, world: int,
+                    layers: int = None, baseline: str = None, profile: bool = False,
+                    fp32: bool = False, http_reference: bool = False,
+                    fp32_check: bool = False, gate_logits: bool = True) -> dict:
+    spec = {"name": name, "model": model, "tp": tp, "world": world, "layers": layers,
+            "profile": profile, "fp32": fp32, "http_reference": http_reference,
+            "fp32_check": fp32_check, "gate_logits": gate_logits,
+            "out": os.path.join(work, f"{name}.json")}
+    if baseline:
+        spec["baseline"] = os.path.join(work, f"{baseline}.pt")
+    if world == 1:
+        spec["save_baseline"] = os.path.join(work, f"{name}.pt")
+    path = os.path.join(work, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    coordinator = f"127.0.0.1:{_free_port()}"
+    t0 = time.time()
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(work, f"{name}.rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--group-rank", path, str(rank)],
+                env=_group_env(rank, world, coordinator), stdout=log, stderr=subprocess.STDOUT))
+    rcs = _wait_group(procs, GROUP_CASE_TIMEOUT_S, name)
+    if rcs != [0] * world:
+        raise AssertionError(f"group {name} exited {rcs} (logs in {work})")
+    with open(spec["out"]) as f:
+        result = json.load(f)
+    result["wall_s"] = time.time() - t0
+    emit({"phase": f"group_{name}", **{k: v for k, v in result.items()
+                                         if k not in ("profile", "mixed_profile")}})
+    return result
+
+
+def _http(method: str, url: str, body=None, timeout: float = 30.0) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"content-type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+    except OSError as e:
+        return None, str(e)
+
+
+def _boot_servers(tp: int, work: str, label: str) -> tuple:
+    """The real ``api_server`` entry point on ``tp`` cards, one process a
+    card with the ``PSTPU_*`` variables (process 0 the leader): returns
+    (processes, urls) once the leader's /ready answers 200."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    ports = [_free_port() for _ in range(tp)]
+    flags = ["--model", MODEL, "--tensor-parallel", str(tp), "--max-num-seqs", "8",
+             "--max-model-len", "8192", "--slice-member-timeout-s",
+             str(GROUP_MEMBER_TIMEOUT_S), "--log-level", "info"]
+    procs = []
+    for rank in range(tp):
+        with open(os.path.join(work, f"{label}.rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "production_stack_tpu_torch.engine.server.api_server",
+                 "--port", str(ports[rank]), *flags],
+                env=_group_env(rank, tp, coordinator), stdout=log, stderr=subprocess.STDOUT))
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    deadline = time.time() + 300
+    while _http("GET", urls[0] + "/ready", timeout=2.0)[0] != 200:
+        if time.time() > deadline or any(p.poll() is not None for p in procs):
+            for p in procs:
+                p.kill()
+            raise AssertionError(f"servers {label} did not boot ({[p.poll() for p in procs]})")
+        time.sleep(0.5)
+    return procs, urls
+
+
+def _greedy_logprobs(eng) -> list:
+    """Per ``GROUP_PROMPTS`` prompt, the logprob of each of its
+    ``GROUP_NEW_TOKENS`` greedy tokens on ``eng`` (the byte tokenizer gives
+    text to 260 of llama-3.1-8b's ids, so greedy text on random weights is
+    mostly empty: the logprobs say which tokens came)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    for i, p in enumerate(GROUP_PROMPTS):
+        eng.add_request(f"h{i}", prompt_token_ids=eng.tokenizer.encode(p),
+                        sampling_params=SamplingParams(max_tokens=GROUP_NEW_TOKENS,
+                                                       ignore_eos=True, logprobs=True))
+    out = {}
+    while eng.has_unfinished() or eng.has_pending():
+        for o in eng.step():
+            out.setdefault(o.seq_id, []).append(o.logprob)
+    return [out[f"h{i}"] for i in range(len(GROUP_PROMPTS))]
+
+
+def _completion(url: str, prompt: str, stream: bool, timeout: float = 120.0) -> list:
+    """A greedy completion of ``GROUP_NEW_TOKENS`` tokens, EOS ignored:
+    its tokens' logprobs (a stream: one None a data chunk)."""
+    status, body = _http("POST", url + "/v1/completions", {
+        "model": MODEL, "prompt": prompt, "max_tokens": GROUP_NEW_TOKENS, "temperature": 0,
+        "ignore_eos": True, "stream": stream, **({} if stream else {"logprobs": 0})},
+        timeout=timeout)
+    if status != 200:
+        raise AssertionError(f"completion failed: {status} {body[:300]}")
+    if not stream:
+        return json.loads(body)["choices"][0]["logprobs"]["token_logprobs"]
+    if not body.rstrip().endswith("data: [DONE]"):
+        raise AssertionError(f"stream did not end: {body[-300:]}")
+    return [None for line in body.splitlines()
+            if line.startswith("data: ") and line != "data: [DONE]"
+            and json.loads(line[6:])["choices"]]
+
+
+def _group_lifecycle(work: str, reference: list = None, tp: int = GROUP_CARDS) -> dict:
+    """The group through the real server: at ``tp`` (4) on as many cards the
+    followers' /health and /ready, ``GROUP_PROMPTS`` completed over HTTP
+    (each of its tokens, and how many leading tokens' logprobs stay within
+    0.05 of the tp = 1 engine's greedy ones), one stream, the lockstep
+    metrics, then a /drain on a follower relayed to the
+    leader, after which every process exits 0; at tp = 2 a follower killed
+    (SIGKILL) mid-stream fails the leader's /health within
+    ``--slice-member-timeout-s`` (plus the monitor's poll), and every
+    process is stopped."""
+    import signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    row = {"phase": "group_lifecycle", "tp_drain": tp, "tp_kill": 2,
+           "member_timeout_s": GROUP_MEMBER_TIMEOUT_S}
+    t0 = time.time()
+    procs, urls = _boot_servers(tp, work, "serve")
+    try:
+        row["boot_s"] = time.time() - t0
+        row["followers"] = [[_http("GET", u + "/health")[0], _http("GET", u + "/ready")[0]]
+                            for u in urls[1:]]
+        t1 = time.time()
+        with ThreadPoolExecutor(len(GROUP_PROMPTS)) as pool:
+            got = list(pool.map(lambda p: _completion(urls[0], p, False), GROUP_PROMPTS))
+        row["completions_s"] = time.time() - t1
+        row["completion_tokens"] = [len(g) for g in got]
+        if reference is not None:
+            row["leading_tokens_as_tp1"] = [
+                next((i for i, (a, b) in enumerate(zip(g, r)) if abs(a - b) > 0.05), len(g))
+                for g, r in zip(got, reference)]
+        row["stream_chunks"] = len(_completion(urls[0], GROUP_PROMPTS[1], True))
+        metrics = _http("GET", urls[0] + "/metrics")[1]
+        row["metrics"] = {k: v for k, v in parse_metrics(metrics).items()
+                          if "lockstep" in k or "slice" in k}
+        t2 = time.time()
+        status, body = _http("POST", urls[-1] + "/drain")
+        row["drain_relayed"] = status == 200 and json.loads(body).get("relayed") is True
+        try:
+            row["exit_codes_after_drain"] = _wait_group(procs, 60, "serve")
+        except AssertionError as e:
+            row["exit_codes_after_drain"] = str(e)
+        row["drain_to_exit_s"] = time.time() - t2
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    procs, urls = _boot_servers(2, work, "kill2")
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            long = pool.submit(_http, "POST", urls[0] + "/v1/completions", {
+                "model": MODEL, "prompt": GROUP_PROMPTS[0], "max_tokens": 4000,
+                "temperature": 0, "ignore_eos": True}, 120.0)
+            time.sleep(3.0)
+            procs[1].send_signal(signal.SIGKILL)
+            killed = time.time()
+            while _http("GET", urls[0] + "/health", timeout=2.0)[0] == 200:
+                if time.time() - killed > 60:
+                    break
+                time.sleep(0.2)
+            row["health_fail_after_kill_s"] = time.time() - killed
+            row["leader_health_after_kill"] = _http("GET", urls[0] + "/health", timeout=2.0)[0]
+            long.result()
+        row["leader_exit_after_kill"] = _wait_group(procs[:1], 60, "kill2")[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    emit(row)
+    bad = []
+    if row["followers"] != [[200, 200]] * (tp - 1):
+        bad.append("follower probes")
+    if not row["drain_relayed"] or row["exit_codes_after_drain"] != [0] * tp:
+        bad.append("drain relay")
+    if row["completion_tokens"] != [GROUP_NEW_TOKENS] * len(GROUP_PROMPTS) or \
+            row["stream_chunks"] < 1:
+        bad.append("completions")
+    if row["health_fail_after_kill_s"] > GROUP_MEMBER_TIMEOUT_S + 5.0:
+        bad.append("member kill")
+    if bad:
+        raise AssertionError(f"group lifecycle failed: {bad}: {row}")
+    return row
+
+
+def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
+    """``python3 chip_smoke.py --group``: tensor parallelism across cards
+    on a four-card machine, one process a card over NCCL.
+
+    - llama-3.1-8b, 32 layers, bf16, seeded weights: tp = 1 on one card
+      (its streams, teacher-forced logits, launches, the fp32 forward's
+      logits and the token and prefill-carrying steps), then tp = 2 on two
+      cards and tp = 4 on four, each rank through :func:`phase_tp` against
+      tp = 1 (logits within ``TP_LOGIT_BOUND`` x |tp 1 - fp32| a step, each
+      kernel's launches a rank the tp = 1 count times tp / world, streams'
+      agreement reported) and the same two steps, with the NCCL kernels'
+      share of each (torch.profiler) and the bytes a step sends over
+      NVLink (computed);
+    - mixtral-8x7b at 16 layers on one card, then at tp = 4 (2 experts a
+      card) against it: its fp32 forward at ``GROUP_FP32_LAYERS`` layers
+      across the cards within ``GROUP_FP32_TOL`` of one card's, and at 16
+      layers the bf16 logits' distances from tp = 1 and from the fp32
+      forward (run across the cards: 88 GB of fp32 weights) reported with
+      the streams' agreement (a routing near-tie carries bf16 tp = 1 itself
+      far from fp32 there); then at its full 32 layers at tp = 4 and tp =
+      2: boot, streams, pool tokens and memory a card;
+    - the lifecycle through the real server (:func:`_group_lifecycle`).
+
+    Every case has a wall-clock limit and kills its ranks when it runs
+    out.  ``layers`` (``--group --layers N``) cuts every case to N layers:
+    a quick check of the plumbing; ``--group --lifecycle`` runs the
+    lifecycle alone.  The last line is the contract's, with
+    this machine's count."""
+    import tempfile
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < GROUP_CARDS:
+        print(f"chip_smoke --group: needs {GROUP_CARDS} CUDA devices", file=sys.stderr)
+        return 2
+    dev = phase_device()  # builds the kernels once; the ranks load them
+    # The ranks' specs, logs and results (named in any failure).
+    work = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    print(f"chip_smoke --group: working in {work}", file=sys.stderr, flush=True)
+    seconds = {}
+    if lifecycle_only:
+        _group_lifecycle(work)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                     "count": dev["count"]}})
+        return 0
+
+    def case(name, **kw):
+        t0 = time.time()
+        out = _run_group_case(name, work, **kw)
+        seconds[name] = time.time() - t0
+        return out
+
+    moe16 = layers or MOE_LAYERS
+    runs = {
+        "llama_tp1": case("llama_tp1", model=MODEL, tp=1, world=1, layers=layers,
+                          profile=True, fp32=True, http_reference=True),
+        "llama_tp2": case("llama_tp2", model=MODEL, tp=2, world=2, layers=layers,
+                          baseline="llama_tp1", profile=True),
+        "llama_tp4": case("llama_tp4", model=MODEL, tp=4, world=4, layers=layers,
+                          baseline="llama_tp1", profile=True),
+        "moe16_tp1": case("moe16_tp1", model=MOE_MODEL, tp=1, world=1, layers=moe16,
+                          fp32_check=True),
+        "moe16_tp4": case("moe16_tp4", model=MOE_MODEL, tp=4, world=4, layers=moe16,
+                          baseline="moe16_tp1", fp32=True, gate_logits=False),
+        "moe32_tp4": case("moe32_tp4", model=MOE_MODEL, tp=4, world=4, layers=layers or 32),
+        "moe32_tp2": case("moe32_tp2", model=MOE_MODEL, tp=2, world=2, layers=layers or 32),
+    }
+    t0 = time.time()
+    failed = None
+    try:
+        _group_lifecycle(work, runs["llama_tp1"]["http_reference"])
+    except AssertionError as e:  # reported after the steps' line
+        failed = e
+    seconds["lifecycle"] = time.time() - t0
+    steps = {}
+    for name in ("llama_tp1", "llama_tp2", "llama_tp4"):
+        p, m = runs[name]["profile"], runs[name]["mixed_profile"]
+        steps[name] = {
+            "wall_ms_per_token_step": p["wall_ms_per_token_step"],
+            "device_busy_ms_per_token_step": p["device_busy_ms_per_token_step"],
+            "nccl_per_token_step": p["nccl_per_token_step"],
+            "wall_ms_per_chunk": m["wall_ms_per_chunk"],
+            "device_busy_ms_per_chunk": m["device_busy_ms_per_chunk_profiler"],
+            "nccl_per_chunk": m["nccl_per_chunk"],
+            "nvlink_bytes_token_step": runs[name]["nvlink_bytes_token_step"],
+            "nvlink_bytes_chunk_step": runs[name]["nvlink_bytes_chunk_step"],
+            "launches_per_rank": runs[name]["launches"],
+        }
+    emit({"phase": "group_steps", "nvidia_smi": dev["nvidia_smi"], **steps})
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
+    if failed is not None:
+        raise failed
+    for name in ("llama_tp2", "llama_tp4"):
+        if not runs[name]["profile"]["nccl_per_token_step"][
+                "all_reduce_launches"]:
+            raise AssertionError(f"{name}: no NCCL all-reduce kernel in the token step")
+    emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
+                                 "count": dev["count"]}})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5742,6 +6382,9 @@ def main() -> int:
                               (rows[1], "device_busy_ms_per_chunk_replays"))}})
     tp2.pop("engine")
     free_engines()
+    # The group path on this card: a one-rank NCCL group at tp = 2 against
+    # the in-process tp = 2 engine above.
+    timed("group_one_rank", phase_group_one_rank, tp1, tp2_run)
     w8 = timed("engine_int8_weights", phase_engine, "auto", quantization="int8",
                bf16_weights=dense)
     timed("profile_int8_weights", phase_profile, w8["engine"])
@@ -5851,4 +6494,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--group-rank"]:
+        sys.exit(group_rank_main(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["--group"]:
+        sys.exit(main_group(int(sys.argv[3]) if sys.argv[2:3] == ["--layers"] else None,
+                            lifecycle_only=sys.argv[2:3] == ["--lifecycle"]))
     sys.exit(main())

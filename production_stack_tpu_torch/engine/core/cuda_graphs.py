@@ -107,6 +107,17 @@ class GraphRunner:
     def captures(self) -> int:
         return len(self._graphs)
 
+    def release(self) -> None:
+        """Drop every captured graph and the memory pool they share, once
+        the device is done with them (a group member's exit, before the
+        group's teardown): a graph that captured NCCL collectives holds a
+        reference that the communicator's teardown waits for until the
+        graph is destroyed.  A later ``run`` captures again."""
+        if self._graphs and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._graphs.clear()
+        self._pool = self._stream = None
+
     def run(self, key: Hashable, body: Callable[[], None]) -> None:
         if self.device.type != "cuda":
             if self._first_use is not None and key not in self._seen_keys:

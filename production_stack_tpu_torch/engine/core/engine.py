@@ -123,17 +123,25 @@ multi-LoRA, tracing, guided decoding and prompt logprobs included
 dense models and Mixtral-style sparse MoE ones, whose block
 ``llama._moe_mlp`` runs inside every forward and captured graph; dense or
 int8 KV; ``mixed_window=False`` restores K=1 mixed steps while prompts
-wait).  Tensor parallelism (``parallel.tensor_parallel``) runs in this
-process over a mesh of devices (``engine/parallel/``), in the JAX
-engine's order: ``validate_tp``, ``validate_sp_mode``, the mesh, then the
-params cut into one tree per tp position (the draft model's on the same
-mesh) and the KV pool into one pool a position by heads; every dispatch
-and graph body takes them as they are, so each window and mixed iteration
-stays one CUDA-graph replay holding every position's launches and
-reductions.  The tiers move full-head blocks, gathered from the positions'
-pools and scattered back.  Every tp position sits on one device.  It
-raises ``NotImplementedError`` at construction, by name, for the settings
-outside it: dp > 1, sp > 1 and a multi-process group.
+wait).  Tensor parallelism (``parallel.tensor_parallel``) runs over a
+mesh of devices (``engine/parallel/``), in the JAX engine's order:
+``validate_tp``, ``validate_sp_mode``, the mesh, then the params cut into
+one tree per tp position (the draft model's on the same mesh) and the KV
+pool into one pool a position by heads; every dispatch and graph body
+takes them as they are, so each window and mixed iteration stays one
+CUDA-graph replay holding every position's launches and reductions.  The
+positions sit on one device of this process, or, in a multi-process group
+(``parallel/distributed.py``: the JAX package's ``PSTPU_*`` contract, one
+process a card, formed before the engine is built), this process runs its
+own ``tp / world`` positions on its card: it draws or reads each weight
+and keeps only its slices, sizes its pool by its own card, and each
+graph holds the NCCL all-reduces and the lm_head's all-gather, so the
+ranks, stepped in lockstep (the leader's event batches), launch the same
+graphs in the same order.  The tiers move full-head blocks, gathered from
+the positions' pools and scattered back; in a group offload and restore
+move each rank's own heads, and the remote store, whose blocks would span
+the ranks, is refused.  It raises ``NotImplementedError`` at
+construction, by name, for the settings outside it: dp > 1 and sp > 1.
 """
 
 from __future__ import annotations
@@ -193,8 +201,8 @@ from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops import _build
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention, w8a16
-from production_stack_tpu_torch.engine.parallel import shardings
-from production_stack_tpu_torch.engine.parallel.mesh import build_mesh, detect_num_processes
+from production_stack_tpu_torch.engine.parallel import distributed, shardings
+from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient
 from production_stack_tpu_torch.kvserver.protocol import KVWireStats
@@ -223,17 +231,35 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _unsupported(config: EngineConfig) -> List[str]:
+def _unsupported(config: EngineConfig, group=None) -> List[str]:
     """Settings outside the served configuration, by name, each with the
     ROADMAP item that ports it."""
     par = config.parallel
     checks = [
         (par.data_parallel > 1, "data_parallel > 1 (ROADMAP item 13c)"),
         (par.sequence_parallel > 1, "sequence_parallel > 1 (ROADMAP item 13d)"),
-        (detect_num_processes() > 1,
-         "a multi-process group (PSTPU_NUM_PROCESSES > 1; ROADMAP item 13b)"),
+        (group is not None and group.world > 1 and bool(config.cache.remote_kv_url),
+         "the remote KV store in a multi-process group (a block's heads "
+         "span the ranks' cards; ROADMAP item 13e)"),
     ]
     return [name for bad, name in checks if bad]
+
+
+def _group_of_process():
+    """The multi-process group this process belongs to
+    (``distributed.initialize``), or None.  An environment that declares a
+    group this process has not formed raises: one rank alone is not the
+    group."""
+    group = distributed.tp_group()
+    denv = distributed.detect_env()
+    if group is None and denv is not None:
+        raise RuntimeError(
+            f"the environment declares a multi-process group "
+            f"(PSTPU_NUM_PROCESSES={denv.num_processes}) this process has not "
+            "formed: call parallel.distributed.maybe_initialize() before "
+            "building the engine"
+        )
+    return group
 
 
 def _check_chunk_buckets(config: EngineConfig) -> None:
@@ -384,13 +410,21 @@ class LLMEngine:
         loads ``weights_path`` or boots the seeded random init.  At tp > 1
         it is cut into one tree per tp position (``shardings.shard_params``).
         ``draft_params``: the same for the draft model of
-        ``scheduler.speculative_model``."""
+        ``scheduler.speculative_model``.
+
+        In a multi-process group (``parallel/distributed.py``, formed
+        before this) the device is this rank's card (or the CPU the group
+        was formed on; ``device`` may name only its type), the mesh spans
+        the group's ranks, and the weights this engine loads or draws
+        itself are cut to the rank's positions as they are made
+        (``shardings.RankSlicer``); a given ``params`` is the full tree."""
         cfg, par = config.model, config.parallel
+        group = _group_of_process()
         # The JAX engine's order: tp and sp-mode validation, then the
         # dp/sp gates (here refusals), then the mesh.
         shardings.validate_tp(cfg, par.tensor_parallel)
         shardings.validate_sp_mode(cfg, par)
-        bad = _unsupported(config)
+        bad = _unsupported(config, group)
         if bad:
             raise NotImplementedError(
                 "the PyTorch engine does not serve these settings yet: "
@@ -399,15 +433,23 @@ class LLMEngine:
         _check_chunk_buckets(config)
         self.config = config
         world = int(np.prod(par.mesh_shape))
-        if isinstance(device, (list, tuple)):
+        if group is not None:
+            if device is not None and torch.device(device).type != group.device.type:
+                raise ValueError(f"device {device!r}: this process's group runs "
+                                 f"on {group.device}")
+            devices = None
+        elif isinstance(device, (list, tuple)):
             devices = [resolve_device(d) for d in device]
         elif device is None and world > 1:
             devices = None
         else:
             devices = [resolve_device(device)] * world
-        self.mesh = build_mesh(par, devices)
+        self.mesh = build_mesh(par, devices, group)
+        self.group = group
         self.tp = par.tensor_parallel
-        self.device = self.mesh.tp_devices()[0]
+        # This process's tp positions (all of them outside a group).
+        self.tp_local = len(self.mesh.local_tp())
+        self.device = self.mesh.tp_devices()[self.mesh.local_tp()[0]]
         # Observability hub: request tracer + step-phase/latency histograms
         # + window flight recorder + compile-event tracker (all hooks no-op
         # when config.obs.tracing is off).
@@ -425,10 +467,14 @@ class LLMEngine:
             )
         logger.info("Loading params for %s on %s ...", cfg.name, self.device)
         loaded = params is None
+        # A rank of a group never holds the full tree: each weight is cut
+        # to its positions as it is made (quantized whole first).
+        sliced = loaded and group is not None and self.tp > 1
         if loaded:
             params = load_params(cfg, config.weights_path, seed=config.seed,
-                                 device=self.device)
-        if cfg.quantization is not None:
+                                 device=self.device,
+                                 place=self._rank_slicer(cfg) if sliced else None)
+        if cfg.quantization is not None and not sliced:
             # As the JAX engine: the loaded (or given) tree, then its
             # projections to int8.  A tree loaded here is quantized in
             # place, weight by weight, each full-precision weight freed
@@ -493,9 +539,9 @@ class LLMEngine:
         )
         self.kv_caches = self._allocate_kv(num_blocks)
         logger.info(
-            "KV pool: %d blocks x %d tokens (%.2f GiB)",
+            "KV pool: %d blocks x %d tokens (%.2f GiB on this device)",
             num_blocks, config.cache.block_size,
-            self._kv_bytes(num_blocks) / 2**30,
+            self._kv_bytes(num_blocks) * self.tp_local / self.tp / 2**30,
         )
         self._init_kv_tiers()
         self._init_draft_pool()
@@ -659,14 +705,24 @@ class LLMEngine:
         logger.info("Loading draft params for %s on %s ...", name, self.device)
         loaded = draft_params is None
         if loaded:
+            place = (self._rank_slicer(draft_cfg)
+                     if self.group is not None and self.tp > 1 else None)
             draft_params = load_params(draft_cfg, self.config.draft_weights_path,
-                                       seed=self.config.seed, device=self.device)
+                                       seed=self.config.seed, device=self.device,
+                                       place=place)
         if self.tp > 1:
             # Sharded on the target's mesh.
             draft_params = shardings.shard_params(draft_params, draft_cfg, self.mesh,
                                                   consume=loaded)
         self.draft_params = draft_params
         llama.add_fp32_lm_head(self.draft_params, draft_cfg)
+
+    def _rank_slicer(self, cfg) -> shardings.RankSlicer:
+        """The cut of each weight to this rank's positions as it is made."""
+        return shardings.RankSlicer(
+            cfg, self.mesh,
+            quantize=llama.quantize_weight if cfg.quantization is not None else None,
+        )
 
     def _init_draft_pool(self) -> None:
         """The draft model's own dense KV pool and ``BlockPool``: each row
@@ -779,19 +835,20 @@ class LLMEngine:
         torch.cuda.empty_cache()
         free, _total = torch.cuda.mem_get_info(self.device)
         # A device holds 1/tp of a block for each tp position it hosts (the
-        # JAX engine's divide by tp, one position a device); every
-        # position here shares this one.
-        shared = self.mesh.tp_devices().count(self.device)
-        per_block = self._kv_bytes(1) * shared // self.tp
+        # JAX engine's divide by tp, one position a device): every
+        # position this process runs shares this one, and in a group the
+        # other ranks' positions sit on their own cards (which may carry
+        # the same name, so the mesh's owners count, not the devices).
+        per_block = self._kv_bytes(1) * self.tp_local // self.tp
         return max(int(free * cache.hbm_utilization // per_block), 16)
 
     def _pool_shape(self, num_blocks: int, cfg) -> tuple:
         """A pool side's data shape: [N, bs, K, D], or at tp > 1 one [N,
-        bs, K/tp, D] pool a position, stacked on a leading tp axis
-        (``kv/quant.shard_side``)."""
+        bs, K/tp, D] pool a position this process runs, stacked on a
+        leading axis (``kv/quant.shard_side``)."""
         shape = (num_blocks, self.config.cache.block_size,
                  cfg.num_kv_heads // self.tp, cfg.head_dim)
-        return shape if self.tp == 1 else (self.tp, *shape)
+        return shape if self.tp == 1 else (self.tp_local, *shape)
 
     def _allocate_kv(self, num_blocks: int):
         cfg = self.config.model
@@ -845,7 +902,16 @@ class LLMEngine:
 
     def check_encode_input(self, ids: List[int]) -> None:
         """Raise ValueError on an input the embedding path refuses: empty,
-        or longer than ``encode_max_len``."""
+        or longer than ``encode_max_len``; NotImplementedError in a
+        multi-process group, where an encode forward run by the leader
+        alone would wait forever in collectives the followers never join
+        (the JAX engine's leader-only embed has that hang)."""
+        if self.group is not None and self.group.world > 1:
+            raise NotImplementedError(
+                "the encode routes in a multi-process group (a leader-only "
+                "forward leaves the followers out of its collectives; "
+                "ROADMAP item 13e)"
+            )
         if not ids:
             # An embedding of the pad token would be silent garbage.
             raise ValueError("input produced no tokens")

@@ -54,6 +54,12 @@ and once after the MLP.  The embedding is vocab-parallel (each position
 looks up its vocab slice, zeros elsewhere, then ``psum``), the lm_head too
 (the positions' logits concatenated in vocab order), and a MoE layer's
 experts are split over tp.  One tree is tp = 1: the code above, unchanged.
+In a multi-process group (``parallel/distributed.py``, one process a
+card) a ``TPShards`` holds this process's positions only and names the
+group: ``psum`` then all-reduces the local sum over the group and the
+lm_head's logits are all-gathered (``collectives.all_gather``), so every
+rank ends each forward with the same full logits.  Nothing here calls
+``torch.distributed`` itself.
 """
 
 from __future__ import annotations
@@ -68,8 +74,12 @@ from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.kv.quant import shard_side
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
 from production_stack_tpu_torch.engine.ops.kernels.w8a16 import w8a16_matmul
-from production_stack_tpu_torch.engine.parallel.collectives import psum
-from production_stack_tpu_torch.engine.parallel.shardings import TPShards
+from production_stack_tpu_torch.engine.parallel.collectives import all_gather, psum
+from production_stack_tpu_torch.engine.parallel.shardings import (
+    Parts,
+    TPShards,
+    split_sizes,
+)
 from production_stack_tpu_torch.engine.ops.layers import (
     activation,
     apply_rope,
@@ -91,7 +101,8 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def init_params(
-    cfg: ModelConfig, generator: torch.Generator, device: torch.device
+    cfg: ModelConfig, generator: torch.Generator, device: torch.device,
+    place=None,
 ) -> Params:
     """Random init (normal, std 0.02; norms at one; biases at zero) with the
     JAX package's tree structure.  Draws come from ``generator``, which must
@@ -101,66 +112,87 @@ def init_params(
     ``experts_gate`` / ``experts_up`` [E, h, I] and ``experts_down`` [E, I,
     h] in place of the MLP's three projections; a stack is drawn one expert
     at a time into its allocation, so the fp32 draw of a whole stack (1.9
-    GB at mixtral-8x7b's width) never exists at once."""
+    GB at mixtral-8x7b's width) never exists at once.
+
+    ``place`` (a rank of a group: ``shardings.RankSlicer``) takes each
+    tensor as soon as it is drawn, with its path in the tree, and the tree
+    keeps what it returns (the rank's slices), so the whole tree never
+    exists: each weight is drawn whole, in the order of the full draw, and
+    cut; a stack allocates only the rank's experts and drops the others'
+    draws.  Every rank's slices are the slices of the tp = 1 draw."""
     dtype = param_dtype(cfg)
     h, hd = cfg.hidden_size, cfg.head_dim
     H, K, I = cfg.num_heads, cfg.num_kv_heads, cfg.intermediate_size
 
-    def dense(*shape):
+    def dense(*shape, path=None):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * 0.02).to(dtype)
+        w = (w * 0.02).to(dtype)
+        return w if place is None or path is None else place(path, w)
 
-    def stack(E, *shape):
-        out = torch.empty((E, *shape), dtype=dtype, device=device)
+    def stack(path, E, *shape):
+        keep = [range(E)] if place is None else place.rows(path, E)
+        outs = [torch.empty((len(r), *shape), dtype=dtype, device=device)
+                for r in keep]
         for e in range(E):
-            out[e] = dense(*shape)
-        return out
+            w = dense(*shape)
+            for out, r in zip(outs, keep):
+                if e in r:
+                    out[e - r.start] = w
+        if place is None:
+            return outs[0]
+        return Parts(outs)
 
-    def ones(n):
-        return torch.ones(n, dtype=dtype, device=device)
+    def ones(n, path):
+        w = torch.ones(n, dtype=dtype, device=device)
+        return w if place is None else place(path, w)
 
-    def zeros(n):
-        return torch.zeros(n, dtype=dtype, device=device)
+    def zeros(n, path):
+        w = torch.zeros(n, dtype=dtype, device=device)
+        return w if place is None else place(path, w)
 
     params: Params = {
-        "embed_tokens": dense(cfg.vocab_size, h),
-        "norm": ones(h),
+        "embed_tokens": dense(cfg.vocab_size, h, path=("embed_tokens",)),
+        "norm": ones(h, ("norm",)),
         "layers": [],
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = dense(h, cfg.vocab_size)
-    for _ in range(cfg.num_layers):
+        params["lm_head"] = dense(h, cfg.vocab_size, path=("lm_head",))
+    for i in range(cfg.num_layers):
+        def at(name):
+            return ("layers", i, name)
+
         layer = {
-            "input_layernorm": ones(h),
-            "post_attention_layernorm": ones(h),
-            "q_proj": dense(h, H * hd),
-            "k_proj": dense(h, K * hd),
-            "v_proj": dense(h, K * hd),
-            "o_proj": dense(H * hd, h),
+            "input_layernorm": ones(h, at("input_layernorm")),
+            "post_attention_layernorm": ones(h, at("post_attention_layernorm")),
+            "q_proj": dense(h, H * hd, path=at("q_proj")),
+            "k_proj": dense(h, K * hd, path=at("k_proj")),
+            "v_proj": dense(h, K * hd, path=at("v_proj")),
+            "o_proj": dense(H * hd, h, path=at("o_proj")),
         }
         if cfg.num_experts:
             E = cfg.num_experts
-            layer["gate"] = dense(h, E)
-            layer["experts_gate"] = stack(E, h, I)
-            layer["experts_up"] = stack(E, h, I)
-            layer["experts_down"] = stack(E, I, h)
+            layer["gate"] = dense(h, E, path=at("gate"))
+            layer["experts_gate"] = stack(at("experts_gate"), E, h, I)
+            layer["experts_up"] = stack(at("experts_up"), E, h, I)
+            layer["experts_down"] = stack(at("experts_down"), E, I, h)
         else:
-            layer["gate_proj"] = dense(h, I)
-            layer["up_proj"] = dense(h, I)
-            layer["down_proj"] = dense(I, h)
+            layer["gate_proj"] = dense(h, I, path=at("gate_proj"))
+            layer["up_proj"] = dense(h, I, path=at("up_proj"))
+            layer["down_proj"] = dense(I, h, path=at("down_proj"))
         if cfg.attention_bias:
-            layer["q_bias"] = zeros(H * hd)
-            layer["k_bias"] = zeros(K * hd)
-            layer["v_bias"] = zeros(K * hd)
+            layer["q_bias"] = zeros(H * hd, at("q_bias"))
+            layer["k_bias"] = zeros(K * hd, at("k_bias"))
+            layer["v_bias"] = zeros(K * hd, at("v_bias"))
         params["layers"].append(layer)
     return params
 
 
-def shard_trees(params) -> list:
-    """The parameter trees of the tp positions: a ``TPShards`` as it is
-    (``parallel/shardings.shard_params``), a plain tree as one position."""
-    return list(params) if isinstance(params, TPShards) else [params]
+def shard_trees(params) -> TPShards:
+    """The parameter trees of this process's tp positions: a ``TPShards``
+    as it is (``parallel/shardings.shard_params``), a plain tree as the
+    one position of tp = 1."""
+    return params if isinstance(params, TPShards) else TPShards([params])
 
 
 def add_fp32_lm_head(params: Params, cfg: ModelConfig) -> None:
@@ -242,14 +274,16 @@ def _norm(x: torch.Tensor, weight: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     return rms_norm(x, weight, cfg.rms_norm_eps, cfg.rms_norm_offset)
 
 
-def _embed(trees: list, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(trees: TPShards, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows of ``tokens``.  Vocab-parallel over several tp
     positions: each looks up the ids of its vocab slice, zeros elsewhere,
-    and the positions' rows are summed (exact: one of them is nonzero)."""
-    if len(trees) == 1:
+    and the positions' rows are summed (exact: one of them is nonzero),
+    over the group too where other processes hold other slices."""
+    if trees.tp == 1:
         x = trees[0]["embed_tokens"][tokens.long()]
     else:
-        ids, parts, lo = tokens.long(), [], 0
+        ids, parts = tokens.long(), []
+        lo = sum(split_sizes(cfg.vocab_size, trees.tp)[:trees.positions[0]])
         for tree in trees:
             emb = tree["embed_tokens"]
             local = ids - lo
@@ -257,7 +291,7 @@ def _embed(trees: list, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
             rows = emb[local.clamp(0, emb.shape[0] - 1)]
             parts.append(rows.masked_fill(~inside[..., None], 0))
             lo += emb.shape[0]
-        x = psum(parts).to(trees[0]["embed_tokens"].dtype)
+        x = psum(parts, trees.group).to(trees[0]["embed_tokens"].dtype)
     if cfg.scale_embeddings:  # gemma: sqrt(h) rounded to the input dtype
         # A host scalar, not a device tensor: no copy to the card inside a
         # captured decode step.
@@ -349,14 +383,15 @@ def _moe_mlp(layers, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     with the replicated router's weights for them, and the positions'
     fp32 sums are added (``psum``).  Rows go ``MOE_ROW_CHUNK`` at a time
     (:func:`_moe_chunk`)."""
-    layers = layers if isinstance(layers, list) else [layers]
+    if not isinstance(layers, TPShards):
+        layers = TPShards(layers if isinstance(layers, list) else [layers])
     if x.shape[0] <= MOE_ROW_CHUNK:
         return _moe_chunk(layers, x, cfg)
     return torch.cat([_moe_chunk(layers, x[r:r + MOE_ROW_CHUNK], cfg)
                       for r in range(0, x.shape[0], MOE_ROW_CHUNK)])
 
 
-def _moe_chunk(layers: list, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _moe_chunk(layers: TPShards, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """:func:`_moe_mlp` of the rows ``x``.  The router's logits are a true
     fp32 product (``x.float() @ gate.float()``; the engine keeps TF32 off,
     ``LLMEngine``), so bf16 rounding or TF32 never moves a routing choice.
@@ -364,19 +399,21 @@ def _moe_chunk(layers: list, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     zeros, so only which experts were chosen matters, not the order
     ``topk`` returns them in.  Each tp position's experts then run
     (:func:`_moe_rows`) on its columns of the weights; the sum over
-    positions is cast to x's dtype.  Routing only the chosen rows (a
+    positions (and the group's processes) is cast to x's dtype.  Routing
+    only the chosen rows (a
     grouped GEMM over device-side counts) is the faster formulation the
     JAX docstring names."""
     probs = torch.softmax(x.float() @ layers[0]["gate"].float(), dim=-1)  # [T, E]
     top_vals, top_idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1)
     top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
     weights = torch.zeros_like(probs).scatter_(1, top_idx, top_vals)
-    parts, lo = [], 0
+    parts = []
+    lo = sum(split_sizes(cfg.num_experts, layers.tp)[:layers.positions[0]])
     for layer in layers:
         n = layer["experts_gate"].shape[0]
         parts.append(_moe_rows(layer, x, weights[:, lo:lo + n], cfg))
         lo += n
-    return psum(parts).to(x.dtype)
+    return psum(parts, layers.group).to(x.dtype)
 
 
 def _moe_rows(layer: Params, x: torch.Tensor, weights: torch.Tensor,
@@ -397,7 +434,7 @@ def _moe_rows(layer: Params, x: torch.Tensor, weights: torch.Tensor,
     return out
 
 
-def _mlp(layers: list, x: torch.Tensor, cfg: ModelConfig,
+def _mlp(layers: TPShards, x: torch.Tensor, cfg: ModelConfig,
          lora_layer=None, mask=None) -> torch.Tensor:
     """The MLP of one layer over its tp positions' trees ``layers``: each
     position's partial (:func:`_mlp_partial`), summed (``psum``) and cast
@@ -405,9 +442,9 @@ def _mlp(layers: list, x: torch.Tensor, cfg: ModelConfig,
     (its adapters reach attention only)."""
     if cfg.num_experts:
         return _moe_mlp(layers, x, cfg)
-    tp = len(layers)
-    return psum([_mlp_partial(layer, x, cfg, lora_layer, mask, r, tp)
-                 for r, layer in enumerate(layers)]).to(x.dtype)
+    return psum([_mlp_partial(layer, x, cfg, lora_layer, mask, r, layers.tp)
+                 for r, layer in zip(layers.positions, layers)],
+                layers.group).to(x.dtype)
 
 
 def _mlp_partial(layer: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -435,7 +472,7 @@ def _mlp_partial(layer: Params, x: torch.Tensor, cfg: ModelConfig,
 def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Tensor:
     """hidden [..., h] -> logits [..., V] in fp32; over several tp
     positions (a ``TPShards``), each position's vocab slice, concatenated
-    in vocab order.
+    in vocab order (in a group, the processes' slices gathered).
 
     Both operands are fp32 (hidden is cast; the weight is the fp32 copy
     from :func:`add_fp32_lm_head` when present, else cast here), so the
@@ -444,8 +481,11 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
     model dtype through :func:`_dot`, as the JAX ``_dot`` does.  Logits
     feed sampling and logprobs."""
     trees = shard_trees(params)
-    if len(trees) > 1:
-        return torch.cat([_lm_head(tree, cfg, hidden) for tree in trees], dim=-1)
+    if trees.tp > 1:
+        local = torch.cat([_lm_head(tree, cfg, hidden) for tree in trees], dim=-1)
+        sizes, n = split_sizes(cfg.vocab_size, trees.tp), len(trees)
+        widths = [sum(sizes[r:r + n]) for r in range(0, trees.tp, n)]
+        return all_gather(local, trees.group, widths)
     if not cfg.tie_word_embeddings and isinstance(params["lm_head"], dict):
         return _dot(hidden, params["lm_head"])
     w = params.get(LM_HEAD_FP32)
@@ -456,39 +496,41 @@ def _lm_head(params: Params, cfg: ModelConfig, hidden: torch.Tensor) -> torch.Te
 
 
 def _layer(
-    layers: list, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend,
+    layers: TPShards, x: torch.Tensor, cfg: ModelConfig, cos, sin, attend,
     lora_layer=None, mask=None,
 ) -> torch.Tensor:
-    """One decoder layer over its tp positions' trees ``layers``
-    (Megatron-style): each position projects its heads' q/k/v from the
-    replicated normed input, attends (``attend(r, q, k, v)`` writes
-    position ``r``'s KV pool and returns its attention outputs [T, H/tp,
-    D]) and multiplies by its rows of o_proj; the partials are summed
-    (``psum``), then the MLP the same way.  ``lora_layer`` (this layer's
+    """One decoder layer over this process's tp positions' trees
+    ``layers`` (Megatron-style): each position projects its heads' q/k/v
+    from the replicated normed input, attends (``attend(i, q, k, v)``
+    writes the pool of the process's i-th position and returns its
+    attention outputs [T, H/tp, D]) and multiplies by its rows of o_proj;
+    the partials are summed (``psum``, over the group too), then the MLP
+    the same way.  ``lora_layer`` (this layer's
     slot stacks) and ``mask`` (:func:`lora.slot_mask`) add the LoRA deltas;
     None runs the base model."""
-    T, tp = x.shape[0], len(layers)
+    T, tp = x.shape[0], layers.tp
     residual = x
     x_n = _norm(x, layers[0]["input_layernorm"], cfg)
     parts = []
-    for r, layer in enumerate(layers):
+    for i, (r, layer) in enumerate(zip(layers.positions, layers)):
         q, k, v = _project_qkv(layer, x_n, cfg, lora_layer, mask, r, tp)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        out = attend(r, q, k, v).reshape(T, -1)
+        out = attend(i, q, k, v).reshape(T, -1)
         o = _dot(out, layer["o_proj"], lora_layer is None and tp == 1)
         if lora_layer is not None:
             (o,) = _lora_add(lora_layer, "o", out, mask, (o,), r, tp)
         parts.append(o)
-    x = residual + psum(parts).to(x.dtype)
+    x = residual + psum(parts, layers.group).to(x.dtype)
     residual = x
     x_n = _norm(x, layers[0]["post_attention_layernorm"], cfg)
     return residual + _mlp(layers, x_n, cfg, lora_layer, mask)
 
 
-def _shard_layers(params) -> list:
-    """Per layer, the list of its tp positions' layer trees."""
-    return [list(layers) for layers in zip(*(t["layers"] for t in shard_trees(params)))]
+def _shard_layers(params) -> List[TPShards]:
+    """Per layer, its tp positions' layer trees (with the placement)."""
+    trees = shard_trees(params)
+    return [trees.like(layers) for layers in zip(*(t["layers"] for t in trees))]
 
 
 def _lora_layers(lora, adapter_idx, num_layers: int):

@@ -15,9 +15,12 @@ takes any tree with the JAX package's layout (``[in, out]`` weights) given
 as numpy arrays, with no transposes, which is how the tests hand both
 packages the same weights (int8 ``{"q", "s"}`` pairs included);
 ``lora_params_from_numpy`` does the same for the JAX adapter registry's
-slot tree.  Every loader builds the full tree; an engine at tp > 1 cuts
-it afterwards (``parallel/shardings.shard_params``), after any int8
-quantization, as the JAX engine loads, quantizes, then places.
+slot tree.  A loader builds the full tree, which an engine at tp > 1 cuts
+afterwards (``parallel/shardings.shard_params``), after any int8
+quantization, as the JAX engine loads, quantizes, then places; or, with
+``place`` (a rank of a multi-process group: ``shardings.RankSlicer``), it
+hands each tensor over as it is made and keeps only the rank's slices, so
+no rank ever holds the full tree.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from production_stack_tpu_torch.engine import lora as lora_lib
 from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.models import llama
+from production_stack_tpu_torch.engine.parallel.shardings import Parts
 
 logger = logging.getLogger(__name__)
 
@@ -43,21 +47,23 @@ def load_params(
     *,
     seed: int = 0,
     device: torch.device,
+    place=None,
 ) -> llama.Params:
     """The checkpoint in ``weights_path`` (:func:`load_hf_safetensors`),
     or with no path a seeded random init on ``device`` (a
     ``torch.Generator`` on that device, seeded with ``seed``).  A path that
     is not a directory raises ``FileNotFoundError``, and a checkpoint that
-    does not load raises (the JAX package falls back to random init)."""
+    does not load raises (the JAX package falls back to random init).
+    ``place`` cuts each tensor as it is made (see the module docstring)."""
     if weights_path is not None:
         if not os.path.isdir(weights_path):
             raise FileNotFoundError(
                 f"weights_path {weights_path!r} is not a directory (an HF "
                 "checkpoint of *.safetensors shards)")
-        return load_hf_safetensors(cfg, weights_path, device)
+        return load_hf_safetensors(cfg, weights_path, device, place)
     generator = torch.Generator(device=device)
     generator.manual_seed(seed)
-    return llama.init_params(cfg, generator, device)
+    return llama.init_params(cfg, generator, device, place)
 
 
 def params_from_numpy(
@@ -113,7 +119,7 @@ def _shard_index(weights_path: str) -> Dict[str, str]:
 
 
 def load_hf_safetensors(cfg: ModelConfig, weights_path: str,
-                        device: torch.device) -> llama.Params:
+                        device: torch.device, place=None) -> llama.Params:
     """An HF ``LlamaForCausalLM``-layout checkpoint (llama, mistral, qwen2,
     gemma names) or a ``MixtralForCausalLM`` one as the port's tree on
     ``device`` in the model dtype.  Tensors are read one at a time with
@@ -124,7 +130,10 @@ def load_hf_safetensors(cfg: ModelConfig, weights_path: str,
     ``gate.weight`` to the router ``gate`` [h, E], each expert's ``w1`` /
     ``w3`` / ``w2`` to slot e of ``experts_gate`` / ``experts_up``
     ``[E, h, I]`` and ``experts_down`` ``[E, I, h]``, each written into
-    its preallocated stack, so a layer's experts are never held twice."""
+    its preallocated stack, so a layer's experts are never held twice.
+    With ``place`` each tensor is cut to a rank's slices as it is read
+    (``place(path, tensor)``), and a stack holds only the rank's experts
+    (``place.rows``)."""
     from safetensors import safe_open
 
     where = _shard_index(weights_path)
@@ -139,51 +148,66 @@ def load_hf_safetensors(cfg: ModelConfig, weights_path: str,
             handles[shard] = safe_open(os.path.join(weights_path, shard), framework="pt")
         return handles[shard].get_tensor(name).to(device)
 
-    def take(name: str, transpose: bool = False) -> torch.Tensor:
+    def take(name: str, path: tuple, transpose: bool = False) -> torch.Tensor:
         t = read(name)
         if transpose:
             t = t.T
-        return t.to(dtype).contiguous()
+        t = t.to(dtype).contiguous()
+        return t if place is None else place(path, t)
 
-    def experts(prefix: str, w: str, shape: tuple) -> torch.Tensor:
-        """The E experts' ``w`` weights, transposed, in one [E, ...] stack."""
-        out = torch.empty((cfg.num_experts, *shape), dtype=dtype, device=device)
-        for e in range(cfg.num_experts):
-            out[e].copy_(read(f"{prefix}experts.{e}.{w}.weight").T)
-        return out
+    def experts(prefix: str, w: str, shape: tuple, path: tuple):
+        """The E experts' ``w`` weights, transposed, in one [E, ...] stack
+        (with ``place``: the stacks of the rank's experts, as ``Parts``)."""
+        keep = [range(cfg.num_experts)] if place is None else place.rows(
+            path, cfg.num_experts)
+        outs = []
+        for r in keep:
+            out = torch.empty((len(r), *shape), dtype=dtype, device=device)
+            for e in r:
+                out[e - r.start].copy_(read(f"{prefix}experts.{e}.{w}.weight").T)
+            outs.append(out)
+        return outs[0] if place is None else Parts(outs)
 
     params = {
-        "embed_tokens": take("model.embed_tokens.weight"),
-        "norm": take("model.norm.weight"),
+        "embed_tokens": take("model.embed_tokens.weight", ("embed_tokens",)),
+        "norm": take("model.norm.weight", ("norm",)),
         "layers": [],
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = take("lm_head.weight", transpose=True)
+        params["lm_head"] = take("lm_head.weight", ("lm_head",), transpose=True)
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
+
+        def at(name, i=i):
+            return ("layers", i, name)
+
         layer = {
-            "input_layernorm": take(p + "input_layernorm.weight"),
-            "post_attention_layernorm": take(p + "post_attention_layernorm.weight"),
-            "q_proj": take(p + "self_attn.q_proj.weight", transpose=True),
-            "k_proj": take(p + "self_attn.k_proj.weight", transpose=True),
-            "v_proj": take(p + "self_attn.v_proj.weight", transpose=True),
-            "o_proj": take(p + "self_attn.o_proj.weight", transpose=True),
+            "input_layernorm": take(p + "input_layernorm.weight", at("input_layernorm")),
+            "post_attention_layernorm": take(p + "post_attention_layernorm.weight",
+                                             at("post_attention_layernorm")),
+            "q_proj": take(p + "self_attn.q_proj.weight", at("q_proj"), transpose=True),
+            "k_proj": take(p + "self_attn.k_proj.weight", at("k_proj"), transpose=True),
+            "v_proj": take(p + "self_attn.v_proj.weight", at("v_proj"), transpose=True),
+            "o_proj": take(p + "self_attn.o_proj.weight", at("o_proj"), transpose=True),
         }
         if cfg.num_experts:
             moe, h, I = p + "block_sparse_moe.", cfg.hidden_size, cfg.intermediate_size
-            layer["gate"] = take(moe + "gate.weight", transpose=True)
-            layer["experts_gate"] = experts(moe, "w1", (h, I))
-            layer["experts_up"] = experts(moe, "w3", (h, I))
-            layer["experts_down"] = experts(moe, "w2", (I, h))
+            layer["gate"] = take(moe + "gate.weight", at("gate"), transpose=True)
+            layer["experts_gate"] = experts(moe, "w1", (h, I), at("experts_gate"))
+            layer["experts_up"] = experts(moe, "w3", (h, I), at("experts_up"))
+            layer["experts_down"] = experts(moe, "w2", (I, h), at("experts_down"))
         else:
-            layer["gate_proj"] = take(p + "mlp.gate_proj.weight", transpose=True)
-            layer["up_proj"] = take(p + "mlp.up_proj.weight", transpose=True)
-            layer["down_proj"] = take(p + "mlp.down_proj.weight", transpose=True)
+            layer["gate_proj"] = take(p + "mlp.gate_proj.weight", at("gate_proj"),
+                                      transpose=True)
+            layer["up_proj"] = take(p + "mlp.up_proj.weight", at("up_proj"),
+                                    transpose=True)
+            layer["down_proj"] = take(p + "mlp.down_proj.weight", at("down_proj"),
+                                      transpose=True)
         if cfg.attention_bias:
             # Qwen2-style QKV biases (bias=True on q/k/v only).
-            layer["q_bias"] = take(p + "self_attn.q_proj.bias")
-            layer["k_bias"] = take(p + "self_attn.k_proj.bias")
-            layer["v_bias"] = take(p + "self_attn.v_proj.bias")
+            layer["q_bias"] = take(p + "self_attn.q_proj.bias", at("q_bias"))
+            layer["k_bias"] = take(p + "self_attn.k_proj.bias", at("k_bias"))
+            layer["v_bias"] = take(p + "self_attn.v_proj.bias", at("v_bias"))
         params["layers"].append(layer)
     handles.clear()
     logger.info("Loaded %d tensors from %s", len(where), weights_path)

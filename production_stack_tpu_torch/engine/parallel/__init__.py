@@ -3,10 +3,13 @@
 Counterpart of ``production_stack_tpu/engine/parallel/``: a ``(dp, tp,
 sp)`` mesh (``mesh.py``), the JAX package's sharding rules as tuples of
 axis names (``shardings.py``), the parameter tree cut into one tree per tp
-position, and the reduction over tp (``collectives.psum``).  One
-controller runs every tp position, all on one device (ROADMAP item 13b
-takes tp across cards, one process per rank).  The JAX ``compat.py`` (its
-``shard_map`` import shim) has no counterpart: nothing here is traced.
+position, and the reductions over tp (``collectives.psum`` and the
+lm_head's ``all_gather``).  One process runs every tp position on one
+device, or a multi-process group (``distributed.py``: the JAX package's
+environment contract and lockstep plane over ``torch.distributed``) runs
+tp across cards, one process a card, with NCCL's all-reduce inside each
+rank's CUDA graphs.  The JAX ``compat.py`` (its ``shard_map`` import
+shim) has no counterpart: nothing here is traced.
 """
 
 from production_stack_tpu_torch.engine.parallel.mesh import MeshAxes, build_mesh

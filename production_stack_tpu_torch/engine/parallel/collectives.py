@@ -1,32 +1,79 @@
-"""The reduction over the tp axis.
+"""The reductions over the tp axis.
 
 The JAX package gets its ``psum`` from GSPMD: a projection whose
 contracting axis is sharded over tp (o_proj, down_proj, a MoE layer's
 experts, the vocab-parallel embedding) leaves a partial product on each
-device, and XLA adds them over ICI.  Here every tp position runs in one
-process on one device (``mesh.py``), so the reduction is an add.
+device, and XLA adds them in fp32 over ICI.  Here the tp positions a
+process runs (one device holds them) are added locally, and in a
+multi-process group (``distributed.py``, one process a card) the local
+sums are then all-reduced over the group: NCCL on the card, gloo on the
+CPU.  The vocab-parallel lm_head's logits are gathered the same way.
+Both collectives are issued on the current stream, so a CUDA-graph
+capture records them, and neither makes a host sync.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
 
-def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The sum of the tp positions' partials, in tp order.
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """The processes of a tp group (``distributed.initialize``): this
+    process's ``rank`` of ``world``, its device, and the
+    ``torch.distributed`` group the reductions run over."""
 
-    One partial is returned as it is, so tp = 1 computes what it computed
-    before tensor parallelism existed.  Several are summed in fp32, left
-    to right, and the sum is fp32: the caller casts it once, as the JAX
-    package casts its fp32 ``psum``.  A partial arrives in its product's
-    dtype: fp32 from the W8A16 kernel, the MoE block, a LoRA delta and an
-    fp32 model; the model dtype from a bf16 ``matmul``, which rounds its
-    output once before the sum (the JAX package's partials stay fp32)."""
-    if len(parts) == 1:
+    rank: int
+    world: int
+    device: torch.device
+    group: object = None
+
+
+def psum(parts: Sequence[torch.Tensor], group: Optional[TPGroup] = None) -> torch.Tensor:
+    """The sum of the tp positions' partials: this process's ``parts``,
+    in tp order, then, in a group, the other processes' sums.
+
+    One partial outside a group is returned as it is, so tp = 1 computes
+    what it computed before tensor parallelism existed.  Otherwise the
+    parts are summed in fp32, left to right, and in a group that sum is
+    all-reduced (SUM, fp32, in place: the partials are the caller's
+    temporaries): the JAX package's fp32 ``psum``.  The sum is fp32 and
+    the caller casts it once, as the JAX package casts its ``psum``.  A
+    partial arrives in its product's dtype: fp32 from the W8A16 kernel,
+    the MoE block, a LoRA delta and an fp32 model; the model dtype from a
+    bf16 ``matmul``, which rounds its output once before the sum (the JAX
+    package's partials stay fp32).  Two fp32 operands add to the same
+    bits in either order, so tp = 2 over two processes equals tp = 2 in
+    one bit for bit."""
+    if len(parts) == 1 and group is None:
         return parts[0]
     acc = parts[0].float()
     for p in parts[1:]:
         acc = acc + p  # promoted to fp32 inside the add: no copy of p
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(acc, group=group.group)
     return acc
+
+
+def all_gather(part: torch.Tensor, group: Optional[TPGroup], widths: Sequence[int]) -> torch.Tensor:
+    """The processes' last-axis slices of one tensor, concatenated in rank
+    order: ``part`` is this process's ``[..., widths[rank]]``.  Every
+    process ends with the same full tensor.  Slices of unequal width (a
+    vocab that tp does not divide) travel zero-padded to the widest and
+    are cut back.  Outside a group ``part`` is the whole."""
+    if group is None:
+        return part
+    import torch.distributed as dist
+
+    w = max(widths)
+    if part.shape[-1] < w:
+        part = torch.nn.functional.pad(part, (0, w - part.shape[-1]))
+    part = part.contiguous()
+    outs = [torch.empty_like(part) for _ in widths]
+    dist.all_gather(outs, part, group=group.group)
+    return torch.cat([o[..., :n] for o, n in zip(outs, widths)], dim=-1)

@@ -16,20 +16,25 @@ Megatron-style:
   decode batch [S, ...]      -> shard S over dp
 
 Where the JAX package places a global array with ``jax.device_put``,
-:func:`shard_params` slices the tree into one tree per tp position
-(:class:`TPShards`), and the model runs each position's slice and adds
-their partials (``collectives.psum``).  A sharded KV pool side carries a
-leading tp axis (``kv/quant.py``).
+:func:`shard_params` slices the tree into one tree per tp position this
+process runs (:class:`TPShards`), and the model runs each position's
+slice and adds their partials (``collectives.psum``, which all-reduces
+over a multi-process group).  A rank of such a group never holds the full
+tree: :class:`RankSlicer` cuts each weight to its positions as a loader
+makes it (``llama.init_params``, ``weights.load_hf_safetensors``), and
+:func:`shard_params` takes those parts as they are.  A sharded KV pool
+side carries a leading axis of the process's positions (``kv/quant.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from production_stack_tpu_torch.engine.config import ModelConfig
+from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
 from production_stack_tpu_torch.engine.parallel.mesh import AXES, Mesh
 
 TP = AXES.TP
@@ -182,9 +187,34 @@ def decode_batch_spec() -> Spec:
 
 
 class TPShards(list):
-    """One parameter tree per tp position, in tp order (``shard_params``):
-    each sharded weight is that position's contiguous slice, each
-    replicated one the same tensor in every tree."""
+    """One parameter tree per tp position this process runs, in tp order
+    (``shard_params``): each sharded weight is that position's contiguous
+    slice, each replicated one the same tensor in every tree.
+    ``positions``: their tp indices; ``tp``: the mesh's tp size;
+    ``group``: the multi-process group whose other ranks hold the other
+    positions (None: every position is here)."""
+
+    def __init__(self, trees=(), positions: Optional[Sequence[int]] = None,
+                 tp: Optional[int] = None, group: Optional[TPGroup] = None):
+        super().__init__(trees)
+        self.positions = list(range(len(self))) if positions is None else list(positions)
+        self.tp = len(self) if tp is None else tp
+        self.group = group
+
+    def like(self, trees) -> "TPShards":
+        """``trees`` with this placement (one subtree a position)."""
+        return TPShards(trees, self.positions, self.tp, self.group)
+
+
+class Parts(list):
+    """A weight already cut to this process's tp positions (one slice a
+    position, :class:`RankSlicer`); ``shard_params`` takes it as it is."""
+
+
+def split_sizes(n: int, tp: int) -> List[int]:
+    """The sizes ``torch.tensor_split`` gives the tp positions of an axis
+    of ``n``: the vocab need not divide."""
+    return [n // tp + (1 if r < n % tp else 0) for r in range(tp)]
 
 
 def _slice(x: torch.Tensor, spec: Spec, r: int, tp: int,
@@ -198,19 +228,31 @@ def _slice(x: torch.Tensor, spec: Spec, r: int, tp: int,
     return part.to(device, copy=True, memory_format=torch.contiguous_format)
 
 
+def _placement(mesh: Mesh):
+    positions = mesh.local_tp()
+    devices = mesh.tp_devices()
+    return positions, [devices[p] for p in positions], len(devices)
+
+
 def shard_params(params, cfg: ModelConfig, mesh: Mesh, *,
                  consume: bool = False) -> TPShards:
-    """The trees of the tp positions of ``mesh`` (``param_specs``): the
-    JAX tree placed by ``param_shardings``, one tree per position.  With
-    ``consume`` each full weight is dropped from ``params`` as soon as it
-    is sliced, so a boot holds the model once, plus one weight's slices
-    (an engine's own tree); otherwise ``params`` is left as it was."""
-    devices = mesh.tp_devices()
-    tp = len(devices)
+    """The trees of this process's tp positions of ``mesh``
+    (``param_specs``): the JAX tree placed by ``param_shardings``, one
+    tree per position.  A :class:`Parts` leaf is already cut and is taken
+    as it is.  With ``consume`` each full weight is dropped from
+    ``params`` as soon as it is sliced, so a boot holds the model once,
+    plus one weight's slices (an engine's own tree); otherwise ``params``
+    is left as it was."""
+    positions, devices, tp = _placement(mesh)
+    n = len(positions)
 
     def walk(node, spec, parent, key):
+        if isinstance(node, Parts):
+            if consume:
+                parent[key] = None
+            return list(node)
         if _is_spec(spec):
-            parts = [_slice(node, spec, r, tp, devices[r]) for r in range(tp)]
+            parts = [_slice(node, spec, r, tp, d) for r, d in zip(positions, devices)]
             if consume:
                 parent[key] = None
             return parts
@@ -219,9 +261,51 @@ def shard_params(params, cfg: ModelConfig, mesh: Mesh, *,
             if unknown:
                 raise ValueError(f"no sharding spec for {sorted(unknown)}")
             kids = {k: walk(node[k], spec[k], node, k) for k in spec if k in node}
-            return [{k: v[r] for k, v in kids.items()} for r in range(tp)]
-        kids = [walk(n, s, node, i) for i, (n, s) in enumerate(zip(node, spec))]
-        return [[v[r] for v in kids] for r in range(tp)]
+            return [{k: v[r] for k, v in kids.items()} for r in range(n)]
+        kids = [walk(n_, s, node, i) for i, (n_, s) in enumerate(zip(node, spec))]
+        return [[v[r] for v in kids] for r in range(n)]
 
-    return TPShards(walk(params, param_specs(cfg), None, None))
+    return TPShards(walk(params, param_specs(cfg), None, None), positions, tp,
+                    mesh.group)
 
+
+class RankSlicer:
+    """Cuts each weight to this process's tp positions as a loader makes
+    it, so a rank of a group never holds the full tree: the loader hands
+    every tensor over with its path in the tree (``("embed_tokens",)``,
+    ``("layers", i, "q_proj")``) and keeps what this returns, a
+    :class:`Parts` for a sharded weight (the tensor itself, on the
+    device, for a replicated one), and drops the whole.  A projection that
+    ``param_specs`` quantizes is quantized whole first (``quantize``:
+    ``llama.quantize_weight``), then cut, so a row-parallel weight keeps
+    the scales of the full tree, as the JAX engine quantizes before it
+    places."""
+
+    def __init__(self, cfg: ModelConfig, mesh: Mesh,
+                 quantize: Optional[Callable] = None):
+        self.specs = param_specs(cfg)
+        self.positions, self.devices, self.tp = _placement(mesh)
+        self.quantize = quantize
+
+    def _spec(self, path):
+        spec = self.specs
+        for key in path:
+            spec = spec[key]
+        return spec
+
+    def __call__(self, path, x: torch.Tensor):
+        spec = self._spec(path)
+        if isinstance(spec, dict):  # an int8 pair {"q", "s"}
+            pair = self.quantize(x)
+            return Parts({k: _slice(pair[k], spec[k], r, self.tp, d) for k in pair}
+                         for r, d in zip(self.positions, self.devices))
+        if TP not in spec:
+            return x.to(self.devices[0])
+        return Parts(_slice(x, spec, r, self.tp, d)
+                     for r, d in zip(self.positions, self.devices))
+
+    def rows(self, path, n: int) -> List[range]:
+        """Per position, the rows of a weight of ``n`` rows sharded on its
+        first axis (an expert stack's experts)."""
+        sizes = split_sizes(n, self.tp)
+        return [range(sum(sizes[:r]), sum(sizes[:r + 1])) for r in self.positions]

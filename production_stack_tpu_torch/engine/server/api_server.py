@@ -66,13 +66,23 @@ starts ``jax.distributed``).
 ``--quantization int8`` serves its projections as int8 weights (the
 W8A16 kernel), as the JAX server's flags do.
 
-``--tensor-parallel N`` shards the model over N tp positions, all run by
-this process on the engine's device (``engine/parallel/``).
+``--tensor-parallel N`` shards the model over N tp positions
+(``engine/parallel/``): all run by this process on the engine's device,
+or, in a multi-process group (the JAX server's ``PSTPU_NUM_PROCESSES``,
+``PSTPU_PROCESS_ID`` and ``PSTPU_COORDINATOR_ADDRESS``; one process a
+card), ``N / world`` by each process on its own card.  As in the JAX
+server, process 0 is the leader and serves the whole surface, publishing
+each iteration's event batch to the followers (``parallel/
+distributed.py``); a follower serves only ``/health``, ``/ready`` and a
+``POST /drain`` (and SIGTERM) that it relays to the leader, and steps in
+lockstep.  In a group the async KV transfer plane and the encode lane
+default to off, ``--data-parallel`` > 1 exits, the leader's ``/health``
+and ``/ready`` fail when a member goes silent past
+``--slice-member-timeout-s``, and a follower's drain relay drains the
+whole group through the leader.
 
 Not ported yet: ``--data-parallel`` and ``--sequence-parallel`` above 1
-(the flags are here and boot-refuse by name), tp across cards and the
-multi-host lockstep group (with it the JAX server's rule that turns the
-encode lane off in such a group).
+(the flags are here and boot-refuse by name).
 """
 
 from __future__ import annotations
@@ -392,8 +402,10 @@ def render_metrics(engine: AsyncEngine) -> str:
     this engine's values.  Families of features not ported yet render at
     zero, their closed label sets pre-seeded; the request, step and KV
     histograms last (observed only with tracing on, rendered either way so
-    the names are scrape-stable)."""
+    the names are scrape-stable).  The group families carry the leader's
+    monitor (empty member set and zeros outside a group)."""
     s = engine.stats()
+    monitor = engine.slice_monitor
     pairs = [
         (vocab.TPU_NUM_REQUESTS_RUNNING, s["num_requests_running"]),
         (vocab.TPU_NUM_REQUESTS_WAITING, s["num_requests_waiting"]),
@@ -429,9 +441,9 @@ def render_metrics(engine: AsyncEngine) -> str:
         (vocab.TPU_QUEUED_PROMPT_TOKENS, s["queued_prompt_tokens"]),
         (vocab.TPU_LAST_STEP_AGE, engine.last_step_age_s),
         (vocab.TPU_MULTISTEP_WASTED_TOKENS, s["multistep_wasted_tokens"]),
-        # Multi-host slice groups are not ported: one process, epoch 0.
-        (vocab.TPU_LOCKSTEP_GROUP_EPOCH, 0),
-        (vocab.TPU_SLICE_DRAIN_RELAYS, 0),
+        (vocab.TPU_LOCKSTEP_GROUP_EPOCH, engine.slice_epoch),
+        (vocab.TPU_SLICE_DRAIN_RELAYS,
+         monitor.drain_relays if monitor is not None else 0),
     ]
     spec_tokens = {
         **{(o, d): 0 for o in vocab.TPU_SPEC_WINDOW_OUTCOMES
@@ -462,10 +474,16 @@ def render_metrics(engine: AsyncEngine) -> str:
             {**dict.fromkeys(vocab.TPU_KV_SNAPSHOT_VERSIONS, 0),
              **s["kv_snapshot_format"]},
         ),
-        vocab.render_labeled_gauge(vocab.TPU_LOCKSTEP_MEMBER_LAST_ACK, "member", {}),
+        vocab.render_labeled_gauge(
+            vocab.TPU_LOCKSTEP_MEMBER_LAST_ACK, "member",
+            {} if monitor is None else {
+                str(pid): age for pid, age in monitor.member_ack_ages().items()
+            },
+        ),
         vocab.render_labeled_counter(
             vocab.TPU_LOCKSTEP_MEMBER_FAILURES, "reason",
-            dict.fromkeys(vocab.TPU_LOCKSTEP_FAILURE_REASONS, 0),
+            {**dict.fromkeys(vocab.TPU_LOCKSTEP_FAILURE_REASONS, 0),
+             **({} if monitor is None else monitor.member_failures)},
         ),
         render_histogram(vocab.TPU_MIXED_WINDOW_PROMPTS,
                          engine.engine.mixed_window_prompts_hist),
@@ -547,6 +565,13 @@ def build_engine_app(
     def _watchdog_problem() -> Optional[str]:
         if not engine.step_thread_healthy:
             return "engine step thread died"
+        # Group liveness conjunction: the leader is the group's one
+        # discovery endpoint, so a silent member fails the whole group's
+        # health here, within --slice-member-timeout-s, well before the
+        # step watchdog would notice the wedged collective.
+        slice_problem = engine.slice_problem()
+        if slice_problem is not None:
+            return slice_problem
         wd = engine.engine.config.scheduler.step_watchdog_s
         age = engine.last_step_age_s
         if wd and age > wd:
@@ -1234,13 +1259,16 @@ def build_engine_app(
         """Unit vectors of tokenized texts through the encode lane (or the
         serial path with the lane off), and an error response: 504 for a
         text whose deadline passed while it was queued, 400 for an
-        over-long input."""
+        over-long input, 501 in a multi-process group (no encode forward
+        there: ``LLMEngine.check_encode_input``)."""
         try:
             return await engine.embed_batch(token_lists, deadline=deadline), None
         except DeadlineExceeded as e:
             return None, _error(str(e), 504, "deadline_expired", code=504)
         except ValueError as e:
             return None, _error(str(e))
+        except NotImplementedError as e:
+            return None, _error(str(e), 501, "not_implemented", code=501)
 
     async def _json_body(request):
         try:
@@ -1518,6 +1546,17 @@ def build_engine_app(
 
     async def lifecycle(_app):
         await engine.start()
+        # Follower -> leader drain relay: a follower's SIGTERM or /drain
+        # never leaves the collectives; it relays to the leader, which
+        # runs the one drain the whole group follows (streams finish,
+        # then the step loop's shutdown publish releases every member to
+        # exit 0).  The relay fires on the monitor thread; begin() needs
+        # the loop.
+        if engine.slice_monitor is not None:
+            loop = asyncio.get_running_loop()
+            engine.slice_monitor.on_drain_relay = (
+                lambda: loop.call_soon_threadsafe(drain.begin)
+            )
         yield
         await engine.close()
 
@@ -1818,6 +1857,15 @@ def build_parser() -> argparse.ArgumentParser:
         "iterated in this many seconds (hung device dispatch); 0 disables",
     )
     parser.add_argument(
+        "--slice-member-timeout-s", type=float, default=10.0,
+        help="multi-host slice groups: fail the leader's /health (and "
+        "fatal-exit the whole group into a parallel restart) when a "
+        "member's lockstep acks stop advancing for this long — well "
+        "under --step-watchdog-s, so a dead follower fails the slice in "
+        "seconds instead of wedging collectives until the watchdog; "
+        "0 disables group liveness (staleness-window behavior only)",
+    )
+    parser.add_argument(
         "--drain-grace-s", type=float, default=30.0,
         help="on SIGTERM or POST /drain: stop admitting (503 + "
         "Connection: close), flip /ready to 503, let in-flight streams "
@@ -1949,6 +1997,192 @@ def install_sigterm_drain(app: web.Application) -> None:
     app.on_startup.append(install)
 
 
+def _serve_health(health_loop, health_app, host: str, port: int) -> None:
+    """The follower's probe server on its own event loop and thread, torn
+    down through ``AppRunner.cleanup`` so the listening socket is released
+    on the way out."""
+    asyncio.set_event_loop(health_loop)
+    runner = web.AppRunner(health_app, handle_signals=False, access_log=None)
+    try:
+        # The drain path's stop() can land while startup is still inside
+        # run_until_complete (follower_loop failing fast): that raises
+        # "Event loop stopped before Future completed"; fall through to
+        # the cleanup so the socket is always released.
+        health_loop.run_until_complete(runner.setup())
+        site = web.TCPSite(runner, host, port)
+        health_loop.run_until_complete(site.start())
+        health_loop.run_forever()
+    except RuntimeError:
+        pass
+    finally:
+        try:
+            if not health_loop.is_closed():
+                health_loop.run_until_complete(runner.cleanup())
+        except RuntimeError:
+            pass
+        finally:
+            if not health_loop.is_closed():
+                health_loop.close()
+
+
+def _slice_guard(channel, stop_event) -> None:
+    """Follower-side group-fail watcher: the leader's monitor writes a
+    group-fail marker on the control-plane side channel when a member
+    dies, and this thread is how a live follower sees it (the main thread
+    is blocked inside a collective the dead member will never join, so
+    only an off-collective poll can release it).  ``fatal_exit``, never
+    ``sys.exit``: the wedged collective would hang the exit."""
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    while not stop_event.wait(0.5):
+        reason = channel.group_failed()
+        if reason is not None:
+            logger.error("slice group marked failed (%s); exiting for a "
+                         "parallel group restart", reason)
+            distributed.fatal_exit(1)
+            return  # unreachable except under a patched exit
+
+
+def _run_follower(config, denv, args) -> None:
+    """A follower process of a multi-process group: a small probe app
+    (every ordinal answers probes and the preStop ``/drain``) and the
+    lockstep step loop, as the JAX server's follower.
+
+    SIGTERM or ``POST /drain`` on a follower relays the drain intent to
+    the leader through the control-plane side channel: the follower keeps
+    stepping (leaving the collectives would kill every stream of the
+    group) until the leader finishes the in-flight streams and announces
+    shutdown, releasing the whole group to exit 0 in order."""
+    import threading
+
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    health_app = web.Application()
+    engine = LLMEngine(config, device=args.device)
+    channel = distributed.LockstepChannel(
+        denv, member_timeout_s=args.slice_member_timeout_s
+    )
+
+    async def health(_req: web.Request) -> web.Response:
+        if channel.stale():
+            # The leader heartbeats while idle; prolonged silence means it
+            # is gone, and a group cannot heal a lost member in place.
+            return web.json_response(
+                {"status": "unhealthy", "role": "follower",
+                 "problem": "no leader event within the staleness window"},
+                status=503,
+            )
+        return web.json_response(
+            {"status": "ok", "role": "follower", "process_id": denv.process_id}
+        )
+
+    async def ready(_req: web.Request) -> web.Response:
+        """503 once a drain was relayed (on its way out) or when the
+        leader went stale."""
+        if channel.drain_relayed:
+            return web.json_response(
+                {"status": "draining", "role": "follower"}, status=503
+            )
+        if channel.stale():
+            return web.json_response(
+                {"status": "unhealthy", "role": "follower"}, status=503
+            )
+        return web.json_response({"status": "ready", "role": "follower"})
+
+    def _relay_drain(source: str) -> bool:
+        relayed = channel.relay_drain()
+        if relayed:
+            logger.info("follower %d: %s -> drain relayed to the leader; "
+                        "stepping until the group shutdown", denv.process_id, source)
+        else:
+            logger.warning("follower %d: %s but no control-plane side "
+                           "channel; relying on the leader's own drain",
+                           denv.process_id, source)
+        return relayed
+
+    async def drain_endpoint(_req: web.Request) -> web.Response:
+        """POST /drain (the preStop hook reaches every ordinal): relay to
+        the leader, never exit alone."""
+        relayed = _relay_drain("POST /drain")
+        return web.json_response(
+            {"draining": True, "role": "follower", "relayed": relayed}
+        )
+
+    health_app.router.add_get("/health", health)
+    health_app.router.add_get("/ready", ready)
+    health_app.router.add_post("/drain", drain_endpoint)
+
+    # SIGTERM converges on the same relay (this runs on the main thread).
+    try:
+        signal.signal(signal.SIGTERM, lambda _sig, _frm: _relay_drain("SIGTERM"))
+    except (ValueError, OSError):  # not the main thread
+        pass
+
+    health_loop = asyncio.new_event_loop()
+    health_thread = threading.Thread(
+        target=_serve_health, args=(health_loop, health_app, args.host, args.port),
+        name="health-serve", daemon=True,
+    )
+    health_thread.start()
+    guard_stop = threading.Event()
+    guard_thread = threading.Thread(
+        target=_slice_guard, args=(channel, guard_stop),
+        name="slice-guard", daemon=True,
+    )
+    guard_thread.start()
+    logger.info("engine follower %d/%d ready (the leader owns the HTTP surface)",
+                denv.process_id, denv.num_processes)
+    try:
+        distributed.follower_loop(engine, channel)
+    finally:
+        # Stop the probe server and join it, then release the engine's
+        # workers; the loop may already be closed (a bind error), and
+        # engine.close() runs regardless.
+        guard_stop.set()
+        guard_thread.join(5)
+        try:
+            health_loop.call_soon_threadsafe(health_loop.stop)
+        except RuntimeError:
+            pass
+        health_thread.join(10)
+        engine.close()
+        engine.graphs.release()  # before the group's teardown
+
+
+def _join_group(args, config):
+    """The multi-process bootstrap of the JAX server: when the
+    environment declares a group, its rules first (``--data-parallel`` > 1
+    exits; the async KV transfer plane and the encode lane, left on auto,
+    go off: both are thread-timing or leader-only work that would desync
+    the ranks), then the group formed on ``--device``.  Returns the
+    topology, or None for a single process."""
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    denv = distributed.detect_env()
+    if denv is None:
+        return None
+    if args.data_parallel > 1:
+        # dp shards the decode batch; across processes the leader could
+        # not read the other ranks' rows.  Replica-level dp belongs to the
+        # chart (more groups); within a group use tp.
+        raise SystemExit(
+            "--data-parallel > 1 is not supported inside a multi-host "
+            "slice group; scale replicas with the chart's replicaCount "
+            "and use --tensor-parallel/--sequence-parallel across hosts"
+        )
+    if config.cache.remote_prefetch is None:
+        logger.info("multi-process group: disabling the async KV transfer "
+                    "plane (cache.remote_prefetch auto -> False)")
+        config.cache.remote_prefetch = False
+    if config.scheduler.encode_lane is None:
+        logger.info("multi-process group: disabling the batched encode lane "
+                    "(scheduler.encode_lane auto -> False)")
+        config.scheduler.encode_lane = False
+    distributed.maybe_initialize(device=args.device)
+    return denv
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(
@@ -1956,7 +2190,27 @@ def main(argv=None) -> None:
         format="[%(asctime)s] %(levelname)s %(name)s: %(message)s",
     )
     config = config_from_args(args)
-    engine = AsyncEngine(config, device=args.device)
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    denv = _join_group(args, config)
+    try:
+        if denv is not None and not denv.is_leader:
+            _run_follower(config, denv, args)
+            return
+        _serve(args, config, denv)
+    finally:
+        distributed.shutdown()
+
+
+def _serve(args, config, denv) -> None:
+    """The serving process: the leader of a group, or the only process."""
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    lockstep = (
+        distributed.LockstepChannel(denv, member_timeout_s=args.slice_member_timeout_s)
+        if denv is not None else None
+    )
+    engine = AsyncEngine(config, device=args.device, lockstep=lockstep)
     if args.chat_template:
         with open(args.chat_template, "r", encoding="utf-8") as f:
             engine.engine.tokenizer.chat_template = f.read()
@@ -1976,6 +2230,7 @@ def main(argv=None) -> None:
     install_sigterm_drain(app)
     logger.info("Starting engine (%s) on %s:%d", served, args.host, args.port)
     web.run_app(app, host=args.host, port=args.port, access_log=None)
+    engine.engine.graphs.release()  # before the group's teardown
 
 
 if __name__ == "__main__":

@@ -23,8 +23,17 @@ the step thread resolves to its slot at admission.  The step thread is
 the engine's commit thread (``LLMEngine.bind_commit_thread``): an adapter
 load or unload from any other thread stages its factors there, and the
 step loop writes them into the slot stacks at the top of an iteration,
-before that iteration's admissions and dispatch.  Multi-host lockstep is
-not ported.
+before that iteration's admissions and dispatch.
+
+Lockstep (``lockstep``: a ``parallel.distributed.LockstepChannel`` when
+this is the leader of a multi-process group): the leader publishes each
+iteration's event batch (new requests, aborts, deadline expiries folded
+into them) right before it steps, and an empty heartbeat while idle; the
+followers replay it (``distributed.follower_loop``) and step with the
+same discipline, so every rank launches the same graphs and collectives.
+A ``GroupLivenessMonitor`` (``slice_monitor``) turns a silent member into
+a ``/health`` failure.  Under lockstep the encode lane is not built (a
+leader-only forward would leave the followers out of its collectives).
 """
 
 from __future__ import annotations
@@ -82,12 +91,31 @@ class TokenEvent:
 
 class AsyncEngine:
     def __init__(self, config: EngineConfig, device=None, params=None,
-                 draft_params=None):
+                 draft_params=None, lockstep=None):
         """``device``, ``params`` and ``draft_params`` are passed to
         :class:`LLMEngine` (default: the CUDA device and the seeded random
-        inits)."""
+        inits).  ``lockstep``: the group's channel when this is the leader
+        of a multi-process group (see the module docstring)."""
+        from production_stack_tpu_torch.engine.parallel.distributed import (
+            GroupLivenessMonitor,
+        )
+
         self.engine = LLMEngine(config, device=device, params=params,
                                 draft_params=draft_params)
+        self._lockstep = lockstep
+        # Group liveness: a real channel with a control-plane side
+        # channel gets a member-liveness monitor, so the group's health is
+        # the conjunction of its members' through /health.  Stubs in tests
+        # carry no denv and stay monitor-free.
+        self._slice_monitor: Optional[GroupLivenessMonitor] = None
+        denv = getattr(lockstep, "denv", None)
+        if (
+            denv is not None
+            and denv.num_processes > 1
+            and getattr(lockstep, "ack_store", None) is not None
+            and getattr(lockstep, "member_timeout_s", 0) > 0
+        ):
+            self._slice_monitor = GroupLivenessMonitor(lockstep)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._queues: Dict[str, asyncio.Queue] = {}
         self._pending: List = []  # (request_id, prompt_ids, sampling_params, adapter)
@@ -112,7 +140,9 @@ class AsyncEngine:
         # token lists and the step thread drains them as encode batches;
         # None with the lane off (the serial embed path).
         self.encode_batcher = None
-        if config.scheduler.encode_lane_enabled:
+        if config.scheduler.encode_lane_enabled and (
+            denv is None or denv.num_processes <= 1
+        ):
             from production_stack_tpu_torch.engine.server.encode_batcher import (
                 EncodeBatcher,
             )
@@ -127,10 +157,16 @@ class AsyncEngine:
             target=self._run_loop, name="engine-step-loop", daemon=True
         )
         self._thread.start()
+        if self._slice_monitor is not None:
+            self._slice_monitor.start()
 
     async def close(self) -> None:
         self._shutdown.set()
         self._wakeup.set()
+        if self._slice_monitor is not None:
+            # Before the step-thread join: a member dying mid-close must
+            # not fatal_exit a process already shutting down cleanly.
+            await asyncio.to_thread(self._slice_monitor.stop)
         if self._thread is not None:
             await asyncio.to_thread(self._thread.join, 30)
         if self.encode_batcher is not None:
@@ -289,6 +325,29 @@ class AsyncEngine:
             return 0.0
         return max(0.0, self._clock() - ts)
 
+    # -- group liveness reads ---------------------------------------------
+
+    @property
+    def slice_monitor(self):
+        return self._slice_monitor
+
+    def slice_problem(self) -> Optional[str]:
+        """Non-None when the group lost a member (the leader's /health
+        conjoins it with the step watchdog, so the whole group fails
+        liveness within --slice-member-timeout-s of the member going
+        silent).  None outside a group."""
+        if self._slice_monitor is None:
+            return None
+        return self._slice_monitor.problem()
+
+    @property
+    def slice_epoch(self) -> int:
+        """The group epoch (the leader's boot nonce; 0 outside a group):
+        tpu:lockstep_group_epoch."""
+        if self._lockstep is None:
+            return 0
+        return getattr(self._lockstep, "epoch", 0)
+
     @property
     def step_thread_healthy(self) -> bool:
         """False only when the step thread died without a shutdown
@@ -306,9 +365,16 @@ class AsyncEngine:
             self._loop_until_shutdown()
         finally:
             self.engine.release_commit_thread()
+        if self._lockstep is not None:
+            from production_stack_tpu_torch.engine.parallel.distributed import (
+                StepEvents,
+            )
+
+            self._lockstep.publish(StepEvents(shutdown=True))
         logger.info("engine step loop exited")
 
     def _loop_until_shutdown(self) -> None:
+        last_publish = time.time()
         while not self._shutdown.is_set():
             self._last_step_ts = self._clock()
             # Adapter writes land here, between dispatches, before this
@@ -319,7 +385,9 @@ class AsyncEngine:
                 aborts, self._aborts = self._aborts, []
                 self._pending_tokens -= sum(len(p[1]) for p in pending)
             # Deadline sweep, each scheduler pass: expired waiting and
-            # preempted sequences join this iteration's aborts, and their
+            # preempted sequences join this iteration's aborts (published
+            # under lockstep like any client abort, so followers replay
+            # the leader's clock instead of reading their own), and their
             # consumers hear of it once they have left the scheduler.
             expired = []
             if self._any_deadlines and self.engine.has_unfinished():
@@ -331,6 +399,20 @@ class AsyncEngine:
                     aborts.append(request_id)
                     expired.append(request_id)
                     self.engine.deadline_expired += 1
+            if self._lockstep is not None and (
+                pending or aborts or self.engine.has_unfinished()
+                or self.engine.has_pending()
+                # Idle heartbeat: followers detect a dead leader by event
+                # staleness; without it an idle group looks dead.
+                or time.time() - last_publish > self._lockstep.heartbeat_seconds
+            ):
+                from production_stack_tpu_torch.engine.parallel.distributed import (
+                    StepEvents,
+                )
+
+                self._lockstep.publish(StepEvents(requests=list(pending),
+                                                  aborts=list(aborts)))
+                last_publish = time.time()
             for request_id in aborts:
                 self.engine.abort_request(request_id)
             for request_id in expired:
@@ -362,6 +444,9 @@ class AsyncEngine:
                 # abort) is collected too: its tokens are discarded.
                 outputs = self.engine.step()
             except Exception:
+                if self._lockstep is not None:
+                    self._fail_group()
+                    return  # unreachable except under a patched fatal_exit
                 logger.exception("engine step failed")
                 time.sleep(0.1)  # back off instead of spinning the log
                 continue
@@ -385,6 +470,25 @@ class AsyncEngine:
             # and the streams' inter-token latency stays bounded.
             if self.encode_batcher is not None:
                 self.encode_batcher.run_pending(max_batches=1)
+
+    def _fail_group(self) -> None:
+        """A failed step under lockstep is fatal: the followers have
+        launched (or wait in) this iteration's collectives, and a retry
+        against a desynced group wedges it.  The shutdown publish is best
+        effort (followers exit cleanly if the control plane still works),
+        then the process exits nonzero so the group restarts together."""
+        from production_stack_tpu_torch.engine.parallel.distributed import (
+            StepEvents,
+            fatal_exit,
+        )
+
+        logger.exception("engine step failed under lockstep; exiting so "
+                         "the slice group restarts together")
+        try:
+            self._lockstep.publish(StepEvents(shutdown=True))
+        except Exception:
+            logger.exception("shutdown publish failed")
+        fatal_exit(1)
 
     def _emit(self, request_id: str, event) -> None:
         queue = self._queues.get(request_id)

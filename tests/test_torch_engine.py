@@ -161,10 +161,13 @@ def test_torch_engine_mixed_streams_match_jax(kv_cache_dtype):
 
 
 def test_torch_engine_refuses_a_multi_process_group(monkeypatch):
-    """A multi-process environment (the JAX package's lockstep group) is
-    refused by name, as dp and sp are."""
+    """A multi-process environment (the JAX package's lockstep group) that
+    this process has not formed is refused by name: one rank alone is not
+    the group (``parallel.distributed.maybe_initialize`` forms it)."""
     monkeypatch.setenv("PSTPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="multi-process group"):
+    monkeypatch.setenv("PSTPU_PROCESS_ID", "0")
+    monkeypatch.setenv("PSTPU_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="multi-process group.*maybe_initialize"):
         LLMEngine(torch_config(), device="cpu")
 
 

@@ -123,6 +123,32 @@ def test_loaded_trees_equal_the_jax_loaders(checkpoints, family, sharded, dtype)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_a_rank_reads_the_slices_shard_params_cuts(checkpoints, family):
+    """A rank of a two-process group at tp = 2 cuts each tensor as it is
+    read (``place``): its tree is ``shard_params``' slice of the full
+    load at its position, bit for bit."""
+    from production_stack_tpu_torch.engine.parallel import shardings as tshard
+    from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
+    from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
+
+    _, tc = configs(family)
+    path = checkpoints[family, True]
+    par = tcfg.ParallelConfig(tensor_parallel=2)
+    whole = tshard.shard_params(tweights.load_hf_safetensors(tc, path, torch.device("cpu")), tc,
+                                build_mesh(par, ["cpu"] * 2))
+    for rank in range(2):
+        mesh = build_mesh(par, group=TPGroup(rank=rank, world=2, device=torch.device("cpu")))
+        tree = tweights.load_hf_safetensors(tc, path, torch.device("cpu"),
+                                   place=tshard.RankSlicer(tc, mesh))
+        (mine,) = tshard.shard_params(tree, tc, mesh)
+        want = flat(whole[rank])
+        got = flat(mine)
+        assert got.keys() == want.keys()
+        for name, t in got.items():
+            assert torch.equal(t, want[name]), (rank, name)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_loaded_logits_match_jax(checkpoints, family):
     """A prompt's prefill and two decodes over the loaded checkpoint: the
     port's logits within 1e-5 of the JAX package's (fp32)."""

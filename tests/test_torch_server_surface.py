@@ -429,7 +429,7 @@ SERVED_FLAGS = (
     "--no-tracing", "--trace-ring-size", "--trace-ring-bytes",
     "--window-ring-size", "--weights-path", "--quantization",
     "--data-parallel", "--tensor-parallel", "--sequence-parallel",
-    "--sequence-parallel-mode",
+    "--sequence-parallel-mode", "--slice-member-timeout-s",
 )
 
 

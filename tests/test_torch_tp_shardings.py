@@ -7,8 +7,8 @@
 - ``shard_params`` gives each tp position the array JAX places on that
   position's device, and the concatenation gives back the tree;
 - ``build_mesh`` raises on too few devices and on tp positions spread over
-  different devices; the multi-process environment is read as the JAX
-  ``detect_env`` reads it.
+  different devices in one process; the multi-process environment is read
+  as the JAX ``detect_env`` reads it.
 """
 
 import dataclasses
@@ -25,11 +25,10 @@ from production_stack_tpu.engine.parallel import shardings as jshard
 from production_stack_tpu.engine.parallel.mesh import build_mesh as jax_mesh
 from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.models import llama as tllama
+from production_stack_tpu_torch.engine.parallel import distributed as tdist
+from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
 from production_stack_tpu_torch.engine.parallel import shardings as tshard
-from production_stack_tpu_torch.engine.parallel.mesh import (
-    build_mesh,
-    detect_num_processes,
-)
+from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
 
 requires_8_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual CPU mesh"
@@ -180,6 +179,45 @@ def test_shard_params_consume_releases_the_full_tree():
     assert shards[0]["layers"][0]["q_proj"].shape == (64, 32)
 
 
+@pytest.mark.parametrize("tp,world", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("case", sorted(SWITCHES))
+def test_a_rank_draws_the_slices_shard_params_cuts(case, tp, world):
+    """A rank of a multi-process group draws its slices as ``init_params``
+    makes each weight (``RankSlicer``; an int8 projection quantized whole
+    first): each rank's trees equal, bit for bit, ``shard_params``' trees
+    of the full draw at its positions, and the placement names them."""
+    _, tc = configs(**SWITCHES[case])
+    quantize = tllama.quantize_weight if tc.quantization else None
+    full = tllama.quantize_params(
+        tllama.init_params(tc, torch.Generator().manual_seed(0), torch.device("cpu")), tc)
+    par = tcfg.ParallelConfig(tensor_parallel=tp)
+    whole = tshard.shard_params(full, tc, build_mesh(par, ["cpu"] * tp))
+    for rank in range(world):
+        group = TPGroup(rank=rank, world=world, device=torch.device("cpu"))
+        mesh = build_mesh(par, group=group)
+        assert mesh.local_tp() == list(range(rank * tp // world, (rank + 1) * tp // world))
+        parts = tllama.init_params(tc, torch.Generator().manual_seed(0), torch.device("cpu"),
+                                   place=tshard.RankSlicer(tc, mesh, quantize))
+        shards = tshard.shard_params(parts, tc, mesh)
+        assert (shards.positions, shards.tp, shards.group) == (mesh.local_tp(), tp, group)
+        for i, p in enumerate(shards.positions):
+            for path, t in leaves(shards[i]):
+                assert torch.equal(t, at(whole[p], path)), (rank, p, path)
+
+
+def test_build_mesh_over_a_group():
+    """In a group each rank owns tp / world consecutive positions on its
+    own device; the others' devices are unknown here; tp must divide."""
+    dev = torch.device("cpu")
+    mesh = build_mesh(tcfg.ParallelConfig(tensor_parallel=4),
+                      group=TPGroup(rank=1, world=2, device=dev))
+    assert mesh.tp_ranks() == [0, 0, 1, 1] and mesh.local_tp() == [2, 3]
+    assert mesh.tp_devices() == [None, None, dev, dev] and mesh.rank == 1
+    with pytest.raises(ValueError, match="does not divide over the group's 4 processes"):
+        build_mesh(tcfg.ParallelConfig(tensor_parallel=2),
+                   group=TPGroup(rank=0, world=4, device=dev))
+
+
 def test_build_mesh_shapes_and_refusals():
     par = tcfg.ParallelConfig(tensor_parallel=2)
     mesh = build_mesh(par, ["cpu"] * 3)  # extra devices are left out
@@ -203,4 +241,8 @@ def test_build_mesh_shapes_and_refusals():
 ])
 def test_multi_process_environment_is_read_as_jax_reads_it(env):
     denv = jdist.detect_env(env)
-    assert detect_num_processes(env) == (1 if denv is None else denv.num_processes)
+    got = tdist.detect_env(env)
+    assert (got is None) == (denv is None)
+    if denv is not None:
+        assert dataclasses.astuple(got) == dataclasses.astuple(denv)
+        assert got.is_leader == denv.is_leader
