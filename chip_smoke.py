@@ -283,6 +283,29 @@ non-zero (no phase is caught and passed over):
    and the window and mixed graphs must have captured the collectives
    (counted at the ``torch.distributed`` calls made while a graph
    captures; NCCL's one-rank all-reduce in place enqueues no kernel).
+14. Data and sequence parallelism, every position of the mesh on this
+   card (the numbers show what the split costs on one card, nothing of
+   speed across cards), on llama-3.1-8b's seeded weights drawn once and
+   handed to every engine, each engine's pool freed before the next.
+   Phase 2 also holds flash prefill's contiguous entry at Ulysses' shapes
+   (an sp position's head group, H/sp and K/sp, T = 2048 over a prefix
+   gathered at 8192 with 6144 cached, the lengths int32 tensors on the
+   card, equal to the host-int launch bit for bit).  ``phase_sp``: at
+   ``max_model_len`` 8192, one request of 8190 tokens through
+   ``add_request`` / ``step`` at sp = 1, ring sp = 2 and 4, and Ulysses sp
+   = 2 and 4: four 2048-token chunks, each under
+   ``set_sync_debug_mode("error")`` (device and attention ms, host ms, the
+   transient peak beside the headroom the pool left), the launches of
+   flash prefill's entries counted (paged at sp = 1, contiguous under
+   Ulysses, neither under the ring, whose chunk attention is plain
+   PyTorch).  ``phase_sp_holds``: Ulysses' logits within ``scaled_tol`` of
+   sp = 1's, the ring's within ``TP_LOGIT_BOUND`` x |sp 1 - fp32| (the four
+   chunks at sp = 1 in fp32, 32 layers), and at 4 layers in fp32 every
+   config within 2e-3 of sp = 1.  ``phase_dp``: dp = 1 (mixed off), dp = 2
+   and (2, 2, 2) serving 8 requests arriving at once (K=8 windows as graph
+   replays, each sync-checked; no mixed window), the teacher-forced steps
+   of ``phase_tp`` against the dense engine's, dp = 2's streams against dp
+   = 1's, and ``phase_profile``'s token step beside dp = 1's and tp = 2's.
 
 ``python3 chip_smoke.py --group`` (a four-card machine; not part of the
 default run) drives tp across cards, one process a card, through
@@ -685,7 +708,10 @@ def check_kv_write(gen, name, rows, decode, dtype=torch.bfloat16, K=8) -> dict:
 
 
 def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
-                        dtype=torch.bfloat16, window=None) -> dict:
+                        dtype=torch.bfloat16, window=None, device_lengths=False) -> dict:
+    """One case of flash prefill's contiguous entry; ``device_lengths``
+    passes ``cached`` and ``valid`` as int32 tensors on the card (Ulysses'
+    local attention), which must give the host-int launch's bits."""
     from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as fp
 
     dev = "cuda"
@@ -696,16 +722,26 @@ def check_flash_prefill(gen, name, T, H, K, D, C, cached, valid,
     vp = torch.randn((C, K, D), generator=gen, device=dev).to(dtype)
     scale = D**-0.5
     args = (q, kn, vn, kp, vp, cached, valid)
+    if device_lengths:
+        lens = torch.tensor([cached, valid], dtype=torch.int32, device=dev)
+        args = (q, kn, vn, kp, vp, lens[:1], lens[1:])
     got = fp.flash_prefill_attention(*args, scale=scale, sliding_window=window)
     want = fp.flash_prefill_attention_plain(*args, scale=scale, sliding_window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    tol = scaled_tol(want.float().abs().max().item(), dtype) if device_lengths else TOL[dtype]
     row = {"case": name, "T": T, "H": H, "K": K, "D": D, "C": C,
            "cached_len": cached, "valid_len": valid, "window": window,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "tol": TOL[dtype]}
-    if not torch.isfinite(got).all() or err > TOL[dtype]:
-        raise AssertionError(f"flash prefill {name}: max abs err {err} > {TOL[dtype]}")
+           "tol": tol, "device_lengths": device_lengths}
+    if not torch.isfinite(got).all() or err > tol:
+        raise AssertionError(f"flash prefill {name}: max abs err {err} > {tol}")
+    if device_lengths:
+        host = fp.flash_prefill_attention(q, kn, vn, kp, vp, cached, valid, scale=scale,
+                                          sliding_window=window)
+        row["equal_to_host_lengths"] = bool(torch.equal(got, host))
+        if not row["equal_to_host_lengths"]:
+            raise AssertionError(f"flash prefill {name}: device lengths differ from host ints")
     esz = torch.finfo(dtype).bits // 8
     nbytes = esz * (2 * T * H * D + 2 * T * K * D + 2 * cached * K * D)
     flops = 4.0 * _visible_keys(cached, valid, window) * H * D
@@ -1105,6 +1141,18 @@ def phase_kernels() -> dict:
             check_flash_prefill(gen, "T512_chunk", 512, H, K, D, 2560, 2560, 512),
             check_flash_prefill(gen, "T1000_ragged", 1000, H, K, D, 0, 0, 1000),
             check_flash_prefill(gen, "T512_G1", 512, K, K, D, 256, 256, 512),
+            # Ulysses' local attention (phase 14): each sp position's head
+            # group (H/sp, K/sp) over the full sequence, the prefix gathered
+            # at the table's width (8192), the lengths on the card: the
+            # 2048-token chunk over 6144 cached, and the first 2048 tokens.
+            check_flash_prefill(gen, "sp2_T2048_C6144", 2048, H // 2, K // 2, D, 8192, 6144,
+                                2048, device_lengths=True),
+            check_flash_prefill(gen, "sp4_T2048_C6144", 2048, H // 4, K // 4, D, 8192, 6144,
+                                2048, device_lengths=True),
+            check_flash_prefill(gen, "sp2_T2048_C0", 2048, H // 2, K // 2, D, 8192, 0, 2048,
+                                device_lengths=True),
+            check_flash_prefill(gen, "sp2_T256_fp32", 256, H // 2, K // 2, D, 512, 300, 200,
+                                dtype=torch.float32, device_lengths=True),
         ],
         # The paged entry, the one the serving path runs: the main path's
         # chunk (512 tokens over 2560 cached) and prompt (2048, nothing
@@ -1175,6 +1223,7 @@ def phase_kernels() -> dict:
     # run) and at a 2048-token prompt, beside the contiguous entry's rows;
     # the writer's 8 decode rows, and its 512-token chunk.
     contiguous = [r for r in cases["flash_prefill"] if r["case"] in ("T2048_main", "T512_chunk")]
+    ulysses = {r["case"]: r for r in cases["flash_prefill"] if r["case"].startswith("sp")}
     paged, paged8 = cases["flash_prefill_paged"], cases["flash_prefill_paged_int8"]
     spec = [r for r in cases["paged_decode"]
             if r["case"] in SPEC_SHAPES]
@@ -1187,8 +1236,13 @@ def phase_kernels() -> dict:
     return {"paged_decode": dict(cases["paged_decode"][1], also=spec + shard("paged_decode")),
             "paged_decode_int8": dict(cases["paged_decode_int8"][1],
                                       also=spec8 + shard("paged_decode_int8")),
-            "flash_prefill": dict(paged[0], also=[paged[1]] + contiguous
-                                  + shard("flash_prefill_paged")),
+            "flash_prefill": dict(paged[0], also=[paged[1]] + shard("flash_prefill_paged")),
+            # The contiguous entry on Ulysses' path: an sp = 2 position's
+            # chunk over 6144 cached; beside it sp = 4, the first 2048
+            # tokens, and the entry at sp = 1's shapes.
+            "flash_prefill_contiguous": dict(
+                ulysses["sp2_T2048_C6144"],
+                also=[ulysses["sp4_T2048_C6144"], ulysses["sp2_T2048_C0"]] + contiguous),
             "flash_prefill_int8": dict(paged8[0], also=[paged8[1]]
                                        + shard("flash_prefill_paged_int8")),
             "kv_write_int8": dict(cases["kv_write_int8"][0],
@@ -1841,6 +1895,7 @@ def launch_counts() -> dict:
 
     return {"paged_decode": pa.launches, "paged_decode_int8": pa.launches_int8,
             "flash_prefill": fp.launches, "flash_prefill_int8": fp.launches_int8,
+            "flash_prefill_contiguous": fp.launches_contiguous,
             "flash_prefill_batched": fp.launches_batched, "kv_write_int8": kw.launches,
             "w8a16": w8a16.launches}
 
@@ -2336,30 +2391,10 @@ def phase_tp(eng, baseline: dict = None, gate_logits: bool = True) -> dict:
     batch is left out (the port refuses the encode forward in a group)."""
     import numpy as np
 
-    from production_stack_tpu_torch.engine.models import llama
-
-    cfg, dev, tp = eng.config.model, eng.device, eng.tp
+    cfg, tp = eng.config.model, eng.tp
     grouped = eng.group is not None and eng.group.world > 1
     rng = np.random.default_rng(7)
-    bs = eng.block_pool.block_size
-    prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
-                          device=dev)
-    blocks = eng.block_pool.allocate(512 // bs + 1)
-    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    try:
-        ids = t(blocks)
-        logits = [llama.prefill(eng.params, cfg, prompt, 0, ids[:0], ids[:-1], 512,
-                                eng.kv_caches)]
-        tokens = list(baseline["teacher_tokens"]) if baseline else [int(logits[0].argmax())]
-        for i, pos in enumerate(range(512, 516)):
-            logits.append(llama.decode(eng.params, cfg, t([tokens[i]]), t([pos]), ids[None],
-                                       t([pos + 1]), ids[-1:], t([pos % bs]),
-                                       eng.kv_caches)[0])
-            if baseline is None:
-                tokens.append(int(logits[-1].argmax()))
-        logits = [x.float().cpu() for x in logits]
-    finally:
-        eng.block_pool.free(blocks)
+    logits, tokens = _teacher_logits(eng, rng, baseline)
     prompts = [(step, rng.integers(4, cfg.vocab_size, n).tolist()) for step, n in TP_ARRIVALS]
     keys = ("windows_dispatched", "mixed_windows_dispatched", "mixed_window_iterations",
             "graph_replays", "prefill_chunk_tokens")
@@ -2436,6 +2471,42 @@ def phase_tp(eng, baseline: dict = None, gate_logits: bool = True) -> dict:
                                  f"here ({eng.tp_local}) x tp=1's {want}")
     return {"logits": logits, "teacher_tokens": tokens, "streams": streams,
             "launches": launches, "row": row, "vecs": vecs}
+
+
+def _teacher_logits(eng, rng, baseline: dict = None) -> tuple:
+    """:func:`phase_tp`'s teacher-forced steps on ``eng`` (idle): a
+    512-token prompt drawn from ``rng`` prefilled into blocks the block
+    pool lends (``llama.prefill`` on the engine's params and pool; on an sp
+    mesh through its sp strategy, the prefix table zero-padded to the
+    engine's width as the engine pads it), then 4 decode steps on fixed
+    tokens (``baseline``'s teacher tokens, else this run's greedy picks).
+    Returns (5 steps' logits [V] on the CPU, the tokens)."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    cfg, dev = eng.config.model, eng.device
+    bs = eng.block_pool.block_size
+    prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
+                          device=dev)
+    blocks = eng.block_pool.allocate(512 // bs + 1)
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    sp = eng.mesh.sp
+    try:
+        ids = t(blocks)
+        prefix = ids[:0] if sp == 1 else t([0] * eng._bmax)
+        logits = [llama.prefill(eng.params, cfg, prompt, 0, prefix, ids[:-1], 512,
+                                eng.kv_caches, sp=sp,
+                                sp_mode=eng.config.parallel.sequence_parallel_mode)]
+        tokens = list(baseline["teacher_tokens"]) if baseline else [int(logits[0].argmax())]
+        for i, pos in enumerate(range(512, 516)):
+            logits.append(llama.decode(eng.params, cfg, t([tokens[i]]), t([pos]), ids[None],
+                                       t([pos + 1]), ids[-1:], t([pos % bs]),
+                                       eng.kv_caches)[0])
+            if baseline is None:
+                tokens.append(int(logits[-1].argmax()))
+        logits = [x.float().cpu() for x in logits]
+    finally:
+        eng.block_pool.free(blocks)
+    return logits, tokens
 
 
 def fp32_teacher_logits(tokens: list, seed: int = 0, model: str = MODEL,
@@ -5612,7 +5683,7 @@ def _reset_launches() -> None:
     from production_stack_tpu_torch.engine.ops.kernels import w8a16
 
     pa.launches = pa.launches_int8 = 0
-    fp.launches = fp.launches_int8 = fp.launches_batched = 0
+    fp.launches = fp.launches_int8 = fp.launches_contiguous = fp.launches_batched = 0
     kw.launches = 0
     w8a16.launches = 0
 
@@ -5635,6 +5706,12 @@ KERNEL_META = {
         "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
         # The same kernel over gather_prefix_kv's int8 dequantization
         # (production_stack_tpu/engine/ops/attention.py:306-331), in one.
+        "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
+    },
+    "flash_prefill_contiguous": {
+        "source": "production_stack_tpu_torch/engine/ops/csrc/flash_prefill.cu",
+        # flash_prefill_launch: Ulysses' local attention, the single-device
+        # prefill_attention over a gathered prefix (ulysses.py:77-81).
         "replaces": "production_stack_tpu/engine/ops/pallas/flash_prefill.py:156",
     },
     "flash_prefill_batched": {
@@ -6296,6 +6373,402 @@ def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
     return 0
 
 
+# -- phase 14: data and sequence parallelism, every position on this card --
+
+SP_MAX_LEN = 8192  # the block table's width: the gathered prefix the ring shards
+SP_CHUNK = 2048  # the largest prefill bucket
+# One prompt of four chunks: the first 2048 tokens (nothing cached), ...,
+# the last 2046 over 6144 cached (two tokens short of the table, so the
+# request's first token fits beside it).
+SP_PROMPT = SP_MAX_LEN - 2
+# (name, sp, mode); sp1 first: every other is held against it.
+SP_CONFIGS = (("sp1", 1, "ring"), ("ring2", 2, "ring"), ("ring4", 4, "ring"),
+              ("ulysses2", 2, "ulysses"), ("ulysses4", 4, "ulysses"))
+SP_FP32_LAYERS = 4
+SP_FP32_TOL = 2e-3  # PR 19's limit on fp32 forwards that differ in sums' order
+DP_MAX_LEN = 4096  # phase 4's prompts (<= 3000 tokens) and 112 new fit
+DP_NEW_TOKENS = 32
+# (name, dp, tp, sp); dp1 first: the streams of the others are held to it.
+DP_CONFIGS = (("dp1", 1, 1, 1), ("dp2", 2, 1, 1), ("dp2_tp2_sp2", 2, 2, 2))
+
+
+def _serving_params(layers: int = None, dtype: str = None) -> dict:
+    """The serving phases' seeded weights of ``MODEL`` (what an engine of
+    ``_serving_config`` draws for itself), drawn once on the card."""
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models.weights import load_params
+
+    cfg = PRESETS[MODEL]
+    if layers is not None or dtype is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers,
+                                  dtype=dtype or cfg.dtype)
+    params = load_params(cfg, None, seed=0, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    return params
+
+
+@contextlib.contextmanager
+def _prefill_recorder(records: list):
+    """Record every ``llama.prefill`` the engine runs (its chunks): CUDA
+    events around it, the host's seconds, the transient memory it peaked
+    at above what was allocated before it, its logits (a copy on the card),
+    and the device time of its attention (``_sp_attention`` at sp > 1,
+    ``prefill_attention_paged`` at sp = 1), event pairs around each call.
+    Each call runs under ``set_sync_debug_mode("error")``: a host sync in
+    the prefill raises."""
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops import attention as attn_ops
+
+    real, real_sp, real_paged = llama.prefill, llama._sp_attention, \
+        attn_ops.prefill_attention_paged
+    spans = []
+
+    def spanned(fn):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((start, end))
+            return out
+        return call
+
+    def recorded(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        del spans[:]
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            start.record()
+            out = real(*args, **kwargs)
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host_s = time.perf_counter() - t0
+        logits = out[0] if isinstance(out, tuple) else out
+        records.append({"start": start, "end": end, "host_s": host_s,
+                        "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                        "logits": logits.clone(), "attention": list(spans)})
+        return out
+
+    llama.prefill, llama._sp_attention = recorded, spanned(real_sp)
+    attn_ops.prefill_attention_paged = spanned(real_paged)
+    try:
+        yield
+    finally:
+        llama.prefill, llama._sp_attention = real, real_sp
+        attn_ops.prefill_attention_paged = real_paged
+
+
+def _sp_prompt(vocab: int) -> list:
+    import numpy as np
+
+    return np.random.default_rng(14).integers(4, vocab, SP_PROMPT).tolist()
+
+
+def phase_sp(params: dict) -> dict:
+    """Sequence parallelism on this card: llama-3.1-8b at full width (32
+    layers, bf16, the seeded weights ``params`` shared by every engine),
+    ``max_model_len`` 8192, mixed steps off, served at sp = 1, ring sp = 2
+    and 4, and Ulysses sp = 2 and 4.  Each engine serves one request of
+    ``SP_PROMPT`` tokens through ``add_request`` / ``step``: four prefill
+    chunks of 2048 (cached 0, 2048, 4096, 6144), each recorded by
+    :func:`_prefill_recorder` (device ms, the attention's share, host ms,
+    the transient peak beside the headroom the pool left, the logits; no
+    host sync), and its first token.  The kernels' launches are counted
+    from 0 over the request: 128 of flash prefill's paged entry at sp = 1
+    (4 chunks x 32 layers), 128 x sp of the contiguous entry under
+    Ulysses (one a head group), none of either under the ring (its chunk
+    attention is plain PyTorch).  Returns the rows and the sp = 1 chunk
+    logits; the holds are :func:`phase_sp_holds`'."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.models import llama
+
+    runs = {}
+    for name, sp, mode in SP_CONFIGS:
+        params.pop(llama.LM_HEAD_FP32, None)  # each engine adds its own
+        torch.cuda.empty_cache()
+        cfg = _serving_config(**{"scheduler.max_model_len": SP_MAX_LEN,
+                                 "scheduler.mixed_batch": False,
+                                 "parallel.sequence_parallel": sp,
+                                 "parallel.sequence_parallel_mode": mode})
+        t0 = time.time()
+        eng = LLMEngine(cfg, device="cuda:0", params=params)
+        boot_s = time.time() - t0
+        if eng.mesh.sp != sp or eng.config.scheduler.mixed_enabled:
+            raise AssertionError(f"{name}: mesh {eng.mesh.shape}, mixed "
+                                 f"{eng.config.scheduler.mixed_enabled}")
+        free, total = torch.cuda.mem_get_info()
+        headroom = {"free_gib": free / 2**30, "total_gib": total / 2**30,
+                    "pool_gib": eng._kv_bytes(eng.block_pool.num_blocks) / 2**30,
+                    "held_unused_gib": (torch.cuda.memory_reserved()
+                                        - torch.cuda.memory_allocated()) / 2**30}
+        records, outs = [], []
+        _reset_launches()
+        with _prefill_recorder(records):
+            eng.add_request(name, prompt_token_ids=_sp_prompt(cfg.model.vocab_size),
+                            sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+            while eng.has_unfinished() or eng.has_pending():
+                outs += eng.step()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        chunks = [{"device_ms": r["start"].elapsed_time(r["end"]),
+                   "attention_ms": sum(a.elapsed_time(b) for a, b in r["attention"]),
+                   "host_ms": r["host_s"] * 1e3, "peak_transient_gib": r["peak_gib"]}
+                  for r in records]
+        logits = [r["logits"].float().cpu() for r in records]
+        row = {"phase": f"sp_{name}", "model": cfg.model.name,
+               "layers": cfg.model.num_layers, "sp": sp, "mode": mode,
+               "max_model_len": SP_MAX_LEN, "boot_s": boot_s, **headroom,
+               "kv_tokens": eng.block_pool.num_blocks * eng.block_pool.block_size,
+               "chunks": chunks, "launches": launches,
+               "first_token": [o.new_token_id for o in outs],
+               "sync_checked_prefills": len(records)}
+        emit(row)
+        eng.close()
+        del eng, records
+        free_engines()
+        if len(logits) != 4 or len(outs) != 1:
+            raise AssertionError(f"{name}: {len(logits)} prefill chunks, {len(outs)} outputs")
+        if not all(torch.isfinite(x).all() for x in logits):
+            raise AssertionError(f"{name}: non-finite logits")
+        layers = cfg.model.num_layers
+        want = {"flash_prefill": 4 * layers if sp == 1 else 0,
+                "flash_prefill_contiguous": 4 * layers * sp if mode == "ulysses" and sp > 1
+                else 0}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: flash prefill launches {got}, want {want}")
+        runs[name] = {"row": row, "logits": logits}
+    return runs
+
+
+def _prefill_chunks(params, cfg, ids: list, sp: int, mode: str) -> list:
+    """The four chunks of :func:`phase_sp`'s request through
+    ``llama.prefill`` at ``sp`` / ``mode`` outside an engine: a pool of its
+    own (block 0 the null block), the prefix table zero-padded to the
+    width of ``SP_MAX_LEN``, the lengths on the card; each chunk's logits
+    on the CPU."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    bs, dev = 16, torch.device("cuda")
+    width = SP_MAX_LEN // bs
+    dtype = llama.param_dtype(cfg)
+    shape = (width + 1, bs, cfg.num_kv_heads, cfg.head_dim)
+    kv = [(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype,
+                                                                     device=dev))
+          for _ in range(cfg.num_layers)]
+    out = []
+    for cached in range(0, len(ids), SP_CHUNK):
+        valid = min(SP_CHUNK, len(ids) - cached)
+        tokens = torch.zeros(SP_CHUNK, dtype=torch.int32, device=dev)
+        tokens[:valid] = torch.tensor(ids[cached:cached + valid], dtype=torch.int32)
+        prefix = torch.zeros(width, dtype=torch.int32, device=dev)
+        prefix[:cached // bs] = torch.arange(1, cached // bs + 1, dtype=torch.int32)
+        new = torch.arange(cached // bs + 1, cached // bs + 1 + SP_CHUNK // bs,
+                           dtype=torch.int32, device=dev)
+        lens = torch.tensor([cached, valid], dtype=torch.int32, device=dev)
+        logits = llama.prefill(params, cfg, tokens, lens[:1], prefix, new, lens[1:], kv,
+                               sp=sp, sp_mode=mode)
+        out.append(logits.float().cpu())
+    del kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sp_holds(runs: dict, params: dict) -> dict:
+    """The holds of :func:`phase_sp`'s logits (the first chunk's and the
+    last's, the request's whole path), and the fp32 forwards:
+
+    - Ulysses runs each head group through the kernel sp = 1 runs, over
+      the same keys: its logits within ``scaled_tol`` of sp = 1's largest
+      |logit| (bf16);
+    - the ring's chunk attention rounds its probabilities at other maxima
+      than the kernel's online softmax, and 32 bf16 layers carry that
+      apart as tp's split partials do (PR 18): each chunk's max |ring -
+      sp 1| within ``TP_LOGIT_BOUND`` times max |sp 1 - fp32|, the bf16
+      sp = 1 forward's own rounding against the same weights in fp32 (the
+      four chunks at sp = 1 in fp32, 32 layers: the weights cast on the
+      card, TF32 off);
+    - at ``SP_FP32_LAYERS`` layers in fp32, every chunk's logits at ring
+      sp = 2, 4 and Ulysses sp = 2, 4 within ``SP_FP32_TOL`` of sp = 1's:
+      the same function, the sums in another order."""
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS[MODEL]
+    ids = _sp_prompt(cfg.vocab_size)
+    params.pop(llama.LM_HEAD_FP32, None)
+    fp32 = {k: v for k, v in params.items() if k != "layers"}
+    fp32 = {k: v.float() for k, v in fp32.items()}
+    fp32["layers"] = [{k: v.float() for k, v in layer.items()} for layer in params["layers"]]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.time()
+    want32 = _prefill_chunks(fp32, cfg32, ids, 1, "ring")
+    fp32_s = time.time() - t0
+    del fp32
+    torch.cuda.empty_cache()
+    base = runs["sp1"]["logits"]
+    picks = (0, 3)  # the first chunk (nothing cached) and the last (6144 cached)
+    noise = [(base[c] - want32[c]).abs().max().item() for c in picks]
+    rows = {"phase": "sp_holds", "chunks_held": picks,
+            "fp32_forward_s": fp32_s,
+            "step_max_abs_diff_sp1_vs_fp32": noise,
+            "top1_sp1_equal_fp32": [int(base[c].argmax()) == int(want32[c].argmax())
+                                    for c in picks],
+            "logit_absmax_sp1": [base[c].abs().max().item() for c in picks]}
+    failures = []
+    for name, sp, mode in SP_CONFIGS[1:]:
+        got = runs[name]["logits"]
+        errs = [(got[c] - base[c]).abs().max().item() for c in picks]
+        if mode == "ulysses":
+            limits = [scaled_tol(base[c].abs().max().item(), torch.bfloat16) for c in picks]
+        else:
+            limits = [TP_LOGIT_BOUND * n for n in noise]
+        rows[name] = {"max_abs_diff_vs_sp1": errs, "limit": limits,
+                      "max_abs_diff_vs_fp32": [(got[c] - want32[c]).abs().max().item()
+                                               for c in picks],
+                      "top1_equal_sp1": [int(got[c].argmax()) == int(base[c].argmax())
+                                         for c in picks],
+                      "first_token_equal_sp1": runs[name]["row"]["first_token"]
+                      == runs["sp1"]["row"]["first_token"]}
+        if any(e > lim for e, lim in zip(errs, limits)):
+            failures.append(f"{name}: {errs} > {limits}")
+    # fp32 forwards at SP_FP32_LAYERS layers, every config against sp = 1.
+    small = dataclasses.replace(cfg, num_layers=SP_FP32_LAYERS, dtype="float32")
+    weights = _serving_params(SP_FP32_LAYERS, "float32")
+    t0 = time.time()
+    ref = _prefill_chunks(weights, small, ids, 1, "ring")
+    fp32_rows = {}
+    for name, sp, mode in SP_CONFIGS[1:]:
+        got = _prefill_chunks(weights, small, ids, sp, mode)
+        errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+        fp32_rows[name] = errs
+        if max(errs) > SP_FP32_TOL or not all(torch.isfinite(x).all() for x in got):
+            failures.append(f"fp32 {name}: {errs} > {SP_FP32_TOL}")
+    del weights
+    torch.cuda.empty_cache()
+    rows["fp32_layers"] = SP_FP32_LAYERS
+    rows["fp32_max_abs_diff_vs_sp1"] = fp32_rows
+    rows["fp32_tol"] = SP_FP32_TOL
+    rows["fp32_s"] = time.time() - t0
+    emit(rows)
+    if failures:
+        raise AssertionError("sp logits beyond their holds: " + "; ".join(failures))
+    return rows
+
+
+def phase_dp(params: dict, tp1: dict, tp2_profile: dict) -> dict:
+    """Data parallelism on this card: llama-3.1-8b at full width (the
+    seeded weights ``params``), ``max_model_len`` 4096, mixed steps off (the
+    dp gate turns them off; dp = 1 sets it to be comparable), served at
+    ``(dp, tp, sp)`` = (1,1,1), (2,1,1) and (2,2,2) (ring).  Each engine:
+
+    - 8 greedy requests of phase 4's prompt lengths, all arriving at once,
+      ``DP_NEW_TOKENS`` each (EOS ignored), driven step by step with every
+      asynchronous dispatch under ``set_sync_debug_mode("error")``: the K=8
+      windows must be graph replays and every one sync-checked, no mixed
+      window may run, and the kernels' launches are counted from 0;
+    - the teacher-forced steps of :func:`phase_tp` (dp > 1): against the
+      dense engine's tp = 1 run ``tp1`` on the same weights, dp = 2 within
+      ``scaled_tol`` of its largest |logit| (the same forward), (2,2,2)
+      within ``TP_LOGIT_BOUND`` x |tp 1 - fp32| a step (tp's rule: its
+      positions' partials and the ring round apart);
+    - :func:`phase_profile` at 16 tokens a row: the token step's wall and
+      device busy, printed beside dp = 1's and ``tp2_profile``'s (tp = 2).
+
+    dp = 2's streams must equal dp = 1's (the same forward at the same
+    buckets: all 8 rows decode together), or where they differ the
+    teacher-forced distance above stands for them; (2,2,2)'s agreement is
+    reported."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.models import llama
+
+    rng = np.random.default_rng(15)
+    vocab = tp1["logits"][0].shape[0]
+    prompts = [(0, rng.integers(4, vocab, n).tolist()) for n in PROMPT_LENS]
+    keys = ("windows_dispatched", "mixed_windows_dispatched", "graph_replays")
+    runs = {}
+    for name, dp, tp, sp in DP_CONFIGS:
+        params.pop(llama.LM_HEAD_FP32, None)
+        torch.cuda.empty_cache()
+        cfg = _serving_config(tp=tp, **{"scheduler.max_model_len": DP_MAX_LEN,
+                                        "scheduler.mixed_batch": False,
+                                        "parallel.data_parallel": dp,
+                                        "parallel.sequence_parallel": sp})
+        t0 = time.time()
+        eng = LLMEngine(cfg, device="cuda:0", params=params)
+        boot_s = time.time() - t0
+        before = eng.stats()
+        _reset_launches()
+        try:
+            streams, checked = _drive_arrivals(eng, prompts, True, DP_NEW_TOKENS)
+        finally:
+            for attr in ASYNC_DISPATCHES:
+                if attr in vars(eng):
+                    delattr(eng, attr)
+        launches = launch_counts()
+        after = eng.stats()
+        ran = {k: after[k] - before[k] for k in keys}
+        row = {"phase": f"dp_{name}", "model": cfg.model.name,
+               "layers": cfg.model.num_layers, "mesh": [dp, tp, sp], "boot_s": boot_s,
+               "decode_buckets": sorted({eng._decode_bucket(n)
+                                         for n in range(1, cfg.scheduler.max_num_seqs + 1)}),
+               "kv_tokens": eng.block_pool.num_blocks * eng.block_pool.block_size,
+               **ran, "sync_checked_dispatches": checked, "launches": launches}
+        if dp > 1:
+            logits, _ = _teacher_logits(eng, np.random.default_rng(7), tp1)
+            errs = [(a - b).abs().max().item() for a, b in zip(logits, tp1["logits"])]
+            if tp == 1:
+                limits = [scaled_tol(b.abs().max().item(), torch.bfloat16)
+                          for b in tp1["logits"]]
+            else:
+                limits = [TP_LOGIT_BOUND * (a - b).abs().max().item()
+                          for a, b in zip(tp1["logits"], tp1["fp32_logits"])]
+            row.update({"teacher_max_abs_diff_vs_tp1": errs, "teacher_limit": limits})
+        profile = phase_profile(eng, tokens=16)
+        row.update({k: profile[k] for k in ("wall_ms_per_token_step",
+                                            "device_busy_ms_per_token_step", "idle_share")})
+        runs[name] = {"row": row, "streams": streams}
+        if name != "dp1":
+            base = runs["dp1"]["streams"]
+            row["streams_equal_dp1"] = streams == base
+            row["stream_tokens_agree_dp1"] = sum(
+                x == y for k, v in streams.items() for x, y in zip(v, base[k]))
+        emit(row)
+        eng.close()
+        del eng
+        free_engines()
+        if len(streams) != len(prompts) or any(len(v) != DP_NEW_TOKENS
+                                               for v in streams.values()):
+            raise AssertionError(f"{name}: streams {[len(v) for v in streams.values()]}")
+        if not (ran["windows_dispatched"] and ran["graph_replays"]) or ran[
+                "mixed_windows_dispatched"]:
+            raise AssertionError(f"{name}: windows / replays / mixed windows: {ran}")
+        if checked["_dispatch_window"] != ran["windows_dispatched"]:
+            raise AssertionError(f"{name}: windows not sync-checked: {checked} {ran}")
+        if launches["paged_decode"] <= 0 or (sp == 1 and launches["flash_prefill"] <= 0):
+            raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
+        if dp > 1 and any(e > lim for e, lim in zip(errs, limits)):
+            raise AssertionError(f"{name}: teacher logits {errs} beyond {limits}")
+        if row["decode_buckets"][0] != dp:
+            raise AssertionError(f"{name}: decode buckets {row['decode_buckets']}")
+    emit({"phase": "dp_steps", "card_shared_by_positions": True,
+          **{f"wall_ms_per_token_step_{n}": r["row"]["wall_ms_per_token_step"]
+             for n, r in runs.items()},
+          **{f"device_busy_ms_per_token_step_{n}": r["row"]["device_busy_ms_per_token_step"]
+             for n, r in runs.items()},
+          "wall_ms_per_token_step_tp2": tp2_profile["wall_ms_per_token_step"],
+          "device_busy_ms_per_token_step_tp2": tp2_profile["device_busy_ms_per_token_step"]})
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6385,6 +6858,14 @@ def main() -> int:
     # The group path on this card: a one-rank NCCL group at tp = 2 against
     # the in-process tp = 2 engine above.
     timed("group_one_rank", phase_group_one_rank, tp1, tp2_run)
+    # Data and sequence parallelism, every position on this card: the
+    # seeded weights drawn once and handed to every engine.
+    dpsp_params = timed("dpsp_weights", _serving_params)
+    sp_runs = timed("sp", phase_sp, dpsp_params)
+    timed("sp_holds", phase_sp_holds, sp_runs, dpsp_params)
+    timed("dp", phase_dp, dpsp_params, tp1, profile2)
+    del dpsp_params
+    free_engines()
     w8 = timed("engine_int8_weights", phase_engine, "auto", quantization="int8",
                bf16_weights=dense)
     timed("profile_int8_weights", phase_profile, w8["engine"])
@@ -6444,8 +6925,24 @@ def main() -> int:
                     "w8a16": refs_tp2["w8a16"]["card_launches"]["w8a16"]}
     if min(launches_tp2.values()) <= 0:
         raise AssertionError(f"a kernel of the tp = 2 path never launched: {launches_tp2}")
+    # The contiguous entry runs on Ulysses' path: its launches over the sp
+    # phase's two Ulysses requests (sp = 2 and 4), counted from 0 for each.
+    launches_sp = {n: sp_runs[n]["row"]["launches"]["flash_prefill_contiguous"]
+                   for n in ("ulysses2", "ulysses4")}
     kernels = []
     for name, row in main_rows.items():
+        measured = {"max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+        if name == "flash_prefill_contiguous":
+            kernels.append({"name": name, "route": "cuda", **KERNEL_META[name],
+                            "launches": sum(launches_sp.values()),
+                            "launches_sp": launches_sp, **measured,
+                            "also": [{k: r[k] for k in ("case", "max_abs_err", "kernel_ms",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "library_ms")}
+                                     for r in row["also"]]})
+            continue
         kernels.append({
             "name": name, "route": "cuda", **KERNEL_META[name],
             "launches": launches[name],

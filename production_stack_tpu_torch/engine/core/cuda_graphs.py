@@ -55,6 +55,7 @@ LAUNCH_COUNTERS = (
     (kv_write, "launches"),
     (flash_prefill, "launches"),
     (flash_prefill, "launches_int8"),
+    (flash_prefill, "launches_contiguous"),
     (flash_prefill, "launches_batched"),
     (w8a16, "launches"),
 )

@@ -140,8 +140,22 @@ ranks, stepped in lockstep (the leader's event batches), launch the same
 graphs in the same order.  The tiers move full-head blocks, gathered from
 the positions' pools and scattered back; in a group offload and restore
 move each rank's own heads, and the remote store, whose blocks would span
-the ranks, is refused.  It raises ``NotImplementedError`` at
-construction, by name, for the settings outside it: dp > 1 and sp > 1.
+the ranks, is refused.
+
+Data and sequence parallelism (``parallel.data_parallel``,
+``parallel.sequence_parallel``) run in one process, every position of the
+mesh on the engine's device, after the JAX engine's gates in its order
+(``max_num_seqs`` divisible by dp; mixed steps auto-resolved to off, an
+explicit ``mixed_batch=True`` refused, so mixed windows are off too; at sp
+> 1 no sliding window, buckets and ``max_model_len`` divisible by
+``block_size * sp``).  The dp and sp positions share the device's weight
+trees and pool.  dp changes which decode buckets exist (dp, 2dp, 4dp, ...,
+as in the JAX engine; each dp position holds S/dp contiguous rows, which
+run as one batch through every product, kernel and graph); sp runs every
+prefill's attention over the sp positions' shards, the ring or Ulysses
+(``llama.prefill``), and the decode rows as at sp = 1.  It raises
+``NotImplementedError`` at construction, by name, for the settings outside
+it: dp > 1, sp > 1 and the remote KV store in a multi-process group.
 """
 
 from __future__ import annotations
@@ -233,16 +247,70 @@ def resolve_device(device=None) -> torch.device:
 
 def _unsupported(config: EngineConfig, group=None) -> List[str]:
     """Settings outside the served configuration, by name, each with the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it: in one process every mesh is served; in a
+    multi-process group dp and sp above 1 and the remote KV store are not."""
     par = config.parallel
+    grouped = group is not None and group.world > 1
     checks = [
-        (par.data_parallel > 1, "data_parallel > 1 (ROADMAP item 13c)"),
-        (par.sequence_parallel > 1, "sequence_parallel > 1 (ROADMAP item 13d)"),
-        (group is not None and group.world > 1 and bool(config.cache.remote_kv_url),
+        (grouped and par.data_parallel > 1,
+         "data_parallel > 1 in a multi-process group (dp across cards is a "
+         "ROADMAP question, Queue 1 item 13; the JAX server refuses dp in a "
+         "multi-host group)"),
+        (grouped and par.sequence_parallel > 1,
+         "sequence_parallel > 1 in a multi-process group (ROADMAP item 13d-b: "
+         "the ring over NCCL send/recv, Ulysses over all_to_all_single)"),
+        (grouped and bool(config.cache.remote_kv_url),
          "the remote KV store in a multi-process group (a block's heads "
          "span the ranks' cards; ROADMAP item 13e)"),
     ]
     return [name for bad, name in checks if bad]
+
+
+def _check_mesh_gates(config: EngineConfig) -> None:
+    """The JAX engine's gates on a dp or sp mesh, in its order, after
+    ``validate_tp`` and ``validate_sp_mode``: ``max_num_seqs`` divides by
+    dp; mixed steps (the packed ``[S + T]`` batch, whose two segments would
+    shard differently) auto-resolve to off, and an explicit True raises;
+    the chunk buckets divide into whole blocks when mixed steps are on; at
+    sp > 1 no sliding window, and every prefill bucket and
+    ``max_model_len`` divide by ``block_size * sp`` (the ring shards the
+    chunk and the prefix's block table over sp)."""
+    par, sched = config.parallel, config.scheduler
+    if sched.max_num_seqs % par.data_parallel:
+        raise ValueError(
+            f"max_num_seqs={sched.max_num_seqs} must be "
+            f"divisible by data_parallel={par.data_parallel}"
+        )
+    if par.data_parallel > 1 or par.sequence_parallel > 1:
+        if sched.mixed_batch:
+            raise ValueError(
+                "mixed_batch=True requires data_parallel == "
+                "sequence_parallel == 1 (the packed mixed token batch "
+                "cannot be dp/sp-sharded); drop the flag or the mesh "
+                "axis"
+            )
+        sched.mixed_batch = False
+    _check_chunk_buckets(config)
+    if par.sequence_parallel > 1:
+        if config.model.sliding_window is not None:
+            raise ValueError(
+                "sequence_parallel>1 is not supported with "
+                "sliding_window models (the ring path has no local-"
+                "attention mask); use sp=1"
+            )
+        span = config.cache.block_size * par.sequence_parallel
+        for bucket in sched.prefill_buckets:
+            if bucket % span:
+                raise ValueError(
+                    f"prefill bucket {bucket} not divisible by "
+                    f"block_size*sp={span}"
+                )
+        if sched.max_model_len % span:
+            raise ValueError(
+                f"max_model_len={sched.max_model_len} not "
+                f"divisible by block_size*sp={span} (the cached-prefix "
+                "ring shards the prefix block table over sp)"
+            )
 
 
 def _group_of_process():
@@ -421,7 +489,8 @@ class LLMEngine:
         cfg, par = config.model, config.parallel
         group = _group_of_process()
         # The JAX engine's order: tp and sp-mode validation, then the
-        # dp/sp gates (here refusals), then the mesh.
+        # dp/sp gates, then the mesh; the settings of a multi-process
+        # group that the port does not serve are refused before the gates.
         shardings.validate_tp(cfg, par.tensor_parallel)
         shardings.validate_sp_mode(cfg, par)
         bad = _unsupported(config, group)
@@ -430,7 +499,7 @@ class LLMEngine:
                 "the PyTorch engine does not serve these settings yet: "
                 + ", ".join(bad)
             )
-        _check_chunk_buckets(config)
+        _check_mesh_gates(config)
         self.config = config
         world = int(np.prod(par.mesh_shape))
         if group is not None:
@@ -3211,6 +3280,8 @@ class LLMEngine:
             new_block_ids=self._put(new_block_ids),
             valid_len=lens[1:2],
             kv_caches=self.kv_caches,
+            sp=self.mesh.sp,
+            sp_mode=self.config.parallel.sequence_parallel_mode,
             **plp_kwargs,
             **self._lora_kwargs(lens[2:]),
         )
@@ -3325,9 +3396,11 @@ class LLMEngine:
         return tokens, positions, block_tables, ctx_lens, slot_blocks, slot_offsets
 
     def _decode_bucket(self, n: int) -> int:
-        """Decode batch sizes: the smallest power of two holding ``n``
-        rows, capped at max_num_seqs."""
-        return min(_pow2_bucket(n, 1), self._smax)
+        """Decode batch sizes: the smallest bucket of the (dp, 2dp, 4dp,
+        ...) set holding ``n`` rows, capped at max_num_seqs, as in the JAX
+        engine: each dp position holds S/dp contiguous rows
+        (``shardings.decode_batch_spec``)."""
+        return min(_pow2_bucket(n, max(1, self.config.parallel.data_parallel)), self._smax)
 
     def _run_decode(self, plan: DecodePlan) -> List[StepOutput]:
         seqs = plan.seqs
@@ -3892,7 +3965,7 @@ class LLMEngine:
         power-of-two scan length)."""
         sched = self.config.scheduler
         decode_buckets = 1
-        b = 1
+        b = max(1, self.config.parallel.data_parallel)  # the buckets start at dp
         while b < sched.max_num_seqs:
             b *= 2
             decode_buckets += 1

@@ -60,6 +60,12 @@ group: ``psum`` then all-reduces the local sum over the group and the
 lm_head's logits are all-gathered (``collectives.all_gather``), so every
 rank ends each forward with the same full logits.  Nothing here calls
 ``torch.distributed`` itself.
+
+Data and sequence parallelism (one process, every position on one
+device): a dp mesh changes nothing here (the engine's decode buckets
+start at dp and the rows of a batch never meet); ``prefill`` takes the
+mesh's ``sp`` and ``sp_mode`` and runs its attention over the sp
+positions' shards of the chunk, the ring or Ulysses (:func:`_sp_attention`).
 """
 
 from __future__ import annotations
@@ -74,7 +80,9 @@ from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.kv.quant import shard_side
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
 from production_stack_tpu_torch.engine.ops.kernels.w8a16 import w8a16_matmul
-from production_stack_tpu_torch.engine.parallel.collectives import all_gather, psum
+from production_stack_tpu_torch.engine.parallel.collectives import all_gather, psum, shard
+from production_stack_tpu_torch.engine.parallel.ring_attention import ring_prefill_with_prefix
+from production_stack_tpu_torch.engine.parallel.ulysses import ulysses_prefill_with_prefix
 from production_stack_tpu_torch.engine.parallel.shardings import (
     Parts,
     TPShards,
@@ -564,6 +572,8 @@ def prefill(
     adapter_idx=None,  # this sequence's slot: a host int or a [1] tensor
     prompt_targets=None,  # [T] int: each row's next-token id (echo logprobs)
     prompt_topk: int = 0,  # top-k alternatives a prompt position
+    sp: int = 1,  # the mesh's sequence-parallel size
+    sp_mode: str = "ring",  # its strategy when sp > 1: "ring" or "ulysses"
 ):
     """One sequence's prefill chunk.  Writes the chunk's KV into its new
     blocks and returns the last valid token's logits [V] (fp32).  With
@@ -574,7 +584,18 @@ def prefill(
 
     ``prefix_block_ids`` may be 0-padded like the JAX package's (to the
     block-table width): the kernel reads the prefix through it, the first
-    ``cached_len`` tokens only, and never walks the padding."""
+    ``cached_len`` tokens only, and never walks the padding.
+
+    Under sequence parallelism (``sp`` > 1, the JAX ``prefill`` under an sp
+    mesh) the chunk's rows are the sp positions' contiguous shards: the
+    projections and the MLP run all of them as one product (their rows do
+    not interact), and attention runs over the shards, either the ring
+    (``parallel/ring_attention.py``) or Ulysses (``parallel/ulysses.py``),
+    on the prefix gathered at the block-table width (``gather_prefix_kv``,
+    sharded over sp too).  The chunk's K/V are then written to the pool
+    whole: the pool is not sharded over sp.  T and the table's width must
+    divide by sp (the engine's gates: buckets and ``max_model_len`` by
+    ``block_size * sp``)."""
     T = tokens.shape[0]
     dev = tokens.device
     scale = cfg.head_dim**-0.5
@@ -589,10 +610,14 @@ def prefill(
     ):
         def attend(r, q, k, v, k_pool=k_pool, v_pool=v_pool):
             k_cache, v_cache = shard_side(k_pool, r), shard_side(v_pool, r)
-            out = attn_ops.prefill_attention_paged(
-                q, k, v, k_cache, v_cache, prefix, cached, valid,
-                scale=scale, sliding_window=cfg.sliding_window,
-            )
+            if sp > 1:
+                out = _sp_attention(q, k, v, k_cache, v_cache, prefix, cached, valid,
+                                    cfg, sp, sp_mode)
+            else:
+                out = attn_ops.prefill_attention_paged(
+                    q, k, v, k_cache, v_cache, prefix, cached, valid,
+                    scale=scale, sliding_window=cfg.sliding_window,
+                )
             attn_ops.write_prefill_kv(k_cache, v_cache, k, v, new_block_ids)
             return out
 
@@ -603,6 +628,25 @@ def prefill(
     if prompt_targets is None:
         return logits
     return logits, prompt_logprobs(params, cfg, x, prompt_targets, prompt_topk)
+
+
+def _sp_attention(q, k, v, k_cache, v_cache, prefix, cached, valid,
+                  cfg: ModelConfig, sp: int, sp_mode: str) -> torch.Tensor:
+    """A prefill chunk's attention over the sp positions (one tp
+    position's heads): the prefix gathered at the table's width (int8
+    sides dequantized to k's dtype), q, k, v and the prefix cut into sp
+    contiguous shards, then the ring's or Ulysses' arithmetic over them;
+    the output shards are put back in row order.  The ring has no window
+    (``shardings.validate_sp_mode`` refuses it); Ulysses passes it on."""
+    scale = cfg.head_dim**-0.5
+    k_pre, v_pre = attn_ops.gather_prefix_kv(k_cache, v_cache, prefix, dtype=k.dtype)
+    shards = [shard(t, sp) for t in (q, k, v, k_pre, v_pre)]
+    if sp_mode == "ulysses":
+        outs = ulysses_prefill_with_prefix(*shards, cached, valid, scale=scale,
+                                           sliding_window=cfg.sliding_window)
+    else:
+        outs = ring_prefill_with_prefix(*shards, cached, valid, scale=scale)
+    return torch.cat(outs)
 
 
 def prompt_logprobs(params: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -28,7 +28,11 @@ K/tp, D] (``kv/quant.shard_side``), as the JAX package runs its decode
 kernel per shard under ``shard_map``; the JAX package's prefill goes to its
 dense path under a mesh (a bare ``pallas_call`` cannot be partitioned),
 while the port keeps the flash-prefill kernel per position, which computes
-the same function.
+the same function.  Under sequence parallelism a prefill attends through
+the ring (``parallel/ring_attention.py``, plain PyTorch as the JAX ring is
+plain ``jnp``) or Ulysses (``parallel/ulysses.py``), whose local attention
+is ``prefill_attention`` over ``gather_prefix_kv``'s prefix; decode rows
+under a dp or sp mesh run ``decode_attention`` as at dp = sp = 1.
 """
 
 from __future__ import annotations
@@ -99,15 +103,16 @@ def prefill_attention(
     v_new: torch.Tensor,
     k_prefix: torch.Tensor,  # [C, K, D] gathered cached prefix (may be empty)
     v_prefix: torch.Tensor,
-    cached_len: int,  # valid prefix tokens (<= C)
-    valid_len: int,  # valid new tokens (<= T)
+    cached_len,  # valid prefix tokens (<= C): host int or int32 device tensor
+    valid_len,  # valid new tokens (<= T): host int or int32 device tensor
     *,
     scale: float,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention for one sequence's prefill over an optional cached
-    prefix plus the new tokens: flash-prefill kernel for CUDA tensors, the
-    dense path for CPU tensors."""
+    prefix plus the new tokens: flash prefill's contiguous entry for CUDA
+    tensors, the dense path for CPU tensors.  Ulysses' local attention
+    (``parallel/ulysses.py``) calls it with the lengths on the device."""
     return flash_prefill_attention(
         q, k_new, v_new, k_prefix, v_prefix, cached_len, valid_len,
         scale=scale, sliding_window=sliding_window,

@@ -51,7 +51,8 @@
 // Where the prefix comes from is a template parameter of both bodies (the
 // prefix loader), with three entry points:
 //  * flash_prefill_launch: the prefix gathered contiguous, [C, K, D], and
-//    both lengths host ints;
+//    both lengths host ints or read from device memory when the kernel
+//    starts;
 //  * flash_prefill_paged_launch: the prefix read straight from the paged
 //    KV pool through a block-table row (prefix key j lives at
 //    cache[table[j / bs]][j % bs]), dense in q's dtype or int8 with fp32
@@ -848,17 +849,23 @@ cudaError_t launch_any(int D, int dtype, const void* q, const void* kn, const vo
 // DType code; window < 0 means no sliding window.  Each returns the launch's
 // cudaError_t.
 //
-// The contiguous prefix [C, K, D], lengths as host ints.  k_prefix /
-// v_prefix may be null when cached_len == 0.
+// The contiguous prefix [C, K, D].  The lengths are the host ints
+// cached_len and valid_len, or, where cached_dev / valid_dev are not null,
+// the int32 device values they point to, read when the kernel starts (no
+// host read: Ulysses' local attention runs on lengths the device holds).
+// The prefix walk covers min(cached, C) keys.  k_prefix / v_prefix may be
+// null when C == 0.
 extern "C" int flash_prefill_launch(const void* q, const void* k_new,
                                     const void* v_new, const void* k_prefix,
                                     const void* v_prefix, void* out, int T,
-                                    int H, int K, int D, int cached_len,
-                                    int valid_len, int dtype, float scale,
+                                    int H, int K, int D, int C, int cached_len,
+                                    int valid_len, const int* cached_dev,
+                                    const int* valid_dev, int dtype, float scale,
                                     int window, void* stream) {
+  if (C < 0) return cudaErrorInvalidValue;
   const PrefixContig pre{k_prefix, v_prefix};
   return launch_any(D, dtype, q, k_new, v_new, pre, out, T, H, K, cached_len,
-                    valid_len, nullptr, nullptr, cached_len, 0, scale, window, stream);
+                    valid_len, cached_dev, valid_dev, C, 0, scale, window, stream);
 }
 
 // The prefix read from the paged pool [N, bs, K, D] through table[P]

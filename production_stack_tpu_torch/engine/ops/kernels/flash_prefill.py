@@ -8,7 +8,9 @@ that.  It has three entries, which differ only in where the cached prefix
 comes from and in how many sequences one launch takes:
 
 - ``flash_prefill_attention``: a prefix gathered contiguous ``[C, K, D]``,
-  ``cached_len`` and ``valid_len`` host ints;
+  ``cached_len`` and ``valid_len`` host ints or int32 device tensors of one
+  value, which the kernel reads when it starts (Ulysses' local attention,
+  ``parallel/ulysses.py``, over its head group's gathered prefix);
 - ``flash_prefill_attention_paged``: the prefix read straight from the
   paged KV pool (dense, or int8 ``(data, scale)`` sides) through a
   block-table row, ``cached_len`` and ``valid_len`` int32 device tensors
@@ -41,11 +43,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the counts were last reset to 0 (plain ints; a run
 # reads them to show that its prefills went through the kernel):
-# ``launches`` over a dense prefix (the contiguous or the paged entry),
-# ``launches_int8`` over an int8 pool, ``launches_batched`` of the batched
-# entry.
+# ``launches`` of the paged entry over a dense pool, ``launches_int8`` over
+# an int8 pool, ``launches_contiguous`` of the contiguous entry,
+# ``launches_batched`` of the batched entry.
 launches = 0
 launches_int8 = 0
+launches_contiguous = 0
 launches_batched = 0
 
 
@@ -55,8 +58,8 @@ def flash_prefill_attention_plain(
     v_new: torch.Tensor,
     k_prefix: torch.Tensor,  # [C, K, D] gathered cached prefix (C may be 0)
     v_prefix: torch.Tensor,
-    cached_len: int,  # valid prefix tokens (<= C)
-    valid_len: int,  # valid new tokens (<= T)
+    cached_len,  # valid prefix tokens (<= C): a host int or a tensor
+    valid_len,  # valid new tokens (<= T): a host int or a tensor
     *,
     scale: float,
     sliding_window: Optional[int] = None,
@@ -67,7 +70,12 @@ def flash_prefill_attention_plain(
     at j (valid while j < cached_len), new key j at ``cached_len + j``
     (valid while j < valid_len).  Scores and softmax in fp32, the value
     product accumulated in fp32.  Rows with no valid key give zeros, as
-    the kernels do."""
+    the kernels do.  A length given as a tensor enters the masks as one (no
+    host read)."""
+    if isinstance(cached_len, torch.Tensor):
+        cached_len = cached_len.reshape(())
+    if isinstance(valid_len, torch.Tensor):
+        valid_len = valid_len.reshape(())
     T, H, D = q.shape
     C = k_prefix.shape[0]
     K = k_new.shape[1]
@@ -140,7 +148,8 @@ def flash_prefill_attention_paged_plain(
 
 # Each C entry's name and argument types, by entry.
 _ENTRIES = {
-    "contiguous": ("flash_prefill_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7),
+    "contiguous": ("flash_prefill_launch", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int]),
     "paged": ("flash_prefill_paged_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
               + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6),
     "batched": ("flash_prefill_batched_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6),
@@ -157,10 +166,21 @@ def _launcher(entry: str = "contiguous"):
     return fn
 
 
+def _device_length(x) -> bool:
+    """True for a length given as a device tensor (checked here), False for
+    a host int; anything else raises."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.int32 or x.numel() != 1:
+            raise TypeError("a length tensor must be int32 with one value")
+        return True
+    if not isinstance(x, int) or isinstance(x, bool):
+        raise TypeError(f"a length must be a host int or an int32 tensor, "
+                        f"got {type(x).__name__}")
+    return False
+
+
 def _check(q, k_new, v_new, k_prefix, v_prefix, cached_len, valid_len) -> None:
-    for name, x in (("cached_len", cached_len), ("valid_len", valid_len)):
-        if not isinstance(x, int) or isinstance(x, bool):
-            raise TypeError(f"{name} must be a host int, got {type(x).__name__}")
+    on_device = [_device_length(x) for x in (cached_len, valid_len)]
     if q.dim() != 3 or k_new.dim() != 3 or k_prefix.dim() != 3:
         raise ValueError("want q [T, H, D], k/v [T, K, D], prefix [C, K, D]")
     T, H, D = q.shape
@@ -173,13 +193,19 @@ def _check(q, k_new, v_new, k_prefix, v_prefix, cached_len, valid_len) -> None:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if H % K or H // K > MAX_Q_PER_KV:
         raise ValueError(f"H={H} must be a multiple of K={K}, at most {MAX_Q_PER_KV}x")
-    if not 0 <= cached_len <= k_prefix.shape[0] or not 0 <= valid_len <= T:
+    # A host length is checked here; a device one is clamped by the kernel
+    # (valid to [0, T], the prefix walk to C keys).
+    if ((not on_device[0] and not 0 <= cached_len <= k_prefix.shape[0])
+            or (not on_device[1] and not 0 <= valid_len <= T)):
         raise ValueError(
             f"cached_len={cached_len} (C={k_prefix.shape[0]}), "
             f"valid_len={valid_len} (T={T}) out of range"
         )
     tensors = (("q", q), ("k_new", k_new), ("v_new", v_new),
                ("k_prefix", k_prefix), ("v_prefix", v_prefix))
+    for name, x in (("cached_len", cached_len), ("valid_len", valid_len)):
+        if isinstance(x, torch.Tensor) and x.device != q.device:
+            raise ValueError(f"{name} on {x.device}, q on {q.device}")
     for name, t in tensors:
         if t.dtype != q.dtype or q.dtype not in DTYPE_CODES:
             raise TypeError(f"{name} is {t.dtype}; want {q.dtype} in {list(DTYPE_CODES)}")
@@ -197,16 +223,19 @@ def flash_prefill_attention(
     v_new: torch.Tensor,
     k_prefix: torch.Tensor,
     v_prefix: torch.Tensor,
-    cached_len: int,
-    valid_len: int,
+    cached_len,
+    valid_len,
     *,
     scale: float,
     sliding_window: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal prefill attention with a cached prefix: ``[T, H, D]`` in q's
-    dtype.  CUDA tensors run the hand-written kernel on the current stream
-    (no sync); CPU tensors run :func:`flash_prefill_attention_plain`."""
-    global launches
+    dtype.  ``cached_len`` and ``valid_len`` are host ints, or int32
+    tensors of one value on q's device, which the kernel reads when it
+    starts (no host read).  CUDA tensors run the hand-written kernel on
+    the current stream (no sync); CPU tensors run
+    :func:`flash_prefill_attention_plain`."""
+    global launches_contiguous
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(
             q, k_new, v_new, k_prefix, v_prefix, cached_len, valid_len,
@@ -220,18 +249,23 @@ def flash_prefill_attention(
     out = torch.empty_like(q)
     if T == 0:
         return out  # nothing to launch
+
+    def host(x):  # (host int, device pointer) of one length
+        return (0, x.data_ptr()) if isinstance(x, torch.Tensor) else (x, None)
+
+    (cached_h, cached_p), (valid_h, valid_p) = host(cached_len), host(valid_len)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         k_prefix.data_ptr() if k_prefix.numel() else None,
         v_prefix.data_ptr() if v_prefix.numel() else None,
-        out.data_ptr(), T, H, K, D, cached_len, valid_len,
-        DTYPE_CODES[q.dtype], float(scale),
+        out.data_ptr(), T, H, K, D, k_prefix.shape[0], cached_h, valid_h,
+        cached_p, valid_p, DTYPE_CODES[q.dtype], float(scale),
         -1 if sliding_window is None else int(sliding_window), stream,
     )
     if err:
         raise RuntimeError(f"flash_prefill kernel launch failed: cudaError {err}")
-    launches += 1
+    launches_contiguous += 1
     return out
 
 

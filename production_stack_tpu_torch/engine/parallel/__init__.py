@@ -8,7 +8,12 @@ lm_head's ``all_gather``).  One process runs every tp position on one
 device, or a multi-process group (``distributed.py``: the JAX package's
 environment contract and lockstep plane over ``torch.distributed``) runs
 tp across cards, one process a card, with NCCL's all-reduce inside each
-rank's CUDA graphs.  The JAX ``compat.py`` (its ``shard_map`` import
+rank's CUDA graphs.  dp and sp run in one process, every position on the
+engine's device: the decode batch's dp slices share one batch, and a
+prefill's attention runs over its sp shards by the ring
+(``ring_attention.py``) or Ulysses (``ulysses.py``), whose ``ppermute``
+and ``all_to_all`` (``collectives.py``) work on the list of the
+positions' shards.  The JAX ``compat.py`` (its ``shard_map`` import
 shim) has no counterpart: nothing here is traced.
 """
 

@@ -1,4 +1,5 @@
-"""The reductions over the tp axis.
+"""The collectives of the mesh's axes: the reductions over tp, and the
+sp axis's ``ppermute`` and ``all_to_all``.
 
 The JAX package gets its ``psum`` from GSPMD: a projection whose
 contracting axis is sharded over tp (o_proj, down_proj, a MoE layer's
@@ -10,12 +11,20 @@ sums are then all-reduced over the group: NCCL on the card, gloo on the
 CPU.  The vocab-parallel lm_head's logits are gathered the same way.
 Both collectives are issued on the current stream, so a CUDA-graph
 capture records them, and neither makes a host sync.
+
+The sp axis (``ring_attention.py``, ``ulysses.py``) runs in one process:
+every sp position sits on the engine's one device, and its shard is an
+entry of a list in sp order.  :func:`ppermute` and :func:`all_to_all` are
+the JAX ``lax`` collectives over such a list: a rotation of the list, and
+the exchange of sub-blocks that makes each position's tensor anew.  In a
+multi-process group sp > 1 is refused at boot (ROADMAP item 13d-b, which
+serves it over NCCL), so neither works across processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -77,3 +86,41 @@ def all_gather(part: torch.Tensor, group: Optional[TPGroup], widths: Sequence[in
     outs = [torch.empty_like(part) for _ in widths]
     dist.all_gather(outs, part, group=group.group)
     return torch.cat([o[..., :n] for o, n in zip(outs, widths)], dim=-1)
+
+
+def shard(x: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """``x`` cut into ``n`` equal contiguous row blocks along axis 0, in
+    position order: the shards of a ``P(SP, ...)`` spec (views, no copy)."""
+    if x.shape[0] % n:
+        raise ValueError(f"{x.shape[0]} rows do not split over {n} positions")
+    return list(torch.tensor_split(x, n, dim=0))
+
+
+def ppermute(xs: Sequence[torch.Tensor],
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``lax.ppermute`` over the positions of one process: position ``dst``
+    receives the tensor of ``src`` for each ``(src, dst)`` of ``perm``, and a
+    position no pair names receives zeros, as in JAX.  On one device
+    nothing moves: the list is reordered, the tensors are shared.  No
+    multi-process group reaches it: sp > 1 is refused there at boot."""
+    out: List[Optional[torch.Tensor]] = [None] * len(xs)
+    for src, dst in perm:
+        out[dst] = xs[src]
+    return [torch.zeros_like(xs[i]) if o is None else o for i, o in enumerate(out)]
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_axis: int,
+               concat_axis: int) -> List[torch.Tensor]:
+    """``lax.all_to_all(..., tiled=True)`` over the positions of one
+    process: each position's tensor is split into ``len(xs)`` equal blocks
+    along ``split_axis``; position ``j`` receives block ``j`` of every
+    position, concatenated in position order along ``concat_axis``.  Each
+    result is a new contiguous tensor.  No multi-process group reaches it:
+    sp > 1 is refused there at boot."""
+    n = len(xs)
+    if any(x.shape[split_axis] % n for x in xs):
+        raise ValueError(f"axis {split_axis} of {tuple(xs[0].shape)} does not split "
+                         f"over {n} positions")
+    blocks = [torch.tensor_split(x, n, dim=split_axis) for x in xs]
+    return [torch.cat([b[j] for b in blocks], dim=concat_axis).contiguous()
+            for j in range(n)]

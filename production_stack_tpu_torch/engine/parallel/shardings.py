@@ -14,6 +14,7 @@ Megatron-style:
   lm_head     [h, V]         -> shard V over tp (logits concatenated)
   KV cache    [N, bs, K, D]  -> shard K (kv heads) over tp
   decode batch [S, ...]      -> shard S over dp
+  prefill tokens [T, ...]    -> shard T over sp (ring / Ulysses attention)
 
 Where the JAX package places a global array with ``jax.device_put``,
 :func:`shard_params` slices the tree into one tree per tp position this
@@ -183,7 +184,13 @@ def kv_cache_shardings(cfg: ModelConfig, mesh: Mesh) -> List[Tuple]:
 
 
 def decode_batch_spec() -> Spec:
-    return (DP,)  # shard sequences over the data-parallel axis (dp: 13c)
+    """The decode batch ``[S, ...]`` sharded over dp in contiguous row
+    slices: dp position ``i`` holds rows ``i * S/dp .. (i+1) * S/dp - 1``
+    (the decode buckets start at dp, so S divides).  In one process every
+    dp position sits on the engine's device and shares its weights and
+    pool; the rows of a slice interact with no other row, so the slices
+    run as one batch through each product and kernel."""
+    return (DP,)
 
 
 class TPShards(list):

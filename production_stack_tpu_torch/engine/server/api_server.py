@@ -81,8 +81,13 @@ and ``/ready`` fail when a member goes silent past
 ``--slice-member-timeout-s``, and a follower's drain relay drains the
 whole group through the leader.
 
-Not ported yet: ``--data-parallel`` and ``--sequence-parallel`` above 1
-(the flags are here and boot-refuse by name).
+``--data-parallel N`` and ``--sequence-parallel N`` (with
+``--sequence-parallel-mode ring`` or ``ulysses``) are served in one
+process, every position of the mesh on the engine's device: dp shards the
+decode batch (its buckets start at N), sp runs each prompt's attention
+over N sequence shards, and mixed steps go off, as in the JAX engine.  In
+a multi-process group ``--sequence-parallel`` > 1 exits by name (ROADMAP
+item 13d-b), next to the ``--data-parallel`` exit.
 """
 
 from __future__ import annotations
@@ -1604,7 +1609,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--device", default="cuda",
         help="torch device the engine runs on (default cuda; cpu on purpose "
-        "only); it holds every tp position",
+        "only); it holds every position of the mesh",
     )
     parser.add_argument("--max-num-seqs", type=int, default=8)
     parser.add_argument("--max-model-len", type=int, default=2048)
@@ -1679,8 +1684,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="weight-only quantization of the projection matmuls "
         "(halves decode's HBM weight traffic)",
     )
-    # Mesh axes (config.ParallelConfig): tp is served, every tp position in
-    # this process on the engine's device; dp and sp boot-refuse by name.
+    # Mesh axes (config.ParallelConfig): every position of a single
+    # process's mesh on the engine's device; in a group tp spans the ranks
+    # and dp or sp above 1 exits (_join_group).
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--tensor-parallel", type=int, default=1)
     parser.add_argument("--sequence-parallel", type=int, default=1)
@@ -2153,7 +2159,7 @@ def _run_follower(config, denv, args) -> None:
 def _join_group(args, config):
     """The multi-process bootstrap of the JAX server: when the
     environment declares a group, its rules first (``--data-parallel`` > 1
-    exits; the async KV transfer plane and the encode lane, left on auto,
+    exits, and so does ``--sequence-parallel`` > 1, ROADMAP item 13d-b; the async KV transfer plane and the encode lane, left on auto,
     go off: both are thread-timing or leader-only work that would desync
     the ranks), then the group formed on ``--device``.  Returns the
     topology, or None for a single process."""
@@ -2170,6 +2176,14 @@ def _join_group(args, config):
             "--data-parallel > 1 is not supported inside a multi-host "
             "slice group; scale replicas with the chart's replicaCount "
             "and use --tensor-parallel/--sequence-parallel across hosts"
+        )
+    if args.sequence_parallel > 1:
+        # The ring and Ulysses run over one process's positions; across
+        # processes they need NCCL send/recv and all_to_all_single.
+        raise SystemExit(
+            "--sequence-parallel > 1 is not served inside a multi-process "
+            "group yet (ROADMAP item 13d-b: sp across cards); run sp in one "
+            "process, or tp across the group"
         )
     if config.cache.remote_prefetch is None:
         logger.info("multi-process group: disabling the async KV transfer "

@@ -309,10 +309,10 @@ def test_flash_prefill_kernel_matches_plain(cuda_device, dtype, tol, C, cached, 
         torch.randn(shape, generator=gen, device=cuda_device).to(dtype)
         for shape in ((T, H, D), (T, K, D), (T, K, D), (C, K, D), (C, K, D))
     ]
-    before = tfp.launches
+    before = tfp.launches_contiguous
     got = tfp.flash_prefill_attention(*args, cached, valid, scale=D**-0.5,
                                       sliding_window=window)
-    assert tfp.launches == before + 1
+    assert tfp.launches_contiguous == before + 1
     want = tfp.flash_prefill_attention_plain(*args, cached, valid, scale=D**-0.5,
                                              sliding_window=window)
     assert (got.float() - want.float()).abs().max().item() <= tol

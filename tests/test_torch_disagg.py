@@ -32,6 +32,7 @@ from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.kvserver import server as tserver
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=2, prefill_buckets=(16, 32, 64), max_model_len=128)
 BS = 4

@@ -38,6 +38,7 @@ from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.server.api_server import build_engine_app
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 from production_stack_tpu_torch.kvserver import server as tserver
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=2, prefill_buckets=(16, 32, 64), max_model_len=128)
 PROMPT = "the quick brown fox jumps over the lazy dog " * 2

@@ -30,6 +30,7 @@ from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.parallel import distributed as tdist
 from production_stack_tpu_torch.engine.server import api_server as port_server
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PACKAGES = {"jax": jdist, "port": tdist}
 

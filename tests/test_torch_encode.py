@@ -22,6 +22,7 @@ from production_stack_tpu.engine.models import llama as jllama
 from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # bf16 weights and activations: the two frameworks round the GEMM outputs

@@ -22,6 +22,7 @@ from production_stack_tpu.engine.ops import attention as ja
 from production_stack_tpu.engine.ops.pallas.flash_prefill import flash_prefill_attention
 from production_stack_tpu_torch.engine.ops import attention as ta
 from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # bf16 inputs: the plain version rounds the probabilities to bf16 before

@@ -37,6 +37,7 @@ from production_stack_tpu_torch.engine.server.async_engine import (
     DeadlineExceeded,
 )
 from production_stack_tpu_torch.engine.server.encode_batcher import EncodeBatcher
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # Batched and serial vectors: the same forward over other padding (T and B
 # buckets), so fp32 sums in another order.

@@ -26,6 +26,7 @@ from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TEXTS = ["an embedded document", "another, somewhat longer document to embed", "q"]

@@ -23,6 +23,7 @@ from production_stack_tpu_torch.engine.core.engine import (
 )
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(
     max_num_seqs=4,
@@ -205,13 +206,13 @@ def test_torch_engine_raises_outside_the_slice():
     layer = LLMEngine(cfg, device="cpu").params["layers"][0]
     assert tuple(layer["experts_gate"].shape) == (4, 64, 64) and "gate_proj" not in layer
     cfg = torch_config()
-    cfg.parallel.data_parallel = 2  # dp: not yet, refused by name
-    with pytest.raises(NotImplementedError, match="data_parallel > 1"):
-        LLMEngine(cfg, device="cpu")
+    cfg.parallel.data_parallel = 2  # dp in one process: served
+    assert LLMEngine(cfg, device="cpu").mesh.dp == 2
     cfg = torch_config()
-    cfg.parallel.sequence_parallel = 2  # sp: not yet, refused by name
-    with pytest.raises(NotImplementedError, match="sequence_parallel > 1"):
-        LLMEngine(cfg, device="cpu")
+    cfg.parallel.sequence_parallel = 2  # sp in one process: served
+    cfg.scheduler.prefill_buckets = tuple(b for b in cfg.scheduler.prefill_buckets
+                                          if b % (2 * cfg.cache.block_size) == 0)
+    assert LLMEngine(cfg, device="cpu").mesh.sp == 2
     cfg = torch_config()
     cfg.cache.disagg_role = "encode"  # the encode lane's pool label: served
     cfg.scheduler.encode_lane = True

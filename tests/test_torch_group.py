@@ -47,6 +47,7 @@ from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.parallel import distributed as tdist
 from production_stack_tpu_torch.engine.server import api_server as port_server
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_group_worker.py")

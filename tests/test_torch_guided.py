@@ -36,6 +36,7 @@ from production_stack_tpu_torch.engine import guided_schema as tschema
 from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEngine
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHEMA = {
     "type": "object",

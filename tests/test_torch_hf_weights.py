@@ -33,6 +33,7 @@ from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEn
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models import weights as tweights
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # The HF twins of the port's model configs (tiny-llama's widths).
 FAMILIES = {

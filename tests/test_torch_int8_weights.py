@@ -32,6 +32,7 @@ from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.ops.kernels import w8a16
 from tests.test_torch_prompt_logprobs import assert_same_top
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # bf16 logits of the port and the JAX package part where the two round
 # bf16 activations at other places (the attention's and norms' internal

@@ -32,6 +32,7 @@ from production_stack_tpu_torch.kvserver import protocol as tproto
 from production_stack_tpu_torch.kvserver import server as tserver
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient as PortClient
 from torch_kv_store import kv_server
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (3, 4, 2, 8)  # blocks, block size, KV heads, head_dim

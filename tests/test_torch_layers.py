@@ -7,6 +7,7 @@ import torch
 
 from production_stack_tpu.engine.ops import layers as jl
 from production_stack_tpu_torch.engine.ops import layers as tl
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LLAMA31_SCALING = {
     "rope_type": "llama3",

@@ -35,6 +35,7 @@ from production_stack_tpu_torch.engine.server import api_server
 from production_stack_tpu_torch.engine.server.api_server import build_engine_app
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 from production_stack_tpu_torch.utils.net import parse_deadline
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def tiny(**sched) -> AsyncEngine:

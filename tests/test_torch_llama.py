@@ -20,6 +20,7 @@ from production_stack_tpu.engine.models import llama as jllama
 from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LLAMA31_SWITCHES = dict(
     name="tiny-llama-3.1",

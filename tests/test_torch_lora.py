@@ -38,6 +38,7 @@ from production_stack_tpu_torch.engine.models.weights import (
     lora_params_from_numpy,
     params_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64), max_model_len=128,
              prefill_chunk_buckets=(16,))

@@ -33,6 +33,7 @@ from production_stack_tpu_torch.engine.core.sequence import (
     SequenceStatus,
 )
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64, 128),
              prefill_chunk_buckets=(16,), max_model_len=256, decode_window=8)

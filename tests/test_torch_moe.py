@@ -51,6 +51,7 @@ from production_stack_tpu_torch.engine.server.api_server import build_engine_app
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 from tests.test_torch_llama import _caches, _sides
 from tests.test_torch_prompt_logprobs import assert_entries_equal
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MOE = dict(num_experts=4, num_experts_per_tok=2, intermediate_size=64)
 ROUTINGS = [(4, 1), (4, 2), (8, 1), (8, 2)]  # (experts, top-k)

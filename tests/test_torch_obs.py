@@ -47,6 +47,7 @@ from production_stack_tpu_torch.obs.compile_tracker import (
     executable_key,
     key_signature,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TRACE = pytest.mark.parametrize("trace", [jax_trace, port_trace], ids=["jax", "port"])
 RECORDER = pytest.mark.parametrize("fr", [jax_recorder, port_recorder], ids=["jax", "port"])

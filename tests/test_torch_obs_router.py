@@ -22,6 +22,7 @@ from production_stack_tpu.router.services.request_service.request import (
     REQUEST_STATS_MONITOR,
 )
 from production_stack_tpu_torch.engine.server.api_server import build_engine_app
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def url_of(client: TestClient) -> str:

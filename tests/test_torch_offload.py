@@ -32,6 +32,7 @@ from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEn
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.kv import quant as kv_quant
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64), max_model_len=160)
 K1 = dict(multi_step_window=False, pipeline_decode=False)

@@ -30,6 +30,7 @@ from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.ops import attention as ta
 from production_stack_tpu_torch.engine.ops.kernels import flash_prefill as tfp
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

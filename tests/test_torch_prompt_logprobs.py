@@ -31,6 +31,7 @@ from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES, LLMEn
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models import llama as tllama
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 

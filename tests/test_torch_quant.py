@@ -24,6 +24,7 @@ from production_stack_tpu_torch.engine.kv import quant as tquant
 from production_stack_tpu_torch.engine.ops import attention as ta
 from production_stack_tpu_torch.engine.ops.kernels import kv_write as tkw
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 

@@ -21,6 +21,7 @@ from production_stack_tpu.router.services.request_service import request as rout
 from production_stack_tpu.router.services.request_service.request import (
     ENGINE_STATS_SCRAPER,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def url_of(client: TestClient) -> str:

@@ -14,6 +14,7 @@ import torch
 
 from production_stack_tpu.engine import sampling as js
 from production_stack_tpu_torch.engine import sampling as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def logits_case(seed=0, S=4, V=300):

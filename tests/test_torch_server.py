@@ -19,6 +19,7 @@ from production_stack_tpu_torch.engine.server.api_server import (
     config_from_args,
 )
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64), max_model_len=128)
 

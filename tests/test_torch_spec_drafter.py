@@ -35,6 +35,7 @@ from test_torch_speculation import (
     run_both,
     torch_config,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SELF_DRAFT = "tiny-llama-fp32"
 ONE_LAYER = "debug-1l-fp32"

@@ -33,6 +33,7 @@ from production_stack_tpu_torch.engine.core.engine import (
 )
 from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=2, prefill_buckets=(16, 32, 64), max_model_len=256)
 K = 8

@@ -22,6 +22,7 @@ from production_stack_tpu.engine.ops.pallas.paged_attention import (
     paged_decode_attention_pallas,
 )
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention as tpa
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 INT8_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -30,6 +30,7 @@ from production_stack_tpu_torch.engine.core.engine import SLICE_OVERRIDES
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.server.api_server import build_engine_app
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SCHED = dict(max_num_seqs=4, prefill_buckets=(64, 128, 256), max_model_len=512)
 MODEL = "tiny-llama"

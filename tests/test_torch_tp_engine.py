@@ -45,6 +45,7 @@ from production_stack_tpu_torch.engine.models.weights import params_from_numpy
 from production_stack_tpu_torch.engine.server import api_server as port_server
 from production_stack_tpu_torch.engine.server.async_engine import AsyncEngine
 from production_stack_tpu_torch.kvserver import server as tserver
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 requires_8_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual CPU mesh"

@@ -37,6 +37,7 @@ from production_stack_tpu_torch.engine.models.weights import (
 )
 from production_stack_tpu_torch.engine.parallel import shardings as tshard
 from production_stack_tpu_torch.engine.parallel.mesh import build_mesh as torch_mesh
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 requires_8_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual CPU mesh"

@@ -29,6 +29,7 @@ from production_stack_tpu_torch.engine.parallel import distributed as tdist
 from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
 from production_stack_tpu_torch.engine.parallel import shardings as tshard
 from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 requires_8_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs the 8-device virtual CPU mesh"
@@ -228,10 +229,14 @@ def test_build_mesh_shapes_and_refusals():
         build_mesh(tcfg.ParallelConfig(tensor_parallel=4), ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="13b"):
         build_mesh(par, ["cuda:0", "cuda:1"])
-    # dp and sp rows each keep their tp positions on one device.
+    # dp and sp positions on one device with their tp positions; dp rows
+    # on different devices raise too (tests/test_torch_dp_sp_gates.py).
     dp = build_mesh(tcfg.ParallelConfig(data_parallel=2, tensor_parallel=2),
-                    ["cuda:0", "cuda:0", "cuda:1", "cuda:1"])
+                    ["cuda:0"] * 4)
     assert dp.shape == {"dp": 2, "tp": 2, "sp": 1}
+    with pytest.raises(NotImplementedError, match="dp positions on different devices"):
+        build_mesh(tcfg.ParallelConfig(data_parallel=2, tensor_parallel=2),
+                   ["cuda:0", "cuda:0", "cuda:1", "cuda:1"])
 
 
 @pytest.mark.parametrize("env", [

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from production_stack_tpu_torch.engine.ops.kernels import w8a16
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 BK, BN = w8a16.WIDE_BK, w8a16.WIDE_BN
 
