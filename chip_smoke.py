@@ -308,10 +308,13 @@ non-zero (no phase is caught and passed over):
    = 1's, and ``phase_profile``'s token step beside dp = 1's and tp = 2's.
 
 ``python3 chip_smoke.py --group`` (a four-card machine; not part of the
-default run) drives tp across cards, one process a card, through
+default run) drives tp and sp across cards, one process a card, through
 ``main_group``: llama-3.1-8b at tp = 1, 2 and 4, mixtral-8x7b at 16 layers
-(tp = 1 and 4) and at its full 32 (tp = 4 and 2), and the group's
-lifecycle through the real ``api_server`` processes.
+(tp = 1 and 4) and at its full 32 (tp = 4 and 2), the group's lifecycle
+through the real ``api_server`` processes, and phase 14's request at sp =
+1 on one card, then Ulysses and the ring at sp = 2 and 4 and tp 2 x sp 2
+under Ulysses, one sp position a card (``main_group_sp``; ``--group
+--sp`` runs these alone).
 
 The line before the last holds every kernel's numbers; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2495,7 +2498,8 @@ def _teacher_logits(eng, rng, baseline: dict = None) -> tuple:
         prefix = ids[:0] if sp == 1 else t([0] * eng._bmax)
         logits = [llama.prefill(eng.params, cfg, prompt, 0, prefix, ids[:-1], 512,
                                 eng.kv_caches, sp=sp,
-                                sp_mode=eng.config.parallel.sequence_parallel_mode)]
+                                sp_mode=eng.config.parallel.sequence_parallel_mode,
+                                sp_group=eng.mesh.sp_group)]
         tokens = list(baseline["teacher_tokens"]) if baseline else [int(logits[0].argmax())]
         for i, pos in enumerate(range(512, 516)):
             logits.append(llama.decode(eng.params, cfg, t([tokens[i]]), t([pos]), ids[None],
@@ -2544,14 +2548,7 @@ def fp32_teacher_logits(tokens: list, seed: int = 0, model: str = MODEL,
     else:
         params = load_params(cfg, None, seed=seed, device=torch.device("cuda"))
 
-    def to_fp32(tree):
-        for key, value in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
-            if isinstance(value, torch.Tensor):
-                tree[key] = value.float()
-            else:
-                to_fp32(value)
-
-    to_fp32(params)
+    _to_fp32(params)
     cfg = dataclasses.replace(cfg, dtype="float32")
     rng = np.random.default_rng(7)  # phase_tp's prompt
     prompt = torch.tensor(rng.integers(4, cfg.vocab_size, 512), dtype=torch.int32,
@@ -5999,14 +5996,21 @@ def group_rank_main(spec_path: str, rank: int) -> int:
     runs, like every rank, :func:`phase_tp` against the case's tp = 1
     baseline (saved by the tp = 1 case), then the case's profiles; rank 0
     saves its result (and, for a baseline case, its logits and streams,
-    then the fp32 forward's logits)."""
+    then the fp32 forward's logits).  A spec with ``"sp"`` is an sp case,
+    formed at its sp and run by :func:`sp_group_rank`."""
     from production_stack_tpu_torch.engine.core.engine import LLMEngine
     from production_stack_tpu_torch.engine.parallel import distributed
 
     with open(spec_path) as f:
         spec = json.load(f)
-    denv = distributed.maybe_initialize(device="cuda")
+    denv = distributed.maybe_initialize(device="cuda", sequence_parallel=spec.get("sp", 1))
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    if "sp" in spec:  # a --group sp case
+        try:
+            return sp_group_rank(spec, rank)
+        finally:
+            if denv is not None:
+                distributed.shutdown()
     cfg = _serving_config(spec["model"], spec["tp"], spec["layers"])
     baseline = (torch.load(spec["baseline"], weights_only=False)
                 if spec.get("baseline") else None)
@@ -6091,23 +6095,32 @@ def _run_group_case(name: str, work: str, *, model: str, tp: int, world: int,
     path = os.path.join(work, f"{name}.spec.json")
     with open(path, "w") as f:
         json.dump(spec, f)
-    coordinator = f"127.0.0.1:{_free_port()}"
     t0 = time.time()
-    procs = []
-    for rank in range(world):
-        with open(os.path.join(work, f"{name}.rank{rank}.log"), "w") as log:
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--group-rank", path, str(rank)],
-                env=_group_env(rank, world, coordinator), stdout=log, stderr=subprocess.STDOUT))
-    rcs = _wait_group(procs, GROUP_CASE_TIMEOUT_S, name)
-    if rcs != [0] * world:
-        raise AssertionError(f"group {name} exited {rcs} (logs in {work})")
+    _spawn_ranks(work, name, path, world, GROUP_CASE_TIMEOUT_S)
     with open(spec["out"]) as f:
         result = json.load(f)
     result["wall_s"] = time.time() - t0
     emit({"phase": f"group_{name}", **{k: v for k, v in result.items()
                                          if k not in ("profile", "mixed_profile")}})
     return result
+
+
+def _spawn_ranks(work: str, name: str, spec_path: str, world: int, timeout_s: float) -> None:
+    """``world`` processes of ``chip_smoke.py --group-rank SPEC RANK``, one a
+    card with the ``PSTPU_*`` variables (none for one card), their output
+    in ``work/NAME.rankN.log``; raises unless every one exits 0 within
+    ``timeout_s``."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = []
+    for rank in range(world):
+        with open(os.path.join(work, f"{name}.rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--group-rank", spec_path,
+                 str(rank)],
+                env=_group_env(rank, world, coordinator), stdout=log, stderr=subprocess.STDOUT))
+    rcs = _wait_group(procs, timeout_s, name)
+    if rcs != [0] * world:
+        raise AssertionError(f"group {name} exited {rcs} (logs in {work})")
 
 
 def _http(method: str, url: str, body=None, timeout: float = 30.0) -> tuple:
@@ -6274,7 +6287,7 @@ def _group_lifecycle(work: str, reference: list = None, tp: int = GROUP_CARDS) -
     return row
 
 
-def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
+def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool = False) -> int:
     """``python3 chip_smoke.py --group``: tensor parallelism across cards
     on a four-card machine, one process a card over NCCL.
 
@@ -6295,12 +6308,15 @@ def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
       the streams' agreement (a routing near-tie carries bf16 tp = 1 itself
       far from fp32 there); then at its full 32 layers at tp = 4 and tp =
       2: boot, streams, pool tokens and memory a card;
-    - the lifecycle through the real server (:func:`_group_lifecycle`).
+    - the lifecycle through the real server (:func:`_group_lifecycle`);
+    - sequence parallelism across cards (:func:`main_group_sp`): phase 14's
+      request at sp 1, Ulysses and the ring at sp 2 and 4, and tp 2 x sp 2.
 
     Every case has a wall-clock limit and kills its ranks when it runs
     out.  ``layers`` (``--group --layers N``) cuts every case to N layers:
     a quick check of the plumbing; ``--group --lifecycle`` runs the
-    lifecycle alone.  The last line is the contract's, with
+    lifecycle alone, ``--group --sp`` (with ``--layers N`` after it, if
+    wanted) the sp cases alone.  The last line is the contract's, with
     this machine's count."""
     import tempfile
 
@@ -6312,8 +6328,13 @@ def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_group_")
     print(f"chip_smoke --group: working in {work}", file=sys.stderr, flush=True)
     seconds = {}
-    if lifecycle_only:
-        _group_lifecycle(work)
+    if lifecycle_only or sp_only:
+        if lifecycle_only:
+            _group_lifecycle(work)
+        else:
+            t0 = time.time()
+            main_group_sp(work, dev, layers)
+            emit({"phase_seconds": {"sp": time.time() - t0}})
         emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                      "count": dev["count"]}})
         return 0
@@ -6361,9 +6382,13 @@ def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
             "launches_per_rank": runs[name]["launches"],
         }
     emit({"phase": "group_steps", "nvidia_smi": dev["nvidia_smi"], **steps})
-    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     if failed is not None:
+        emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
         raise failed
+    t0 = time.time()
+    main_group_sp(work, dev, layers)
+    seconds["sp"] = time.time() - t0
+    emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name in ("llama_tp2", "llama_tp4"):
         if not runs[name]["profile"]["nccl_per_token_step"][
                 "all_reduce_launches"]:
@@ -6371,6 +6396,318 @@ def main_group(layers: int = None, lifecycle_only: bool = False) -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0
+
+
+# -- --group --sp: sequence parallelism across cards ---------------------------
+
+# Phase 14's request served one sp position a process: (name, world, tp, sp,
+# mode); sp1 first, on one card: every other case is held against it.
+SP_GROUP_CASES = (("sp1", 1, 1, 1, "ring"), ("ulysses2", 2, 1, 2, "ulysses"),
+                  ("ring2", 2, 1, 2, "ring"), ("tp2_ulysses2", 4, 2, 2, "ulysses"),
+                  ("ulysses4", 4, 1, 4, "ulysses"), ("ring4", 4, 1, 4, "ring"))
+SP_GROUP_TIMEOUT_S = 480
+SP_PROFILE_SEED = 41  # the profiled request's prompt (the timed one's is phase 14's)
+
+
+def _sp_bytes(cfg, tp: int, sp: int, mode: str, rows: int, table: int) -> dict:
+    """The bytes one rank sends for one prefill chunk of ``rows`` (its
+    bucket) over a prefix table of ``table`` rows, by collective (computed
+    from shapes, not measured; bf16 K/V and activations, fp32 reductions,
+    NCCL's ring algorithms for the all-gathers and all-reduces).  The
+    ring: the (sp - 1) rotations of the rank's prefix shard and chunk shard,
+    K and V, a layer; Ulysses: (sp - 1) / sp of the rank's q, k, v and
+    output a layer; both: the chunk's K and V gathered over sp for the pool
+    ((sp - 1) shards each a layer) and the last row's fp32 all-reduce over
+    sp; at tp > 1 (one tp position a rank) the fp32 all-reduces of the
+    rank's ``[rows / sp, h]`` over its tp subgroup (two a layer and the
+    embedding) and the logits' all-gather."""
+    D, h, L = cfg.head_dim, cfg.hidden_size, cfg.num_layers
+    H, K, Tl = cfg.num_heads // tp, cfg.num_kv_heads // tp, rows // sp
+    out = {}
+    if sp > 1:
+        if mode == "ring":
+            out["send_recv"] = L * (sp - 1) * 2 * (table // sp + Tl) * K * D * 2
+        else:
+            out["all_to_all"] = L * (sp - 1) / sp * 2 * Tl * (H + K) * D * 2
+        out["all_gather"] = L * 2 * (sp - 1) * Tl * K * D * 2
+        out["all_reduce"] = h * 4 * 2 * (sp - 1) / sp
+    if tp > 1:
+        out["all_reduce"] = out.get("all_reduce", 0) + (
+            (2 * L + 1) * Tl * h * 4 * 2 * (tp - 1) / tp)
+        out["all_gather"] = out.get("all_gather", 0) + cfg.vocab_size * 4 * (tp - 1) / tp
+    return out
+
+
+def _to_fp32(tree) -> None:
+    """Every tensor of a parameter tree cast to fp32 in place, one at a time."""
+    for key, value in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(value, torch.Tensor):
+            tree[key] = value.float()
+        else:
+            _to_fp32(value)
+
+
+def _serve_sp_request(eng, ids: list, rid: str, profile: bool) -> dict:
+    """One request of ``ids`` (one token out) through ``add_request`` /
+    ``step``, every prefill chunk recorded by :func:`_prefill_recorder`
+    (sync-checked; profiled with ``profile``), the launches counted from 0
+    over it: the chunks' rows, their logits and the request's token."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    records, outs = [], []
+    _reset_launches()
+    with _prefill_recorder(records, profile=profile):
+        eng.add_request(rid, prompt_token_ids=ids,
+                        sampling_params=SamplingParams(max_tokens=1, ignore_eos=True))
+        while eng.has_unfinished() or eng.has_pending():
+            outs += eng.step()
+    torch.cuda.synchronize()
+    chunks = [{"device_ms": r["start"].elapsed_time(r["end"]),
+               "attention_ms": sum(a.elapsed_time(b) for a, b in r["attention"]),
+               "host_ms": r["host_s"] * 1e3, "peak_transient_gib": r["peak_gib"],
+               **({"compute_ms": r["compute_ms"], "nccl": r["nccl"]} if profile else {})}
+              for r in records]
+    return {"chunks": chunks, "logits": [r["logits"].float().cpu() for r in records],
+            "launches": launch_counts(), "token": [o.new_token_id for o in outs]}
+
+
+def sp_group_rank(spec: dict, rank: int) -> int:
+    """One rank of a ``--group`` sp case (``chip_smoke.py --group-rank SPEC
+    RANK`` with ``"sp"`` in SPEC), after the group is formed at the case's
+    sp (none for one card):
+
+    1. Phase 14's four chunks at ``SP_FP32_LAYERS`` layers in fp32 across
+       the group (:func:`_prefill_chunks` on the rank's mesh; the weights
+       drawn on each card, TF32 off), before the engine takes the card.
+    2. llama-3.1-8b (bf16, seeded, drawn by the engine: each rank cuts its
+       tp positions' slices), ``max_model_len`` 8192, mixed steps off,
+       serves phase 14's 8190-token request (the timed pass: four
+       2048-token chunks, each sync-checked, their device, attention and
+       host ms, transient peak and logits, the kernels' launches counted
+       from 0), then the same length from another seed under torch.profiler
+       (each chunk's NCCL kernels by collective), then ``GROUP_PROMPTS``
+       (``GROUP_NEW_TOKENS`` each, greedy, EOS ignored) through the K=8
+       windows, every dispatch and prefill sync-checked.  Every
+       ``collect``'s samples are recorded.
+    3. On one card (sp1) the four chunks again in fp32 at the full depth
+       (the weights cast on the card), the bound the bf16 cases are held
+       by.
+
+    Each rank writes its rows (``SPEC out`` + ``.rankN.json``) and tensors
+    (``.rankN.pt``)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.config import PRESETS, ParallelConfig
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.parallel import distributed
+    from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
+
+    tp, sp, mode, layers = spec["tp"], spec["sp"], spec["mode"], spec["layers"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS[MODEL]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    ids = _sp_prompt(cfg.vocab_size)
+    group = distributed.tp_group()
+    mesh = None if group is None else build_mesh(ParallelConfig(
+        tensor_parallel=tp, sequence_parallel=sp, sequence_parallel_mode=mode), group=group)
+    result = {"case": spec["name"], "rank": rank, "world": spec["world"], "tp": tp, "sp": sp,
+              "mode": mode, "layers": cfg.num_layers, "kind": torch.cuda.get_device_name()}
+    t0 = time.time()
+    small = dataclasses.replace(cfg, num_layers=SP_FP32_LAYERS, dtype="float32")
+    weights = _serving_params(SP_FP32_LAYERS, "float32")
+    fp32_small = _prefill_chunks(weights, small, ids, sp, mode, mesh)
+    del weights
+    torch.cuda.empty_cache()
+    result["fp32_small_s"] = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = LLMEngine(_serving_config(tp=tp, layers=layers, **{
+        "scheduler.max_model_len": SP_MAX_LEN, "scheduler.mixed_batch": False,
+        "parallel.sequence_parallel": sp, "parallel.sequence_parallel_mode": mode}))
+    torch.cuda.synchronize()
+    result["boot_s"] = time.time() - t0
+    if (eng.mesh.sp, eng.mesh.sp_index, eng.tp_local) != (
+            sp, 0 if group is None else rank // (spec["world"] // sp), tp * sp // spec["world"]):
+        raise AssertionError(f"rank {rank}: mesh sp {eng.mesh.sp}, sp index "
+                             f"{eng.mesh.sp_index}, tp positions {eng.tp_local}")
+    free, total = torch.cuda.mem_get_info()
+    result.update({"kv_tokens": eng.block_pool.num_blocks * eng.block_pool.block_size,
+                   "pool_gib": eng._kv_bytes(eng.block_pool.num_blocks) * eng.tp_local
+                   / eng.tp / 2**30,
+                   "free_gib_after_boot": free / 2**30, "total_gib": total / 2**30,
+                   "held_unused_gib": (torch.cuda.memory_reserved()
+                                       - torch.cuda.memory_allocated()) / 2**30})
+    steps, real_collect = [], eng.collect
+
+    def collect():
+        outs = real_collect()
+        steps.append([(o.seq_id, o.new_token_id) for o in outs])
+        return outs
+
+    eng.collect = collect
+    timed = _serve_sp_request(eng, ids, "sp", profile=False)
+    rng = np.random.default_rng(SP_PROFILE_SEED)
+    profiled = _serve_sp_request(eng, rng.integers(4, cfg.vocab_size, SP_PROMPT).tolist(),
+                                 "sp_profiled", profile=True)
+    for chunk, prof in zip(timed["chunks"], profiled["chunks"]):
+        chunk.update({"profiled_device_ms": prof["device_ms"],
+                      "profiled_compute_ms": prof["compute_ms"], "nccl": prof["nccl"]})
+    prompts = [(0, eng.tokenizer.encode(p)) for p in GROUP_PROMPTS]
+    before = eng.stats()
+    records = []
+    try:
+        with _prefill_recorder(records):
+            streams, checked = _drive_arrivals(eng, prompts, True, GROUP_NEW_TOKENS)
+    finally:
+        for name in ASYNC_DISPATCHES:
+            if name in vars(eng):
+                delattr(eng, name)
+    after = eng.stats()
+    ran = {k: after[k] - before[k] for k in ("windows_dispatched", "graph_replays",
+                                             "mixed_windows_dispatched")}
+    result.update({
+        "chunks": timed["chunks"], "launches": timed["launches"], "token": timed["token"],
+        "bytes_sent_per_chunk": _sp_bytes(cfg, tp, sp, mode, SP_CHUNK, SP_MAX_LEN),
+        "sync_checked_prefills": len(timed["chunks"]) + len(profiled["chunks"]) + len(records),
+        "decode": {**ran, "sync_checked_dispatches": checked,
+                   "prompt_prefills": len(records)},
+        "gib_peak": torch.cuda.max_memory_allocated() / 2**30})
+    eng.close()
+    del eng, collect, real_collect
+    free_engines()
+    keep = {"logits": timed["logits"], "fp32_small": fp32_small, "steps": steps,
+            "streams": {k: v for k, v in streams.items()}}
+    if group is None:  # the bound: the same chunks in fp32 at the full depth
+        t0 = time.time()
+        params = _serving_params(layers)
+        _to_fp32(params)
+        keep["fp32"] = _prefill_chunks(params, dataclasses.replace(cfg, dtype="float32"),
+                                       ids, 1, "ring")
+        del params
+        torch.cuda.empty_cache()
+        result["fp32_s"] = time.time() - t0
+    torch.save(keep, f"{spec['out']}.rank{rank}.pt")
+    with open(f"{spec['out']}.rank{rank}.json", "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _run_sp_case(work: str, name: str, world: int, tp: int, sp: int, mode: str,
+                 layers: int = None) -> tuple:
+    """Every rank of one sp case (:func:`sp_group_rank`, through
+    :func:`_spawn_ranks`); returns (each rank's rows, each rank's
+    tensors)."""
+    spec = {"name": name, "model": MODEL, "tp": tp, "sp": sp, "mode": mode, "world": world,
+            "layers": layers, "out": os.path.join(work, name)}
+    path = os.path.join(work, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.time()
+    _spawn_ranks(work, name, path, world, SP_GROUP_TIMEOUT_S)
+    rows, tensors = [], []
+    for rank in range(world):
+        with open(f"{spec['out']}.rank{rank}.json") as f:
+            rows.append(json.load(f))
+        tensors.append(torch.load(f"{spec['out']}.rank{rank}.pt", weights_only=False))
+    rows[0]["wall_s"] = time.time() - t0
+    return rows, tensors
+
+
+def main_group_sp(work: str, dev: dict, layers: int = None) -> dict:
+    """``--group --sp`` (and the end of ``--group``): phase 14's request
+    at sp 1 on one card, then Ulysses at sp 2 (2 cards) and 4 (4 cards),
+    the ring at sp 2 and 4, and tp 2 x sp 2 under Ulysses (4 cards), each
+    through :func:`sp_group_rank`.  Printed a case: per chunk the device,
+    attention and host ms, the NCCL kernels' ms by collective, the bytes a
+    rank sends (computed), the transient peak beside the free memory the
+    pool leaves, a rank's launches.  Held, a case: every rank's logits and
+    tokens equal at every step; the four chunks' logits within
+    ``TP_LOGIT_BOUND`` x |sp 1 - fp32| of sp 1's (bf16, 32 layers); at
+    ``SP_FP32_LAYERS`` layers in fp32 within ``SP_FP32_TOL`` of sp 1's;
+    flash prefill's contiguous entry launched 4 x layers times a rank under
+    Ulysses (one head group a rank a layer), neither entry under the ring;
+    every prefill and window dispatch sync-checked; windows replayed.  The
+    GROUP_PROMPTS streams' agreement with sp 1 is reported."""
+    rows, failures = {}, []
+    base = None
+    for name, world, tp, sp, mode in SP_GROUP_CASES:
+        ranks, tensors = _run_sp_case(work, name, world, tp, sp, mode, layers)
+        lead, mine = ranks[0], tensors[0]
+        n_layers = lead["layers"]
+        per_chunk = list(zip(*(r["chunks"] for r in ranks)))  # [chunk][rank]
+        row = {"phase": f"group_sp_{name}", "nvidia_smi": dev["nvidia_smi"],
+               **{k: v for k, v in lead.items() if k not in ("rank", "kind")},
+               "device_ms": [c["device_ms"] for c in lead["chunks"]],
+               "attention_ms": [c["attention_ms"] for c in lead["chunks"]],
+               # the profiled pass: each rank's non-NCCL kernel time, and
+               # NCCL's by collective on the rank that waited least
+               "compute_ms": [[c["profiled_compute_ms"] for c in by_rank]
+                              for by_rank in per_chunk],
+               "nccl_ms_least_rank": [
+                   {k: min(c["nccl"].get(k, {"ms": 0.0})["ms"] for c in by_rank)
+                    for k in by_rank[0]["nccl"]} for by_rank in per_chunk],
+               "chunk_device_ms_by_rank": [[c["device_ms"] for c in r["chunks"]]
+                                           for r in ranks],
+               "launches_by_rank": [{k: r["launches"][k] for k in (
+                   "paged_decode", "flash_prefill", "flash_prefill_contiguous")}
+                   for r in ranks]}
+        bad = []
+        if any(t["steps"] != mine["steps"] for t in tensors):
+            bad.append("ranks sampled different tokens")
+        if any(any(not torch.equal(a, b) for a, b in zip(t["logits"], mine["logits"]))
+               for t in tensors):
+            bad.append("ranks' logits differ")
+        if not all(torch.isfinite(x).all() for x in mine["logits"]) or len(mine["logits"]) != 4:
+            bad.append(f"{len(mine['logits'])} chunks or non-finite logits")
+        want = {"flash_prefill": 4 * n_layers if sp == 1 else 0,
+                "flash_prefill_contiguous": 4 * n_layers if mode == "ulysses" and sp > 1
+                else 0}
+        for r in ranks:
+            got = {k: r["launches"][k] for k in want}
+            if got != want:
+                bad.append(f"rank {r['rank']} flash prefill launches {got}, want {want}")
+            d = r["decode"]
+            if not (d["windows_dispatched"] and d["graph_replays"]) or \
+                    d["mixed_windows_dispatched"] or \
+                    d["sync_checked_dispatches"]["_dispatch_window"] != d["windows_dispatched"]:
+                bad.append(f"rank {r['rank']} windows {d}")
+        if name == "sp1":
+            base = mine
+            noise = [(a - b).abs().max().item() for a, b in zip(mine["logits"], mine["fp32"])]
+            row.update({"max_abs_diff_vs_fp32": noise,
+                        "top1_equal_fp32": [int(a.argmax()) == int(b.argmax())
+                                            for a, b in zip(mine["logits"], mine["fp32"])]})
+        else:
+            errs = [(a - b).abs().max().item() for a, b in zip(mine["logits"], base["logits"])]
+            limits = [TP_LOGIT_BOUND * n for n in rows["sp1"]["max_abs_diff_vs_fp32"]]
+            small = [(a - b).abs().max().item()
+                     for a, b in zip(mine["fp32_small"], base["fp32_small"])]
+            agree = sum(x == y for k, v in mine["streams"].items()
+                        for x, y in zip(v, base["streams"][k]))
+            row.update({"max_abs_diff_vs_sp1": errs, "limit": limits,
+                        "top1_equal_sp1": [int(a.argmax()) == int(b.argmax())
+                                           for a, b in zip(mine["logits"], base["logits"])],
+                        "token_equal_sp1": lead["token"] == rows["sp1"]["token"],
+                        "fp32_small_max_abs_diff_vs_sp1": small,
+                        "fp32_small_tol": SP_FP32_TOL,
+                        "decode_tokens_agree_sp1": agree,
+                        "decode_tokens": sum(len(v) for v in mine["streams"].values())})
+            if any(e > lim for e, lim in zip(errs, limits)):
+                bad.append(f"logits {errs} beyond {limits}")
+            if max(small) > SP_FP32_TOL:
+                bad.append(f"fp32 at {SP_FP32_LAYERS} layers {small} > {SP_FP32_TOL}")
+        emit(row)
+        rows[name] = row
+        if bad:
+            failures.append(f"{name}: {bad}")
+    emit({"phase": "group_sp_chunks", "nvidia_smi": dev["nvidia_smi"],
+          **{name: {k: r[k] for k in ("device_ms", "attention_ms", "compute_ms",
+                                      "nccl_ms_least_rank")}
+             for name, r in rows.items()}})
+    if failures:
+        raise AssertionError("sp across cards: " + "; ".join(failures))
+    return rows
 
 
 # -- phase 14: data and sequence parallelism, every position on this card --
@@ -6408,19 +6745,26 @@ def _serving_params(layers: int = None, dtype: str = None) -> dict:
 
 
 @contextlib.contextmanager
-def _prefill_recorder(records: list):
+def _prefill_recorder(records: list, profile: bool = False):
     """Record every ``llama.prefill`` the engine runs (its chunks): CUDA
     events around it, the host's seconds, the transient memory it peaked
     at above what was allocated before it, its logits (a copy on the card),
-    and the device time of its attention (``_sp_attention`` at sp > 1,
+    and the device time of its attention (``_sp_attention`` at sp > 1 in
+    one process, ``_sp_attention_group`` in a group,
     ``prefill_attention_paged`` at sp = 1), event pairs around each call.
     Each call runs under ``set_sync_debug_mode("error")``: a host sync in
-    the prefill raises."""
+    the prefill raises.  With ``profile`` each call also runs under
+    torch.profiler (device activity only), and its kernels' device ms are
+    recorded, the NCCL ones by collective (:func:`device_split`)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
     from production_stack_tpu_torch.engine.models import llama
     from production_stack_tpu_torch.engine.ops import attention as attn_ops
 
     real, real_sp, real_paged = llama.prefill, llama._sp_attention, \
         attn_ops.prefill_attention_paged
+    real_group = llama._sp_attention_group
     spans = []
 
     def spanned(fn):
@@ -6438,28 +6782,57 @@ def _prefill_recorder(records: list):
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         del spans[:]
+        prof = (profiler(activities=[ProfilerActivity.CUDA]) if profile
+                else contextlib.nullcontext())
         t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            start.record()
-            out = real(*args, **kwargs)
-            end.record()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        host_s = time.perf_counter() - t0
+        with prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                start.record()
+                out = real(*args, **kwargs)
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            host_s = time.perf_counter() - t0
         logits = out[0] if isinstance(out, tuple) else out
         records.append({"start": start, "end": end, "host_s": host_s,
                         "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
-                        "logits": logits.clone(), "attention": list(spans)})
+                        "logits": logits.clone(), "attention": list(spans),
+                        **(device_split(prof.key_averages()) if profile else {})})
         return out
 
     llama.prefill, llama._sp_attention = recorded, spanned(real_sp)
+    llama._sp_attention_group = spanned(real_group)
     attn_ops.prefill_attention_paged = spanned(real_paged)
     try:
         yield
     finally:
         llama.prefill, llama._sp_attention = real, real_sp
+        llama._sp_attention_group = real_group
         attn_ops.prefill_attention_paged = real_paged
+
+
+def device_split(events) -> dict:
+    """A profile's device time: ``compute_ms``, every kernel and copy but
+    NCCL's, and ``nccl``, NCCL's kernels' device ms and launches by
+    family.  An NCCL kernel's time includes its wait for the slowest peer
+    to arrive.  NCCL runs a send/receive pair and an all-to-all (grouped
+    sends and receives) as the same ``SendRecv`` kernel; the ring issues
+    only the first, Ulysses' exchanges only the second."""
+    compute, nccl = 0.0, {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or not e.self_device_time_total:
+            continue
+        key, ms = e.key, e.self_device_time_total / 1e3
+        if "nccl" not in key.lower():
+            compute += ms
+            continue
+        kind = ("send_recv" if "SendRecv" in key else "all_gather" if "AllGather" in key
+                else "all_reduce" if "AllReduce" in key else "other")
+        total, n = nccl.get(kind, (0.0, 0))
+        nccl[kind] = (total + ms, n + e.count)
+    return {"compute_ms": compute,
+            "nccl": {k: {"ms": ms, "launches": n} for k, (ms, n) in nccl.items()}}
 
 
 def _sp_prompt(vocab: int) -> list:
@@ -6546,18 +6919,25 @@ def phase_sp(params: dict) -> dict:
     return runs
 
 
-def _prefill_chunks(params, cfg, ids: list, sp: int, mode: str) -> list:
+def _prefill_chunks(params, cfg, ids: list, sp: int, mode: str, mesh=None) -> list:
     """The four chunks of :func:`phase_sp`'s request through
     ``llama.prefill`` at ``sp`` / ``mode`` outside an engine: a pool of its
     own (block 0 the null block), the prefix table zero-padded to the
     width of ``SP_MAX_LEN``, the lengths on the card; each chunk's logits
-    on the CPU."""
+    on the CPU.  With ``mesh`` (a group's), across the group: ``params``
+    (the full tree) cut to this rank's tp positions, a pool a position,
+    the rank's rows through its sp column."""
     from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.parallel import shardings
 
     bs, dev = 16, torch.device("cuda")
     width = SP_MAX_LEN // bs
     dtype = llama.param_dtype(cfg)
-    shape = (width + 1, bs, cfg.num_kv_heads, cfg.head_dim)
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    shape = (width + 1, bs, cfg.num_kv_heads // tp, cfg.head_dim)
+    if tp > 1:
+        params = shardings.shard_params(params, cfg, mesh)
+        shape = (len(mesh.local_tp()), *shape)
     kv = [(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype,
                                                                      device=dev))
           for _ in range(cfg.num_layers)]
@@ -6572,7 +6952,8 @@ def _prefill_chunks(params, cfg, ids: list, sp: int, mode: str) -> list:
                            dtype=torch.int32, device=dev)
         lens = torch.tensor([cached, valid], dtype=torch.int32, device=dev)
         logits = llama.prefill(params, cfg, tokens, lens[:1], prefix, new, lens[1:], kv,
-                               sp=sp, sp_mode=mode)
+                               sp=sp, sp_mode=mode,
+                               sp_group=None if mesh is None else mesh.sp_group)
         out.append(logits.float().cpu())
     del kv
     torch.cuda.empty_cache()
@@ -6994,6 +7375,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--group-rank"]:
         sys.exit(group_rank_main(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--group"]:
-        sys.exit(main_group(int(sys.argv[3]) if sys.argv[2:3] == ["--layers"] else None,
-                            lifecycle_only=sys.argv[2:3] == ["--lifecycle"]))
+        flags = sys.argv[2:]
+        depth = int(flags[flags.index("--layers") + 1]) if "--layers" in flags else None
+        sys.exit(main_group(depth, lifecycle_only="--lifecycle" in flags,
+                            sp_only="--sp" in flags))
     sys.exit(main())

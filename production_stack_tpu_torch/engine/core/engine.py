@@ -133,9 +133,10 @@ CUDA-graph replay holding every position's launches and reductions.  The
 positions sit on one device of this process, or, in a multi-process group
 (``parallel/distributed.py``: the JAX package's ``PSTPU_*`` contract, one
 process a card, formed before the engine is built), this process runs its
-own ``tp / world`` positions on its card: it draws or reads each weight
-and keeps only its slices, sizes its pool by its own card, and each
-graph holds the NCCL all-reduces and the lm_head's all-gather, so the
+own ``tp / (world / sp)`` positions on its card: it draws or reads each
+weight and keeps only its slices, sizes its pool by its own card, and
+each graph holds the NCCL all-reduces and the lm_head's all-gather over
+its tp subgroup (the ranks of its sp position), so the
 ranks, stepped in lockstep (the leader's event batches), launch the same
 graphs in the same order.  The tiers move full-head blocks, gathered from
 the positions' pools and scattered back; in a group offload and restore
@@ -144,7 +145,9 @@ the ranks, is refused.
 
 Data and sequence parallelism (``parallel.data_parallel``,
 ``parallel.sequence_parallel``) run in one process, every position of the
-mesh on the engine's device, after the JAX engine's gates in its order
+mesh on the engine's device, and sp also runs in a group, one sp position
+a rank (its tp subgroup's ranks hold that position's tp positions), after
+the JAX engine's gates in its order
 (``max_num_seqs`` divisible by dp; mixed steps auto-resolved to off, an
 explicit ``mixed_batch=True`` refused, so mixed windows are off too; at sp
 > 1 no sliding window, buckets and ``max_model_len`` divisible by
@@ -153,9 +156,14 @@ trees and pool.  dp changes which decode buckets exist (dp, 2dp, 4dp, ...,
 as in the JAX engine; each dp position holds S/dp contiguous rows, which
 run as one batch through every product, kernel and graph); sp runs every
 prefill's attention over the sp positions' shards, the ring or Ulysses
-(``llama.prefill``), and the decode rows as at sp = 1.  It raises
-``NotImplementedError`` at construction, by name, for the settings outside
-it: dp > 1, sp > 1 and the remote KV store in a multi-process group.
+(``llama.prefill``), and the decode rows as at sp = 1.  In a group each
+rank runs its own rows of a prefill chunk and the ring or Ulysses over its
+sp column (NCCL send/recv and all-to-all on the card), every rank writes
+the same replicated pool and samples the same token, and the decode
+windows run replicated over sp, each rank's graphs reducing over its tp
+subgroup only.  It raises ``NotImplementedError`` at construction, by
+name, for the settings outside it: dp > 1 and the remote KV store in a
+multi-process group.
 """
 
 from __future__ import annotations
@@ -248,7 +256,7 @@ def resolve_device(device=None) -> torch.device:
 def _unsupported(config: EngineConfig, group=None) -> List[str]:
     """Settings outside the served configuration, by name, each with the
     ROADMAP item that ports it: in one process every mesh is served; in a
-    multi-process group dp and sp above 1 and the remote KV store are not."""
+    multi-process group dp above 1 and the remote KV store are not."""
     par = config.parallel
     grouped = group is not None and group.world > 1
     checks = [
@@ -256,9 +264,6 @@ def _unsupported(config: EngineConfig, group=None) -> List[str]:
          "data_parallel > 1 in a multi-process group (dp across cards is a "
          "ROADMAP question, Queue 1 item 13; the JAX server refuses dp in a "
          "multi-host group)"),
-        (grouped and par.sequence_parallel > 1,
-         "sequence_parallel > 1 in a multi-process group (ROADMAP item 13d-b: "
-         "the ring over NCCL send/recv, Ulysses over all_to_all_single)"),
         (grouped and bool(config.cache.remote_kv_url),
          "the remote KV store in a multi-process group (a block's heads "
          "span the ranks' cards; ROADMAP item 13e)"),
@@ -893,7 +898,8 @@ class LLMEngine:
     def _decide_num_blocks(self) -> int:
         """Explicit ``cache.num_blocks``, else ``hbm_utilization`` of the
         card's free memory (after the weights) divided by a block's bytes
-        over all layers; 512 blocks on the CPU, as the JAX engine keeps."""
+        over all layers, in a group the least over its ranks' cards; 512
+        blocks on the CPU, as the JAX engine keeps."""
         cache = self.config.cache
         if cache.num_blocks is not None:
             return cache.num_blocks
@@ -909,7 +915,10 @@ class LLMEngine:
         # other ranks' positions sit on their own cards (which may carry
         # the same name, so the mesh's owners count, not the devices).
         per_block = self._kv_bytes(1) * self.tp_local // self.tp
-        return max(int(free * cache.hbm_utilization // per_block), 16)
+        num_blocks = max(int(free * cache.hbm_utilization // per_block), 16)
+        # The ranks of a group step the same plans, so they share one pool
+        # size: the least that any rank's card holds.
+        return num_blocks if self.group is None else distributed.agree_min(num_blocks)
 
     def _pool_shape(self, num_blocks: int, cfg) -> tuple:
         """A pool side's data shape: [N, bs, K, D], or at tp > 1 one [N,
@@ -3282,6 +3291,7 @@ class LLMEngine:
             kv_caches=self.kv_caches,
             sp=self.mesh.sp,
             sp_mode=self.config.parallel.sequence_parallel_mode,
+            sp_group=self.mesh.sp_group,
             **plp_kwargs,
             **self._lora_kwargs(lens[2:]),
         )

@@ -61,11 +61,17 @@ lm_head's logits are all-gathered (``collectives.all_gather``), so every
 rank ends each forward with the same full logits.  Nothing here calls
 ``torch.distributed`` itself.
 
-Data and sequence parallelism (one process, every position on one
-device): a dp mesh changes nothing here (the engine's decode buckets
-start at dp and the rows of a batch never meet); ``prefill`` takes the
-mesh's ``sp`` and ``sp_mode`` and runs its attention over the sp
-positions' shards of the chunk, the ring or Ulysses (:func:`_sp_attention`).
+Data and sequence parallelism: a dp mesh changes nothing here (the
+engine's decode buckets start at dp and the rows of a batch never meet);
+``prefill`` takes the mesh's ``sp`` and ``sp_mode`` and runs its
+attention over the sp positions' shards of the chunk, the ring or Ulysses
+(:func:`_sp_attention`).  In a group at sp > 1 (``sp_group``, one sp
+position a rank) ``prefill`` runs what a JAX device runs under ``P(SP,
+None)``: its own contiguous rows of the chunk through every projection
+and the MLP, and the ring or Ulysses over its sp column
+(:func:`_sp_attention_group`); the collectives of ``parallel/collectives``
+gather the new K/V for the replicated pool and hand every rank the last
+valid row.
 """
 
 from __future__ import annotations
@@ -80,7 +86,13 @@ from production_stack_tpu_torch.engine.config import ModelConfig
 from production_stack_tpu_torch.engine.kv.quant import shard_side
 from production_stack_tpu_torch.engine.ops import attention as attn_ops
 from production_stack_tpu_torch.engine.ops.kernels.w8a16 import w8a16_matmul
-from production_stack_tpu_torch.engine.parallel.collectives import all_gather, psum, shard
+from production_stack_tpu_torch.engine.parallel.collectives import (
+    all_gather,
+    all_gather_rows,
+    psum,
+    shard,
+    sum_over,
+)
 from production_stack_tpu_torch.engine.parallel.ring_attention import ring_prefill_with_prefix
 from production_stack_tpu_torch.engine.parallel.ulysses import ulysses_prefill_with_prefix
 from production_stack_tpu_torch.engine.parallel.shardings import (
@@ -574,6 +586,7 @@ def prefill(
     prompt_topk: int = 0,  # top-k alternatives a prompt position
     sp: int = 1,  # the mesh's sequence-parallel size
     sp_mode: str = "ring",  # its strategy when sp > 1: "ring" or "ulysses"
+    sp_group=None,  # in a group at sp > 1: this rank's sp column (an SPGroup)
 ):
     """One sequence's prefill chunk.  Writes the chunk's KV into its new
     blocks and returns the last valid token's logits [V] (fp32).  With
@@ -587,30 +600,46 @@ def prefill(
     ``cached_len`` tokens only, and never walks the padding.
 
     Under sequence parallelism (``sp`` > 1, the JAX ``prefill`` under an sp
-    mesh) the chunk's rows are the sp positions' contiguous shards: the
-    projections and the MLP run all of them as one product (their rows do
-    not interact), and attention runs over the shards, either the ring
-    (``parallel/ring_attention.py``) or Ulysses (``parallel/ulysses.py``),
-    on the prefix gathered at the block-table width (``gather_prefix_kv``,
-    sharded over sp too).  The chunk's K/V are then written to the pool
-    whole: the pool is not sharded over sp.  T and the table's width must
-    divide by sp (the engine's gates: buckets and ``max_model_len`` by
-    ``block_size * sp``)."""
+    mesh) the chunk's rows are the sp positions' contiguous shards.  In one
+    process the projections and the MLP run all of them as one product
+    (their rows do not interact), and attention runs over the shards,
+    either the ring (``parallel/ring_attention.py``) or Ulysses
+    (``parallel/ulysses.py``), on the prefix gathered at the block-table
+    width (``gather_prefix_kv``, sharded over sp too).  In a group
+    (``sp_group``) this rank embeds, projects and runs the MLP on its own
+    ``T / sp`` rows only, attends over its sp column
+    (:func:`_sp_attention_group`), gathers each layer's new K/V over the
+    column before writing them (the pool is replicated over sp, so every
+    rank writes the same bits), and takes the last valid row from the rank
+    that holds it by an fp32 sum over the column (exact: the others add
+    zeros; no host read), so every rank computes the same logits; the
+    prompt-logprob rows are gathered the same way.  The chunk's K/V are
+    written to the pool whole: the pool is not sharded over sp.  T and the
+    table's width must divide by sp (the engine's gates: buckets and
+    ``max_model_len`` by ``block_size * sp``)."""
     T = tokens.shape[0]
     dev = tokens.device
     scale = cfg.head_dim**-0.5
     cached, valid = _length(cached_len, dev), _length(valid_len, dev)
     prefix = prefix_block_ids.to(torch.int32)
     positions = cached.long() + torch.arange(T, device=dev)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
+    rows = slice(None)  # this process's rows of the chunk
+    if sp_group is not None:
+        Tl = T // sp_group.size
+        rows = slice(sp_group.index * Tl, (sp_group.index + 1) * Tl)
+    cos, sin = rope_cos_sin(positions[rows], cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
-    x = _embed(shard_trees(params), cfg, tokens)  # [T, h]
+    x = _embed(shard_trees(params), cfg, tokens[rows])  # [T, h] ([T / sp, h])
     for layers, (k_pool, v_pool), lora_layer in zip(
         _shard_layers(params), kv_caches, _lora_layers(lora, adapter_idx, cfg.num_layers)
     ):
         def attend(r, q, k, v, k_pool=k_pool, v_pool=v_pool):
             k_cache, v_cache = shard_side(k_pool, r), shard_side(v_pool, r)
-            if sp > 1:
+            if sp_group is not None:
+                out = _sp_attention_group(q, k, v, k_cache, v_cache, prefix, cached,
+                                          valid, cfg, sp_mode, sp_group)
+                k, v = all_gather_rows(k, sp_group), all_gather_rows(v, sp_group)
+            elif sp > 1:
                 out = _sp_attention(q, k, v, k_cache, v_cache, prefix, cached, valid,
                                     cfg, sp, sp_mode)
             else:
@@ -624,10 +653,28 @@ def prefill(
         x = _layer(layers, x, cfg, cos, sin, attend, *lora_layer)
     x = _norm(x, shard_trees(params)[0]["norm"], cfg)
     last = torch.clamp(valid.long() - 1, min=0)  # the last valid row
-    logits = _lm_head(params, cfg, x.index_select(0, last)[0])
+    if sp_group is None:
+        row = x.index_select(0, last)[0]
+    else:
+        row = _row_of(x, last - rows.start, sp_group)
+    logits = _lm_head(params, cfg, row)
     if prompt_targets is None:
         return logits
-    return logits, prompt_logprobs(params, cfg, x, prompt_targets, prompt_topk)
+    plp = prompt_logprobs(params, cfg, x, prompt_targets[rows], prompt_topk)
+    if sp_group is not None:
+        plp = tuple(all_gather_rows(t, sp_group) for t in plp)
+    return logits, plp
+
+
+def _row_of(x: torch.Tensor, local: torch.Tensor, group) -> torch.Tensor:
+    """Row ``local`` (a device index into this rank's rows, out of range on
+    the ranks that do not hold it) of the sp column's rows: each rank's
+    candidate, zeros where it does not hold the row, summed in fp32 over
+    the column (exact) and cast back."""
+    Tl = x.shape[0]
+    held = (local >= 0) & (local < Tl)
+    mine = x.index_select(0, local.clamp(0, Tl - 1))[0].masked_fill(~held, 0)
+    return sum_over(mine, group).to(x.dtype)
 
 
 def _sp_attention(q, k, v, k_cache, v_cache, prefix, cached, valid,
@@ -647,6 +694,42 @@ def _sp_attention(q, k, v, k_cache, v_cache, prefix, cached, valid,
     else:
         outs = ring_prefill_with_prefix(*shards, cached, valid, scale=scale)
     return torch.cat(outs)
+
+
+def _sp_attention_group(q, k, v, k_cache, v_cache, prefix, cached, valid,
+                        cfg: ModelConfig, sp_mode: str, group) -> torch.Tensor:
+    """This rank's rows' attention in a group (one tp position's heads; q,
+    k, v are the rank's ``[T / sp, ...]`` rows) over its sp column
+    ``group``.  The prefix comes from the rank's own replicated pool, so no
+    prefix bytes cross the link: the ring gathers its shard of the table's
+    rows (the table's blocks ``s * P / sp`` on), Ulysses the whole prefix at
+    its head group (kv heads ``s * K / sp`` on); int8 sides dequantize to
+    k's dtype.  The values are those of the in-process shards."""
+    scale = cfg.head_dim**-0.5
+    s, n = group.index, group.size
+    if sp_mode == "ulysses":
+        kl = k.shape[1] // n
+        heads = slice(s * kl, (s + 1) * kl)
+        k_pre, v_pre = attn_ops.gather_prefix_kv(
+            _head_group(k_cache, heads), _head_group(v_cache, heads), prefix, dtype=k.dtype)
+        (out,) = ulysses_prefill_with_prefix(
+            [q], [k], [v], [k_pre], [v_pre], cached, valid, scale=scale,
+            sliding_window=cfg.sliding_window, group=group)
+    else:
+        pl = prefix.shape[0] // n
+        k_pre, v_pre = attn_ops.gather_prefix_kv(k_cache, v_cache,
+                                                 prefix[s * pl:(s + 1) * pl], dtype=k.dtype)
+        (out,) = ring_prefill_with_prefix([q], [k], [v], [k_pre], [v_pre], cached, valid,
+                                          scale=scale, group=group)
+    return out
+
+
+def _head_group(side, heads: slice):
+    """The kv heads ``heads`` of a pool side [N, bs, K, D] (an int8 side's
+    data and its [N, bs, K] scales): views, no copy."""
+    if isinstance(side, tuple):
+        return side[0][:, :, heads], side[1][:, :, heads]
+    return side[:, :, heads]
 
 
 def prompt_logprobs(params: Params, cfg: ModelConfig, x: torch.Tensor,

@@ -1,13 +1,17 @@
-"""Multi-process tp groups: bootstrap and the lockstep serving protocol.
+"""Multi-process groups: bootstrap and the lockstep serving protocol.
 
 Counterpart of ``production_stack_tpu/engine/parallel/distributed.py``,
 with ``torch.distributed`` in place of ``jax.distributed``.  The JAX
 package runs one SPMD program across the worker processes of a slice; here
-one process is one card, and a tp group of N cards is N processes: every
-process calls :func:`maybe_initialize` against process 0's coordinator, holds
-its tp positions' shards on its own card (``mesh.build_mesh``), and the
-partial sums of a layer are reduced by NCCL inside each rank's CUDA graphs
-(``collectives.psum``; gloo on the CPU).
+one process is one card, and a group of N cards is N processes: every
+process calls :func:`maybe_initialize` against process 0's coordinator,
+holds one sp position and its tp positions' shards on its own card
+(``mesh.build_mesh``: sp outer, tp inner), and the partial sums of a layer
+are reduced by NCCL inside each rank's CUDA graphs over the rank's tp
+subgroup (``collectives.psum``; gloo on the CPU).  At sp > 1 a prefill's
+rows are sharded over the sp positions and its attention runs the ring or
+Ulysses over the rank's sp subgroup (``collectives.ppermute`` /
+``all_to_all``); decode runs replicated over sp.
 
 Serving on top needs one more ingredient, as in the JAX package: every
 process must launch the same graphs, with the same collectives, in the
@@ -44,7 +48,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
+from production_stack_tpu_torch.engine.parallel.collectives import (
+    SPGroup,
+    TPGroup,
+    all_to_all,
+    group_layout,
+    ppermute,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +138,8 @@ def detect_env(environ=None) -> Optional[DistributedEnv]:
 @dataclasses.dataclass
 class _Group:
     """The formed group of this process (``initialize``): the coordinator's
-    store, the control-plane gloo group and the data plane's ``TPGroup``."""
+    store, the control-plane gloo group and the data plane's ``TPGroup``
+    (its tp subgroup and, at sp > 1, its sp subgroup)."""
 
     denv: DistributedEnv
     store: Any
@@ -161,19 +172,28 @@ def _local_device(denv: DistributedEnv, device, environ) -> torch.device:
 
 
 def initialize(denv: DistributedEnv, device=None, environ=None,
-               timeout_s: float = _BOOT_TIMEOUT_S) -> TPGroup:
+               timeout_s: float = _BOOT_TIMEOUT_S, sequence_parallel: int = 1) -> TPGroup:
     """Form the group ``denv`` describes: a ``TCPStore`` at the
     coordinator address (process 0 serves it), the default process group
     over it (NCCL on a card, gloo on the CPU; a card whose NCCL
     communicator cannot form raises, nothing falls back to gloo), a gloo
     group for the control plane, and one warm-up all-reduce and
     all-gather, so the communicator exists before any CUDA graph capture
-    records a collective.  Returns the data plane's ``TPGroup``."""
+    records a collective.
+
+    At ``sequence_parallel`` sp > 1 every rank then forms, in the same
+    order (``collectives.group_layout``), a tp subgroup per sp position and
+    an sp subgroup per tp column (``world % sp`` must be 0), and warms each
+    of its own: one all-reduce on each, and on its sp subgroup one ring
+    send/receive and one all-to-all, so no communicator or peer connection
+    is made inside a prefill.  At sp = 1 the tp subgroup is the whole
+    group.  Returns the data plane's ``TPGroup``."""
     global _group
     import torch.distributed as dist
 
     if _group is not None:
         raise RuntimeError("this process already belongs to a group")
+    tp_ranks, sp_ranks = group_layout(denv.num_processes, sequence_parallel)
     dev = _local_device(denv, device, environ)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dev.type == "cuda":
@@ -181,8 +201,9 @@ def initialize(denv: DistributedEnv, device=None, environ=None,
     host, port = denv.coordinator_address.rsplit(":", 1)
     timeout = datetime.timedelta(seconds=timeout_s)
     logger.info(
-        "initializing torch.distributed (%s): coordinator=%s process %d/%d on %s",
+        "initializing torch.distributed (%s): coordinator=%s process %d/%d on %s, sp=%d",
         backend, denv.coordinator_address, denv.process_id, denv.num_processes, dev,
+        sequence_parallel,
     )
     store = dist.TCPStore(host, int(port), denv.num_processes,
                           is_master=denv.is_leader, timeout=timeout)
@@ -199,23 +220,79 @@ def initialize(denv: DistributedEnv, device=None, environ=None,
     if float(probe[0]) != denv.num_processes:
         raise RuntimeError(f"warm-up all-reduce gave {float(probe[0])}, "
                            f"not {denv.num_processes}")
+    data, sp_group = dist.group.WORLD, None
+    if sequence_parallel > 1:
+        data = _subgroup(tp_ranks, denv.process_id, timeout)
+        ranks = next(r for r in sp_ranks if denv.process_id in r)
+        sp_group = SPGroup(index=ranks.index(denv.process_id), size=len(ranks),
+                           ranks=tuple(ranks),
+                           group=_subgroup(sp_ranks, denv.process_id, timeout))
+        _warm(data, len(tp_ranks[0]), sp_group, dev)
     tp = TPGroup(rank=denv.process_id, world=denv.num_processes, device=dev,
-                 group=dist.group.WORLD)
+                 group=data, sp_group=sp_group)
     _group = _Group(denv=denv, store=store, control=control, tp=tp)
     return tp
 
 
-def maybe_initialize(environ=None, device=None) -> Optional[DistributedEnv]:
+def _subgroup(layout, rank: int, timeout):
+    """Every subgroup of ``layout`` formed (each rank calls ``new_group``
+    for every one, in the same order); returns the one holding ``rank``."""
+    import torch.distributed as dist
+
+    mine = None
+    for ranks in layout:
+        pg = dist.new_group(ranks, timeout=timeout)
+        if rank in ranks:
+            mine = pg
+    return mine
+
+
+def _warm(tp_pg, tp_size: int, sp: SPGroup, dev: torch.device) -> None:
+    """One all-reduce on the tp subgroup; one all-reduce, one ring step and
+    one all-to-all on the sp subgroup, each checked."""
+    import torch.distributed as dist
+
+    probe = torch.ones(2, device=dev)
+    dist.all_reduce(probe, group=tp_pg)
+    total = torch.ones(2, device=dev)
+    dist.all_reduce(total, group=sp.group)
+    mine = torch.full((sp.size, 2), float(sp.index), device=dev)
+    ring = ppermute(mine, [(i, (i + 1) % sp.size) for i in range(sp.size)], sp)
+    swapped = all_to_all(mine, 0, 0, sp)
+    got = (float(probe[0]), float(total[0]), float(ring[0, 0]), swapped[:, 0].tolist())
+    want = (tp_size, sp.size, float((sp.index - 1) % sp.size),
+            [float(i) for i in range(sp.size)])
+    if got != want:
+        raise RuntimeError(f"warm-up of the subgroups gave {got}, not {want}")
+
+
+def maybe_initialize(environ=None, device=None,
+                     sequence_parallel: int = 1) -> Optional[DistributedEnv]:
     """Form the group when the environment declares a multi-process
     topology (:func:`initialize`, this process's card from ``device``:
-    default CUDA).  Must run before the engine is built; after it the
-    engine's mesh spans the group.  Returns the detected topology (None =
-    single process, nothing done)."""
+    default CUDA, its subgroups for ``sequence_parallel``).  Must run
+    before the engine is built; after it the engine's mesh spans the
+    group.  Returns the detected topology (None = single process, nothing
+    done)."""
     denv = detect_env(environ)
     if denv is None:
         return None
-    initialize(denv, device, environ)
+    initialize(denv, device, environ, sequence_parallel=sequence_parallel)
     return denv
+
+
+def agree_min(value: int) -> int:
+    """The least of every member's ``value`` (an all-reduce MIN over the
+    control plane; ``value`` itself outside a group): a size each rank
+    measured on its own card, agreed so that every rank plans over the
+    same one."""
+    import torch.distributed as dist
+
+    if _group is None:
+        return value
+    box = torch.tensor([value], dtype=torch.int64)
+    dist.all_reduce(box, op=dist.ReduceOp.MIN, group=_group.control)
+    return int(box[0])
 
 
 def tp_group() -> Optional[TPGroup]:

@@ -21,19 +21,25 @@ cases are served:
   replicated array has one buffer a device, so the dp and sp positions
   read the same weight trees (one a tp position) and the same KV pool,
   and nothing is copied per position.
-- a multi-process group (``distributed.py``, one process a card): tp
-  position ``p`` belongs to rank ``p // (tp / world)`` and sits on that
-  rank's device; this process holds its own positions' devices and knows
-  the others only by their rank.  dp and sp are 1 there: the engine
-  refuses sp > 1 (ROADMAP item 13d-b) and dp > 1 (dp across cards is a
-  ROADMAP question) in a group before any mesh is built, and the server
-  exits on ``--data-parallel`` > 1 there, as the JAX server does.
+- a multi-process group (``distributed.py``, one process a card): each
+  rank holds exactly one sp position and ``tp / (world / sp)`` consecutive
+  tp positions of it, all on its own card.  sp is the outer axis: the
+  rank of position ``(0, t, s)`` is ``s * (world / sp) + t // (tp / (world
+  / sp))``, so the tp peers of a position, the most frequent collective,
+  are adjacent ranks, and at sp = 1 tp position ``p`` belongs to rank ``p
+  // (tp / world)``.  This process holds its own positions' devices and
+  knows the others only by their rank; the tp reductions run over its sp
+  position's ranks and the ring or Ulysses over its tp column's
+  (``distributed.initialize`` forms both subgroups).  dp is 1 there: the
+  engine refuses dp > 1 in a group (dp across cards is a ROADMAP
+  question) before any mesh is built, and the server exits on
+  ``--data-parallel`` > 1 there, as the JAX server does.
 
 Positions on different devices within one process raise
-``NotImplementedError`` for every axis, naming the item that serves the
-case: a CUDA graph cannot span devices, tp across cards runs one process
-a card (13b), sp across cards is item 13d-b, and dp across cards is an
-open question (ROADMAP, Queue 1 item 13).
+``NotImplementedError`` for every axis, naming how the case is served: a
+CUDA graph cannot span devices, so tp and sp across cards run one process
+a card in a group (13b, 13d-b), and dp across cards is an open question
+(ROADMAP, Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -45,7 +51,11 @@ import numpy as np
 import torch
 
 from production_stack_tpu_torch.engine.config import ParallelConfig
-from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
+from production_stack_tpu_torch.engine.parallel.collectives import (
+    SPGroup,
+    TPGroup,
+    group_layout,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,15 +94,29 @@ class Mesh:
     def rank(self) -> int:
         return 0 if self.group is None else self.group.rank
 
+    @property
+    def sp_group(self) -> Optional[SPGroup]:
+        """This rank's sp column in a group at sp > 1; None in one process
+        (the sp positions are a list there) and at sp = 1."""
+        return None if self.group is None else self.group.sp_group
+
+    @property
+    def sp_index(self) -> int:
+        """The sp position this rank holds (0 in one process, which holds
+        them all)."""
+        return 0 if self.sp_group is None else self.sp_group.index
+
     def tp_devices(self) -> List[Optional[torch.device]]:
-        """The devices of the tp positions (dp and sp at 0), in tp order."""
-        return list(self.devices[0, :, 0])
+        """The devices of this rank's sp position's tp positions (dp at 0),
+        in tp order."""
+        return list(self.devices[0, :, self.sp_index])
 
     def tp_ranks(self) -> List[int]:
-        """The rank owning each tp position, in tp order."""
+        """The rank owning each tp position of this rank's sp position, in
+        tp order."""
         if self.ranks is None:
             return [0] * self.devices.shape[1]
-        return [int(r) for r in self.ranks[0, :, 0]]
+        return [int(r) for r in self.ranks[0, :, self.sp_index]]
 
     def local_tp(self) -> List[int]:
         """The tp positions this process runs, in tp order."""
@@ -113,10 +137,11 @@ _ACROSS_DEVICES = {
              "graph cannot span devices; tp across cards runs one process a "
              "card in a group (ROADMAP item 13b: PSTPU_NUM_PROCESSES and "
              "parallel/distributed.py)",
-    AXES.SP: "sp positions on different devices ({}) in one process: sp across "
-             "cards is ROADMAP item 13d-b (the ring over NCCL send/recv, "
-             "Ulysses over all_to_all_single); in one process every sp "
-             "position sits on the engine's device",
+    AXES.SP: "sp positions on different devices ({}) in one process: a CUDA "
+             "graph cannot span devices; sp across cards runs one process a "
+             "card in a group (ROADMAP item 13d-b: PSTPU_NUM_PROCESSES, the "
+             "ring over NCCL send/recv, Ulysses over all_to_all_single); in "
+             "one process every sp position sits on the engine's device",
     AXES.DP: "dp positions on different devices ({}) in one process: dp across "
              "cards is an open question (ROADMAP, Queue 1 item 13: dp in a "
              "group, or one process driving several cards with a coherent "
@@ -133,30 +158,15 @@ def build_mesh(parallel: ParallelConfig, devices: Optional[list] = None,
     positions on different devices raise ``NotImplementedError``, naming
     the axis's ROADMAP item (tp first, then sp, then dp).
 
-    In a multi-process ``group`` tp must divide over its ranks: each rank
-    owns ``tp / world`` consecutive positions, all on the group's device
-    of that rank (``devices`` is not read); dp and sp must be 1."""
+    In a multi-process ``group`` each rank holds one sp position and tp
+    divides over the ``world / sp`` ranks of a position (``ValueError``
+    otherwise, and when the group was formed for another sp); a rank's
+    positions sit on the group's device of that rank (``devices`` is not
+    read); dp must be 1."""
     shape = parallel.mesh_shape  # (dp, tp, sp)
     needed = int(np.prod(shape))
     if group is not None:
-        dp, tp, sp = shape
-        if dp > 1 or sp > 1:
-            raise NotImplementedError(
-                f"data_parallel={dp}, sequence_parallel={sp} in a multi-process "
-                "group: the engine and the server refuse both before the mesh "
-                "(ROADMAP item 13d-b for sp; dp across cards is a ROADMAP question)"
-            )
-        if tp % group.world:
-            raise ValueError(
-                f"tensor_parallel={tp} does not divide over the group's "
-                f"{group.world} processes: each process holds tp / world "
-                "positions on its own card"
-            )
-        ranks = np.broadcast_to(
-            (np.arange(tp) // (tp // group.world))[None, :, None], shape).copy()
-        array = np.empty(shape, dtype=object)
-        array[ranks == group.rank] = group.device
-        return Mesh(array, ranks=ranks, group=group)
+        return _group_mesh(shape, group)
     if devices is None:
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if needed > len(devices):
@@ -173,3 +183,34 @@ def build_mesh(parallel: ParallelConfig, devices: Optional[list] = None,
                 raise NotImplementedError(
                     _ACROSS_DEVICES[axis].format(", ".join(map(str, line))))
     return Mesh(array)
+
+
+def _group_mesh(shape: tuple, group: TPGroup) -> Mesh:
+    dp, tp, sp = shape
+    if dp > 1:
+        raise NotImplementedError(
+            f"data_parallel={dp} in a multi-process group: the engine and the "
+            "server refuse it before the mesh (dp across cards is a ROADMAP "
+            "question)"
+        )
+    group_layout(group.world, sp)  # sp must divide the group
+    width = group.world // sp  # the ranks of one sp position
+    if tp % width:
+        raise ValueError(
+            f"tensor_parallel={tp} does not divide over the group's "
+            f"{group.world} processes at sequence_parallel={sp} ({width} an sp "
+            "position): each process holds tp / (world / sp) positions on "
+            "its own card"
+        )
+    formed = 1 if group.sp_group is None else group.sp_group.size
+    if formed != sp:
+        raise ValueError(
+            f"sequence_parallel={sp}, but this process's group was formed for "
+            f"sp={formed}: pass the same sequence_parallel to "
+            "distributed.initialize / maybe_initialize"
+        )
+    t, s = np.arange(tp)[:, None], np.arange(sp)[None, :]
+    ranks = (s * width + t // (tp // width))[None].copy()
+    array = np.empty(shape, dtype=object)
+    array[ranks == group.rank] = group.device
+    return Mesh(array, ranks=ranks, group=group)

@@ -9,10 +9,15 @@ attention merged into the position's online-softmax accumulator
 ``i - 1``, ...) is the JAX ring's, and with it the fp32 bits.
 
 Where the JAX functions run on one device each inside ``shard_map`` and
-rotate with ``lax.ppermute``, here one process runs every sp position on
-one device: a function that JAX calls per position takes the list of the
-positions' shards (sp order) and returns the list of their results, and a
-rotation is ``collectives.ppermute`` of the list, which moves nothing.
+rotate with ``lax.ppermute``, here a function that JAX calls per position
+takes a list of shards and returns the list of their results, over
+whichever sp positions the mesh gives this process: in one process every
+position on one device (the list in sp order; a rotation is
+``collectives.ppermute`` of the list, which moves nothing), in a group
+(``group``, an ``SPGroup``) this rank's one position (a list of one; a
+rotation is one NCCL send to the next rank of the column and one receive
+from the previous).  The last step's rotation, whose shards no step
+reads, is not made.
 
 The chunk attention is plain PyTorch, as the JAX one is plain ``jnp``
 (not a Pallas kernel).  JAX's einsums take model-dtype operands and ask
@@ -30,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from production_stack_tpu_torch.engine.parallel.collectives import ppermute, shard
+from production_stack_tpu_torch.engine.parallel.collectives import SPGroup, ppermute, shard
 
 NEG_INF = -1e30
 
@@ -88,20 +93,28 @@ def _merge_partials(m_acc, l_acc, o_acc, m_new, l_new, o_new) -> Partials:
     return m_tot, l_tot, o_tot
 
 
+def _positions(n: int, group: Optional[SPGroup]) -> Tuple[int, List[int]]:
+    """(sp, the sp positions of the ``n`` shards this process holds)."""
+    if group is None:
+        return n, list(range(n))
+    return group.size, [group.index]
+
+
 def _ring_partials(
     qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
     q_pos: Sequence[torch.Tensor], *, scale: float, valid_len, key_pos_base,
-    init: Sequence[Partials],
+    init: Sequence[Partials], group: Optional[SPGroup] = None,
 ) -> List[Partials]:
-    """Run one ring over the sp positions (lists in sp order): each step
-    every position attends to the K/V shard it holds and merges the
-    partial into its accumulator, then the shards rotate one position
-    (``ppermute``).  ``key_pos_base`` is the global position of the ring's
-    first key (shard s holds keys at key_pos_base + s*Tk + arange(Tk));
-    ``valid_len`` counts valid keys within the ring; ``init`` seeds each
-    position's accumulator (e.g. with a previous ring's partials).
-    Returns each position's unnormalized (m, l, o)."""
-    sp = len(qs)
+    """Run one ring over the sp positions (lists in sp order, or this
+    rank's one shard of ``group``): each step every position attends to
+    the K/V shard it holds and merges the partial into its accumulator,
+    then the shards rotate one position (``ppermute``).  ``key_pos_base``
+    is the global position of the ring's first key (shard s holds keys at
+    key_pos_base + s*Tk + arange(Tk)); ``valid_len`` counts valid keys
+    within the ring; ``init`` seeds each position's accumulator (e.g. with
+    a previous ring's partials).  Returns each position's unnormalized
+    (m, l, o)."""
+    sp, mine = _positions(len(qs), group)
     Tl, H, D = qs[0].shape
     Tk = ks[0].shape[0]
     dev = qs[0].device
@@ -110,18 +123,22 @@ def _ring_partials(
         return accs
     perm = [(i, (i + 1) % sp) for i in range(sp)]
     for step in range(sp):
-        for i in range(sp):
+        for j, i in enumerate(mine):
             src_idx = (i - step) % sp  # whose shard position i holds
             local_idx = src_idx * Tk + torch.arange(Tk, device=dev)
             k_pos = key_pos_base + local_idx
             if valid_len is not None:
                 k_pos = torch.where(local_idx < valid_len, k_pos, 2**30)
-            m_new, l_new, o_new = _chunk_attention(qs[i], ks[i], vs[i], q_pos[i], k_pos,
+            m_new, l_new, o_new = _chunk_attention(qs[j], ks[j], vs[j], q_pos[j], k_pos,
                                                    scale)
-            accs[i] = _merge_partials(*accs[i], m_new, l_new, o_new.reshape(Tl, H, D))
+            accs[j] = _merge_partials(*accs[j], m_new, l_new, o_new.reshape(Tl, H, D))
+        if step == sp - 1:
+            break
         # Rotate K/V to the next position (on one device: the list).
-        ks = ppermute(ks, perm)
-        vs = ppermute(vs, perm)
+        if group is None:
+            ks, vs = ppermute(ks, perm), ppermute(vs, perm)
+        else:
+            ks, vs = [ppermute(ks[0], perm, group)], [ppermute(vs[0], perm, group)]
     return accs
 
 
@@ -148,20 +165,21 @@ def ring_self_attention(
     *,
     scale: float,
     valid_len: Optional[torch.Tensor] = None,  # global valid token count
+    group: Optional[SPGroup] = None,
 ) -> List[torch.Tensor]:
     """Causal self-attention with K/V rotating around the ring: each
-    position's output shard [Tl, H, D]."""
+    position's output shard [Tl, H, D] (this rank's one in a ``group``)."""
     Tl = qs[0].shape[0]
     dev = qs[0].device
     q_pos = []
-    for i in range(len(qs)):
+    for i in _positions(len(qs), group)[1]:
         pos = i * Tl + torch.arange(Tl, device=dev)
         if valid_len is not None:
             # Mask padded queries by pushing their positions before all keys.
             pos = torch.where(pos < valid_len, pos, -1)
         q_pos.append(pos)
     accs = _ring_partials(qs, ks, vs, q_pos, scale=scale, valid_len=valid_len,
-                          key_pos_base=0, init=_init(qs, ks[0].shape[1]))
+                          key_pos_base=0, init=_init(qs, ks[0].shape[1]), group=group)
     return [_normalize(q, l_f, o_f) for q, (_, l_f, o_f) in zip(qs, accs)]
 
 
@@ -175,6 +193,7 @@ def ring_prefill_with_prefix(
     valid_len: torch.Tensor,  # int32, one value: valid new tokens (global)
     *,
     scale: float,
+    group: Optional[SPGroup] = None,
 ) -> List[torch.Tensor]:
     """Sequence-parallel prefill attention: queries attend to the cached
     prefix plus all causally-visible new tokens.  Both the prefix and the
@@ -182,13 +201,14 @@ def ring_prefill_with_prefix(
     rings that share one online-softmax accumulator: first the prefix,
     then the new tokens.  The sp > 1 counterpart of
     ``ops/attention.prefill_attention`` (same mask semantics), called by
-    ``models/llama.prefill`` when the engine's mesh has an sp axis."""
+    ``models/llama.prefill`` when the engine's mesh has an sp axis; in a
+    ``group`` the lists hold this rank's one shard."""
     Tl = qs[0].shape[0]
     dev = qs[0].device
     cached = cached_len.reshape(())
     valid = valid_len.reshape(())
     q_pos = []
-    for i in range(len(qs)):
+    for i in _positions(len(qs), group)[1]:
         local_new_idx = i * Tl + torch.arange(Tl, device=dev)  # index among new tokens
         # Padded queries (beyond valid_len) attend to nothing; their rows are
         # never read (the engine samples from position valid_len-1).
@@ -196,10 +216,10 @@ def ring_prefill_with_prefix(
     # Ring 1: the cached prefix (global positions 0..cached_len; shard s
     # holds prefix tokens s*Cl..(s+1)*Cl).
     init = _ring_partials(qs, k_prefix, v_prefix, q_pos, scale=scale, valid_len=cached,
-                          key_pos_base=0, init=_init(qs, ks[0].shape[1]))
+                          key_pos_base=0, init=_init(qs, ks[0].shape[1]), group=group)
     # Ring 2: the new tokens' K/V shards (positions cached_len + i).
     accs = _ring_partials(qs, ks, vs, q_pos, scale=scale, valid_len=valid,
-                          key_pos_base=cached, init=init)
+                          key_pos_base=cached, init=init, group=group)
     return [_normalize(q, l_f, o_f) for q, (_, l_f, o_f) in zip(qs, accs)]
 
 

@@ -86,8 +86,11 @@ whole group through the leader.
 process, every position of the mesh on the engine's device: dp shards the
 decode batch (its buckets start at N), sp runs each prompt's attention
 over N sequence shards, and mixed steps go off, as in the JAX engine.  In
-a multi-process group ``--sequence-parallel`` > 1 exits by name (ROADMAP
-item 13d-b), next to the ``--data-parallel`` exit.
+a multi-process group ``--sequence-parallel N`` runs one sp position a
+process (the world divides by N; tp divides over the processes of a
+position): each process runs its rows of a prompt's chunk and the ring
+or Ulysses over its sp column, and the decode steps run replicated over
+sp; ``--data-parallel`` > 1 still exits.
 """
 
 from __future__ import annotations
@@ -1685,8 +1688,8 @@ def build_parser() -> argparse.ArgumentParser:
         "(halves decode's HBM weight traffic)",
     )
     # Mesh axes (config.ParallelConfig): every position of a single
-    # process's mesh on the engine's device; in a group tp spans the ranks
-    # and dp or sp above 1 exits (_join_group).
+    # process's mesh on the engine's device; in a group tp and sp span the
+    # ranks and dp above 1 exits (_join_group).
     parser.add_argument("--data-parallel", type=int, default=1)
     parser.add_argument("--tensor-parallel", type=int, default=1)
     parser.add_argument("--sequence-parallel", type=int, default=1)
@@ -2159,10 +2162,13 @@ def _run_follower(config, denv, args) -> None:
 def _join_group(args, config):
     """The multi-process bootstrap of the JAX server: when the
     environment declares a group, its rules first (``--data-parallel`` > 1
-    exits, and so does ``--sequence-parallel`` > 1, ROADMAP item 13d-b; the async KV transfer plane and the encode lane, left on auto,
+    exits; the async KV transfer plane and the encode lane, left on auto,
     go off: both are thread-timing or leader-only work that would desync
-    the ranks), then the group formed on ``--device``.  Returns the
-    topology, or None for a single process."""
+    the ranks), then the group formed on ``--device`` with its subgroups
+    for ``--sequence-parallel`` (one sp position a process: the world must
+    divide by it, and tp over the processes of a position, which the
+    engine's mesh checks by name).  Returns the topology, or None for a
+    single process."""
     from production_stack_tpu_torch.engine.parallel import distributed
 
     denv = distributed.detect_env()
@@ -2177,14 +2183,6 @@ def _join_group(args, config):
             "slice group; scale replicas with the chart's replicaCount "
             "and use --tensor-parallel/--sequence-parallel across hosts"
         )
-    if args.sequence_parallel > 1:
-        # The ring and Ulysses run over one process's positions; across
-        # processes they need NCCL send/recv and all_to_all_single.
-        raise SystemExit(
-            "--sequence-parallel > 1 is not served inside a multi-process "
-            "group yet (ROADMAP item 13d-b: sp across cards); run sp in one "
-            "process, or tp across the group"
-        )
     if config.cache.remote_prefetch is None:
         logger.info("multi-process group: disabling the async KV transfer "
                     "plane (cache.remote_prefetch auto -> False)")
@@ -2193,7 +2191,8 @@ def _join_group(args, config):
         logger.info("multi-process group: disabling the batched encode lane "
                     "(scheduler.encode_lane auto -> False)")
         config.scheduler.encode_lane = False
-    distributed.maybe_initialize(device=args.device)
+    distributed.maybe_initialize(device=args.device,
+                                 sequence_parallel=args.sequence_parallel)
     return denv
 
 

@@ -6,9 +6,8 @@ HTTP stream through a dp x sp server.
   KV heads, the ring with a sliding window, a windowed model at sp 2,
   buckets and ``max_model_len`` not divisible by ``block_size * sp``;
   mixed steps auto-resolve to off on a dp and on an sp mesh;
-- in a multi-process group sp > 1 and dp > 1 are refused by name at
-  construction, and the server exits on ``--sequence-parallel`` > 1
-  before forming the group;
+- in a multi-process group dp > 1 is refused by name at construction (sp
+  > 1 is served there: tests/test_torch_sp_group.py);
 - positions on different devices in one process raise, naming the item
   of their axis;
 - one streamed completion through the server built from
@@ -32,7 +31,6 @@ from production_stack_tpu_torch.engine import config as tcfg
 from production_stack_tpu_torch.engine.core import engine as tengine
 from production_stack_tpu_torch.engine.core.engine import LLMEngine
 from production_stack_tpu_torch.engine.models.weights import params_from_numpy
-from production_stack_tpu_torch.engine.parallel import distributed as tdist
 from production_stack_tpu_torch.engine.parallel.collectives import TPGroup
 from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
 from production_stack_tpu_torch.engine.server import api_server as port_server
@@ -89,7 +87,6 @@ def test_mixed_steps_auto_resolve_off_on_a_dp_or_sp_mesh(dp, sp):
 
 
 @pytest.mark.parametrize("dp,sp,item", [
-    (1, 2, "sequence_parallel > 1 in a multi-process group (ROADMAP item 13d-b"),
     (2, 1, "data_parallel > 1 in a multi-process group (dp across cards is a "
            "ROADMAP question"),
 ])
@@ -102,16 +99,6 @@ def test_dp_and_sp_in_a_group_are_refused_by_name(monkeypatch, dp, sp, item):
         LLMEngine(config(tcfg, dp=dp, tp=2, sp=sp), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-process group"):
         build_mesh(config(tcfg, dp=dp, tp=2, sp=sp).parallel, group=group)
-
-
-def test_sequence_parallel_inside_a_group_exits_by_name(monkeypatch):
-    monkeypatch.setenv("PSTPU_NUM_PROCESSES", "2")
-    monkeypatch.setenv("PSTPU_PROCESS_ID", "0")
-    monkeypatch.setenv("PSTPU_COORDINATOR_ADDRESS", "127.0.0.1:1")
-    with pytest.raises(SystemExit, match=r"--sequence-parallel > 1 is not served inside "
-                       r"a multi-process group yet \(ROADMAP item 13d-b"):
-        port_server.main(["--device", "cpu", "--sequence-parallel", "2"])
-    assert tdist.tp_group() is None  # refused before any group formed
 
 
 @pytest.mark.parametrize("dp,tp,sp,item", [

@@ -1,21 +1,26 @@
-"""One rank of a two-process tp group on the CPU (gloo), for
-tests/test_torch_group.py (a helper, not a test file; it imports no JAX).
+"""One rank of a multi-process group on the CPU (gloo), for
+tests/test_torch_group.py and tests/test_torch_sp_group.py (a helper, not
+a test file; it imports no JAX).
 
     python tests/torch_group_worker.py SPEC.pkl RANK
 
 SPEC (a pickle the test writes) holds the coordinator address, the world
-size and the cases; each case names a model (``model`` overrides of
-float32 tiny-llama), its weights (the JAX tree as numpy arrays), the
-requests ``[(arrival step, id, prompt, max_tokens)]`` and the
-teacher-forced tokens.  Each rank forms the group
-(``distributed.maybe_initialize`` with the ``PSTPU_*`` variables), and
-for each case builds its engine at tp = 2 (one position a rank), then:
+size, the group's ``sequence_parallel`` (1 when absent) and the cases;
+each case names a model (``model`` overrides of float32 tiny-llama), its
+mesh and cache (``parallel`` and ``cache`` overrides; tp = 2 when
+absent), its weights (the JAX tree as numpy arrays), the requests
+``[(arrival step, id, prompt, max_tokens)]`` and the teacher-forced
+tokens.  Each rank forms the group (``distributed.maybe_initialize`` with
+the ``PSTPU_*`` variables), and for each case builds its engine, then:
 the leader publishes each step's arrivals through a ``LockstepChannel``
 and steps, the follower runs ``distributed.follower_loop``; both record
-what every step sampled; then both run :func:`teacher_forced` (its
-collectives pair up across the ranks).  The rank writes
-``SPEC.pkl.<RANK>`` with, per case, the streams, the per-step samples
-and the logits.
+what every step sampled and how many attentions ran over the sp column;
+then both run :func:`teacher_forced` and :func:`prompt_logprob_rows`
+(their collectives pair up across the ranks).  With ``collectives`` in the spec each rank also runs the sp
+collectives, the ring and Ulysses over its sp column (and, with
+``world_sp``, over all the ranks as one column) on seeded inputs
+(:func:`sp_checks`), and ``distributed.agree_min`` of ``100 + rank``.  The rank writes ``SPEC.pkl.<RANK>`` with, per case,
+the streams, the per-step samples, the logits and the counts.
 """
 
 import os
@@ -28,17 +33,44 @@ import torch
 SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64, 128), max_model_len=256)
 
 
-def port_config(tp=2, model=None, **sched):
+def port_config(tp=2, model=None, parallel=None, cache=None, **sched):
     """Float32 tiny-llama, 4-token blocks, 128 of them (the JAX
-    ``mesh_engine`` config of tests/test_parallel.py)."""
+    ``mesh_engine`` config of tests/test_parallel.py), at ``tp`` or the
+    ``parallel`` overrides."""
     from production_stack_tpu_torch.engine import config as tcfg
 
     return tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32", **(model or {})),
-        cache=tcfg.CacheConfig(block_size=4, num_blocks=128),
-        parallel=tcfg.ParallelConfig(tensor_parallel=tp),
+        cache=tcfg.CacheConfig(block_size=4, num_blocks=128, **(cache or {})),
+        parallel=tcfg.ParallelConfig(**{"tensor_parallel": tp, **(parallel or {})}),
         scheduler=tcfg.SchedulerConfig(**{**SCHED, **sched}),
     )
+
+
+def sp_kwargs(engine) -> dict:
+    """The mesh's sp arguments of ``llama.prefill``, as the engine passes
+    them."""
+    return {"sp": engine.mesh.sp, "sp_mode": engine.config.parallel.sequence_parallel_mode,
+            "sp_group": engine.mesh.sp_group}
+
+
+def count_sp_attentions() -> dict:
+    """Count the attentions ``llama.prefill`` runs over an sp column (a
+    group's) and over one process's sp positions, by mode."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    counts = {"group": 0, "in_process": 0, "modes": set()}
+
+    def counted(name, real):
+        def call(*args):
+            counts[name] += 1
+            counts["modes"].add(args[-2] if name == "group" else args[-1])
+            return real(*args)
+        return call
+
+    llama._sp_attention_group = counted("group", llama._sp_attention_group)
+    llama._sp_attention = counted("in_process", llama._sp_attention)
+    return counts
 
 
 def record_steps(engine) -> list:
@@ -96,7 +128,7 @@ def teacher_forced(engine, tokens) -> np.ndarray:
     chunk = torch.tensor(tokens[:16], dtype=torch.int64, device=dev)
     prefix = torch.zeros(8, dtype=torch.int32, device=dev)
     rows = [llama.prefill(engine.params, cfg, chunk, 0, prefix, blocks[:-1], valid,
-                          engine.kv_caches)
+                          engine.kv_caches, **sp_kwargs(engine))
             for valid in (5, 11, 16)]
     table = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     table[0, :len(blocks)] = blocks
@@ -109,6 +141,73 @@ def teacher_forced(engine, tokens) -> np.ndarray:
     return torch.cat([torch.stack(rows), dec]).cpu().numpy()
 
 
+def prompt_logprob_rows(engine, tokens) -> tuple:
+    """The echo sweep of a 16-token prefill chunk of ``tokens`` (each row's
+    next token its target, the top 3): (target logprobs [16], top ids
+    [16, 3], top logprobs [16, 3]) as numpy."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    dev = engine.device
+    bs = engine.config.cache.block_size
+    blocks = torch.arange(100, 100 + 16 // bs, dtype=torch.int32, device=dev)
+    chunk = torch.tensor(tokens[:16], dtype=torch.int64, device=dev)
+    targets = torch.tensor(tokens[1:17], dtype=torch.int32, device=dev)
+    _, plp = llama.prefill(engine.params, engine.config.model, chunk, 0,
+                           torch.zeros(8, dtype=torch.int32, device=dev), blocks, 16,
+                           engine.kv_caches, prompt_targets=targets, prompt_topk=3,
+                           **sp_kwargs(engine))
+    return tuple(t.cpu().numpy() for t in plp)
+
+
+def sp_inputs(seed, T, H, K, D, C=0):
+    """tests/test_torch_sp_attention.py's seeded inputs: q, k, v, and the
+    prefix's k and v."""
+    rng = np.random.default_rng(seed)
+    shapes = [(T, H, D), (T, K, D), (T, K, D), (C, K, D), (C, K, D)]
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+
+
+def sp_checks(group) -> dict:
+    """This rank's results of the sp collectives, the ring and Ulysses over
+    ``group`` (an ``SPGroup``) on seeded inputs, each the rank's shard:
+    ``ppermute`` over the full ring and over a partial permutation (the
+    last position receives zeros), ``all_to_all`` both ways, the ring's
+    prefill over a cached prefix at (cached 8, valid 24) and Ulysses' at
+    (12, 17) (``max(sp, 2)`` kv heads), the prefix at the rank's head
+    group."""
+    from production_stack_tpu_torch.engine.parallel import collectives
+    from production_stack_tpu_torch.engine.parallel.ring_attention import (
+        ring_prefill_with_prefix,
+    )
+    from production_stack_tpu_torch.engine.parallel.ulysses import (
+        ulysses_prefill_with_prefix,
+    )
+
+    n, i = group.size, group.index
+    x = np.random.default_rng(9).standard_normal((16, 8, 3)).astype(np.float32)
+    mine = torch.from_numpy(x).tensor_split(n)[i]
+    out = {"ppermute_ring": collectives.ppermute(mine, [(j, (j + 1) % n) for j in range(n)],
+                                                 group),
+           "ppermute_partial": collectives.ppermute(mine, [(j, j + 1) for j in range(n - 1)],
+                                                    group)}
+    for split, concat in ((1, 0), (0, 1)):
+        out[f"all_to_all_{split}{concat}"] = collectives.all_to_all(mine, split, concat, group)
+
+    def lens(*values):
+        return [torch.tensor([v], dtype=torch.int32) for v in values]
+
+    q, k, v, kp, vp = (t.tensor_split(n)[i] for t in sp_inputs(2, 32, 4, 2, 8, C=16))
+    (out["ring"],) = ring_prefill_with_prefix([q], [k], [v], [kp], [vp], *lens(8, 24),
+                                              scale=8**-0.5, group=group)
+    q, k, v, kp, vp = sp_inputs(5, 32, 8 * max(n, 2) // 2, max(n, 2), 8, C=16)
+    kl = kp.shape[1] // n
+    (out["ulysses"],) = ulysses_prefill_with_prefix(
+        [q.tensor_split(n)[i]], [k.tensor_split(n)[i]], [v.tensor_split(n)[i]],
+        [kp[:, i * kl:(i + 1) * kl]], [vp[:, i * kl:(i + 1) * kl]], *lens(12, 17),
+        scale=8**-0.5, group=group)
+    return {name: t.numpy() for name, t in out.items()}
+
+
 def main(spec_path: str, rank: int) -> None:
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
@@ -118,29 +217,52 @@ def main(spec_path: str, rank: int) -> None:
         "PSTPU_COORDINATOR_ADDRESS": spec["coordinator"],
     })
     from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.kv.quant import cache_tensor
     from production_stack_tpu_torch.engine.models.weights import params_from_numpy
     from production_stack_tpu_torch.engine.parallel import distributed
 
-    denv = distributed.maybe_initialize(device="cpu")
+    denv = distributed.maybe_initialize(device="cpu",
+                                        sequence_parallel=spec.get("sequence_parallel", 1))
     results = {}
     try:
+        if spec.get("collectives"):
+            import torch.distributed as dist
+
+            from production_stack_tpu_torch.engine.parallel.collectives import SPGroup
+
+            group = distributed.tp_group()
+            results["sp_checks"] = {"column": sp_checks(group.sp_group),
+                                    "sp_index": group.sp_group.index,
+                                    "column_ranks": group.sp_group.ranks,
+                                    "agree_min": distributed.agree_min(100 + rank)}
+            if spec.get("world_sp"):  # every rank as one column, in rank order
+                whole = SPGroup(index=rank, size=spec["world"],
+                                ranks=tuple(range(spec["world"])), group=dist.group.WORLD)
+                results["sp_checks"]["world"] = sp_checks(whole)
+        counts = count_sp_attentions()
         for name, case in spec["cases"].items():
-            cfg = port_config(2, case["model"])
+            cfg = port_config(2, case["model"], case.get("parallel"), case.get("cache"))
             engine = LLMEngine(cfg, device="cpu",
                                params=params_from_numpy(cfg.model, case["params"], "cpu"))
             channel = distributed.LockstepChannel(denv)
             steps = record_steps(engine)
+            counts.update(group=0, in_process=0, modes=set())
             if denv.is_leader:
                 streams = lead(engine, channel, case["requests"])
             else:
                 distributed.follower_loop(engine, channel)
                 streams = None
+            served = dict(counts)
             results[name] = {
                 "streams": streams, "steps": steps,
                 "logits": teacher_forced(engine, case["tokens"]),
-                "pool": tuple(engine.kv_caches[0][0].shape),
+                "prompt_logprobs": prompt_logprob_rows(engine, case["tokens"]),
+                "pool": tuple(cache_tensor(engine.kv_caches[0][0]).shape),
                 "windows": engine.windows_dispatched,
                 "mixed_windows": engine.mixed_windows_dispatched,
+                "sp_attentions": served,
+                "local_tp": engine.mesh.local_tp(), "sp_index": engine.mesh.sp_index,
+                "prefix_hit_rate": engine.block_pool.prefix_hit_rate,
             }
             engine.close()
     finally:
