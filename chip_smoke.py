@@ -5932,6 +5932,235 @@ def phase_group_one_rank(tp1: dict, tp2: dict, layers: int = None) -> dict:
     return row
 
 
+# The remote KV store and the embed through the group code path on one
+# card (phase 13, the default run), against the in-process engine.
+GROUP_STORE_LAYERS = 4
+GROUP_STORE_EXPORT = 2000  # tokens: the prompt the engines export (125 blocks)
+GROUP_STORE_IMPORT = 1500  # tokens: the prompt the group imports (93 blocks)
+GROUP_STORE_BLOCKS = 256  # 4096 tokens a pool: PROMPT_LENS' 9728 tokens preempt
+GROUP_STORE_HOST_GB = 2.0
+GROUP_STORE_NEW_TOKENS = 48
+
+
+def _restore_from_store(eng) -> list:
+    """Make ``eng``'s host tier give each snapshot up at restore, so that
+    every restore reads the remote tier (the store; under the rank's key
+    in a group): the path of a snapshot the host tier has evicted.
+    Returns the list the restores' outcomes are appended to."""
+    offload, results = eng.offload, []
+
+    def restore_local(seq_id):
+        entry = type(offload).restore_local(offload, seq_id)
+        if entry is not None:
+            offload.release(entry)
+        return None
+
+    offload.restore_local = restore_local
+    restore = eng.scheduler.restore_cb
+
+    def recorded(seq):
+        out = restore(seq)
+        results.append(out)
+        return out
+
+    eng.scheduler.restore_cb = recorded
+    return results
+
+
+def _chain_keys(px: str, ids: list, bs: int) -> list:
+    from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
+
+    return [px + d.hex() for d in prefix_block_hashes(ids, bs)]
+
+
+def _store_blocks(url: str, keys: list, delete: bool = False) -> list:
+    """The stored blocks under ``keys``, read back through the client (per
+    block, per layer (k, v) on the CPU; None where the store has none),
+    deleted after the read with ``delete``."""
+    from production_stack_tpu_torch.kvserver.client import RemoteKVClient
+
+    client = RemoteKVClient(url)
+    try:
+        out = []
+        for key in keys:
+            got = client.get_blocks(key)
+            out.append(None if got is None else got[0])
+            if delete:
+                client.delete(key)
+        return out
+    finally:
+        client.close()
+
+
+def _blocks_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x is not None and y is not None and all(
+            _sides_equal(xk, yk) and _sides_equal(xv, yv)
+            for (xk, xv), (yk, yv) in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def _pool_blocks(eng, ids: list) -> list:
+    """The pool blocks of a prompt's cached chain as full-head blocks on
+    the CPU (per block, per layer (k, v))."""
+    from production_stack_tpu_torch.engine.kv import quant as kv_quant
+    from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
+
+    blocks = [eng.block_pool._hash_to_block[d]
+              for d in prefix_block_hashes(ids, eng.block_pool.block_size)]
+    idx = torch.tensor(blocks, dtype=torch.int64, device=eng.device)
+    layers = [(kv_quant.gather_blocks_device(k, idx).cpu(),
+               kv_quant.gather_blocks_device(v, idx).cpu()) for k, v in eng.kv_caches]
+    return [[(k[i:i + 1], v[i:i + 1]) for k, v in layers] for i in range(len(blocks))]
+
+
+def _store_drive(eng, url: str, export_ids: list, import_ids: list, prompts: list,
+                 text_ids: list) -> dict:
+    """One engine's run of :func:`phase_group_store`: ``import_ids`` served
+    (16 tokens; imported where the store holds its chain: the blocks the
+    pool then holds, and the launches of that request, counted from 0),
+    ``export_ids`` served and its exported blocks read back, then the
+    offload drive of ``prompts`` (its prompts neither export nor import,
+    and every restore reads the store: the streams, the restores and the
+    launches, counted from 0) and one embedding."""
+    bs = eng.block_pool.block_size
+    out = {"px": eng._px_key_prefix()}
+    _reset_launches()
+    t0 = time.time()
+    out["import_stream"] = _serve_greedy(eng, [("i", import_ids, 16)])["i"][1]
+    out["import_s"] = time.time() - t0
+    out["import_launches"] = launch_counts()
+    out["imported"] = eng.remote_prefix_blocks_fetched
+    out["import_bytes_read"] = eng.remote_prefix_bytes_read
+    out["import_pool_blocks"] = _pool_blocks(eng, import_ids)
+    t0 = time.time()
+    _serve_greedy(eng, [("x", export_ids, 4)])
+    eng.flush_prefix_exports(120.0)
+    out["export_s"] = time.time() - t0
+    out["exported"] = eng.remote_prefix_blocks_exported
+    out["export_blocks"] = _store_blocks(url, _chain_keys(out["px"], export_ids, bs),
+                                         delete=True)
+    eng._exports, eng.scheduler.remote_prefix_cb = False, None
+    restores = _restore_from_store(eng)
+    _reset_launches()
+    t0 = time.time()
+    streams = _serve_greedy(eng, [(f"d{i}", ids, GROUP_STORE_NEW_TOKENS)
+                                  for i, ids in enumerate(prompts)])
+    out["drive_s"] = time.time() - t0
+    out["embed"] = eng.embed(text_ids)
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["drive_streams"] = {k: v[1] for k, v in streams.items()}
+    out["restores"] = list(restores)
+    out["offload"] = {"saves": eng.offload.saves, "restores": eng.offload.restores,
+                      "from_store": eng.offload.remote_restores,
+                      "preemptions": eng.scheduler.num_preemptions}
+    return out
+
+
+def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
+    """The remote KV store and the embed through the group code path on
+    this card: llama-3.1-8b at full width and ``layers`` layers, tp = 2
+    (both positions on the card), the port's kvserver in a subprocess, the
+    synchronous transfer plane (as in a group) on both engines.
+
+    The in-process engine runs :func:`_store_drive` first: it computes and
+    exports the 1500-token prompt (the chain the group imports), then the
+    2000-token one (whose stored blocks are read back and deleted), then
+    the offload drive and the embed.  A one-rank NCCL group's engine then
+    runs the same drive: it imports the first prompt's chain (each rank
+    writes its own heads, the count agreed over the group), exports the
+    second (process 0 gathers the heads over the group, merges them and
+    writes), restores every snapshot from the store under ``@rank0`` (the
+    outcome agreed), and embeds on the step stream.  Its keys, stored
+    blocks, imported blocks, streams, restores, offload counts and
+    embedding must equal the in-process engine's bit for bit, and the
+    imported request's and the drive's launch counters (set to 0 just
+    before, read just after) must show every kernel of their path."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.parallel import distributed
+
+    rng = np.random.default_rng(23)
+    vocab = _serving_config().model.vocab_size
+    export_ids = rng.integers(4, vocab, GROUP_STORE_EXPORT).tolist()
+    import_ids = rng.integers(4, vocab, GROUP_STORE_IMPORT).tolist()
+    prompts = [rng.integers(4, vocab, n).tolist() for n in PROMPT_LENS]
+    text_ids = rng.integers(4, vocab, 700).tolist()
+    proc, url = start_kv_store()
+
+    def config():
+        return _serving_config(tp=2, layers=layers, **{
+            "cache.remote_kv_url": url, "cache.disagg_role": "both",
+            "cache.remote_prefetch": False, "cache.host_offload_gb": GROUP_STORE_HOST_GB,
+            "cache.num_blocks": GROUP_STORE_BLOCKS})
+
+    try:
+        eng = LLMEngine(config(), device=["cuda:0"] * 2)
+        try:
+            want = _store_drive(eng, url, export_ids, import_ids, prompts, text_ids)
+        finally:
+            eng.close()
+            del eng
+            free_engines(strict=sys.exc_info()[0] is None)
+        denv = distributed.DistributedEnv(f"127.0.0.1:{_free_port()}", 1, 0)
+        group = distributed.initialize(denv, device="cuda:0")
+        try:
+            eng = LLMEngine(config())
+            if eng.group is not group or eng.tp_local != 2 or eng.offload.remote_key_suffix != "@rank0":
+                raise AssertionError("the engine did not take the one-rank group")
+            try:
+                got = _store_drive(eng, url, export_ids, import_ids, prompts, text_ids)
+            finally:
+                eng.close()
+                eng.graphs.release()  # before the group's teardown
+                del eng
+        finally:
+            distributed.shutdown()
+        free_engines(strict=sys.exc_info()[0] is None)
+    finally:
+        proc.terminate()
+        proc.wait(30)
+    n_import = GROUP_STORE_IMPORT // 16
+    checks = {
+        "keys_equal": got["px"] == want["px"],
+        "export_blocks_equal": _blocks_equal(got["export_blocks"], want["export_blocks"]),
+        "imported_blocks_equal_stored": _blocks_equal(got["import_pool_blocks"],
+                                                      want["import_pool_blocks"]),
+        "import_stream_equal": got["import_stream"] == want["import_stream"],
+        "drive_streams_equal": got["drive_streams"] == want["drive_streams"],
+        "restores_equal": got["restores"] == want["restores"],
+        "offload_equal": got["offload"] == want["offload"],
+        "embed_equal": bool(np.array_equal(got["embed"], want["embed"])),
+    }
+    row = {"phase": "group_store", "model": MODEL, "layers": layers, "tp": 2, "world": 1,
+           "backend": "nccl", **checks,
+           "exported_blocks": got["exported"], "imported_blocks": got["imported"],
+           "import_bytes_read": got["import_bytes_read"],
+           "restores": got["restores"], "offload": got["offload"],
+           "seconds": {k: {"in_process": want[k], "group": got[k]}
+                       for k in ("import_s", "export_s", "drive_s")},
+           "import_launches": got["import_launches"], "launches": got["launches"]}
+    emit(row)
+    bad = [k for k, ok in checks.items() if not ok]
+    if got["imported"] != n_import or want["imported"] != 0:
+        bad.append(f"imported {got['imported']} (in-process {want['imported']}), "
+                   f"want {n_import}")
+    if got["exported"] < GROUP_STORE_EXPORT // 16 or any(b is None for b in got["export_blocks"]):
+        bad.append(f"exported {got['exported']}")
+    if "restored" not in got["restores"] or not got["offload"]["from_store"]:
+        bad.append("no restore from the store")
+    for k in ("paged_decode", "flash_prefill"):
+        if got["import_launches"][k] <= 0 or got["launches"][k] <= 0:
+            bad.append(f"{k} never launched")
+    if got["launches"]["flash_prefill_batched"] <= 0:
+        bad.append("the embed launched no batched flash prefill")
+    if bad:
+        raise AssertionError(f"the one-rank group's store path differs: {bad}")
+    return row
+
+
 # The --group mode: tp across cards, one process a card (four-card machine).
 GROUP_CARDS = 4
 GROUP_CASE_TIMEOUT_S = 300
@@ -6287,7 +6516,8 @@ def _group_lifecycle(work: str, reference: list = None, tp: int = GROUP_CARDS) -
     return row
 
 
-def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool = False) -> int:
+def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool = False,
+               kv_only: bool = False) -> int:
     """``python3 chip_smoke.py --group``: tensor parallelism across cards
     on a four-card machine, one process a card over NCCL.
 
@@ -6310,13 +6540,16 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
       2: boot, streams, pool tokens and memory a card;
     - the lifecycle through the real server (:func:`_group_lifecycle`);
     - sequence parallelism across cards (:func:`main_group_sp`): phase 14's
-      request at sp 1, Ulysses and the ring at sp 2 and 4, and tp 2 x sp 2.
+      request at sp 1, Ulysses and the ring at sp 2 and 4, and tp 2 x sp 2;
+    - the remote KV store and the encode routes in server groups
+      (:func:`main_group_kv`): tp 2, dense and int8, tp 4 and tp 2 x sp 2.
 
     Every case has a wall-clock limit and kills its ranks when it runs
     out.  ``layers`` (``--group --layers N``) cuts every case to N layers:
     a quick check of the plumbing; ``--group --lifecycle`` runs the
     lifecycle alone, ``--group --sp`` (with ``--layers N`` after it, if
-    wanted) the sp cases alone.  The last line is the contract's, with
+    wanted) the sp cases alone, ``--group --kv`` the store and encode
+    cases alone.  The last line is the contract's, with
     this machine's count."""
     import tempfile
 
@@ -6328,9 +6561,13 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
     work = tempfile.mkdtemp(prefix="chip_smoke_group_")
     print(f"chip_smoke --group: working in {work}", file=sys.stderr, flush=True)
     seconds = {}
-    if lifecycle_only or sp_only:
+    if lifecycle_only or sp_only or kv_only:
         if lifecycle_only:
             _group_lifecycle(work)
+        elif kv_only:
+            t0 = time.time()
+            main_group_kv(work, dev)
+            emit({"phase_seconds": {"kv": time.time() - t0}})
         else:
             t0 = time.time()
             main_group_sp(work, dev, layers)
@@ -6388,6 +6625,9 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
     t0 = time.time()
     main_group_sp(work, dev, layers)
     seconds["sp"] = time.time() - t0
+    t0 = time.time()
+    main_group_kv(work, dev)
+    seconds["kv"] = time.time() - t0
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name in ("llama_tp2", "llama_tp4"):
         if not runs[name]["profile"]["nccl_per_token_step"][
@@ -7150,6 +7390,439 @@ def phase_dp(params: dict, tp1: dict, tp2_profile: dict) -> dict:
     return runs
 
 
+# -- --group --kv: the remote KV store and the encode routes in server groups --
+
+# (name, cards, tp, sp, kv cache dtype): the real api_server as a group of
+# one process a card; the one-card engine runs on KV_ONE_CARD beside it.
+KV_GROUP_CASES = (("tp2", 2, 2, 1, "auto"), ("tp2_int8", 2, 2, 1, "int8"),
+                  ("tp4", 4, 4, 1, "auto"), ("tp2_sp2", 4, 2, 2, "auto"))
+KV_GROUP_CASE_TIMEOUT_S = 300  # each case's wall limit, boot to exit
+KV_ONE_CARD = 3  # shared with rank 3 in the four-card cases
+KV_ONE_CARD_INT8 = 2  # the int8 one-card engine, beside the two-card cases only
+KV_GROUP_BLOCKS = 512  # a rank's pool (8192 tokens): the preemption burst overflows it
+# A rank's host tier at tp 2 with bf16 blocks: about one preempted prompt's
+# heads (~60-90 MB), so a second preemption evicts the first snapshot from
+# it and its restore reads the store; scaled by the heads a rank holds
+# (8 / tp) and the int8 wire's bytes.
+KV_GROUP_HOST_GB = 0.1
+KV_ONE_CARD_BLOCKS = 2048
+KV_EXPORT_CHARS = 2048  # the prompt the group exports (the byte tokenizer: a token a char)
+KV_IMPORT_CHARS = 1536  # the prompt the group imports
+KV_TEACHER_TOKENS = 512  # the teacher-forced prompt (32 blocks)
+KV_TEACHER_TAIL = "abcd"  # the teacher tokens after it: rows 0-4
+KV_STREAMS = 8
+KV_STREAM_CHARS = (128, 160, 200, 256, 300, 384, 448, 512)
+KV_STREAM_TOKENS = 64
+KV_PREEMPT_CHARS = 900  # 8 of these fit the pool; their 512 new tokens each do not
+KV_PREEMPT_TOKENS = 512
+KV_EMBED_BURST = 3
+# Group embeddings against the one-card engine's: cosine at least this
+# (bf16, 32 layers: tp changes the order of the reductions' sums).
+KV_EMBED_COSINE = 0.99
+
+
+def _kv_text(seed: int, n: int) -> str:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz ,."), n))
+
+
+def _kv_texts(case: int, tokenizer) -> dict:
+    """A case's texts, its own (seeded by the case), so that no case meets
+    another's blocks in the store: the exported and imported prompts, the
+    teacher-forced prompt (exactly ``KV_TEACHER_TOKENS`` tokens, BOS
+    included), the embedded texts, the streams and the preemption burst."""
+    base = 1000 * (case + 1)
+    teacher = _kv_text(base, KV_TEACHER_TOKENS)
+    while len(tokenizer.encode(teacher)) > KV_TEACHER_TOKENS:
+        teacher = teacher[:-1]
+    if len(tokenizer.encode(teacher)) != KV_TEACHER_TOKENS:
+        raise AssertionError("the teacher prompt is not block aligned")
+    return {"export": _kv_text(base + 1, KV_EXPORT_CHARS),
+            "import": _kv_text(base + 2, KV_IMPORT_CHARS), "teacher": teacher,
+            "embed": [_kv_text(base + 10 + i, n) for i, n in enumerate((64, 700, 300, 1200))],
+            "streams": [_kv_text(base + 20 + i, n) for i, n in enumerate(KV_STREAM_CHARS)],
+            "preempt": [_kv_text(base + 40 + i, KV_PREEMPT_CHARS) for i in range(KV_STREAMS)]}
+
+
+def _teacher_ids(tokenizer, text: str) -> tuple:
+    """(the teacher prompt's ids, the ids of each teacher tail after it)."""
+    prompt = tokenizer.encode(text)
+    tails = [tokenizer.encode(text + KV_TEACHER_TAIL[:i])[len(prompt):]
+             for i in range(1, len(KV_TEACHER_TAIL) + 1)]
+    return prompt, tails
+
+
+def _rows_over_prefix(params, cfg, kv_caches, dev, prompt: list, tails: list,
+                      blocks: list, bs: int) -> list:
+    """The teacher-forced rows a server computes over a cached prefix: the
+    block-aligned ``prompt`` prefilled whole into ``blocks``, then row 0
+    its last block again over the rest as the prefix (a request for the
+    prompt alone: the last token is never served from the cache), and row
+    i ``tails[i]`` over the whole prompt (the prompt's blocks cached).
+    Each row's last-token logits [V] fp32 on the CPU."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    n = len(prompt) // bs
+    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
+    ids = t(blocks)
+    llama.prefill(params, cfg, t(prompt), 0, ids[:0], ids[:n], len(prompt), kv_caches)
+    rows = [llama.prefill(params, cfg, t(prompt[-bs:]), len(prompt) - bs, ids[:n - 1],
+                          ids[n - 1:n], bs, kv_caches)]
+    for tail in tails:
+        chunk = tail + [0] * (bs - len(tail))
+        rows.append(llama.prefill(params, cfg, t(chunk), len(prompt), ids[:n], ids[n:n + 1],
+                                  len(tail), kv_caches))
+    return [r.float().cpu() for r in rows]
+
+
+def _engine_rows(eng, prompt: list, tails: list) -> list:
+    blocks = eng.block_pool.allocate(len(prompt) // eng.block_pool.block_size + 1)
+    try:
+        return _rows_over_prefix(eng.params, eng.config.model, eng.kv_caches, eng.device,
+                                 prompt, tails, blocks, eng.block_pool.block_size)
+    finally:
+        eng.block_pool.free(blocks)
+
+
+def fp32_rows_over_prefix(prompts: list, bs: int = 16) -> list:
+    """:func:`_rows_over_prefix` of each ``(prompt, tails)`` on ``MODEL``'s
+    seeded weights in fp32 (drawn on the current card in bf16 as an engine
+    draws them, each tensor cast in place), with an fp32 pool of its own
+    and TF32 off.  Run with no engine on the card (32 GB of fp32
+    weights)."""
+    from production_stack_tpu_torch.engine.config import PRESETS
+    from production_stack_tpu_torch.engine.models.weights import load_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = PRESETS[MODEL]
+    params = load_params(cfg, None, seed=0, device=torch.device("cuda"))
+    _to_fp32(params)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    n = max(len(p) for p, _ in prompts) // bs + 2
+    shape = (n + 1, bs, cfg.num_kv_heads, cfg.head_dim)
+    kv = [(torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda"))
+          for _ in range(cfg.num_layers)]
+    rows = [_rows_over_prefix(params, cfg, kv, torch.device("cuda"), prompt, tails,
+                              list(range(1, n + 1)), bs) for prompt, tails in prompts]
+    del params, kv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _max_logprobs(rows: list) -> list:
+    return [float(torch.log_softmax(r, -1).max()) for r in rows]
+
+
+def _noise(rows: list, fp32: list) -> list:
+    return [float((torch.log_softmax(a, -1) - torch.log_softmax(b, -1)).abs().max())
+            for a, b in zip(rows, fp32)]
+
+
+def _boot_kv_group(name: str, cards: int, tp: int, sp: int, kv: str, url: str,
+                   work: str) -> tuple:
+    """The real ``api_server`` on ``cards`` cards with the store: (processes,
+    leader url) once the leader's /ready answers 200."""
+    coordinator = f"127.0.0.1:{_free_port()}"
+    ports = [_free_port() for _ in range(cards)]
+    host_gb = KV_GROUP_HOST_GB * 2 / tp * (0.5 if kv == "int8" else 1.0)
+    flags = ["--model", MODEL, "--tensor-parallel", str(tp), "--sequence-parallel", str(sp),
+             "--kv-cache-dtype", kv, "--remote-kv-url", url, "--disagg-role", "both",
+             "--num-blocks", str(KV_GROUP_BLOCKS), "--host-offload-gb", str(host_gb),
+             "--max-num-seqs", str(KV_STREAMS), "--max-model-len", "8192",
+             "--slice-member-timeout-s", "30", "--log-level", "info"]
+    procs = []
+    for rank in range(cards):
+        with open(os.path.join(work, f"kv_{name}.rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "production_stack_tpu_torch.engine.server.api_server",
+                 "--port", str(ports[rank]), *flags],
+                env=_group_env(rank, cards, coordinator), stdout=log, stderr=subprocess.STDOUT))
+    url0 = f"http://127.0.0.1:{ports[0]}"
+    deadline = time.time() + KV_GROUP_CASE_TIMEOUT_S
+    while _http("GET", url0 + "/ready", timeout=2.0)[0] != 200:
+        if time.time() > deadline or any(p.poll() is not None for p in procs):
+            for p in procs:
+                p.kill()
+            raise AssertionError(f"kv group {name} did not boot ({[p.poll() for p in procs]}; "
+                                 f"logs in {work})")
+        time.sleep(0.5)
+    return procs, url0
+
+
+def _rank_transfers(work: str, name: str, cards: int) -> list:
+    """Each rank's exit line of what it moved through the KV tiers
+    (``distributed.log_transfers``)."""
+    import re
+
+    pat = re.compile(r"remote store: (\d+) prefix blocks fetched, (\d+) bytes read, (\d+) "
+                     r"exported; offload: (\d+) saves, (\d+) restores, (\d+) from the store")
+    out = []
+    for rank in range(cards):
+        with open(os.path.join(work, f"kv_{name}.rank{rank}.log")) as f:
+            found = pat.findall(f.read())
+        if not found:
+            raise AssertionError(f"kv group {name}: rank {rank} logged no transfers")
+        keys = ("fetched", "bytes_read", "exported", "saves", "restores", "from_store")
+        out.append(dict(zip(keys, map(int, found[-1]))))
+    return out
+
+
+async def _kv_group_http(url0: str, eng, texts: dict) -> dict:
+    """One group's HTTP drive (:func:`main_group_kv`); ``eng`` is the
+    one-card engine of the same pool dtype."""
+    import aiohttp
+    import numpy as np
+
+    tok = eng.tokenizer
+    row = {}
+    timeout = aiohttp.ClientTimeout(total=KV_GROUP_CASE_TIMEOUT_S)
+    async with aiohttp.ClientSession(timeout=timeout) as http:
+        async def complete(prompt, n, **kw):
+            body = {"model": MODEL, "prompt": prompt, "max_tokens": n, "temperature": 0,
+                    "ignore_eos": True, **kw}
+            t0 = time.perf_counter()
+            async with http.post(url0 + "/v1/completions", json=body) as r:
+                text = await r.text()
+                if r.status != 200:
+                    raise AssertionError(f"completion: {r.status} {text[:300]}")
+            return json.loads(text), time.perf_counter() - t0
+
+        # The group exports (the prefill phase of a disaggregated request:
+        # prefill, gather, write, flush); the one-card engine imports it.
+        t0 = time.perf_counter()
+        async with http.post(url0 + "/v1/completions",
+                             json={"model": MODEL, "prompt": texts["export"], "max_tokens": 8},
+                             headers={"x-disagg-phase": "prefill"}) as r:
+            handoff = (await r.json())["disagg"]["handoff"]
+        row["export_prime_s"] = time.perf_counter() - t0
+        ids = tok.encode(texts["export"])
+        n = len(ids) // eng.block_pool.block_size
+        row["export_blocks"] = n
+        row["export_mb_per_s"] = n * _block_bytes(eng) / 1e6 / row["export_prime_s"]
+        row["keys_equal"] = handoff["px"] == eng._px_key_prefix()
+        # The one-card engine's calls block the loop: nothing else is in
+        # flight meanwhile, and they stay on this thread's card.
+        before = eng.remote_prefix_blocks_fetched
+        t0 = time.perf_counter()
+        row["one_card_import_outcome"] = eng.wait_handoff_prefix(ids, 0, handoff, 120.0)
+        row["one_card_stage_s"] = time.perf_counter() - t0
+        ttft = _serve_greedy(eng, [("x", ids, 16)])["x"][0]
+        row["one_card_import_s"] = row["one_card_stage_s"] + ttft
+        row["one_card_fetched"] = eng.remote_prefix_blocks_fetched - before
+        # The reverse: the one-card engine exports, the group imports.
+        _serve_greedy(eng, [("m", tok.encode(texts["import"]), 1)])
+        eng.flush_prefix_exports(120.0)
+        _, row["group_import_s"] = await complete(texts["import"], 16)
+        # Teacher-forced rows over the imported prefix (the one-card engine
+        # exported the teacher prompt's chain at the case's start).
+        lps = []
+        for i in range(len(KV_TEACHER_TAIL) + 1):
+            out, _ = await complete(texts["teacher"] + KV_TEACHER_TAIL[:i], 1, logprobs=0)
+            lps.append(out["choices"][0]["logprobs"]["token_logprobs"][0])
+        row["teacher_max_logprob"] = lps
+        # The encode routes, against the one-card engine's embed.
+        async with http.post(url0 + "/v1/embeddings",
+                             json={"model": MODEL, "input": texts["embed"]}) as r:
+            if r.status != 200:
+                raise AssertionError(f"/v1/embeddings: {r.status} {await r.text()}")
+            vecs = np.array([d["embedding"] for d in (await r.json())["data"]], np.float32)
+        want = np.stack([eng.embed(tok.encode(t)) for t in texts["embed"]])
+        row["embed_cosine"] = (vecs * want).sum(1).tolist()
+        for route, body in (("/v1/rerank", {"query": texts["embed"][0],
+                                            "documents": texts["embed"][1:]}),
+                            ("/v1/score", {"text_1": texts["embed"][0],
+                                           "text_2": texts["embed"][1]})):
+            async with http.post(url0 + route, json={"model": MODEL, **body}) as r:
+                row[f"{route[4:]}_status"] = r.status
+        # 8 streams' inter-token latency, alone and beside an embed burst:
+        # a stream's first data chunk comes with its first token and its
+        # finish chunk with its last, and the tokens between are
+        # KV_STREAM_TOKENS (EOS ignored); the chunks between are fewer (a
+        # token the byte tokenizer gives no text sends none), so only
+        # their largest gap is reported.
+        async def streams(tag, during=None):
+            started = [asyncio.Event() for _ in texts["streams"]]
+
+            async def one(i, text):
+                times = []
+                async with http.post(url0 + "/v1/completions", json={
+                        "model": MODEL, "prompt": text, "max_tokens": KV_STREAM_TOKENS,
+                        "temperature": 0, "ignore_eos": True, "stream": True}) as r:
+                    async for line in r.content:
+                        if line.startswith(b"data: ") and line.strip() != b"data: [DONE]":
+                            times.append(time.perf_counter())
+                            started[i].set()
+                return times
+
+            tasks = [asyncio.create_task(one(i, t)) for i, t in enumerate(texts["streams"])]
+            extra = None
+            if during is not None:
+                # The burst starts once every stream has its first token.
+                await asyncio.gather(*(e.wait() for e in started))
+                extra = await during()
+            out = await asyncio.gather(*tasks)
+            itl = [(t[-1] - t[0]) / (KV_STREAM_TOKENS - 1) for t in out]
+            gaps = [b - a for t in out for a, b in zip(t, t[1:])]
+            return _itl_summary(itl, gaps), extra
+
+        async def burst():
+            t0 = time.perf_counter()
+            for _ in range(KV_EMBED_BURST):
+                async with http.post(url0 + "/v1/embeddings",
+                                     json={"model": MODEL, "input": texts["embed"]}) as r:
+                    await r.read()
+            return time.perf_counter() - t0
+
+        await streams("warm")
+        row["streams"], _ = await streams("alone")
+        row["streams_beside_embeds"], row["embed_burst_s"] = await streams("burst", burst)
+        # Preemption: 8 prompts fit the pool, their new tokens do not;
+        # snapshots go to the host tier (about one fits) and the store, and
+        # come back.
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(complete(t, KV_PREEMPT_TOKENS) for t in texts["preempt"]))
+        row["preempt_burst_s"] = time.perf_counter() - t0
+        row["preempt_tokens"] = [o["usage"]["completion_tokens"] for o, _ in outs]
+        async with http.get(url0 + "/metrics") as r:
+            metrics = parse_metrics(await r.text())
+        row["preemptions"] = {k: v for k, v in metrics.items() if "preempt" in k}
+        async with http.post(url0 + "/drain") as r:
+            row["drain_status"] = r.status
+    return row
+
+
+def _block_bytes(eng) -> int:
+    """The bytes of one full-head block on the wire (bf16 K and V, every
+    layer), or the int8 wire's (int8 data and fp32 scales)."""
+    cfg, bs = eng.config.model, eng.block_pool.block_size
+    per = cfg.num_kv_heads * (cfg.head_dim + 4 if eng._wire_quantized else cfg.head_dim * 2)
+    return 2 * cfg.num_layers * bs * per
+
+
+def main_group_kv(work: str, dev: dict) -> dict:
+    """``python3 chip_smoke.py --group --kv``: the remote KV store and the
+    encode routes inside server groups on a four-card machine, llama-3.1-8b
+    at 32 layers in bf16 with its seeded weights, the port's kvserver in a
+    subprocess, a one-card engine (dense, and int8 beside the int8 case)
+    beside each group.  For each of ``KV_GROUP_CASES`` (tp 2 on two cards,
+    dense and int8; tp 4 and tp 2 x sp 2 on four) the real ``api_server``
+    group with ``--remote-kv-url`` and ``--disagg-role both``:
+
+    - exports a 2048-token prompt (a disaggregated prefill phase), which
+      the one-card engine imports whole (its keys equal the group's);
+    - imports a prompt the one-card engine exported;
+    - serves the teacher-forced rows over an imported 512-token prefix
+      (the prompt's last block, then 4 teacher tokens): the greedy
+      token's logprob a row, held within ``TP_LOGIT_BOUND`` x the
+      one-card row's max |logprob - fp32| (the rows computed the same way
+      on the one-card engine's pool and on the fp32 weights);
+    - answers /v1/embeddings (cosine to the one-card engine's vectors at
+      least ``KV_EMBED_COSINE``), /v1/rerank and /v1/score;
+    - streams 8 requests alone and beside an embed burst (inter-token
+      latency), then 8 long prompts that overflow the pool: offload
+      preemption, the snapshots restored from the store.
+
+    Every rank's exit line gives what it fetched and read from the store
+    and how many restores came from it: the ranks must agree."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+    from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
+
+    t_all = time.time()
+    tok = get_tokenizer(None)
+    texts = {name: _kv_texts(i, tok) for i, (name, *_) in enumerate(KV_GROUP_CASES)}
+    teacher = {name: _teacher_ids(tok, t["teacher"]) for name, t in texts.items()}
+    torch.cuda.set_device(KV_ONE_CARD)
+    t0 = time.time()
+    fp32 = dict(zip(teacher, fp32_rows_over_prefix(list(teacher.values()))))
+    fp32_s = time.time() - t0
+    proc, url = start_kv_store()
+    engines = {}
+    rows, seconds = {}, {"fp32_rows": fp32_s}
+    try:
+        for name, cards, tp, sp, kv in KV_GROUP_CASES:
+            t0 = time.time()
+            card = KV_ONE_CARD if kv == "auto" else KV_ONE_CARD_INT8
+            torch.cuda.set_device(card)
+            if kv not in engines:
+                engines[kv] = LLMEngine(_serving_config(**{
+                    "cache.remote_kv_url": url, "cache.disagg_role": "both",
+                    "cache.kv_cache_dtype": kv, "cache.num_blocks": KV_ONE_CARD_BLOCKS}),
+                    device=f"cuda:{card}")
+            eng = engines[kv]
+            # The teacher prompt's chain in the store, and the one-card rows
+            # over its prefix, computed as the group will compute them.
+            prompt, tails = teacher[name]
+            _serve_greedy(eng, [("t", prompt, 1)])
+            eng.flush_prefix_exports(120.0)
+            tp1 = _engine_rows(eng, prompt, tails)
+            procs, url0 = _boot_kv_group(name, cards, tp, sp, kv, url, work)
+            # The case's wall limit, boot included: past it the group is
+            # killed, and the case fails on its broken requests.
+            limit = threading.Timer(max(1.0, KV_GROUP_CASE_TIMEOUT_S - (time.time() - t0)),
+                                    lambda procs=procs: [p.kill() for p in procs])
+            limit.start()
+            try:
+                boot_s = time.time() - t0
+                row = asyncio.run(_kv_group_http(url0, eng, texts[name]))
+                row["exit_codes"] = _wait_group(procs, 120, f"kv_{name}")
+            finally:
+                limit.cancel()
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait(30)
+            ranks = _rank_transfers(work, name, cards)
+            noise = _noise(tp1, fp32[name])
+            errs = [abs(g - w) for g, w in zip(row["teacher_max_logprob"], _max_logprobs(tp1))]
+            row.update({"phase": f"group_kv_{name}", "cards": cards, "tp": tp, "sp": sp,
+                        "kv_cache_dtype": kv, "boot_s": boot_s, "ranks": ranks,
+                        "teacher_err": errs, "teacher_noise_tp1_vs_fp32": noise,
+                        "teacher_limit": [TP_LOGIT_BOUND * x for x in noise],
+                        "wall_s": time.time() - t0, "nvidia_smi": dev["nvidia_smi"]})
+            emit(row)
+            rows[name] = row
+            seconds[name] = row["wall_s"]
+            bad = []
+            if not row["keys_equal"] or row["one_card_fetched"] != row["export_blocks"]:
+                bad.append(f"the one-card engine fetched {row['one_card_fetched']} of "
+                           f"{row['export_blocks']} blocks (keys equal {row['keys_equal']})")
+            if any(e > TP_LOGIT_BOUND * x for e, x in zip(errs, noise)):
+                bad.append(f"teacher rows {errs} beyond {TP_LOGIT_BOUND} x {noise}")
+            if min(row["embed_cosine"]) < KV_EMBED_COSINE:
+                bad.append(f"embedding cosine {row['embed_cosine']}")
+            if row["rerank_status"] != 200 or row["score_status"] != 200:
+                bad.append("rerank or score")
+            if row["preempt_tokens"] != [KV_PREEMPT_TOKENS] * KV_STREAMS:
+                bad.append(f"preemption burst tokens {row['preempt_tokens']}")
+            fetched = {(r["fetched"], r["from_store"], r["restores"]) for r in ranks}
+            if len(fetched) != 1 or ranks[0]["fetched"] <= 0:
+                bad.append(f"the ranks' store reads differ or are empty: {ranks}")
+            if not (ranks[0]["saves"] and ranks[0]["from_store"]):
+                bad.append("no snapshot went to the store and came back")
+            if row["exit_codes"] != [0] * cards:
+                bad.append(f"exit codes {row['exit_codes']}")
+            if bad:
+                raise AssertionError(f"kv group {name}: {bad}")
+            if kv == "int8":
+                # Its card goes to the four-card cases; the dense one stays.
+                engines.pop("int8").close()
+                free_engines(strict=False)
+    finally:
+        for eng in engines.values():
+            eng.close()
+        engines.clear()
+        free_engines(strict=False)
+        proc.terminate()
+        proc.wait(30)
+    seconds["total"] = time.time() - t_all
+    emit({"phase": "group_kv_seconds", **seconds})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7239,6 +7912,8 @@ def main() -> int:
     # The group path on this card: a one-rank NCCL group at tp = 2 against
     # the in-process tp = 2 engine above.
     timed("group_one_rank", phase_group_one_rank, tp1, tp2_run)
+    # The same group path through the remote KV store and the embed.
+    group_store = timed("group_store", phase_group_store)
     # Data and sequence parallelism, every position on this card: the
     # seeded weights drawn once and handed to every engine.
     dpsp_params = timed("dpsp_weights", _serving_params)
@@ -7351,6 +8026,11 @@ def main() -> int:
                if name in ("paged_decode_int8", "flash_prefill_int8", "kv_write_int8")
                else {}),
             "launches_tp2": launches_tp2[name],
+            # The one-rank group's store phase: the import's request and
+            # the offload drive with the embed, counted from 0 each.
+            **({"launches_group_store": group_store["launches"][name]
+                + group_store["import_launches"][name]}
+               if name in ("paged_decode", "flash_prefill", "flash_prefill_batched") else {}),
             **({"launches_moe_reference_tp2": moe_tp2["card_launches"][name]}
                if name in ("paged_decode", "flash_prefill") else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
@@ -7378,5 +8058,5 @@ if __name__ == "__main__":
         flags = sys.argv[2:]
         depth = int(flags[flags.index("--layers") + 1]) if "--layers" in flags else None
         sys.exit(main_group(depth, lifecycle_only="--lifecycle" in flags,
-                            sp_only="--sp" in flags))
+                            sp_only="--sp" in flags, kv_only="--kv" in flags))
     sys.exit(main())

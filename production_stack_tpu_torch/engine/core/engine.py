@@ -139,9 +139,13 @@ each graph holds the NCCL all-reduces and the lm_head's all-gather over
 its tp subgroup (the ranks of its sp position), so the
 ranks, stepped in lockstep (the leader's event batches), launch the same
 graphs in the same order.  The tiers move full-head blocks, gathered from
-the positions' pools and scattered back; in a group offload and restore
-move each rank's own heads, and the remote store, whose blocks would span
-the ranks, is refused.
+the positions' pools and scattered back.  In a group every transfer
+outcome is decided on the step thread and agreed over the group: offload
+and restore move each rank's own heads (its remote snapshot keyed by the
+rank), the store holds full-head blocks under one engine's keys (process 0
+gathers its tp subgroup's heads and writes; every rank reads and writes
+its own heads, the blocks taken the least any rank found), and the
+encode routes run the serial ``embed`` on every rank between steps.
 
 Data and sequence parallelism (``parallel.data_parallel``,
 ``parallel.sequence_parallel``) run in one process, every position of the
@@ -162,8 +166,8 @@ sp column (NCCL send/recv and all-to-all on the card), every rank writes
 the same replicated pool and samples the same token, and the decode
 windows run replicated over sp, each rank's graphs reducing over its tp
 subgroup only.  It raises ``NotImplementedError`` at construction, by
-name, for the settings outside it: dp > 1 and the remote KV store in a
-multi-process group.
+name, for the settings outside it: dp > 1 and an explicit
+``remote_prefetch=True`` in a multi-process group.
 """
 
 from __future__ import annotations
@@ -210,6 +214,7 @@ from production_stack_tpu_torch.engine.kv.block_pool import (
 from production_stack_tpu_torch.engine.kv.offload import (
     HostOffloadManager,
     OffloadStager,
+    _layers_nbytes,
 )
 from production_stack_tpu_torch.engine.kv.prefetch import (
     PrefetchedChain,
@@ -223,7 +228,7 @@ from production_stack_tpu_torch.engine.models import llama
 from production_stack_tpu_torch.engine.models.weights import load_params
 from production_stack_tpu_torch.engine.ops import _build
 from production_stack_tpu_torch.engine.ops.kernels import paged_attention, w8a16
-from production_stack_tpu_torch.engine.parallel import distributed, shardings
+from production_stack_tpu_torch.engine.parallel import collectives, distributed, shardings
 from production_stack_tpu_torch.engine.parallel.mesh import build_mesh
 from production_stack_tpu_torch.engine.tokenizer import get_tokenizer
 from production_stack_tpu_torch.kvserver.client import RemoteKVClient
@@ -254,19 +259,21 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _unsupported(config: EngineConfig, group=None) -> List[str]:
-    """Settings outside the served configuration, by name, each with the
-    ROADMAP item that ports it: in one process every mesh is served; in a
-    multi-process group dp above 1 and the remote KV store are not."""
+    """Settings outside the served configuration, by name, each with its
+    reason: in one process every mesh is served; in a multi-process group
+    dp above 1 and an explicit asynchronous KV transfer plane are not."""
     par = config.parallel
     grouped = group is not None and group.world > 1
     checks = [
         (grouped and par.data_parallel > 1,
-         "data_parallel > 1 in a multi-process group (dp across cards is a "
-         "ROADMAP question, Queue 1 item 13; the JAX server refuses dp in a "
-         "multi-host group)"),
-        (grouped and bool(config.cache.remote_kv_url),
-         "the remote KV store in a multi-process group (a block's heads "
-         "span the ranks' cards; ROADMAP item 13e)"),
+         "data_parallel > 1 in a multi-process group (dp across cards is no "
+         "port step: the JAX server refuses dp in a multi-host group too; "
+         "scale replicas instead)"),
+        (grouped and config.cache.remote_prefetch is True,
+         "remote_prefetch=True in a multi-process group (its fetcher threads "
+         "make each rank's imports and restores depend on timing, so the "
+         "ranks would plan apart; the JAX server turns it off in a group, "
+         "and so does this engine when it is left on auto)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -505,6 +512,12 @@ class LLMEngine:
                 + ", ".join(bad)
             )
         _check_mesh_gates(config)
+        if group is not None and config.cache.remote_prefetch is None:
+            # As the JAX server in a group: the asynchronous transfer plane
+            # (fetcher threads, the off-step offload stager) goes off, so
+            # every transfer outcome is decided on the step thread, where
+            # the group agrees on it.
+            config.cache.remote_prefetch = False
         self.config = config
         world = int(np.prod(par.mesh_shape))
         if group is not None:
@@ -598,6 +611,9 @@ class LLMEngine:
         self._export_lock = threading.Lock()
         self.remote_prefix_blocks_fetched = 0
         self.remote_prefix_blocks_exported = 0
+        # Bytes of the prefix blocks this engine (this rank, in a group)
+        # read from the store, the blocks its group dropped included.
+        self.remote_prefix_bytes_read = 0
         # Disaggregated serving counters, written only by the API server's
         # event loop: prefill-phase primes served, and decode-phase handoff
         # prefetch outcomes.
@@ -731,8 +747,12 @@ class LLMEngine:
         # Adapter uploads' own stream (a loader's thread stages on it).
         self._lora_stream = None
         if self.device.type == "cuda":
-            self._embed_stream = torch.cuda.Stream(self.device)
-            self._embed_stream.wait_stream(torch.cuda.current_stream(self.device))
+            if group is None:
+                # In a group every rank embeds on its step thread's stream:
+                # a forward's collectives on a second stream could order
+                # differently on each rank against the step's.
+                self._embed_stream = torch.cuda.Stream(self.device)
+                self._embed_stream.wait_stream(torch.cuda.current_stream(self.device))
             if self.lora_registry is not None:
                 self._lora_stream = torch.cuda.Stream(self.device)
                 self._lora_stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -980,16 +1000,7 @@ class LLMEngine:
 
     def check_encode_input(self, ids: List[int]) -> None:
         """Raise ValueError on an input the embedding path refuses: empty,
-        or longer than ``encode_max_len``; NotImplementedError in a
-        multi-process group, where an encode forward run by the leader
-        alone would wait forever in collectives the followers never join
-        (the JAX engine's leader-only embed has that hang)."""
-        if self.group is not None and self.group.world > 1:
-            raise NotImplementedError(
-                "the encode routes in a multi-process group (a leader-only "
-                "forward leaves the followers out of its collectives; "
-                "ROADMAP item 13e)"
-            )
+        or longer than ``encode_max_len``."""
         if not ids:
             # An embedding of the pad token would be silent garbage.
             raise ValueError("input produced no tokens")
@@ -1024,7 +1035,12 @@ class LLMEngine:
         lane off).  On the card it runs on the engine's embed stream, never
         on the legacy default stream, so a caller's thread can run it while
         the step thread replays or captures a window graph; the copy back
-        waits for that stream only."""
+        waits for that stream only.  In a multi-process group every rank
+        calls it on its step thread, between steps, in the same order (the
+        leader's event batch carries the texts), and it runs on the step
+        thread's stream: the forward's reductions over the tp subgroup pair
+        up across the ranks as the steps' do.  At sp > 1 every rank runs the
+        whole text, as the JAX ``embed`` runs full attention on an sp mesh."""
         self.check_encode_input(prompt_token_ids)
         T = next(b for b in self.config.scheduler.prefill_buckets
                  if b >= len(prompt_token_ids))
@@ -1276,6 +1292,9 @@ class LLMEngine:
             quantized_wire=self._wire_quantized,
             wire_stats=self.kv_wire_stats,
             pinned=self.device.type == "cuda",
+            # In a group each rank's snapshot holds its own heads: its
+            # remote copy is keyed by the rank, so no rank reads another's.
+            remote_key_suffix="" if self.group is None else f"@rank{self.group.rank}",
         )
         # The asynchronous transfer plane (cache.remote_prefetch):
         # admission-time remote-prefix prefetch on fetcher threads, async
@@ -1305,9 +1324,10 @@ class LLMEngine:
         # Completed prefetches awaiting import into the prefix cache (kept
         # across steps under transient pool pressure).
         self._pending_prefetch_imports: List[PrefetchedChain] = []
-        if remote_client is not None:
+        if remote_client is not None or self.group is not None:
             # The content-key prefix reads a weight row back from the
-            # device: once, here, not in a dispatch.
+            # device (in a group, process 0's, broadcast): once, here, on
+            # every rank alike, not in a dispatch.
             self._px_key_prefix()
 
     # -- offload preemption (scheduler offload_cb) -------------------------
@@ -1330,6 +1350,12 @@ class LLMEngine:
             saved = self.offload.save(
                 seq.seq_id, self.kv_caches, block_ids, num_tokens=seq.num_tokens
             )
+            if self.group is not None and not distributed.agree_min(int(saved)):
+                # A rank whose tier could not hold its heads recomputes, so
+                # every rank does: the plans must not part.
+                if saved:
+                    self.offload.discard(seq.seq_id)
+                saved = False
             if saved and self.obs.enabled:
                 # Preemption paging on the request's timeline: the span
                 # names why this request's decode stalled.
@@ -1404,10 +1430,20 @@ class LLMEngine:
         entry = self._restore_entry(seq.seq_id)
         if entry is self._RESTORE_PENDING:
             return "retry"
+        num_tokens = None if entry is None else entry.num_tokens
+        if self.group is not None:
+            # Each rank holds its own heads' snapshot (its host tier, or
+            # the store under its rank's key): the group restores only
+            # what every rank found, and any rank's miss makes every rank
+            # recompute.
+            num_tokens = distributed.agree_min(num_tokens or 0) or None
+            if num_tokens is None and entry is not None:
+                self.offload.release(entry)
+                entry = None
         if entry is None:
             return "gone"  # fall back to recompute via normal prefill
         bs = self.block_pool.block_size
-        usable_tokens = min(entry.num_tokens, len(seq.prompt_token_ids) - 1)
+        usable_tokens = min(num_tokens, len(seq.prompt_token_ids) - 1)
         usable_blocks = usable_tokens // bs
         if usable_blocks == 0:
             self.offload.release(entry)
@@ -1472,8 +1508,8 @@ class LLMEngine:
         the structural shape and a weight fingerprint (the float32 bytes of
         the embedding's row 0), as the JAX engine hashes them, so engines
         of either package exchange KV exactly when they run the same
-        weights.  The first call (at boot, with a store) reads the row
-        from the device."""
+        weights.  The first call (at boot, with a store or in a group)
+        reads the row from the device."""
         if not hasattr(self, "_px_prefix_cache"):
             import hashlib
 
@@ -1484,8 +1520,16 @@ class LLMEngine:
                 f"{cfg.head_dim}|{cfg.dtype}|{self.block_pool.block_size}"
                 .encode()
             )
-            embed = llama.shard_trees(self.params)[0]["embed_tokens"]
-            h.update(embed[0].float().cpu().numpy().tobytes())
+            row = None
+            if self.group is None or self.group.rank == 0:
+                # Row 0 of the full table: tp position 0's first row, which
+                # process 0 of a group holds (the others hold other vocab
+                # slices), broadcast so every rank keys as one engine does.
+                embed = llama.shard_trees(self.params)[0]["embed_tokens"]
+                row = embed[0].float().cpu().numpy().tobytes()
+            if self.group is not None:
+                row = distributed.broadcast_from_leader(row)
+            h.update(row)
             self._px_prefix_cache = f"px:{h.hexdigest()}:"
         return self._px_prefix_cache
 
@@ -1581,6 +1625,16 @@ class LLMEngine:
                     kv_quant.stack_wire_blocks([b[layer_idx][1] for _, b in run]),
                 )
 
+    def _rank_blocks(self, blocks: List[list]) -> List[list]:
+        """Fetched full-head blocks cut to the heads of this process's tp
+        positions: a rank of a group writes only its own heads; in one
+        process (every position local) the blocks as they are."""
+        local = self.mesh.local_tp()
+        if len(local) == self.tp:
+            return blocks
+        cut = lambda side: kv_quant.head_range(side, local[0], local[-1] + 1, self.tp)  # noqa: E731
+        return [[(cut(k), cut(v)) for k, v in layers] for layers in blocks]
+
     def _import_prefetch_to_cache(self, chain: PrefetchedChain) -> str:
         """Returns "done" (imported / nothing left to do), "retry" (pool
         pressure), or "drop" (malformed entries: degrade)."""
@@ -1602,7 +1656,7 @@ class LLMEngine:
             return "retry"
         ids = self.block_pool.allocate(len(ready))
         try:
-            self._import_blocks(ids, [b for _, b in ready])
+            self._import_blocks(ids, self._rank_blocks([b for _, b in ready]))
         except Exception:
             # Malformed store entry (wrong layer count / block shape): free
             # and degrade; unreferenced cache lines are harmless.
@@ -1643,9 +1697,16 @@ class LLMEngine:
 
     def _fetch_remote_prefix_sync(self, seq, prefix_blocks, cached_len):
         """The synchronous remote-prefix extension: one blocking GET per
-        block inside the scheduler callback (the legacy A/B baseline).
-        Never raises: a store outage or a malformed entry degrades to a
-        local prefill."""
+        block inside the scheduler callback (the legacy A/B baseline, and
+        the import of a multi-process group).  Never raises: a store outage
+        or a malformed entry degrades to a local prefill.
+
+        In a group every rank GETs the full-head blocks itself, and the
+        blocks taken are the group's least count (``agree_min``, before any
+        block is allocated), since a block written or evicted between two
+        ranks' GETs, or an outage one rank sees, would otherwise part the
+        ranks' plans; each rank writes its own heads, and a copy-in that
+        fails on any rank is dropped on every rank."""
         client = self.offload.remote_client
         bs = self.block_pool.block_size
         hashes = self._seq_prefix_hashes(seq)
@@ -1661,24 +1722,32 @@ class LLMEngine:
         if not self.block_pool.can_allocate(remaining_blocks):
             return prefix_blocks, cached_len
         key_prefix = self._px_key_prefix()
+        fetched: List = []
         try:
-            fetched: List = []
             for digest in hashes[start : start + max_ext_blocks]:
                 entry = client.get_blocks(key_prefix + digest.hex())
                 if entry is None:
                     break
                 fetched.append(entry[0])
-            if not fetched or not self.block_pool.can_allocate(len(fetched)):
-                return prefix_blocks, cached_len
+                self.remote_prefix_bytes_read += _layers_nbytes(entry[0])
         except Exception:
             logger.exception("remote prefix fetch failed; continuing local")
+            fetched = []
+        if self.group is not None:
+            fetched = fetched[:distributed.agree_min(len(fetched))]
+        if not fetched or not self.block_pool.can_allocate(len(fetched)):
             return prefix_blocks, cached_len
         ids = self.block_pool.allocate(len(fetched))
         try:
-            self._import_blocks(ids, fetched)
+            self._import_blocks(ids, self._rank_blocks(fetched))
+            copied = True
         except Exception:
-            self.block_pool.free(ids)
             logger.exception("remote prefix copy-in failed; continuing local")
+            copied = False
+        if self.group is not None:
+            copied = bool(distributed.agree_min(int(copied)))
+        if not copied:
+            self.block_pool.free(ids)
             return prefix_blocks, cached_len
         self.remote_prefix_blocks_fetched += len(ids)
         return prefix_blocks + ids, cached_len + len(ids) * bs
@@ -1729,19 +1798,42 @@ class LLMEngine:
         step thread enqueues the gather and its copy into pinned host
         memory and records an event; the writer thread waits on it and
         makes the RPCs.  Dedupe entries expire after a TTL, so a store-side
-        eviction doesn't end sharing for good."""
+        eviction doesn't end sharing for good.
+
+        In a multi-process group the store holds full-head blocks under
+        the keys one engine uses: process 0 decides which blocks go (its
+        TTLs are its own clock's) and broadcasts the list; the ranks of its
+        tp subgroup gather their head groups onto it (``gather_first``,
+        outside any graph), it merges them in tp order and alone writes;
+        the ranks of the other sp positions hold replicas of the same
+        pool and do nothing."""
         client = self.offload.remote_client
         if client is None:
             return
         bs = self.block_pool.block_size
         hashes = self._seq_prefix_hashes(seq)
         now = time.time()
+        leader = self.group is None or self.group.rank == 0
         todo = [
             (i, digest)
             for i, digest in enumerate(hashes)
             if self._exported_hashes.get(digest, 0.0) < now
-        ]
+        ] if leader else []
+        if self.group is not None:
+            rows = distributed.broadcast_from_leader([i for i, _ in todo])
+            todo = [(i, hashes[i]) for i in rows]
+            if self.mesh.sp_index != 0:
+                return
         if not todo:
+            return
+        ids = self._put(np.asarray([seq.block_table[i] for i, _ in todo], np.int64))
+        try:
+            layers = self._gather_export(ids)
+            if layers is None:
+                return  # a rank that gave its heads to process 0
+            host_layers, ready = kv_quant.stage_to_host(layers)
+        except Exception:
+            logger.exception("prefix export gather failed; continuing")
             return
         with self._export_lock:
             if self._export_thread is None:
@@ -1750,20 +1842,6 @@ class LLMEngine:
                     target=self._export_worker, name="px-export", daemon=True
                 )
                 self._export_thread.start()
-        ids = self._put(np.asarray([seq.block_table[i] for i, _ in todo], np.int64))
-        try:
-            # Quantized wire: the int8 cache's (data, scale) tuples go out
-            # natively (serde v2; the client's probe falls back to a dense
-            # v1 encode against a legacy store).  Dense wire: int8 caches
-            # dequantize here so any peer can import.
-            host_layers, ready = kv_quant.stage_to_host([
-                (kv_quant.gather_blocks_wire(k_cache, ids, self._wire_quantized),
-                 kv_quant.gather_blocks_wire(v_cache, ids, self._wire_quantized))
-                for k_cache, v_cache in self.kv_caches
-            ])
-        except Exception:
-            logger.exception("prefix export gather failed; continuing")
-            return
         key_prefix = self._px_key_prefix()
         entries = [
             (key_prefix + digest.hex(),
@@ -1780,6 +1858,37 @@ class LLMEngine:
             self._exported_hashes[digest] = now + self._export_ttl_s
         while len(self._exported_hashes) > 65536:
             self._exported_hashes.popitem(last=False)
+
+    def _gather_export(self, ids: torch.Tensor) -> Optional[list]:
+        """The blocks ``ids`` of every layer as full-head wire sides on the
+        device: per layer ``(k, v)``, dense, or the int8 cache's native
+        ``(data, scale)`` tuples with the quantized wire (serde v2; the
+        client's probe falls back to a dense v1 encode against a legacy
+        store; with the dense wire an int8 cache dequantizes here so any
+        peer can import).  In a group the ranks of the tp subgroup gather
+        their head groups onto its first rank, stacked over the layers
+        into one tensor a dtype; None on the other ranks."""
+        layers = [
+            (kv_quant.gather_blocks_wire(k_cache, ids, self._wire_quantized),
+             kv_quant.gather_blocks_wire(v_cache, ids, self._wire_quantized))
+            for k_cache, v_cache in self.kv_caches
+        ]
+        if self.group is None:
+            return layers
+        parts = layers[0][0] if kv_quant.is_quantized(layers[0][0]) else (layers[0][0],)
+        gathered = []
+        for i in range(len(parts)):
+            def part(side):
+                return side[i] if kv_quant.is_quantized(side) else side
+            stacked = torch.stack([torch.stack([part(k), part(v)]) for k, v in layers])
+            gathered.append(collectives.gather_first(stacked, self.group))
+        if gathered[0] is None:
+            return None
+        # [L, 2, n, bs, heads, ...] a rank -> full heads, in tp order.
+        merged = [torch.cat(g, dim=4) for g in gathered]
+        if len(merged) == 1:
+            return [(m[0], m[1]) for m in merged[0]]
+        return [((d[0], s[0]), (d[1], s[1])) for d, s in zip(*merged)]
 
     def flush_prefix_exports(self, timeout: float = 10.0) -> None:
         """Block until queued exports have been written (tests; graceful

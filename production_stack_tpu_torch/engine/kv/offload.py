@@ -220,7 +220,7 @@ class HostOffloadManager:
                  remote_client: Optional["RemoteKVClient"] = None,
                  quantized_wire: bool = False,
                  wire_stats: Optional["KVWireStats"] = None,
-                 pinned: bool = False):
+                 pinned: bool = False, remote_key_suffix: str = ""):
         # Quantized snapshots (cache.wire_quantized): the sync save path
         # gathers the int8 cache's native (data, scale) tuples instead
         # of dequantizing to the dense wire — ~4x the resident tokens
@@ -236,6 +236,10 @@ class HostOffloadManager:
         self._entries: Dict[str, OffloadEntry] = {}
         self._lock = threading.RLock()
         self.remote_client = remote_client  # kvserver client (optional tier)
+        # Appended to a seq_id for its remote snapshot's key: a rank of a
+        # multi-process group names itself ("@rank1"), since its snapshot
+        # holds only its own heads and must never be read by another rank.
+        self.remote_key_suffix = remote_key_suffix
         # seq_ids known to have a snapshot in the remote store (local put
         # or remote fetch): bounds discard() to one DEL for those only —
         # never a blocking RPC for sequences that were never offloaded.
@@ -253,6 +257,8 @@ class HostOffloadManager:
         self._del_cv = threading.Condition(self._lock)
         self.saves = 0
         self.restores = 0
+        # Restores whose snapshot came back from the remote store.
+        self.remote_restores = 0
         self.evictions = 0
 
     @property
@@ -359,7 +365,8 @@ class HostOffloadManager:
         try:
             if self.remote_client is not None:
                 try:
-                    self.remote_client.put_blocks(seq_id, layers, num_tokens)
+                    self.remote_client.put_blocks(seq_id + self.remote_key_suffix,
+                                                  layers, num_tokens)
                     with self._lock:
                         self._remote_keys.add(seq_id)
                 except Exception:
@@ -394,7 +401,7 @@ class HostOffloadManager:
             return entry
         if self.remote_client is not None:
             try:
-                fetched = self.remote_client.get_blocks(seq_id)
+                fetched = self.remote_client.get_blocks(seq_id + self.remote_key_suffix)
             except Exception:
                 logger.warning("remote KV get failed for %s", seq_id, exc_info=True)
                 return None
@@ -402,6 +409,7 @@ class HostOffloadManager:
                 layers, num_tokens = fetched
                 with self._lock:
                     self.restores += 1
+                    self.remote_restores += 1
                     self._remote_keys.add(seq_id)
                 return OffloadEntry(
                     seq_id=seq_id,
@@ -497,7 +505,7 @@ class HostOffloadManager:
             if seq_id is None:
                 return
             try:
-                self.remote_client.delete(seq_id)
+                self.remote_client.delete(seq_id + self.remote_key_suffix)
             except Exception:
                 logger.debug(
                     "remote KV delete failed for %s", seq_id, exc_info=True

@@ -291,7 +291,8 @@ class PrefetchManager:
         t0 = time.time()
         fetched = None
         try:
-            fetched = self._client.get_blocks(seq_id)
+            suffix = getattr(self._restore_sink, "remote_key_suffix", "")
+            fetched = self._client.get_blocks(seq_id + suffix)
         except Exception:
             logger.debug(
                 "remote restore fetch failed for %s", seq_id, exc_info=True

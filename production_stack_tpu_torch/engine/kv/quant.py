@@ -37,20 +37,26 @@ def cache_shape(side) -> Tuple[int, ...]:
     return tuple((side[0] if is_quantized(side) else side).shape)
 
 
+def sharded(side) -> bool:
+    """Whether a pool side is sharded by heads: its tensors carry a leading
+    axis of the tp positions this process runs (data [n, N, bs, K/tp, D],
+    int8 scale [n, N, bs, K/tp]: one contiguous pool per position, the JAX
+    package's ``kv_cache_spec`` with every local shard on one device).  A
+    rank of a multi-process group that runs one position of tp > 1 holds a
+    sharded side with n = 1."""
+    return cache_tensor(side).dim() == 5
+
+
 def tp_size(side) -> int:
     """The tensor-parallel positions a pool side holds: 1 for a side of one
-    position ([N, bs, K, D]); tp for a side sharded by heads, whose tensors
-    carry a leading tp axis (data [tp, N, bs, K/tp, D], int8 scale [tp, N,
-    bs, K/tp]: one contiguous pool per position, the JAX package's
-    ``kv_cache_spec`` with every shard on one device)."""
-    t = cache_tensor(side)
-    return t.shape[0] if t.dim() == 5 else 1
+    position ([N, bs, K, D]), n for a sharded side (:func:`sharded`)."""
+    return cache_tensor(side).shape[0] if sharded(side) else 1
 
 
 def shard_side(side, r: int):
     """Position ``r``'s pool of a side sharded by heads (the side itself
     when it holds one position)."""
-    if cache_tensor(side).dim() != 5:
+    if not sharded(side):
         return side
     return (side[0][r], side[1][r]) if is_quantized(side) else side[r]
 
@@ -62,13 +68,14 @@ def _merge_heads(t: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return g.reshape(*g.shape[:2], -1, *g.shape[4:])
 
 
-def _head_slice(host, r: int, tp: int):
-    """Position ``r``'s heads of a full-head block side (dense [n, bs, K,
-    D] or (data, scale [n, bs, K])), contiguous."""
+def head_range(host, first: int, stop: int, tp: int):
+    """The heads of tp positions ``first`` to ``stop - 1`` (one position's,
+    or a rank's) of a full-head block side (dense [n, bs, K, D] or (data,
+    scale [n, bs, K])), contiguous."""
     if is_quantized(host):
-        return tuple(_head_slice(t, r, tp) for t in host)
+        return tuple(head_range(t, first, stop, tp) for t in host)
     k = host.shape[2] // tp
-    return host[:, :, r * k:(r + 1) * k].contiguous()
+    return host[:, :, first * k:stop * k].contiguous()
 
 
 def quantize_vectors(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -108,7 +115,7 @@ def gather_blocks_device(side, ids: torch.Tensor) -> torch.Tensor:
     fresh dense tensor [n, bs, K, D], dequantized for an int8 side.  The
     pool may reuse the source blocks at once: later writes to them are
     enqueued after this gather."""
-    if tp_size(side) > 1:
+    if sharded(side):
         if is_quantized(side):
             return dequantize(_merge_heads(side[0], ids), _merge_heads(side[1], ids))
         return _merge_heads(side, ids)
@@ -125,7 +132,7 @@ def gather_blocks_wire(side, ids: torch.Tensor, quantized_wire: bool):
     :func:`gather_blocks_device` gives."""
     if quantized_wire and is_quantized(side):
         data, scale = side
-        if tp_size(side) > 1:
+        if sharded(side):
             return (_merge_heads(data, ids), _merge_heads(scale, ids))
         return (data.index_select(0, ids), scale.index_select(0, ids))
     return gather_blocks_device(side, ids)
@@ -226,17 +233,18 @@ def set_blocks(k_side, v_side, ids: torch.Tensor, k_host, v_host) -> None:
     side, and quantized into an int8 side by the int8 cache writer
     (``ops/kernels/kv_write.write_int8_kv``: on the card its kernel, one
     row a token with the block id repeated and offsets ``arange(bs)``).
-    A side sharded by heads takes the full-head blocks: they go to the
-    device whole, then each position is written its own heads."""
+    A side sharded by heads takes the blocks of the heads its positions
+    hold (all of them in one process): they go to the device whole, then
+    each position is written its own heads."""
     from production_stack_tpu_torch.engine.ops.kernels.kv_write import write_int8_kv
 
     dev = ids.device
     tp = tp_size(k_side)
-    if tp > 1:
+    if sharded(k_side):
         k_dev, v_dev = (_to_device(h, dev) for h in (k_host, v_host))
         for r in range(tp):
             set_blocks(shard_side(k_side, r), shard_side(v_side, r), ids,
-                       _head_slice(k_dev, r, tp), _head_slice(v_dev, r, tp))
+                       head_range(k_dev, r, r + 1, tp), head_range(v_dev, r, r + 1, tp))
         return
     if is_quantized(k_side) and not is_quantized(k_host):
         n, bs = k_host.shape[:2]

@@ -126,6 +126,25 @@ def all_gather(part: torch.Tensor, group: Optional[TPGroup], widths: Sequence[in
     return torch.cat([o[..., :n] for o, n in zip(outs, widths)], dim=-1)
 
 
+def gather_first(x: torch.Tensor, group: TPGroup) -> Optional[List[torch.Tensor]]:
+    """The tensors ``x`` (one shape and dtype on every rank) of the ranks of
+    this rank's tp subgroup, in rank order (tp order), on the subgroup's
+    first rank; None on the others.  One ``gather`` over the subgroup (NCCL
+    on the card, gloo on the CPU), ordered on the current stream.  The
+    prefix export gathers a block's head groups onto the leader with it,
+    outside any captured graph."""
+    import torch.distributed as dist
+
+    ranks = dist.get_process_group_ranks(group.group)
+    x = x.contiguous()
+    if group.rank != ranks[0]:
+        dist.gather(x, None, dst=ranks[0], group=group.group)
+        return None
+    outs = [torch.empty_like(x) for _ in ranks]
+    dist.gather(x, outs, dst=ranks[0], group=group.group)
+    return outs
+
+
 def shard(x: torch.Tensor, n: int) -> List[torch.Tensor]:
     """``x`` cut into ``n`` equal contiguous row blocks along axis 0, in
     position order: the shards of a ``P(SP, ...)`` spec (views, no copy)."""

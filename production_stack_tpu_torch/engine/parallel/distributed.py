@@ -295,6 +295,17 @@ def agree_min(value: int) -> int:
     return int(box[0])
 
 
+def broadcast_from_leader(obj: Any) -> Any:
+    """``obj`` as process 0 holds it, on every member (a broadcast over the
+    control plane, beside :func:`agree_min`; ``obj`` itself outside a
+    group): a small host value one rank decides or reads for the group,
+    such as the embedding row the prefix keys hash, or the blocks an
+    export takes."""
+    if _group is None:
+        return obj
+    return broadcast_pyobj(obj, is_source=_group.denv.is_leader)
+
+
 def tp_group() -> Optional[TPGroup]:
     """The data plane of this process's group; None outside a group."""
     return None if _group is None else _group.tp
@@ -438,6 +449,9 @@ class StepEvents:
     requests: list = dataclasses.field(default_factory=list)
     # (request_id, prompt_token_ids, SamplingParams, adapter)
     aborts: list = dataclasses.field(default_factory=list)
+    # (encode_id, token_ids): texts every rank embeds (``LLMEngine.embed``)
+    # on its step thread before this iteration's step.
+    encodes: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
     # Group identity: the leader's boot nonce and a monotonic publish
     # ordinal, stamped by LockstepChannel.publish.  A follower adopts
@@ -836,6 +850,27 @@ def follower_loop(engine, channel: LockstepChannel) -> None:
     of the rank's own copy of the sampled tokens — no collectives),
     keeping the group in sync."""
     logger.info("follower %d: entering lockstep loop", channel.denv.process_id)
+    try:
+        _follow(engine, channel)
+    finally:
+        log_transfers(engine, f"follower {channel.denv.process_id}")
+
+
+def log_transfers(engine, who: str) -> None:
+    """One log line of what this rank moved through the KV tiers (the
+    store reads are each rank's own; the server's leader logs it at exit
+    too)."""
+    offload = getattr(engine, "offload", None)
+    if offload is None:
+        return
+    logger.info("%s: remote store: %d prefix blocks fetched, %d bytes read, %d exported; "
+                "offload: %d saves, %d restores, %d from the store", who,
+                engine.remote_prefix_blocks_fetched, engine.remote_prefix_bytes_read,
+                engine.remote_prefix_blocks_exported, offload.saves, offload.restores,
+                offload.remote_restores)
+
+
+def _follow(engine, channel: LockstepChannel) -> None:
     while True:
         try:
             events = channel.receive()
@@ -868,6 +903,13 @@ def follower_loop(engine, channel: LockstepChannel) -> None:
                 # The leader hit the same validation error and already
                 # answered the client; stay in lockstep.
                 logger.exception("follower: add_request failed")
+        for encode_id, token_ids in getattr(events, "encodes", ()):
+            # The leader's embeds, at the same point of the iteration: the
+            # forward's reductions pair up with the leader's.
+            try:
+                engine.embed(token_ids)
+            except Exception:
+                logger.exception("follower: embed %s failed", encode_id)
         if engine.has_unfinished() or engine.has_pending():
             try:
                 engine.step()

@@ -31,15 +31,15 @@ cases are served:
   knows the others only by their rank; the tp reductions run over its sp
   position's ranks and the ring or Ulysses over its tp column's
   (``distributed.initialize`` forms both subgroups).  dp is 1 there: the
-  engine refuses dp > 1 in a group (dp across cards is a ROADMAP
-  question) before any mesh is built, and the server exits on
-  ``--data-parallel`` > 1 there, as the JAX server does.
+  engine refuses dp > 1 in a group (dp across cards is no port step:
+  the JAX server refuses it too) before any mesh is built, and the server
+  exits on ``--data-parallel`` > 1 there, as the JAX server does.
 
 Positions on different devices within one process raise
 ``NotImplementedError`` for every axis, naming how the case is served: a
 CUDA graph cannot span devices, so tp and sp across cards run one process
-a card in a group (13b, 13d-b), and dp across cards is an open question
-(ROADMAP, Queue 1 item 13).
+a card in a group (13b, 13d-b), and dp across cards is no port step (the
+JAX server refuses dp in a multi-host group; replicas serve it).
 """
 
 from __future__ import annotations
@@ -143,10 +143,9 @@ _ACROSS_DEVICES = {
              "ring over NCCL send/recv, Ulysses over all_to_all_single); in "
              "one process every sp position sits on the engine's device",
     AXES.DP: "dp positions on different devices ({}) in one process: dp across "
-             "cards is an open question (ROADMAP, Queue 1 item 13: dp in a "
-             "group, or one process driving several cards with a coherent "
-             "pool); in one process every dp position sits on the engine's "
-             "device",
+             "cards is no port step (the JAX server refuses dp in a multi-host "
+             "group; replicas behind the router serve it); in one process every "
+             "dp position sits on the engine's device",
 }
 
 
@@ -190,8 +189,8 @@ def _group_mesh(shape: tuple, group: TPGroup) -> Mesh:
     if dp > 1:
         raise NotImplementedError(
             f"data_parallel={dp} in a multi-process group: the engine and the "
-            "server refuse it before the mesh (dp across cards is a ROADMAP "
-            "question)"
+            "server refuse it before the mesh (dp across cards is no port "
+            "step: the JAX server refuses it too)"
         )
     group_layout(group.world, sp)  # sp must divide the group
     width = group.world // sp  # the ranks of one sp position

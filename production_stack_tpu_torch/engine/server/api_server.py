@@ -76,7 +76,13 @@ each iteration's event batch to the followers (``parallel/
 distributed.py``); a follower serves only ``/health``, ``/ready`` and a
 ``POST /drain`` (and SIGTERM) that it relays to the leader, and steps in
 lockstep.  In a group the async KV transfer plane and the encode lane
-default to off, ``--data-parallel`` > 1 exits, the leader's ``/health``
+default to off (the engine refuses an explicit
+``cache.remote_prefetch=True`` there), the remote
+KV store serves full-head blocks under one engine's keys (process 0
+gathers the heads and writes; every rank imports its own heads, the group
+taking the blocks every rank found), the encode routes run the serial
+embed on every rank between steps, ``--data-parallel`` > 1 exits, the
+leader's ``/health``
 and ``/ready`` fail when a member goes silent past
 ``--slice-member-timeout-s``, and a follower's drain relay drains the
 whole group through the leader.
@@ -1265,18 +1271,15 @@ def build_engine_app(
 
     async def _embed_texts(token_lists, deadline):
         """Unit vectors of tokenized texts through the encode lane (or the
-        serial path with the lane off), and an error response: 504 for a
-        text whose deadline passed while it was queued, 400 for an
-        over-long input, 501 in a multi-process group (no encode forward
-        there: ``LLMEngine.check_encode_input``)."""
+        serial path with the lane off or in a multi-process group), and an
+        error response: 504 for a text whose deadline passed while it was
+        queued, 400 for an over-long input."""
         try:
             return await engine.embed_batch(token_lists, deadline=deadline), None
         except DeadlineExceeded as e:
             return None, _error(str(e), 504, "deadline_expired", code=504)
         except ValueError as e:
             return None, _error(str(e))
-        except NotImplementedError as e:
-            return None, _error(str(e), 501, "not_implemented", code=501)
 
     async def _json_body(request):
         try:
@@ -2243,6 +2246,8 @@ def _serve(args, config, denv) -> None:
     install_sigterm_drain(app)
     logger.info("Starting engine (%s) on %s:%d", served, args.host, args.port)
     web.run_app(app, host=args.host, port=args.port, access_log=None)
+    if denv is not None:
+        distributed.log_transfers(engine.engine, "process 0")
     engine.engine.graphs.release()  # before the group's teardown
 
 

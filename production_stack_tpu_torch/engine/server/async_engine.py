@@ -32,8 +32,12 @@ into them) right before it steps, and an empty heartbeat while idle; the
 followers replay it (``distributed.follower_loop``) and step with the
 same discipline, so every rank launches the same graphs and collectives.
 A ``GroupLivenessMonitor`` (``slice_monitor``) turns a silent member into
-a ``/health`` failure.  Under lockstep the encode lane is not built (a
-leader-only forward would leave the followers out of its collectives).
+a ``/health`` failure.  Under lockstep the encode lane is not built, as in
+the JAX server; embed, rerank and score texts queue for the step thread,
+the next event batch carries them (an idle group publishes for them too),
+and every rank runs the serial ``LLMEngine.embed`` on its step thread
+before that iteration's step, so the forward's reductions pair up across
+the ranks; the leader resolves the callers' futures.
 """
 
 from __future__ import annotations
@@ -120,6 +124,9 @@ class AsyncEngine:
         self._queues: Dict[str, asyncio.Queue] = {}
         self._pending: List = []  # (request_id, prompt_ids, sampling_params, adapter)
         self._aborts: List[str] = []
+        # Under lockstep: (encode_id, token_ids, future, deadline) for the
+        # step thread to publish and embed.
+        self._encodes: List = []
         self._lock = threading.Lock()
         self._shutdown = threading.Event()
         self._wakeup = threading.Event()
@@ -172,6 +179,11 @@ class AsyncEngine:
         if self.encode_batcher is not None:
             # The step thread is gone; queued embeds can never run.
             self.encode_batcher.fail_all(RuntimeError("engine shutting down"))
+        with self._lock:
+            encodes, self._encodes = self._encodes, []
+        for _, _, fut, _ in encodes:
+            if not fut.done():
+                fut.set_exception(RuntimeError("engine shutting down"))
         # Release the engine's own workers after the step thread (their
         # producer) is gone: the prefix exporter (its queued exports
         # flushed), prefetch fetchers, the offload stager's writer, the
@@ -239,12 +251,23 @@ class AsyncEngine:
         every text is queued on the EncodeBatcher and the step thread runs
         the [B, T]-bucketed batch between steps; this coroutine's thread
         never touches the device.  With the lane off each text runs the
-        serial ``embed`` in a worker thread (on the engine's embed stream).
+        serial ``embed`` in a worker thread (on the engine's embed stream);
+        under lockstep each text is queued for the step thread, which
+        publishes it to the group and embeds it between steps.
         Raises ValueError on empty or over-long inputs either way, and
         DeadlineExceeded when a queued text's deadline passed before its
         batch ran."""
         for ids in batch_token_ids:
             self.engine.check_encode_input(ids)
+        if self._lockstep is not None:
+            loop = asyncio.get_running_loop()
+            futures = [loop.create_future() for _ in batch_token_ids]
+            with self._lock:
+                self._encodes.extend(
+                    (f"enc-{uuid.uuid4().hex[:12]}", list(ids), fut, deadline)
+                    for ids, fut in zip(batch_token_ids, futures))
+            self._wakeup.set()
+            return list(await asyncio.gather(*futures))
         if self.encode_batcher is None:
             return [await asyncio.to_thread(self.engine.embed, ids)
                     for ids in batch_token_ids]
@@ -383,7 +406,11 @@ class AsyncEngine:
             with self._lock:
                 pending, self._pending = self._pending, []
                 aborts, self._aborts = self._aborts, []
+                encodes, self._encodes = self._encodes, []
                 self._pending_tokens -= sum(len(p[1]) for p in pending)
+            # A queued text whose deadline passed is answered here and never
+            # published: the followers embed what the leader will.
+            encodes = [e for e in encodes if not self._encode_expired(e)]
             # Deadline sweep, each scheduler pass: expired waiting and
             # preempted sequences join this iteration's aborts (published
             # under lockstep like any client abort, so followers replay
@@ -400,7 +427,7 @@ class AsyncEngine:
                     expired.append(request_id)
                     self.engine.deadline_expired += 1
             if self._lockstep is not None and (
-                pending or aborts or self.engine.has_unfinished()
+                pending or aborts or encodes or self.engine.has_unfinished()
                 or self.engine.has_pending()
                 # Idle heartbeat: followers detect a dead leader by event
                 # staleness; without it an idle group looks dead.
@@ -410,8 +437,9 @@ class AsyncEngine:
                     StepEvents,
                 )
 
-                self._lockstep.publish(StepEvents(requests=list(pending),
-                                                  aborts=list(aborts)))
+                self._lockstep.publish(StepEvents(
+                    requests=list(pending), aborts=list(aborts),
+                    encodes=[(eid, ids) for eid, ids, _, _ in encodes]))
                 last_publish = time.time()
             for request_id in aborts:
                 self.engine.abort_request(request_id)
@@ -428,6 +456,14 @@ class AsyncEngine:
                     )
                 except ValueError as e:
                     self._emit(request_id, e)
+            # The group's embeds, where follower_loop runs them: after the
+            # admissions, before the step.
+            for _, ids, fut, _ in encodes:
+                try:
+                    result = self.engine.embed(ids)
+                except Exception as e:  # handed to the caller
+                    result = e
+                self._resolve(fut, result)
             if not self.engine.has_unfinished() and not self.engine.has_pending():
                 # Generation idle: encode batches are the only work there
                 # is; drain the queue completely before sleeping.
@@ -489,6 +525,29 @@ class AsyncEngine:
         except Exception:
             logger.exception("shutdown publish failed")
         fatal_exit(1)
+
+    def _encode_expired(self, encode) -> bool:
+        """Answer a queued group embed whose deadline has passed with
+        :class:`DeadlineExceeded`; True when it did."""
+        deadline = encode[3]
+        if deadline is None or self._clock() < deadline:
+            return False
+        self._resolve(encode[2], DeadlineExceeded(
+            "embedding input missed its deadline while queued"))
+        return True
+
+    def _resolve(self, future, result) -> None:
+        """Settle an event-loop future from the step thread (a result, or
+        an exception to raise in the caller)."""
+        def settle():
+            if future.done():
+                return
+            if isinstance(result, BaseException):
+                future.set_exception(result)
+            else:
+                future.set_result(result)
+
+        self._loop.call_soon_threadsafe(settle)
 
     def _emit(self, request_id: str, event) -> None:
         queue = self._queues.get(request_id)

@@ -6,8 +6,10 @@ HTTP stream through a dp x sp server.
   KV heads, the ring with a sliding window, a windowed model at sp 2,
   buckets and ``max_model_len`` not divisible by ``block_size * sp``;
   mixed steps auto-resolve to off on a dp and on an sp mesh;
-- in a multi-process group dp > 1 is refused by name at construction (sp
-  > 1 is served there: tests/test_torch_sp_group.py);
+- in a multi-process group dp > 1 and an explicit ``remote_prefetch=True``
+  are refused by name at construction (sp > 1 is served there:
+  tests/test_torch_sp_group.py; the remote store on auto prefetch:
+  tests/test_torch_group_kv.py);
 - positions on different devices in one process raise, naming the item
   of their axis;
 - one streamed completion through the server built from
@@ -86,23 +88,26 @@ def test_mixed_steps_auto_resolve_off_on_a_dp_or_sp_mesh(dp, sp):
     assert "mixed" not in port.compile_inventory()
 
 
-@pytest.mark.parametrize("dp,sp,item", [
-    (2, 1, "data_parallel > 1 in a multi-process group (dp across cards is a "
-           "ROADMAP question"),
+@pytest.mark.parametrize("dp,sp,cache,item", [
+    (2, 1, None, "data_parallel > 1 in a multi-process group (dp across cards is no "
+                 "port step"),
+    (1, 1, {"remote_prefetch": True, "remote_kv_url": "kv://127.0.0.1:9"},
+     "remote_prefetch=True in a multi-process group (its fetcher threads"),
 ])
-def test_dp_and_sp_in_a_group_are_refused_by_name(monkeypatch, dp, sp, item):
+def test_dp_and_sp_in_a_group_are_refused_by_name(monkeypatch, dp, sp, cache, item):
     """A (faked) two-process group: the engine refuses before any gate,
-    mesh or weight."""
+    mesh or weight; the mesh itself refuses dp > 1 in a group."""
     group = TPGroup(rank=0, world=2, device=torch.device("cpu"))
     monkeypatch.setattr(tengine, "_group_of_process", lambda: group)
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")):
-        LLMEngine(config(tcfg, dp=dp, tp=2, sp=sp), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process group"):
-        build_mesh(config(tcfg, dp=dp, tp=2, sp=sp).parallel, group=group)
+        LLMEngine(config(tcfg, dp=dp, tp=2, sp=sp, cache=cache), device="cpu")
+    if dp > 1:
+        with pytest.raises(NotImplementedError, match="multi-process group"):
+            build_mesh(config(tcfg, dp=dp, tp=2, sp=sp).parallel, group=group)
 
 
 @pytest.mark.parametrize("dp,tp,sp,item", [
-    (1, 2, 1, "13b"), (1, 1, 2, "13d-b"), (2, 1, 1, "open question"),
+    (1, 2, 1, "13b"), (1, 1, 2, "13d-b"), (2, 1, 1, "no port step"),
     (2, 2, 2, "13b"),
 ])
 def test_positions_on_different_devices_raise_naming_their_item(dp, tp, sp, item):

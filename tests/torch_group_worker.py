@@ -1,6 +1,7 @@
 """One rank of a multi-process group on the CPU (gloo), for
-tests/test_torch_group.py and tests/test_torch_sp_group.py (a helper, not
-a test file; it imports no JAX).
+tests/test_torch_group.py, tests/test_torch_sp_group.py,
+tests/test_torch_group_kv.py and tests/test_torch_group_encode.py (a
+helper, not a test file; it imports no JAX).
 
     python tests/torch_group_worker.py SPEC.pkl RANK
 
@@ -21,6 +22,19 @@ collectives, the ring and Ulysses over its sp column (and, with
 ``world_sp``, over all the ranks as one column) on seeded inputs
 (:func:`sp_checks`), and ``distributed.agree_min`` of ``100 + rank``.  The rank writes ``SPEC.pkl.<RANK>`` with, per case,
 the streams, the per-step samples, the logits and the counts.
+
+A case may also carry ``sched`` (scheduler overrides), ``encodes``
+``[(arrival step, [token ids])]`` (texts the leader publishes with the
+step's arrivals and every rank embeds before the step, as the server's
+step loop does), ``skip_checks`` (no teacher-forced rows: a case against a
+store, whose pool those rows would write) and ``hooks``: ``miss_get``
+``{"rank", "nth"}`` (that rank's store client answers its nth prefix GET
+as a miss), ``drop_local`` (every rank's host tier loses a snapshot at
+restore, so it comes back from the store) and ``delete_rank`` (that rank
+deletes its first snapshot from the store just before reading it).  Each
+rank then also reports its content-key prefix, its store counters, its
+restores' outcomes, its embeddings and how many encode forwards and
+encode attentions it ran.
 """
 
 import os
@@ -36,12 +50,12 @@ SCHED = dict(max_num_seqs=4, prefill_buckets=(16, 32, 64, 128), max_model_len=25
 def port_config(tp=2, model=None, parallel=None, cache=None, **sched):
     """Float32 tiny-llama, 4-token blocks, 128 of them (the JAX
     ``mesh_engine`` config of tests/test_parallel.py), at ``tp`` or the
-    ``parallel`` overrides."""
+    ``parallel`` overrides, with the ``cache`` overrides."""
     from production_stack_tpu_torch.engine import config as tcfg
 
     return tcfg.EngineConfig(
         model=tcfg.ModelConfig(dtype="float32", **(model or {})),
-        cache=tcfg.CacheConfig(block_size=4, num_blocks=128, **(cache or {})),
+        cache=tcfg.CacheConfig(**{"block_size": 4, "num_blocks": 128, **(cache or {})}),
         parallel=tcfg.ParallelConfig(**{"tensor_parallel": tp, **(parallel or {})}),
         scheduler=tcfg.SchedulerConfig(**{**SCHED, **sched}),
     )
@@ -87,25 +101,32 @@ def record_steps(engine) -> list:
     return steps
 
 
-def lead(engine, channel, reqs) -> dict:
+def lead(engine, channel, reqs, encodes=(), vectors=None) -> dict:
     """The leader's loop at a step-indexed schedule: each iteration
-    publishes the arrivals due (an empty batch otherwise), admits them and
-    steps, under the condition ``follower_loop`` steps on; then the
-    shutdown.  Returns {id: tokens}."""
+    publishes the arrivals due and the texts to embed (an empty batch
+    otherwise), admits them, embeds the texts (appending each vector to
+    ``vectors``) and steps, under the condition ``follower_loop`` steps
+    on; then the shutdown.  Returns {id: tokens}."""
     from production_stack_tpu_torch.engine.core.sequence import SamplingParams
     from production_stack_tpu_torch.engine.parallel.distributed import StepEvents
 
     outs, pending, step = {}, sorted(reqs, key=lambda r: r[0]), 0
-    while pending or engine.has_unfinished() or engine.has_pending():
+    texts = sorted(encodes, key=lambda e: e[0])
+    while pending or texts or engine.has_unfinished() or engine.has_pending():
         due = []
         while pending and pending[0][0] <= step:
             _, rid, prompt, n = pending.pop(0)
             due.append((rid, engine.tokenizer.encode(prompt),
                         SamplingParams(max_tokens=n), None))
-        channel.publish(StepEvents(requests=due))
+        embeds = []
+        while texts and texts[0][0] <= step:
+            embeds.append((f"e{len(vectors or ())}-{step}", list(texts.pop(0)[1])))
+        channel.publish(StepEvents(requests=due, encodes=embeds))
         for rid, ids, params, adapter in due:
             engine.add_request(rid, prompt_token_ids=ids, sampling_params=params,
                                adapter=adapter)
+        for _, ids in embeds:
+            vectors.append(engine.embed(ids))
         if engine.has_unfinished() or engine.has_pending():
             for out in engine.step():
                 outs.setdefault(out.seq_id, []).append(out.new_token_id)
@@ -208,6 +229,73 @@ def sp_checks(group) -> dict:
     return {name: t.numpy() for name, t in out.items()}
 
 
+def count_encodes() -> dict:
+    """Count this rank's encode forwards (``llama.encode_batch``) and the
+    attentions they run (``attention.encode_attention``)."""
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops import attention
+
+    counts = {"forwards": 0, "attentions": 0}
+
+    def counted(name, real):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real(*args, **kwargs)
+        return call
+
+    llama.encode_batch = counted("forwards", llama.encode_batch)
+    attention.encode_attention = counted("attentions", attention.encode_attention)
+    return counts
+
+
+def install_hooks(engine, hooks: dict, rank: int) -> list:
+    """The case's store hooks on this rank (see the module docstring);
+    returns the list the restores' outcomes are appended to."""
+    client = engine.offload.remote_client
+    results = []
+    restore = engine.scheduler.restore_cb
+
+    def recorded(seq):
+        out = restore(seq)
+        results.append(out)
+        return out
+
+    engine.scheduler.restore_cb = recorded
+    miss = hooks.get("miss_get")
+    if miss and miss["rank"] == rank:
+        get, calls = client.get_blocks, [0]
+
+        def get_blocks(key):
+            if key.startswith("px:"):
+                calls[0] += 1
+                if calls[0] == miss["nth"]:
+                    return None
+            return get(key)
+
+        client.get_blocks = get_blocks
+    if hooks.get("drop_local"):
+        offload = engine.offload
+
+        def restore_local(seq_id):
+            entry = type(offload).restore_local(offload, seq_id)
+            if entry is not None:
+                offload.release(entry)
+            return None
+
+        offload.restore_local = restore_local
+    if hooks.get("delete_rank") == rank:
+        get, deleted = client.get_blocks, []
+
+        def get_snapshot(key):
+            if not key.startswith("px:") and not deleted:
+                client.delete(key)
+                deleted.append(key)
+            return get(key)
+
+        client.get_blocks = get_snapshot
+    return results
+
+
 def main(spec_path: str, rank: int) -> None:
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
@@ -240,21 +328,43 @@ def main(spec_path: str, rank: int) -> None:
                                 ranks=tuple(range(spec["world"])), group=dist.group.WORLD)
                 results["sp_checks"]["world"] = sp_checks(whole)
         counts = count_sp_attentions()
+        encodes = count_encodes()
         for name, case in spec["cases"].items():
-            cfg = port_config(2, case["model"], case.get("parallel"), case.get("cache"))
+            cfg = port_config(2, case["model"], case.get("parallel"), case.get("cache"),
+                              **case.get("sched", {}))
             engine = LLMEngine(cfg, device="cpu",
                                params=params_from_numpy(cfg.model, case["params"], "cpu"))
             channel = distributed.LockstepChannel(denv)
             steps = record_steps(engine)
+            restores = (install_hooks(engine, case.get("hooks", {}), rank)
+                        if engine.offload.remote_client is not None else [])
             counts.update(group=0, in_process=0, modes=set())
+            encodes.update(forwards=0, attentions=0)
+            vectors = []
             if denv.is_leader:
-                streams = lead(engine, channel, case["requests"])
+                streams = lead(engine, channel, case["requests"], case.get("encodes", ()),
+                               vectors)
             else:
                 distributed.follower_loop(engine, channel)
                 streams = None
+            engine.flush_prefix_exports(30.0)
+            engine.offload.wait_deletes(30.0)
             served = dict(counts)
             results[name] = {
                 "streams": streams, "steps": steps,
+                "px": engine._px_key_prefix(),
+                "fetched": engine.remote_prefix_blocks_fetched,
+                "exported": engine.remote_prefix_blocks_exported,
+                "bytes_read": engine.remote_prefix_bytes_read,
+                "restores": restores, "offload_saves": engine.offload.saves,
+                "preemptions": engine.scheduler.num_preemptions,
+                "vectors": vectors, "encodes": dict(encodes),
+                "hit_tokens": engine.block_pool.hit_tokens,
+            }
+            if case.get("skip_checks"):
+                engine.close()
+                continue
+            results[name].update({
                 "logits": teacher_forced(engine, case["tokens"]),
                 "prompt_logprobs": prompt_logprob_rows(engine, case["tokens"]),
                 "pool": tuple(cache_tensor(engine.kv_caches[0][0]).shape),
@@ -263,7 +373,7 @@ def main(spec_path: str, rank: int) -> None:
                 "sp_attentions": served,
                 "local_tp": engine.mesh.local_tp(), "sp_index": engine.mesh.sp_index,
                 "prefix_hit_rate": engine.block_pool.prefix_hit_rate,
-            }
+            })
             engine.close()
     finally:
         distributed.shutdown()
