@@ -3799,10 +3799,11 @@ def tier_checked(eng) -> dict:
     return rec
 
 
-def _serve_greedy(eng, requests: list, walls: list = None) -> dict:
+def _serve_greedy(eng, requests: list, walls: list = None, settle=None) -> dict:
     """Greedy streams of [(id, prompt ids, max_tokens)] submitted together,
     driven by step() to the end; returns {id: (ttft_s, tokens)}.  Each
-    step's wall is appended to ``walls`` when given."""
+    step's wall is appended to ``walls`` when given; ``settle()`` runs
+    before each step when given."""
     from production_stack_tpu_torch.engine.core.sequence import SamplingParams
 
     t0 = time.time()
@@ -3811,6 +3812,8 @@ def _serve_greedy(eng, requests: list, walls: list = None) -> dict:
             max_tokens=n, temperature=0.0, ignore_eos=True))
     first, streams, steps = {}, {}, 0
     while eng.has_unfinished() or eng.has_pending():
+        if settle is not None:
+            settle()
         t_step = time.time()
         outs = eng.step()
         if walls is not None:
@@ -4130,8 +4133,9 @@ def _spec_config(model: str, **over):
     })
 
 
-def _spec_serve(eng, prompts: list, sync_check: bool = True) -> dict:
-    """Greedy streams of ``prompts`` (SPEC_NEW_TOKENS each), all arriving
+def _spec_serve(eng, prompts: list, sync_check: bool = True,
+                max_tokens: int = SPEC_NEW_TOKENS) -> dict:
+    """Greedy streams of ``prompts`` (``max_tokens`` each), all arriving
     at once, on an engine
     driven by dispatch and collect.  Every asynchronous dispatch runs under
     ``set_sync_debug_mode("error")`` (``sync_check``); each window is
@@ -4144,7 +4148,6 @@ def _spec_serve(eng, prompts: list, sync_check: bool = True) -> dict:
 
     K = eng.config.scheduler.window_steps
     W = eng._spec_len + 1
-    max_tokens = SPEC_NEW_TOKENS
     checked = sync_checked(eng) if sync_check else {}
     rec = {"spec": 0, "plain": 0, "primes": 0, "spec_s8": 0, "primes_s8": 0,
            "over_budget": [], "at": []}
@@ -6058,6 +6061,104 @@ def _store_drive(eng, url: str, export_ids: list, import_ids: list, prompts: lis
     return out
 
 
+def _settle(eng):
+    """Before each step of a drive with the asynchronous transfer plane:
+    every fetch and the stager's snapshot landed, and in a group their
+    states agreed (the agreement a front dispatch runs), so that an
+    in-process engine and a group take the same outcomes at the same
+    steps."""
+    def settle():
+        eng.flush_prefix_imports(120.0)
+        eng._offload_stager.wait_idle(120.0)
+        eng._agree_transfers()
+    return settle
+
+
+def _page_in_first(eng) -> tuple:
+    """With the asynchronous plane on ``eng``: the first snapshot its host
+    tier finds at a restore is dropped there, so it pages in from the
+    store.  Returns (the restores' outcomes, [page-ins started], undo)."""
+    offload, restores, page_ins, drops = eng.offload, [], [0], [1]
+    restore, submit = eng.scheduler.restore_cb, eng.kv_prefetch.submit_restore
+
+    def restore_local(seq_id):
+        entry = type(offload).restore_local(offload, seq_id)
+        if entry is not None and drops[0]:
+            drops[0] -= 1
+            offload.release(entry)
+            return None
+        return entry
+
+    def recorded(seq):
+        restores.append(restore(seq))
+        return restores[-1]
+
+    def page_in(seq_id):
+        page_ins[0] += 1
+        return submit(seq_id)
+
+    def undo():
+        del offload.restore_local, eng.kv_prefetch.submit_restore
+        eng.scheduler.restore_cb = restore
+
+    offload.restore_local, eng.scheduler.restore_cb = restore_local, recorded
+    eng.kv_prefetch.submit_restore = page_in
+    return restores, page_ins, undo
+
+
+def _prefetch_store_drive(eng, import_ids: list, prompts: list) -> dict:
+    """:func:`_store_drive` with the asynchronous plane on (decode role,
+    fetches and the stager settled before each step, :func:`_settle`):
+    ``import_ids`` (its chain in the store) imported through the prefetcher
+    and served (the pool blocks, the stream, the counters and the launches,
+    counted from 0), then the offload drive of ``prompts`` through the
+    stager, the first snapshot found in the host tier dropped there so
+    that it pages in from the store: the streams, the restores' outcomes,
+    the page-ins, the staged snapshots and the launches."""
+    settle = _settle(eng)
+    out = {}
+    _reset_launches()
+    t0 = time.time()
+    out["import_stream"] = _serve_greedy(eng, [("pi", import_ids, 16)], settle=settle)["pi"][1]
+    out["import_s"] = time.time() - t0
+    out["import_launches"] = launch_counts()
+    out["imported"] = eng.remote_prefix_blocks_fetched
+    out["prefetch"] = [eng.kv_prefetch.hit_blocks, eng.kv_prefetch.waste_blocks]
+    out["import_pool_blocks"] = _pool_blocks(eng, import_ids)
+    # The drive's prompts neither import nor export.
+    eng._imports, eng.scheduler.remote_prefix_cb = False, None
+    offload = eng.offload
+    restores, page_ins, _ = _page_in_first(eng)
+    _reset_launches()
+    t0 = time.time()
+    streams = _serve_greedy(eng, [(f"a{i}", ids, GROUP_STORE_NEW_TOKENS)
+                                  for i, ids in enumerate(prompts)], settle=settle)
+    out["drive_s"] = time.time() - t0
+    out["launches"] = launch_counts()
+    out["drive_streams"] = {k: v[1] for k, v in streams.items()}
+    out["restores"], out["page_ins"] = restores, page_ins[0]
+    out["offload"] = {"saves": offload.saves, "staged": eng._offload_stager.staged,
+                      "preemptions": eng.scheduler.num_preemptions}
+    out["agreements"] = eng.transfer_agreements
+    out["agreement_ms_per_step"] = (1e3 * eng.transfer_agreement_s
+                                    / max(1, eng.transfer_agreements))
+    return out
+
+
+def _ngram_drive(eng) -> dict:
+    """The fused n-gram windows on 4 repetitive prompts (64 new tokens
+    each): the streams, the speculation counters and the speculative graph
+    keys run (random weights seldom continue the repeated segment, so a
+    run may draft nothing; its verify windows run all the same)."""
+    prompts = _spec_prompts(eng.config.model.vocab_size, SPEC_PROMPT_LENS[:4])
+    streams = _serve_greedy(eng, [(f"n{i}", ids, 64) for i, ids in enumerate(prompts)])
+    stats = eng.stats()
+    return {"streams": {k: v[1] for k, v in streams.items()},
+            "spec": {k: stats[k] for k in ("spec_tokens_drafted", "spec_tokens_accepted",
+                                           "spec_window_tokens")},
+            "spec_keys": sorted(str(k) for k in eng.graphs.capture_seconds if k[0] == "spec")}
+
+
 def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
     """The remote KV store and the embed through the group code path on
     this card: llama-3.1-8b at full width and ``layers`` layers, tp = 2
@@ -6076,7 +6177,17 @@ def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
     blocks, imported blocks, streams, restores, offload counts and
     embedding must equal the in-process engine's bit for bit, and the
     imported request's and the drive's launch counters (set to 0 just
-    before, read just after) must show every kernel of their path."""
+    before, read just after) must show every kernel of their path.
+
+    Then both engines again with the asynchronous plane on
+    (``remote_prefetch=True``, :func:`_prefetch_store_drive`): the chain
+    imported through the prefetcher (in the group, landed by the group's
+    agreement), the offload drive through the stager with a restore paged
+    in from the store; the imported blocks (equal to the synchronous
+    import's too), the stream over them, the restores' outcomes, the
+    page-ins, the staged snapshots and the streams bit for bit.  And both
+    with the fused n-gram windows (:func:`_ngram_drive`): the streams and
+    the acceptance counters bit for bit."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.core.engine import LLMEngine
@@ -6090,38 +6201,56 @@ def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
     text_ids = rng.integers(4, vocab, 700).tolist()
     proc, url = start_kv_store()
 
-    def config():
+    def config(kind="sync"):
+        if kind == "ngram":
+            return _serving_config(tp=2, layers=layers, **{"scheduler.speculative_ngram": 3})
+        over = ({"cache.remote_prefetch": True, "cache.disagg_role": "decode"}
+                if kind == "async" else {})
         return _serving_config(tp=2, layers=layers, **{
             "cache.remote_kv_url": url, "cache.disagg_role": "both",
             "cache.remote_prefetch": False, "cache.host_offload_gb": GROUP_STORE_HOST_GB,
-            "cache.num_blocks": GROUP_STORE_BLOCKS})
+            "cache.num_blocks": GROUP_STORE_BLOCKS, **over})
 
+    def drive(eng, kind):
+        if kind == "sync":
+            return _store_drive(eng, url, export_ids, import_ids, prompts, text_ids)
+        if kind == "async":
+            return _prefetch_store_drive(eng, import_ids, prompts)
+        return _ngram_drive(eng)
+
+    kinds = ("sync", "async", "ngram")
+    want, got = {}, {}
     try:
-        eng = LLMEngine(config(), device=["cuda:0"] * 2)
-        try:
-            want = _store_drive(eng, url, export_ids, import_ids, prompts, text_ids)
-        finally:
-            eng.close()
-            del eng
-            free_engines(strict=sys.exc_info()[0] is None)
+        for kind in kinds:
+            eng = LLMEngine(config(kind), device=["cuda:0"] * 2)
+            try:
+                want[kind] = drive(eng, kind)
+            finally:
+                eng.close()
+                del eng
+                free_engines(strict=sys.exc_info()[0] is None)
         denv = distributed.DistributedEnv(f"127.0.0.1:{_free_port()}", 1, 0)
         group = distributed.initialize(denv, device="cuda:0")
         try:
-            eng = LLMEngine(config())
-            if eng.group is not group or eng.tp_local != 2 or eng.offload.remote_key_suffix != "@rank0":
-                raise AssertionError("the engine did not take the one-rank group")
-            try:
-                got = _store_drive(eng, url, export_ids, import_ids, prompts, text_ids)
-            finally:
-                eng.close()
-                eng.graphs.release()  # before the group's teardown
-                del eng
+            for kind in kinds:
+                eng = LLMEngine(config(kind))
+                if eng.group is not group or eng.tp_local != 2 or (
+                        eng.offload.remote_key_suffix != "@rank0"):
+                    raise AssertionError("the engine did not take the one-rank group")
+                try:
+                    got[kind] = drive(eng, kind)
+                finally:
+                    eng.close()
+                    eng.graphs.release()  # before the group's teardown
+                    del eng
+                free_engines(strict=sys.exc_info()[0] is None)
         finally:
             distributed.shutdown()
         free_engines(strict=sys.exc_info()[0] is None)
     finally:
         proc.terminate()
         proc.wait(30)
+    (want, want_a, want_n), (got, got_a, got_n) = ([d[k] for k in kinds] for d in (want, got))
     n_import = GROUP_STORE_IMPORT // 16
     checks = {
         "keys_equal": got["px"] == want["px"],
@@ -6133,6 +6262,20 @@ def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
         "restores_equal": got["restores"] == want["restores"],
         "offload_equal": got["offload"] == want["offload"],
         "embed_equal": bool(np.array_equal(got["embed"], want["embed"])),
+        "prefetch_imported_blocks_equal": _blocks_equal(got_a["import_pool_blocks"],
+                                                        want_a["import_pool_blocks"]),
+        "prefetch_blocks_equal_sync_import": _blocks_equal(got_a["import_pool_blocks"],
+                                                           got["import_pool_blocks"]),
+        "prefetch_import_stream_equal": got_a["import_stream"] == want_a["import_stream"],
+        "prefetch_counters_equal": (got_a["imported"], got_a["prefetch"]) == (
+            want_a["imported"], want_a["prefetch"]),
+        "prefetch_drive_streams_equal": got_a["drive_streams"] == want_a["drive_streams"],
+        "prefetch_restores_equal": (got_a["restores"], got_a["page_ins"]) == (
+            want_a["restores"], want_a["page_ins"]),
+        "prefetch_offload_equal": got_a["offload"] == want_a["offload"],
+        "ngram_streams_equal": got_n["streams"] == want_n["streams"],
+        "ngram_acceptance_equal": got_n["spec"] == want_n["spec"],
+        "ngram_spec_keys_equal": got_n["spec_keys"] == want_n["spec_keys"],
     }
     row = {"phase": "group_store", "model": MODEL, "layers": layers, "tp": 2, "world": 1,
            "backend": "nccl", **checks,
@@ -6141,7 +6284,14 @@ def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
            "restores": got["restores"], "offload": got["offload"],
            "seconds": {k: {"in_process": want[k], "group": got[k]}
                        for k in ("import_s", "export_s", "drive_s")},
-           "import_launches": got["import_launches"], "launches": got["launches"]}
+           "import_launches": got["import_launches"], "launches": got["launches"],
+           "prefetch": {k: got_a[k] for k in ("imported", "prefetch", "restores", "page_ins",
+                                              "offload", "agreements",
+                                              "agreement_ms_per_step", "import_launches",
+                                              "launches")},
+           "prefetch_seconds": {k: {"in_process": want_a[k], "group": got_a[k]}
+                                for k in ("import_s", "drive_s")},
+           "ngram": {"spec": got_n["spec"], "spec_keys": got_n["spec_keys"]}}
     emit(row)
     bad = [k for k, ok in checks.items() if not ok]
     if got["imported"] != n_import or want["imported"] != 0:
@@ -6156,6 +6306,18 @@ def phase_group_store(layers: int = GROUP_STORE_LAYERS) -> dict:
             bad.append(f"{k} never launched")
     if got["launches"]["flash_prefill_batched"] <= 0:
         bad.append("the embed launched no batched flash prefill")
+    if got_a["imported"] != n_import or got_a["prefetch"] != [n_import, 0]:
+        bad.append(f"the prefetcher imported {got_a['imported']} ({got_a['prefetch']}), "
+                   f"want {n_import}")
+    if not ("restored" in got_a["restores"] and got_a["page_ins"]
+            and got_a["offload"]["staged"] and got_a["agreements"]):
+        bad.append(f"no staged offload restored from a page-in: {got_a['restores']} "
+                   f"{got_a['offload']} page-ins {got_a['page_ins']}")
+    for k in ("paged_decode", "flash_prefill"):
+        if got_a["import_launches"][k] <= 0 or got_a["launches"][k] <= 0:
+            bad.append(f"{k} never launched with the asynchronous plane")
+    if not got_n["spec_keys"]:
+        bad.append(f"no speculative window ran: {got_n['spec']}")
     if bad:
         raise AssertionError(f"the one-rank group's store path differs: {bad}")
     return row
@@ -6178,8 +6340,8 @@ GROUP_FP32_TOKENS = (11, 222, 3333, 4444)
 GROUP_FP32_TOL = 2e-3
 
 
-def _group_env(rank: int, world: int, coordinator: str) -> dict:
-    env = dict(os.environ, LOCAL_RANK=str(rank))
+def _group_env(rank: int, world: int, coordinator: str, first_card: int = 0) -> dict:
+    env = dict(os.environ, LOCAL_RANK=str(first_card + rank))
     if world > 1:
         env.update(PSTPU_NUM_PROCESSES=str(world), PSTPU_PROCESS_ID=str(rank),
                    PSTPU_COORDINATOR_ADDRESS=coordinator)
@@ -6234,9 +6396,11 @@ def group_rank_main(spec_path: str, rank: int) -> int:
         spec = json.load(f)
     denv = distributed.maybe_initialize(device="cuda", sequence_parallel=spec.get("sp", 1))
     torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    if "sp" in spec:  # a --group sp case
+    if "sp" in spec or "mode" in spec:  # a --group sp, spec or prefetch case
+        run = {"spec": spec_group_rank, "prefetch": prefetch_group_rank}.get(
+            spec.get("mode"), sp_group_rank)
         try:
-            return sp_group_rank(spec, rank)
+            return run(spec, rank)
         finally:
             if denv is not None:
                 distributed.shutdown()
@@ -6339,6 +6503,12 @@ def _spawn_ranks(work: str, name: str, spec_path: str, world: int, timeout_s: fl
     card with the ``PSTPU_*`` variables (none for one card), their output
     in ``work/NAME.rankN.log``; raises unless every one exits 0 within
     ``timeout_s``."""
+    _join_ranks(work, name, _start_ranks(work, name, spec_path, world), timeout_s)
+
+
+def _start_ranks(work: str, name: str, spec_path: str, world: int,
+                 first_card: int = 0) -> list:
+    """:func:`_spawn_ranks`' processes, started on cards ``first_card`` on."""
     coordinator = f"127.0.0.1:{_free_port()}"
     procs = []
     for rank in range(world):
@@ -6346,9 +6516,14 @@ def _spawn_ranks(work: str, name: str, spec_path: str, world: int, timeout_s: fl
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--group-rank", spec_path,
                  str(rank)],
-                env=_group_env(rank, world, coordinator), stdout=log, stderr=subprocess.STDOUT))
+                env=_group_env(rank, world, coordinator, first_card), stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def _join_ranks(work: str, name: str, procs: list, timeout_s: float) -> None:
     rcs = _wait_group(procs, timeout_s, name)
-    if rcs != [0] * world:
+    if rcs != [0] * len(procs):
         raise AssertionError(f"group {name} exited {rcs} (logs in {work})")
 
 
@@ -6517,7 +6692,8 @@ def _group_lifecycle(work: str, reference: list = None, tp: int = GROUP_CARDS) -
 
 
 def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool = False,
-               kv_only: bool = False) -> int:
+               kv_only: bool = False, spec_only: bool = False,
+               prefetch_only: bool = False) -> int:
     """``python3 chip_smoke.py --group``: tensor parallelism across cards
     on a four-card machine, one process a card over NCCL.
 
@@ -6542,14 +6718,19 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
     - sequence parallelism across cards (:func:`main_group_sp`): phase 14's
       request at sp 1, Ulysses and the ring at sp 2 and 4, and tp 2 x sp 2;
     - the remote KV store and the encode routes in server groups
-      (:func:`main_group_kv`): tp 2, dense and int8, tp 4 and tp 2 x sp 2.
+      (:func:`main_group_kv`): tp 2, dense and int8, tp 4 and tp 2 x sp 2;
+    - speculative decoding and int8 weights across cards
+      (:func:`main_group_spec`): tp 1, 2 and 4;
+    - the asynchronous KV transfer plane in groups
+      (:func:`main_group_prefetch`): tp 2 and 4.
 
     Every case has a wall-clock limit and kills its ranks when it runs
     out.  ``layers`` (``--group --layers N``) cuts every case to N layers:
     a quick check of the plumbing; ``--group --lifecycle`` runs the
     lifecycle alone, ``--group --sp`` (with ``--layers N`` after it, if
     wanted) the sp cases alone, ``--group --kv`` the store and encode
-    cases alone.  The last line is the contract's, with
+    cases alone, ``--group --spec`` and ``--group --prefetch`` (either or
+    both, ``--layers N`` too) their modes alone.  The last line is the contract's, with
     this machine's count."""
     import tempfile
 
@@ -6561,8 +6742,15 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
     work = tempfile.mkdtemp(prefix="chip_smoke_group_")
     print(f"chip_smoke --group: working in {work}", file=sys.stderr, flush=True)
     seconds = {}
-    if lifecycle_only or sp_only or kv_only:
-        if lifecycle_only:
+    if lifecycle_only or sp_only or kv_only or spec_only or prefetch_only:
+        if spec_only or prefetch_only:
+            for flag, name, mode in ((spec_only, "spec", main_group_spec),
+                                     (prefetch_only, "prefetch", main_group_prefetch)):
+                if flag:
+                    t0 = time.time()
+                    mode(work, dev, layers)
+                    emit({"phase_seconds": {name: time.time() - t0}})
+        elif lifecycle_only:
             _group_lifecycle(work)
         elif kv_only:
             t0 = time.time()
@@ -6628,6 +6816,10 @@ def main_group(layers: int = None, lifecycle_only: bool = False, sp_only: bool =
     t0 = time.time()
     main_group_kv(work, dev)
     seconds["kv"] = time.time() - t0
+    for name, mode in (("spec", main_group_spec), ("prefetch", main_group_prefetch)):
+        t0 = time.time()
+        mode(work, dev, layers)
+        seconds[name] = time.time() - t0
     emit({"phase_seconds": seconds, "total_s": sum(seconds.values())})
     for name in ("llama_tp2", "llama_tp4"):
         if not runs[name]["profile"]["nccl_per_token_step"][
@@ -7465,15 +7657,26 @@ def _rows_over_prefix(params, cfg, kv_caches, dev, prompt: list, tails: list,
     from production_stack_tpu_torch.engine.models import llama
 
     n = len(prompt) // bs
-    t = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)  # noqa: E731
-    ids = t(blocks)
-    llama.prefill(params, cfg, t(prompt), 0, ids[:0], ids[:n], len(prompt), kv_caches)
-    rows = [llama.prefill(params, cfg, t(prompt[-bs:]), len(prompt) - bs, ids[:n - 1],
-                          ids[n - 1:n], bs, kv_caches)]
+    ids = torch.tensor(blocks, dtype=torch.int32, device=dev)
+    llama.prefill(params, cfg, ids.new_tensor(prompt), 0, ids[:0], ids[:n], len(prompt),
+                  kv_caches)
+    return _rows_over_cached(params, cfg, kv_caches, prompt, tails, ids[:n], ids[n:n + 1], bs)
+
+
+def _rows_over_cached(params, cfg, kv_caches, prompt: list, tails: list, prefix, spare,
+                      bs: int) -> list:
+    """:func:`_rows_over_prefix`'s rows over a prefix the pool holds in the
+    blocks ``prefix`` (int32 on the device), each row's new tokens written
+    to the block ``spare``."""
+    from production_stack_tpu_torch.engine.models import llama
+
+    n = len(prompt) // bs
+    rows = [llama.prefill(params, cfg, prefix.new_tensor(prompt[-bs:]), len(prompt) - bs,
+                          prefix[:n - 1], spare, bs, kv_caches)]
     for tail in tails:
         chunk = tail + [0] * (bs - len(tail))
-        rows.append(llama.prefill(params, cfg, t(chunk), len(prompt), ids[:n], ids[n:n + 1],
-                                  len(tail), kv_caches))
+        rows.append(llama.prefill(params, cfg, prefix.new_tensor(chunk), len(prompt), prefix,
+                                  spare, len(tail), kv_caches))
     return [r.float().cpu() for r in rows]
 
 
@@ -7486,7 +7689,7 @@ def _engine_rows(eng, prompt: list, tails: list) -> list:
         eng.block_pool.free(blocks)
 
 
-def fp32_rows_over_prefix(prompts: list, bs: int = 16) -> list:
+def fp32_rows_over_prefix(prompts: list, bs: int = 16, layers: int = None) -> list:
     """:func:`_rows_over_prefix` of each ``(prompt, tails)`` on ``MODEL``'s
     seeded weights in fp32 (drawn on the current card in bf16 as an engine
     draws them, each tensor cast in place), with an fp32 pool of its own
@@ -7497,6 +7700,8 @@ def fp32_rows_over_prefix(prompts: list, bs: int = 16) -> list:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = PRESETS[MODEL]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = load_params(cfg, None, seed=0, device=torch.device("cuda"))
     _to_fp32(params)
     cfg = dataclasses.replace(cfg, dtype="float32")
@@ -7823,6 +8028,574 @@ def main_group_kv(work: str, dev: dict) -> dict:
     return rows
 
 
+# -- --group --spec: speculative decoding and int8 weights across cards -------
+
+# Waves of (name, world, tp, first card): tp 1 on card 3 beside tp 2 on
+# cards 0-1, then tp 4 on all four.
+SPEC_GROUP_WAVES = ((("spec_tp1", 1, 1, 3), ("spec_tp2", 2, 2, 0)), (("spec_tp4", 4, 4, 0),))
+SPEC_GROUP_WALL_S = 300  # the mode's wall limit, both waves
+SPEC_GROUP_LENS = (256, 384, 512, 640, 768, 896, 1024, 1152)
+SPEC_GROUP_NEW_TOKENS = 64
+SPEC_GROUP_COUNTERS = ("spec_tokens_drafted", "spec_tokens_accepted", "spec_window_tokens")
+
+
+def _rank_device(tp: int, grouped: bool):
+    """An engine's device in a ``--group`` rank: the group's card, or, in
+    one process, this process's card for every position."""
+    if grouped:
+        return None
+    card = f"cuda:{os.environ.get('LOCAL_RANK', '0')}"
+    return [card] * tp if tp > 1 else card
+
+
+def _close_rank_engine(eng) -> None:
+    eng.close()
+    if eng.group is not None:
+        eng.graphs.release()  # before the group's teardown
+
+
+def spec_group_rank(spec: dict, rank: int) -> int:
+    """One rank of a ``--group --spec`` case (every rank alike, so their
+    collectives pair up): llama-3.1-8b at the case's tp, bf16, seeded
+    weights, K=8 windows with the lookahead, 8 repetitive prompts of
+    256-1152 tokens (64 new each, :func:`_spec_serve`), through
+
+    - the fused n-gram windows (D=3), with the teacher-forced logits of
+      :func:`phase_tp` first and, across cards, :func:`phase_profile` (the
+      NCCL kernels' share of a token step);
+    - the llama-3.2-1b drafter (D=4), cut to the rank's positions as it is
+      drawn, its pool one tp position's heads;
+    - int8 weights with plain windows, and their teacher-forced logits on
+      the n-gram run's tokens;
+    - the self-draft check: llama-3.2-1b at fp32 drafting with its own
+      preset (same seed), whose streams must equal speculation off in the
+      same group, acceptance at least 4x the rejections.
+
+    Each run's counters, its kernels' launches (from 0 at its start) and
+    streams go to the rank's JSON, its logits to the rank's ``.pt``; the
+    tp = 1 case adds the fp32 forward's logits on the same tokens."""
+    import numpy as np
+
+    tp, grouped = spec["tp"], spec["world"] > 1
+    layers = {"model.num_layers": spec["layers"]} if spec.get("layers") else {}
+    par = {"parallel.tensor_parallel": tp} if tp > 1 else {}
+    result = {"case": spec["name"], "rank": rank, "tp": tp, "world": spec["world"],
+              "kind": torch.cuda.get_device_name(), "runs": {}, "seconds": {}}
+    runs, keep = result["runs"], {}
+
+    def serve(name, prompts, spec_on, model=MODEL, **over):
+        from production_stack_tpu_torch.engine.core.engine import LLMEngine
+
+        t0 = time.time()
+        eng = LLMEngine(_spec_config(model, **par, **(layers if model == MODEL else {}),
+                                     **over), device=_rank_device(tp, grouped))
+        try:
+            if name == "ngram":
+                # Fixed teacher tokens: the cases run at once, so no case
+                # can wait for tp 1's greedy picks.
+                keep["ngram"] = dict(zip(("logits", "teacher_tokens"), _teacher_logits(
+                    eng, np.random.default_rng(7), {"teacher_tokens": list(GROUP_FP32_TOKENS)})))
+            elif name == "int8":
+                keep["int8"] = {"logits": _teacher_logits(eng, np.random.default_rng(7),
+                                                          keep["ngram"])[0]}
+            if prompts is None:
+                prompts = _spec_prompts(eng.config.model.vocab_size, SPEC_GROUP_LENS)
+            _reset_launches()
+            run = _spec_serve(eng, prompts, max_tokens=SPEC_GROUP_NEW_TOKENS)
+            run["kernel_launches"] = launch_counts()
+            _spec_checks(name, run, eng, spec_on)
+            run["K"] = eng._window_steps
+            if eng.draft_kv_caches is not None:
+                run["draft_pool"] = list(eng.draft_kv_caches[0][0].shape)
+            if name == "ngram" and grouped:
+                result["profile"] = phase_profile(eng)
+            runs[name] = run
+        finally:
+            _close_rank_engine(eng)
+            del eng
+            free_engines(strict=sys.exc_info()[0] is None)
+        result["seconds"][name] = time.time() - t0
+
+    # Random weights seldom continue the prompts' repeated segment, so the
+    # n-gram run may draft nothing: its speculative windows are held to
+    # have run (checked below), not to have drafted.
+    serve("ngram", None, False, speculative_ngram=3)
+    serve("model", None, True, speculative_model=DRAFT_MODEL, speculative_draft_len=4)
+    serve("int8", None, False, **{"model.quantization": "int8"})
+    small = _spec_prompts(_vocab(DRAFT_MODEL), SELF_DRAFT_PROMPT_LENS)
+    fp32 = {"model.dtype": "float32", "max_model_len": 8192}
+    serve("self_draft", small, True, DRAFT_MODEL, speculative_model=DRAFT_MODEL,
+          speculative_draft_len=4, **fp32)
+    serve("self_draft_plain", small, False, DRAFT_MODEL, **fp32)
+    sw = runs["self_draft"]["spec_window_tokens"]
+    result["self_draft_check"] = {
+        "accepted": sw["accepted"], "rejected": sw["rejected"],
+        "streams_equal": runs["self_draft"]["streams"] == runs["self_draft_plain"]["streams"]}
+    if tp == 1:
+        t0 = time.time()
+        keep["fp32_logits"] = fp32_teacher_logits(keep["ngram"]["teacher_tokens"],
+                                                  layers=spec.get("layers"))
+        result["seconds"]["fp32"] = time.time() - t0
+    torch.save(keep, spec["logits"].format(rank=rank))
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(result, f)
+    check = result["self_draft_check"]
+    if not (check["accepted"] >= 4 * max(check["rejected"], 1) and check["streams_equal"]):
+        raise AssertionError(f"self-draft at tp = {tp}: {check}")
+    if not runs["ngram"]["windows"]["spec"]:
+        raise AssertionError(f"no n-gram window ran at tp = {tp}: {runs['ngram']['windows']}")
+    return 0
+
+
+def _vocab(model: str) -> int:
+    from production_stack_tpu_torch.engine.config import PRESETS
+
+    return PRESETS[model].vocab_size
+
+
+def spec_kernel_cases() -> list:
+    """The kernels of the speculative group paths at the cards' shapes (a
+    rank's heads at tp 1, 2, 4): the llama-3.2-1b drafter's D=64 step (8
+    rows, up to 448 draft slots), the model drafter's verify (8 rows x W =
+    5 over the group's prompts), and the W8A16 GEMM at a token step's 8
+    rows of each tp position's projections."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    rows = []
+    for tp in (1, 2, 4):
+        rows.append(check_paged_decode(gen, f"tp{tp}_S8_D64_draft", 8, 32 // tp, 8 // tp, 64,
+                                       [128, 160, 200, 250, 300, 350, 400, 448]))
+        rows.append(check_paged_decode(gen, f"tp{tp}_S40_verify", 40, 32 // tp, 8 // tp, 128,
+                                       [n + j for n in SPEC_GROUP_LENS for j in range(5)]))
+    for tp in (2, 4):
+        rows += [check_w8a16(gen, f"tp{tp}_M8_{proj}", 8, K, N)
+                 for proj, (K, N) in w8a16_shard_shapes(tp).items()]
+    return rows
+
+
+def _spec_run_row(run: dict) -> dict:
+    K = run["K"]
+    return {"tokens_per_window": run["tokens_per_window"],
+            "tokens_per_row_window": run["tokens_per_row_window"],
+            "wall_ms_per_window": run["wall_ms_per_window"],
+            "wall_ms_per_token_step": (None if run["wall_ms_per_window"] is None
+                                       else run["wall_ms_per_window"] / K),
+            "device_ms_per_replay": run["device_ms_per_replay"],
+            "acceptance": run["acceptance"],
+            **{k: run[k] for k in SPEC_GROUP_COUNTERS},
+            "windows": run["windows"], "kernel_launches": run["kernel_launches"],
+            "launches_by_shape": run["launches"]["by_shape"]}
+
+
+def main_group_spec(work: str, dev: dict, layers: int = None) -> dict:
+    """``python3 chip_smoke.py --group --spec``: speculative decoding and
+    int8 weights across cards (:func:`spec_group_rank`): tp 1 on one card
+    beside tp 2 on two, then tp 4 on four, within ``SPEC_GROUP_WALL_S``
+    for the whole mode.  Holds: each rank's teacher-forced logits (n-gram
+    engine, bf16; int8 weights) within ``TP_LOGIT_BOUND`` x |tp 1 - fp32|
+    a step and equal on every rank; every rank's acceptance counters,
+    streams and kernel launches equal; the kernels of each run's path
+    launched.  Reports tokens a window, the token step, acceptance and the
+    NCCL kernels' share at tp 1, 2, 4, and the kernels at the cards'
+    shapes (:func:`spec_kernel_cases`)."""
+    deadline = time.time() + SPEC_GROUP_WALL_S
+    t_all = time.time()
+    cases = [case for wave in SPEC_GROUP_WAVES for case in wave]
+    paths = {}
+    for name, world, tp, _ in cases:
+        paths[name] = os.path.join(work, f"{name}.spec.json")
+        with open(paths[name], "w") as f:
+            json.dump({"mode": "spec", "name": name, "world": world, "tp": tp,
+                       "layers": layers,
+                       "out": os.path.join(work, f"{name}.rank{{rank}}.json"),
+                       "logits": os.path.join(work, f"{name}.rank{{rank}}.pt")}, f)
+    seconds = {}
+    for wave in SPEC_GROUP_WAVES:
+        t0 = time.time()
+        procs = {name: _start_ranks(work, name, paths[name], world, first)
+                 for name, world, _, first in wave}
+        for name, p in procs.items():
+            _join_ranks(work, name, p, max(1.0, deadline - time.time()))
+        seconds["+".join(procs)] = time.time() - t0
+    ranks = {name: [json.load(open(os.path.join(work, f"{name}.rank{r}.json")))
+                    for r in range(world)] for name, world, _, _ in cases}
+    logits = {name: [torch.load(os.path.join(work, f"{name}.rank{r}.pt"), weights_only=False)
+                     for r in range(world)] for name, world, _, _ in cases}
+    t0 = time.time()
+    kernels = spec_kernel_cases()
+    seconds["kernels"] = time.time() - t0
+    base = logits["spec_tp1"][0]
+    fp32 = base["fp32_logits"]
+    bad, rows = [], {}
+    for name, world, tp, _ in cases:
+        group = ranks[name]
+        row = {"phase": f"group_{name}", "tp": tp, "world": world, "kind": group[0]["kind"],
+               "seconds": group[0]["seconds"], "self_draft_check": group[0]["self_draft_check"],
+               "runs": {k: _spec_run_row(v) for k, v in group[0]["runs"].items()},
+               "draft_pool": group[0]["runs"]["model"].get("draft_pool")}
+        if "profile" in group[0]:
+            p = group[0]["profile"]
+            row["profile"] = {k: p[k] for k in ("wall_ms_per_token_step",
+                                                "device_busy_ms_per_token_step",
+                                                "nccl_per_token_step")}
+        for kind in ("ngram", "int8"):
+            mine = logits[name][0][kind]["logits"]
+            if any(not torch.equal(a, b) for r in logits[name][1:]
+                   for a, b in zip(r[kind]["logits"], mine)):
+                bad.append(f"{name} {kind}: the ranks' logits differ")
+            noise = [(a - b).abs().max().item() for a, b in zip(base[kind]["logits"], fp32)]
+            errs = [(a - b).abs().max().item() for a, b in zip(mine, base[kind]["logits"])]
+            row[f"{kind}_teacher"] = {"step_max_abs_diff_vs_tp1": errs,
+                                      "step_max_abs_diff_tp1_vs_fp32": noise,
+                                      "step_limit": [TP_LOGIT_BOUND * n for n in noise]}
+            if tp > 1 and any(e > TP_LOGIT_BOUND * n for e, n in zip(errs, noise)):
+                bad.append(f"{name} {kind}: logits {errs} beyond {TP_LOGIT_BOUND} x {noise}")
+        for run in group[0]["runs"]:
+            same = {json.dumps({k: r["runs"][run][k] for k in (*SPEC_GROUP_COUNTERS, "streams",
+                                                                "kernel_launches")},
+                               sort_keys=True) for r in group}
+            if len(same) != 1:
+                bad.append(f"{name} {run}: the ranks' counters, streams or launches differ")
+        launched = group[0]["runs"]
+        for run, kernel in (("ngram", "paged_decode"), ("ngram", "flash_prefill"),
+                            ("model", "paged_decode"), ("int8", "w8a16"),
+                            ("self_draft", "paged_decode")):
+            if launched[run]["kernel_launches"][kernel] <= 0:
+                bad.append(f"{name} {run}: {kernel} never launched")
+        if not any(k.endswith(":D64") and n for k, n in
+                   launched["model"]["launches"]["by_shape"].items()):
+            bad.append(f"{name}: the drafter's D=64 decode never launched")
+        emit(row)
+        rows[name] = row
+    emit({"phase": "group_spec_kernels", "nvidia_smi": dev["nvidia_smi"],
+          "cases": [{k: r[k] for k in ("case", "max_abs_err", "kernel_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+                    for r in kernels]})
+    seconds["total"] = time.time() - t_all
+    emit({"phase": "group_spec_seconds", **seconds})
+    if bad:
+        raise AssertionError(f"--group --spec: {bad}")
+    return rows
+
+
+# -- --group --prefetch: the asynchronous KV transfer plane across cards ------
+
+PREFETCH_GROUP_CASES = (("prefetch_tp2", 2, 2), ("prefetch_tp4", 4, 4))
+PREFETCH_GROUP_WALL_S = 300  # the mode's wall limit, exports and both groups
+PREFETCH_PREFIX = 2048  # the chains' 128 full blocks
+PREFETCH_CHAIN_TOKENS = PREFETCH_PREFIX + 4  # and 4 teacher tokens after them
+PREFETCH_BLOCKS = 512  # a rank's pool: the offload burst overflows it
+PREFETCH_STREAM_LENS = (128, 160, 200, 256, 300, 384, 448, 512)
+PREFETCH_STREAM_TOKENS = 256
+PREFETCH_ARRIVE = 6  # the requester's iteration: the streams decode by then
+PREFETCH_BURST_LEN = 700
+PREFETCH_BURST_TOKENS = 400  # 8 x 1100 tokens: 550 blocks, past the pool
+# The host tier at full heads: two of the burst's snapshots (141 MB each
+# in bf16); a rank holds its share of the heads.
+PREFETCH_HOST_GB = 0.3
+
+
+def _prefetch_ids(vocab: int) -> dict:
+    """The mode's token ids: three chains of ``PREFETCH_CHAIN_TOKENS`` (the
+    held import, the requester beside the streams with the asynchronous
+    plane, and with the synchronous one), the teacher tails after the
+    held chain's 128 blocks, the streams and the burst."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+    draw = lambda n: rng.integers(4, vocab, n).tolist()  # noqa: E731
+    out = {name: draw(PREFETCH_CHAIN_TOKENS) for name in ("hold", "async", "sync")}
+    out["tails"] = [out["hold"][PREFETCH_PREFIX:PREFETCH_PREFIX + i] for i in range(1, 5)]
+    out["streams"] = [draw(n) for n in PREFETCH_STREAM_LENS]
+    out["burst"] = [draw(PREFETCH_BURST_LEN) for _ in PREFETCH_STREAM_LENS]
+    return out
+
+
+def _rows_over_blocks(eng, prompt: list, tails: list, blocks: list) -> list:
+    """:func:`_rows_over_cached` on ``eng`` over a prefix its pool already
+    holds in ``blocks`` (an imported chain), the new tokens into a block
+    lent for the call."""
+    spare = eng.block_pool.allocate(1)
+    try:
+        ids = torch.tensor(blocks + spare, dtype=torch.int32, device=eng.device)
+        return _rows_over_cached(eng.params, eng.config.model, eng.kv_caches, prompt, tails,
+                                 ids[:-1], ids[-1:], eng.block_pool.block_size)
+    finally:
+        eng.block_pool.free(spare)
+
+
+def _prefetch_scenario(eng, streams: list, ids: list) -> dict:
+    """The streams (``PREFETCH_STREAM_TOKENS`` each), then at iteration
+    ``PREFETCH_ARRIVE`` the requester of a chain the store holds, stepped
+    while anything is live (a transfer job included): the streams' ITL
+    while the requester waits for its first token (from its admission),
+    against the iterations before it, the longest step meanwhile, the
+    requester's TTFT, and the agreements this drive ran (steps that ran
+    one, host ms each)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+
+    def params(n):
+        return SamplingParams(max_tokens=n, temperature=0.0, ignore_eos=True)
+
+    for i, s in enumerate(streams):
+        eng.add_request(f"s{i}", prompt_token_ids=s, sampling_params=params(PREFETCH_STREAM_TOKENS))
+    agreements, agreement_s = eng.transfer_agreements, eng.transfer_agreement_s
+    log, it, added = [], 0, None
+    while True:
+        if it == PREFETCH_ARRIVE:
+            eng.add_request("req", prompt_token_ids=ids, sampling_params=params(16))
+            added = time.perf_counter()
+        if not (eng.has_unfinished() or eng.has_pending() or eng.has_live_transfers()):
+            if it > PREFETCH_ARRIVE:
+                break
+        t0 = time.perf_counter()
+        outs = eng.step()
+        log.append((t0, time.perf_counter(), [o.seq_id for o in outs]))
+        it += 1
+        if it > 20000:
+            raise AssertionError("the prefetch scenario did not drain")
+    torch.cuda.synchronize()
+    first = next(t1 for _, t1, seqs in log if "req" in seqs)
+    during = [(a, b, s) for a, b, s in log if b > added and a < first]
+    # Before: the steps after every stream's first token, up to the arrival.
+    seen, decoding = set(), len(log)
+    for i, (_, _, seqs) in enumerate(log):
+        seen.update(seqs)
+        if len(seen & {f"s{j}" for j in range(len(streams))}) == len(streams):
+            decoding = i + 1
+            break
+    before = [(a, b, s) for a, b, s in log[decoding:] if b <= added]
+
+    def itl_ms(steps, wall):
+        tokens = sum(1 for _, _, s in steps for x in s if x != "req")
+        return 1e3 * wall / max(1e-9, tokens / len(streams))
+
+    n = eng.transfer_agreements - agreements
+    return {"ttft_s": first - added,
+            "itl_ms_in_flight": itl_ms(during, first - added),
+            "max_step_ms_in_flight": 1e3 * max(b - a for a, b, _ in during),
+            "itl_ms_before": itl_ms(before, before[-1][1] - before[0][0]) if before else None,
+            "steps": len(log), "steps_in_flight": len(during),
+            "agreements": n,
+            "agreement_ms_per_step": 1e3 * (eng.transfer_agreement_s - agreement_s) / max(1, n)}
+
+
+def _prefetch_burst(eng, prompts: list) -> dict:
+    """Prompts that overflow the pool, through the stager with the plane
+    on: the first snapshot found in the host tier dropped there, so that it
+    pages in from the store; the restores' outcomes, page-ins, staged
+    snapshots, saves and preemptions, and the streams."""
+    eng._imports, eng.scheduler.remote_prefix_cb = False, None
+    restores, page_ins, undo = _page_in_first(eng)
+    t0 = time.time()
+    try:
+        streams = _serve_greedy(eng, [(f"b{i}", p, PREFETCH_BURST_TOKENS)
+                                      for i, p in enumerate(prompts)])
+        while eng.has_live_transfers():
+            eng.step()
+    finally:
+        undo()
+        eng._imports, eng.scheduler.remote_prefix_cb = True, eng.fetch_remote_prefix
+    return {"wall_s": time.time() - t0, "restores": restores, "page_ins": page_ins[0],
+            "staged": eng._offload_stager.staged, "saves": eng.offload.saves,
+            "preemptions": eng.scheduler.num_preemptions,
+            "streams": {k: v[1] for k, v in streams.items()}}
+
+
+def prefetch_group_rank(spec: dict, rank: int) -> int:
+    """One rank of a ``--group --prefetch`` case (every rank alike):
+    llama-3.1-8b at the case's tp, bf16, seeded weights, a decode-role
+    engine on the store with ``remote_prefetch=True`` and a host tier:
+
+    1. the held chain's requester alone, every rank's fetch flushed before
+       the first step: the chain lands whole (the group's agreement), and
+       the teacher-forced rows over its imported blocks;
+    2. :func:`_prefetch_scenario` on the asynchronous plane;
+    3. :func:`_prefetch_burst` through the stager, a page-in from the
+       store;
+    4. the plane taken off the engine (the prefetcher and the stager shut
+       down and detached: the synchronous plane of ``remote_prefetch=False``)
+       and :func:`_prefetch_scenario` again on another chain.
+
+    The landed blocks (counts and the pool's block ids), the counters and
+    the outcomes go to the rank's JSON, the rows to its ``.pt``."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+
+    tp, grouped = spec["tp"], spec["world"] > 1
+    cfg = _serving_config(tp=tp, layers=spec.get("layers"), **{
+        "cache.remote_kv_url": spec["url"], "cache.disagg_role": "decode",
+        "cache.remote_prefetch": True, "cache.num_blocks": PREFETCH_BLOCKS,
+        "cache.host_offload_gb": PREFETCH_HOST_GB / spec["world"],
+        # A slot for the requester beside the 8 streams.
+        "scheduler.max_num_seqs": 2 * len(PREFETCH_STREAM_LENS),
+        "scheduler.max_model_len": 8192})
+    t0 = time.time()
+    eng = LLMEngine(cfg, device=_rank_device(tp, grouped))
+    result = {"case": spec["name"], "rank": rank, "tp": tp, "boot_s": time.time() - t0}
+    try:
+        result.update(_prefetch_rank_drive(eng, spec, rank))
+    finally:
+        _close_rank_engine(eng)
+        del eng
+        free_engines(strict=sys.exc_info()[0] is None)
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _prefetch_rank_drive(eng, spec: dict, rank: int) -> dict:
+    """:func:`prefetch_group_rank`'s four parts on ``eng`` (its own frame:
+    no local of the caller's holds the engine once this returns)."""
+    from production_stack_tpu_torch.engine.core.sequence import SamplingParams
+    from production_stack_tpu_torch.engine.kv.block_pool import prefix_block_hashes
+
+    ids, result = spec["ids"], {}
+    landed, land = [], eng._import_prefetch_to_cache
+
+    def counted(chain):
+        landed.append(len(chain.blocks))
+        return land(chain)
+
+    eng._import_prefetch_to_cache = counted
+    hold, bs = ids["hold"], eng.block_pool.block_size
+    t0 = time.perf_counter()
+    eng.add_request("hold", prompt_token_ids=hold, sampling_params=SamplingParams(
+        max_tokens=1, temperature=0.0, ignore_eos=True))
+    eng.flush_prefix_imports(120.0)
+    stage_s = time.perf_counter() - t0
+    while eng.has_unfinished() or eng.has_pending() or eng.has_live_transfers():
+        eng.step()
+    torch.cuda.synchronize()
+    chain = prefix_block_hashes(hold, bs)
+    blocks = [eng.block_pool._hash_to_block.get(d) for d in chain]
+    result["hold"] = {"stage_s": stage_s, "served_s": time.perf_counter() - t0,
+                      "fetched": eng.remote_prefix_blocks_fetched,
+                      "landed": list(landed), "chain": len(chain), "blocks": blocks,
+                      "prefetch": [eng.kv_prefetch.hit_blocks,
+                                   eng.kv_prefetch.waste_blocks]}
+    rows = _rows_over_blocks(eng, hold[:len(chain) * bs], ids["tails"], blocks)
+    torch.save(rows, spec["rows"].format(rank=rank))
+    result["async"] = _prefetch_scenario(eng, ids["streams"], ids["async"])
+    result["burst"] = _prefetch_burst(eng, ids["burst"])
+    # The synchronous plane: the prefetcher and the stager off.
+    prefetcher, stager = eng.kv_prefetch, eng._offload_stager
+    eng.kv_prefetch = eng._offload_stager = None
+    prefetcher.shutdown()
+    stager.shutdown()
+    result["sync"] = _prefetch_scenario(eng, ids["streams"], ids["sync"])
+    result.update(fetched=eng.remote_prefix_blocks_fetched, landed=landed,
+                  prefetch=[prefetcher.hit_blocks, prefetcher.waste_blocks],
+                  agreements=eng.transfer_agreements,
+                  agreement_s=eng.transfer_agreement_s, steps=eng.num_steps)
+    return result
+
+
+def main_group_prefetch(work: str, dev: dict, layers: int = None) -> dict:
+    """``python3 chip_smoke.py --group --prefetch``: the asynchronous KV
+    transfer plane inside groups (:func:`prefetch_group_rank`), the port's
+    kvserver in a subprocess, within ``PREFETCH_GROUP_WALL_S``.  A one-card
+    engine (card 0) exports three 128-block chains and computes the
+    teacher rows over the held one (after the fp32 rows over it, with no
+    engine on the card); then a tp 2 group on two cards and a tp 4 group
+    on four.  Holds: every rank lands the same blocks (counts, chains and
+    pool block ids), the whole held chain; each rank's rows over the
+    imported prefix within ``TP_LOGIT_BOUND`` x the one-card rows' max
+    |logprob - fp32| (the same rows on the one-card engine's own prefix);
+    the offload burst restores with equal outcomes on every rank, one of
+    them paged in from the store.  Reports the streams' ITL while the
+    fetch is in flight and the requester's TTFT on the asynchronous and
+    the synchronous plane, and the agreement's host ms a step and the
+    steps that ran one."""
+    from production_stack_tpu_torch.engine.core.engine import LLMEngine
+
+    deadline = time.time() + PREFETCH_GROUP_WALL_S
+    t_all = time.time()
+    ids = _prefetch_ids(_vocab(MODEL))
+    prompt = ids["hold"][:PREFETCH_PREFIX]
+    torch.cuda.set_device(0)
+    seconds = {}
+    t0 = time.time()
+    fp32 = fp32_rows_over_prefix([(prompt, ids["tails"])], layers=layers)[0]
+    seconds["fp32_rows"] = time.time() - t0
+    proc, url = start_kv_store()
+    rows, bad = {}, []
+    try:
+        t0 = time.time()
+        eng = LLMEngine(_serving_config(layers=layers, **{
+            "cache.remote_kv_url": url, "cache.disagg_role": "both",
+            "cache.num_blocks": 1024, "scheduler.max_model_len": 8192}), device="cuda:0")
+        try:
+            _serve_greedy(eng, [(name, ids[name], 1) for name in ("hold", "async", "sync")])
+            eng.flush_prefix_exports(120.0)
+            exported = eng.remote_prefix_blocks_exported
+            tp1 = _engine_rows(eng, prompt, ids["tails"])
+        finally:
+            eng.close()
+            del eng
+            free_engines()
+        seconds["export"] = time.time() - t0
+        noise = _noise(tp1, fp32)
+        for name, world, tp in PREFETCH_GROUP_CASES:
+            t0 = time.time()
+            path = os.path.join(work, f"{name}.spec.json")
+            with open(path, "w") as f:
+                json.dump({"mode": "prefetch", "name": name, "world": world, "tp": tp,
+                           "layers": layers, "url": url, "ids": ids,
+                           "out": os.path.join(work, f"{name}.rank{{rank}}.json"),
+                           "rows": os.path.join(work, f"{name}.rank{{rank}}.pt")}, f)
+            _join_ranks(work, name, _start_ranks(work, name, path, world),
+                        max(1.0, deadline - time.time()))
+            group = [json.load(open(os.path.join(work, f"{name}.rank{r}.json")))
+                     for r in range(world)]
+            got = torch.load(os.path.join(work, f"{name}.rank0.pt"), weights_only=False)
+            errs = _noise(got, tp1)
+            lead = group[0]
+            row = {"phase": f"group_{name}", "tp": tp, "world": world,
+                   "nvidia_smi": dev["nvidia_smi"], "exported_blocks": exported,
+                   "boot_s": lead["boot_s"], "hold": lead["hold"],
+                   "teacher_err": errs, "teacher_noise_tp1_vs_fp32": noise,
+                   "teacher_limit": [TP_LOGIT_BOUND * x for x in noise],
+                   "async": lead["async"], "sync": lead["sync"],
+                   "burst": {k: v for k, v in lead["burst"].items() if k != "streams"},
+                   "fetched": lead["fetched"], "landed": lead["landed"],
+                   "prefetch": lead["prefetch"], "agreements": lead["agreements"],
+                   "agreement_ms_per_step": 1e3 * lead["agreement_s"] / max(
+                       1, lead["agreements"]),
+                   "steps": lead["steps"], "wall_s": time.time() - t0}
+            emit(row)
+            rows[name] = row
+            seconds[name] = row["wall_s"]
+            same = {json.dumps([r["hold"]["blocks"], r["hold"]["landed"], r["fetched"],
+                                r["landed"], r["prefetch"], r["agreements"], r["steps"],
+                                {k: v for k, v in r["burst"].items() if k != "wall_s"}],
+                               sort_keys=True) for r in group}
+            if len(same) != 1:
+                bad.append(f"{name}: the ranks landed, counted or restored differently")
+            hold = lead["hold"]
+            if (hold["landed"] != [hold["chain"]] or None in hold["blocks"]
+                    or hold["chain"] != PREFETCH_PREFIX // 16):
+                bad.append(f"{name}: the held chain landed {hold['landed']} of {hold['chain']}")
+            if any(e > TP_LOGIT_BOUND * x for e, x in zip(errs, noise)):
+                bad.append(f"{name}: rows over the imported prefix {errs} beyond "
+                           f"{TP_LOGIT_BOUND} x {noise}")
+            burst = lead["burst"]
+            if not ("restored" in burst["restores"] and burst["page_ins"] and burst["staged"]):
+                bad.append(f"{name}: no staged snapshot restored from a page-in: "
+                           f"{burst['restores']} page-ins {burst['page_ins']}")
+            if bad:
+                break
+    finally:
+        proc.terminate()
+        proc.wait(30)
+    seconds["total"] = time.time() - t_all
+    emit({"phase": "group_prefetch_seconds", **seconds})
+    if exported < 3 * PREFETCH_PREFIX // 16:
+        bad.append(f"the one-card engine exported {exported} blocks")
+    if bad:
+        raise AssertionError(f"--group --prefetch: {bad}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8031,6 +8804,11 @@ def main() -> int:
             **({"launches_group_store": group_store["launches"][name]
                 + group_store["import_launches"][name]}
                if name in ("paged_decode", "flash_prefill", "flash_prefill_batched") else {}),
+            # The same one-rank group with the asynchronous plane on: the
+            # prefetched import's request and the staged offload drive.
+            **({"launches_group_prefetch": group_store["prefetch"]["launches"][name]
+                + group_store["prefetch"]["import_launches"][name]}
+               if name in ("paged_decode", "flash_prefill") else {}),
             **({"launches_moe_reference_tp2": moe_tp2["card_launches"][name]}
                if name in ("paged_decode", "flash_prefill") else {}),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
@@ -8058,5 +8836,6 @@ if __name__ == "__main__":
         flags = sys.argv[2:]
         depth = int(flags[flags.index("--layers") + 1]) if "--layers" in flags else None
         sys.exit(main_group(depth, lifecycle_only="--lifecycle" in flags,
-                            sp_only="--sp" in flags, kv_only="--kv" in flags))
+                            sp_only="--sp" in flags, kv_only="--kv" in flags,
+                            spec_only="--spec" in flags, prefetch_only="--prefetch" in flags))
     sys.exit(main())

@@ -145,7 +145,18 @@ and restore move each rank's own heads (its remote snapshot keyed by the
 rank), the store holds full-head blocks under one engine's keys (process 0
 gathers its tp subgroup's heads and writes; every rank reads and writes
 its own heads, the blocks taken the least any rank found), and the
-encode routes run the serial ``embed`` on every rank between steps.
+encode routes run the serial ``embed`` on every rank between steps.  The
+asynchronous transfer plane (``cache.remote_prefetch``) resolves to off
+in a group when left on auto, as the JAX server does, and an explicit
+True is served: its fetcher and stager threads run on every rank, and
+the group agrees on their jobs' states once a front dispatch while a job
+is live (``_agree_transfers``: one all-reduce MIN of a small vector), so
+a chain lands, a page-in is ready or missing and the stager's slot frees
+on every rank at the same step; a handoff's chain job rides the event
+batch (``StepEvents.handoffs``).  Speculative decoding runs in a group
+as in one process: the drafter cut to the rank's positions as it is made,
+its pool one tp position's heads a rank, every rank drafting, verifying
+and accepting the same tokens.
 
 Data and sequence parallelism (``parallel.data_parallel``,
 ``parallel.sequence_parallel``) run in one process, every position of the
@@ -166,8 +177,7 @@ sp column (NCCL send/recv and all-to-all on the card), every rank writes
 the same replicated pool and samples the same token, and the decode
 windows run replicated over sp, each rank's graphs reducing over its tp
 subgroup only.  It raises ``NotImplementedError`` at construction, by
-name, for the settings outside it: dp > 1 and an explicit
-``remote_prefetch=True`` in a multi-process group.
+name, for the one setting outside it: dp > 1 in a multi-process group.
 """
 
 from __future__ import annotations
@@ -261,7 +271,7 @@ def resolve_device(device=None) -> torch.device:
 def _unsupported(config: EngineConfig, group=None) -> List[str]:
     """Settings outside the served configuration, by name, each with its
     reason: in one process every mesh is served; in a multi-process group
-    dp above 1 and an explicit asynchronous KV transfer plane are not."""
+    dp above 1 is not."""
     par = config.parallel
     grouped = group is not None and group.world > 1
     checks = [
@@ -269,11 +279,6 @@ def _unsupported(config: EngineConfig, group=None) -> List[str]:
          "data_parallel > 1 in a multi-process group (dp across cards is no "
          "port step: the JAX server refuses dp in a multi-host group too; "
          "scale replicas instead)"),
-        (grouped and config.cache.remote_prefetch is True,
-         "remote_prefetch=True in a multi-process group (its fetcher threads "
-         "make each rank's imports and restores depend on timing, so the "
-         "ranks would plan apart; the JAX server turns it off in a group, "
-         "and so does this engine when it is left on auto)"),
     ]
     return [name for bad, name in checks if bad]
 
@@ -514,9 +519,10 @@ class LLMEngine:
         _check_mesh_gates(config)
         if group is not None and config.cache.remote_prefetch is None:
             # As the JAX server in a group: the asynchronous transfer plane
-            # (fetcher threads, the off-step offload stager) goes off, so
-            # every transfer outcome is decided on the step thread, where
-            # the group agrees on it.
+            # (fetcher threads, the off-step offload stager) goes off
+            # unless asked for, so every transfer outcome is decided on the
+            # step thread, where the group agrees on it.  An explicit True
+            # runs it, its jobs' states agreed once a step.
             config.cache.remote_prefetch = False
         self.config = config
         world = int(np.prod(par.mesh_shape))
@@ -620,6 +626,14 @@ class LLMEngine:
         self.disagg_prefill_primes = 0
         self.disagg_handoff_hits = 0
         self.disagg_handoff_misses = 0
+        # In a group with the asynchronous plane: the agreements over its
+        # jobs' states (steps that ran one) and their host seconds; the
+        # handoff chains the leader's server threads queue for the step
+        # loop to publish, each with the ticket its waiter blocks on.
+        self.transfer_agreements = 0
+        self.transfer_agreement_s = 0.0
+        self._handoff_lock = threading.Lock()
+        self._handoffs: List[tuple] = []
         self.scheduler = Scheduler(
             config.scheduler,
             self.block_pool,
@@ -1312,6 +1326,7 @@ class LLMEngine:
                 restore_sink=self.offload,
                 num_threads=config.cache.prefetch_threads,
                 observe_fetch=lambda s: self.obs.kv_phase("remote_kv_fetch", s),
+                grouped=self.group is not None,
             )
         # The stager covers host-DRAM-only offload too: the D2H wait is a
         # step-thread stall either way.  Only an explicit
@@ -1320,6 +1335,7 @@ class LLMEngine:
             self._offload_stager = OffloadStager(
                 self.offload,
                 observe_stage=lambda s: self.obs.kv_phase("offload_stage", s),
+                grouped=self.group is not None,
             )
         # Completed prefetches awaiting import into the prefix cache (kept
         # across steps under transient pool pressure).
@@ -1344,7 +1360,10 @@ class LLMEngine:
         tier cannot hold returns False: the sequence recomputes.  Legacy mode
         (no stager, ``remote_prefetch=False``) saves synchronously: the
         copies are waited for on the step thread, its documented A/B
-        baseline contract."""
+        baseline contract.  In a group the slot is the group's (taken while
+        any rank's writer holds a snapshot, as last agreed), and the
+        stage's reservations are agreed: when any rank fails, the others
+        release theirs and every rank recomputes."""
         if self._offload_stager is None or self.offload.capacity_bytes <= 0:
             t0 = time.time()
             saved = self.offload.save(
@@ -1364,11 +1383,39 @@ class LLMEngine:
                     blocks=len(block_ids),
                 )
             return saved
+        stager = self._offload_stager
         if not block_ids:
             return False
-        if not self._offload_stager.reserve(seq.seq_id):
-            return False  # slot busy: recompute fallback (double-buffer)
+        if self.group is not None and stager.busy:
+            stager.skipped += 1
+            return False  # the group's slot is busy: recompute on every rank
         t0 = time.time()
+        staged = self._stage_offload(seq.seq_id, block_ids)
+        if self.group is not None and not distributed.agree_min(int(staged is not None)):
+            if staged is not None:
+                stager.release(seq.seq_id)
+                self.offload.drop_region(staged[1])
+            return False
+        if staged is None:
+            return False
+        host_layers, region, ready = staged
+        stager.commit(seq.seq_id, host_layers, seq.num_tokens, region, ready=ready)
+        if self.obs.enabled:
+            # Step-thread cost only (the gather's dispatch): the D2H wait
+            # lives in tpu:offload_stage_seconds, observed by the writer.
+            self.obs.tracer.add_span(
+                seq.seq_id, "engine.kv_offload", t0, time.time(),
+                blocks=len(block_ids), staged=True,
+            )
+        return True
+
+    def _stage_offload(self, seq_id: str, block_ids: List[int]):
+        """The stager's reservation, the gather and its copy into a region
+        of the host tier: (host sides, region, ready event), or None, the
+        reservation released, when the slot is busy, the tier cannot hold
+        the snapshot or the dispatch failed (the sequence recomputes)."""
+        if not self._offload_stager.reserve(seq_id):
+            return None  # slot busy: recompute fallback (double-buffer)
         reserved = None
         try:
             ids = self._put(np.asarray(block_ids, np.int64))
@@ -1381,26 +1428,16 @@ class LLMEngine:
             ]
             reserved = self.offload.reserve(wire)
             if reserved is None:
-                self._offload_stager.release(seq.seq_id)
-                return False  # the host tier cannot hold it: recompute
+                self._offload_stager.release(seq_id)
+                return None  # the host tier cannot hold it: recompute
             host_layers, ready = kv_quant.stage_to_host(wire, out=reserved[0])
         except Exception:
-            self._offload_stager.release(seq.seq_id)
+            self._offload_stager.release(seq_id)
             if reserved is not None:
                 self.offload.drop_region(reserved[1])
             logger.exception("offload gather dispatch failed; recomputing")
-            return False
-        self._offload_stager.commit(
-            seq.seq_id, host_layers, seq.num_tokens, reserved[1], ready=ready
-        )
-        if self.obs.enabled:
-            # Step-thread cost only (the gather's dispatch): the D2H wait
-            # lives in tpu:offload_stage_seconds, observed by the writer.
-            self.obs.tracer.add_span(
-                seq.seq_id, "engine.kv_offload", t0, time.time(),
-                blocks=len(block_ids), staged=True,
-            )
-        return True
+            return None
+        return host_layers, reserved[1], ready
 
     # -- restore (scheduler restore_cb) ------------------------------------
 
@@ -1484,6 +1521,8 @@ class LLMEngine:
             return self._RESTORE_PENDING
         if self.kv_prefetch is None:
             return self.offload.restore(seq_id)
+        if self.group is not None:
+            return self._restore_entry_agreed(seq_id)
         entry = self.offload.restore_local(seq_id)
         if entry is not None:
             # Consume a completed page-in job, if one fed this entry.
@@ -1500,6 +1539,27 @@ class LLMEngine:
         if state == "ready":
             return self.offload.restore_local(seq_id)
         return None  # "missing": recompute
+
+    def _restore_entry_agreed(self, seq_id: str):
+        """``_restore_entry`` in a group with the prefetcher: the page-in's
+        agreed state, else the host tiers if every rank holds the
+        snapshot there (agreed), else a page-in from the store started on
+        every rank.  ``_restore_seq_blocks`` then agrees on the tokens."""
+        state = self.kv_prefetch.poll_restore(seq_id)
+        if state == "inflight":
+            return self._RESTORE_PENDING
+        if state == "ready":
+            return self.offload.restore_local(seq_id)
+        entry = self.offload.restore_local(seq_id)
+        if state == "missing" or not distributed.agree_min(int(entry is not None)):
+            if entry is not None:
+                # Another rank lacks it: this rank's copy is never used.
+                self.offload.release(entry)
+            entry = None
+        if entry is not None or state == "missing" or self.offload.remote_client is None:
+            return entry
+        self.kv_prefetch.submit_restore(seq_id)
+        return self._RESTORE_PENDING
 
     # -- cross-engine prefix sharing (cache.disagg_role) -------------------
 
@@ -1548,10 +1608,46 @@ class LLMEngine:
         return seq._px_hashes
 
     def _transfer_inflight(self) -> bool:
-        """Any async KV transfer the scheduler may be waiting out."""
+        """Any async KV transfer the scheduler may be waiting out (in a
+        group, as last agreed)."""
         if self._offload_stager is not None and self._offload_stager.busy:
             return True
         return self.kv_prefetch is not None and self.kv_prefetch.inflight > 0
+
+    def has_live_transfers(self) -> bool:
+        """In a group, a job of the asynchronous transfer plane is live, so
+        the group keeps stepping (the leader publishing) until its
+        agreement retires it; False outside a group."""
+        if self.group is None:
+            return False
+        return bool((self.kv_prefetch is not None and self.kv_prefetch.has_live())
+                    or (self._offload_stager is not None and self._offload_stager.busy))
+
+    def _agree_transfers(self) -> None:
+        """In a group, while a job of the asynchronous plane is live: one
+        all-reduce MIN of every live job's state on this rank (the
+        prefetcher's chains and page-ins, the stager's slot, in an order
+        every rank shares: the jobs are created and retired at the same
+        points on every rank), applied as the group's view that the
+        scheduler callbacks read until the next front dispatch."""
+        if self.group is None:
+            return
+        states = []
+        if self.kv_prefetch is not None:
+            states += self.kv_prefetch.group_states()
+        split = len(states)
+        if self._offload_stager is not None:
+            states += self._offload_stager.group_states()
+        if not states:
+            return
+        t0 = time.perf_counter()
+        agreed = distributed.agree_vector([value for _, value in states])
+        if split:
+            self.kv_prefetch.apply_agreed([key for key, _ in states[:split]], agreed[:split])
+        if len(states) > split:
+            self._offload_stager.apply_agreed(agreed[split])
+        self.transfer_agreements += 1
+        self.transfer_agreement_s += time.perf_counter() - t0
 
     # -- admission-time remote-prefix prefetch -----------------------------
 
@@ -1657,12 +1753,18 @@ class LLMEngine:
         ids = self.block_pool.allocate(len(ready))
         try:
             self._import_blocks(ids, self._rank_blocks([b for _, b in ready]))
+            copied = True
         except Exception:
+            logger.exception("prefetched block import failed; continuing")
+            copied = False
+        if self.group is not None:
+            # A copy-in that failed on any rank is dropped on every rank.
+            copied = bool(distributed.agree_min(int(copied)))
+        if not copied:
             # Malformed store entry (wrong layer count / block shape): free
             # and degrade; unreferenced cache lines are harmless.
             self.block_pool.free(ids)
             self.kv_prefetch.note_waste(len(chain.blocks))
-            logger.exception("prefetched block import failed; continuing")
             return "drop"
         for (digest, _), block in zip(ready, ids):
             self.block_pool.adopt_prefix_block(digest, block)
@@ -1974,7 +2076,12 @@ class LLMEngine:
         of its next dispatch, before any schedule(), so a request admitted
         after "hit" serves its whole prompt from the prefix cache.  Runs on
         a worker thread of the server.  Returns "hit", "partial", "miss",
-        or "disabled" (no prefetch plane, imports off, or other weights)."""
+        or "disabled" (no prefetch plane, imports off, or other weights).
+
+        In a group the chain job is queued for the step loop, which
+        publishes it (``StepEvents.handoffs``) and has every rank submit it
+        at one point of the iteration (:meth:`submit_handoff`); the wait
+        then reads the group's agreed state of the job."""
         if self.kv_prefetch is None or not self._imports:
             return "disabled"
         hashes = prefix_block_hashes(
@@ -1988,19 +2095,22 @@ class LLMEngine:
         start = self.block_pool.count_cached_prefix(hashes)
         if start >= len(hashes):
             return "hit"
-        key_prefix = self._px_key_prefix()
-        sid = f"handoff-{hashes[-1].hex()[:16]}"
-        submitted = self.kv_prefetch.submit_chain(
-            sid,
-            [key_prefix + d.hex() for d in hashes[start:]],
-            hashes[start:],
-            start,
-        )
+        deadline = time.time() + max(0.0, timeout)
+        sid = self._handoff_sid(hashes)
+        if self.group is None:
+            submitted = self._submit_handoff_chain(sid, hashes, start)
+        else:
+            ticket = {"done": threading.Event(), "submitted": False}
+            with self._handoff_lock:
+                self._handoffs.append((list(prompt_token_ids), cache_ns, ticket))
+            if self._commit_wake is not None:
+                self._commit_wake()
+            ticket["done"].wait(max(0.0, deadline - time.time()))
+            submitted = ticket["submitted"]
         if not submitted:
             # A same-head job is already in flight: poll coverage on a
             # shortened budget.
-            timeout = min(timeout, 0.5)
-        deadline = time.time() + max(0.0, timeout)
+            deadline = min(deadline, time.time() + 0.5)
         grace_until: Optional[float] = None
         while time.time() < deadline:
             covered = self.block_pool.count_cached_prefix(hashes)
@@ -2021,6 +2131,44 @@ class LLMEngine:
         if covered >= len(hashes):
             return "hit"
         return "partial" if covered > start else "miss"
+
+    @staticmethod
+    def _handoff_sid(hashes: List[bytes]) -> str:
+        return f"handoff-{hashes[-1].hex()[:16]}"
+
+    def _submit_handoff_chain(self, sid: str, hashes: List[bytes], start: int) -> bool:
+        key_prefix = self._px_key_prefix()
+        return self.kv_prefetch.submit_chain(
+            sid,
+            [key_prefix + d.hex() for d in hashes[start:]],
+            hashes[start:],
+            start,
+        )
+
+    def take_handoffs(self) -> List[tuple]:
+        """The handoff chains queued by :meth:`wait_handoff_prefix` in a
+        group, ``[(prompt_token_ids, cache_ns, ticket)]``, for the step loop
+        to publish and submit."""
+        with self._handoff_lock:
+            taken, self._handoffs = self._handoffs, []
+        return taken
+
+    def submit_handoff(self, prompt_token_ids: List[int], cache_ns: int,
+                       ticket: Optional[dict] = None) -> bool:
+        """Submit a handoff's chain job (every rank of a group, at the same
+        point of an iteration: the step loop, then ``follower_loop``),
+        from the prefix cache as it stands there; ``ticket`` (the leader's)
+        tells the waiter whether a job was submitted."""
+        hashes = prefix_block_hashes(
+            prompt_token_ids, self.block_pool.block_size, namespace=cache_ns
+        )
+        start = self.block_pool.count_cached_prefix(hashes) if hashes else 0
+        submitted = start < len(hashes) and self._submit_handoff_chain(
+            self._handoff_sid(hashes), hashes, start)
+        if ticket is not None:
+            ticket["submitted"] = submitted
+            ticket["done"].set()
+        return submitted
 
     # -- stepping ----------------------------------------------------------
 
@@ -2132,7 +2280,9 @@ class LLMEngine:
         synchronous plans run."""
         # Land completed remote-prefix prefetches in the prefix cache
         # before planning, so this schedule()'s match_prefix can serve them
-        # (the copy-in is enqueued on the device, not waited for).
+        # (the copy-in is enqueued on the device, not waited for); in a
+        # group, what landed is what the group agreed on just now.
+        self._agree_transfers()
         self._drain_prefetched()
         t0 = time.time()
         plan = self.scheduler.schedule()

@@ -574,9 +574,15 @@ class OffloadStager:
     ``discard(seq_id)`` tombstones an in-flight snapshot (request
     aborted/finished while staging): the writer drops the host copy
     instead of inserting it, so no entry (or remote PUT) outlives the
-    sequence."""
+    sequence.
 
-    def __init__(self, manager: HostOffloadManager, observe_stage=None):
+    In a multi-process group (``grouped``) the slot is the group's: a
+    committed snapshot stays in flight in the agreed view
+    (``is_inflight``, ``busy``) until the engine's agreement over
+    :meth:`group_states` finds every rank's writer done with it."""
+
+    def __init__(self, manager: HostOffloadManager, observe_stage=None,
+                 grouped: bool = False):
         self._manager = manager
         self._observe = observe_stage  # callable(seconds) or None
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
@@ -587,6 +593,26 @@ class OffloadStager:
         self._thread: Optional[threading.Thread] = None
         self.staged = 0
         self.skipped = 0  # slot busy -> recompute fallback
+        self._grouped = grouped
+        # In a group: the sequence whose snapshot the agreed view holds in
+        # flight (set at commit on every rank, cleared by apply_agreed).
+        self._agreed_id: Optional[str] = None
+
+    def group_states(self) -> List[tuple]:
+        """This rank's state of the agreed in-flight snapshot, ``[(("stager",
+        seq_id), value)]``: 0 while this rank's writer still holds it, 1
+        once it landed (the group's MIN: in flight while any rank's is);
+        empty when the group's slot is free."""
+        with self._lock:
+            if self._agreed_id is None:
+                return []
+            mine = self._busy and self._inflight_id == self._agreed_id
+            return [(("stager", self._agreed_id), 0 if mine else 1)]
+
+    def apply_agreed(self, value: int) -> None:
+        if value:
+            with self._lock:
+                self._agreed_id = None
 
     def reserve(self, seq_id: str) -> bool:
         """Claim the staging slot (step thread).  False = slot busy."""
@@ -617,6 +643,9 @@ class OffloadStager:
         writer thread; ``ready`` is the CUDA event their copies must pass
         first (None: landed)."""
         self.staged += 1
+        if self._grouped:
+            with self._lock:
+                self._agreed_id = seq_id
         self._q.put((seq_id, host_layers, num_tokens, region, ready, time.time()))
 
     def discard(self, seq_id: str) -> None:
@@ -628,14 +657,18 @@ class OffloadStager:
 
     def is_inflight(self, seq_id: str) -> bool:
         """True while ``seq_id``'s snapshot is staged but not yet landed
-        in the manager — restore answers "retry" instead of "gone"."""
+        in the manager — restore answers "retry" instead of "gone".  In a
+        group: while the agreed view holds it in flight."""
         with self._lock:
+            if self._grouped:
+                return self._agreed_id == seq_id
             return self._inflight_id == seq_id and not self._dead
 
     @property
     def busy(self) -> bool:
+        """The slot is taken (in a group: on any rank, as last agreed)."""
         with self._lock:
-            return self._busy
+            return self._agreed_id is not None if self._grouped else self._busy
 
     def wait_idle(self, timeout: float = 10.0) -> bool:
         deadline = time.time() + timeout

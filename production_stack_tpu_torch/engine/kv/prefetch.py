@@ -29,6 +29,16 @@ Here the transfer moves off-step entirely:
   staging buffers; a worker completing a cancelled job drops the result
   (counted as waste) and never touches engine state.
 
+In a multi-process group (``grouped``) every outcome above would depend on
+each rank's fetcher timing, so the ranks would plan apart.  There the
+step thread keeps the group's agreed view of each live job, created on
+every rank alike (jobs are submitted only at points every rank reaches)
+and moved on only by :meth:`apply_agreed`, with the states that the
+engine all-reduces once a step (:meth:`group_states`); ``pop_completed``,
+``poll_restore``, ``chain_status``, ``has_job``, ``inflight`` and the
+dedupe read that view, a chain lands with the least blocks any rank
+staged, and waste is counted only where the group decides it.
+
 Counters feed ``tpu:kv_prefetch_{hit,waste,inflight}``; per-RPC latency
 feeds the ``tpu:remote_kv_fetch_seconds`` histogram via ``observe_fetch``.
 """
@@ -70,6 +80,7 @@ class PrefetchManager:
         restore_sink: Optional["HostOffloadManager"] = None,
         num_threads: int = 2,
         observe_fetch=None,  # callable(seconds) or None
+        grouped: bool = False,
     ):
         self._client = client
         self._restore_sink = restore_sink
@@ -85,6 +96,10 @@ class PrefetchManager:
         # pop_completed/poll_restore; cancelled jobs are reaped by the
         # worker that owns them).
         self._jobs: Dict[tuple, dict] = {}
+        # In a group: (kind, seq_id) -> the group's agreed view of each
+        # live job, {"state", "head", "n"} (a chain's state inflight |
+        # done with n blocks; a restore's inflight | ready | missing).
+        self._agreed: Optional[Dict[tuple, dict]] = {} if grouped else None
         self._threads: List[threading.Thread] = []
         self.hit_blocks = 0  # blocks imported into the pool / the prefix cache
         self.waste_blocks = 0  # blocks fetched then dropped unused
@@ -102,9 +117,62 @@ class PrefetchManager:
     @property
     def inflight(self) -> int:
         with self._lock:
-            return sum(
-                1 for j in self._jobs.values() if j["state"] == "inflight"
-            )
+            jobs = self._jobs if self._agreed is None else self._agreed
+            return sum(1 for j in jobs.values() if j["state"] == "inflight")
+
+    # -- the group's agreed view (grouped only) -----------------------------
+
+    def group_states(self) -> List[tuple]:
+        """This rank's state of each live job, ``[((kind, seq_id), value)]``
+        in key order, encoded so that the group's MIN is its answer: a
+        chain -1 while its fetch is in flight, else the blocks it staged
+        (it lands when every rank is done, with the least count); a
+        restore page-in 0 missing, 1 in flight, 2 ready (any miss makes
+        every rank recompute)."""
+        with self._lock:
+            out = []
+            for key in sorted(self._agreed):
+                job = self._jobs.get(key)
+                if key[0] == "chain":
+                    if job is not None and job["state"] == "inflight":
+                        value = -1
+                    else:
+                        result = job and job["result"]
+                        value = len(result.blocks) if result else 0
+                elif job is not None and job["state"] == "inflight":
+                    value = 1
+                else:
+                    value = 2 if job is not None and job["found"] else 0
+                out.append((key, value))
+            return out
+
+    def apply_agreed(self, keys: List[tuple], values: List[int]) -> None:
+        """The group's MIN over :meth:`group_states`, for the same keys."""
+        with self._lock:
+            for key, value in zip(keys, values):
+                view = self._agreed[key]
+                if key[0] == "chain":
+                    if value >= 0:
+                        view.update(state="done", n=value)
+                else:
+                    view["state"] = ("missing", "inflight", "ready")[value]
+
+    def has_live(self) -> bool:
+        """A job of the agreed view is live (grouped only)."""
+        with self._lock:
+            return bool(self._agreed)
+
+    def _claim(self, key: tuple, view: dict) -> bool:
+        """Enter ``key`` in the agreed view (grouped; lock held); False when
+        it is live already.  A cancelled job still owned by its worker is
+        left to it: the new job replaces it."""
+        if key in self._agreed:
+            return False
+        self._agreed[key] = view
+        stale = self._jobs.get(key)
+        if stale is not None:
+            stale["state"] = "cancelled"
+        return True
 
     # -- chain prefetch ----------------------------------------------------
 
@@ -124,12 +192,15 @@ class PrefetchManager:
             return False
         key = ("chain", seq_id)
         with self._lock:
-            if key in self._jobs:
+            jobs = self._jobs if self._agreed is None else self._agreed
+            if key in jobs:
                 return False
-            for job in self._jobs.values():
+            for job in jobs.values():
                 if job.get("head") == keys[0] and job["state"] == "inflight":
                     return False
-            self._jobs[key] = {
+            if self._agreed is not None:
+                self._claim(key, {"state": "inflight", "head": keys[0], "n": 0})
+            job = self._jobs[key] = {
                 "state": "inflight",
                 "head": keys[0],
                 "keys": keys,
@@ -138,12 +209,13 @@ class PrefetchManager:
                 "result": None,
             }
         self._ensure_threads()
-        self._q.put(key)
+        self._q.put((key, job))
         return True
 
     def has_job(self, seq_id: str) -> bool:
         with self._lock:
-            return ("chain", seq_id) in self._jobs
+            jobs = self._jobs if self._agreed is None else self._agreed
+            return ("chain", seq_id) in jobs
 
     def chain_status(self, seq_id: str) -> str:
         """"absent" (no job — completed empty, already consumed, or
@@ -151,16 +223,30 @@ class PrefetchManager:
         the step thread imports it at its next dispatch, BEFORE any
         schedule() — the disagg handoff wait keys on this)."""
         with self._lock:
-            job = self._jobs.get(("chain", seq_id))
+            jobs = self._jobs if self._agreed is None else self._agreed
+            job = jobs.get(("chain", seq_id))
             if job is None:
                 return "absent"
             return str(job["state"])
 
     def pop_completed(self) -> List[PrefetchedChain]:
         """Drain every finished chain fetch (step thread).  Ownership of
-        the staging buffers transfers to the caller."""
+        the staging buffers transfers to the caller.  In a group: the
+        chains the group agreed done, each cut to the agreed count (none
+        when a rank staged nothing)."""
         out: List[PrefetchedChain] = []
         with self._lock:
+            if self._agreed is not None:
+                landed = sorted(key for key, view in self._agreed.items()
+                                if key[0] == "chain" and view["state"] == "done")
+                for key in landed:
+                    n = self._agreed.pop(key)["n"]
+                    job = self._jobs.pop(key, None)
+                    result = job and job["result"]
+                    if n and result:
+                        result.blocks, result.hashes = result.blocks[:n], result.hashes[:n]
+                        out.append(result)
+                return out
             done = [
                 key
                 for key, job in self._jobs.items()
@@ -179,12 +265,17 @@ class PrefetchManager:
         ever reaches the engine."""
         with self._lock:
             for key in (("chain", seq_id), ("restore", seq_id)):
+                if self._agreed is not None:
+                    # Retired on every rank at once (an abort or a finish is
+                    # a step every rank takes); what this rank staged is not
+                    # the group's decision, so it is not counted as waste.
+                    self._agreed.pop(key, None)
                 job = self._jobs.get(key)
                 if job is None:
                     continue
                 if job["state"] == "done":
                     result = self._jobs.pop(key).get("result")
-                    if result is not None:
+                    if result is not None and self._agreed is None:
                         self.waste_blocks += len(result.blocks)
                     continue
                 job["state"] = "cancelled"
@@ -197,19 +288,35 @@ class PrefetchManager:
         (restore_sink.insert_fetched) for the next restore_local()."""
         key = ("restore", seq_id)
         with self._lock:
-            if key in self._jobs:
+            if self._agreed is not None:
+                if not self._claim(key, {"state": "inflight"}):
+                    return False
+            elif key in self._jobs:
                 return False
-            self._jobs[key] = {"state": "inflight", "found": False}
+            job = self._jobs[key] = {"state": "inflight", "found": False}
         self._ensure_threads()
-        self._q.put(key)
+        self._q.put((key, job))
         return True
 
     def poll_restore(self, seq_id: str) -> str:
         """"absent" (no job — submit one), "inflight" (re-check next
         pass), "ready" (snapshot now in the local tier), or "missing"
-        (store had nothing: recompute)."""
+        (store had nothing: recompute).  In a group: the agreed state, and
+        a page-in still flying here when another rank missed is left to its
+        worker, which drops it."""
         key = ("restore", seq_id)
         with self._lock:
+            if self._agreed is not None:
+                view = self._agreed.get(key)
+                if view is None or view["state"] == "inflight":
+                    return "absent" if view is None else "inflight"
+                del self._agreed[key]
+                job = self._jobs.get(key)
+                if job is not None and job["state"] == "inflight":
+                    job["state"] = "cancelled"
+                elif job is not None:
+                    del self._jobs[key]
+                return view["state"]
             job = self._jobs.get(key)
             if job is None:
                 return "absent"
@@ -233,19 +340,17 @@ class PrefetchManager:
 
     def _worker(self) -> None:
         while True:
-            key = self._q.get()
-            if key is None:
+            item = self._q.get()
+            if item is None:
                 return
+            key, job = item
             with self._lock:
-                job = self._jobs.get(key)
-                if job is not None and job["state"] != "inflight":
+                if job["state"] != "inflight":
                     # Cancelled before we picked it up: reap it here so
                     # it neither leaks nor holds wait_idle open.
-                    self._jobs.pop(key, None)
+                    self._reap(key, job)
                     self._idle.notify_all()
-                    job = None
-            if job is None:
-                continue
+                    continue
             if key[0] == "chain":
                 self._fetch_chain(key, job)
             else:
@@ -269,13 +374,13 @@ class PrefetchManager:
         if self._observe is not None:
             self._observe(time.time() - t0)
         with self._lock:
-            live = self._jobs.get(key)
-            if live is not job or job["state"] == "cancelled":
+            if self._jobs.get(key) is not job or job["state"] == "cancelled":
                 # Aborted mid-flight: drop the staging buffers here.
-                self._jobs.pop(key, None)
-                self.waste_blocks += len(blocks)
+                self._reap(key, job)
+                if self._agreed is None:
+                    self.waste_blocks += len(blocks)
                 return
-            if not blocks:
+            if not blocks and self._agreed is None:
                 self._jobs.pop(key, None)
                 return
             job["state"] = "done"
@@ -318,10 +423,15 @@ class PrefetchManager:
                     found = False
         with self._lock:
             if self._jobs.get(key) is not job or job["state"] == "cancelled":
-                self._jobs.pop(key, None)
+                self._reap(key, job)
                 return
             job["state"] = "done"
             job["found"] = found
+
+    def _reap(self, key: tuple, job: dict) -> None:
+        """Drop a cancelled job (lock held), unless a newer job holds its key."""
+        if self._jobs.get(key) is job:
+            del self._jobs[key]
 
     # -- lifecycle ---------------------------------------------------------
 

@@ -44,7 +44,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -295,6 +295,21 @@ def agree_min(value: int) -> int:
     return int(box[0])
 
 
+def agree_vector(values: Sequence[int]) -> List[int]:
+    """The element-wise least of every member's ``values`` (one all-reduce
+    MIN of an int64 vector over the control plane; ``values`` themselves
+    outside a group): the asynchronous transfer plane's states, one entry
+    a live job in an order every member shares, agreed in one call a
+    step."""
+    import torch.distributed as dist
+
+    if _group is None:
+        return list(values)
+    box = torch.tensor(list(values), dtype=torch.int64)
+    dist.all_reduce(box, op=dist.ReduceOp.MIN, group=_group.control)
+    return box.tolist()
+
+
 def broadcast_from_leader(obj: Any) -> Any:
     """``obj`` as process 0 holds it, on every member (a broadcast over the
     control plane, beside :func:`agree_min`; ``obj`` itself outside a
@@ -452,6 +467,10 @@ class StepEvents:
     # (encode_id, token_ids): texts every rank embeds (``LLMEngine.embed``)
     # on its step thread before this iteration's step.
     encodes: list = dataclasses.field(default_factory=list)
+    # (prompt_token_ids, cache_ns): disagg handoff chains every rank
+    # submits (``LLMEngine.submit_handoff``) after the admissions, so the
+    # job is live on every rank from the same point of the iteration.
+    handoffs: list = dataclasses.field(default_factory=list)
     shutdown: bool = False
     # Group identity: the leader's boot nonce and a monotonic publish
     # ordinal, stamped by LockstepChannel.publish.  A follower adopts
@@ -844,8 +863,10 @@ def follower_loop(engine, channel: LockstepChannel) -> None:
     their collectives.
 
     ``engine.step()`` here is the same dispatch/collect pipeline the
-    leader's loop drives, under the same condition (a sequence unfinished
-    or a dispatched step uncollected), so with the lookahead on every
+    leader's loop drives, under the same condition (a sequence unfinished,
+    a dispatched step uncollected, or a live job of the asynchronous
+    transfer plane, whose agreement runs in the step), so with the
+    lookahead on every
     rank enqueues the identical launch sequence (collects are host reads
     of the rank's own copy of the sampled tokens — no collectives),
     keeping the group in sync."""
@@ -910,7 +931,10 @@ def _follow(engine, channel: LockstepChannel) -> None:
                 engine.embed(token_ids)
             except Exception:
                 logger.exception("follower: embed %s failed", encode_id)
-        if engine.has_unfinished() or engine.has_pending():
+        for token_ids, cache_ns in getattr(events, "handoffs", ()):
+            engine.submit_handoff(token_ids, cache_ns)
+        # A live transfer job steps too: its agreement runs in the step.
+        if engine.has_unfinished() or engine.has_pending() or engine.has_live_transfers():
             try:
                 engine.step()
             except Exception:

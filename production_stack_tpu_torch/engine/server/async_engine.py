@@ -411,6 +411,9 @@ class AsyncEngine:
             # A queued text whose deadline passed is answered here and never
             # published: the followers embed what the leader will.
             encodes = [e for e in encodes if not self._encode_expired(e)]
+            # Handoff chains the server's waiters queued (a group only):
+            # published, then submitted on every rank after the admissions.
+            handoffs = self.engine.take_handoffs() if self._lockstep is not None else []
             # Deadline sweep, each scheduler pass: expired waiting and
             # preempted sequences join this iteration's aborts (published
             # under lockstep like any client abort, so followers replay
@@ -426,9 +429,12 @@ class AsyncEngine:
                     aborts.append(request_id)
                     expired.append(request_id)
                     self.engine.deadline_expired += 1
+            # A live job of the asynchronous transfer plane keeps the group
+            # stepping: its agreement runs in the step on every rank.
             if self._lockstep is not None and (
-                pending or aborts or encodes or self.engine.has_unfinished()
-                or self.engine.has_pending()
+                pending or aborts or encodes or handoffs
+                or self.engine.has_live_transfers()
+                or self.engine.has_unfinished() or self.engine.has_pending()
                 # Idle heartbeat: followers detect a dead leader by event
                 # staleness; without it an idle group looks dead.
                 or time.time() - last_publish > self._lockstep.heartbeat_seconds
@@ -439,7 +445,8 @@ class AsyncEngine:
 
                 self._lockstep.publish(StepEvents(
                     requests=list(pending), aborts=list(aborts),
-                    encodes=[(eid, ids) for eid, ids, _, _ in encodes]))
+                    encodes=[(eid, ids) for eid, ids, _, _ in encodes],
+                    handoffs=[(ids, ns) for ids, ns, _ in handoffs]))
                 last_publish = time.time()
             for request_id in aborts:
                 self.engine.abort_request(request_id)
@@ -464,7 +471,12 @@ class AsyncEngine:
                 except Exception as e:  # handed to the caller
                     result = e
                 self._resolve(fut, result)
-            if not self.engine.has_unfinished() and not self.engine.has_pending():
+            for ids, ns, ticket in handoffs:
+                self.engine.submit_handoff(ids, ns, ticket)
+            # Decided after this iteration's events, as follower_loop does:
+            # an abort may retire a job, a handoff create one.
+            if not (self.engine.has_unfinished() or self.engine.has_pending()
+                    or self.engine.has_live_transfers()):
                 # Generation idle: encode batches are the only work there
                 # is; drain the queue completely before sleeping.
                 if (

@@ -6,10 +6,11 @@ HTTP stream through a dp x sp server.
   KV heads, the ring with a sliding window, a windowed model at sp 2,
   buckets and ``max_model_len`` not divisible by ``block_size * sp``;
   mixed steps auto-resolve to off on a dp and on an sp mesh;
-- in a multi-process group dp > 1 and an explicit ``remote_prefetch=True``
-  are refused by name at construction (sp > 1 is served there:
-  tests/test_torch_sp_group.py; the remote store on auto prefetch:
-  tests/test_torch_group_kv.py);
+- in a multi-process group dp > 1 is refused by name at construction (sp >
+  1 is served there: tests/test_torch_sp_group.py; the remote store on
+  auto prefetch: tests/test_torch_group_kv.py), and an explicit
+  ``remote_prefetch=True`` builds with its prefetcher and stager in the
+  group's agreed mode (served: tests/test_torch_group_prefetch.py);
 - positions on different devices in one process raise, naming the item
   of their axis;
 - one streamed completion through the server built from
@@ -91,8 +92,6 @@ def test_mixed_steps_auto_resolve_off_on_a_dp_or_sp_mesh(dp, sp):
 @pytest.mark.parametrize("dp,sp,cache,item", [
     (2, 1, None, "data_parallel > 1 in a multi-process group (dp across cards is no "
                  "port step"),
-    (1, 1, {"remote_prefetch": True, "remote_kv_url": "kv://127.0.0.1:9"},
-     "remote_prefetch=True in a multi-process group (its fetcher threads"),
 ])
 def test_dp_and_sp_in_a_group_are_refused_by_name(monkeypatch, dp, sp, cache, item):
     """A (faked) two-process group: the engine refuses before any gate,
@@ -104,6 +103,30 @@ def test_dp_and_sp_in_a_group_are_refused_by_name(monkeypatch, dp, sp, cache, it
     if dp > 1:
         with pytest.raises(NotImplementedError, match="multi-process group"):
             build_mesh(config(tcfg, dp=dp, tp=2, sp=sp).parallel, group=group)
+
+
+def test_an_explicit_prefetch_plane_builds_in_a_group(monkeypatch):
+    """A (faked) two-process group with ``remote_prefetch=True``, the store
+    and a host tier: the engine builds, its prefetcher and offload stager
+    wired in the group's agreed mode (no job live, nothing to agree), and
+    auto still resolves to off there."""
+    group = TPGroup(rank=0, world=2, device=torch.device("cpu"))
+    monkeypatch.setattr(tengine, "_group_of_process", lambda: group)
+    store = {"remote_kv_url": "kv://127.0.0.1:9", "host_offload_gb": 0.01}
+    eng = LLMEngine(config(tcfg, tp=2, cache={"remote_prefetch": True, **store}),
+                    device="cpu")
+    try:
+        assert eng.kv_prefetch is not None and eng._offload_stager is not None
+        assert eng.kv_prefetch._agreed == {} and eng._offload_stager._grouped
+        assert not eng.has_live_transfers() and not eng.kv_prefetch.inflight
+    finally:
+        eng.close()
+    auto = LLMEngine(config(tcfg, tp=2, cache=store), device="cpu")
+    try:
+        assert auto.config.cache.remote_prefetch is False
+        assert auto.kv_prefetch is None and auto._offload_stager is None
+    finally:
+        auto.close()
 
 
 @pytest.mark.parametrize("dp,tp,sp,item", [

@@ -1,6 +1,7 @@
 """One rank of a multi-process group on the CPU (gloo), for
 tests/test_torch_group.py, tests/test_torch_sp_group.py,
-tests/test_torch_group_kv.py and tests/test_torch_group_encode.py (a
+tests/test_torch_group_kv.py, tests/test_torch_group_encode.py,
+tests/test_torch_group_spec.py and tests/test_torch_group_prefetch.py (a
 helper, not a test file; it imports no JAX).
 
     python tests/torch_group_worker.py SPEC.pkl RANK
@@ -35,6 +36,24 @@ deletes its first snapshot from the store just before reading it).  Each
 rank then also reports its content-key prefix, its store counters, its
 restores' outcomes, its embeddings and how many encode forwards and
 encode attentions it ran.
+
+For the asynchronous transfer plane (``cache.remote_prefetch`` True) the
+hooks also take ``miss_get`` against the fetchers' MGETs (the nth prefix
+key of the rank's reads answers as a miss), ``drop_local`` as a count (the
+first that many snapshots found in the host tier are dropped there, so
+they page in from the store), ``delay_get`` ``{"rank", "s"}`` (that rank's
+store reads each sleep first), ``delay_stager`` ``{"rank", "s"}`` (that
+rank's stager writer sleeps before each insert) and ``flush`` (every rank
+waits for its fetchers after each admission); a case's ``handoffs`` ``[(step,
+prompt)]`` start the leader's ``wait_handoff_prefix`` at that step, whose
+chain jobs the leader publishes as the server's step loop does.  The
+spec's ``presets`` (name -> ``ModelConfig`` overrides) register drafter
+presets, and a case's ``draft_params`` (numpy) is the drafter's full tree.
+Each rank reports its speculation counters, its draft pool's shape, its
+prefetch counters and agreements, the size of each chain it landed, the
+page-ins it started, and how many decode attentions, paged
+prefill attentions and W8A16 products it ran (the CPU's stand-in for
+the kernels' launch counters).
 """
 
 import os
@@ -101,18 +120,37 @@ def record_steps(engine) -> list:
     return steps
 
 
-def lead(engine, channel, reqs, encodes=(), vectors=None) -> dict:
+def lead(engine, channel, reqs, encodes=(), vectors=None, handoffs=(),
+         outcomes=None) -> dict:
     """The leader's loop at a step-indexed schedule: each iteration
-    publishes the arrivals due and the texts to embed (an empty batch
-    otherwise), admits them, embeds the texts (appending each vector to
-    ``vectors``) and steps, under the condition ``follower_loop`` steps
-    on; then the shutdown.  Returns {id: tokens}."""
+    publishes the arrivals due, the texts to embed and the handoff chains
+    queued (an empty batch otherwise), admits them, embeds the texts
+    (appending each vector to ``vectors``), submits the chains and steps,
+    under the condition ``follower_loop`` steps on; then the shutdown.
+    ``handoffs`` ``[(step, token ids)]`` start a thread waiting on
+    ``wait_handoff_prefix`` at that step (its outcome appended to
+    ``outcomes``).  Returns {id: tokens}."""
+    import threading
+    import time
+
     from production_stack_tpu_torch.engine.core.sequence import SamplingParams
     from production_stack_tpu_torch.engine.parallel.distributed import StepEvents
 
     outs, pending, step = {}, sorted(reqs, key=lambda r: r[0]), 0
     texts = sorted(encodes, key=lambda e: e[0])
-    while pending or texts or engine.has_unfinished() or engine.has_pending():
+    waits, waiters = sorted(handoffs, key=lambda h: h[0]), []
+
+    def busy():
+        return (engine.has_unfinished() or engine.has_pending()
+                or engine.has_live_transfers())
+
+    while pending or texts or waits or busy() or any(t.is_alive() for t in waiters):
+        while waits and waits[0][0] <= step:
+            ids = list(waits.pop(0)[1])
+            waiters.append(threading.Thread(target=lambda ids=ids: outcomes.append(
+                engine.wait_handoff_prefix(ids, engine.cache_ns_of(None), {}, 60.0))))
+            waiters[-1].start()
+        taken = engine.take_handoffs()
         due = []
         while pending and pending[0][0] <= step:
             _, rid, prompt, n = pending.pop(0)
@@ -121,17 +159,22 @@ def lead(engine, channel, reqs, encodes=(), vectors=None) -> dict:
         embeds = []
         while texts and texts[0][0] <= step:
             embeds.append((f"e{len(vectors or ())}-{step}", list(texts.pop(0)[1])))
-        channel.publish(StepEvents(requests=due, encodes=embeds))
+        channel.publish(StepEvents(requests=due, encodes=embeds,
+                                   handoffs=[(ids, ns) for ids, ns, _ in taken]))
         for rid, ids, params, adapter in due:
             engine.add_request(rid, prompt_token_ids=ids, sampling_params=params,
                                adapter=adapter)
         for _, ids in embeds:
             vectors.append(engine.embed(ids))
-        if engine.has_unfinished() or engine.has_pending():
+        for ids, ns, ticket in taken:
+            engine.submit_handoff(ids, ns, ticket)
+        if busy():
             for out in engine.step():
                 outs.setdefault(out.seq_id, []).append(out.new_token_id)
+        elif not (pending or texts or waits):
+            time.sleep(0.002)  # waiting on a handoff's waiter: pace the batches
         step += 1
-        if step > 500:
+        if step > 20000:
             raise RuntimeError("engine failed to drain")
     channel.publish(StepEvents(shutdown=True))
     return outs
@@ -248,9 +291,33 @@ def count_encodes() -> dict:
     return counts
 
 
+def count_launches() -> dict:
+    """Count this rank's decode attentions, paged prefill attentions and
+    W8A16 products (the wrappers' calls: on the CPU no kernel launches,
+    so these stand in for the launch counters)."""
+    from production_stack_tpu_torch.engine.models import llama
+    from production_stack_tpu_torch.engine.ops import attention
+
+    counts = {"decode": 0, "prefill_paged": 0, "w8a16": 0}
+
+    def counted(name, real):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return real(*args, **kwargs)
+        return call
+
+    attention.decode_attention = counted("decode", attention.decode_attention)
+    attention.prefill_attention_paged = counted("prefill_paged",
+                                                attention.prefill_attention_paged)
+    llama.w8a16_matmul = counted("w8a16", llama.w8a16_matmul)
+    return counts
+
+
 def install_hooks(engine, hooks: dict, rank: int) -> list:
     """The case's store hooks on this rank (see the module docstring);
     returns the list the restores' outcomes are appended to."""
+    import time
+
     client = engine.offload.remote_client
     results = []
     restore = engine.scheduler.restore_cb
@@ -261,9 +328,31 @@ def install_hooks(engine, hooks: dict, rank: int) -> list:
         return out
 
     engine.scheduler.restore_cb = recorded
+    land = engine._import_prefetch_to_cache
+
+    def landed(chain):
+        engine.landed.append(len(chain.blocks))
+        return land(chain)
+
+    engine.landed, engine._import_prefetch_to_cache = [], landed
+    if engine.kv_prefetch is not None:
+        submit = engine.kv_prefetch.submit_restore
+
+        def page_in(seq_id):
+            engine.page_ins += 1
+            return submit(seq_id)
+
+        engine.page_ins, engine.kv_prefetch.submit_restore = 0, page_in
+    delay = hooks.get("delay_get")
+    if delay and delay["rank"] == rank:
+        for name in ("get_blocks", "mget_blocks"):
+            def slow(*args, _real=getattr(client, name)):
+                time.sleep(delay["s"])
+                return _real(*args)
+            setattr(client, name, slow)
     miss = hooks.get("miss_get")
     if miss and miss["rank"] == rank:
-        get, calls = client.get_blocks, [0]
+        get, mget, calls = client.get_blocks, client.mget_blocks, [0]
 
         def get_blocks(key):
             if key.startswith("px:"):
@@ -272,17 +361,46 @@ def install_hooks(engine, hooks: dict, rank: int) -> list:
                     return None
             return get(key)
 
+        def mget_blocks(keys):
+            got = mget(keys)
+            first = calls[0]
+            calls[0] += len(keys)
+            if first < miss["nth"] <= calls[0]:
+                return got[:miss["nth"] - 1 - first]
+            return got
+
         client.get_blocks = get_blocks
+        client.mget_blocks = mget_blocks
     if hooks.get("drop_local"):
-        offload = engine.offload
+        offload, drops = engine.offload, [hooks["drop_local"]]
 
         def restore_local(seq_id):
             entry = type(offload).restore_local(offload, seq_id)
-            if entry is not None:
+            if entry is not None and (drops[0] is True or drops[0] > 0):
                 offload.release(entry)
-            return None
+                if drops[0] is not True:
+                    drops[0] -= 1
+                return None
+            return entry
 
         offload.restore_local = restore_local
+    stager = hooks.get("delay_stager")
+    if stager and stager["rank"] == rank:
+        insert = engine.offload.insert_saved
+
+        def insert_saved(*args):
+            time.sleep(stager["s"])
+            return insert(*args)
+
+        engine.offload.insert_saved = insert_saved
+    if hooks.get("flush"):
+        add = engine.add_request
+
+        def add_request(*args, **kwargs):
+            add(*args, **kwargs)
+            engine.flush_prefix_imports(30.0)
+
+        engine.add_request = add_request
     if hooks.get("delete_rank") == rank:
         get, deleted = client.get_blocks, []
 
@@ -304,10 +422,14 @@ def main(spec_path: str, rank: int) -> None:
         "PSTPU_PROCESS_ID": str(rank),
         "PSTPU_COORDINATOR_ADDRESS": spec["coordinator"],
     })
+    from production_stack_tpu_torch.engine import config as tcfg
     from production_stack_tpu_torch.engine.core.engine import LLMEngine
     from production_stack_tpu_torch.engine.kv.quant import cache_tensor
     from production_stack_tpu_torch.engine.models.weights import params_from_numpy
     from production_stack_tpu_torch.engine.parallel import distributed
+
+    for name, model in spec.get("presets", {}).items():
+        tcfg.PRESETS[name] = tcfg.ModelConfig(**model)
 
     denv = distributed.maybe_initialize(device="cpu",
                                         sequence_parallel=spec.get("sequence_parallel", 1))
@@ -329,21 +451,28 @@ def main(spec_path: str, rank: int) -> None:
                 results["sp_checks"]["world"] = sp_checks(whole)
         counts = count_sp_attentions()
         encodes = count_encodes()
+        launches = count_launches()
         for name, case in spec["cases"].items():
             cfg = port_config(2, case["model"], case.get("parallel"), case.get("cache"),
                               **case.get("sched", {}))
-            engine = LLMEngine(cfg, device="cpu",
+            draft = None
+            if case.get("draft_params") is not None:
+                draft = params_from_numpy(tcfg.PRESETS[cfg.scheduler.speculative_model],
+                                          case["draft_params"], "cpu")
+            engine = LLMEngine(cfg, device="cpu", draft_params=draft,
                                params=params_from_numpy(cfg.model, case["params"], "cpu"))
             channel = distributed.LockstepChannel(denv)
             steps = record_steps(engine)
-            restores = (install_hooks(engine, case.get("hooks", {}), rank)
-                        if engine.offload.remote_client is not None else [])
+            hooks = case.get("hooks", {})
+            restores = (install_hooks(engine, hooks, rank)
+                        if engine.offload.remote_client is not None or hooks else [])
             counts.update(group=0, in_process=0, modes=set())
             encodes.update(forwards=0, attentions=0)
-            vectors = []
+            launches.update(decode=0, prefill_paged=0, w8a16=0)
+            vectors, outcomes = [], []
             if denv.is_leader:
                 streams = lead(engine, channel, case["requests"], case.get("encodes", ()),
-                               vectors)
+                               vectors, case.get("handoffs", ()), outcomes)
             else:
                 distributed.follower_loop(engine, channel)
                 streams = None
@@ -360,6 +489,19 @@ def main(spec_path: str, rank: int) -> None:
                 "preemptions": engine.scheduler.num_preemptions,
                 "vectors": vectors, "encodes": dict(encodes),
                 "hit_tokens": engine.block_pool.hit_tokens,
+                "launches": dict(launches), "handoffs": outcomes,
+                "landed": getattr(engine, "landed", None),
+                "page_ins": getattr(engine, "page_ins", None),
+                "spec": {k: v for k, v in engine.stats().items() if k.startswith("spec_")},
+                "draft_pool": (None if engine.draft_kv_caches is None else
+                               tuple(engine.draft_kv_caches[0][0].shape)),
+                "prefetch": (None if engine.kv_prefetch is None else
+                             (engine.kv_prefetch.hit_blocks, engine.kv_prefetch.waste_blocks)),
+                "agreements": engine.transfer_agreements,
+                "staged": (None if engine._offload_stager is None else
+                           engine._offload_stager.staged),
+                "cached": [engine.block_pool.count_cached_prefix(h)
+                           for h in case.get("chains", ())],
             }
             if case.get("skip_checks"):
                 engine.close()
